@@ -1,0 +1,506 @@
+"""Edge core times for all start times (paper §5, Def 4.3).
+
+``CT(e)_ts`` = earliest end time ``te`` such that edge ``e`` is in the k-core
+of ``[ts, te]``; ``INF`` (= ``t_max + 1``) when no such ``te`` exists (in
+particular whenever ``t(e) < ts``).
+
+Instead of the sequential decremental maintenance of Yu et al. [33], we use a
+data-parallel *least-fixpoint* formulation (our TPU-facing adaptation, see
+DESIGN.md §3):
+
+    c_v = k-th smallest over distinct neighbours u of  max(t_uv, c_u)
+          (t_uv = earliest timestamp >= ts among parallel (u,v) edges),
+    c_v = INF when v has < k distinct neighbours in [ts, t_max].
+
+Iterating this monotone operator from a lower bound converges to the least
+fixpoint, which equals the true vertex core times: for any fixpoint c* and
+any te, S = {v : c*_v <= te} induces a subgraph of G_[ts,te] with min degree
+>= k, so S is inside the true k-core (hence true <= c*); Kleene iteration
+from below yields the least fixpoint (hence <= true). We iterate the
+*clamped* operator ``c <- max(c, kth(w))``: iterates are then monotone, stay
+below the least fixpoint, and a converged point is simultaneously a pre- and
+post-fixpoint, hence the least fixpoint itself. Edge core times follow as
+``CT(e)_ts = max(t_e, c_u, c_v)`` (§5: "the larger one among the core times
+of its terminal vertices", plus window membership t_e >= ts).
+
+Host build plane: the sweep ts = 1..t_max runs with warm-started lower
+bounds (c_{ts-1} <= c_ts because shrinking the window only raises core
+times) over one precomputed structure (`_PairCSR` + blockwise `_tuv_rows`
+of per-pair earliest timestamps >= ts). Per iteration one in-place packed
+sort (segment id packed into the key's high bits) gives both the fixpoint
+*verification* (a searchsorted rank probe: c is converged iff count(w <=
+c_v) >= k) and, when not converged, the k-th smallest climb. The result is
+delta-compressed by the vectorized run-length `_compress`.
+
+PyTorch port of the host half of ``repro.core.core_time``, copied so the
+port stands alone: `_sweep_host`, the fused stratified sweep and the
+tables are the reference's, bit for bit (tests assert array equality).
+The device sweep (the reference's ``_sweep_jax`` with its segmented-count
+kernel) and the streaming extend/shrink functions come in later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .temporal_graph import TemporalGraph
+
+
+# ----------------------------------------------------------------------
+# Shared precomputed structure: directed distinct-pair CSR + t_uv table
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _PairCSR:
+    """Doubled (directed) distinct-pair CSR over *all* edges, pairs sorted
+    by (src, dst), per-pair timestamps ascending. Built once per (g,)."""
+
+    src: np.ndarray      # int32[E] pair source, non-decreasing
+    dst: np.ndarray      # int32[E]
+    ptr: np.ndarray      # int64[E+1] pair -> slots in tsorted
+    tsorted: np.ndarray  # int32[2m] per-pair ascending timestamps
+    vptr: np.ndarray     # int64[n+1] vertex -> pair rows (CSR over src)
+    pidx: np.ndarray     # int64[2m] slot -> pair (inverse of ptr)
+
+
+def _pair_csr(g: TemporalGraph) -> _PairCSR:
+    n = g.n
+    s = np.concatenate([g.src, g.dst]).astype(np.int64)
+    d = np.concatenate([g.dst, g.src]).astype(np.int64)
+    t = np.concatenate([g.t, g.t]).astype(np.int64)
+    key = s * n + d
+    order = np.lexsort((t, key))
+    key, t = key[order], t[order]
+    first = np.ones(key.shape[0], bool)
+    first[1:] = key[1:] != key[:-1]
+    starts = np.flatnonzero(first)
+    ptr = np.concatenate([starts, [key.shape[0]]]).astype(np.int64)
+    pkey = key[first]
+    src = (pkey // n).astype(np.int32)
+    vptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(src, minlength=n), out=vptr[1:])
+    pidx = np.repeat(np.arange(ptr.shape[0] - 1), np.diff(ptr))
+    return _PairCSR(src, (pkey % n).astype(np.int32), ptr,
+                    t.astype(np.int32), vptr, pidx)
+
+
+#: ts rows materialized per t_uv block: bounds sweep scratch at O(BLOCK * E)
+TUV_BLOCK = 256
+
+
+def _tuv_rows(csr: _PairCSR, ts0: int, ts1: int, t_max: int) -> np.ndarray:
+    """int32[ts1-ts0, E]: row i = earliest pair timestamp >= ts0+i (INF when
+    none). Blocked so the sweep never holds the full (t_max, E) table: a
+    global searchsorted seeds row ts1, block-local events + one reverse
+    running-min fill the rest."""
+    E = csr.ptr.shape[0] - 1
+    inf = t_max + 1
+    # stored descending (row i = ts1 - i) so the running min walks forward
+    # over contiguous memory; the caller gets an ascending reversed view
+    rev = np.full((ts1 - ts0 + 1, E), inf, np.int32)
+    if E == 0:
+        return rev[1:]
+    # seed (row 0): earliest timestamp >= ts1 per pair. tsorted is sorted
+    # by (pair, t), so pair*stride + t is globally sorted and one
+    # searchsorted answers every pair at once.
+    stride = np.int64(t_max + 2)
+    packed = csr.pidx * stride + csr.tsorted
+    pos = np.searchsorted(packed, np.arange(E, dtype=np.int64) * stride + ts1)
+    valid = pos < csr.ptr[1:]
+    rev[0, valid] = csr.tsorted[pos[valid]]
+    # events inside [ts0, ts1), then running min toward ts0
+    ev = (csr.tsorted >= ts0) & (csr.tsorted < ts1)
+    rev[ts1 - csr.tsorted[ev], csr.pidx[ev]] = csr.tsorted[ev]
+    np.minimum.accumulate(rev, axis=0, out=rev)
+    return rev[1:][::-1]
+
+
+# ----------------------------------------------------------------------
+# Compressed table
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CoreTimeTable:
+    """Compressed core times for all start times (paper Table 1 layout).
+
+    Version records, sorted by (edge_id, ts_from): edge ``edge_id`` has core
+    time ``ct`` for every start time in ``[ts_from, ts_to]`` (inclusive);
+    ``ts_to`` is the paper's ``lst``. Only finite-CT versions are stored.
+    All values are bounded by ``max(t_max + 1, m)``, so records are stored
+    int32; ``nbytes`` is the paper's index-size metric and sums the actual
+    bytes of the stored version arrays (mirroring ``PECBIndex.nbytes``).
+    """
+
+    n: int
+    m: int
+    t_max: int
+    edge_id: np.ndarray   # int32[R]
+    ts_from: np.ndarray   # int32[R]
+    ts_to: np.ndarray     # int32[R]  (lst)
+    ct: np.ndarray        # int32[R]
+    vertex_ct: np.ndarray  # int32[t_max + 1, n]; row ts = vertex core times
+
+    @property
+    def INF(self) -> int:
+        return self.t_max + 1
+
+    @property
+    def num_versions(self) -> int:
+        return int(self.edge_id.shape[0])
+
+    def nbytes(self) -> int:
+        """True byte size of the stored version arrays (the compressed
+        core-time table alone, excluding the dense vertex_ct matrix)."""
+        return int(self.edge_id.nbytes + self.ts_from.nbytes
+                   + self.ts_to.nbytes + self.ct.nbytes)
+
+
+def _as_table(g: TemporalGraph, edge_id, ts_from, ts_to, ct,
+              vct) -> CoreTimeTable:
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    return CoreTimeTable(g.n, g.m, g.t_max, i32(edge_id), i32(ts_from),
+                         i32(ts_to), i32(ct), i32(vct))
+
+
+# ----------------------------------------------------------------------
+# Vectorized delta-compression (shared by every engine)
+# ----------------------------------------------------------------------
+
+def _compress(g: TemporalGraph, vct: np.ndarray,
+              edge_chunk: int = 8192) -> CoreTimeTable:
+    """Version records from the dense (t_max+1, n) vertex-core-time matrix.
+
+    Per edge, CT rows over ts form maximal constant runs; finite runs are
+    the stored versions. Edge-major run detection keeps the output exactly
+    in (edge_id, ts_from) lexsort order. Chunked over edges to bound the
+    (chunk, T) scratch."""
+    t_max, m = g.t_max, g.m
+    inf = t_max + 1
+    if t_max == 0 or m == 0:
+        z = np.zeros(0, np.int32)
+        return _as_table(g, z, z, z, z, vct)
+    ts_row = np.arange(1, t_max + 1, dtype=np.int32)[None, :]
+    vct_t = np.ascontiguousarray(vct[1:].T)               # (n, T) row-major
+    recs = []
+    for lo in range(0, m, edge_chunk):
+        hi = min(lo + edge_chunk, m)
+        su = g.src[lo:hi].astype(np.int64)
+        sv = g.dst[lo:hi].astype(np.int64)
+        st = g.t[lo:hi].astype(np.int32)
+        ctm = np.maximum(vct_t[su], vct_t[sv])            # (B, T) edge-major
+        np.maximum(ctm, st[:, None], out=ctm)
+        np.minimum(ctm, inf, out=ctm)
+        ctm[ts_row > st[:, None]] = inf                   # edge outside window
+        flat = ctm.reshape(-1)
+        start = np.empty(flat.shape[0], bool)
+        start[0] = True
+        np.not_equal(flat[1:], flat[:-1], out=start[1:])
+        start[::t_max] = True                             # runs never span edges
+        sidx = np.flatnonzero(start)
+        vals = flat[sidx]
+        nxt = np.empty_like(sidx)
+        nxt[:-1] = sidx[1:]
+        nxt[-1] = flat.shape[0]
+        keep = vals < inf
+        sidx, nxt, vals = sidx[keep], nxt[keep], vals[keep]
+        recs.append((sidx // t_max + lo, sidx % t_max + 1,
+                     (nxt - 1) % t_max + 1, vals))
+    edge_id = np.concatenate([r[0] for r in recs])
+    ts_from = np.concatenate([r[1] for r in recs])
+    ts_to = np.concatenate([r[2] for r in recs])
+    ct = np.concatenate([r[3] for r in recs])
+    return _as_table(g, edge_id, ts_from, ts_to, ct, vct)
+
+
+# ----------------------------------------------------------------------
+# Host engine: vectorized numpy sweep
+# ----------------------------------------------------------------------
+
+def _sweep_host(g: TemporalGraph, k: int) -> np.ndarray:
+    """(t_max+1, n) int32 vertex core times for every start time.
+
+    Per iteration one in-place sort of segment-packed keys serves both the
+    convergence probe (searchsorted rank test) and the k-th-smallest climb;
+    warm starts make most start times converge in a single iteration."""
+    n, t_max = g.n, g.t_max
+    inf = t_max + 1
+    vct = np.full((t_max + 1, n), inf, np.int32)
+    if g.m == 0 or t_max == 0:
+        return vct
+    csr = _pair_csr(g)
+    deg = np.diff(csr.vptr)
+    has_k = deg >= k
+    sel = csr.vptr[:-1][has_k] + (k - 1)
+    # segment id packed into high bits: one flat sort orders every segment
+    S = 1
+    while S < inf + 2:
+        S *= 2
+    kdtype = np.int32 if n * S < 2 ** 31 else np.int64
+    base = (csr.src.astype(np.int64) * S).astype(kdtype)
+    vbase = (np.arange(n, dtype=np.int64) * S).astype(kdtype)
+    pd = csr.dst.astype(np.int64)
+    vstart = csr.vptr[:-1]
+
+    c = np.zeros(n, np.int32)
+    for ts0 in range(1, t_max + 1, TUV_BLOCK):
+        ts1 = min(ts0 + TUV_BLOCK, t_max + 1)
+        tuv_rows = _tuv_rows(csr, ts0, ts1, t_max)
+        for ts in range(ts0, ts1):
+            tuv = tuv_rows[ts - ts0]
+            while True:
+                w = np.maximum(tuv, c[pd]).astype(kdtype, copy=False)
+                key = base + w
+                key.sort()
+                # count(w <= c_v) per segment: rank probe in the sorted keys
+                cnt = np.searchsorted(key, vbase + c + 1) - vstart
+                if bool(((cnt >= k) | (c >= inf)).all()):
+                    break
+                c_new = np.full(n, inf, np.int32)
+                c_new[has_k] = (key[sel] & (S - 1)) if kdtype == np.int32 \
+                    else key[sel] % S
+                np.minimum(c_new, inf, out=c_new)
+                np.maximum(c, c_new, out=c)
+            vct[ts] = c
+    return vct
+
+
+# ----------------------------------------------------------------------
+# K-stratified plane: one build serves every k
+# ----------------------------------------------------------------------
+
+def _rle_columns(vct: np.ndarray, t_max: int):
+    """Run-length encode the finite cells of a dense (t_max+1, n) vertex
+    core-time matrix, per vertex over ts = 1..t_max.
+
+    Returns ``(counts, ts_from, ts_to, val)`` with runs sorted by
+    (vertex, ts_from) — the same edge-major run detection as `_compress`,
+    applied to vertex columns. INF cells are simply absent (decode fills
+    INF), so encode/decode round-trips bit-exactly.
+    """
+    n = vct.shape[1]
+    inf = t_max + 1
+    z = np.zeros(0, np.int32)
+    if t_max == 0 or n == 0:
+        return np.zeros(n, np.int64), z, z, z
+    cols = np.ascontiguousarray(vct[1:].T).reshape(-1)    # (n*T,) row-major
+    start = np.empty(cols.shape[0], bool)
+    start[0] = True
+    np.not_equal(cols[1:], cols[:-1], out=start[1:])
+    start[::t_max] = True                                 # runs stay in-column
+    sidx = np.flatnonzero(start)
+    vals = cols[sidx]
+    nxt = np.empty_like(sidx)
+    nxt[:-1] = sidx[1:]
+    nxt[-1] = cols.shape[0]
+    keep = vals < inf
+    sidx, nxt, vals = sidx[keep], nxt[keep], vals[keep]
+    counts = np.bincount(sidx // t_max, minlength=n).astype(np.int64)
+    return (counts, (sidx % t_max + 1).astype(np.int32),
+            ((nxt - 1) % t_max + 1).astype(np.int32),
+            vals.astype(np.int32))
+
+
+def _expand_runs(n: int, t_max: int, vptr: np.ndarray, ts_from: np.ndarray,
+                 ts_to: np.ndarray, val: np.ndarray) -> np.ndarray:
+    """Inverse of `_rle_columns`: dense (t_max+1, n) int32 matrix, INF
+    everywhere no run covers. ``vptr`` is the per-vertex run CSR."""
+    vct = np.full((t_max + 1, n), t_max + 1, np.int32)
+    if ts_from.size == 0:
+        return vct
+    lens = (ts_to - ts_from + 1).astype(np.int64)
+    total = int(lens.sum())
+    off = np.zeros(ts_from.shape[0] + 1, np.int64)
+    np.cumsum(lens, out=off[1:])
+    flat_ts = (np.arange(total, dtype=np.int64)
+               - np.repeat(off[:-1], lens) + np.repeat(ts_from, lens))
+    run_vert = np.repeat(np.arange(n, dtype=np.int64), np.diff(vptr))
+    vct[flat_ts, np.repeat(run_vert, lens)] = np.repeat(val, lens)
+    return vct
+
+
+@dataclasses.dataclass(frozen=True)
+class StratifiedCoreTable:
+    """Core-time tables for every supported k, packed as one structure.
+
+    Record arrays are the per-k ``CoreTimeTable`` version records
+    concatenated in ascending-k blocks (``kptr`` bounds block i); each
+    block keeps its (edge_id, ts_from) lexsort order verbatim, so
+    ``table_for(k)`` is a zero-copy slice that is bit-identical to the
+    per-k table of stratum k.
+
+    Vertex core times are stored run-length encoded per (k, vertex) slot
+    (``vptr`` is a CSR over slot = k_index * n + vertex) instead of |K|
+    dense (t_max+1, n) matrices — columns are piecewise constant in ts,
+    so this is the memory lever that lets one stratified handle undercut
+    |K| per-k handles. ``table_for`` re-expands the dense matrix on
+    demand (the forest builder reads the per-k table).
+    """
+
+    n: int
+    m: int
+    t_max: int
+    ks: tuple[int, ...]       # ascending, strictly increasing
+    kptr: np.ndarray          # int64[|K|+1] record-block bounds
+    edge_id: np.ndarray       # int32[R] concat per-k blocks
+    ts_from: np.ndarray       # int32[R]
+    ts_to: np.ndarray         # int32[R]
+    ct: np.ndarray            # int32[R]
+    vptr: np.ndarray          # int64[|K|*n + 1] vertex-run CSR over slots
+    v_ts_from: np.ndarray     # int32[VR]
+    v_ts_to: np.ndarray       # int32[VR]
+    v_ct: np.ndarray          # int32[VR]
+
+    @property
+    def INF(self) -> int:
+        return self.t_max + 1
+
+    @property
+    def num_versions(self) -> int:
+        return int(self.edge_id.shape[0])
+
+    def nbytes(self) -> int:
+        """Bytes of everything stored — records, vertex runs and both
+        pointer tables (unlike `CoreTimeTable.nbytes` there is no dense
+        matrix to exclude; the RLE strata *are* the vertex storage)."""
+        return int(self.kptr.nbytes + self.edge_id.nbytes
+                   + self.ts_from.nbytes + self.ts_to.nbytes + self.ct.nbytes
+                   + self.vptr.nbytes + self.v_ts_from.nbytes
+                   + self.v_ts_to.nbytes + self.v_ct.nbytes)
+
+    def k_index(self, k: int) -> int:
+        i = int(np.searchsorted(np.asarray(self.ks), k))
+        if i >= len(self.ks) or self.ks[i] != k:
+            raise KeyError(f"k={k} not in supported strata {self.ks}")
+        return i
+
+    def table_for(self, k: int) -> CoreTimeTable:
+        """The per-k ``CoreTimeTable`` of stratum k: record arrays are
+        views, the dense vertex matrix is re-expanded from the runs."""
+        i = self.k_index(k)
+        lo, hi = int(self.kptr[i]), int(self.kptr[i + 1])
+        vlo, vhi = i * self.n, (i + 1) * self.n
+        rlo, rhi = int(self.vptr[vlo]), int(self.vptr[vhi])
+        vct = _expand_runs(self.n, self.t_max,
+                           self.vptr[vlo:vhi + 1] - self.vptr[vlo],
+                           self.v_ts_from[rlo:rhi], self.v_ts_to[rlo:rhi],
+                           self.v_ct[rlo:rhi])
+        return CoreTimeTable(self.n, self.m, self.t_max,
+                             self.edge_id[lo:hi], self.ts_from[lo:hi],
+                             self.ts_to[lo:hi], self.ct[lo:hi], vct)
+
+    @classmethod
+    def from_tables(cls, g: TemporalGraph, ks, tables) -> "StratifiedCoreTable":
+        """Stratify per-k ``CoreTimeTable``s (ascending k order). Each
+        table's records are taken verbatim; dense matrices are RLE'd."""
+        ks = _validate_ks(ks)
+        if len(tables) != len(ks):
+            raise ValueError("one table per k required")
+        n, t_max = g.n, g.t_max
+        kptr = np.zeros(len(ks) + 1, np.int64)
+        counts_all = []
+        for i, tab in enumerate(tables):
+            if (tab.n, tab.m, tab.t_max) != (n, g.m, t_max):
+                raise ValueError("table shape mismatch with graph")
+            kptr[i + 1] = kptr[i] + tab.num_versions
+        i32 = lambda parts: (np.concatenate(parts).astype(np.int32, copy=False)
+                             if parts else np.zeros(0, np.int32))
+        rle = [_rle_columns(tab.vertex_ct, t_max) for tab in tables]
+        for counts, _, _, _ in rle:
+            counts_all.append(counts)
+        vptr = np.zeros(len(ks) * n + 1, np.int64)
+        if counts_all:
+            np.cumsum(np.concatenate(counts_all), out=vptr[1:])
+        return cls(
+            n, g.m, t_max, ks, kptr,
+            i32([t.edge_id for t in tables]), i32([t.ts_from for t in tables]),
+            i32([t.ts_to for t in tables]), i32([t.ct for t in tables]),
+            vptr, i32([r[1] for r in rle]), i32([r[2] for r in rle]),
+            i32([r[3] for r in rle]))
+
+
+def _validate_ks(ks) -> tuple[int, ...]:
+    ks = tuple(int(k) for k in ks)
+    if any(k < 1 for k in ks):
+        raise ValueError(f"strata must be k >= 1, got {ks}")
+    if any(b <= a for a, b in zip(ks, ks[1:])):
+        raise ValueError(f"strata must be strictly ascending, got {ks}")
+    return ks
+
+
+def default_ks(g: TemporalGraph) -> tuple[int, ...]:
+    """The full useful range 2..k_max(g): below 2 a TCCS query is invalid,
+    above the degeneracy every answer is exactly empty (no stratum needed)."""
+    from .kcore import k_max
+
+    if g.m == 0:
+        return ()
+    return tuple(range(2, k_max(g) + 1))
+
+
+def _sweep_host_stratified(g: TemporalGraph, ks) -> list[np.ndarray]:
+    """Dense (t_max+1, n) vertex core times for every k in ``ks``, fused.
+
+    One pair-CSR and one blocked t_uv table serve every stratum; inside a
+    ts block the k loop ascends and seeds each stratum's fixpoint with
+    ``max(carry_k(ts-1), c_{kprev}(ts))`` — both are lower bounds of the
+    least fixpoint (window shrink / k-core nesting), and iterating the
+    clamped operator from *any* lower bound converges to the same lfp, so
+    every stratum row is bit-identical to the per-k `_sweep_host` row.
+    The inner loop is `_sweep_host`'s verbatim (one packed sort per
+    iteration serves both the rank probe and the climb).
+    """
+    n, t_max = g.n, g.t_max
+    inf = t_max + 1
+    vcts = [np.full((t_max + 1, n), inf, np.int32) for _ in ks]
+    if g.m == 0 or t_max == 0 or not ks:
+        return vcts
+    csr = _pair_csr(g)
+    deg = np.diff(csr.vptr)
+    S = 1
+    while S < inf + 2:
+        S *= 2
+    kdtype = np.int32 if n * S < 2 ** 31 else np.int64
+    base = (csr.src.astype(np.int64) * S).astype(kdtype)
+    vbase = (np.arange(n, dtype=np.int64) * S).astype(kdtype)
+    pd = csr.dst.astype(np.int64)
+    vstart = csr.vptr[:-1]
+    has_k = [deg >= k for k in ks]
+    sel = [csr.vptr[:-1][h] + (k - 1) for k, h in zip(ks, has_k)]
+    carry = [np.zeros(n, np.int32) for _ in ks]
+    for ts0 in range(1, t_max + 1, TUV_BLOCK):
+        ts1 = min(ts0 + TUV_BLOCK, t_max + 1)
+        tuv_rows = _tuv_rows(csr, ts0, ts1, t_max)
+        for ki, k in enumerate(ks):
+            c = carry[ki]
+            vct = vcts[ki]
+            seed_rows = vcts[ki - 1] if ki else None
+            for ts in range(ts0, ts1):
+                tuv = tuv_rows[ts - ts0]
+                if seed_rows is not None:
+                    np.maximum(c, seed_rows[ts], out=c)
+                while True:
+                    w = np.maximum(tuv, c[pd]).astype(kdtype, copy=False)
+                    key = base + w
+                    key.sort()
+                    cnt = np.searchsorted(key, vbase + c + 1) - vstart
+                    if bool(((cnt >= k) | (c >= inf)).all()):
+                        break
+                    c_new = np.full(n, inf, np.int32)
+                    c_new[has_k[ki]] = (key[sel[ki]] & (S - 1)) \
+                        if kdtype == np.int32 else key[sel[ki]] % S
+                    np.minimum(c_new, inf, out=c_new)
+                    np.maximum(c, c_new, out=c)
+                vct[ts] = c
+    return vcts
+
+
+def stratified_core_times(g: TemporalGraph, ks=None) -> StratifiedCoreTable:
+    """One k-stratified core-time build covering every k in ``ks``
+    (default: the full useful range ``default_ks(g)``), by the fused
+    warm-seeded host sweep `_sweep_host_stratified`. Every stratum is
+    bit-identical to the per-k `_sweep_host` table."""
+    ks = _validate_ks(default_ks(g) if ks is None else ks)
+    tables = [_compress(g, vct) for vct in _sweep_host_stratified(g, ks)]
+    return StratifiedCoreTable.from_tables(g, ks, tables)
