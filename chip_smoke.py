@@ -6,14 +6,34 @@ kernel of the main path from the sources in this checkout. Phases, one
 result line each; any failure raises and exits non-zero:
 
   gpu      card name and power limit (nvidia-smi)
-  build    B1 (label propagation) with nvcc for sm_90a, the host forest
-           engine with cc, both started together
-  index    a CollegeMsg-scale temporal graph (SNAP CollegeMsg: 1,899 users,
-           59,835 messages, 193 days), generated from a seed, and its
-           k-stratified PECB index built on the host
+  build    B1 (label propagation), B2 (segmented count) and B3 (k-core
+           peel) with nvcc for sm_90a, the host forest engine with cc, all
+           started together
+  construct  a CollegeMsg-scale temporal graph (SNAP CollegeMsg: 1,899
+           users, 59,835 messages, 193 days), generated from a seed; its 37
+           core-time strata swept on the card (the device engine, B2 as the
+           counter; B2's launch count over this phase must be > 0) and on
+           the host (the fused numpy sweep): every stratum array-equal;
+           both times, the fixpoint iterations (host reads of the
+           convergence flag) and climbs; then one stratum swept once more
+           under torch.profiler (device busy time, idle share, B2's share)
+  index    the k-stratified PECB index: forests built on the host from the
+           card-built strata, so everything served below comes from them
   kernel   B1 against its plain PyTorch version at (256, N) on the card:
            bit-identical int32 output; kernel, plain and bound times (the
-           bound counts link bytes for the active pairs only)
+           bound counts link bytes for the active pairs only). B2 on the
+           sweep's first operands (ts = 1, k = 2, c = 0), on the CSR with
+           random thresholds and on random unsorted ids with -1 pads; B3a
+           and B3b on the graph's 59,835 edges with random alive and on the
+           peel's own first-round operands: all bit-identical to their plain
+           versions; kernel, plain and library device times per call
+           (torch.profiler; these tiny launches are host-bound back to back,
+           so the per-call times with CUDA events are printed beside them)
+           and the bound
+  peel     the main path of B3: ``ops.kcore_fixpoint`` on the card over the
+           full window's distinct pairs for every k of the index and
+           k_max + 1, each equal to the host's distinct k-core mask; B3a
+           and B3b launch counts over this phase must be > 0
   upload   the index to the card
   serve    the main path through launch.serve: mixed-k vertex queries at
            bucket 256, one edges-mode batch at bucket 16, one 64-window
@@ -33,6 +53,7 @@ Then a line of kernel records (JSON), the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -75,6 +96,76 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
+def device_ms(fn, iters: int = 100) -> tuple[float, float]:
+    """(mean device time of one call of ``fn`` in ms, device operations per
+    call): the kernels and memsets it runs, timed by torch.profiler over
+    ``iters`` calls after a warm-up. Host time between launches is not
+    counted, so for a launch-bound function this is the card's share of
+    the call. The profiler can lose a few records of a burst of tiny
+    launches, so each operation's time is its mean over the records kept,
+    counted round(records / iters) times per call."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per_call = [(t / c, round(c / iters)) for _, t, c in device_rows(prof)]
+    ops = sum(r for _, r in per_call)
+    if not ops:
+        raise AssertionError("torch.profiler recorded no device time")
+    return sum(t * r for t, r in per_call) / 1e3, ops
+
+
+def timed(fn) -> tuple[float, float, float]:
+    """(device ms per call, device operations per call, ms per call back
+    to back) of ``fn``."""
+    return (*device_ms(fn), cuda_ms(fn, iters=100, warmup=5))
+
+
+def show(times: dict) -> str:
+    """One clause per timed function: its device time per call, the
+    device operations (kernels, memsets) per call, and its time per call
+    back to back, which for a launch this small is the host's."""
+    return "; ".join(f"{name} {dev:.6f} ms on the device ({ops} "
+                     f"operations), {call:.4f} ms per call back to back"
+                     for name, (dev, ops, call) in times.items())
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest |got - want| of two integer or boolean tensors (0 when the
+    tensors are empty)."""
+    if not got.numel():
+        return 0
+    return int((got.long() - want.long()).abs().max())
+
+
+def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
+    """Raise unless ``got`` equals ``want`` exactly (dtype, shape, values);
+    returns the max abs error (0)."""
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"(max abs err {max_abs_err(got, want)})")
+    return max_abs_err(got, want)
+
+
+def device_rows(prof):
+    """(name, device us, count) of every CUDA kernel row of a profile:
+    device rows only, since a CPU op's row repeats its kernels' time."""
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def top_rows(rows, n=5) -> str:
+    return "; ".join(f"{k[:48]} {t / 1e3:.2f}ms x{c}"
+                     for k, t, c in sorted(rows, key=lambda r: -r[1])[:n])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -82,15 +173,19 @@ def main() -> int:
         return 1
 
     from repro_torch.core import batch_query as bq
-    from repro_torch.core import ecb_native
+    from repro_torch.core import core_time as ct
+    from repro_torch.core import ecb_native, kcore
     from repro_torch.core.pecb_index import build_stratified_index
     from repro_torch.core.temporal_graph import gen_temporal_graph
-    from repro_torch.kernels import label_prop, ref
+    from repro_torch.kernels import (kcore_peel, label_prop, ref,
+                                     segmented_select)
+    from repro_torch.kernels import ops as kernel_ops
     from repro_torch.launch import serve
     from repro_torch.serving import executor
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)          # the context, outside timed phases
 
     # -- gpu ------------------------------------------------------------
     smi = subprocess.run(
@@ -102,21 +197,92 @@ def main() -> int:
 
     # -- build: every native library at once ------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        b1 = pool.submit(label_prop.build)
+    with ThreadPoolExecutor(4) as pool:
+        libs = {name: pool.submit(mod.build) for name, mod in (
+            ("B1", label_prop), ("B2", segmented_select), ("B3", kcore_peel))}
         host = pool.submit(ecb_native.available)
-        so = b1.result()
+        libs = {name: f.result() for name, f in libs.items()}
         native = host.result()
-    ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
-    print(f"[build] B1 {so.name} + host forest engine "
+    for name, so in libs.items():
+        ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
+                 .splitlines() if "registers" in ln or "spill" in ln]
+        print(f"[build] {name} {so.name}; ptxas: {' | '.join(ptxas)}")
+    print(f"[build] B1, B2, B3 + host forest engine "
           f"({'native C' if native else 'Python: no C compiler'}) in "
-          f"{time.perf_counter() - t0:.2f}s; ptxas: {' | '.join(ptxas)}")
+          f"{time.perf_counter() - t0:.2f}s")
 
-    # -- index: CollegeMsg-scale graph, stratified index on the host ------
-    t0 = time.perf_counter()
+    # -- construct: the strata on the card (main path of B2) and the host --
     g = gen_temporal_graph(**COLLEGEMSG)
-    sx = build_stratified_index(g)
+    ks = ct.default_ks(g)
+    host_strata, t_host = wall(lambda: ct.stratified_core_times(
+        g, ks, device="cpu"))
+    stats: dict = {}
+    segmented_select.segmented_count_le.launches = 0
+    strata, t_dev = wall(lambda: ct.stratified_core_times(
+        g, ks, engine="device", device=dev, stats=stats))
+    b2_launches = segmented_select.segmented_count_le.launches
+    if b2_launches <= 0:
+        raise AssertionError("the device build launched B2 no time")
+    steps = segmented_select.bisection_steps(g.t_max + 1)
+    if b2_launches != stats["iterations"] + steps * stats["climbs"]:
+        raise AssertionError("B2 launches do not match the sweep's probes "
+                             "and climbs")
+    for f in dataclasses.fields(strata):
+        a, b = getattr(strata, f.name), getattr(host_strata, f.name)
+        if not (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                else a == b):
+            raise AssertionError(f"card-built strata differ from the "
+                                 f"host's in {f.name}")
+    same = sum(np.array_equal(strata.table_for(k).vertex_ct,
+                              host_strata.table_for(k).vertex_ct)
+               for k in ks)
+    if same != len(ks):
+        raise AssertionError(f"only {same} of {len(ks)} strata equal")
+    t0 = time.perf_counter()
+    ct.StratifiedCoreTable.from_tables(
+        g, ks, [ct._compress(g, strata.table_for(k).vertex_ct) for k in ks])
+    t_compress = time.perf_counter() - t0
+    csr = ct._pair_csr(g)
+    print(f"[construct] n={g.n} m={g.m} t_max={g.t_max} "
+          f"E={csr.src.shape[0]} slots |K|={len(ks)} "
+          f"(k={ks[0]}..{ks[-1]}): {same}/{len(ks)} card-built strata "
+          f"array-equal to the host's (every field; tolerance 0: integer "
+          f"tables); card build {t_dev:.2f}s, host fused sweep "
+          f"{t_host:.2f}s; fixpoint iterations (flag reads) "
+          f"{stats['iterations']}, climbs {stats['climbs']} of {steps} "
+          f"steps, B2 launches {b2_launches} "
+          f"({t_dev / b2_launches * 1e6:.1f} us of build per launch); host "
+          f"compress + stratify {t_compress:.2f}s of the card build")
+
+    # one stratum's sweep once more, under the profiler: where it goes
+    k0 = ks[0]
+    st0: dict = {}
+    segmented_select.segmented_count_le.launches = 0
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        vct0, t_k0 = wall(lambda: ct._sweep_device(g, k0, device=dev,
+                                                   stats=st0))
+    k0_launches = segmented_select.segmented_count_le.launches
+    if not np.array_equal(vct0, strata.table_for(k0).vertex_ct):
+        raise AssertionError(f"the per-k sweep of k={k0} differs from its "
+                             "stratum")
+    rows = device_rows(prof)
+    busy_us = sum(t for _, t, _ in rows)
+    b2_us = sum(t for key, t, _ in rows if "segmented_count_le" in key)
+    print(f"[construct] stratum k={k0} alone under torch.profiler: wall "
+          f"{t_k0:.2f}s, iterations {st0['iterations']}, climbs "
+          f"{st0['climbs']}, B2 launches {k0_launches}; "
+          + (f"device busy {busy_us / 1e6:.4f}s (idle share "
+             f"{1 - busy_us / 1e6 / t_k0:.3f}), B2 {b2_us / 1e6:.4f}s = "
+             f"{b2_us / max(k0_launches, 1):.2f} us per launch; top kernels: "
+             + top_rows(rows) if busy_us else
+             "device busy not measured (no device events)"))
+    del prof
+
+    # -- index: forests on the host from the card-built strata -------------
+    t0 = time.perf_counter()
+    sx = build_stratified_index(g, strata=strata)
     t_build = time.perf_counter() - t0
     meta, arrays = bq._host_layout(sx)
     layout_mb = sum(a.nbytes for a in arrays.values()) / 1e6
@@ -125,7 +291,9 @@ def main() -> int:
           f"(k={sx.ks[0]}..{sx.ks[-1]}) N={N} entries={sx.ent_ts.shape[0]} "
           f"vertex_entries={sx.vent_ts.shape[0]} "
           f"versions={meta['num_versions']} index_MB={layout_mb:.1f} "
-          f"host_build_s={t_build:.2f}")
+          f"forests_from_card_strata_s={t_build:.2f} "
+          f"(build from graph: {t_dev + t_build:.2f}s with the card's "
+          f"strata, {t_host + t_build:.2f}s with the host's)")
 
     # -- kernel: B1 vs its plain version at (256, N) ------------------------
     rng = np.random.default_rng(11)
@@ -159,6 +327,137 @@ def main() -> int:
           f"{rand_plain_ms:.4f} ms, bound {rand_bound:.4f} ms (bytes: "
           f"9*B*N + 12*active at 3.35 TB/s)")
     del labels, links, active, got, want
+
+    # -- kernel: B2 on the sweep's operands and on random ids --------------
+    count = segmented_select.segmented_count_le
+    E, n = int(csr.src.shape[0]), g.n
+    seg = torch.as_tensor(csr.src, device=dev)
+    dst = torch.as_tensor(csr.dst.astype(np.int64), device=dev)
+    tuv1 = torch.as_tensor(np.ascontiguousarray(
+        ct._tuv_rows(csr, 1, 2, g.t_max)[0]), device=dev)
+    c0 = torch.zeros(n, dtype=torch.int32, device=dev)
+    w1 = torch.maximum(tuv1, c0[dst])            # ts = 1, k = ks[0], c = 0
+    rand_seg = rng.integers(0, n, E).astype(np.int32)
+    rand_seg[rng.random(E) < 0.1] = -1
+    cases = {
+        "sweep's first operands (ts=1, c=0)": (w1, seg, c0),
+        "CSR ids, random thresholds": (
+            w1, seg, torch.as_tensor(rng.integers(0, g.t_max + 2, n,
+                                                  dtype=np.int32),
+                                     device=dev)),
+        "random unsorted ids, 10% -1 pads": (
+            torch.as_tensor(rng.integers(0, g.t_max + 2, E, dtype=np.int32),
+                            device=dev),
+            torch.as_tensor(rand_seg, device=dev),
+            torch.as_tensor(rng.integers(0, g.t_max + 2, n, dtype=np.int32),
+                            device=dev))}
+    b2_err = 0
+    for what, (w, s, thr) in cases.items():
+        b2_err = max(b2_err, check_equal(f"B2 on {what}", count(w, s, thr, n),
+                                         ref.segmented_count_le(w, s, thr, n)))
+    t = {"kernel": timed(lambda: count(w1, seg, c0, n)),
+         "plain": timed(lambda: ref.segmented_count_le(w1, seg, c0, n))}
+    b2_ms, b2_plain = t["kernel"][0], t["plain"][0]
+    b2_bound = segmented_select.bound_ms(E, n)
+    print(f"[kernel] B2 segmented_count_le at E={E} slots, n={n} segments: "
+          f"bit-identical to the plain version on {len(cases)} inputs "
+          f"({'; '.join(cases)}; max abs err {b2_err}, tolerance 0). On the "
+          f"sweep's first operands: {show(t)}; bound {b2_bound:.6f} ms "
+          f"(bytes: 8*E + 8*n at 3.35 TB/s); library: none (no single "
+          f"PyTorch call gathers a per-segment threshold, compares and "
+          f"counts)")
+
+    # -- kernel: B3a and B3b on the graph's edges, then the peel's operands --
+    src_e = torch.as_tensor(g.src, device=dev)
+    dst_e = torch.as_tensor(g.dst, device=dev)
+    alive_e = torch.as_tensor(rng.random(g.m) < 0.7, device=dev)
+    key = np.minimum(g.src, g.dst).astype(np.int64) * n + np.maximum(g.src,
+                                                                     g.dst)
+    uniq, inv = np.unique(key, return_inverse=True)
+    us = torch.as_tensor((uniq // n).astype(np.int32), device=dev)
+    ud = torch.as_tensor((uniq % n).astype(np.int32), device=dev)
+    alive_p = torch.ones(us.shape[0], dtype=torch.bool, device=dev)
+    b3_err = [0, 0]
+    degs = []
+    for s, d, a in ((src_e, dst_e, alive_e), (us, ud, alive_p)):
+        deg = kcore_peel.degree_count(s, d, a, n)
+        degs.append(deg)
+        b3_err[0] = max(b3_err[0], check_equal(
+            "B3a", deg, ref.degree_count(s, d, a, n)))
+        for k in (ks[0], ks[len(ks) // 2]):
+            flag.zero_()
+            got = kcore_peel.peel_threshold(s, d, a, deg, k, changed=flag)
+            want = ref.peel_threshold(s, d, a, deg, k)
+            b3_err[1] = max(b3_err[1], check_equal("B3b", got, want))
+            if int(flag.item()) != int(bool((want != a).any())):
+                raise AssertionError("B3b change flag disagrees with the "
+                                     "outputs")
+    # timed on the peel's first-round operands (all distinct pairs alive)
+    m_p = int(us.shape[0])
+    deg_e, deg_p = degs
+    ends = torch.cat([us[alive_p], ud[alive_p]])      # masking, not timed
+    ta = {"kernel": timed(lambda: kcore_peel.degree_count(us, ud, alive_p,
+                                                          n)),
+          "plain": timed(lambda: ref.degree_count(us, ud, alive_p, n)),
+          "library (torch.bincount over the alive endpoints, concatenated "
+          "and masked outside the timed call)":
+          timed(lambda: torch.bincount(ends, minlength=n))}
+    tb = {"kernel": timed(lambda: kcore_peel.peel_threshold(
+              us, ud, alive_p, deg_p, ks[0], changed=flag)),
+          "plain": timed(lambda: ref.peel_threshold(us, ud, alive_p, deg_p,
+                                                    ks[0]))}
+    (b3a_ms, b3a_plain, b3a_lib), (b3b_ms, b3b_plain) = (
+        [v[0] for v in ta.values()], [v[0] for v in tb.values()])
+    b3a_bound = kcore_peel.degree_bound_ms(m_p, n)
+    b3b_bound = kcore_peel.threshold_bound_ms(m_p, n)
+    full_ms = [device_ms(lambda: kcore_peel.degree_count(src_e, dst_e,
+                                                         alive_e, n))[0],
+               device_ms(lambda: kcore_peel.peel_threshold(
+                   src_e, dst_e, alive_e, deg_e, ks[0], changed=flag))[0]]
+    print(f"[kernel] B3a degree_count and B3b peel_threshold on the graph's "
+          f"{g.m} edges (random alive, share 0.7) and on the peel's "
+          f"{m_p} distinct pairs (all alive), k in ({ks[0]}, "
+          f"{ks[len(ks) // 2]}): bit-identical to the plain versions (max "
+          f"abs err {b3_err[0]} and {b3_err[1]}, tolerance 0), change flags "
+          f"right. On the peel's first-round operands: B3a {show(ta)}; "
+          f"bound {b3a_bound:.6f} ms (bytes: 9*m + 4*n). B3b {show(tb)}; "
+          f"bound {b3b_bound:.6f} ms (bytes: 10*m + 4*n); library none (no "
+          f"single PyTorch call gathers two degrees and thresholds). Device "
+          f"time on all {g.m} edges: B3a {full_ms[0]:.6f} ms, B3b "
+          f"{full_ms[1]:.6f} ms")
+
+    # -- peel: the main path of B3, counted ----------------------------------
+    peel_ks = list(ks) + [sx.k_max_graph + 1]
+    kcore_peel.degree_count.launches = 0
+    kcore_peel.peel_threshold.launches = 0
+    t0 = time.perf_counter()
+    masks = [kernel_ops.kcore_fixpoint(us, ud, n, k).cpu().numpy()
+             for k in peel_ks]
+    t_peel = time.perf_counter() - t0
+    b3a_launches = kcore_peel.degree_count.launches
+    b3b_launches = kcore_peel.peel_threshold.launches
+    if b3a_launches <= 0 or b3b_launches <= 0:
+        raise AssertionError("the peel launched B3a or B3b no time")
+    if b3a_launches != b3b_launches:
+        raise AssertionError("every peel round launches B3a then B3b")
+    t0 = time.perf_counter()
+    for k, mask in zip(peel_ks, masks):
+        want = kcore.distinct_kcore_edge_mask(g.src, g.dst, n, k)
+        if not np.array_equal(mask[inv], want):
+            raise AssertionError(f"the card's {k}-core differs from the "
+                                 "host's")
+    t_host_peel = time.perf_counter() - t0
+    sizes = [int(mk.sum()) for mk in masks]
+    if sizes[-1] != 0 or sizes[-2] == 0:
+        raise AssertionError("k_max's core must be non-empty, k_max + 1's "
+                             "empty")
+    print(f"[peel] ops.kcore_fixpoint on the card over {m_p} distinct "
+          f"pairs for k={peel_ks[0]}..{peel_ks[-1]} ({len(peel_ks)} "
+          f"fixpoints): each equal to kcore.distinct_kcore_edge_mask on the "
+          f"host; {b3b_launches} rounds (B3a {b3a_launches}, B3b "
+          f"{b3b_launches} launches, one flag read each) in "
+          f"{t_peel:.3f}s on the card, {t_host_peel:.3f}s on the host; "
+          f"core sizes (pairs) {sizes[0]}..{sizes[-2]}, then {sizes[-1]}")
 
     # -- upload ------------------------------------------------------------
     dix, t_up = wall(lambda: bq.device_index(meta, arrays, dev))
@@ -259,28 +558,42 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, t_batch = wall(lambda: executor.run(dix, slots, ts, te, BUCKET))
-    # device-side rows only: a CPU op's row repeats its kernels' time
-    kern = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    kern = device_rows(prof)
     busy_us = sum(t for _, t, _ in kern)
     b1_us = sum(t for key, t, _ in kern if "label_prop_round" in key)
-    top = sorted(kern, key=lambda r: -r[1])[:5]
     busy = (f"device busy {busy_us / 1e6:.4f}s (idle share "
             f"{1 - busy_us / 1e6 / t_batch:.3f}), B1 {b1_us / 1e6:.4f}s"
             if busy_us else "device busy not measured (no device events)")
     print(f"[profile] one batch of {BUCKET}: wall {t_batch:.4f}s, {busy}; "
-          f"top kernels: " + "; ".join(f"{k[:48]} {t / 1e3:.2f}ms x{c}"
-                                       for k, t, c in top))
+          f"top kernels: " + top_rows(kern))
 
-    record = {"name": "label_prop_round", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/label_prop.cu",
-              "replaces": "src/repro/kernels/label_prop.py:70",
-              "launches": launches, "max_abs_err": max_err, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-              "library_ms": None}
-    print(json.dumps({"kernels": [record]}))
+    csrc = "src/repro_torch/kernels/csrc/"
+    records = [
+        {"name": "label_prop_round", "route": "cuda",
+         "source": csrc + "label_prop.cu",
+         "replaces": "src/repro/kernels/label_prop.py:70",
+         "launches": launches, "max_abs_err": max_err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "segmented_count_le", "route": "cuda",
+         "source": csrc + "segmented_count_le.cu",
+         "replaces": "src/repro/kernels/segmented_select.py:117",
+         "launches": b2_launches, "max_abs_err": b2_err, "ms": b2_ms,
+         "plain_ms": b2_plain, "bound_ms": b2_bound, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "degree_count", "route": "cuda",
+         "source": csrc + "kcore_peel.cu",
+         "replaces": "src/repro/kernels/kcore_peel.py:62",
+         "launches": b3a_launches, "max_abs_err": b3_err[0], "ms": b3a_ms,
+         "plain_ms": b3a_plain, "bound_ms": b3a_bound, "bound_by": "bytes",
+         "library_ms": b3a_lib},
+        {"name": "peel_threshold", "route": "cuda",
+         "source": csrc + "kcore_peel.cu",
+         "replaces": "src/repro/kernels/kcore_peel.py:117",
+         "launches": b3b_launches, "max_abs_err": b3_err[1], "ms": b3b_ms,
+         "plain_ms": b3b_plain, "bound_ms": b3b_bound, "bound_by": "bytes",
+         "library_ms": None}]
+    print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,20 +23,30 @@ post-fixpoint, hence the least fixpoint itself. Edge core times follow as
 ``CT(e)_ts = max(t_e, c_u, c_v)`` (§5: "the larger one among the core times
 of its terminal vertices", plus window membership t_e >= ts).
 
-Host build plane: the sweep ts = 1..t_max runs with warm-started lower
-bounds (c_{ts-1} <= c_ts because shrinking the window only raises core
-times) over one precomputed structure (`_PairCSR` + blockwise `_tuv_rows`
-of per-pair earliest timestamps >= ts). Per iteration one in-place packed
-sort (segment id packed into the key's high bits) gives both the fixpoint
-*verification* (a searchsorted rank probe: c is converged iff count(w <=
-c_v) >= k) and, when not converged, the k-th smallest climb. The result is
-delta-compressed by the vectorized run-length `_compress`.
+Both engines sweep ts = 1..t_max with warm-started lower bounds
+(c_{ts-1} <= c_ts because shrinking the window only raises core times)
+over one precomputed structure (`_PairCSR` + blockwise `_tuv_rows` of
+per-pair earliest timestamps >= ts), and both return bit-identical tables
+(the least fixpoint is unique; tests assert array equality):
 
-PyTorch port of the host half of ``repro.core.core_time``, copied so the
-port stands alone: `_sweep_host`, the fused stratified sweep and the
-tables are the reference's, bit for bit (tests assert array equality).
-The device sweep (the reference's ``_sweep_jax`` with its segmented-count
-kernel) and the streaming extend/shrink functions come in later slices.
+* ``engine="host"`` — numpy: per iteration one in-place packed sort
+  (segment id packed into the key's high bits) gives both the fixpoint
+  *verification* (a searchsorted rank probe: c is converged iff
+  count(w <= c_v) >= k) and, when not converged, the k-th smallest climb.
+* ``engine="device"`` — the counterpart of the reference's ``_sweep_jax``
+  (and of its ``"jax_pallas"`` variant): the same verification and gated
+  climb on the device, with the hand-written segmented count B2
+  (``kernels/segmented_select.py``) as the counter of both the probe and
+  every step of the counting-bisection climb. A host loop drives it and
+  reads one convergence flag per iteration.
+
+``engine="auto"`` picks by the ``device`` argument: a CUDA device runs the
+device engine, the CPU the host engine. The result is delta-compressed by
+the vectorized run-length `_compress`.
+
+PyTorch port of ``repro.core.core_time``, copied so the port stands
+alone. The ``"legacy"`` engine and the streaming extend/shrink functions
+come with the epoch plane.
 """
 
 from __future__ import annotations
@@ -44,7 +54,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
+from ..kernels.segmented_select import kth_smallest, segmented_count_le
 from .temporal_graph import TemporalGraph
 
 
@@ -496,11 +508,119 @@ def _sweep_host_stratified(g: TemporalGraph, ks) -> list[np.ndarray]:
     return vcts
 
 
-def stratified_core_times(g: TemporalGraph, ks=None) -> StratifiedCoreTable:
+# ----------------------------------------------------------------------
+# Device engine: the sweep on the card, B2 as its counter
+# ----------------------------------------------------------------------
+
+def _sweep_device_stratified(g: TemporalGraph, ks, *, device,
+                             stats: dict | None = None) -> list[np.ndarray]:
+    """Dense (t_max+1, n) int32 vertex core times for every k in ``ks``,
+    swept on ``device``; the counterpart of the reference's ``_sweep_jax``
+    with its Pallas counter.
+
+    Per (k, ts) the same verification as the reference: with ``w =
+    max(t_uv, c[dst])``, ``c`` is converged iff every segment has
+    ``count(w <= c_v) >= k`` or ``c_v >= INF`` — one B2 launch and one
+    host read of the flag. Otherwise the climb ``c <- max(c, kth(w))``
+    runs as a counting bisection of B2 launches (:func:`kth_smallest`
+    with ``lo = c``), and the probe repeats. The carry is warm across ts
+    and across t_uv blocks; row 0 stays INF. Like the host's fused sweep,
+    one pair CSR and one t_uv block serve every stratum, and stratum k
+    starts each ts from ``max(carry, c_{kprev}(ts))`` (both lower bounds
+    of the least fixpoint), so every stratum equals the per-k sweep.
+    ``stats`` (optional) gains the counts ``iterations`` (= flag reads)
+    and ``climbs``."""
+    n, t_max = g.n, g.t_max
+    inf = t_max + 1
+    if g.m == 0 or t_max == 0 or not ks:
+        return [np.full((t_max + 1, n), inf, np.int32) for _ in ks]
+    device = torch.device(device)
+    csr = _pair_csr(g)
+    seg = torch.as_tensor(csr.src, device=device)        # CSR: non-decreasing
+    dst = torch.as_tensor(csr.dst.astype(np.int64), device=device)
+    rows = [torch.full((t_max + 1, n), inf, dtype=torch.int32, device=device)
+            for _ in ks]
+    carry = [torch.zeros(n, dtype=torch.int32, device=device) for _ in ks]
+    iterations = climbs = 0
+    for ts0 in range(1, t_max + 1, TUV_BLOCK):
+        ts1 = min(ts0 + TUV_BLOCK, t_max + 1)
+        tuv_rows = torch.as_tensor(
+            np.ascontiguousarray(_tuv_rows(csr, ts0, ts1, t_max)),
+            device=device)
+        for ki, k in enumerate(ks):
+            c = carry[ki]
+            for ts in range(ts0, ts1):
+                tuv = tuv_rows[ts - ts0]
+                if ki:
+                    c = torch.maximum(c, rows[ki - 1][ts])
+                while True:
+                    w = torch.maximum(tuv, c[dst])
+                    cnt = segmented_count_le(w, seg, c, n)
+                    iterations += 1
+                    if bool(((cnt >= k) | (c >= inf)).all()):
+                        break
+                    c = kth_smallest(w, seg, n, k, inf, lo=c)
+                    climbs += 1
+                rows[ki][ts] = c
+            carry[ki] = c
+    if stats is not None:
+        stats["iterations"] = stats.get("iterations", 0) + iterations
+        stats["climbs"] = stats.get("climbs", 0) + climbs
+    return [r.cpu().numpy() for r in rows]
+
+
+def _sweep_device(g: TemporalGraph, k: int, *, device,
+                  stats: dict | None = None) -> np.ndarray:
+    """(t_max+1, n) int32 vertex core times of one k, on ``device``."""
+    return _sweep_device_stratified(g, (k,), device=device, stats=stats)[0]
+
+
+# ----------------------------------------------------------------------
+# Engine dispatch
+# ----------------------------------------------------------------------
+
+ENGINES = ("auto", "host", "device")
+
+
+def _engine(engine: str, device) -> str:
+    """The engine to run: ``"auto"`` follows the ``device`` argument (CUDA:
+    ``"device"``, CPU: ``"host"``), never what the machine has."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}, expected one of {ENGINES}")
+    if engine != "auto":
+        return engine
+    kind = torch.device(device).type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"no construction engine for device {device}")
+    return "device" if kind == "cuda" else "host"
+
+
+def edge_core_times(g: TemporalGraph, k: int, *, engine: str = "auto",
+                    device="cuda", stats: dict | None = None) -> CoreTimeTable:
+    """CT(e)_ts for every edge and start time, delta-compressed.
+
+    ``engine`` is ``"host"`` (numpy), ``"device"`` (the sweep on
+    ``device`` with B2 as its counter) or ``"auto"`` (by ``device``). Both
+    engines return bit-identical tables; ``stats`` collects the device
+    engine's counts (see `_sweep_device_stratified`)."""
+    if _engine(engine, device) == "host":
+        vct = _sweep_host(g, k)
+    else:
+        vct = _sweep_device(g, k, device=device, stats=stats)
+    return _compress(g, vct)
+
+
+def stratified_core_times(g: TemporalGraph, ks=None, *, engine: str = "auto",
+                          device="cuda",
+                          stats: dict | None = None) -> StratifiedCoreTable:
     """One k-stratified core-time build covering every k in ``ks``
-    (default: the full useful range ``default_ks(g)``), by the fused
-    warm-seeded host sweep `_sweep_host_stratified`. Every stratum is
-    bit-identical to the per-k `_sweep_host` table."""
+    (default: the full useful range ``default_ks(g)``): the fused
+    warm-seeded sweep of the chosen engine (``"auto"``: by ``device``).
+    Every stratum is bit-identical to the per-k table."""
     ks = _validate_ks(default_ks(g) if ks is None else ks)
-    tables = [_compress(g, vct) for vct in _sweep_host_stratified(g, ks)]
-    return StratifiedCoreTable.from_tables(g, ks, tables)
+    if _engine(engine, device) == "host":
+        vcts = _sweep_host_stratified(g, ks)
+    else:
+        vcts = _sweep_device_stratified(g, ks, device=device, stats=stats)
+    return StratifiedCoreTable.from_tables(
+        g, ks, [_compress(g, vct) for vct in vcts])

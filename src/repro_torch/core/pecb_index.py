@@ -28,7 +28,7 @@ import dataclasses
 
 import numpy as np
 
-from .core_time import (CoreTimeTable, StratifiedCoreTable,
+from .core_time import (CoreTimeTable, StratifiedCoreTable, edge_core_times,
                         stratified_core_times)
 from .ecb_forest import (NONE, FastIncrementalBuilder, ForestInvariantError,
                         IncrementalBuilder)
@@ -151,6 +151,18 @@ def pack_index(g: TemporalGraph, k: int, b: IncrementalBuilder) -> PECBIndex:
         vrow_ptr, vent_ts, vent_node,
         versions=VersionStore.from_table(g, k, b.tab),
     )
+
+
+def build_pecb_index(g: TemporalGraph, k: int,
+                     tab: CoreTimeTable | None = None, *,
+                     engine: str = "auto", device="cuda") -> PECBIndex:
+    """End-to-end PECB construction (Alg 3) for one k: core times (``tab``,
+    or built on ``device`` by ``engine``, see
+    :func:`core_time.edge_core_times`) -> incremental forest maintenance
+    -> packed index."""
+    if tab is None:
+        tab = edge_core_times(g, k, engine=engine, device=device)
+    return pack_index(g, k, IncrementalBuilder(g, tab).run())
 
 
 # ----------------------------------------------------------------------
@@ -385,18 +397,21 @@ def _forest_builder(g: TemporalGraph, tab: CoreTimeTable):
 
 
 def build_stratified_index(g: TemporalGraph, ks=None, *,
-                           strata: StratifiedCoreTable | None = None
-                           ) -> StratifiedPECB:
-    """One build serving every k: fused stratified core-time sweep, then
-    one forest per stratum through the fastest available engine, packed
-    into a single :class:`StratifiedPECB`.
+                           strata: StratifiedCoreTable | None = None,
+                           engine: str = "auto",
+                           device="cuda") -> StratifiedPECB:
+    """One build serving every k: fused stratified core-time sweep (on
+    ``device`` by ``engine``, see :func:`core_time.stratified_core_times`),
+    then one forest per stratum through the fastest available host
+    engine, packed into a single :class:`StratifiedPECB`.
 
     ``ks=None`` covers the graph's full coreness range
     (:func:`core_time.default_ks`); pass ``strata`` to reuse a table
     already built.
     """
     from .kcore import k_max as _graph_k_max
-    stab = strata if strata is not None else stratified_core_times(g, ks)
+    stab = strata if strata is not None else stratified_core_times(
+        g, ks, engine=engine, device=device)
     indices = []
     for k in stab.ks:
         b = _forest_builder(g, stab.table_for(int(k)))

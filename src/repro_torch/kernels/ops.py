@@ -7,6 +7,19 @@ to the plain version. The TPU kernels not yet ported are listed in
 ROADMAP.md (queue B).
 """
 
-from .label_prop import label_prop_round
+import torch
 
-__all__ = ["label_prop_round"]
+from .kcore_peel import degree_count, kcore_fixpoint, peel_round
+from .label_prop import label_prop_round
+from .segmented_select import kth_smallest, segmented_count_le
+
+__all__ = ["degree_count", "kcore_fixpoint", "kcore_peel_round",
+           "kth_smallest", "label_prop_round", "segmented_count_le"]
+
+
+def kcore_peel_round(src, dst, alive, n: int, k: int):
+    """One peel round (B3a then B3b): ``(new_alive, changed)``, with
+    ``changed`` a 0-dim bool tensor on the edges' device (no host read)."""
+    changed = torch.zeros(1, dtype=torch.int32, device=src.device)
+    new_alive = peel_round(src, dst, alive, n, k, changed=changed)
+    return new_alive, changed[0] != 0

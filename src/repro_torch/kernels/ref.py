@@ -35,3 +35,72 @@ def label_prop_round(labels: torch.Tensor, link_l: torch.Tensor,
                          torch.gather(labels, 1, new.clamp(0, N - 1).long()),
                          new)
     return torch.minimum(new, jumped)
+
+
+def segmented_count_le(w: torch.Tensor, seg: torch.Tensor, thr: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """int32[n]: per segment ``v``, the number of slots ``i`` with
+    ``seg[i] == v`` and ``w[i] <= thr[v]``.
+
+    Counterpart of ``repro.kernels.segmented_select.segmented_count_le``:
+    ``seg`` need not be sorted, and a slot whose id lies outside ``[0, n)``
+    (the pad id -1, or an id >= n) counts nothing."""
+    w, seg, thr = (t.to(torch.int32) for t in (w, seg, thr))
+    if n == 0 or not w.numel():
+        return torch.zeros(n, dtype=torch.int32, device=w.device)
+    ok = (seg >= 0) & (seg < n)
+    segc = seg.clamp(0, n - 1).long()
+    hit = ok & (w <= thr[segc])
+    return torch.bincount(segc[hit], minlength=n).to(torch.int32)
+
+
+def degree_count(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """int32[n] alive-weighted degree of every vertex, counting both
+    endpoints of each edge (``repro.kernels.ref.degree_count``). ``alive``
+    is a weight (bool or integer); an endpoint outside ``[0, n)`` counts
+    nothing."""
+    wgt = alive.to(torch.int64)
+    deg = torch.zeros(n, dtype=torch.int64, device=src.device)
+    for ends in (src, dst):
+        ok = (ends >= 0) & (ends < n)
+        deg.index_add_(0, ends[ok].long(), wgt[ok])
+    return deg.to(torch.int32)
+
+
+def peel_threshold(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
+                   deg: torch.Tensor, k: int) -> torch.Tensor:
+    """bool[m] new alive mask ``alive > 0 & deg[src] >= k & deg[dst] >= k``
+    (the threshold half of ``repro.kernels.kcore_peel.peel_round``); an
+    endpoint outside ``[0, len(deg))`` fails the threshold."""
+    n = deg.shape[0]
+    keep = alive > 0
+    if n == 0:
+        return torch.zeros_like(keep)
+    ok = deg >= k
+    for ends in (src, dst):
+        keep = keep & (ends >= 0) & (ends < n) & ok[ends.clamp(0, n - 1).long()]
+    return keep
+
+
+def kcore_peel_round(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
+                     n: int, k: int):
+    """One peel round: drop every edge with an endpoint of alive degree
+    < k. Returns ``(new_alive, changed)``, ``changed`` a 0-dim bool tensor
+    (``repro.kernels.ref.kcore_peel_round``)."""
+    new = peel_threshold(src, dst, alive, degree_count(src, dst, alive, n), k)
+    return new, (new != (alive > 0)).any()
+
+
+def kcore_fixpoint(src: torch.Tensor, dst: torch.Tensor, n: int, k: int,
+                   alive0: torch.Tensor | None = None) -> torch.Tensor:
+    """bool[m] k-core edge mask: peel rounds until none changes
+    (``repro.kernels.ref.kcore_fixpoint``; ``alive0`` defaults to every
+    edge alive). Parallel edges each count toward a degree."""
+    alive = (torch.ones(src.shape, dtype=torch.bool, device=src.device)
+             if alive0 is None else alive0)
+    while True:
+        new, changed = kcore_peel_round(src, dst, alive, n, k)
+        if not bool(changed):
+            return new
+        alive = new

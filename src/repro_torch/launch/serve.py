@@ -4,7 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --workload cm_like \\
         --queries 4096 --batch 256
 
-It builds the k-stratified index on the host, uploads it to the card,
+It builds the k-stratified index (core times on ``--device``: the card's
+sweep with the B2 kernel on CUDA, the host sweep with ``--device cpu``;
+forests on the host), uploads it to the card,
 replays a random stream of typed mixed-k ``TCCSQuery`` specs (one ``--k``
 pins a single stratum) in batches of ``--batch``, and does what the
 reference planner's device branch does (``repro/serving/planner.py``):
@@ -117,7 +119,7 @@ def serve_graph(g: TemporalGraph, *, k: int | None = None,
     each on the card) and wall times, and the verification count."""
     if index is None:
         t0 = time.perf_counter()
-        index = build_stratified_index(g)
+        index = build_stratified_index(g, device=device)
         print(f"[build] n={g.n} m={g.m} t_max={g.t_max} |K|={len(index.ks)} "
               f"N={index.num_nodes} in {time.perf_counter() - t0:.3f}s")
     sx = index

@@ -55,7 +55,7 @@ def built(request):
     """(port graph, reference graph, port index, reference index)."""
     cfg = GRAPHS[request.param]
     g, jg = gen_temporal_graph(**cfg), jax_gen(**cfg)
-    return g, jg, build_stratified_index(g), jax_build(jg)
+    return g, jg, build_stratified_index(g, device="cpu"), jax_build(jg)
 
 
 def test_graph_generator_is_the_reference(built):
@@ -84,7 +84,7 @@ def test_kcore_oracles_match_reference(built):
 
 def test_stratified_core_times_match_reference(built):
     g, jg, _, _ = built
-    assert_fields_equal(ct.stratified_core_times(g),
+    assert_fields_equal(ct.stratified_core_times(g, device="cpu"),
                         jax_ct.stratified_core_times(jg, engine="host"),
                         "strata")
 
@@ -124,7 +124,7 @@ def test_forest_builders_pack_identically():
     # the native C engine (when a C compiler exists) and both Python
     # builders produce the same packed index for every stratum
     g = gen_temporal_graph(**GRAPHS[1])
-    strata = ct.stratified_core_times(g)
+    strata = ct.stratified_core_times(g, device="cpu")
     for k in strata.ks:
         tab = strata.table_for(k)
         base = pack_index(g, k, IncrementalBuilder(g, tab).run())

@@ -1,0 +1,173 @@
+"""The construction plane with the device engine (the sweep whose counter
+is B2), run on the CPU through B2's plain version, against the JAX
+reference: per-k core-time tables of the reference's ``"jax_pallas"``,
+``"jax"`` and ``"host"`` engines, the stratified table, the packed index,
+Algorithm 1, and reference tables carried into the port.
+
+Every output is an integer, so equality is exact."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import core_time as jax_ct  # noqa: E402
+from repro.core import pecb_index as jax_pecb  # noqa: E402
+from repro.core.temporal_graph import \
+    gen_temporal_graph as jax_gen  # noqa: E402
+from repro_torch.core import carry, kcore  # noqa: E402
+from repro_torch.core import core_time as ct  # noqa: E402
+from repro_torch.core.pecb_index import (build_pecb_index,  # noqa: E402
+                                         build_stratified_index)
+from repro_torch.core.temporal_graph import (BENCH_WORKLOADS,  # noqa: E402
+                                             gen_temporal_graph,
+                                             random_queries)
+from repro_torch.kernels import segmented_select as ss  # noqa: E402
+
+G14 = dict(n=14, m=60, t_max=6, seed=7)       # tests/test_system.py
+G18 = dict(n=18, m=70, t_max=7, seed=3)
+G30 = dict(n=30, m=240, t_max=12, seed=5)
+G40 = dict(n=40, m=420, t_max=18, seed=31)
+FB_LIKE = BENCH_WORKLOADS["fb_like"]
+
+
+def graphs(cfg):
+    return gen_temporal_graph(**cfg), jax_gen(**cfg)
+
+
+def fields(obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def assert_fields_equal(a, b, path):
+    """Dataclass equality: arrays by value and dtype, scalars by value
+    (the port's table against the reference's, or against its own)."""
+    fa, fb = fields(a), fields(b)
+    assert fa.keys() == fb.keys(), path
+    for name, va in fa.items():
+        vb = fb[name]
+        if dataclasses.is_dataclass(va):
+            assert_fields_equal(va, vb, f"{path}.{name}")
+        elif isinstance(va, np.ndarray):
+            assert va.dtype == vb.dtype, f"{path}.{name}"
+            assert np.array_equal(va, vb), f"{path}.{name}"
+        else:
+            assert va == vb, f"{path}.{name}"
+
+
+@pytest.mark.parametrize("cfg", [G14, G30], ids=["g14", "g30"])
+def test_device_engine_matches_reference_pallas_engine(cfg):
+    g, jg = graphs(cfg)
+    for k in ct.default_ks(g):
+        stats = {}
+        tab = ct.edge_core_times(g, k, engine="device", device="cpu",
+                                 stats=stats)
+        want = jax_ct.edge_core_times(jg, k, engine="jax_pallas")
+        assert_fields_equal(tab, want, f"k={k}")
+        # one probe per ts at least, a climb per unconverged probe
+        assert stats["iterations"] >= g.t_max
+        assert stats["iterations"] - stats["climbs"] == g.t_max
+
+
+@pytest.mark.parametrize("cfg", [G18, G30, G40, FB_LIKE],
+                         ids=["g18", "g30", "g40", "fb_like"])
+def test_device_engine_matches_reference_jax_and_host_engines(cfg):
+    g, jg = graphs(cfg)
+    ks = ct.default_ks(g)
+    if cfg is FB_LIKE:
+        ks = (ks[0], ks[len(ks) // 2], ks[-1])
+    for k in ks:
+        tab = ct.edge_core_times(g, k, engine="device", device="cpu")
+        assert_fields_equal(tab, jax_ct.edge_core_times(jg, k, engine="jax"),
+                            f"jax k={k}")
+        assert_fields_equal(tab, jax_ct.edge_core_times(jg, k, engine="host"),
+                            f"host k={k}")
+        assert np.array_equal(ct._sweep_device(g, k, device="cpu"),
+                              jax_ct._sweep_jax(jg, k)), k
+
+
+def test_stratified_device_engine_matches_reference_pallas_engine():
+    g, jg = graphs(G18)
+    got = ct.stratified_core_times(g, engine="device", device="cpu")
+    assert_fields_equal(got, jax_ct.stratified_core_times(
+        jg, engine="jax_pallas"), "strata")
+
+
+def test_stratified_device_engine_matches_host_engine_on_fb_like():
+    g = gen_temporal_graph(**FB_LIKE)
+    stats = {}
+    before = ss.segmented_count_le.launches
+    dev = ct.stratified_core_times(g, engine="device", device="cpu",
+                                   stats=stats)
+    assert ss.segmented_count_le.launches == before   # CPU: no launch
+    host = ct.stratified_core_times(g, device="cpu")
+    assert_fields_equal(dev, host, "strata")
+    for k in dev.ks:
+        assert np.array_equal(dev.table_for(k).vertex_ct,
+                              host.table_for(k).vertex_ct), k
+    # seeded from the stratum below, each ts of each stratum probes once
+    # more than it climbs
+    assert stats["iterations"] - stats["climbs"] == g.t_max * len(dev.ks)
+
+
+def test_device_built_index_matches_reference_and_algorithm_1():
+    g, jg = graphs(G30)
+    sx = build_stratified_index(g, engine="device", device="cpu")
+    jsx = jax_pecb.build_stratified_index(jg)
+    assert_fields_equal(sx, jsx, "index")
+    rng = np.random.default_rng(3)
+    for u, ts, te in random_queries(g, 24, seed=3):
+        k = int(rng.choice(sx.ks))
+        assert sx.slice_k(k)._component_vertices(u, ts, te) == \
+            kcore.tccs_oracle(g, k, u, ts, te), (u, ts, te, k)
+
+
+def test_per_k_index_matches_reference():
+    g, jg = graphs(G30)
+    for k in (2, 4):
+        got = build_pecb_index(g, k, engine="device", device="cpu")
+        want = jax_pecb.build_pecb_index(jg, k)
+        assert_fields_equal(got, want, f"k={k}")
+
+
+def test_carried_reference_strata_build_the_reference_index():
+    g, jg = graphs(G40)
+    jstrata = jax_ct.stratified_core_times(jg)
+    strata = carry.core_times_from_reference(fields(jstrata))
+    assert isinstance(strata, ct.StratifiedCoreTable)
+    assert_fields_equal(strata, ct.stratified_core_times(g, device="cpu"),
+                        "carried strata")
+    sx = build_stratified_index(g, strata=strata, device="cpu")
+    assert_fields_equal(sx, jax_pecb.build_stratified_index(
+        jg, strata=jstrata), "index")
+
+
+def test_carried_reference_table_builds_the_reference_per_k_index():
+    g, jg = graphs(G18)
+    jtab = jax_ct.edge_core_times(jg, 3)
+    tab = carry.core_times_from_reference(fields(jtab))
+    assert isinstance(tab, ct.CoreTimeTable)
+    assert_fields_equal(build_pecb_index(g, 3, tab),
+                        jax_pecb.build_pecb_index(jg, 3, jtab), "index")
+
+
+def test_engine_follows_the_device_argument():
+    assert ct._engine("auto", "cuda") == "device"
+    assert ct._engine("auto", torch.device("cuda", 0)) == "device"
+    assert ct._engine("auto", "cpu") == "host"
+    assert ct._engine("device", "cpu") == "device"
+    assert ct.ENGINES == ("auto", "host", "device")
+    with pytest.raises(ValueError, match="unknown engine"):
+        ct._engine("jax", "cpu")
+    with pytest.raises(ValueError, match="no construction engine"):
+        ct._engine("auto", "meta")
+
+
+def test_empty_graph_and_strata():
+    g = gen_temporal_graph(n=5, m=0, t_max=1, seed=0)
+    vct = ct._sweep_device(g, 2, device="cpu")
+    assert vct.shape == (g.t_max + 1, 5) and (vct == g.t_max + 1).all()
+    g = gen_temporal_graph(**G14)
+    assert ct._sweep_device_stratified(g, (), device="cpu") == []

@@ -1,0 +1,159 @@
+"""B3a (degree count) and B3b (peel threshold): the port's plain versions
+and wrappers against the JAX reference's Pallas kernels (interpret mode)
+and jnp oracles, and the peel fixpoint against the host peeling oracle.
+
+Every output is an integer or a boolean, so the tolerance is exact
+equality. The kernels themselves run only on an NVIDIA card: their tests
+are in test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import kcore_peel as jax_kp  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
+from repro_torch.core import kcore  # noqa: E402
+from repro_torch.kernels import kcore_peel as kp  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+
+def edges(n, m, seed, p_alive=0.7):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    return src, dst, rng.random(m) < p_alive, rng
+
+
+# the (n, m) x (edge_block, vert_block) sweep of tests/test_kernels.py
+@pytest.mark.parametrize("weights", ["bool", "int"])
+@pytest.mark.parametrize("eb,vb", [(256, 128), (1024, 512)])
+@pytest.mark.parametrize("n,m", [(17, 40), (300, 900), (1025, 3000)])
+def test_degree_count_matches_pallas_kernel(n, m, eb, vb, weights):
+    src, dst, alive, rng = edges(n, m, n * m)
+    if weights == "int":
+        alive = (alive * rng.integers(1, 4, m)).astype(np.int32)
+    want = np.asarray(jax_kp.degree_count(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(alive), n,
+        edge_block=eb, vert_block=vb))
+    assert np.array_equal(want, np.asarray(jax_ref.degree_count(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(alive), n)))
+    before = kp.degree_count.launches
+    got = ops.degree_count(*map(torch.as_tensor, (src, dst, alive)), n)
+    assert kp.degree_count.launches == before          # CPU: no launch
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+
+
+def test_degree_count_ignores_out_of_range_endpoints():
+    src = torch.tensor([0, -1, 3, 7, 2], dtype=torch.int32)
+    dst = torch.tensor([1, 2, 3, 0, 9], dtype=torch.int32)
+    alive = torch.tensor([1, 1, 2, 1, 1], dtype=torch.int32)
+    assert kp.degree_count(src, dst, alive, 4).tolist() == [2, 1, 2, 4]
+
+
+@pytest.mark.parametrize("k", [2, 3, 5])
+def test_peel_round_matches_pallas_kernel(k):
+    src, dst, alive, _ = edges(120, 500, k, p_alive=0.9)
+    jargs = (jnp.asarray(src), jnp.asarray(dst), jnp.asarray(alive))
+    want = np.asarray(jax_kp.peel_round(*jargs, 120, k))
+    want_ref, want_changed = jax_ref.kcore_peel_round(*jargs, 120, k)
+    assert np.array_equal(want, np.asarray(want_ref))
+    args = tuple(map(torch.as_tensor, (src, dst, alive)))
+    changed = torch.zeros(1, dtype=torch.int32)
+    before = kp.peel_threshold.launches
+    got = kp.peel_round(*args, 120, k, changed=changed)
+    assert kp.peel_threshold.launches == before
+    assert got.dtype == torch.bool and np.array_equal(got.numpy(), want)
+    assert int(changed) == int(bool(want_changed))
+    new, flag = ops.kcore_peel_round(*args, 120, k)
+    assert torch.equal(new, got) and bool(flag) == bool(want_changed)
+    plain, plain_flag = ref.kcore_peel_round(*args, 120, k)
+    assert torch.equal(plain, got) and bool(plain_flag) == bool(want_changed)
+
+
+def test_peel_threshold_flag_stays_clear_when_nothing_dies():
+    src, dst, _, _ = edges(10, 40, 1)
+    src, dst = torch.as_tensor(src), torch.as_tensor(dst)
+    alive = torch.ones(40, dtype=torch.bool)
+    deg = kp.degree_count(src, dst, alive, 10)
+    changed = torch.zeros(1, dtype=torch.int32)
+    out = kp.peel_threshold(src, dst, alive, deg, 0, changed=changed)
+    assert bool(out.all()) and int(changed) == 0
+    out = kp.peel_threshold(src, dst, alive, deg, int(deg.max()) + 1,
+                            changed=changed)
+    assert not bool(out.any()) and int(changed) == 1
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_kcore_fixpoint_matches_reference_and_host_peeling(k):
+    rng = np.random.default_rng(9 + k)
+    n, m = 80, 400
+    src = rng.integers(0, n, m)
+    dst = rng.integers(0, n, m)
+    keep = src != dst
+    src, dst = src[keep].astype(np.int32), dst[keep].astype(np.int32)
+    want = np.asarray(jax_ref.kcore_fixpoint(jnp.asarray(src),
+                                             jnp.asarray(dst), n, k))
+    assert np.array_equal(want, kcore.kcore_edge_mask(src, dst, n, k))
+    ts, td = torch.as_tensor(src), torch.as_tensor(dst)
+    for fix in (ops.kcore_fixpoint, ref.kcore_fixpoint):
+        got = fix(ts, td, n, k)
+        assert got.dtype == torch.bool and np.array_equal(got.numpy(), want)
+    # a start mask: only its edges may survive
+    alive0 = torch.as_tensor(rng.random(src.shape[0]) < 0.8)
+    got = ops.kcore_fixpoint(ts, td, n, k, alive0=alive0)
+    assert np.array_equal(got.numpy(), kcore.kcore_edge_mask(
+        src, dst, n, k, active=alive0.numpy()))
+
+
+def test_kcore_fixpoint_on_distinct_pairs_is_distinct_kcore():
+    # the [peel] phase of chip_smoke.py at a small size
+    from repro_torch.core.temporal_graph import bench_graph
+    g = bench_graph("fb_like")
+    key = np.minimum(g.src, g.dst).astype(np.int64) * g.n + np.maximum(
+        g.src, g.dst)
+    uniq, inv = np.unique(key, return_inverse=True)
+    us = torch.as_tensor((uniq // g.n).astype(np.int32))
+    ud = torch.as_tensor((uniq % g.n).astype(np.int32))
+    for k in (2, kcore.k_max(g), kcore.k_max(g) + 1):
+        got = ops.kcore_fixpoint(us, ud, g.n, k).numpy()[inv]
+        assert np.array_equal(got, kcore.distinct_kcore_edge_mask(
+            g.src, g.dst, g.n, k)), k
+
+
+def test_empty_shapes():
+    z = torch.zeros(0, dtype=torch.int32)
+    zb = torch.zeros(0, dtype=torch.bool)
+    assert torch.equal(kp.degree_count(z, z, zb, 3),
+                       torch.zeros(3, dtype=torch.int32))
+    assert ops.kcore_fixpoint(z, z, 3, 2).shape == (0,)
+    one = torch.zeros(1, dtype=torch.int32)
+    assert kp.degree_count(one, one, torch.ones(1, dtype=torch.bool),
+                           0).shape == (0,)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    src, dst, alive, _ = edges(10, 30, 3)
+    src, dst, alive = map(torch.as_tensor, (src, dst, alive))
+    changed = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(TypeError, match="integer"):
+        kp.degree_count(src.float(), dst, alive, 10)
+    with pytest.raises(ValueError, match="length"):
+        kp.degree_count(src, dst[:-1], alive, 10)
+    with pytest.raises(ValueError, match="alive"):
+        kp.degree_count(src, dst, alive[:-1], 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        kp.degree_count(src[::2], dst[::2], alive[::2], 10)
+    deg = kp.degree_count(src, dst, alive, 10)
+    with pytest.raises(ValueError, match="changed must be an int32"):
+        kp.peel_threshold(src, dst, alive, deg, 2, changed=changed.long())
+
+
+def test_bounds_count_each_operand_once():
+    # B3a: src + dst + alive per edge, deg per vertex; B3b: also the mask
+    assert kp.degree_bound_ms(59_835, 1_899) == pytest.approx(
+        (9 * 59_835 + 4 * 1_899) / 3.35e12 * 1e3)
+    assert kp.threshold_bound_ms(59_835, 1_899, 4) == pytest.approx(
+        (13 * 59_835 + 4 * 1_899) / 3.35e12 * 1e3)

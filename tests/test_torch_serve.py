@@ -29,7 +29,7 @@ from repro_torch.serving import executor  # noqa: E402
 @pytest.fixture(scope="module")
 def fb_like():
     g = bench_graph("fb_like")
-    sx = build_stratified_index(g)
+    sx = build_stratified_index(g, device="cpu")
     return g, sx, bq.to_device(sx, "cpu")
 
 
@@ -115,7 +115,7 @@ class TestExecutor:
 
     def test_padded_runs_match_reference_executor(self):
         g = gen_temporal_graph(n=30, m=200, t_max=12, seed=33)
-        sx, jsx = build_stratified_index(g), jax_build(g)
+        sx, jsx = build_stratified_index(g, device="cpu"), jax_build(g)
         dix, jdix = bq.to_device(sx, "cpu"), jax_bq.to_device(jsx)
         qs = random_queries(g, 5, seed=1)
         ks = [sx.ks[i % len(sx.ks)] for i in range(5)]
