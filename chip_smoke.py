@@ -6,9 +6,9 @@ kernel of the main path from the sources in this checkout. Phases, one
 result line each; any failure raises and exits non-zero:
 
   gpu      card name and power limit (nvidia-smi)
-  build    B1 (label propagation), B2 (segmented count) and B3 (k-core
-           peel) with nvcc for sm_90a, the host forest engine with cc, all
-           started together
+  build    B1 (label propagation), B2 (segmented count), B3 (k-core
+           peel), B5 (GEMM) and B6 (flash attention) with nvcc for sm_90a,
+           the host forest engine with cc, all started together
   construct  a CollegeMsg-scale temporal graph (SNAP CollegeMsg: 1,899
            users, 59,835 messages, 193 days), generated from a seed; its 37
            core-time strata swept on the card (the device engine, B2 as the
@@ -46,6 +46,18 @@ result line each; any failure raises and exits non-zero:
            first-round operands (the kernel record)
   profile  the same batch served once more under torch.profiler: device
            busy time, idle share, B1's share, the top kernels
+  lm       glm4-9b at full width and depth (9,399,951,360 parameters, bf16,
+           drawn on the card from a seed): prefill of 1 x 4,096 tokens
+           through make_serve_step(spec, "prefill_32k") and 8 greedy decode
+           steps of batch 16 at the end of a 32,768-slot cache through
+           make_serve_step(spec, "decode_32k"), each counted (B5 and B6
+           launch counts must be > 0); the prefill's logits against the
+           same forward with the plain versions on the card; a 16-token
+           decode against the prefill's logits at each position; B5 and B6
+           against their plain versions at the path's shapes, timed beside
+           their bounds and library yardsticks; one prefill and one decode
+           step under torch.profiler (device busy, idle share, B5's and
+           B6's shares); tokens/s and the model-FLOP share of 989 TFLOP/s
 
 Then a line of kernel records (JSON), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -119,6 +131,41 @@ def device_ms(fn, iters: int = 100) -> tuple[float, float]:
     return sum(t * r for t, r in per_call) / 1e3, ops
 
 
+def queued_ms(fn, host: float, iters: int = 20) -> float | None:
+    """Device time of one call of ``fn`` in ms, host time excluded: the
+    card first sleeps long enough for the host to enqueue ``iters`` calls
+    (``host`` ms each, measured by :func:`host_ms`) between two CUDA
+    events, so the device runs them back to back. None when the host fell
+    behind the sleep all the same (the start event had completed by the
+    time the last call was enqueued)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * iters * host + 1.0) * 2e6))  # ~2 GHz cycles
+    start.record()
+    for _ in range(iters):
+        fn()
+    ahead = not start.query()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters if ahead else None
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """Host time of one call of ``fn`` in ms: ``iters`` calls enqueued back
+    to back without a synchronisation (few enough that the launch queue
+    does not fill), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return t * 1e3
+
+
 def timed(fn) -> tuple[float, float, float]:
     """(device ms per call, device operations per call, ms per call back
     to back) of ``fn``."""
@@ -166,6 +213,348 @@ def top_rows(rows, n=5) -> str:
                      for k, t, c in sorted(rows, key=lambda r: -r[1])[:n])
 
 
+#: the [lm] phase's model, served at full width and depth, and the seed of
+#: its weights, tokens and stand-in cache
+LM_ARCH = "glm4-9b"
+LM_SEED = 13
+#: whole-model checks in bf16 (kernels against the plain versions, decode
+#: against prefill): the largest |difference| of the two evaluations'
+#: logits within this share of the largest |logit|. The two differ only in
+#: summation order and in where bf16 rounds (B6 rounds P to bf16 before PV,
+#: the plain version does not), and 40 layers of bf16 roundings (2^-8 each)
+#: decorrelate; tests/test_torch_transformer.py holds a narrow 40-layer
+#: bf16 model's decode against its prefill at this bound on the CPU.
+LM_LOGIT_TOL = 5e-2
+#: B6 against its plain version, elementwise on bf16 outputs: two bf16
+#: roundings of the output (one ulp is 2^-8 relative) plus the kernel's
+#: bf16 P (2^-9 relative per probability)
+B6_RTOL = B6_ATOL = 2e-2
+#: B5 against its plain version, elementwise on f32 outputs: the same exact
+#: products summed in f32 in another order, an error that grows with K
+B5_RTOL = 1e-4
+B5_ATOL_PER_K = 1e-6
+
+
+def call_times(fn, iters: int = 20) -> tuple[float, str]:
+    """(ms, clause) of one call of ``fn``: ``ms`` its device time with the
+    host ahead (:func:`queued_ms`), or its time back to back where the
+    host fell behind; the clause gives both and the host time."""
+    ms = cuda_ms(fn, iters=iters, warmup=2)
+    host = host_ms(fn, iters=iters)
+    dev = queued_ms(fn, host, iters=iters)
+    what = ("not measured with the host ahead (it fell behind)"
+            if dev is None else f"{dev:.4f} ms on the device with the host "
+            "ahead")
+    return (dev or ms, f"{what}, {ms:.4f} ms per call back to back, "
+            f"{host:.4f} ms of host time")
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over the largest |want|."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def top1(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Share of rows whose arg-max over the last axis agree."""
+    return float((got.argmax(-1) == want.argmax(-1)).float().mean())
+
+
+def is_b5(key: str) -> bool:
+    return "gemm_bf16<" in key or "gemm_f32(" in key or "splitk_reduce(" in key
+
+
+def is_b6(key: str) -> bool:
+    return "flash_attn_bf16<" in key or "flash_combine(" in key
+
+
+def profiled(fn) -> str:
+    """``fn`` once under torch.profiler: wall, device busy, idle share, the
+    shares of B5 and B6 in the busy time, the top device rows and the top
+    host operations by their own time."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, t = wall(fn)
+    rows = device_rows(prof)
+    busy = sum(us for _, us, _ in rows) / 1e6
+    if not busy:
+        return f"wall {t:.4f}s, device busy not measured (no device events)"
+    b5 = sum(us for k, us, _ in rows if is_b5(k)) / 1e6
+    b6 = sum(us for k, us, _ in rows if is_b6(k)) / 1e6
+    host = [(e.key, e.self_cpu_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    return (f"wall {t:.4f}s, device busy {busy:.4f}s (idle share "
+            f"{1 - busy / t:.3f}), B5 {b5:.4f}s ({b5 / busy:.3f} of busy), "
+            f"B6 {b6:.4f}s ({b6 / busy:.3f}); top kernels: "
+            + top_rows(rows) + "; top host operations (self time, profiler "
+            "on): " + top_rows(host))
+
+
+def lm_phase(dev, *, seq: int = 4096, batch: int = 16,
+             slots: int | None = None, prefix: int = 16,
+             steps: int = 8) -> list[dict]:
+    """[lm]: the LM serving path on the card at full width and depth.
+
+    The model (:data:`LM_ARCH`) is drawn on the card from :data:`LM_SEED`.
+    Prefill runs ``1 x seq`` tokens through ``make_serve_step(spec,
+    "prefill_32k")``, decode ``batch`` sequences over a ``slots``-slot
+    cache (default: decode_32k's 32,768) through ``make_serve_step(spec,
+    "decode_32k")``, each once with the launch counts set to 0 just before
+    and read just after. Checks: the prefill's logits against the same
+    forward with the plain versions on the card; a ``prefix``-token decode
+    against the prefill's logits at each position; B5 and B6 against
+    their plain versions at the path's shapes. Returns the kernel records
+    of B5 and B6."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_matmul as sm
+    from repro_torch.models import transformer as tfm
+
+    spec = configs.get(LM_ARCH)
+    cfg = spec.model_cfg
+    L = cfg.n_layer
+    pre_dims = dict(spec.shapes["prefill_32k"], batch=1, seq=seq)
+    slots = slots or spec.shapes["decode_32k"]["seq"]
+    dec_dims = dict(spec.shapes["decode_32k"], batch=batch, seq=slots)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    torch.cuda.reset_peak_memory_stats()
+
+    model, t_init = wall(lambda: tfm.init_params(cfg, gen, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count}")
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    print(f"[lm] {LM_ARCH} at full width and depth ({L} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_head} query heads over {cfg.n_kv} kv heads "
+          f"of {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, QKV bias "
+          f"{cfg.qkv_bias}): {n_params:,} parameters, {gb:.2f} GB in "
+          f"{cfg.dtype}, drawn on the card from seed {LM_SEED} in "
+          f"{t_init:.2f}s")
+
+    # -- prefill: the main path, counted ----------------------------------
+    prefill = configs.make_serve_step(spec, "prefill_32k")
+    toks = torch.randint(0, cfg.vocab, (1, seq), generator=gen, device=dev)
+    sm.matmul.launches = fa.flash_attention.launches = 0
+    logits, t_first = wall(lambda: prefill(model, {"tokens": toks}))
+    b5_pre, b6_pre = sm.matmul.launches, fa.flash_attention.launches
+    if (b5_pre, b6_pre) != (7 * L + 1, L):
+        raise AssertionError(f"prefill launched B5 {b5_pre} and B6 {b6_pre} "
+                             f"times, not {7 * L + 1} and {L}")
+    if logits.shape != (1, seq, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite (1, S, vocab)")
+    _, t_pre = wall(lambda: prefill(model, {"tokens": toks}))
+    with mock.patch.object(kernel_ops, "matmul", ref.matmul), \
+            mock.patch.object(kernel_ops, "flash_attention",
+                              ref.flash_attention):
+        plain, t_plain = wall(lambda: prefill(model, {"tokens": toks}))
+    err_pre, agree_pre = rel_err(logits, plain), top1(logits, plain)
+    del plain
+    if not err_pre <= LM_LOGIT_TOL:
+        raise AssertionError(f"prefill with the kernels differs from the "
+                             f"plain versions by {err_pre} of max|logit|")
+    flops_pre = configs.model_flops(spec, "prefill_32k", dims=pre_dims)
+    print(f"[lm] prefill 1 x {seq} tokens through make_serve_step(spec, "
+          f"'prefill_32k'): {t_pre:.4f}s = {seq / t_pre:.1f} tokens/s (first "
+          f"call {t_first:.4f}s); model FLOPs {flops_pre:.4e} = "
+          f"{flops_pre / t_pre / 989e12:.4f} of 989 TFLOP/s; launches B5 "
+          f"{b5_pre}, B6 {b6_pre}. Logits against the same forward with the "
+          f"plain versions on the card ({t_plain:.4f}s): largest |diff| "
+          f"{err_pre:.4e} of max|logit| (tolerance {LM_LOGIT_TOL}), top-1 "
+          f"agreement {agree_pre:.4f}")
+    print(f"[lm] prefill under torch.profiler: "
+          + profiled(lambda: prefill(model, {"tokens": toks})))
+
+    # -- kernels against their plain versions at the prefill's shapes ------
+    p0 = model.layers[0]
+    pos = torch.arange(seq, dtype=torch.int32, device=dev)[None, :]
+    with torch.inference_mode():
+        h = tfm.rms_norm(model.embed[toks], p0.ln1)
+        q, k, v = tfm.qkv(p0, cfg, h, pos)
+        act = tfm.silu(tfm.linear(h, p0.ffn.wg)) * tfm.linear(h, p0.ffn.wi)
+        h = h[0]
+    b5_cases = {"prefill wq": (h, p0.wq), "prefill ffn.wi": (h, p0.ffn.wi),
+                "prefill ffn.wo": (act[0], p0.ffn.wo),
+                "prefill head": (h, model.head)}
+    b6_cases = {"prefill causal S = T": (q, k, v, True, seq)}
+    results = kernel_checks(b5_cases, b6_cases)
+    del h, q, k, v, act, logits
+
+    # -- decode ------------------------------------------------------------
+    decode = configs.make_serve_step(spec, "decode_32k")
+    cache = tfm.init_cache(cfg, batch, slots, device=dev)
+    cache["k"].normal_(generator=gen)          # a stand-in cache from the seed
+    cache["v"].normal_(generator=gen)
+    cache_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
+    pre_toks = torch.randint(0, cfg.vocab, (batch, prefix), generator=gen,
+                             device=dev)
+    want = prefill(model, {"tokens": pre_toks})
+    errs, agrees = [], []
+    for i in range(prefix):
+        step, cache = decode(model, {"tokens": pre_toks[:, i:i + 1],
+                                     "cache": cache, "cache_len": i})
+        errs.append(rel_err(step, want[:, i]))
+        agrees.append(top1(step, want[:, i]))
+    del want, step
+    if not max(errs) <= LM_LOGIT_TOL:
+        raise AssertionError(f"decode differs from prefill by {max(errs)} "
+                             f"of max|logit|")
+    print(f"[lm] decode against prefill: {batch} sequences of {prefix} "
+          f"tokens decoded one by one into the {slots}-slot cache (the "
+          f"other {slots - prefix} slots hold random values, masked), each "
+          f"step's logits against a {batch} x {prefix} prefill's at that "
+          f"position: largest |diff| {max(errs):.4e} of max|logit| "
+          f"(tolerance {LM_LOGIT_TOL}; per step "
+          f"{' '.join(f'{e:.2e}' for e in errs)}), top-1 agreement "
+          f"{sum(agrees) / len(agrees):.4f}")
+
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev)
+    sm.matmul.launches = fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        out, cache = decode(model, {"tokens": tok, "cache": cache,
+                                    "cache_len": slots - steps + i})
+        tok = out.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / steps
+    b5_dec, b6_dec = sm.matmul.launches, fa.flash_attention.launches
+    if (b5_dec, b6_dec) != (steps * (7 * L + 1), steps * L):
+        raise AssertionError(f"decode launched B5 {b5_dec} and B6 {b6_dec} "
+                             f"times")
+    if out.shape != (batch, cfg.vocab) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("decode logits are not finite (B, vocab)")
+    flops_dec = configs.model_flops(spec, "decode_32k", dims=dec_dims)
+    print(f"[lm] decode {batch} x 1 tokens over the {slots}-slot cache "
+          f"({cache_gb:.2f} GB) through make_serve_step(spec, 'decode_32k'), "
+          f"{steps} greedy steps at cache_len {slots - steps}..{slots - 1}: "
+          f"{t_dec * 1e3:.3f} ms per step = {batch / t_dec:.1f} tokens/s; "
+          f"model FLOPs {flops_dec:.4e} per step = "
+          f"{flops_dec / t_dec / 989e12:.4f} of 989 TFLOP/s; launches B5 "
+          f"{b5_dec}, B6 {b6_dec}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"[lm] one decode step under torch.profiler: " + profiled(
+        lambda: decode(model, {"tokens": tok, "cache": cache,
+                               "cache_len": slots - 1})))
+
+    # -- kernels against their plain versions at the decode's shapes -------
+    pos = torch.full((batch, 1), slots - 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        h = tfm.rms_norm(model.embed[tok], p0.ln1)
+        q, _, _ = tfm.qkv(p0, cfg, h, pos)
+        h = h[:, 0]
+    ck, cv = cache["k"][0], cache["v"][0]
+    short = min(1000, slots)
+    results.update(kernel_checks(
+        {"decode wq": (h, p0.wq), "decode ffn.wi": (h, p0.ffn.wi),
+         "decode head": (h, model.head)},
+        {f"decode t_real = {slots}": (q, ck, cv, False, slots),
+         f"decode t_real = {short}": (q, ck, cv, False, short)}))
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    b5, b6 = results["prefill ffn.wi"], results["prefill causal S = T"]
+    b5_err = max(r["max_abs_err"] for r in results.values() if r["b5"])
+    b6_err = max(r["max_abs_err"] for r in results.values() if not r["b5"])
+    return [
+        {"name": "matmul", "route": "cuda", "source": csrc + "matmul.cu",
+         "replaces": "src/repro/kernels/segment_matmul.py:52",
+         "launches": b5_pre + b5_dec, "max_abs_err": b5_err, "ms": b5["ms"],
+         "plain_ms": b5["plain_ms"], "bound_ms": b5["bound_ms"],
+         "bound_by": b5["bound_by"], "library_ms": b5["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": csrc + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:96",
+         "launches": b6_pre + b6_dec, "max_abs_err": b6_err, "ms": b6["ms"],
+         "plain_ms": b6["plain_ms"], "bound_ms": b6["bound_ms"],
+         "bound_by": b6["bound_by"], "library_ms": b6["library_ms"]}]
+
+
+def kernel_checks(b5_cases: dict, b6_cases: dict) -> dict:
+    """B5 ``(a, b)`` and B6 ``(q, k, v, causal, t_real)`` cases, each held
+    against its plain version on the same inputs and timed beside its
+    bound: the kernel's and the library call's times (:func:`call_times`)
+    and the plain version's time back to back; one ``[lm]`` line per case.
+    Returns each case's numbers (``ms`` and ``library_ms`` as
+    :func:`call_times` gives them)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_matmul as sm
+
+    out = {}
+    for name, (a, b) in b5_cases.items():
+        (M, K), N = a.shape, b.shape[1]
+        got, want = sm.matmul(a, b), ref.matmul(a, b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not bool(((got - want).abs() <= B5_RTOL * want.abs()
+                     + B5_ATOL_PER_K * K).all()):
+            raise AssertionError(f"B5 {name} disagrees with its plain version "
+                                 f"(max abs err {err})")
+        del got, want
+        heavy = M * N * K > 1e11
+        t, kern = call_times(lambda: sm.matmul(a, b), 5 if heavy else 20)
+        lib_ms, lib = call_times(lambda: torch.matmul(a, b),
+                                 5 if heavy else 20)
+        plain_ms = cuda_ms(lambda: ref.matmul(a, b), iters=2, warmup=1)
+        bound = sm.bound_ms(M, N, K)
+        by = ("operations" if 2.0 * M * N * K / sm.BF16_FLOP_PER_S * 1e3
+              >= bound else "bytes")
+        out[name] = dict(b5=True, max_abs_err=err, ms=t, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        print(f"[lm] B5 {name} ({M} x {K}) @ ({K} x {N}), bf16 -> f32, plan "
+              f"(skinny, splits, k_split) {sm.plan(M, N, K)}: max abs err "
+              f"{err:.3e} against the plain version (tolerance {B5_RTOL} "
+              f"relative + {B5_ATOL_PER_K * K:.2e}); kernel {kern}; plain "
+              f"{plain_ms:.4f} ms back to back; library torch.matmul (bf16 "
+              f"out) {lib}; bound "
+              f"{bound:.4f} ms ({by}) = {bound / t:.3f} of the kernel's "
+              f"time; {2.0 * M * N * K / t / 1e9:.1f} TFLOP/s")
+    for name, (q, k, v, causal, t_real) in b6_cases.items():
+        B, S, H, dh = q.shape
+        Hkv = k.shape[2]
+        got = fa.flash_attention(q, k, v, causal=causal, t_real=t_real)
+        want = ref.flash_attention(q, k, v, causal=causal, t_real=t_real)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if not bool((diff <= B6_ATOL + B6_RTOL * want.float().abs()).all()):
+            raise AssertionError(f"B6 {name} disagrees with its plain version "
+                                 f"(max abs err {err})")
+        del got, want, diff
+        t, kern = call_times(lambda: fa.flash_attention(
+            q, k, v, causal=causal, t_real=t_real))
+        plain_ms = cuda_ms(lambda: ref.flash_attention(
+            q, k, v, causal=causal, t_real=t_real), iters=2, warmup=1)
+        qt = q.transpose(1, 2).contiguous()          # (B, heads, len, dh)
+        kt, vt = (x[:, :t_real].transpose(1, 2).contiguous() for x in (k, v))
+        lib_ms, lib = call_times(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        del qt, kt, vt
+        bound = fa.bound_ms(B, S, H, Hkv, t_real, causal, dh)
+        flops = 4.0 * dh * B * H * fa.attended_pairs(S, t_real, causal)
+        by = "operations" if flops / fa.BF16_FLOP_PER_S * 1e3 >= bound \
+            else "bytes"
+        out[name] = dict(b5=False, max_abs_err=err, ms=t, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        print(f"[lm] B6 {name}: q ({B}, {S}, {H}, {dh}) over k, v ({B}, "
+              f"{k.shape[1]}, {Hkv}, {dh}), t_real {t_real}, causal {causal}, "
+              f"plan (nwq, q tiles, splits, tiles per split) "
+              f"{fa.plan(B, S, H, Hkv, t_real, causal)}: max abs err "
+              f"{err:.3e} against the plain version (tolerance {B6_ATOL} + "
+              f"{B6_RTOL} relative); kernel {kern}; plain {plain_ms:.4f} ms "
+              f"back to back; library scaled_dot_product_attention "
+              f"(enable_gqa) {lib}; bound {bound:.4f} ms ({by}) = "
+              f"{bound / t:.3f} of the kernel's time")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -177,8 +566,8 @@ def main() -> int:
     from repro_torch.core import ecb_native, kcore
     from repro_torch.core.pecb_index import build_stratified_index
     from repro_torch.core.temporal_graph import gen_temporal_graph
-    from repro_torch.kernels import (kcore_peel, label_prop, ref,
-                                     segmented_select)
+    from repro_torch.kernels import (flash_attention, kcore_peel, label_prop,
+                                     ref, segment_matmul, segmented_select)
     from repro_torch.kernels import ops as kernel_ops
     from repro_torch.launch import serve
     from repro_torch.serving import executor
@@ -197,9 +586,10 @@ def main() -> int:
 
     # -- build: every native library at once ------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(6) as pool:
         libs = {name: pool.submit(mod.build) for name, mod in (
-            ("B1", label_prop), ("B2", segmented_select), ("B3", kcore_peel))}
+            ("B1", label_prop), ("B2", segmented_select), ("B3", kcore_peel),
+            ("B5", segment_matmul), ("B6", flash_attention))}
         host = pool.submit(ecb_native.available)
         libs = {name: f.result() for name, f in libs.items()}
         native = host.result()
@@ -207,7 +597,7 @@ def main() -> int:
         ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln]
         print(f"[build] {name} {so.name}; ptxas: {' | '.join(ptxas)}")
-    print(f"[build] B1, B2, B3 + host forest engine "
+    print(f"[build] B1, B2, B3, B5, B6 + host forest engine "
           f"({'native C' if native else 'Python: no C compiler'}) in "
           f"{time.perf_counter() - t0:.2f}s")
 
@@ -567,6 +957,8 @@ def main() -> int:
     print(f"[profile] one batch of {BUCKET}: wall {t_batch:.4f}s, {busy}; "
           f"top kernels: " + top_rows(kern))
 
+    lm_records = lm_phase(dev)
+
     csrc = "src/repro_torch/kernels/csrc/"
     records = [
         {"name": "label_prop_round", "route": "cuda",
@@ -592,7 +984,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/kcore_peel.py:117",
          "launches": b3b_launches, "max_abs_err": b3_err[1], "ms": b3b_ms,
          "plain_ms": b3b_plain, "bound_ms": b3b_bound, "bound_by": "bytes",
-         "library_ms": None}]
+         "library_ms": None}] + lm_records
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

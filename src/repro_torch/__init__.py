@@ -5,7 +5,10 @@ host build plane (``core``: temporal graphs, core times, ECB forests, the
 k-stratified PECB index), the batched device query plane
 (``core.batch_query``) whose fixpoint loop runs the hand-written CUDA
 label-propagation kernel (``kernels``), the one-GPU executor
-(``serving.executor``) and the serving entry point (``launch.serve``). Entry
-points run on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``. Imports torch, numpy and the standard library only.
+(``serving.executor``) and the serving entry point (``launch.serve``); and
+for the model cells the dense LM (``models.transformer``, its projections
+on the B5 GEMM kernel and its attention on the B6 flash-attention kernel)
+with its configs and serve steps (``configs``). Entry points run on the
+card (``device="cuda"``) unless the caller passes ``device="cpu"``.
+Imports torch, numpy and the standard library only.
 """

@@ -17,9 +17,15 @@ step earlier: a reference ``CoreTimeTable`` or ``StratifiedCoreTable`` as
 its dataclass fields, ready for the port's forest builders
 (``build_stratified_index(g, strata=...)``, ``build_pecb_index(g, k,
 tab)``).
+
+:func:`lm_params_from_reference` carries a reference LM's weights (the
+JAX params pytree as numpy arrays) into the port's state dict.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from .batch_query import DeviceIndex, device_index, to_device
 from .core_time import CoreTimeTable, StratifiedCoreTable
@@ -52,3 +58,38 @@ def core_times_from_reference(fields: dict
     if "ks" in fields:
         fields["ks"] = tuple(int(k) for k in fields["ks"])
     return cls(**fields)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor of the same dtype; ml_dtypes' bfloat16
+    (what ``np.asarray`` makes of a bf16 JAX array) as torch.bfloat16, bit
+    for bit."""
+    a = np.array(a, copy=True, order="C")       # writable, owned
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_reference(tree) -> dict[str, torch.Tensor]:
+    """The port's LM state dict from a reference LM params pytree.
+
+    ``tree`` is ``repro.models.transformer.init_params``'s dict as numpy
+    arrays (``embed``, ``head``, ``ln_f``, and ``layers`` with every array
+    stacked on a leading layer axis, ``ffn`` nested), bf16 given either
+    as ml_dtypes' bfloat16 or as float32. Returns ``{name: tensor}`` under
+    the names of ``models.transformer.Transformer`` (``layers.<i>.wq``,
+    ``layers.<i>.ffn.wi``, ...), each tensor of its array's dtype exactly,
+    for ``Transformer.load_state_dict``."""
+    state = {name: _tensor(tree[name]) for name in ("embed", "head", "ln_f")}
+
+    def split(prefix: str, node: dict) -> None:
+        for name, val in node.items():
+            if isinstance(val, dict):
+                split(f"{prefix}{name}.", val)
+                continue
+            stacked = _tensor(val)
+            for i in range(stacked.shape[0]):
+                state[f"layers.{i}.{prefix}{name}"] = stacked[i]
+
+    split("", tree["layers"])
+    return state

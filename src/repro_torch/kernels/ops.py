@@ -9,12 +9,15 @@ ROADMAP.md (queue B).
 
 import torch
 
+from .flash_attention import flash_attention
 from .kcore_peel import degree_count, kcore_fixpoint, peel_round
 from .label_prop import label_prop_round
+from .segment_matmul import matmul
 from .segmented_select import kth_smallest, segmented_count_le
 
-__all__ = ["degree_count", "kcore_fixpoint", "kcore_peel_round",
-           "kth_smallest", "label_prop_round", "segmented_count_le"]
+__all__ = ["degree_count", "flash_attention", "kcore_fixpoint",
+           "kcore_peel_round", "kth_smallest", "label_prop_round", "matmul",
+           "segmented_count_le"]
 
 
 def kcore_peel_round(src, dst, alive, n: int, k: int):

@@ -104,3 +104,55 @@ def kcore_fixpoint(src: torch.Tensor, dst: torch.Tensor, n: int, k: int,
         if not bool(changed):
             return new
         alive = new
+
+
+def _full_f32() -> None:
+    """The plain versions' float32 products are full float32: TF32 off for
+    cuBLAS (the PyTorch default, set here so a caller's setting cannot
+    loosen the reference the kernels are held to)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32[M, N] = a @ b in float32 (``repro.kernels.ref.matmul``): both
+    operands are cast to float32 first, so bf16 inputs multiply exactly
+    and accumulate in float32."""
+    _full_f32()
+    return a.float() @ b.float()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False,
+                    t_real: int | None = None) -> torch.Tensor:
+    """(B, S, H, dh) attention over keys and values (B, T, Hkv, dh), in
+    q's dtype, with the semantics of the Pallas kernel
+    ``repro.kernels.flash_attention.flash_attention`` (not of
+    ``repro.kernels.ref.flash_attention``, where the two differ):
+
+    * query head ``h`` reads kv head ``h // (H // Hkv)`` (the reference
+      model's GQA expansion), without materialising the expansion;
+    * only the first ``t_real`` keys count (default T: the Pallas
+      kernel's padding mask, and the model's decode mask
+      ``arange(T) <= cache_len`` with ``t_real = cache_len + 1``);
+    * the causal mask is ``qpos >= kpos`` aligned at position 0, also
+      when S != T;
+    * scores, softmax and ``p @ v`` in float32; the row sum is floored at
+      1e-30 before the division.
+    """
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    t_real = T if t_real is None else t_real
+    G = H // Hkv
+    _full_f32()
+    qf = q.float().view(B, S, Hkv, G, dh)
+    kf = k[:, :t_real].float()
+    vf = v[:, :t_real].float()
+    s = torch.einsum("bsngd,btnd->bngst", qf, kf) / float(dh) ** 0.5
+    if causal:
+        qpos = torch.arange(S, device=q.device)[:, None]
+        kpos = torch.arange(t_real, device=q.device)[None, :]
+        s = s.masked_fill(qpos < kpos, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bngst,btnd->bsngd", p, vf)
+    l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]       # (B, S, Hkv, G, 1)
+    return (o / l.clamp_min(1e-30)).reshape(B, S, H, dh).to(q.dtype)
