@@ -121,6 +121,23 @@ def bound_ms(B: int, S: int, H: int, Hkv: int, t_real: int, causal: bool,
     return max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
 
 
+#: how far the kernel's output may lie from the plain version's, elementwise:
+#: RTOL of |plain| for the two outputs' bf16 roundings (2^-8 relative apart),
+#: plus ROW_ATOL of the largest |plain| in the element's row (one query
+#: head's dh outputs) for the kernel's bf16 P (2^-9 relative per
+#: probability, an error of that order of the row's spread). The row scale
+#: follows the output's own size, which at decode over 32,768 random keys is
+#: about 1e-2, so a dropped key tile or split shows in its rows.
+RTOL, ROW_ATOL = 2e-2, 1e-2
+
+
+def error_bound(want: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| around the plain version's
+    (B, S, H, dh) output ``want``, in f32."""
+    w = want.float().abs()
+    return RTOL * w + ROW_ATOL * w.amax(-1, keepdim=True)
+
+
 def _check(q, k, v, t_real):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes (B, S, H, dh) queries and "

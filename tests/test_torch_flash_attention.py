@@ -149,3 +149,39 @@ def test_bound_counts_the_attended_pairs():
     flops = 4.0 * 128 * 32 * 4096 * 4097 / 2
     assert fa.bound_ms(1, 4096, 32, 2, 4096, True) == pytest.approx(
         flops / 989e12 * 1e3)
+
+
+def p_in_bf16(q, k, v, *, causal, t_real):
+    """The plain version with P rounded to bf16 before p @ v and the row
+    sum taken over the unrounded P, as csrc/flash_attention.cu computes."""
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    qf = q.float().view(B, S, Hkv, H // Hkv, dh)
+    kf, vf = k[:, :t_real].float(), v[:, :t_real].float()
+    s = torch.einsum("bsngd,btnd->bngst", qf, kf) / float(dh) ** 0.5
+    if causal:
+        s = s.masked_fill(torch.arange(S)[:, None]
+                          < torch.arange(t_real)[None, :], float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bngst,btnd->bsngd", p.bfloat16().float(), vf)
+    l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
+    return (o / l).reshape(B, S, H, dh).to(q.dtype)
+
+
+@pytest.mark.parametrize("S,T,t_real,causal", [
+    (1, 4096, 4096, False), (1, 4096, 1000, False), (256, 256, 256, True)])
+def test_error_bound_admits_bf16_p_and_sees_a_missing_key_tile(S, T, t_real,
+                                                               causal):
+    """The card check's bound on |kernel - plain| holds the kernel's bf16
+    P (emulated here) and is broken by the plain version with its last
+    key tile left out, at decode over many keys, where the outputs are
+    small, and in a causal prefill."""
+    _, (q, k, v) = inputs(2, S, T, 16, 1, 128, jnp.bfloat16, torch.bfloat16,
+                          seed=T + S)
+    want = ref.flash_attention(q, k, v, causal=causal, t_real=t_real)
+    tol = fa.error_bound(want)
+    got = p_in_bf16(q, k, v, causal=causal, t_real=t_real)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    cut = ref.flash_attention(q, k, v, causal=causal,
+                              t_real=t_real - fa.KV_TILE)
+    assert bool(((cut.float() - want.float()).abs() > tol).any())
