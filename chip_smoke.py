@@ -7,8 +7,9 @@ result line each; any failure raises and exits non-zero:
 
   gpu      card name and power limit (nvidia-smi)
   build    B1 (label propagation), B2 (segmented count), B3 (k-core
-           peel), B5 (GEMM) and B6 (flash attention) with nvcc for sm_90a,
-           the host forest engine with cc, all started together
+           peel), B4 (segment sum), B5 (GEMM) and B6 (flash attention) with
+           nvcc for sm_90a, the host forest engine with cc, all started
+           together
   construct  a CollegeMsg-scale temporal graph (SNAP CollegeMsg: 1,899
            users, 59,835 messages, 193 days), generated from a seed; its 37
            core-time strata swept on the card (the device engine, B2 as the
@@ -26,10 +27,9 @@ result line each; any failure raises and exits non-zero:
            random thresholds and on random unsorted ids with -1 pads; B3a
            and B3b on the graph's 59,835 edges with random alive and on the
            peel's own first-round operands: all bit-identical to their plain
-           versions; kernel, plain and library device times per call
-           (torch.profiler; these tiny launches are host-bound back to back,
-           so the per-call times with CUDA events are printed beside them)
-           and the bound
+           versions; kernel, plain and library times per call (CUDA events:
+           the device time with the host ahead, behind a device sleep, the
+           time back to back and the host time) and the bound
   peel     the main path of B3: ``ops.kcore_fixpoint`` on the card over the
            full window's distinct pairs for every k of the index and
            k_max + 1, each equal to the host's distinct k-core mask; B3a
@@ -58,6 +58,20 @@ result line each; any failure raises and exits non-zero:
            their bounds and library yardsticks; one prefill and one decode
            step under torch.profiler (device busy, idle share, B5's and
            B6's shares); tokens/s and the model-FLOP share of 989 TFLOP/s
+  gnn      graphsage-reddit at full width (602 -> 128 -> 128, 41 classes,
+           192,384 f32 parameters drawn on the card from a seed) serving
+           8 minibatches of 1,024 seed vertices, fanout (15, 10), from a
+           pool at Reddit's published scale (232,965 nodes, 114.5M directed
+           edges, 602 features; generated from a seed), each padded to
+           minibatch_lg's 169,984 nodes and 337,920 edges and sent through
+           make_serve_step(spec, "minibatch_lg"), counted (B4 and B5 launch
+           counts must be > 0); each batch's logits against the same forward
+           with the plain versions on the card; B4 against its plain version
+           on the first batch's operands (d = 602, 128, 1) and on random
+           unsorted ids with -1 and >= S entries, B5's f32 path at the
+           layers' shapes, each timed beside its bound and library
+           yardstick (index_add_, torch.matmul); sampling, copy and forward
+           times per batch, seeds/s; one forward under torch.profiler
 
 Then a line of kernel records (JSON), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
@@ -108,29 +122,6 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def device_ms(fn, iters: int = 100) -> tuple[float, float]:
-    """(mean device time of one call of ``fn`` in ms, device operations per
-    call): the kernels and memsets it runs, timed by torch.profiler over
-    ``iters`` calls after a warm-up. Host time between launches is not
-    counted, so for a launch-bound function this is the card's share of
-    the call. The profiler can lose a few records of a burst of tiny
-    launches, so each operation's time is its mean over the records kept,
-    counted round(records / iters) times per call."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per_call = [(t / c, round(c / iters)) for _, t, c in device_rows(prof)]
-    ops = sum(r for _, r in per_call)
-    if not ops:
-        raise AssertionError("torch.profiler recorded no device time")
-    return sum(t * r for t, r in per_call) / 1e3, ops
-
-
 def queued_ms(fn, host: float, iters: int = 20) -> float | None:
     """Device time of one call of ``fn`` in ms, host time excluded: the
     card first sleeps long enough for the host to enqueue ``iters`` calls
@@ -164,21 +155,6 @@ def host_ms(fn, iters: int = 20) -> float:
     t = (time.perf_counter() - t0) / iters
     torch.cuda.synchronize()
     return t * 1e3
-
-
-def timed(fn) -> tuple[float, float, float]:
-    """(device ms per call, device operations per call, ms per call back
-    to back) of ``fn``."""
-    return (*device_ms(fn), cuda_ms(fn, iters=100, warmup=5))
-
-
-def show(times: dict) -> str:
-    """One clause per timed function: its device time per call, the
-    device operations (kernels, memsets) per call, and its time per call
-    back to back, which for a launch this small is the host's."""
-    return "; ".join(f"{name} {dev:.6f} ms on the device ({ops} "
-                     f"operations), {call:.4f} ms per call back to back"
-                     for name, (dev, ops, call) in times.items())
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -253,10 +229,16 @@ def call_times(fn, iters: int = 20) -> tuple[float, str]:
     host = host_ms(fn, iters=iters)
     dev = queued_ms(fn, host, iters=iters)
     what = ("not measured with the host ahead (it fell behind)"
-            if dev is None else f"{dev:.4f} ms on the device with the host "
+            if dev is None else f"{dev:.6f} ms on the device with the host "
             "ahead")
-    return (dev or ms, f"{what}, {ms:.4f} ms per call back to back, "
-            f"{host:.4f} ms of host time")
+    return (dev or ms, f"{what}, {ms:.6f} ms per call back to back, "
+            f"{host:.6f} ms of host time")
+
+
+def show(times: dict) -> str:
+    """One clause per function timed by :func:`call_times`."""
+    return "; ".join(f"{name} {clause}" for name, (_, clause) in
+                     times.items())
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -278,10 +260,16 @@ def is_b6(key: str) -> bool:
     return "flash_attn_bf16<" in key or "flash_combine(" in key
 
 
-def profiled(fn) -> str:
+def is_b4(key: str) -> bool:
+    return "segment_sum_kernel(" in key
+
+
+def profiled(fn, kernels: dict) -> str:
     """``fn`` once under torch.profiler: wall, device busy, idle share, the
-    shares of B5 and B6 in the busy time, the top device rows and the top
-    host operations by their own time."""
+    share in the busy time of each kernel of ``kernels`` (name -> a test of
+    a device row's name) with the launches the profiler recorded for it
+    (it can drop records), the top device rows and the top host operations
+    by their own time."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -290,14 +278,17 @@ def profiled(fn) -> str:
     busy = sum(us for _, us, _ in rows) / 1e6
     if not busy:
         return f"wall {t:.4f}s, device busy not measured (no device events)"
-    b5 = sum(us for k, us, _ in rows if is_b5(k)) / 1e6
-    b6 = sum(us for k, us, _ in rows if is_b6(k)) / 1e6
+    shares = []
+    for name, test in kernels.items():
+        secs = sum(us for k, us, _ in rows if test(k)) / 1e6
+        n = sum(c for k, _, c in rows if test(k))
+        shares.append(f"{name} {secs:.4f}s ({secs / busy:.3f} of busy, "
+                      f"{n} launches recorded)")
     host = [(e.key, e.self_cpu_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU]
     return (f"wall {t:.4f}s, device busy {busy:.4f}s (idle share "
-            f"{1 - busy / t:.3f}), B5 {b5:.4f}s ({b5 / busy:.3f} of busy), "
-            f"B6 {b6:.4f}s ({b6 / busy:.3f}); top kernels: "
+            f"{1 - busy / t:.3f}), " + ", ".join(shares) + "; top kernels: "
             + top_rows(rows) + "; top host operations (self time, profiler "
             "on): " + top_rows(host))
 
@@ -377,7 +368,8 @@ def lm_phase(dev) -> list[dict]:
           f"{err_pre:.4e} of max|logit| (tolerance {LM_LOGIT_TOL}), top-1 "
           f"agreement {agree_pre:.4f}")
     print(f"[lm] prefill under torch.profiler: "
-          + profiled(lambda: prefill(model, {"tokens": toks})))
+          + profiled(lambda: prefill(model, {"tokens": toks}),
+                     {"B5": is_b5, "B6": is_b6}))
 
     # -- kernels against their plain versions at the prefill's shapes ------
     p0 = model.layers[0]
@@ -450,7 +442,8 @@ def lm_phase(dev) -> list[dict]:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[lm] one decode step under torch.profiler: " + profiled(
         lambda: decode(model, {"tokens": tok, "cache": cache,
-                               "cache_len": slots - 1})))
+                               "cache_len": slots - 1}),
+        {"B5": is_b5, "B6": is_b6}))
 
     # -- kernels against their plain versions at the decode's shapes -------
     pos = torch.full((batch, 1), slots - 1, dtype=torch.int32, device=dev)
@@ -485,12 +478,12 @@ def lm_phase(dev) -> list[dict]:
          "bound_by": b6["bound_by"], "library_ms": b6["library_ms"]}]
 
 
-def kernel_checks(b5_cases: dict, b6_cases: dict) -> dict:
+def kernel_checks(b5_cases: dict, b6_cases: dict, tag: str = "lm") -> dict:
     """B5 ``(a, b)`` and B6 ``(q, k, v, causal, t_real)`` cases, each held
     against its plain version on the same inputs and timed beside its
     bound: the kernel's and the library call's times (:func:`call_times`)
-    and the plain version's time back to back; one ``[lm]`` line per case.
-    Returns each case's numbers (``ms`` and ``library_ms`` as
+    and the plain version's time back to back; one ``[tag]`` line per
+    case. Returns each case's numbers (``ms`` and ``library_ms`` as
     :func:`call_times` gives them)."""
     import torch.nn.functional as F
 
@@ -514,17 +507,21 @@ def kernel_checks(b5_cases: dict, b6_cases: dict) -> dict:
         lib_ms, lib = call_times(lambda: torch.matmul(a, b),
                                  5 if heavy else 20)
         plain_ms = cuda_ms(lambda: ref.matmul(a, b), iters=2, warmup=1)
-        bound = sm.bound_ms(M, N, K)
-        by = ("operations" if 2.0 * M * N * K / sm.BF16_FLOP_PER_S * 1e3
-              >= bound else "bytes")
+        bf16 = a.dtype == torch.bfloat16
+        bound = sm.bound_ms(M, N, K, a.dtype)
+        peak = sm.BF16_FLOP_PER_S if bf16 else sm.F32_FLOP_PER_S
+        by = ("operations" if 2.0 * M * N * K / peak * 1e3 >= bound
+              else "bytes")
         out[name] = dict(b5=True, max_abs_err=err, ms=t, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound, bound_by=by)
-        print(f"[lm] B5 {name} ({M} x {K}) @ ({K} x {N}), bf16 -> f32, plan "
-              f"(skinny, splits, k_split) {sm.plan(M, N, K)}: max abs err "
+        print(f"[{tag}] B5 {name} ({M} x {K}) @ ({K} x {N}), "
+              f"{'bf16' if bf16 else 'f32'} -> f32"
+              + (f", plan (skinny, splits, k_split) {sm.plan(M, N, K)}"
+                 if bf16 else "") + f": max abs err "
               f"{err:.3e} against the plain version (tolerance {B5_RTOL} "
               f"relative + {B5_ATOL_PER_K * K:.2e}); kernel {kern}; plain "
-              f"{plain_ms:.4f} ms back to back; library torch.matmul (bf16 "
-              f"out) {lib}; bound "
+              f"{plain_ms:.4f} ms back to back; library torch.matmul "
+              f"({'bf16 out' if bf16 else 'f32, TF32 off'}) {lib}; bound "
               f"{bound:.4f} ms ({by}) = {bound / t:.3f} of the kernel's "
               f"time; {2.0 * M * N * K / t / 1e9:.1f} TFLOP/s")
     for name, (q, k, v, causal, t_real) in b6_cases.items():
@@ -582,6 +579,245 @@ def kernel_checks(b5_cases: dict, b6_cases: dict) -> dict:
     return out
 
 
+#: the [gnn] phase: graphsage-reddit at full width on minibatch_lg's static
+#: shape (its seeds, fanout and padding), GNN_BATCHES minibatches, over a
+#: pool at Reddit's published scale: random_powerlaw_graph(232,965,
+#: GNN_AVG_DEG) keeps 114.5M of its 114.6M directed edges (self-loops
+#: dropped; Reddit has 114,615,892). Pool, features, labels, seeds and
+#: weights come from GNN_SEED.
+GNN_ARCH = "graphsage-reddit"
+GNN_SHAPE = "minibatch_lg"
+GNN_SEED = 17
+GNN_BATCHES = 8
+GNN_AVG_DEG = 492
+#: B4 against its plain version, elementwise: rtol = atol = 1e-4
+#: (tests/test_kernels.py's segment-sum tolerance: the same f32 rows added
+#: in another order). A forward with the kernels against the same forward
+#: with the plain versions: the largest |difference| within this share of
+#: the largest |logit| (f32 throughout; two layers of f32 sums reordered).
+B4_TOL = 1e-4
+GNN_LOGIT_TOL = 1e-4
+
+
+def b4_checks(cases: dict) -> dict:
+    """B4 ``(vals, ids, S)`` cases, each held against its plain version on
+    the same inputs (rtol = atol = :data:`B4_TOL`) and, for ids all in
+    range (the path's), timed beside its bound, its plain version and the
+    library call ``torch.zeros(S, d).index_add_(0, ids, vals)``; one
+    ``[gnn]`` line per case. Returns each case's numbers."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_matmul as sm
+
+    out = {}
+    for name, (vals, ids, S) in cases.items():
+        (E, d), dev = vals.shape, vals.device
+        got, want = sm.segment_sum(vals, ids, S), ref.segment_sum(vals, ids, S)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        if not bool((diff <= B4_TOL + B4_TOL * want.abs()).all()):
+            raise AssertionError(f"B4 {name} disagrees with its plain version "
+                                 f"(max abs err {err})")
+        in_range = bool(((ids >= 0) & (ids < S)).all())
+        del got, want, diff
+        bound = sm.segment_sum_bound_ms(E, d, S)
+        line = (f"[gnn] B4 {name}: ({E} x {d}) into {S} segments: max abs "
+                f"err {err:.3e} against the plain version (tolerance "
+                f"{B4_TOL} + {B4_TOL} of |plain|)")
+        rec = dict(max_abs_err=err, bound_ms=bound)
+        if in_range:
+            t, kern = call_times(lambda: sm.segment_sum(vals, ids, S))
+            plain_ms = cuda_ms(lambda: ref.segment_sum(vals, ids, S),
+                               iters=5, warmup=1)
+            lib_ms, lib = call_times(lambda: torch.zeros(
+                (S, d), device=dev).index_add_(0, ids, vals))
+            rec.update(ms=t, plain_ms=plain_ms, library_ms=lib_ms)
+            line += (f"; kernel {kern}; plain {plain_ms:.6f} ms back to "
+                     f"back; library torch.zeros(S, d).index_add_ {lib}; "
+                     f"bound {bound:.6f} ms (bytes: 4*E*d + 4*E + 4*S*d at "
+                     f"3.35 TB/s) = {bound / t:.3f} of the kernel's time")
+        out[name] = rec
+        print(line)
+    return out
+
+
+def gnn_phase(dev) -> tuple[dict, int, float]:
+    """[gnn]: GraphSAGE serving on the card at full width.
+
+    Builds the pool on the host, draws the model on the card, then serves
+    :data:`GNN_BATCHES` sampled minibatches through
+    ``make_serve_step(spec, GNN_SHAPE)`` with the launch counts set to 0
+    just before and read just after; each batch's logits are held against
+    the same forward with the plain versions on the card. Then B4 and B5's
+    f32 path against their plain versions at the path's shapes, a profiled
+    forward and the peak device memory. Returns B4's kernel record, B5's
+    launches in this phase's main path and B5's largest error here."""
+    from repro_torch import configs
+    from repro_torch.data import graph_sampler as gs
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_matmul as sm
+    from repro_torch.models import gnn
+
+    spec = configs.get(GNN_ARCH)
+    dims = spec.shapes[GNN_SHAPE]
+    cfg = configs.cell_model_cfg(spec, GNN_SHAPE)
+    n_pool, n_pad = dims["pool_nodes"], dims["n"]
+    e_pad = int(np.ceil(2 * dims["e"] / 512)) * 512     # directed, padded
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    src, dst = gs.random_powerlaw_graph(n_pool, GNN_AVG_DEG, seed=GNN_SEED)
+    t_gen = time.perf_counter() - t0
+    rng = np.random.default_rng(GNN_SEED)
+    feats = rng.standard_normal((n_pool, dims["d_feat"]), dtype=np.float32)
+    labels = rng.integers(0, cfg.n_classes, n_pool).astype(np.int32)
+    t0 = time.perf_counter()
+    g = gs.CSRGraph(n_pool, src, dst)
+    t_csr = time.perf_counter() - t0
+    n_edges = int(src.shape[0])
+    del src, dst
+    print(f"[gnn] pool at Reddit's published scale: {n_pool:,} nodes, "
+          f"{n_edges:,} directed edges (random_powerlaw_graph(n, "
+          f"{GNN_AVG_DEG}), seed {GNN_SEED}; Reddit has "
+          f"{dims['pool_edges']:,}), {dims['d_feat']} N(0, 1) f32 features "
+          f"and {cfg.n_classes} labels per node; generated in {t_gen:.2f}s, "
+          f"CSR built in {t_csr:.2f}s on the host")
+
+    gen = torch.Generator(device=dev).manual_seed(GNN_SEED)
+    model = gnn.init_params(cfg, gen, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count}")
+    print(f"[gnn] {GNN_ARCH} at full width ({cfg.n_layers} layers, d_in "
+          f"{cfg.d_in}, hidden {cfg.d_hidden}, {cfg.n_classes} classes): "
+          f"{n_params:,} f32 parameters drawn on the card from seed "
+          f"{GNN_SEED}")
+
+    # -- the main path: GNN_BATCHES minibatches, counted -------------------
+    serve = configs.make_serve_step(spec, GNN_SHAPE)
+    keys = ("node_feat", "src", "dst", "edge_mask", "seed_mask")
+    torch.backends.cuda.matmul.allow_tf32 = False    # the plain versions' f32
+    sm.segment_sum.launches = sm.matmul.launches = 0
+    stats, first = [], None
+    for i in range(GNN_BATCHES):
+        seeds = rng.choice(n_pool, dims["seeds"], replace=False)
+        t0 = time.perf_counter()
+        batch = gs.sample_subgraph_batch(g, feats, labels, seeds,
+                                         dims["fanout"], rng,
+                                         pad_nodes=n_pad, pad_edges=e_pad)
+        t_sample = time.perf_counter() - t0
+        feed, t_copy = wall(lambda: {k: torch.as_tensor(batch[k]).to(dev)
+                                     for k in keys})
+        logits, t_fwd = wall(lambda: serve(model, feed))
+        seed_logits = logits[feed["seed_mask"]]
+        answer = seed_logits.argmax(-1)
+        if logits.shape != (n_pad, cfg.n_classes) or not bool(
+                torch.isfinite(logits).all()) or answer.shape != (
+                dims["seeds"],):
+            raise AssertionError(f"batch {i}: logits are not finite "
+                                 f"({n_pad}, {cfg.n_classes})")
+        with mock.patch.object(kernel_ops, "segment_sum", ref.segment_sum), \
+                mock.patch.object(kernel_ops, "matmul", ref.matmul):
+            plain = serve(model, feed)
+        err = rel_err(logits, plain)
+        agree = top1(seed_logits, plain[feed["seed_mask"]])
+        if not err <= GNN_LOGIT_TOL:
+            raise AssertionError(f"batch {i}: the forward with the kernels "
+                                 f"differs from the plain versions by {err} "
+                                 f"of max|logit|")
+        stats.append(dict(sample=t_sample, copy=t_copy, fwd=t_fwd, err=err,
+                          agree=agree, edges=int(batch["edge_mask"].sum())))
+        if first is None:
+            first = feed
+        del logits, plain, batch
+    b4_n, b5_n = sm.segment_sum.launches, sm.matmul.launches
+    if b4_n <= 0 or b5_n <= 0:
+        raise AssertionError("the GNN path launched B4 or B5 no time")
+    if (b4_n, b5_n) != (2 * cfg.n_layers * GNN_BATCHES,
+                        (2 * cfg.n_layers + 1) * GNN_BATCHES):
+        raise AssertionError(f"{GNN_BATCHES} forwards launched B4 {b4_n} and "
+                             f"B5 {b5_n} times")
+    seeds_n = dims["seeds"]
+    steady = stats[1:] or stats
+    fwd = sum(r["fwd"] for r in steady) / len(steady)
+    e2e = sum(r["sample"] + r["copy"] + r["fwd"] for r in steady) / len(steady)
+    flops = configs.model_flops(spec, GNN_SHAPE, dims=dict(dims,
+                                                           kind="serve"))
+    for i, r in enumerate(stats):
+        print(f"[gnn] batch {i}: {seeds_n} seeds, {r['edges']:,} real of "
+              f"{e_pad:,} edges; sampling {r['sample']:.4f}s on the host, "
+              f"copy to the card {r['copy'] * 1e3:.3f} ms, forward "
+              f"{r['fwd'] * 1e3:.3f} ms; logits within {r['err']:.3e} of "
+              f"max|logit| of the plain versions' (tolerance "
+              f"{GNN_LOGIT_TOL}), seeds' top-1 agreement {r['agree']:.4f}")
+    print(f"[gnn] main path: {GNN_BATCHES} minibatches through "
+          f"make_serve_step(spec, '{GNN_SHAPE}') at ({n_pad:,} nodes, "
+          f"{e_pad:,} edges); launches B4 {b4_n}, B5 {b5_n}; after the first "
+          f"batch: forward {fwd * 1e3:.3f} ms = {seeds_n / fwd:.1f} seeds/s "
+          f"on the card, {e2e:.4f}s per batch with sampling and copy = "
+          f"{seeds_n / e2e:.1f} seeds/s end to end; model FLOPs "
+          f"{flops:.4e} per forward = {flops / fwd / 67e12:.4f} of the "
+          f"67 TFLOP/s f32 peak")
+    print(f"[gnn] one forward under torch.profiler: " + profiled(
+        lambda: serve(model, first), {"B4": is_b4, "B5": is_b5}))
+
+    # -- B4 and B5 against their plain versions at the path's shapes ------
+    x0, src0, dst0, mask0 = (first[k] for k in ("node_feat", "src", "dst",
+                                                "edge_mask"))
+    with torch.inference_mode():
+        h1 = gnn.sage_layer(model.layers[0], x0, src0, dst0, mask0)
+        h2 = gnn.sage_layer(model.layers[1], h1, src0, dst0, mask0)
+        agg1 = x0[src0] * mask0[:, None]
+        agg2 = h1[src0] * mask0[:, None]
+    ids = rng.integers(0, n_pad, e_pad)
+    u = rng.random(e_pad)
+    ids[u < 0.1] = -1
+    ids[(u >= 0.1) & (u < 0.15)] = n_pad + 7
+    rand_ids = torch.as_tensor(ids.astype(np.int32), device=dev)
+    rand_vals = torch.randn(e_pad, dims["d_feat"], generator=gen, device=dev)
+    b4 = b4_checks({
+        "layer-1 neighbour sum (d = 602)": (agg1, dst0, n_pad),
+        "layer-2 neighbour sum (d = 128)": (agg2, dst0, n_pad),
+        "degree count (d = 1)": (mask0[:, None], dst0, n_pad),
+        "random unsorted ids, 10% -1, 5% >= S (d = 602)": (
+            rand_vals, rand_ids, n_pad)})
+    del agg1, agg2, rand_vals
+    b5 = kernel_checks({"layer-1 w_self": (x0, model.layers[0].w_self),
+                        "layer-2 w_self": (h1, model.layers[1].w_self),
+                        "head": (h2, model.head)}, {}, tag="gnn")
+    # a forward's device time, and the kernels' share of it from the
+    # per-call times above (the profiler can drop records)
+    fwd_dev, fwd_clause = call_times(lambda: serve(model, first), iters=10)
+    b4_ms = (b4["layer-1 neighbour sum (d = 602)"]["ms"]
+             + b4["layer-2 neighbour sum (d = 128)"]["ms"]
+             + 2 * b4["degree count (d = 1)"]["ms"])
+    b5_ms = (2 * b5["layer-1 w_self"]["ms"] + 2 * b5["layer-2 w_self"]["ms"]
+             + b5["head"]["ms"])
+    print(f"[gnn] one forward on the first batch: {fwd_clause}; its 4 B4 "
+          f"calls take {b4_ms:.6f} ms ({b4_ms / fwd_dev:.3f} of the device "
+          f"time) and its 5 B5 calls {b5_ms:.6f} ms ({b5_ms / fwd_dev:.3f}) "
+          f"by the per-call times above; served, the forward took "
+          f"{fwd * 1e3:.3f} ms of wall: idle share "
+          f"{1 - fwd_dev / (fwd * 1e3):.3f}")
+    print(f"[gnn] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+
+    main = b4["layer-1 neighbour sum (d = 602)"]
+    record = {"name": "segment_sum", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
+              "replaces": "src/repro/kernels/segment_matmul.py:104",
+              "launches": b4_n,
+              "max_abs_err": max(r["max_abs_err"] for r in b4.values()),
+              "ms": main["ms"], "plain_ms": main["plain_ms"],
+              "bound_ms": main["bound_ms"], "bound_by": "bytes",
+              "library_ms": main["library_ms"]}
+    return record, b5_n, max(r["max_abs_err"] for r in b5.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -613,10 +849,12 @@ def main() -> int:
 
     # -- build: every native library at once ------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
-        libs = {name: pool.submit(mod.build) for name, mod in (
-            ("B1", label_prop), ("B2", segmented_select), ("B3", kcore_peel),
-            ("B5", segment_matmul), ("B6", flash_attention))}
+    with ThreadPoolExecutor(7) as pool:
+        libs = {name: pool.submit(build) for name, build in (
+            ("B1", label_prop.build), ("B2", segmented_select.build),
+            ("B3", kcore_peel.build),
+            ("B4", segment_matmul.build_segment_sum),
+            ("B5", segment_matmul.build), ("B6", flash_attention.build))}
         host = pool.submit(ecb_native.available)
         libs = {name: f.result() for name, f in libs.items()}
         native = host.result()
@@ -624,7 +862,7 @@ def main() -> int:
         ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln]
         print(f"[build] {name} {so.name}; ptxas: {' | '.join(ptxas)}")
-    print(f"[build] B1, B2, B3, B5, B6 + host forest engine "
+    print(f"[build] B1, B2, B3, B4, B5, B6 + host forest engine "
           f"({'native C' if native else 'Python: no C compiler'}) in "
           f"{time.perf_counter() - t0:.2f}s")
 
@@ -730,7 +968,7 @@ def main() -> int:
                              f"(max abs err {max_err})")
     if bool(flag.item()) != bool((want != labels).any()):
         raise AssertionError("B1 change flag disagrees with the outputs")
-    rand_ms = cuda_ms(lambda: label_prop.label_prop_round(
+    _, rand_kern = call_times(lambda: label_prop.label_prop_round(
         labels, *links, active, changed=flag))
     rand_plain_ms = cuda_ms(lambda: ref.label_prop_round(labels, *links,
                                                          active),
@@ -740,9 +978,9 @@ def main() -> int:
     print(f"[kernel] B1 label_prop_round at (B, N)={shape}, random links, "
           f"active share {n_active / active.numel():.4f}: bit-identical to "
           f"the plain version (max abs err {max_err}, tolerance 0: integer "
-          f"output must match exactly); kernel {rand_ms:.4f} ms, plain "
-          f"{rand_plain_ms:.4f} ms, bound {rand_bound:.4f} ms (bytes: "
-          f"9*B*N + 12*active at 3.35 TB/s)")
+          f"output must match exactly); kernel {rand_kern}; plain "
+          f"{rand_plain_ms:.4f} ms back to back, bound {rand_bound:.4f} ms "
+          f"(bytes: 9*B*N + 12*active at 3.35 TB/s)")
     del labels, links, active, got, want
 
     # -- kernel: B2 on the sweep's operands and on random ids --------------
@@ -772,8 +1010,9 @@ def main() -> int:
     for what, (w, s, thr) in cases.items():
         b2_err = max(b2_err, check_equal(f"B2 on {what}", count(w, s, thr, n),
                                          ref.segmented_count_le(w, s, thr, n)))
-    t = {"kernel": timed(lambda: count(w1, seg, c0, n)),
-         "plain": timed(lambda: ref.segmented_count_le(w1, seg, c0, n))}
+    t = {"kernel": call_times(lambda: count(w1, seg, c0, n)),
+         "plain": call_times(lambda: ref.segmented_count_le(w1, seg, c0,
+                                                            n))}
     b2_ms, b2_plain = t["kernel"][0], t["plain"][0]
     b2_bound = segmented_select.bound_ms(E, n)
     print(f"[kernel] B2 segmented_count_le at E={E} slots, n={n} segments: "
@@ -813,23 +1052,23 @@ def main() -> int:
     m_p = int(us.shape[0])
     deg_e, deg_p = degs
     ends = torch.cat([us[alive_p], ud[alive_p]])      # masking, not timed
-    ta = {"kernel": timed(lambda: kcore_peel.degree_count(us, ud, alive_p,
-                                                          n)),
-          "plain": timed(lambda: ref.degree_count(us, ud, alive_p, n)),
+    ta = {"kernel": call_times(lambda: kcore_peel.degree_count(
+              us, ud, alive_p, n)),
+          "plain": call_times(lambda: ref.degree_count(us, ud, alive_p, n)),
           "library (torch.bincount over the alive endpoints, concatenated "
           "and masked outside the timed call)":
-          timed(lambda: torch.bincount(ends, minlength=n))}
-    tb = {"kernel": timed(lambda: kcore_peel.peel_threshold(
+          call_times(lambda: torch.bincount(ends, minlength=n))}
+    tb = {"kernel": call_times(lambda: kcore_peel.peel_threshold(
               us, ud, alive_p, deg_p, ks[0], changed=flag)),
-          "plain": timed(lambda: ref.peel_threshold(us, ud, alive_p, deg_p,
-                                                    ks[0]))}
+          "plain": call_times(lambda: ref.peel_threshold(us, ud, alive_p,
+                                                         deg_p, ks[0]))}
     (b3a_ms, b3a_plain, b3a_lib), (b3b_ms, b3b_plain) = (
         [v[0] for v in ta.values()], [v[0] for v in tb.values()])
     b3a_bound = kcore_peel.degree_bound_ms(m_p, n)
     b3b_bound = kcore_peel.threshold_bound_ms(m_p, n)
-    full_ms = [device_ms(lambda: kcore_peel.degree_count(src_e, dst_e,
-                                                         alive_e, n))[0],
-               device_ms(lambda: kcore_peel.peel_threshold(
+    full_ms = [call_times(lambda: kcore_peel.degree_count(src_e, dst_e,
+                                                          alive_e, n))[0],
+               call_times(lambda: kcore_peel.peel_threshold(
                    src_e, dst_e, alive_e, deg_e, ks[0], changed=flag))[0]]
     print(f"[kernel] B3a degree_count and B3b peel_threshold on the graph's "
           f"{g.m} edges (random alive, share 0.7) and on the peel's "
@@ -839,9 +1078,9 @@ def main() -> int:
           f"right. On the peel's first-round operands: B3a {show(ta)}; "
           f"bound {b3a_bound:.6f} ms (bytes: 9*m + 4*n). B3b {show(tb)}; "
           f"bound {b3b_bound:.6f} ms (bytes: 10*m + 4*n); library none (no "
-          f"single PyTorch call gathers two degrees and thresholds). Device "
-          f"time on all {g.m} edges: B3a {full_ms[0]:.6f} ms, B3b "
-          f"{full_ms[1]:.6f} ms")
+          f"single PyTorch call gathers two degrees and thresholds). On all "
+          f"{g.m} edges (device time with the host ahead, else back to "
+          f"back): B3a {full_ms[0]:.6f} ms, B3b {full_ms[1]:.6f} ms")
 
     # -- peel: the main path of B3, counted ----------------------------------
     peel_ks = list(ks) + [sx.k_max_graph + 1]
@@ -951,8 +1190,8 @@ def main() -> int:
     if not torch.equal(got, want):
         raise AssertionError("B1 disagrees with its plain version on the "
                              "main path's operands")
-    ms = cuda_ms(lambda: label_prop.label_prop_round(lab0, *ops,
-                                                     changed=flag))
+    ms, b1_kern = call_times(lambda: label_prop.label_prop_round(
+        lab0, *ops, changed=flag))
     plain_ms = cuda_ms(lambda: ref.label_prop_round(lab0, *ops),
                        iters=5, warmup=1)
     print(f"[plain] batch of {BUCKET}: labels and masks identical with B1 "
@@ -962,9 +1201,9 @@ def main() -> int:
           f"members {t_members:.4f}, download {t_down:.4f}")
     print(f"[plain] B1 on the batch's first-round operands (active share "
           f"{n_active / active.numel():.4f}, the same in every round): "
-          f"bit-identical to the plain version; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound:.4f} ms (9*B*N + 12*active "
-          f"bytes) = {bound / ms:.3f} of bound; "
+          f"bit-identical to the plain version; kernel {b1_kern}; plain "
+          f"{plain_ms:.4f} ms back to back, bound {bound:.4f} ms (9*B*N + "
+          f"12*active bytes) = {bound / ms:.3f} of bound; "
           f"{label_prop.bound_ms(BUCKET, N, active.numel()) / ms:.3f} of "
           f"the all-active 21*B*N bound; {t_prop / rounds_k * 1e3:.4f} ms "
           f"per round in the loop (kernel + flag read)")
@@ -985,6 +1224,10 @@ def main() -> int:
           f"top kernels: " + top_rows(kern))
 
     lm_records = lm_phase(dev)
+    b4_record, b5_gnn_launches, b5_gnn_err = gnn_phase(dev)
+    b5_record = lm_records[0]
+    b5_record["launches"] += b5_gnn_launches
+    b5_record["max_abs_err"] = max(b5_record["max_abs_err"], b5_gnn_err)
 
     csrc = "src/repro_torch/kernels/csrc/"
     records = [
@@ -1011,7 +1254,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/kcore_peel.py:117",
          "launches": b3b_launches, "max_abs_err": b3_err[1], "ms": b3b_ms,
          "plain_ms": b3b_plain, "bound_ms": b3b_bound, "bound_by": "bytes",
-         "library_ms": None}] + lm_records
+         "library_ms": None}, b4_record] + lm_records
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

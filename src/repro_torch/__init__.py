@@ -8,7 +8,9 @@ label-propagation kernel (``kernels``), the one-GPU executor
 (``serving.executor``) and the serving entry point (``launch.serve``); and
 for the model cells the dense LM (``models.transformer``, its projections
 on the B5 GEMM kernel and its attention on the B6 flash-attention kernel)
-with its configs and serve steps (``configs``). Entry points run on the
+and GraphSAGE (``models.gnn``, its aggregation on the B4 segment-sum
+kernel, its projections on B5) with their configs and serve steps
+(``configs``) and the GraphSAGE neighbour sampler (``data``). Entry points run on the
 card (``device="cuda"``) unless the caller passes ``device="cpu"``.
 Imports torch, numpy and the standard library only.
 """

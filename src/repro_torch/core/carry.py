@@ -19,7 +19,8 @@ its dataclass fields, ready for the port's forest builders
 tab)``).
 
 :func:`lm_params_from_reference` carries a reference LM's weights (the
-JAX params pytree as numpy arrays) into the port's state dict.
+JAX params pytree as numpy arrays) into the port's state dict, and
+:func:`sage_params_from_reference` a reference GraphSAGE's.
 """
 
 from __future__ import annotations
@@ -92,4 +93,18 @@ def lm_params_from_reference(tree) -> dict[str, torch.Tensor]:
                 state[f"layers.{i}.{prefix}{name}"] = stacked[i]
 
     split("", tree["layers"])
+    return state
+
+
+def sage_params_from_reference(tree) -> dict[str, torch.Tensor]:
+    """The port's GraphSAGE state dict from a reference GraphSAGE params
+    pytree (``repro.models.gnn.sage_init``'s dict as numpy arrays:
+    ``layers``, a list of ``{w_self, w_neigh, b}``, and ``head``). Returns
+    ``{name: tensor}`` under the names of ``models.gnn.GraphSAGE``
+    (``layers.<i>.w_self``, ..., ``head``), each of its array's dtype, for
+    ``GraphSAGE.load_state_dict``."""
+    state = {"head": _tensor(tree["head"])}
+    for i, layer in enumerate(tree["layers"]):
+        for name, val in layer.items():
+            state[f"layers.{i}.{name}"] = _tensor(val)
     return state

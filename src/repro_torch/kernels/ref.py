@@ -121,6 +121,21 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """f32[num_segments, d]: row ``s`` is the sum of the rows ``vals[i]``
+    with ``ids[i] == s`` (``repro.kernels.segment_matmul.segment_sum``).
+    ``vals`` (E, d) is cast to f32 first; ``ids`` need not be sorted, and a
+    row whose id lies outside ``[0, num_segments)`` adds nothing (the Pallas
+    kernel's one-hot never matches -1 or an id past its padded segments, and
+    cuts the padded segments off)."""
+    vals = vals.float()
+    out = torch.zeros((num_segments, vals.shape[1]), dtype=torch.float32,
+                      device=vals.device)
+    ok = (ids >= 0) & (ids < num_segments)
+    return out.index_add_(0, ids[ok].long(), vals[ok])
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False,
                     t_real: int | None = None) -> torch.Tensor:

@@ -1,11 +1,14 @@
-"""B5: the tiled GEMM ``f32[M, N] = a @ b``, as a hand-written CUDA kernel.
+"""B5, the tiled GEMM ``f32[M, N] = a @ b``, and B4, the segment sum, as
+hand-written CUDA kernels.
 
-Replaces the TPU kernel ``matmul`` of ``src/repro/kernels/segment_matmul.py:52``
-(Pallas body ``_matmul_kernel``): f32 or bf16 operands, f32 output with f32
-accumulation. In the reference no model path calls it (the projections are
-``x @ w``); in the port it is every dense projection of the LM
-(``models/transformer.py``: wq/wk/wv/wo, the FFN's wi/wg/wo and the head),
-with the weight in the reference's ``(d_in, d_out)`` layout, read as it is.
+B5 replaces the TPU kernel ``matmul`` of
+``src/repro/kernels/segment_matmul.py:52`` (Pallas body ``_matmul_kernel``):
+f32 or bf16 operands, f32 output with f32 accumulation. In the reference no
+model path calls it (the projections are ``x @ w``); in the port it is
+every dense projection of the LM (``models/transformer.py``: wq/wk/wv/wo,
+the FFN's wi/wg/wo and the head) and of GraphSAGE (``models/gnn.py``:
+w_self, w_neigh and the head, in f32), with the weight in the reference's
+``(d_in, d_out)`` layout, read as it is.
 
 The CUDA source (``csrc/matmul.cu``) states the design: bf16 through the
 tensor cores (WMMA, cp.async ring), 128 x 128 tiles for many rows and
@@ -16,13 +19,23 @@ the split (the same tile sizes as the source). :func:`bound_ms` is the
 least time on an H100: operations at the tensor-core (or f32) peak, or
 bytes at 3.35 TB/s, whichever is larger.
 
-The reference module also holds B4 ``segment_sum``; it waits for the GNN
-slice (ROADMAP queue B) and is not here yet.
+B4 :func:`segment_sum` replaces the TPU kernel ``segment_sum`` of
+``src/repro/kernels/segment_matmul.py:104`` (Pallas body
+``_segsum_kernel``): ``f32[S, d]``, the rows of ``vals`` added up by their
+unsorted segment ids, ids outside ``[0, S)`` dropped. In the reference
+GraphSAGE aggregates through ``jax.ops.segment_sum`` and only the tests
+call the Pallas kernel; in the port B4 is the aggregation itself (the
+neighbour sums and the degree counts of ``models/gnn.py``). Its source
+(``csrc/segment_sum.cu``) is a scatter-reduce with a run-merged atomic
+flush instead of the TPU's one-hot GEMM; its float atomics make the sums'
+order, and so their last bits, change from run to run.
+:func:`segment_sum_bound_ms` counts its bytes.
 
-Dispatch is by the tensors' device: CUDA tensors launch the kernel (built
+Dispatch is by the tensors' device: CUDA tensors launch the kernels (built
 with nvcc at first use, loaded with ctypes), CPU tensors take the plain
-version ``ref.matmul``. There is no fallback: a missing nvcc, a failed
-build, an operand the kernel does not take or a refused launch raises.
+versions ``ref.matmul`` and ``ref.segment_sum``. There is no fallback: a
+missing nvcc, a failed build, an operand a kernel does not take or a
+refused launch raises.
 """
 
 from __future__ import annotations
@@ -35,10 +48,11 @@ from pathlib import Path
 import torch
 
 from . import ref
-from ._args import cuda_only
+from ._args import cuda_only, int32_vector
 from ._build import build_cuda
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
+_SEGSUM_SRC = Path(__file__).resolve().parent / "csrc" / "segment_sum.cu"
 
 #: H100 SXM peaks (NVIDIA's data sheet, dense): the bound's denominators
 HBM_BYTES_PER_S = 3.35e12
@@ -169,3 +183,76 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 matmul.launches = 0
+
+
+@functools.cache
+def _segsum_library() -> tuple[ctypes.CDLL, Path]:
+    so = build_cuda("segment_sum", [_SEGSUM_SRC])
+    lib = ctypes.CDLL(str(so))
+    fn = lib.segment_sum_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
+        ctypes.c_void_p]
+    return lib, so
+
+
+def build_segment_sum() -> Path:
+    """Build B4's library (if needed) and load it; returns its path."""
+    return _segsum_library()[1]
+
+
+def segment_sum_bound_ms(E: int, d: int, S: int) -> float:
+    """Least time of one ``segment_sum`` of ``E`` rows of width ``d`` into
+    ``S`` segments on an H100: f32 ``vals`` and int32 ``ids`` read once and
+    the f32 output written once, over the memory rate (the ``E * d`` adds
+    take far less at the f32 peak)."""
+    return (4 * E * d + 4 * E + 4 * S * d) / HBM_BYTES_PER_S * 1e3
+
+
+def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """B4: f32[num_segments, d], row ``s`` the sum of the rows ``vals[i]``
+    with ``ids[i] == s`` (a new tensor); ids outside ``[0, num_segments)``
+    add nothing. ``vals`` (E, d) of any float dtype is cast to f32, as the
+    reference casts it; ``ids`` is an integer vector of length E.
+
+    On the card the f32 ``vals`` must be contiguous. The sums' order, and
+    so their last bits, change from run to run (float atomics).
+    ``segment_sum.launches`` counts kernel launches (one per call that
+    launches: a memset and the kernel; CPU calls and empty shapes launch
+    nothing)."""
+    if vals.dim() != 2:
+        raise ValueError(f"segment_sum takes (E, d) values, got shape "
+                         f"{tuple(vals.shape)}")
+    if not vals.is_floating_point():
+        raise TypeError(f"segment_sum takes float values, got {vals.dtype}")
+    ids = int32_vector("ids", ids, vals.shape[0], vals.device)
+    S = int(num_segments)
+    if not 0 <= S < 2**31:
+        raise ValueError(f"num_segments must lie in [0, 2**31), got {S}")
+    if vals.device.type == "cpu":
+        return ref.segment_sum(vals, ids, S)
+    cuda_only(vals.device, "segment_sum")
+    vals = vals.float()
+    if not vals.is_contiguous():
+        raise ValueError("the segment_sum kernel takes contiguous values")
+    E, d = vals.shape
+    out = torch.empty((S, d), dtype=torch.float32, device=vals.device)
+    if S == 0 or d == 0:
+        return out
+    if E == 0:
+        return out.zero_()
+    if d > 65535 * 128:                    # column chunks on the grid's y
+        raise ValueError(f"the segment_sum kernel takes rows of at most "
+                         f"8,388,480 values, got {d}")
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _segsum_library()[0].segment_sum_launch(
+            vals.data_ptr(), ids.data_ptr(), out.data_ptr(), E, d, S, stream)
+    if rc:
+        raise RuntimeError(f"segment_sum launch failed: CUDA error {rc}")
+    segment_sum.launches += 1
+    return out
+
+
+segment_sum.launches = 0

@@ -7,7 +7,9 @@ neither JAX nor the reference package, so it runs on the card's machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Integer and boolean outputs must match exactly. B5's f32 outputs sum the
-same exact products in another order (rtol 1e-4, atol 1e-6 * K); B6's
+same exact products in another order (rtol 1e-4, atol 1e-6 * K); B4's
+add the same f32 rows in an order its atomics change from run to run
+(rtol = atol = 1e-4, tests/test_kernels.py's segment-sum tolerance); B6's
 bf16 outputs are held to ``flash_attention.error_bound``, as in
 chip_smoke.py: 2e-2 of |plain| for the outputs' bf16 roundings plus 1e-2
 of the largest |plain| in the element's row for the kernel's bf16 P."""
@@ -25,6 +27,8 @@ from repro_torch.core.temporal_graph import (gen_temporal_graph,  # noqa: E402
 from repro_torch.kernels import (flash_attention, kcore_peel,  # noqa: E402
                                  label_prop, ops, ref, segment_matmul,
                                  segmented_select)
+from repro_torch.data import graph_sampler as gs  # noqa: E402
+from repro_torch.models import gnn  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -250,3 +254,106 @@ def test_lm_decode_matches_forward_on_card(cuda):
         step, _ = tfm.decode_step(model, toks[:, i:i + 1], cache, i)
         assert (step - full[:, i]).abs().max() <= \
             5e-2 * full[:, i].abs().max()
+
+
+def segment_operands(E, d, S, kind, seed=0):
+    """``runs``: a sampled GNN batch's aggregation, ids grouped by
+    destination in runs of 10-15 over the first 36% of the rows with
+    N(0, 1) values, the rest padding rows with id 0 and value 0 (the
+    model multiplies them by their zero edge mask); ``integer_runs``: the
+    same ids, every row (the long run of padding rows too) holding small
+    integers, whose f32 sums are exact in any order; ``random``: N(0, 1)
+    values on unsorted ids with 10% -1 and 5% >= S."""
+    rng = np.random.default_rng(seed + E + d + S)
+    vals = rng.normal(size=(E, d)).astype(np.float32)
+    if kind == "random":
+        ids = rng.integers(0, max(S, 1), E)
+        u = rng.random(E)
+        past = (u >= 0.1) & (u < 0.15)
+        ids[u < 0.1] = -1
+        ids[past] = S + rng.integers(0, 1000, int(past.sum()))
+        return vals, ids.astype(np.int32)
+    runs = rng.integers(10, 16, max(E // 12, 1))
+    real = np.repeat(rng.integers(0, max(S, 1), len(runs)), runs)[
+        :int(E * 0.36)]
+    ids = np.zeros(E, np.int32)
+    ids[:len(real)] = real
+    if kind == "integer_runs":
+        vals = rng.integers(-4, 5, (E, d)).astype(np.float32)
+    else:
+        vals[len(real):] = 0.0
+    return vals, ids
+
+
+@pytest.mark.parametrize("E,d,S", [(337_920, 602, 169_984),
+                                   (337_920, 128, 169_984),
+                                   (337_920, 1, 169_984), (10, 4, 3),
+                                   (700, 32, 90), (1024, 128, 256),
+                                   (513, 7, 1), (129, 131, 5), (0, 5, 3),
+                                   (5, 3, 0), (1, 1, 1)])
+@pytest.mark.parametrize("kind", ["runs", "integer_runs", "random"])
+def test_segment_sum_kernel_matches_plain_version(cuda, E, d, S, kind):
+    vals, ids = segment_operands(E, d, S, kind)
+    vals, ids = torch.as_tensor(vals, device=cuda), torch.as_tensor(
+        ids, device=cuda)
+    before = segment_matmul.segment_sum.launches
+    got = ops.segment_sum(vals, ids, S)
+    torch.cuda.synchronize()
+    assert segment_matmul.segment_sum.launches == before + (E * d * S > 0)
+    want = ref.segment_sum(vals, ids, S)
+    assert got.dtype == torch.float32 and got.shape == (S, d)
+    if kind == "integer_runs":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_segment_sum_kernel_takes_bf16_and_refuses_strided_values(cuda):
+    vals = torch.randn(300, 40, device=cuda)
+    ids = torch.randint(-1, 20, (300,), device=cuda, dtype=torch.int32)
+    torch.testing.assert_close(ops.segment_sum(vals.bfloat16(), ids, 20),
+                               ref.segment_sum(vals.bfloat16(), ids, 20),
+                               rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError):
+        ops.segment_sum(vals[:, ::2], ids, 20)
+
+
+def test_sage_forward_on_card_matches_plain_versions_and_cpu(cuda):
+    """graphsage-reddit at full width on a sampled, padded batch of a small
+    pool: the forward with B4 and B5 against the same forward with the
+    plain versions on the card and on the CPU, within 1e-4 of max|logit|;
+    4 B4 and 5 B5 launches."""
+    from unittest import mock
+
+    from repro_torch import configs
+    n = 4_000
+    g = gs.CSRGraph(n, *gs.random_powerlaw_graph(n, 20, seed=1))
+    rng = np.random.default_rng(1)
+    feats = rng.normal(size=(n, 602)).astype(np.float32)
+    labels = rng.integers(0, 41, n).astype(np.int32)
+    batch = gs.sample_subgraph_batch(g, feats, labels,
+                                     rng.choice(n, 256, replace=False),
+                                     (15, 10), rng, pad_nodes=4_096,
+                                     pad_edges=16_384)
+    spec = configs.get("graphsage-reddit")
+    cfg = configs.cell_model_cfg(spec, "minibatch_lg")
+    step = configs.make_serve_step(spec, "minibatch_lg")
+    model = gnn.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                            device=cuda)
+    feed = {k: torch.as_tensor(batch[k], device=cuda)
+            for k in ("node_feat", "src", "dst", "edge_mask")}
+    before = (segment_matmul.segment_sum.launches,
+              segment_matmul.matmul.launches)
+    got = step(model, feed)
+    torch.cuda.synchronize()
+    assert (segment_matmul.segment_sum.launches - before[0],
+            segment_matmul.matmul.launches - before[1]) == (4, 5)
+    with mock.patch.object(ops, "segment_sum", ref.segment_sum), \
+            mock.patch.object(ops, "matmul", ref.matmul):
+        plain = step(model, feed)
+    cpu_model = gnn.GraphSAGE(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    on_cpu = step(cpu_model, {k: v.cpu() for k, v in feed.items()})
+    for want in (plain, on_cpu.to(cuda)):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()

@@ -199,7 +199,7 @@ def test_moe_config_raises():
     with pytest.raises(NotImplementedError, match="A8"):
         configs.make_serve_step(spec, "prefill_32k")
     gnn = dataclasses.replace(spec, family="gnn")
-    with pytest.raises(NotImplementedError, match="B4"):
+    with pytest.raises(NotImplementedError, match="A8"):
         configs.cell_model_cfg(gnn, "prefill_32k")
 
 
