@@ -9,7 +9,7 @@ result line each; any failure raises and exits non-zero:
   build    B1 (label propagation), B2 (segmented count), B3 (k-core
            peel), B4 (segment sum), B5 (GEMM) and B6 (flash attention) with
            nvcc for sm_90a, the host forest engine with cc, all started
-           together
+           together; each kernel's registers, shared memory and spills
   construct  a CollegeMsg-scale temporal graph (SNAP CollegeMsg: 1,899
            users, 59,835 messages, 193 days), generated from a seed; its 37
            core-time strata swept on the card (the device engine, B2 as the
@@ -51,7 +51,9 @@ result line each; any failure raises and exits non-zero:
            through make_serve_step(spec, "prefill_32k") and 8 greedy decode
            steps of batch 16 at the end of a 32,768-slot cache through
            make_serve_step(spec, "decode_32k"), each counted (B5 and B6
-           launch counts must be > 0); the prefill's logits against the
+           launch counts must be > 0; every prefill B5 launch on the wgmma
+           route, every decode one on the skinny route); the prefill's
+           logits against the
            same forward with the plain versions on the card; a 16-token
            decode against the prefill's logits at each position; B5 and B6
            against their plain versions at the path's shapes, timed beside
@@ -65,7 +67,8 @@ result line each; any failure raises and exits non-zero:
            edges, 602 features; generated from a seed), each padded to
            minibatch_lg's 169,984 nodes and 337,920 edges and sent through
            make_serve_step(spec, "minibatch_lg"), counted (B4 and B5 launch
-           counts must be > 0); each batch's logits against the same forward
+           counts must be > 0, every B5 launch on the f32 route); each
+           batch's logits against the same forward
            with the plain versions on the card; B4 against its plain version
            on the first batch's operands (d = 602, 128, 1) and on random
            unsorted ids with -1 and >= S entries, B5's f32 path at the
@@ -253,7 +256,32 @@ def top1(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def is_b5(key: str) -> bool:
-    return "gemm_bf16<" in key or "gemm_f32(" in key or "splitk_reduce(" in key
+    return any(name in key for name in ("gemm_tma<", "gemm_bf16_masked(",
+                                        "gemm_f32<", "splitk_reduce("))
+
+
+def b5_routes(sm, want: dict, what: str) -> str:
+    """Raise unless B5's launches by route (``sm.matmul.routes``) are
+    ``want`` on every route; returns them as a clause."""
+    got = {r: n for r, n in sm.matmul.routes.items() if n}
+    if got != want:
+        raise AssertionError(f"{what} launched B5 by route {got}, not {want}")
+    return ", ".join(f"{n} on the {r} route" for r, n in got.items())
+
+
+def ptxas_kernels(log: str) -> list[str]:
+    """One 'kernel: registers, shared memory, spills' entry per kernel of a
+    ``-Xptxas -v`` log."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name, spills = ln.split("'")[1], ""
+        elif "spill stores" in ln and name:
+            spills = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spills}")
+            name = None
+    return out
 
 
 def is_b6(key: str) -> bool:
@@ -339,12 +367,14 @@ def lm_phase(dev) -> list[dict]:
     # -- prefill: the main path, counted ----------------------------------
     prefill = configs.make_serve_step(spec, "prefill_32k")
     toks = torch.randint(0, cfg.vocab, (1, seq), generator=gen, device=dev)
-    sm.matmul.launches = fa.flash_attention.launches = 0
+    sm.reset_counts()
+    fa.flash_attention.launches = 0
     logits, t_first = wall(lambda: prefill(model, {"tokens": toks}))
     b5_pre, b6_pre = sm.matmul.launches, fa.flash_attention.launches
     if (b5_pre, b6_pre) != (7 * L + 1, L):
         raise AssertionError(f"prefill launched B5 {b5_pre} and B6 {b6_pre} "
                              f"times, not {7 * L + 1} and {L}")
+    routes_pre = b5_routes(sm, {"wgmma": 7 * L + 1}, "prefill")
     if logits.shape != (1, seq, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError("prefill logits are not finite (1, S, vocab)")
@@ -363,10 +393,10 @@ def lm_phase(dev) -> list[dict]:
           f"'prefill_32k'): {t_pre:.4f}s = {seq / t_pre:.1f} tokens/s (first "
           f"call {t_first:.4f}s); model FLOPs {flops_pre:.4e} = "
           f"{flops_pre / t_pre / 989e12:.4f} of 989 TFLOP/s; launches B5 "
-          f"{b5_pre}, B6 {b6_pre}. Logits against the same forward with the "
-          f"plain versions on the card ({t_plain:.4f}s): largest |diff| "
-          f"{err_pre:.4e} of max|logit| (tolerance {LM_LOGIT_TOL}), top-1 "
-          f"agreement {agree_pre:.4f}")
+          f"{b5_pre} ({routes_pre}), B6 {b6_pre}. Logits against the same "
+          f"forward with the plain versions on the card ({t_plain:.4f}s): "
+          f"largest |diff| {err_pre:.4e} of max|logit| (tolerance "
+          f"{LM_LOGIT_TOL}), top-1 agreement {agree_pre:.4f}")
     print(f"[lm] prefill under torch.profiler: "
           + profiled(lambda: prefill(model, {"tokens": toks}),
                      {"B5": is_b5, "B6": is_b6}))
@@ -416,7 +446,8 @@ def lm_phase(dev) -> list[dict]:
           f"{sum(agrees) / len(agrees):.4f}")
 
     tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev)
-    sm.matmul.launches = fa.flash_attention.launches = 0
+    sm.reset_counts()
+    fa.flash_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
@@ -429,6 +460,7 @@ def lm_phase(dev) -> list[dict]:
     if (b5_dec, b6_dec) != (steps * (7 * L + 1), steps * L):
         raise AssertionError(f"decode launched B5 {b5_dec} and B6 {b6_dec} "
                              f"times")
+    routes_dec = b5_routes(sm, {"skinny": steps * (7 * L + 1)}, "decode")
     if out.shape != (batch, cfg.vocab) or not bool(torch.isfinite(out).all()):
         raise AssertionError("decode logits are not finite (B, vocab)")
     flops_dec = configs.model_flops(spec, "decode_32k", dims=dec_dims)
@@ -438,7 +470,7 @@ def lm_phase(dev) -> list[dict]:
           f"{t_dec * 1e3:.3f} ms per step = {batch / t_dec:.1f} tokens/s; "
           f"model FLOPs {flops_dec:.4e} per step = "
           f"{flops_dec / t_dec / 989e12:.4f} of 989 TFLOP/s; launches B5 "
-          f"{b5_dec}, B6 {b6_dec}; peak device memory "
+          f"{b5_dec} ({routes_dec}), B6 {b6_dec}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[lm] one decode step under torch.profiler: " + profiled(
         lambda: decode(model, {"tokens": tok, "cache": cache,
@@ -515,9 +547,8 @@ def kernel_checks(b5_cases: dict, b6_cases: dict, tag: str = "lm") -> dict:
         out[name] = dict(b5=True, max_abs_err=err, ms=t, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound, bound_by=by)
         print(f"[{tag}] B5 {name} ({M} x {K}) @ ({K} x {N}), "
-              f"{'bf16' if bf16 else 'f32'} -> f32"
-              + (f", plan (skinny, splits, k_split) {sm.plan(M, N, K)}"
-                 if bf16 else "") + f": max abs err "
+              f"{'bf16' if bf16 else 'f32'} -> f32, "
+              f"{sm.plan(M, N, K, a.dtype)}: max abs err "
               f"{err:.3e} against the plain version (tolerance {B5_RTOL} "
               f"relative + {B5_ATOL_PER_K * K:.2e}); kernel {kern}; plain "
               f"{plain_ms:.4f} ms back to back; library torch.matmul "
@@ -700,7 +731,8 @@ def gnn_phase(dev) -> tuple[dict, int, float]:
     serve = configs.make_serve_step(spec, GNN_SHAPE)
     keys = ("node_feat", "src", "dst", "edge_mask", "seed_mask")
     torch.backends.cuda.matmul.allow_tf32 = False    # the plain versions' f32
-    sm.segment_sum.launches = sm.matmul.launches = 0
+    sm.reset_counts()
+    sm.segment_sum.launches = 0
     stats, first = [], None
     for i in range(GNN_BATCHES):
         seeds = rng.choice(n_pool, dims["seeds"], replace=False)
@@ -740,6 +772,7 @@ def gnn_phase(dev) -> tuple[dict, int, float]:
                         (2 * cfg.n_layers + 1) * GNN_BATCHES):
         raise AssertionError(f"{GNN_BATCHES} forwards launched B4 {b4_n} and "
                              f"B5 {b5_n} times")
+    routes_gnn = b5_routes(sm, {"f32": b5_n}, "the GNN path")
     seeds_n = dims["seeds"]
     steady = stats[1:] or stats
     fwd = sum(r["fwd"] for r in steady) / len(steady)
@@ -755,7 +788,8 @@ def gnn_phase(dev) -> tuple[dict, int, float]:
               f"{GNN_LOGIT_TOL}), seeds' top-1 agreement {r['agree']:.4f}")
     print(f"[gnn] main path: {GNN_BATCHES} minibatches through "
           f"make_serve_step(spec, '{GNN_SHAPE}') at ({n_pad:,} nodes, "
-          f"{e_pad:,} edges); launches B4 {b4_n}, B5 {b5_n}; after the first "
+          f"{e_pad:,} edges); launches B4 {b4_n}, B5 {b5_n} ({routes_gnn}); "
+          f"after the first "
           f"batch: forward {fwd * 1e3:.3f} ms = {seeds_n / fwd:.1f} seeds/s "
           f"on the card, {e2e:.4f}s per batch with sampling and copy = "
           f"{seeds_n / e2e:.1f} seeds/s end to end; model FLOPs "
@@ -859,9 +893,9 @@ def main() -> int:
         libs = {name: f.result() for name, f in libs.items()}
         native = host.result()
     for name, so in libs.items():
-        ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
-                 .splitlines() if "registers" in ln or "spill" in ln]
-        print(f"[build] {name} {so.name}; ptxas: {' | '.join(ptxas)}")
+        print(f"[build] {name} {so.name}")
+        for k in ptxas_kernels(so.with_suffix(".log").read_text()):
+            print(f"[build] {name} ptxas {k}")
     print(f"[build] B1, B2, B3, B4, B5, B6 + host forest engine "
           f"({'native C' if native else 'Python: no C compiler'}) in "
           f"{time.perf_counter() - t0:.2f}s")

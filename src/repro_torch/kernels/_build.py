@@ -24,12 +24,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def build_library(name: str, sources, command) -> Path:
+def build_library(name: str, sources, command, deps=()) -> Path:
     """Compile ``sources`` with ``command`` (the compiler and its flags)
-    into ``BUILD_DIR/<name>_<hash>.so``, unless that file exists."""
+    into ``BUILD_DIR/<name>_<hash>.so``, unless that file exists. ``deps``
+    (headers the sources include) count in the hash but are not compiled."""
     sources = [Path(s) for s in sources]
     h = hashlib.sha256("\0".join(command).encode())
-    for s in sources:
+    for s in [*sources, *map(Path, deps)]:
         h.update(s.read_bytes())
     so = BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
     if so.exists():
@@ -57,7 +58,7 @@ def nvcc() -> str:
     return path
 
 
-def build_cuda(name: str, sources) -> Path:
+def build_cuda(name: str, sources, deps=()) -> Path:
     """Build CUDA sources for sm_90a into a shared library with a plain C
-    interface (loaded with ctypes)."""
-    return build_library(name, sources, [nvcc(), *NVCC_FLAGS])
+    interface (loaded with ctypes); ``deps`` as for :func:`build_library`."""
+    return build_library(name, sources, [nvcc(), *NVCC_FLAGS], deps)

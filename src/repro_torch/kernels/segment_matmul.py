@@ -10,14 +10,20 @@ the FFN's wi/wg/wo and the head) and of GraphSAGE (``models/gnn.py``:
 w_self, w_neigh and the head, in f32), with the weight in the reference's
 ``(d_in, d_out)`` layout, read as it is.
 
-The CUDA source (``csrc/matmul.cu``) states the design: bf16 through the
-tensor cores (WMMA, cp.async ring), 128 x 128 tiles for many rows and
-16 x 128 tiles for M <= 64, split-K with a fixed-order reduction when the
-output has too few tiles for the card, full-f32 FMA for f32; ragged edges
-masked in the kernel, nothing padded. :func:`plan` chooses the tile and
-the split (the same tile sizes as the source). :func:`bound_ms` is the
-least time on an H100: operations at the tensor-core (or f32) peak, or
-bytes at 3.35 TB/s, whichever is larger.
+The CUDA source (``csrc/matmul.cu``, with the Hopper helpers of
+``csrc/sm90.cuh``) states the design. :func:`plan` picks one of four
+routes from the dtype and shape: ``"wgmma"`` (bf16, M > 64: TMA loads into
+an mbarrier ring feeding wgmma, 128 x 256 tiles, a persistent grid),
+``"skinny"`` (bf16, M <= 64: the same ring streaming the weight, the
+product swapped so the weight's columns are wgmma's 64-row side),
+``"masked"`` (bf16 operands TMA cannot take: K or N not a multiple of 8,
+or a base not 16-byte aligned; WMMA with masked loads) and ``"f32"``
+(register-blocked full-f32 FMA). Split-K with a fixed-order reduction
+fills the card when the output has too few tiles; ragged edges are
+masked in the kernel, nothing is padded. :func:`tensor_maps` gives the TMA
+layouts the wrapper hands to the library. :func:`bound_ms` is the least
+time on an H100: operations at the tensor-core (or f32) peak, or bytes at
+3.35 TB/s, whichever is larger.
 
 B4 :func:`segment_sum` replaces the TPU kernel ``segment_sum`` of
 ``src/repro/kernels/segment_matmul.py:104`` (Pallas body
@@ -44,6 +50,7 @@ import ctypes
 import functools
 import math
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -60,28 +67,47 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 SM_COUNT = 132
 
-#: (BM, BN, BK) of csrc/matmul.cu's bf16 tiles: 16 rows for M <= 64
-SKINNY_TILE = (16, 128, 64)
-WIDE_TILE = (128, 128, 32)
+#: (BM, BN, BK) of each route's tile in csrc/matmul.cu (the skinny route
+#: takes 16 token rows up to M = 16, else 64; f32 takes 128 x 48 tiles for
+#: N <= 48)
+ROUTE_TILES = {"wgmma": (128, 256, 64), "skinny": (16, 128, 64),
+               "masked": (128, 128, 32), "f32": (64, 128, 16)}
 SKINNY_MAX_M = 64
+#: bf16 elements in 16 bytes: TMA needs 16-byte aligned bases and rows
+TMA_ALIGN = 8
+
+
+class Plan(NamedTuple):
+    """How one product launches: its route, tile ``(BM, BN, BK)``, and K
+    cut into ``splits`` ranges of ``k_split`` (a multiple of BK)."""
+    route: str
+    tile: tuple[int, int, int]
+    splits: int
+    k_split: int
+
+
+class TensorMap(NamedTuple):
+    """A 2-D TMA layout, innermost first: the tensor's ``(inner, outer)``
+    extent, the outer dimension's stride in bytes and the box copied."""
+    dims: tuple[int, int]
+    row_bytes: int
+    box: tuple[int, int]
 
 
 @functools.cache
 def _library() -> tuple[ctypes.CDLL, Path]:
-    so = build_cuda("matmul", [_SRC])
+    so = build_cuda("matmul", [_SRC], deps=[_SRC.with_name("sm90.cuh")])
     lib = ctypes.CDLL(str(so))
-    fn = lib.matmul_bf16_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    red = lib.splitk_reduce_launch
-    red.restype = ctypes.c_int
-    red.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_void_p]
-    f32 = lib.matmul_f32_launch
-    f32.restype = ctypes.c_int
-    f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    longs = ctypes.POINTER(ctypes.c_longlong)
+    for name, args in (
+            ("matmul_tma_launch", [ptr] * 3 + [i32] * 7 + [longs] * 2 + [ptr]),
+            ("matmul_masked_launch", [ptr] * 3 + [i32] * 5 + [ptr]),
+            ("splitk_reduce_launch", [ptr, ptr, ctypes.c_longlong, i32, ptr]),
+            ("matmul_f32_launch", [ptr] * 3 + [i32] * 5 + [ptr]),
+            ("wgmma_probe_launch", [ptr] * 4)):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_int, args
     return lib, so
 
 
@@ -91,20 +117,49 @@ def build() -> Path:
     return _library()[1]
 
 
-def plan(M: int, N: int, K: int) -> tuple[bool, int, int]:
-    """``(skinny, splits, k_split)`` of a bf16 launch: the 16-row tiles for
-    M <= 64; when the output has fewer than two tiles per SM, K is split
-    (each split at least 4 K steps) into ``splits`` ranges of ``k_split``
-    (a multiple of the K step), none empty."""
-    skinny = M <= SKINNY_MAX_M
-    bm, bn, bk = SKINNY_TILE if skinny else WIDE_TILE
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, N: int, K: int, dtype: torch.dtype = torch.bfloat16,
+         aligned: bool = True) -> Plan:
+    """The launch of one ``(M, K) @ (K, N)``: f32 operands take ``"f32"``;
+    bf16 ones ``"masked"`` unless K and N are multiples of 8 and the bases
+    16-byte aligned (``aligned``), else ``"skinny"`` for M <= 64 and
+    ``"wgmma"`` above. When a TMA route's output has fewer tiles than the
+    card has SMs, K is split (each split at least 4 K steps) so that the
+    splits fill it; the masked route splits below two tiles per SM."""
+    if dtype == torch.float32:
+        tile = (128, 48, 16) if N <= 48 else ROUTE_TILES["f32"]
+        return Plan("f32", tile, 1, math.ceil(K / 16) * 16)
+    if not (aligned and K % TMA_ALIGN == 0 and N % TMA_ALIGN == 0):
+        route = "masked"
+    else:
+        route = "skinny" if M <= SKINNY_MAX_M else "wgmma"
+    bm, bn, bk = ROUTE_TILES[route]
+    if route == "skinny" and M > 16:
+        bm = 64
     tiles = math.ceil(M / bm) * math.ceil(N / bn)
     steps = math.ceil(K / bk)
+    fill = 2 * SM_COUNT if route == "masked" else SM_COUNT
     splits = 1
-    if tiles < 2 * SM_COUNT:
-        splits = max(1, min(math.ceil(2 * SM_COUNT / tiles), steps // 4))
+    if tiles < fill:
+        splits = max(1, min(fill // tiles, steps // 4))
     k_split = math.ceil(steps / splits) * bk
-    return skinny, math.ceil(K / k_split), k_split
+    return Plan(route, (bm, bn, bk), math.ceil(K / k_split), k_split)
+
+
+def tensor_maps(M: int, N: int, K: int, tile: tuple[int, int, int]
+                ) -> tuple[TensorMap, TensorMap]:
+    """TMA layouts of a bf16 product on a TMA route with ``tile``: A
+    (M x K, K contiguous) as boxes of (BK, BM), B (K x N, N contiguous: the
+    weight as it is) as boxes of 64 columns x BK rows. Raises unless both
+    row strides are multiples of 16 bytes."""
+    bm, _, bk = tile
+    a = TensorMap((K, M), 2 * K, (bk, bm))
+    b = TensorMap((N, K), 2 * N, (64, bk))
+    for name, m in (("A", a), ("B", b)):
+        if m.row_bytes % 16:
+            raise ValueError(f"TMA needs {name}'s rows in multiples of 16 "
+                             f"bytes, got {m.row_bytes}")
+    return a, b
 
 
 def bound_ms(M: int, N: int, K: int, dtype: torch.dtype = torch.bfloat16
@@ -134,12 +189,25 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"a on {a.device}, b on {b.device}")
 
 
+@functools.lru_cache(maxsize=4096)
+def _tma_args(M: int, N: int, K: int, p: Plan) -> tuple:
+    """The TMA launch's grid (work units, at most one block per SM) and
+    its two tensor maps as the library takes them: cached per shape, so a
+    decode step's host time stays what it was."""
+    bm, bn, _ = p.tile
+    units = math.ceil(M / bm) * math.ceil(N / bn) * p.splits
+    return (min(units, SM_COUNT),
+            *((ctypes.c_longlong * 5)(*m.dims, m.row_bytes, *m.box)
+              for m in tensor_maps(M, N, K, p.tile)))
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """f32[M, N] = a @ b with f32 accumulation (a new tensor).
 
     On the card both operands must be contiguous and of one dtype, bf16
     or f32. ``matmul.launches`` counts kernel launches (one per call that
-    launches; CPU calls and empty outputs launch nothing)."""
+    launches; CPU calls and empty outputs launch nothing), and
+    ``matmul.routes`` the same launches by :func:`plan`'s route."""
     _check(a, b)
     if a.device.type == "cpu":
         return ref.matmul(a, b)
@@ -155,34 +223,72 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     if K == 0:
         return out.zero_()
-    if M > 65535 * 64:            # row tiles of >= 64 rows on the grid's y
-        raise ValueError(f"the matmul kernel takes at most 4,194,240 rows, "
-                         f"got {M}")
+    p = plan(M, N, K, a.dtype,
+             a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+    if p.route in ("masked", "f32") and math.ceil(M / p.tile[0]) > 65535:
+        raise ValueError(f"the {p.route} route takes at most "
+                         f"{65535 * p.tile[0]:,} rows, got {M}")
     lib = _library()[0]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if a.dtype == torch.float32:
-            rc = lib.matmul_f32_launch(a.data_ptr(), b.data_ptr(),
-                                       out.data_ptr(), M, N, K, stream)
+        if p.route == "f32":
+            rc = lib.matmul_f32_launch(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+                p.tile[1], int(N % 4 == 0 and b.data_ptr() % 16 == 0), stream)
         else:
-            skinny, splits, k_split = plan(M, N, K)
-            vec = (K % 8 == 0 and N % 8 == 0 and a.data_ptr() % 16 == 0
-                   and b.data_ptr() % 16 == 0)
-            dst = out if splits == 1 else torch.empty(
-                (splits, M, N), dtype=torch.float32, device=a.device)
-            rc = lib.matmul_bf16_launch(a.data_ptr(), b.data_ptr(),
-                                        dst.data_ptr(), M, N, K, k_split,
-                                        splits, int(skinny), int(vec), stream)
-            if not rc and splits > 1:
+            dst = out if p.splits == 1 else torch.empty(
+                (p.splits, M, N), dtype=torch.float32, device=a.device)
+            if p.route == "masked":
+                rc = lib.matmul_masked_launch(
+                    a.data_ptr(), b.data_ptr(), dst.data_ptr(), M, N, K,
+                    p.k_split, p.splits, stream)
+            else:
+                grid, map_a, map_b = _tma_args(M, N, K, p)
+                rc = lib.matmul_tma_launch(
+                    a.data_ptr(), b.data_ptr(), dst.data_ptr(), M, N, K,
+                    p.k_split, p.splits,
+                    p.tile[0] if p.route == "skinny" else 0, grid, map_a,
+                    map_b, stream)
+            if not rc and p.splits > 1:
                 rc = lib.splitk_reduce_launch(dst.data_ptr(), out.data_ptr(),
-                                              M * N, splits, stream)
+                                              M * N, p.splits, stream)
     if rc:
-        raise RuntimeError(f"matmul launch failed: CUDA error {rc}")
+        raise RuntimeError(f"matmul launch failed ({p.route} route): CUDA "
+                           f"error {rc}")
     matmul.launches += 1
+    matmul.routes[p.route] += 1
     return out
 
 
-matmul.launches = 0
+def reset_counts() -> None:
+    """Set ``matmul.launches`` and every count of ``matmul.routes`` to 0."""
+    matmul.launches = 0
+    matmul.routes = dict.fromkeys(ROUTE_TILES, 0)
+
+
+reset_counts()
+
+
+def wgmma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One m64n128k16 wgmma on the card: f32[64, 128] = a @ b for bf16
+    ``a`` (64 x 16) and ``b`` (16 x 128), loaded by TMA with the 128-byte
+    swizzle and read through the descriptors of the TMA routes (``a``
+    K-major, ``b`` MN-major). A descriptor or swizzle mistake shows here as
+    wrong numbers on a single tile. Not counted in ``matmul.launches``."""
+    cuda_only(a.device, "wgmma probe")
+    if (a.shape, b.shape) != ((64, 16), (16, 128)) or not (
+            a.dtype == b.dtype == torch.bfloat16 and a.is_contiguous()
+            and b.is_contiguous() and b.device == a.device):
+        raise ValueError("the wgmma probe takes contiguous bf16 (64, 16) and "
+                         "(16, 128) operands on one card")
+    out = torch.empty((64, 128), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        rc = _library()[0].wgmma_probe_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"wgmma probe launch failed: CUDA error {rc}")
+    return out
 
 
 @functools.cache

@@ -166,20 +166,77 @@ def test_batch_query_on_card_equals_cpu_and_algorithm_1(cuda):
                                    (16, 4096, 4096), (16, 13696, 4096),
                                    (64, 4096, 256), (65, 1000, 1000),
                                    (512, 4096, 13696), (4096, 4096, 256),
-                                   (300, 136, 20)])
+                                   (300, 136, 20),
+                                   # the prefill projections at full size
+                                   (4096, 4096, 4096), (4096, 4096, 13696),
+                                   (4096, 13696, 4096),
+                                   # ragged M, N against BN = 256, K
+                                   (4095, 4096, 4096), (130, 4096, 4096),
+                                   (65, 4096, 256), (256, 4096, 13696),
+                                   (256, 4104, 1024)])
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
 def test_matmul_kernel_matches_plain_version(cuda, M, K, N, dtype):
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
     gen = torch.Generator(device=cuda).manual_seed(M + K + N)
     a = torch.randn(M, K, generator=gen, device=cuda).to(dt)
     b = torch.randn(K, N, generator=gen, device=cuda).to(dt)
+    route = segment_matmul.plan(M, N, K, dt).route
     before = segment_matmul.matmul.launches
+    routes = dict(segment_matmul.matmul.routes)
     got = ops.matmul(a, b)
     torch.cuda.synchronize()
     assert segment_matmul.matmul.launches == before + 1
+    routes[route] += 1
+    assert segment_matmul.matmul.routes == routes
     want = ref.matmul(a, b)
     assert got.dtype == torch.float32 and got.shape == (M, N)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * K)
+
+
+def test_wgmma_single_tile_matches_plain_version(cuda):
+    """One m64n128k16 wgmma from TMA-loaded, 128B-swizzled tiles (A
+    K-major, B MN-major): the descriptors and swizzle of the TMA routes on
+    a single tile, where a mistake gives wrong numbers, not a crash."""
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    a = torch.randn(64, 16, generator=gen, device=cuda).bfloat16()
+    b = torch.randn(16, 128, generator=gen, device=cuda).bfloat16()
+    got = segment_matmul.wgmma_probe(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.matmul(a, b), rtol=1e-4,
+                               atol=1e-6 * 16)
+
+
+@pytest.mark.parametrize("M,K,N", [(4096, 4096, 256), (16, 4096, 4096)])
+def test_matmul_split_k_is_bitwise_deterministic(cuda, M, K, N):
+    """Split-K sums its partials in a fixed order: two calls agree bit for
+    bit."""
+    assert segment_matmul.plan(M, N, K).splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    a = torch.randn(M, K, generator=gen, device=cuda).bfloat16()
+    b = torch.randn(K, N, generator=gen, device=cuda).bfloat16()
+    assert torch.equal(ops.matmul(a, b), ops.matmul(a, b))
+
+
+def test_matmul_routes_are_counted(cuda):
+    """One launch on each route, each counted under its route and once in
+    the total; a TMA shape whose base is not 16-byte aligned takes the
+    masked route."""
+    segment_matmul.reset_counts()
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    cases = {route: (torch.randn(m, 64, generator=gen, device=cuda).to(dt),
+                     torch.randn(64, n, generator=gen, device=cuda).to(dt))
+             for route, m, n, dt in (("wgmma", 128, 256, torch.bfloat16),
+                                     ("skinny", 16, 128, torch.bfloat16),
+                                     ("f32", 128, 41, torch.float32))}
+    base = torch.zeros(8 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    cases["masked"] = (base[1:].view(8, 64), cases["skinny"][1])
+    for route, (a, b) in cases.items():
+        got = ops.matmul(a, b)
+        torch.testing.assert_close(got, ref.matmul(a, b), rtol=1e-4,
+                                   atol=1e-4)
+        assert segment_matmul.matmul.routes[route] == 1, route
+    assert segment_matmul.matmul.launches == 4
+    assert sorted(segment_matmul.matmul.routes.values()) == [1, 1, 1, 1]
 
 
 def test_matmul_kernel_masks_unaligned_operands(cuda):
@@ -187,6 +244,7 @@ def test_matmul_kernel_masks_unaligned_operands(cuda):
     element-wise loads; a view that is not contiguous raises."""
     base = torch.randn(70, 131, device=cuda).bfloat16()
     a, b = base[:33, 1:66].contiguous(), base[3:68, 2:19].contiguous()
+    assert segment_matmul.plan(33, 17, 65).route == "masked"
     torch.testing.assert_close(ops.matmul(a, b), ref.matmul(a, b),
                                rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):

@@ -64,20 +64,70 @@ def test_wrapper_rejects_what_it_cannot_multiply(bad):
         sm.matmul(a, b)
 
 
-@pytest.mark.parametrize("M,N,K,skinny,splits", [
-    (16, 4096, 4096, True, 8),          # decode wq: 32 tiles, split 8
-    (16, 151552, 4096, True, 1),        # decode head: 1,184 tiles
-    (16, 256, 4096, True, 16),          # decode wk: 2 tiles, 4 steps each
-    (4096, 13696, 4096, False, 1),      # prefill ffn.wi
-    (4096, 256, 4096, False, 5),        # prefill wk: 64 tiles
-    (33, 65, 17, True, 1),              # K shorter than a step
+@pytest.mark.parametrize("M,N,K,dtype,route,splits", [
+    (16, 4096, 4096, "bf16", "skinny", 4),        # decode wq: 32 tiles
+    (16, 151552, 4096, "bf16", "skinny", 1),      # decode head: 1,184 tiles
+    (16, 256, 4096, "bf16", "skinny", 16),        # decode wk: 2 tiles
+    (16, 13696, 4096, "bf16", "skinny", 1),       # decode ffn.wi: 107 tiles
+    (16, 4096, 13696, "bf16", "skinny", 4),       # decode ffn.wo
+    (64, 4096, 4096, "bf16", "skinny", 4),        # 64 token rows
+    (4096, 4096, 4096, "bf16", "wgmma", 1),       # prefill wq: 512 tiles
+    (4096, 256, 4096, "bf16", "wgmma", 4),        # prefill wk: 32 tiles
+    (4096, 13696, 4096, "bf16", "wgmma", 1),      # prefill ffn.wi
+    (4096, 4096, 13696, "bf16", "wgmma", 1),      # prefill ffn.wo
+    (4096, 151552, 4096, "bf16", "wgmma", 1),     # prefill head
+    (65, 4096, 4096, "bf16", "wgmma", 8),         # one row tile past 64
+    (33, 65, 17, "bf16", "masked", 1),            # K shorter than a step
+    (4096, 4096, 4100, "bf16", "masked", 1),      # odd K: rows of 8,200 B
+    (300, 20, 136, "bf16", "masked", 1),          # N not a multiple of 8
+    (169984, 128, 602, "f32", "f32", 1),          # GNN layer-1
+    (169984, 41, 128, "f32", "f32", 1),           # GNN head
 ])
-def test_plan_fills_the_card_and_covers_k(M, N, K, skinny, splits):
-    got_skinny, got_splits, k_split = sm.plan(M, N, K)
-    assert (got_skinny, got_splits) == (skinny, splits)
-    bk = (sm.SKINNY_TILE if skinny else sm.WIDE_TILE)[2]
-    assert k_split % bk == 0
-    assert (got_splits - 1) * k_split < K <= got_splits * k_split
+def test_plan_fills_the_card_and_covers_k(M, N, K, dtype, route, splits):
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    p = sm.plan(M, N, K, dt)
+    assert (p.route, p.splits) == (route, splits)
+    want = sm.ROUTE_TILES[route]
+    if route == "skinny" and M > 16:
+        want = (64, 128, 64)                        # 64 token rows
+    if route == "f32" and N <= 48:
+        want = (128, 48, 16)                        # 48 columns
+    assert p.tile == want
+    bk = p.tile[2]
+    assert p.k_split % bk == 0
+    assert (p.splits - 1) * p.k_split < K <= p.splits * p.k_split
+    if route in ("wgmma", "skinny") and splits > 1:
+        bm, bn, _ = p.tile
+        tiles = -(-M // bm) * -(-N // bn)
+        assert tiles * splits <= sm.SM_COUNT      # one wave of work units
+
+
+@pytest.mark.parametrize("M,N,K", [(16, 4096, 4096), (4096, 13696, 4096),
+                                   (4096, 151552, 4096), (65, 256, 4104),
+                                   (1, 8, 8), (64, 136, 24)])
+def test_tensor_maps_hold_tma_strides_and_boxes(M, N, K):
+    """The TMA layouts the wrapper hands to the library: A as (K, M) in
+    boxes of (64, BM), B as (N, K) in boxes of 64 columns x 64 rows, each
+    box row one 128-byte swizzle row, each stride a multiple of 16 bytes."""
+    p = sm.plan(M, N, K)
+    assert p.route in ("wgmma", "skinny")
+    a, b = sm.tensor_maps(M, N, K, p.tile)
+    assert a == sm.TensorMap((K, M), 2 * K, (64, p.tile[0]))
+    assert b == sm.TensorMap((N, K), 2 * N, (64, 64))
+    for m in (a, b):
+        assert m.row_bytes % 16 == 0 and m.box[0] * 2 == 128
+        assert m.box[1] <= 256
+
+
+@pytest.mark.parametrize("M,N,K", [(4096, 4096, 4100), (16, 4097, 4096),
+                                   (33, 65, 17), (128, 20, 136),
+                                   (16, 4096, 4094)])
+def test_unaligned_shapes_never_take_a_tma_route(M, N, K):
+    assert sm.plan(M, N, K).route == "masked"
+    with pytest.raises(ValueError):
+        sm.tensor_maps(M, N, K, sm.ROUTE_TILES["wgmma"])
+    # an aligned shape at a misaligned base goes the same way
+    assert sm.plan(4096, 4096, 4096, aligned=False).route == "masked"
 
 
 def test_bound_is_flops_for_prefill_and_bytes_for_decode():
