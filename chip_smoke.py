@@ -46,20 +46,31 @@ result line each; any failure raises and exits non-zero:
            first-round operands (the kernel record)
   profile  the same batch served once more under torch.profiler: device
            busy time, idle share, B1's share, the top kernels
-  lm       glm4-9b at full width and depth (9,399,951,360 parameters, bf16,
-           drawn on the card from a seed): prefill of 1 x 4,096 tokens
-           through make_serve_step(spec, "prefill_32k") and 8 greedy decode
-           steps of batch 16 at the end of a 32,768-slot cache through
-           make_serve_step(spec, "decode_32k"), each counted (B5 and B6
-           launch counts must be > 0; every prefill B5 launch on the wgmma
-           route, every decode one on the skinny route); the prefill's
-           logits against the
-           same forward with the plain versions on the card; a 16-token
-           decode against the prefill's logits at each position; B5 and B6
-           against their plain versions at the path's shapes, timed beside
-           their bounds and library yardsticks; one prefill and one decode
-           step under torch.profiler (device busy, idle share, B5's and
-           B6's shares); tokens/s and the model-FLOP share of 989 TFLOP/s
+  lm       first B6's single-tile check of its wgmma route (S = Q K^T from
+           TMA-loaded tiles, then P V with P in bf16 registers, against the
+           plain version); then glm4-9b at full width and depth
+           (9,399,951,360 parameters, bf16, drawn on the card from a seed):
+           prefill of 1 x 4,096 tokens through make_serve_step(spec,
+           "prefill_32k") and 8 greedy decode steps of batch 16 at the end
+           of a 32,768-slot cache through make_serve_step(spec,
+           "decode_32k"), each counted (B5 and B6 launch counts must be >
+           0; every prefill B5 launch on the wgmma route and every B6 one
+           on the wgmma route, every decode B5 launch on the skinny route
+           and every B6 one on the split route); the prefill's logits
+           against the same forward with the plain versions on the card; a
+           16-token decode against the prefill's logits at each position;
+           B5 and B6 against their plain versions at the path's shapes
+           (B6 also at a ragged 4,000 positions, causal S != T, dh 64 and
+           16, f16 and f32, each case with its route), timed beside their
+           bounds and library yardsticks; one prefill and one decode step
+           under torch.profiler (device busy, idle share, B5's and B6's
+           shares); tokens/s and the model-FLOP share of 989 TFLOP/s
+  lm-smoke glm4-smoke and codeqwen-smoke (2 layers, dh 16) on the card in
+           bf16 and f32, and the bf16 models over an f32 KV cache: prefill
+           and decode through make_serve_step, counted (B6 on the mma route
+           at bf16 prefill, split at bf16 decode, f32 for f32 q), logits
+           against the same steps with the plain versions and decode
+           against prefill
   gnn      graphsage-reddit at full width (602 -> 128 -> 128, 41 classes,
            192,384 f32 parameters drawn on the card from a seed) serving
            8 minibatches of 1,024 seed vertices, fanout (15, 10), from a
@@ -285,7 +296,17 @@ def ptxas_kernels(log: str) -> list[str]:
 
 
 def is_b6(key: str) -> bool:
-    return "flash_attn_bf16<" in key or "flash_combine(" in key
+    return any(name in key for name in ("flash_wgmma<", "flash_mma<",
+                                        "flash_combine<", "flash_f32("))
+
+
+def b6_routes(fa, want: dict, what: str) -> str:
+    """Raise unless B6's launches by route (``fa.flash_attention.routes``)
+    are ``want`` on every route; returns them as a clause."""
+    got = {r: n for r, n in fa.flash_attention.routes.items() if n}
+    if got != want:
+        raise AssertionError(f"{what} launched B6 by route {got}, not {want}")
+    return ", ".join(f"{n} on the {r} route" for r, n in got.items())
 
 
 def is_b4(key: str) -> bool:
@@ -341,6 +362,7 @@ def lm_phase(dev) -> list[dict]:
     from repro_torch.kernels import segment_matmul as sm
     from repro_torch.models import transformer as tfm
 
+    b6_probe(dev)
     spec = configs.get(LM_ARCH)
     cfg = spec.model_cfg
     L = cfg.n_layer
@@ -368,13 +390,14 @@ def lm_phase(dev) -> list[dict]:
     prefill = configs.make_serve_step(spec, "prefill_32k")
     toks = torch.randint(0, cfg.vocab, (1, seq), generator=gen, device=dev)
     sm.reset_counts()
-    fa.flash_attention.launches = 0
+    fa.reset_counts()
     logits, t_first = wall(lambda: prefill(model, {"tokens": toks}))
     b5_pre, b6_pre = sm.matmul.launches, fa.flash_attention.launches
     if (b5_pre, b6_pre) != (7 * L + 1, L):
         raise AssertionError(f"prefill launched B5 {b5_pre} and B6 {b6_pre} "
                              f"times, not {7 * L + 1} and {L}")
     routes_pre = b5_routes(sm, {"wgmma": 7 * L + 1}, "prefill")
+    b6_routes_pre = b6_routes(fa, {"wgmma": L}, "prefill")
     if logits.shape != (1, seq, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError("prefill logits are not finite (1, S, vocab)")
@@ -393,7 +416,8 @@ def lm_phase(dev) -> list[dict]:
           f"'prefill_32k'): {t_pre:.4f}s = {seq / t_pre:.1f} tokens/s (first "
           f"call {t_first:.4f}s); model FLOPs {flops_pre:.4e} = "
           f"{flops_pre / t_pre / 989e12:.4f} of 989 TFLOP/s; launches B5 "
-          f"{b5_pre} ({routes_pre}), B6 {b6_pre}. Logits against the same "
+          f"{b5_pre} ({routes_pre}), B6 {b6_pre} ({b6_routes_pre}). Logits "
+          f"against the same "
           f"forward with the plain versions on the card ({t_plain:.4f}s): "
           f"largest |diff| {err_pre:.4e} of max|logit| (tolerance "
           f"{LM_LOGIT_TOL}), top-1 agreement {agree_pre:.4f}")
@@ -413,9 +437,19 @@ def lm_phase(dev) -> list[dict]:
                 "prefill ffn.wi": (h, p0.ffn.wi),
                 "prefill ffn.wo": (act[0], p0.ffn.wo),
                 "prefill head": (h, model.head)}
-    b6_cases = {"prefill causal S = T": (q, k, v, True, seq)}
+    ragged = min(4000, seq)
+    b6_cases = {"prefill causal S = T": (q, k, v, True, seq),
+                f"prefill causal ragged S = T = {ragged}": tuple(
+                    x[:, :ragged].contiguous() for x in (q, k, v)) + (
+                    True, ragged),
+                f"prefill causal S = {seq} over T = {3 * seq // 4}": (
+                    q, k[:, :3 * seq // 4].contiguous(),
+                    v[:, :3 * seq // 4].contiguous(), True, 3 * seq // 4),
+                "prefill causal f16": (q.half(), k.half(), v.half(), True,
+                                       seq)}
+    b6_cases.update(b6_small_cases(dev, gen))
     results = kernel_checks(b5_cases, b6_cases)
-    del h, q, k, v, act, logits
+    del h, q, k, v, act, logits, b6_cases
 
     # -- decode ------------------------------------------------------------
     decode = configs.make_serve_step(spec, "decode_32k")
@@ -447,7 +481,7 @@ def lm_phase(dev) -> list[dict]:
 
     tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev)
     sm.reset_counts()
-    fa.flash_attention.launches = 0
+    fa.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
@@ -461,6 +495,7 @@ def lm_phase(dev) -> list[dict]:
         raise AssertionError(f"decode launched B5 {b5_dec} and B6 {b6_dec} "
                              f"times")
     routes_dec = b5_routes(sm, {"skinny": steps * (7 * L + 1)}, "decode")
+    b6_routes_dec = b6_routes(fa, {"split": steps * L}, "decode")
     if out.shape != (batch, cfg.vocab) or not bool(torch.isfinite(out).all()):
         raise AssertionError("decode logits are not finite (B, vocab)")
     flops_dec = configs.model_flops(spec, "decode_32k", dims=dec_dims)
@@ -470,7 +505,8 @@ def lm_phase(dev) -> list[dict]:
           f"{t_dec * 1e3:.3f} ms per step = {batch / t_dec:.1f} tokens/s; "
           f"model FLOPs {flops_dec:.4e} per step = "
           f"{flops_dec / t_dec / 989e12:.4f} of 989 TFLOP/s; launches B5 "
-          f"{b5_dec} ({routes_dec}), B6 {b6_dec}; peak device memory "
+          f"{b5_dec} ({routes_dec}), B6 {b6_dec} ({b6_routes_dec}); peak "
+          f"device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[lm] one decode step under torch.profiler: " + profiled(
         lambda: decode(model, {"tokens": tok, "cache": cache,
@@ -558,9 +594,14 @@ def kernel_checks(b5_cases: dict, b6_cases: dict, tag: str = "lm") -> dict:
     for name, (q, k, v, causal, t_real) in b6_cases.items():
         B, S, H, dh = q.shape
         Hkv = k.shape[2]
+        route = fa.plan(B, S, H, Hkv, t_real, causal, dh, q.dtype).route
+        before = fa.flash_attention.routes[route]
         got = fa.flash_attention(q, k, v, causal=causal, t_real=t_real)
         want = ref.flash_attention(q, k, v, causal=causal, t_real=t_real)
         torch.cuda.synchronize()
+        if fa.flash_attention.routes[route] != before + 1:
+            raise AssertionError(f"B6 {name} did not launch on the {route} "
+                                 "route")
         tol = fa.error_bound(want)
         diff = (got.float() - want.float()).abs()
         err = float(diff.max())
@@ -570,14 +611,15 @@ def kernel_checks(b5_cases: dict, b6_cases: dict, tag: str = "lm") -> dict:
                                  f"(max abs err {err}, {worst} of the bound)")
         typical = float(want.float().abs().mean())
         largest = float(want.float().abs().max())
-        # the bound's reach: the plain version without the last key tile
+        # the bound's reach: the plain version without its last keys
+        cut_keys = fa.CHECK_CUT_KEYS
         cut = ref.flash_attention(q, k, v, causal=causal,
-                                  t_real=t_real - fa.KV_TILE)
+                                  t_real=t_real - cut_keys)
         caught = float(((cut.float() - want.float()).abs() > tol)
                        .float().mean())
         if not caught > 0:
             raise AssertionError(f"B6 {name}: the bound does not see the "
-                                 f"last {fa.KV_TILE} keys left out")
+                                 f"last {cut_keys} keys left out")
         del got, want, diff, tol, cut
         t, kern = call_times(lambda: fa.flash_attention(
             q, k, v, causal=causal, t_real=t_real))
@@ -588,26 +630,208 @@ def kernel_checks(b5_cases: dict, b6_cases: dict, tag: str = "lm") -> dict:
         lib_ms, lib = call_times(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
         del qt, kt, vt
-        bound = fa.bound_ms(B, S, H, Hkv, t_real, causal, dh)
+        item = q.element_size()
+        bound = fa.bound_ms(B, S, H, Hkv, t_real, causal, dh, item)
+        peak = fa.F32_FLOP_PER_S if item == 4 else fa.BF16_FLOP_PER_S
         flops = 4.0 * dh * B * H * fa.attended_pairs(S, t_real, causal)
-        by = "operations" if flops / fa.BF16_FLOP_PER_S * 1e3 >= bound \
-            else "bytes"
+        by = "operations" if flops / peak * 1e3 >= bound else "bytes"
         out[name] = dict(b5=False, max_abs_err=err, ms=t, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound, bound_by=by)
-        print(f"[lm] B6 {name}: q ({B}, {S}, {H}, {dh}) over k, v ({B}, "
-              f"{k.shape[1]}, {Hkv}, {dh}), t_real {t_real}, causal {causal}, "
-              f"plan (nwq, q tiles, splits, tiles per split) "
-              f"{fa.plan(B, S, H, Hkv, t_real, causal)}: max abs err "
-              f"{err:.3e} against the plain version, {worst:.3f} of the "
-              f"bound ({fa.RTOL} of |plain| + {fa.ROW_ATOL} of its row's "
-              f"largest) at most; |plain| typically {typical:.3e}, largest "
-              f"{largest:.3e}; without the last {fa.KV_TILE} keys the plain "
-              f"version breaks the bound in {caught:.3e} of the elements; "
-              f"kernel {kern}; plain {plain_ms:.4f} ms "
-              f"back to back; library scaled_dot_product_attention "
-              f"(enable_gqa) {lib}; bound {bound:.4f} ms ({by}) = "
-              f"{bound / t:.3f} of the kernel's time")
+        tolerance = (f"{fa.F32_TOL} of |plain| + {fa.F32_TOL}"
+                     if q.dtype == torch.float32 else
+                     f"{fa.RTOL} of |plain| + {fa.ROW_ATOL} of its row's "
+                     "largest")
+        print(f"[{tag}] B6 {name}: q ({B}, {S}, {H}, {dh}) over k, v ({B}, "
+              f"{k.shape[1]}, {Hkv}, {dh}), {str(q.dtype)[6:]}, t_real "
+              f"{t_real}, causal {causal}, "
+              f"{fa.plan(B, S, H, Hkv, t_real, causal, dh, q.dtype)}: max "
+              f"abs err {err:.3e} against the plain version, {worst:.3f} of "
+              f"the bound ({tolerance}) at most; |plain| typically "
+              f"{typical:.3e}, largest {largest:.3e}; without the last "
+              f"{cut_keys} keys the plain version breaks the bound in "
+              f"{caught:.3e} of the elements; kernel {kern}; plain "
+              f"{plain_ms:.4f} ms back to back; library "
+              f"scaled_dot_product_attention (enable_gqa) {lib}; bound "
+              f"{bound:.4f} ms ({by}) = {bound / t:.3f} of the kernel's "
+              f"time; {flops / t / 1e9:.1f} TFLOP/s")
     return out
+
+
+def b6_probe(dev) -> None:
+    """B6's single-tile check, before anything else of B6 runs: the wgmma
+    route's S = Q K^T (SS wgmma from TMA-loaded, swizzled tiles) within
+    f32 rounding of the plain product, and P V (P in bf16 registers, RS
+    wgmma, V MN-major) within ``error_bound`` of the plain version. A
+    descriptor or layout mistake shows here on one tile."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    q = torch.randn(64, 128, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(128, 128, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    s, o = fa.rs_probe(q, k, v)
+    torch.cuda.synchronize()
+    s_want = q.float() @ k.float().T
+    s_err = float(((s - s_want).abs() / (1e-4 + 1e-5 * s_want.abs())).max())
+    want = ref.flash_attention(*(x.float()[None, :, None] for x in (q, k, v)))
+    tol = fa.error_bound(want.bfloat16())[0, :, 0]
+    want = want[0, :, 0]
+    o_err = float(((o - want).abs() / tol).max())
+    if not (s_err <= 1 and o_err <= 1):
+        raise AssertionError(f"B6's single-tile check failed: S at {s_err} "
+                             f"and O at {o_err} of their tolerances")
+    print(f"[lm] B6 single-tile check of the wgmma route (64 x 128 q, 128 "
+          f"keys, dh 128, bf16): S = Q K^T max abs err "
+          f"{float((s - s_want).abs().max()):.3e} (tolerance 1e-4 + 1e-5 "
+          f"of |S|, {s_err:.3f} of it); O with P in bf16 registers max abs "
+          f"err {float((o - want).abs().max()):.3e} ({o_err:.3f} of "
+          f"error_bound)")
+
+
+def b6_small_cases(dev, gen) -> dict:
+    """B6 cases at small sizes for the routes and dtypes the glm4-9b path
+    does not take: dh 64 (wgmma), dh 16 (mma and split), f16, f32."""
+    cases = {}
+    for name, (B, S, T, H, Hkv, dh, dt, causal, t_real) in {
+            "dh 64 causal": (2, 600, 600, 16, 4, 64, torch.bfloat16, True,
+                             600),
+            "dh 16 causal": (2, 300, 300, 4, 2, 16, torch.bfloat16, True,
+                             300),
+            "dh 16 decode": (4, 1, 400, 4, 2, 16, torch.bfloat16, False,
+                             333),
+            "f16 dh 64 decode": (4, 1, 3000, 16, 1, 64, torch.float16, False,
+                                 2900),
+            "f32 dh 16 causal": (2, 300, 300, 4, 2, 16, torch.float32, True,
+                                 300),
+            "f32 dh 128 decode": (4, 1, 2000, 32, 2, 128, torch.float32,
+                                  False, 1999)}.items():
+        q = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(B, T, Hkv, dh, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        cases[name] = (q, k, v, causal, t_real)
+    return cases
+
+
+#: the [lm-smoke] phase: the smoke configs of the two dense LMs (2 layers,
+#: d_model 64, dh 16; glm4-smoke GQA 2:1 with QKV bias, codeqwen-smoke MHA)
+#: on the card in bf16 and f32, weights drawn from LM_SEED: prefill
+#: LM_SMOKE_BATCH x LM_SMOKE_SEQ tokens, then those tokens decoded one by
+#: one into an LM_SMOKE_SLOTS-slot cache (the model's dtype, and f32 under
+#: a bf16 model)
+LM_SMOKE_ARCHS = ("glm4-9b", "codeqwen1.5-7b")
+LM_SMOKE_BATCH, LM_SMOKE_SEQ, LM_SMOKE_SLOTS = 4, 96, 160
+#: f32 logits (kernels against plain versions, decode against prefill):
+#: elementwise within this relative plus absolute tolerance, the f32 bound
+#: of tests/test_torch_transformer.py
+LM_SMOKE_F32_TOL = 2e-3
+
+
+def logits_err(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+    """The share of its tolerance the largest logit difference takes: bf16
+    against LM_LOGIT_TOL of max|logit|, f32 elementwise against
+    LM_SMOKE_F32_TOL relative plus absolute. At most 1 passes."""
+    if dtype == torch.float32:
+        d = (got.float() - want.float()).abs()
+        return float((d / (LM_SMOKE_F32_TOL * (1 + want.float().abs())))
+                     .max())
+    return rel_err(got, want) / LM_LOGIT_TOL
+
+
+def lm_smoke_phase(dev) -> tuple[int, int]:
+    """[lm-smoke]: the smoke LMs on the card through B5 and B6, each run
+    counted (B5 7L + 1 launches a forward or step; B6 L, on the route its
+    dtype and head width give), against the same steps with the plain
+    versions, decode against prefill. Returns the phase's B5 and B6
+    launches."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_matmul as sm
+    from repro_torch.models import transformer as tfm
+
+    B, S, slots = LM_SMOKE_BATCH, LM_SMOKE_SEQ, LM_SMOKE_SLOTS
+    plain_ops = (mock.patch.object(kernel_ops, "matmul", ref.matmul),
+                 mock.patch.object(kernel_ops, "flash_attention",
+                                   ref.flash_attention))
+    n5 = n6 = 0
+    for arch in LM_SMOKE_ARCHS:
+        spec = configs.get(arch)
+        for dt in (torch.bfloat16, torch.float32):
+            cfg = dataclasses.replace(spec.smoke_cfg, dtype=dt)
+            L = cfg.n_layer
+            gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+            model = tfm.init_params(cfg, gen, device=dev)
+            prefill = configs.make_serve_step(spec, "prefill_32k", cfg)
+            decode = configs.make_serve_step(spec, "decode_32k", cfg)
+            toks = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                 device=dev)
+            attn = "f32" if dt == torch.float32 else "mma"
+            sm.reset_counts()
+            fa.reset_counts()
+            logits = prefill(model, {"tokens": toks})
+            torch.cuda.synchronize()
+            if sm.matmul.launches != 7 * L + 1:
+                raise AssertionError(f"{cfg.name} prefill launched B5 "
+                                     f"{sm.matmul.launches} times")
+            b6 = b6_routes(fa, {attn: L}, f"{cfg.name} prefill")
+            n5, n6 = n5 + sm.matmul.launches, n6 + L
+            with plain_ops[0], plain_ops[1]:
+                plain = prefill(model, {"tokens": toks})
+            e_pre = logits_err(logits, plain, dt)
+            if not e_pre <= 1:
+                raise AssertionError(f"{cfg.name} prefill with the kernels "
+                                     f"differs from the plain versions "
+                                     f"({e_pre} of the tolerance)")
+            what = [f"prefill {B} x {S} ({b6}) against the plain versions "
+                    f"{e_pre:.3f} of the tolerance"]
+            for cdt in ((dt, torch.float32) if dt == torch.bfloat16
+                        else (dt,)):
+                cache = tfm.init_cache(cfg, B, slots, dtype=cdt, device=dev)
+                cache["k"].normal_(generator=gen)    # masked slots
+                cache["v"].normal_(generator=gen)
+                plain_cache = {n: c.clone() for n, c in cache.items()}
+                sm.reset_counts()
+                fa.reset_counts()
+                steps = [decode(model, {"tokens": toks[:, i:i + 1],
+                                        "cache": cache, "cache_len": i})[0]
+                         for i in range(S)]
+                torch.cuda.synchronize()
+                if sm.matmul.launches != S * (7 * L + 1):
+                    raise AssertionError(f"{cfg.name} decode launched B5 "
+                                         f"{sm.matmul.launches} times")
+                route = "f32" if cdt == torch.float32 else "split"
+                b6 = b6_routes(fa, {route: S * L}, f"{cfg.name} decode")
+                b5 = ", ".join(f"{n} {r}" for r, n in
+                               sm.matmul.routes.items() if n)
+                n5, n6 = n5 + sm.matmul.launches, n6 + S * L
+                with plain_ops[0], plain_ops[1]:
+                    plain = [decode(model, {"tokens": toks[:, i:i + 1],
+                                            "cache": plain_cache,
+                                            "cache_len": i})[0]
+                             for i in range(S)]
+                e_plain = max(logits_err(a, b, dt)
+                              for a, b in zip(steps, plain))
+                e_pre = max(logits_err(steps[i], logits[:, i], dt)
+                            for i in range(S))
+                if not (e_plain <= 1 and e_pre <= 1):
+                    raise AssertionError(
+                        f"{cfg.name} decode over a {cdt} cache: "
+                        f"{e_plain} (plain versions) and {e_pre} (prefill) "
+                        f"of the tolerance")
+                what.append(f"decode of those {S} tokens over a {slots}-slot "
+                            f"{str(cdt)[6:]} cache (B5 {b5}; B6 {b6}) "
+                            f"against the plain versions {e_plain:.3f} and "
+                            f"against prefill {e_pre:.3f} of the tolerance")
+            tol = (f"{LM_SMOKE_F32_TOL} relative + absolute"
+                   if dt == torch.float32 else
+                   f"{LM_LOGIT_TOL} of max|logit|")
+            print(f"[lm-smoke] {cfg.name} ({L} layers, d_model "
+                  f"{cfg.d_model}, {cfg.n_head} query heads over {cfg.n_kv} "
+                  f"kv heads of {cfg.d_head}) in {str(dt)[6:]}, tolerance "
+                  f"{tol}: " + "; ".join(what))
+    return n5, n6
 
 
 #: the [gnn] phase: graphsage-reddit at full width on minibatch_lg's static
@@ -1258,6 +1482,9 @@ def main() -> int:
           f"top kernels: " + top_rows(kern))
 
     lm_records = lm_phase(dev)
+    smoke_b5, smoke_b6 = lm_smoke_phase(dev)
+    lm_records[0]["launches"] += smoke_b5
+    lm_records[1]["launches"] += smoke_b6
     b4_record, b5_gnn_launches, b5_gnn_err = gnn_phase(dev)
     b5_record = lm_records[0]
     b5_record["launches"] += b5_gnn_launches

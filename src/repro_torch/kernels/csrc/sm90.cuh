@@ -57,24 +57,40 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 2-D bf16 tensor map with 128-byte swizzle: dims and box innermost
-// first, `row_bytes` the outer dimension's stride (a multiple of 16).
-// Elements past the edge load as zeros. Returns a cudaError_t value.
-inline int bf16_map_2d(CUtensorMap* map, const void* base, uint64_t inner,
-                       uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
-                       uint32_t box_outer) {
+// A tensor map of rank 2 to 5 over 16-bit elements (`type`: bf16 or f16)
+// with 128-byte swizzle: dims and box innermost first, `strides` the byte
+// strides of dims 1 .. rank - 1 (multiples of 16). Elements past a dim's
+// extent load as zeros and are never read. Returns a cudaError_t value.
+inline int map_sw128(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                     const void* base, const uint64_t* dims,
+                     const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return (int)cudaErrorSymbolNotFound;
-  cuuint64_t dims[2] = {inner, outer};
-  cuuint64_t strides[1] = {row_bytes};
-  cuuint32_t box[2] = {box_inner, box_outer};
-  cuuint32_t estride[2] = {1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                  const_cast<void*>(base), dims, strides, box, estride,
+  if (rank < 2 || rank > 5) return (int)cudaErrorInvalidValue;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], e[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    e[i] = 1;
+    if (i) s[i - 1] = strides[i - 1];
+  }
+  CUresult r = fn(map, type, rank, const_cast<void*>(base), d, s, b, e,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 2-D bf16 tensor map with 128-byte swizzle: dims and box innermost
+// first, `row_bytes` the outer dimension's stride (a multiple of 16).
+inline int bf16_map_2d(CUtensorMap* map, const void* base, uint64_t inner,
+                       uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
+                       uint32_t box_outer) {
+  const uint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
+  const uint32_t box[2] = {box_inner, box_outer};
+  return map_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,
+                   strides, box);
 }
 
 // ---- device: addresses, mbarriers, TMA --------------------------------------
@@ -133,6 +149,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
       "r"(c_inner), "r"(c_outer)
+      : "memory");
+}
+
+// one 4-D box of `map` at (c0, c1, c2, c3), innermost first, as above
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -300,5 +328,118 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
       "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
+
+// ---- typed products for B6: bf16 or f16 operands, f32 accumulators ------
+//
+// F16 = true takes f16 operands, false bf16. The SS form reads A and B
+// from shared memory through descriptors (both K-major here: TA = TB = 0).
+// The RS form takes A from registers: each warp of the warpgroup holds a
+// 16 x 16 slice of A (rows 16 * warp ..) in four 32-bit registers, laid
+// out as mma.sync m16n8k16's A fragment: a[0] (row g, columns 2c, 2c + 1),
+// a[1] (row g + 8, the same), a[2] (row g, columns 2c + 8, 2c + 9), a[3]
+// (row g + 8, the same), g = lane / 4, c = lane % 4, the lower column in
+// the low half. That is exactly where the f32 accumulator of an earlier
+// product keeps those elements (see wgmma_m64n16), so an S tile's k16
+// step j is a = {pack(d[8j], d[8j+1]), pack(d[8j+2], d[8j+3]),
+// pack(d[8j+4], d[8j+5]), pack(d[8j+6], d[8j+7])}: no shuffle.
+
+#define SM90_ACC32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31])
+
+#define SM90_ACC64 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+  "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define SM90_REGS32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31 "
+
+#define SM90_REGS64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63 "
+
+// both operands K-major
+template <bool F16>
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  if constexpr (F16)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 {"
+                 SM90_REGS64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+                 : SM90_ACC64
+                 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    wgmma_m64n128<0, 0>(d, da, db, scale_d);
+}
+
+// D (64 x 128) += A (64 x 16, registers) B (16 x 128, shared); TB = 1
+// reads B MN-major
+#define SM90_RS_N128(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY     \
+               " {" SM90_REGS64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, "    \
+               "%70;\n}\n"                                                  \
+               : SM90_ACC64                                                  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),        \
+                 "r"(scale_d), "n"(TB))
+
+template <bool F16, int TB>
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  if constexpr (F16)
+    SM90_RS_N128("f16");
+  else
+    SM90_RS_N128("bf16");
+}
+
+// D (64 x 64) += A (64 x 16, registers) B (16 x 64, shared)
+#define SM90_RS_N64(TY)                                                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                 \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY      \
+               " {" SM90_REGS32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, "    \
+               "%38;\n}\n"                                                  \
+               : SM90_ACC32                                                  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),        \
+                 "r"(scale_d), "n"(TB))
+
+template <bool F16, int TB>
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  if constexpr (F16)
+    SM90_RS_N64("f16");
+  else
+    SM90_RS_N64("bf16");
+}
+
+#undef SM90_RS_N128
+#undef SM90_RS_N64
+#undef SM90_ACC32
+#undef SM90_ACC64
+#undef SM90_REGS32
+#undef SM90_REGS64
 
 }  // namespace sm90

@@ -201,20 +201,36 @@ def _tma_args(M: int, N: int, K: int, p: Plan) -> tuple:
               for m in tensor_maps(M, N, K, p.tile)))
 
 
+def operand_dtype(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """The dtype both operands take on the card: their promotion
+    (``torch.promote_types``), with f16 promoted to f32 (exact: every f16
+    value is an f32 value). Raises unless that is bf16 or f32: the kernels'
+    two operand types."""
+    dt = torch.promote_types(a, b)
+    if dt == torch.float16:
+        dt = torch.float32
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the matmul kernel takes bf16, f16 and f32 "
+                        f"operands, got {a} and {b}")
+    return dt
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """f32[M, N] = a @ b with f32 accumulation (a new tensor).
 
-    On the card both operands must be contiguous and of one dtype, bf16
-    or f32. ``matmul.launches`` counts kernel launches (one per call that
-    launches; CPU calls and empty outputs launch nothing), and
+    On the card both operands are first cast to :func:`operand_dtype` (a
+    bf16 activation times an f32 weight multiplies in f32), which leaves
+    every value as it was: the result is the reference's f32-accumulated
+    product of the promoted operands, ``ref.matmul``. They must be
+    contiguous. ``matmul.launches`` counts kernel launches (one per call
+    that launches; CPU calls and empty outputs launch nothing), and
     ``matmul.routes`` the same launches by :func:`plan`'s route."""
     _check(a, b)
     if a.device.type == "cpu":
         return ref.matmul(a, b)
     cuda_only(a.device, "matmul")
-    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the matmul kernel takes two bf16 or two f32 "
-                        f"operands, got {a.dtype} and {b.dtype}")
+    dt = operand_dtype(a.dtype, b.dtype)
+    a, b = a.to(dt), b.to(dt)
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("the matmul kernel takes contiguous operands")
     (M, K), N = a.shape, b.shape[1]

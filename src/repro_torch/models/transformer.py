@@ -214,7 +214,8 @@ def attention_block(p: Block, cfg: LMConfig, x, positions, *, cache=None,
     ``cache`` is this layer's ``(k, v)``, each (B, T, Hkv, dh): the new
     token's k/v are written into it IN PLACE at ``cache_len`` (the
     reference returns an updated copy) and attention reads its first
-    ``cache_len + 1`` slots."""
+    ``cache_len + 1`` slots, in the cache's dtype; the attention's output
+    goes into ``wo`` in that dtype, and the result is rounded to x's."""
     B, S, _ = x.shape
     q, k, v = qkv(p, cfg, x, positions)
     if cache is None:
@@ -223,9 +224,13 @@ def attention_block(p: Block, cfg: LMConfig, x, positions, *, cache=None,
         ck, cv = cache
         ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
         cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
-        out = ops.flash_attention(q, ck, cv, causal=False,
+        # a cache of another dtype: q takes the cache's (the reference's
+        # einsum promotes bf16 q over an f32 cache to f32), the cache is
+        # never cast
+        out = ops.flash_attention(q.to(ck.dtype), ck, cv, causal=False,
                                   t_real=cache_len + 1)
-    return linear(out.reshape(B, S, cfg.n_head * cfg.d_head), p.wo)
+    out = linear(out.reshape(B, S, cfg.n_head * cfg.d_head), p.wo)
+    return out.to(x.dtype)
 
 
 def _layer(p: Block, cfg: LMConfig, x, positions, cache=None,
@@ -254,13 +259,15 @@ def forward(model: Transformer, tokens: torch.Tensor):
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def init_cache(cfg: LMConfig, batch: int, max_len: int,
+def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> dict:
-    """Zeroed KV cache ``{"k", "v"}`` in ``cfg.dtype``, each
-    (L, B, T, Hkv, dh)."""
+    """Zeroed KV cache ``{"k", "v"}`` in ``dtype`` (default ``cfg.dtype``),
+    each (L, B, T, Hkv, dh). A cache of another dtype than the model's is
+    attended in the cache's dtype (:func:`attention_block`)."""
+    dtype = dtype or cfg.dtype
     shape = (cfg.n_layer, batch, max_len, cfg.n_kv, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 @torch.inference_mode()

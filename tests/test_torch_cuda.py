@@ -241,7 +241,8 @@ def test_matmul_routes_are_counted(cuda):
 
 def test_matmul_kernel_masks_unaligned_operands(cuda):
     """Operands whose rows are not 16-byte multiples take the masked
-    element-wise loads; a view that is not contiguous raises."""
+    element-wise loads; a view that is not contiguous raises. Mixed float
+    operands multiply as their promotion (here f32), f64 raises."""
     base = torch.randn(70, 131, device=cuda).bfloat16()
     a, b = base[:33, 1:66].contiguous(), base[3:68, 2:19].contiguous()
     assert segment_matmul.plan(33, 17, 65).route == "masked"
@@ -249,43 +250,106 @@ def test_matmul_kernel_masks_unaligned_operands(cuda):
                                rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):
         ops.matmul(base[:, :65], base[:65, :3])
+    before = segment_matmul.matmul.routes["f32"]
+    torch.testing.assert_close(ops.matmul(a, b.float()),
+                               ref.matmul(a.float(), b.float()), rtol=1e-4,
+                               atol=1e-4)
+    assert segment_matmul.matmul.routes["f32"] == before + 1
     with pytest.raises(TypeError):
-        ops.matmul(a, b.float())
+        ops.matmul(a, b.double())
 
 
-@pytest.mark.parametrize("B,S,T,H,Hkv,t_real,causal", [
-    (2, 64, 64, 4, 4, None, True), (1, 70, 70, 8, 2, None, True),
-    (2, 128, 256, 4, 1, None, False), (1, 40, 24, 4, 2, None, True),
-    (2, 24, 40, 6, 3, 30, True), (1, 300, 300, 32, 2, None, True),
-    (16, 1, 1000, 32, 2, None, False), (16, 1, 1000, 32, 2, 1, False),
-    (16, 1, 1000, 32, 2, 65, False), (3, 1, 777, 32, 32, 500, False),
-    (2, 1, 96, 8, 2, 37, True), (1, 2, 129, 16, 2, 100, False),
-    (4, 1, 5000, 16, 1, 4097, False)])
+@pytest.mark.parametrize("B,S,T,H,Hkv,t_real,causal,dh,dtype", [
+    (2, 64, 64, 4, 4, None, True, 128, "bf16"),
+    (1, 70, 70, 8, 2, None, True, 128, "bf16"),
+    (2, 128, 256, 4, 1, None, False, 128, "bf16"),
+    (1, 40, 24, 4, 2, None, True, 128, "bf16"),
+    (2, 24, 40, 6, 3, 30, True, 128, "bf16"),
+    (1, 300, 300, 32, 2, None, True, 128, "bf16"),
+    (16, 1, 1000, 32, 2, None, False, 128, "bf16"),
+    (16, 1, 1000, 32, 2, 1, False, 128, "bf16"),
+    (16, 1, 1000, 32, 2, 65, False, 128, "bf16"),
+    (3, 1, 777, 32, 32, 500, False, 128, "bf16"),
+    (2, 1, 96, 8, 2, 37, True, 128, "bf16"),
+    (1, 2, 129, 16, 2, 100, False, 128, "bf16"),
+    (4, 1, 5000, 16, 1, 4097, False, 128, "bf16"),
+    # the wgmma route: glm4's GQA 16:1, ragged positions and keys, S != T
+    (1, 1000, 1000, 32, 2, None, True, 128, "bf16"),
+    (2, 333, 400, 16, 1, 390, True, 128, "bf16"),
+    (1, 200, 520, 8, 8, None, False, 128, "bf16"),
+    (1, 257, 257, 32, 2, None, True, 64, "bf16"),
+    (1, 300, 300, 32, 2, None, True, 128, "f16"),
+    (2, 100, 150, 4, 2, 140, False, 64, "f16"),
+    # the mma and split routes at other head widths, f16; G = 3 (does
+    # not divide 128) at dh = 128
+    (2, 40, 40, 4, 2, None, True, 16, "bf16"),
+    (2, 1, 40, 4, 2, 17, False, 16, "bf16"),
+    (1, 90, 90, 4, 4, None, True, 8, "bf16"),
+    (3, 1, 300, 4, 4, 201, False, 8, "f16"),
+    (1, 70, 100, 8, 2, 90, True, 64, "f16"),
+    (4, 1, 3000, 16, 1, None, False, 64, "bf16"),
+    (1, 50, 50, 6, 2, None, True, 24, "bf16"),
+    (1, 100, 100, 12, 4, None, True, 128, "bf16"),
+    (2, 1, 700, 32, 2, 650, False, 80, "f16"),
+    # the f32 route
+    (2, 40, 40, 4, 2, None, True, 16, "f32"),
+    (2, 1, 300, 4, 4, 123, False, 16, "f32"),
+    (1, 70, 90, 8, 2, 80, True, 128, "f32"),
+    (2, 33, 33, 6, 3, None, False, 64, "f32"),
+    (1, 20, 20, 4, 4, None, True, 8, "f32")])
 def test_flash_attention_kernel_matches_plain_version(cuda, B, S, T, H, Hkv,
-                                                      t_real, causal):
-    gen = torch.Generator(device=cuda).manual_seed(S * T + H)
-    q = torch.randn(B, S, H, 128, generator=gen, device=cuda).bfloat16()
-    k, v = (torch.randn(B, T, Hkv, 128, generator=gen, device=cuda)
-            .bfloat16() for _ in range(2))
+                                                      t_real, causal, dh,
+                                                      dtype):
+    dt = {"bf16": torch.bfloat16, "f16": torch.float16,
+          "f32": torch.float32}[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(S * T + H + dh)
+    q = torch.randn(B, S, H, dh, generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn(B, T, Hkv, dh, generator=gen, device=cuda).to(dt)
+            for _ in range(2))
     if t_real is not None:                 # keys past t_real are never read
         k[:, t_real:], v[:, t_real:] = float("nan"), float("nan")
-    before = flash_attention.flash_attention.launches
+    route = flash_attention.plan(B, S, H, Hkv, T if t_real is None else
+                                 t_real, causal, dh, dt).route
+    before = flash_attention.flash_attention.routes[route]
     got = ops.flash_attention(q, k, v, causal=causal, t_real=t_real)
     torch.cuda.synchronize()
-    assert flash_attention.flash_attention.launches == before + 1
+    assert flash_attention.flash_attention.routes[route] == before + 1
     want = ref.flash_attention(q, k, v, causal=causal, t_real=t_real)
-    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert got.dtype == dt and got.shape == q.shape
     diff = (got.float() - want.float()).abs()
     assert bool((diff <= flash_attention.error_bound(want)).all()), \
         float(diff.max())
 
 
+def test_flash_attention_probe_matches_plain_version(cuda):
+    """The wgmma route's two products on a single tile: S = Q K^T from
+    TMA-loaded tiles within f32 rounding of the plain product, and P V
+    with P rounded to bf16 in registers within the route's bound."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(64, 128, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(128, 128, generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    s, o = flash_attention.rs_probe(q, k, v)
+    torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-5,
+                               atol=1e-4)
+    want = ref.flash_attention(q.float()[None, :, None], k.float()[None, :,
+                                                                    None],
+                               v.float()[None, :, None])[0, :, 0]
+    bound = flash_attention.error_bound(want.bfloat16()[None, :, None])
+    assert bool(((o - want).abs() <= bound[0, :, 0]).all())
+
+
 def test_flash_attention_kernel_refuses_other_shapes(cuda):
-    q = torch.zeros(1, 4, 4, 64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):                  # dh != 128
-        ops.flash_attention(q, q, q)
-    q = torch.zeros(1, 4, 4, 128, device=cuda)
-    with pytest.raises(TypeError):                   # f32
+    """Head widths above 128 or not a multiple of 8 raise a named error on
+    every dtype (the plain version on the CPU takes them); so does a dtype
+    the kernels do not take."""
+    for dh, dt in ((136, torch.bfloat16), (12, torch.bfloat16),
+                   (256, torch.float32), (4, torch.float16)):
+        q = torch.zeros(1, 4, 4, dh, device=cuda, dtype=dt)
+        with pytest.raises(flash_attention.HeadWidthError):
+            ops.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 4, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError):
         ops.flash_attention(q, q, q)
 
 

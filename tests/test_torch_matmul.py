@@ -4,7 +4,8 @@ and dtypes of tests/test_kernels.py::TestMatmul and with its tolerances
 (f32 rtol 1e-4, atol 1e-3; bf16 rtol 2e-2, atol 2e-1). Both sides sum in
 f32 in different orders, and the reference's bf16 dot may round its
 products' sums differently. The kernel itself runs only on an NVIDIA
-card: its tests are in test_torch_cuda.py."""
+card: its tests are in test_torch_cuda.py. Mixed float operands are held
+to exact equality with the plain product of the promoted operands."""
 
 import numpy as np
 import pytest
@@ -136,3 +137,40 @@ def test_bound_is_flops_for_prefill_and_bytes_for_decode():
     M = 16
     nbytes = (M * K + K * N) * 2 + 4 * M * N
     assert sm.bound_ms(M, N, K) == pytest.approx(nbytes / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("a,b,want", [
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16, torch.float32),
+    (torch.float16, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32, torch.float32)])
+def test_operand_dtype_promotes_to_a_kernel_type(a, b, want):
+    """On the card both operands take their promotion, f16 taken to f32:
+    every value stays as it was."""
+    assert sm.operand_dtype(a, b) == want
+
+
+def test_operand_dtype_refuses_f64():
+    with pytest.raises(TypeError):
+        sm.operand_dtype(torch.float64, torch.float32)
+
+
+@pytest.mark.parametrize("da,db", [("bf16", "f32"), ("f32", "bf16"),
+                                   ("f16", "bf16"), ("f16", "f32")])
+def test_mixed_operands_equal_the_promoted_product(da, db):
+    """Mixed float operands multiply as the reference's f32-accumulated
+    product of the promoted operands (B5 on the card casts both to
+    operand_dtype, which changes no value)."""
+    dts = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+    rng = np.random.default_rng(3)
+    a = torch.as_tensor(rng.normal(size=(37, 70)), dtype=torch.float32)
+    b = torch.as_tensor(rng.normal(size=(70, 19)), dtype=torch.float32)
+    a, b = a.to(dts[da]), b.to(dts[db])
+    dt = sm.operand_dtype(a.dtype, b.dtype)
+    assert torch.equal(a.to(dt).float(), a.float())    # the cast is exact
+    assert torch.equal(b.to(dt).float(), b.float())
+    got = ops.matmul(a, b)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref.matmul(a.to(dt), b.to(dt)))

@@ -121,6 +121,34 @@ def test_decode_steps_match_reference(arch, dtype):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
+def test_f32_cache_decode_matches_reference(arch):
+    """A bf16 model over an f32 cache (``init_cache(dtype=float32)``, the
+    reference's ``init_cache(..., dtype=jnp.float32)``): q is attended in
+    the cache's f32 (the reference's einsum promotes it), the attention's
+    f32 output goes into wo, the residual stays bf16. Logits within the
+    bf16 tolerance of the reference's decode; the caches hold the same
+    values in f32."""
+    jcfg, params, model = models(arch, "bf16", seed=4)
+    B, S = 2, 8
+    toks = tokens(jcfg, B, S, seed=5)
+    jcache = jax_tfm.init_cache(jcfg, B, S + 3, dtype=jnp.float32)
+    cache = tfm.init_cache(model.cfg, B, S + 3, dtype=torch.float32,
+                           device="cpu")
+    assert cache["k"].dtype == cache["v"].dtype == torch.float32
+    for i in range(S):
+        want, jcache = jax_tfm.decode_step(params, jcfg,
+                                           jnp.asarray(toks[:, i:i + 1]),
+                                           jcache, jnp.int32(i))
+        got, _ = tfm.decode_step(model, torch.as_tensor(toks[:, i:i + 1]),
+                                 cache, i)
+        assert got.dtype == torch.float32
+        close(got, want, "bf16")
+    assert jcache["k"].dtype == jnp.float32
+    close(cache["k"], np.asarray(jcache["k"]), "bf16")
+    close(cache["v"], np.asarray(jcache["v"]), "bf16")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_forward(arch):
     """Greedy decode over a prefix reproduces the teacher-forced logits
     (tests/test_models.py::test_decode_matches_forward, in the port)."""
