@@ -6,18 +6,24 @@ kernel of the main path from the sources in this checkout. Phases, one
 result line each; any failure raises and exits non-zero:
 
   gpu      card name and power limit (nvidia-smi)
-  build    B1 (label propagation), B2 (segmented count), B3 (k-core
-           peel), B4 (segment sum), B5 (GEMM) and B6 (flash attention) with
-           nvcc for sm_90a, the host forest engine with cc, all started
-           together; each kernel's registers, shared memory and spills
+  build    B1 (label propagation), B2 (segmented count), the stratum
+           sweep (B2 redesigned), B3 (k-core peel), B4 (segment sum), B5
+           (GEMM) and B6 (flash attention) with nvcc for sm_90a, the host
+           forest engine with cc, all started together; each kernel's
+           registers, shared memory and spills
   construct  a CollegeMsg-scale temporal graph (SNAP CollegeMsg: 1,899
            users, 59,835 messages, 193 days), generated from a seed; its 37
-           core-time strata swept on the card (the device engine, B2 as the
-           counter; B2's launch count over this phase must be > 0) and on
-           the host (the fused numpy sweep): every stratum array-equal;
-           both times, the fixpoint iterations (host reads of the
-           convergence flag) and climbs; then one stratum swept once more
-           under torch.profiler (device busy time, idle share, B2's share)
+           core-time strata swept on the card (the device engine: one
+           stratum_sweep launch per t_uv block, ceil(t_max / 256) = 1, on
+           the route its size picks, and no B2 launch) and on the host
+           (the fused numpy sweep): every stratum array-equal; both times,
+           the probes and climbs; the build's split (pair CSR, _tuv_rows,
+           upload, the kernel by CUDA events, download, host compression
+           and stratification), the kernel's byte bound and serial chain
+           (the longest stratum's probes); the whole build under
+           torch.profiler (idle share); the kernel against its plain
+           version on the card, stratum k0 alone (the old path's cost) and
+           every stratum: rows, carry and counts equal
   index    the k-stratified PECB index: forests built on the host from the
            card-built strata, so everything served below comes from them
   kernel   B1 against its plain PyTorch version at (256, N) on the card:
@@ -297,7 +303,7 @@ def ptxas_kernels(log: str) -> list[str]:
 
 def is_b6(key: str) -> bool:
     return any(name in key for name in ("flash_wgmma<", "flash_mma<",
-                                        "flash_combine<", "flash_f32("))
+                                        "flash_combine<", "flash_simt<"))
 
 
 def b6_routes(fa, want: dict, what: str) -> str:
@@ -594,7 +600,9 @@ def kernel_checks(b5_cases: dict, b6_cases: dict, tag: str = "lm") -> dict:
     for name, (q, k, v, causal, t_real) in b6_cases.items():
         B, S, H, dh = q.shape
         Hkv = k.shape[2]
-        route = fa.plan(B, S, H, Hkv, t_real, causal, dh, q.dtype).route
+        kdt = torch.float32 if q.dtype == torch.float64 else q.dtype
+        p = fa.plan(B, S, H, Hkv, t_real, causal, fa.kernel_width(dh), kdt)
+        route = p.route
         before = fa.flash_attention.routes[route]
         got = fa.flash_attention(q, k, v, causal=causal, t_real=t_real)
         want = ref.flash_attention(q, k, v, causal=causal, t_real=t_real)
@@ -632,19 +640,18 @@ def kernel_checks(b5_cases: dict, b6_cases: dict, tag: str = "lm") -> dict:
         del qt, kt, vt
         item = q.element_size()
         bound = fa.bound_ms(B, S, H, Hkv, t_real, causal, dh, item)
-        peak = fa.F32_FLOP_PER_S if item == 4 else fa.BF16_FLOP_PER_S
+        peak = fa.F32_FLOP_PER_S if item >= 4 else fa.BF16_FLOP_PER_S
         flops = 4.0 * dh * B * H * fa.attended_pairs(S, t_real, causal)
         by = "operations" if flops / peak * 1e3 >= bound else "bytes"
         out[name] = dict(b5=False, max_abs_err=err, ms=t, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound, bound_by=by)
         tolerance = (f"{fa.F32_TOL} of |plain| + {fa.F32_TOL}"
-                     if q.dtype == torch.float32 else
+                     if q.dtype in (torch.float32, torch.float64) else
                      f"{fa.RTOL} of |plain| + {fa.ROW_ATOL} of its row's "
                      "largest")
         print(f"[{tag}] B6 {name}: q ({B}, {S}, {H}, {dh}) over k, v ({B}, "
               f"{k.shape[1]}, {Hkv}, {dh}), {str(q.dtype)[6:]}, t_real "
-              f"{t_real}, causal {causal}, "
-              f"{fa.plan(B, S, H, Hkv, t_real, causal, dh, q.dtype)}: max "
+              f"{t_real}, causal {causal}, {p}: max "
               f"abs err {err:.3e} against the plain version, {worst:.3f} of "
               f"the bound ({tolerance}) at most; |plain| typically "
               f"{typical:.3e}, largest {largest:.3e}; without the last "
@@ -691,7 +698,8 @@ def b6_probe(dev) -> None:
 
 def b6_small_cases(dev, gen) -> dict:
     """B6 cases at small sizes for the routes and dtypes the glm4-9b path
-    does not take: dh 64 (wgmma), dh 16 (mma and split), f16, f32."""
+    does not take: dh 64 (wgmma), dh 16 (mma and split), f16, f32, dh 12
+    (zero-padded to 16), dh 136 and 256 (wide) and f64 (computed in f32)."""
     cases = {}
     for name, (B, S, T, H, Hkv, dh, dt, causal, t_real) in {
             "dh 64 causal": (2, 600, 600, 16, 4, 64, torch.bfloat16, True,
@@ -705,7 +713,15 @@ def b6_small_cases(dev, gen) -> dict:
             "f32 dh 16 causal": (2, 300, 300, 4, 2, 16, torch.float32, True,
                                  300),
             "f32 dh 128 decode": (4, 1, 2000, 32, 2, 128, torch.float32,
-                                  False, 1999)}.items():
+                                  False, 1999),
+            "dh 12 causal": (2, 300, 300, 4, 2, 12, torch.bfloat16, True,
+                             300),
+            "dh 136 causal": (2, 300, 300, 4, 2, 136, torch.bfloat16, True,
+                              300),
+            "f32 dh 256 decode": (4, 1, 2000, 8, 2, 256, torch.float32,
+                                  False, 1999),
+            "f64 dh 64 causal": (2, 300, 300, 4, 2, 64, torch.float64, True,
+                                 300)}.items():
         q = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dt)
         k, v = (torch.randn(B, T, Hkv, dh, generator=gen, device=dev).to(dt)
                 for _ in range(2))
@@ -1076,6 +1092,220 @@ def gnn_phase(dev) -> tuple[dict, int, float]:
     return record, b5_n, max(r["max_abs_err"] for r in b5.values())
 
 
+def sweep_split(g, ks, dev) -> dict:
+    """The card build's steps one at a time, each timed: the pair CSR and
+    the t_uv rows on the host, their upload, the stratum sweep (CUDA
+    events around its launches), the rows' download, and the host's
+    delta compression and stratification. Returns the times, the rows
+    (a (|K|, t_max + 1, n) card tensor), the per-stratum counts and the
+    sweep's operands of the first block."""
+    from repro_torch.core import core_time as ct
+    from repro_torch.kernels import segmented_select as ss
+
+    inf = g.t_max + 1
+    t0 = time.perf_counter()
+    csr = ct._pair_csr(g)
+    t_csr = time.perf_counter() - t0
+    blocks = [(lo, min(lo + ct.TUV_BLOCK, g.t_max + 1))
+              for lo in range(1, g.t_max + 1, ct.TUV_BLOCK)]
+    t0 = time.perf_counter()
+    tuv_np = [np.ascontiguousarray(ct._tuv_rows(csr, lo, hi, g.t_max))
+              for lo, hi in blocks]
+    t_tuv = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops = [torch.as_tensor(a, device=dev) for a in (
+        csr.src, csr.vptr.astype(np.int32), csr.dst,
+        np.asarray(ks, np.int32))]
+    tuv = [torch.as_tensor(a, device=dev) for a in tuv_np]
+    rows = torch.full((len(ks), g.t_max + 1, g.n), inf, dtype=torch.int32,
+                      device=dev)
+    carry = torch.zeros((len(ks), g.n), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    counts = 0
+    start.record()
+    for (lo, hi), t in zip(blocks, tuv):
+        counts = counts + ss.stratum_sweep(t, *ops[:3], ops[3], carry, inf,
+                                           out=rows[:, lo:hi])[1]
+    end.record()
+    torch.cuda.synchronize()
+    kernel_ms = start.elapsed_time(end)
+    host_rows, t_down = wall(lambda: rows.cpu().numpy())
+    t0 = time.perf_counter()
+    ct.StratifiedCoreTable.from_tables(
+        g, ks, [ct._compress(g, v) for v in host_rows])
+    t_compress = time.perf_counter() - t0
+    return dict(t_csr=t_csr, t_tuv=t_tuv, t_up=t_up, kernel_ms=kernel_ms,
+                t_down=t_down, t_compress=t_compress, rows=rows,
+                counts=counts.cpu().numpy(), host_rows=host_rows,
+                ops=[tuv[0], *ops[:3]], blocks=blocks)
+
+
+def construct_phase(dev):
+    """``[construct]``: the CollegeMsg-scale strata built on the card (the
+    main path of the stratum sweep, counted) and on the host, every field
+    equal; the build's split, idle share, bound and serial chain; the
+    kernel against its plain version on the card. Returns ``(g, ks,
+    strata, t_dev, t_host, b2_launches, record)``."""
+    from repro_torch.core import core_time as ct
+    from repro_torch.core.temporal_graph import gen_temporal_graph
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segmented_select as ss
+
+    g = gen_temporal_graph(**COLLEGEMSG)
+    ks = ct.default_ks(g)
+    inf = g.t_max + 1
+    host_strata, t_host = wall(lambda: ct.stratified_core_times(
+        g, ks, device="cpu"))
+    stats: dict = {}
+    ss.reset_sweep_counts()
+    ss.segmented_count_le.launches = 0
+    strata, t_dev = wall(lambda: ct.stratified_core_times(
+        g, ks, engine="device", device=dev, stats=stats))
+    launches = ss.stratum_sweep.launches
+    routes = dict(ss.stratum_sweep.routes)
+    b2_launches = ss.segmented_count_le.launches
+    blocks = -(-g.t_max // ct.TUV_BLOCK)
+    route = ss.sweep_route(g.n)
+    if launches <= 0:
+        raise AssertionError("the device build launched the stratum sweep "
+                             "no time")
+    if launches != blocks or routes[route] != blocks:
+        raise AssertionError(f"the build made {launches} sweep launches "
+                             f"({routes}), expected {blocks} on the {route} "
+                             "route, one per t_uv block")
+    if b2_launches:
+        raise AssertionError(f"B2 launched {b2_launches} times during the "
+                             "build (it is off the build path)")
+    for f in dataclasses.fields(strata):
+        a, b = getattr(strata, f.name), getattr(host_strata, f.name)
+        if not (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                else a == b):
+            raise AssertionError(f"card-built strata differ from the "
+                                 f"host's in {f.name}")
+    same = sum(np.array_equal(strata.table_for(k).vertex_ct,
+                              host_strata.table_for(k).vertex_ct)
+               for k in ks)
+    if same != len(ks):
+        raise AssertionError(f"only {same} of {len(ks)} strata equal")
+    per = stats["strata"]
+    if stats["iterations"] - stats["climbs"] != g.t_max * len(ks):
+        raise AssertionError("every (k, ts) must end on a passing probe")
+    E = int(ct._pair_csr(g).src.shape[0])
+    print(f"[construct] n={g.n} m={g.m} t_max={g.t_max} E={E} slots "
+          f"|K|={len(ks)} (k={ks[0]}..{ks[-1]}): {same}/{len(ks)} card-built "
+          f"strata array-equal to the host's (every field; tolerance 0: "
+          f"integer tables); card build {t_dev:.2f}s, host fused sweep "
+          f"{t_host:.2f}s; stratum_sweep launches {launches} "
+          f"(ceil(t_max / {ct.TUV_BLOCK}) = {blocks}; routes {routes}), B2 "
+          f"launches {b2_launches} during the build; probes "
+          f"{stats['iterations']}, climbs {stats['climbs']} (strata run "
+          f"independently)")
+
+    # the build's split: the same steps one at a time
+    sp = sweep_split(g, ks, dev)
+    if not np.array_equal(sp["counts"], per):
+        raise AssertionError("the split run's counts differ from the build's")
+    for i, k in enumerate(ks):
+        if not np.array_equal(sp["host_rows"][i],
+                              strata.table_for(k).vertex_ct):
+            raise AssertionError(f"the split run's stratum k={k} differs")
+    chain = int(per[:, 0].max())
+    bound = sum(ss.sweep_bound_ms(len(ks), hi - lo, E, g.n)
+                for lo, hi in sp["blocks"])
+    t_parts = (sp["t_csr"] + sp["t_tuv"] + sp["t_up"] + sp["kernel_ms"] / 1e3
+               + sp["t_down"] + sp["t_compress"])
+    print(f"[construct] build split: pair CSR {sp['t_csr']:.4f}s, _tuv_rows "
+          f"{sp['t_tuv']:.4f}s, upload {sp['t_up']:.4f}s, stratum_sweep "
+          f"{sp['kernel_ms']:.3f} ms (CUDA events, {len(sp['blocks'])} "
+          f"launch(es)), download {sp['t_down']:.4f}s, host _compress + "
+          f"stratify {sp['t_compress']:.4f}s; sum {t_parts:.2f}s. Kernel "
+          f"bound {bound:.6f} ms (bytes: t_uv block read once, rows written "
+          f"once, CSR, ks, carry and counts moved once, at 3.35 TB/s); "
+          f"serial chain: the longest stratum's {chain} probes (k="
+          f"{ks[int(per[:, 0].argmax())]}), "
+          f"{sp['kernel_ms'] * 1e3 / chain:.2f} us per probe; per-stratum "
+          f"probes {int(per[:, 0].min())}..{chain}, climbs "
+          f"{int(per[:, 1].min())}..{int(per[:, 1].max())}")
+
+    # the whole card build under the profiler: the device's idle share
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, t_prof = wall(lambda: ct.stratified_core_times(
+            g, ks, engine="device", device=dev))
+    rows = device_rows(prof)
+    busy_us = sum(t for _, t, _ in rows)
+    sweep_us = sum(t for key, t, _ in rows if "stratum_sweep" in key)
+    print(f"[construct] card build under torch.profiler: wall {t_prof:.2f}s; "
+          + (f"device busy {busy_us / 1e6:.4f}s (idle share "
+             f"{1 - busy_us / 1e6 / t_prof:.4f}), stratum_sweep "
+             f"{sweep_us / 1e3:.3f} ms; top kernels: " + top_rows(rows)
+             if busy_us else "device busy not measured (no device events)"))
+    del prof
+
+    # the kernel against its plain version on the card, the same operands:
+    # stratum k0 alone (the old path's cost: a host loop of small launches
+    # and a flag read per probe), then every stratum
+    tuv, seg, vptr, dst = sp["ops"]
+    if len(sp["blocks"]) != 1:
+        raise AssertionError("the plain comparison sweeps one t_uv block")
+    k0 = ks[0]
+    kt0 = torch.tensor([k0], dtype=torch.int32, device=dev)
+    c_p = torch.zeros((1, g.n), dtype=torch.int32, device=dev)
+    out_p = torch.empty((1, g.t_max, g.n), dtype=torch.int32, device=dev)
+    st_p, t_plain0 = wall(lambda: ref.stratum_sweep(tuv, seg, vptr, dst, kt0,
+                                                    c_p, inf, out_p))
+    c_k = torch.zeros_like(c_p)
+    (out_k, st_k), t_kern0 = wall(lambda: ss.stratum_sweep(
+        tuv, seg, vptr, dst, kt0, c_k, inf))
+    err = max(check_equal(f"stratum k={k0} rows", out_k, out_p),
+              check_equal(f"stratum k={k0} carry", c_k, c_p),
+              check_equal(f"stratum k={k0} counts", st_k, st_p),
+              check_equal(f"stratum k={k0} rows vs the build", out_k[0],
+                          sp["rows"][0, 1:]))
+    if not np.array_equal(st_k.cpu().numpy()[0], per[0]):
+        raise AssertionError(f"stratum k={k0}'s counts differ from the "
+                             "build's")
+    kt = torch.as_tensor(np.asarray(ks, np.int32), device=dev)
+    c_all = torch.zeros((len(ks), g.n), dtype=torch.int32, device=dev)
+    out_all = torch.empty((len(ks), g.t_max, g.n), dtype=torch.int32,
+                          device=dev)
+    st_all, t_plain = wall(lambda: ref.stratum_sweep(
+        tuv, seg, vptr, dst, kt, c_all, inf, out_all))
+    err = max(err, check_equal("every stratum's rows", sp["rows"][:, 1:],
+                               out_all))
+    if not np.array_equal(st_all.cpu().numpy(), per):
+        raise AssertionError("the plain version's counts differ from the "
+                             "kernel's")
+    carry = torch.zeros_like(c_all)
+
+    def launch():
+        carry.zero_()
+        ss.stratum_sweep(tuv, seg, vptr, dst, kt, carry, inf)
+
+    ms = cuda_ms(launch, iters=5, warmup=1)
+    print(f"[construct] stratum_sweep against ref.stratum_sweep on the card, "
+          f"same operands (R={g.t_max}, E={E}, n={g.n}): stratum k={k0} alone "
+          f"rows, carry and counts {st_k.tolist()[0]} equal (tolerance 0), "
+          f"kernel {t_kern0 * 1e3:.3f} ms wall, plain {t_plain0:.3f}s wall "
+          f"(the old path's cost: a host loop, a flag read per probe); all "
+          f"{len(ks)} strata equal, kernel {ms:.3f} ms per launch (CUDA "
+          f"events, 5 launches), plain {t_plain:.3f}s wall; bound "
+          f"{bound:.6f} ms; library: none (no PyTorch call computes the "
+          f"sweep)")
+    record = {"name": "stratum_sweep", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/stratum_sweep.cu",
+              "replaces": "src/repro/kernels/segmented_select.py:117, "
+                          "src/repro/core/core_time.py:346",
+              "launches": launches, "max_abs_err": err, "ms": ms,
+              "plain_ms": t_plain * 1e3, "bound_ms": bound,
+              "bound_by": "bytes", "library_ms": None}
+    return g, ks, strata, t_dev, t_host, b2_launches, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -1086,7 +1316,6 @@ def main() -> int:
     from repro_torch.core import core_time as ct
     from repro_torch.core import ecb_native, kcore
     from repro_torch.core.pecb_index import build_stratified_index
-    from repro_torch.core.temporal_graph import gen_temporal_graph
     from repro_torch.kernels import (flash_attention, kcore_peel, label_prop,
                                      ref, segment_matmul, segmented_select)
     from repro_torch.kernels import ops as kernel_ops
@@ -1107,9 +1336,10 @@ def main() -> int:
 
     # -- build: every native library at once ------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         libs = {name: pool.submit(build) for name, build in (
             ("B1", label_prop.build), ("B2", segmented_select.build),
+            ("sweep", segmented_select.build_sweep),
             ("B3", kcore_peel.build),
             ("B4", segment_matmul.build_segment_sum),
             ("B5", segment_matmul.build), ("B6", flash_attention.build))}
@@ -1120,78 +1350,14 @@ def main() -> int:
         print(f"[build] {name} {so.name}")
         for k in ptxas_kernels(so.with_suffix(".log").read_text()):
             print(f"[build] {name} ptxas {k}")
-    print(f"[build] B1, B2, B3, B4, B5, B6 + host forest engine "
+    print(f"[build] B1, B2, the stratum sweep, B3, B4, B5, B6 + host "
+          f"forest engine "
           f"({'native C' if native else 'Python: no C compiler'}) in "
           f"{time.perf_counter() - t0:.2f}s")
 
-    # -- construct: the strata on the card (main path of B2) and the host --
-    g = gen_temporal_graph(**COLLEGEMSG)
-    ks = ct.default_ks(g)
-    host_strata, t_host = wall(lambda: ct.stratified_core_times(
-        g, ks, device="cpu"))
-    stats: dict = {}
-    segmented_select.segmented_count_le.launches = 0
-    strata, t_dev = wall(lambda: ct.stratified_core_times(
-        g, ks, engine="device", device=dev, stats=stats))
-    b2_launches = segmented_select.segmented_count_le.launches
-    if b2_launches <= 0:
-        raise AssertionError("the device build launched B2 no time")
-    steps = segmented_select.bisection_steps(g.t_max + 1)
-    if b2_launches != stats["iterations"] + steps * stats["climbs"]:
-        raise AssertionError("B2 launches do not match the sweep's probes "
-                             "and climbs")
-    for f in dataclasses.fields(strata):
-        a, b = getattr(strata, f.name), getattr(host_strata, f.name)
-        if not (np.array_equal(a, b) if isinstance(a, np.ndarray)
-                else a == b):
-            raise AssertionError(f"card-built strata differ from the "
-                                 f"host's in {f.name}")
-    same = sum(np.array_equal(strata.table_for(k).vertex_ct,
-                              host_strata.table_for(k).vertex_ct)
-               for k in ks)
-    if same != len(ks):
-        raise AssertionError(f"only {same} of {len(ks)} strata equal")
-    t0 = time.perf_counter()
-    ct.StratifiedCoreTable.from_tables(
-        g, ks, [ct._compress(g, strata.table_for(k).vertex_ct) for k in ks])
-    t_compress = time.perf_counter() - t0
+    g, ks, strata, t_dev, t_host, b2_launches, sweep_record = \
+        construct_phase(dev)
     csr = ct._pair_csr(g)
-    print(f"[construct] n={g.n} m={g.m} t_max={g.t_max} "
-          f"E={csr.src.shape[0]} slots |K|={len(ks)} "
-          f"(k={ks[0]}..{ks[-1]}): {same}/{len(ks)} card-built strata "
-          f"array-equal to the host's (every field; tolerance 0: integer "
-          f"tables); card build {t_dev:.2f}s, host fused sweep "
-          f"{t_host:.2f}s; fixpoint iterations (flag reads) "
-          f"{stats['iterations']}, climbs {stats['climbs']} of {steps} "
-          f"steps, B2 launches {b2_launches} "
-          f"({t_dev / b2_launches * 1e6:.1f} us of build per launch); host "
-          f"compress + stratify {t_compress:.2f}s of the card build")
-
-    # one stratum's sweep once more, under the profiler: where it goes
-    k0 = ks[0]
-    st0: dict = {}
-    segmented_select.segmented_count_le.launches = 0
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        vct0, t_k0 = wall(lambda: ct._sweep_device(g, k0, device=dev,
-                                                   stats=st0))
-    k0_launches = segmented_select.segmented_count_le.launches
-    if not np.array_equal(vct0, strata.table_for(k0).vertex_ct):
-        raise AssertionError(f"the per-k sweep of k={k0} differs from its "
-                             "stratum")
-    rows = device_rows(prof)
-    busy_us = sum(t for _, t, _ in rows)
-    b2_us = sum(t for key, t, _ in rows if "segmented_count_le" in key)
-    print(f"[construct] stratum k={k0} alone under torch.profiler: wall "
-          f"{t_k0:.2f}s, iterations {st0['iterations']}, climbs "
-          f"{st0['climbs']}, B2 launches {k0_launches}; "
-          + (f"device busy {busy_us / 1e6:.4f}s (idle share "
-             f"{1 - busy_us / 1e6 / t_k0:.3f}), B2 {b2_us / 1e6:.4f}s = "
-             f"{b2_us / max(k0_launches, 1):.2f} us per launch; top kernels: "
-             + top_rows(rows) if busy_us else
-             "device busy not measured (no device events)"))
-    del prof
 
     # -- index: forests on the host from the card-built strata -------------
     t0 = time.perf_counter()
@@ -1504,6 +1670,7 @@ def main() -> int:
          "launches": b2_launches, "max_abs_err": b2_err, "ms": b2_ms,
          "plain_ms": b2_plain, "bound_ms": b2_bound, "bound_by": "bytes",
          "library_ms": None},
+        sweep_record,
         {"name": "degree_count", "route": "cuda",
          "source": csrc + "kcore_peel.cu",
          "replaces": "src/repro/kernels/kcore_peel.py:62",

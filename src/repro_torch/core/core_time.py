@@ -35,10 +35,11 @@ per-pair earliest timestamps >= ts), and both return bit-identical tables
   count(w <= c_v) >= k) and, when not converged, the k-th smallest climb.
 * ``engine="device"`` — the counterpart of the reference's ``_sweep_jax``
   (and of its ``"jax_pallas"`` variant): the same verification and gated
-  climb on the device, with the hand-written segmented count B2
-  (``kernels/segmented_select.py``) as the counter of both the probe and
-  every step of the counting-bisection climb. A host loop drives it and
-  reads one convergence flag per iteration.
+  climb, every probe and climb of every stratum over a whole t_uv block
+  in one launch of the hand-written kernel
+  ``kernels/segmented_select.stratum_sweep``. No host is in the fixpoint
+  loop: the host builds and uploads each t_uv block, as the reference
+  does, and downloads the rows once.
 
 ``engine="auto"`` picks by the ``device`` argument: a CUDA device runs the
 device engine, the CPU the host engine. The result is delta-compressed by
@@ -56,7 +57,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels.segmented_select import kth_smallest, segmented_count_le
+from ..kernels.segmented_select import stratum_sweep
 from .temporal_graph import TemporalGraph
 
 
@@ -509,7 +510,7 @@ def _sweep_host_stratified(g: TemporalGraph, ks) -> list[np.ndarray]:
 
 
 # ----------------------------------------------------------------------
-# Device engine: the sweep on the card, B2 as its counter
+# Device engine: the sweep on the card, one kernel launch per t_uv block
 # ----------------------------------------------------------------------
 
 def _sweep_device_stratified(g: TemporalGraph, ks, *, device,
@@ -520,16 +521,18 @@ def _sweep_device_stratified(g: TemporalGraph, ks, *, device,
 
     Per (k, ts) the same verification as the reference: with ``w =
     max(t_uv, c[dst])``, ``c`` is converged iff every segment has
-    ``count(w <= c_v) >= k`` or ``c_v >= INF`` — one B2 launch and one
-    host read of the flag. Otherwise the climb ``c <- max(c, kth(w))``
-    runs as a counting bisection of B2 launches (:func:`kth_smallest`
-    with ``lo = c``), and the probe repeats. The carry is warm across ts
-    and across t_uv blocks; row 0 stays INF. Like the host's fused sweep,
-    one pair CSR and one t_uv block serve every stratum, and stratum k
-    starts each ts from ``max(carry, c_{kprev}(ts))`` (both lower bounds
-    of the least fixpoint), so every stratum equals the per-k sweep.
-    ``stats`` (optional) gains the counts ``iterations`` (= flag reads)
-    and ``climbs``."""
+    ``count(w <= c_v) >= k`` or ``c_v >= INF``; otherwise the climb ``c
+    <- max(c, kth(w))`` and the probe repeats. One pair CSR serves every
+    stratum; per t_uv block the host builds and uploads the rows and makes
+    one `stratum_sweep` launch, which runs every stratum's probes and
+    climbs over the block on the device and writes the rows straight into
+    one (|K|, t_max+1, n) tensor, downloaded once at the end. The carry is
+    warm across ts and across blocks; row 0 stays INF. Each stratum starts
+    each ts from its own carry (a lower bound of the least fixpoint, as
+    the host's ``max(carry, c_{kprev}(ts))`` is), so every stratum equals
+    the per-k sweep, counts included. ``stats`` (optional) gains the
+    counts ``iterations`` (probes) and ``climbs``, summed over strata, and
+    ``strata``, an int64 (|K|, 2) array of the same per stratum."""
     n, t_max = g.n, g.t_max
     inf = t_max + 1
     if g.m == 0 or t_max == 0 or not ks:
@@ -537,36 +540,27 @@ def _sweep_device_stratified(g: TemporalGraph, ks, *, device,
     device = torch.device(device)
     csr = _pair_csr(g)
     seg = torch.as_tensor(csr.src, device=device)        # CSR: non-decreasing
-    dst = torch.as_tensor(csr.dst.astype(np.int64), device=device)
-    rows = [torch.full((t_max + 1, n), inf, dtype=torch.int32, device=device)
-            for _ in ks]
-    carry = [torch.zeros(n, dtype=torch.int32, device=device) for _ in ks]
-    iterations = climbs = 0
+    vptr = torch.as_tensor(csr.vptr.astype(np.int32), device=device)
+    dst = torch.as_tensor(csr.dst, device=device)
+    ks_t = torch.as_tensor(np.asarray(ks, np.int32), device=device)
+    rows = torch.full((len(ks), t_max + 1, n), inf, dtype=torch.int32,
+                      device=device)
+    carry = torch.zeros((len(ks), n), dtype=torch.int32, device=device)
+    counts = torch.zeros((len(ks), 2), dtype=torch.int64, device=device)
     for ts0 in range(1, t_max + 1, TUV_BLOCK):
         ts1 = min(ts0 + TUV_BLOCK, t_max + 1)
-        tuv_rows = torch.as_tensor(
+        tuv = torch.as_tensor(
             np.ascontiguousarray(_tuv_rows(csr, ts0, ts1, t_max)),
             device=device)
-        for ki, k in enumerate(ks):
-            c = carry[ki]
-            for ts in range(ts0, ts1):
-                tuv = tuv_rows[ts - ts0]
-                if ki:
-                    c = torch.maximum(c, rows[ki - 1][ts])
-                while True:
-                    w = torch.maximum(tuv, c[dst])
-                    cnt = segmented_count_le(w, seg, c, n)
-                    iterations += 1
-                    if bool(((cnt >= k) | (c >= inf)).all()):
-                        break
-                    c = kth_smallest(w, seg, n, k, inf, lo=c)
-                    climbs += 1
-                rows[ki][ts] = c
-            carry[ki] = c
+        counts += stratum_sweep(tuv, seg, vptr, dst, ks_t, carry, inf,
+                                out=rows[:, ts0:ts1])[1]
     if stats is not None:
-        stats["iterations"] = stats.get("iterations", 0) + iterations
-        stats["climbs"] = stats.get("climbs", 0) + climbs
-    return [r.cpu().numpy() for r in rows]
+        per = counts.cpu().numpy()
+        stats["iterations"] = stats.get("iterations", 0) + int(per[:, 0].sum())
+        stats["climbs"] = stats.get("climbs", 0) + int(per[:, 1].sum())
+        stats["strata"] = per
+    host = rows.cpu().numpy()
+    return list(host)
 
 
 def _sweep_device(g: TemporalGraph, k: int, *, device,
@@ -600,7 +594,8 @@ def edge_core_times(g: TemporalGraph, k: int, *, engine: str = "auto",
     """CT(e)_ts for every edge and start time, delta-compressed.
 
     ``engine`` is ``"host"`` (numpy), ``"device"`` (the sweep on
-    ``device`` with B2 as its counter) or ``"auto"`` (by ``device``). Both
+    ``device``, one `stratum_sweep` launch per t_uv block) or ``"auto"``
+    (by ``device``). Both
     engines return bit-identical tables; ``stats`` collects the device
     engine's counts (see `_sweep_device_stratified`)."""
     if _engine(engine, device) == "host":

@@ -28,6 +28,19 @@ def int32_vector(name: str, t: torch.Tensor, length: int | None = None,
     return t
 
 
+def int32_array(name: str, t: torch.Tensor, shape: tuple,
+                device: torch.device | None = None) -> torch.Tensor:
+    """``t`` must be an int32 tensor of ``shape`` on ``device``: nothing
+    is cast, since the kernel may write it in place."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    return t
+
+
 def flag(changed: torch.Tensor, device: torch.device) -> None:
     """``changed`` must be an int32[1] tensor on ``device``."""
     if (changed.dtype != torch.int32 or changed.shape != (1,)

@@ -71,6 +71,12 @@
 //   type): 16 rows per block of 8 warps, 32-key k/v tiles in shared
 //   memory, one key per lane for the scores and dh / 32 columns per lane
 //   for PV.
+// * "wide": any dtype at dh > 128, the f32 route's kernel looped over
+//   128-column chunks: the scores sum over every chunk of q and k, and
+//   each block writes one chunk of output columns (grid z). bf16 and f16
+//   are read and converted to f32; only the output is rounded.
+// The wrapper zero-pads a dh that is not a multiple of 8 and passes the
+// true width for the scale 1 / sqrt(dh).
 // On the tensor-core routes P is rounded to q's dtype before the PV
 // product and the row sum l adds the unrounded f32 p (the Pallas kernel and
 // the plain version multiply p by v in f32: the card check's tolerance
@@ -476,7 +482,8 @@ template <typename T, int DHP, int NWQ>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                float* part_acc, float* part_ml, int B, int S, int H, int Hkv,
                int T_, int dh, int t_real, int causal, int q_tiles,
-               int splits, int tiles_per_split, cudaStream_t stream) {
+               int splits, int tiles_per_split, float scale_log2,
+               cudaStream_t stream) {
   auto kern = flash_mma<T, DHP, NWQ>;
   static bool configured = false;  // above 48 KB only after opting in
   if (!configured) {
@@ -489,7 +496,6 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const float scale_log2 = LOG2E / sqrtf((float)dh);
   dim3 grid(q_tiles, B * Hkv, splits);
   kern<<<grid, MMA_THREADS, MmaCfg<DHP>::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -507,53 +513,67 @@ template <typename T, int NWQ>
 int mma_by_width(int dhp, const void* q, const void* k, const void* v,
                  void* o, float* pa, float* pm, int B, int S, int H, int Hkv,
                  int T_, int dh, int t_real, int causal, int q_tiles,
-                 int splits, int per, cudaStream_t s) {
+                 int splits, int per, float scale_log2, cudaStream_t s) {
   switch (dhp) {
     case 16:
       return launch_mma<T, 16, NWQ>(q, k, v, o, pa, pm, B, S, H, Hkv, T_, dh,
-                                    t_real, causal, q_tiles, splits, per, s);
+                                    t_real, causal, q_tiles, splits, per,
+                                    scale_log2, s);
     case 32:
       return launch_mma<T, 32, NWQ>(q, k, v, o, pa, pm, B, S, H, Hkv, T_, dh,
-                                    t_real, causal, q_tiles, splits, per, s);
+                                    t_real, causal, q_tiles, splits, per,
+                                    scale_log2, s);
     case 64:
       return launch_mma<T, 64, NWQ>(q, k, v, o, pa, pm, B, S, H, Hkv, T_, dh,
-                                    t_real, causal, q_tiles, splits, per, s);
+                                    t_real, causal, q_tiles, splits, per,
+                                    scale_log2, s);
     case 128:
       return launch_mma<T, 128, NWQ>(q, k, v, o, pa, pm, B, S, H, Hkv, T_,
                                      dh, t_real, causal, q_tiles, splits, per,
-                                     s);
+                                     scale_log2, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// ---- the f32 route (SIMT) ---------------------------------------------------
+// ---- the f32 and wide routes (SIMT) ----------------------------------------
 
 constexpr int F_BQ = 16, F_BK = 32, F_THREADS = 256, F_DH = 128;
 
-// grid (ceil(rows / 16), B * Hkv). Warp w owns rows 2w, 2w + 1 of the
-// block's 16; for the scores lane j takes key j of the tile, for PV lane j
-// columns j, j + 32, j + 64, j + 96. Row max and sum are reduced over the
-// warp each tile, so every lane holds its rows' m and l.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void put(f16* p, float x) { *p = __float2half_rn(x); }
+
+// grid (ceil(rows / 16), B * Hkv, ceil(dh / 128)): block z writes output
+// columns [128 z, 128 z + 128). Warp w owns rows 2w, 2w + 1 of the block's
+// 16; for the scores lane j takes key j of the tile, for PV lane j columns
+// j, j + 32, j + 64, j + 96 of the block's 128. Row max and sum are reduced
+// over the warp each tile, so every lane holds its rows' m and l. The
+// scores run over dh in 128-column chunks staged in shared memory (q once
+// when dh <= 128, else with each chunk of k); inputs are read in T and
+// converted to f32, everything is computed in f32, and only the output is
+// rounded to T.
+template <typename T>
 __global__ void __launch_bounds__(F_THREADS)
-    flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int S,
-              int H, int Hkv, int T_, int dh, int t_real, int causal,
-              float scale_log2) {
+    flash_simt(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o, int S, int H,
+               int Hkv, int T_, int dh, int t_real, int causal,
+               float scale_log2) {
   __shared__ float qs[F_BQ][F_DH];
   __shared__ float ks[F_BK][F_DH + 1];  // + 1: lane j reads row j
   __shared__ float vs[F_BK][F_DH];
   const int G = H / Hkv, rows = S * G;
   const int bh = blockIdx.y, b = bh / Hkv, hk = bh % Hkv;
   const int row0 = blockIdx.x * F_BQ;
+  const int col0 = blockIdx.z * F_DH;
+  const int nd = (dh + F_DH - 1) / F_DH;  // column chunks of the scores
+  const int wv = min(F_DH, dh - col0);    // this block's output columns
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int idx = threadIdx.x; idx < F_BQ * dh; idx += F_THREADS) {
-    int r = idx / dh, d = idx % dh, rr = row0 + r;
-    float x = 0.f;
-    if (rr < rows)
-      x = q[(((size_t)b * S + rr / G) * H + hk * G + rr % G) * dh + d];
-    qs[r][d] = x;
-  }
   int qpos[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) qpos[i] = (row0 + 2 * warp + i) / G;
@@ -564,23 +584,44 @@ __global__ void __launch_bounds__(F_THREADS)
   float acc[2][F_DH / 32] = {};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int kv0 = 0; kv0 < kv_limit; kv0 += F_BK) {
-    __syncthreads();  // the previous tile is consumed (and qs written)
-    for (int idx = threadIdx.x; idx < F_BK * dh; idx += F_THREADS) {
-      int r = idx / dh, d = idx % dh, kp = kv0 + r;
-      size_t off = (((size_t)b * T_ + kp) * Hkv + hk) * dh + d;
-      bool ok = kp < t_real;  // past t_real: zeros, never read
-      ks[r][d] = ok ? k[off] : 0.f;
-      vs[r][d] = ok ? v[off] : 0.f;
+    float dot[2] = {0.f, 0.f};
+    for (int c = 0; c < nd; ++c) {
+      const int d0 = c * F_DH, w = min(F_DH, dh - d0);
+      __syncthreads();  // the previous chunk or tile is consumed
+      if (nd > 1 || kv0 == 0) {
+        for (int idx = threadIdx.x; idx < F_BQ * w; idx += F_THREADS) {
+          int r = idx / w, d = idx % w, rr = row0 + r;
+          float x = 0.f;
+          if (rr < rows)
+            x = to_f(q[(((size_t)b * S + rr / G) * H + hk * G + rr % G) * dh +
+                       d0 + d]);
+          qs[r][d] = x;
+        }
+      }
+      for (int idx = threadIdx.x; idx < F_BK * w; idx += F_THREADS) {
+        int r = idx / w, d = idx % w, kp = kv0 + r;
+        size_t off = (((size_t)b * T_ + kp) * Hkv + hk) * dh + d0 + d;
+        ks[r][d] = kp < t_real ? to_f(k[off]) : 0.f;  // past t_real: unread
+      }
+      if (c == nd - 1) {
+        for (int idx = threadIdx.x; idx < F_BK * wv; idx += F_THREADS) {
+          int r = idx / wv, d = idx % wv, kp = kv0 + r;
+          size_t off = (((size_t)b * T_ + kp) * Hkv + hk) * dh + col0 + d;
+          vs[r][d] = kp < t_real ? to_f(v[off]) : 0.f;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* qr = qs[2 * warp + i];
+        for (int d = 0; d < w; ++d) dot[i] = fmaf(qr[d], ks[lane][d], dot[i]);
+      }
     }
-    __syncthreads();
     const int kp = kv0 + lane;
     float p[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float* qr = qs[2 * warp + i];
-      float s = 0.f;
-      for (int d = 0; d < dh; ++d) s = fmaf(qr[d], ks[lane][d], s);
-      s *= scale_log2;
+      float s = dot[i] * scale_log2;
       if (kp >= t_real || (causal && kp > qpos[i])) s = -INFINITY;
       float mx = s;
 #pragma unroll
@@ -604,7 +645,7 @@ __global__ void __launch_bounds__(F_THREADS)
       float p1 = __shfl_sync(0xffffffffu, p[1], j2);
 #pragma unroll
       for (int j = 0; j < F_DH / 32; ++j) {
-        float x = vs[j2][lane + 32 * j];  // columns past dh: never stored
+        float x = vs[j2][lane + 32 * j];  // columns past wv: never stored
         acc[0][j] = fmaf(p0, x, acc[0][j]);
         acc[1][j] = fmaf(p1, x, acc[1][j]);
       }
@@ -614,12 +655,24 @@ __global__ void __launch_bounds__(F_THREADS)
   for (int i = 0; i < 2; ++i) {
     int rr = row0 + 2 * warp + i;
     if (rr >= rows) continue;
-    float* orow = o + (((size_t)b * S + rr / G) * H + hk * G + rr % G) * dh;
+    T* orow = o + (((size_t)b * S + rr / G) * H + hk * G + rr % G) * dh + col0;
 #pragma unroll
     for (int j = 0; j < F_DH / 32; ++j)
-      if (lane + 32 * j < dh)
-        orow[lane + 32 * j] = acc[i][j] / fmaxf(l[i], 1e-30f);
+      if (lane + 32 * j < wv)
+        put(orow + lane + 32 * j, acc[i][j] / fmaxf(l[i], 1e-30f));
   }
+}
+
+template <typename T>
+int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int Hkv, int T_, int dh, int t_real, int causal,
+                int q_tiles, float scale_log2, cudaStream_t stream) {
+  dim3 grid(q_tiles, B * Hkv, (dh + F_DH - 1) / F_DH);
+  flash_simt<T><<<grid, F_THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, T_, dh,
+      t_real, causal, scale_log2);
+  return (int)cudaGetLastError();
 }
 
 // ---- the wgmma route (TMA + wgmma, warp-specialised) -----------------------
@@ -893,7 +946,7 @@ int wgmma_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
 template <typename T, int DH>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int S, int H, int Hkv, int T_, int t_real, int causal,
-                 int q_tiles, cudaStream_t stream) {
+                 int q_tiles, float scale_log2, cudaStream_t stream) {
   const int G = H / Hkv;
   if (W_BQ % G) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
@@ -908,7 +961,6 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const float scale_log2 = LOG2E / sqrtf((float)DH);
   const long long blocks = (long long)q_tiles * B * Hkv;
   kern<<<(unsigned)blocks, W_THREADS, WgCfg<DH>::SMEM, stream>>>(
       tq, tk, tv, static_cast<T*>(o), S, H, Hkv, t_real, causal, scale_log2,
@@ -921,24 +973,27 @@ template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, void* o,
                  float* pa, float* pm, int route, int dhp, int B, int S,
                  int H, int Hkv, int T_, int dh, int t_real, int causal,
-                 int q_tiles, int splits, int per, cudaStream_t s) {
+                 int q_tiles, int splits, int per, float scale_log2,
+                 cudaStream_t s) {
   if (route == 0) {
     if (splits != 1 || dh != dhp) return (int)cudaErrorInvalidValue;
     if (dh == 128)
       return launch_wgmma<T, 128>(q, k, v, o, B, S, H, Hkv, T_, t_real,
-                                  causal, q_tiles, s);
+                                  causal, q_tiles, scale_log2, s);
     if (dh == 64)
       return launch_wgmma<T, 64>(q, k, v, o, B, S, H, Hkv, T_, t_real,
-                                 causal, q_tiles, s);
+                                 causal, q_tiles, scale_log2, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dh > dhp || dh % 8) return (int)cudaErrorInvalidValue;
   if (route == 1)
     return mma_by_width<T, 4>(dhp, q, k, v, o, pa, pm, B, S, H, Hkv, T_, dh,
-                              t_real, causal, q_tiles, splits, per, s);
+                              t_real, causal, q_tiles, splits, per,
+                              scale_log2, s);
   if (route == 2)
     return mma_by_width<T, 1>(dhp, q, k, v, o, pa, pm, B, S, H, Hkv, T_, dh,
-                              t_real, causal, q_tiles, splits, per, s);
+                              t_real, causal, q_tiles, splits, per,
+                              scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1040,7 +1095,9 @@ extern "C" {
 // dtype `is_f16` ? f16 : bf16. route 0 "wgmma" (dh 64 or 128, 128-row tiles;
 // q_tiles of them), 1 "mma" (64-row tiles) or 2 "split" (16-row tiles, the
 // keys of a tile split over the warps), the last two on a kernel of head
-// width dhp (16, 32, 64 or 128, >= dh). With splits > 1 (routes 1 and 2),
+// width dhp (16, 32, 64 or 128, >= dh); scores scaled by 1 / sqrt(dh_scale)
+// (the true head width when the wrapper padded dh). With splits > 1 (routes
+// 1 and 2),
 // part_acc (splits, B * Hkv * S * G, dh) and part_ml (splits, B * Hkv * S
 // * G, 2) take the partials and flash_combine writes o.
 int flash_attention_launch(const void* q, const void* k, const void* v,
@@ -1048,26 +1105,28 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int route, int dhp, int B, int S, int H, int Hkv,
                            int T_, int dh, int t_real, int causal,
                            int q_tiles, int splits, int tiles_per_split,
-                           void* stream_ptr) {
+                           int dh_scale, void* stream_ptr) {
   auto run = is_f16 ? launch_typed<f16> : launch_typed<bf16>;
   return run(q, k, v, o, static_cast<float*>(part_acc),
              static_cast<float*>(part_ml), route, dhp, B, S, H, Hkv, T_, dh,
              t_real, causal, q_tiles, splits, tiles_per_split,
+             LOG2E / sqrtf((float)dh_scale),
              static_cast<cudaStream_t>(stream_ptr));
 }
 
-// f32 q (B, S, H, dh) over f32 k, v (B, T, Hkv, dh) into f32 o, dh <= 128
-int flash_attention_f32_launch(const void* q, const void* k, const void* v,
-                               void* o, int B, int S, int H, int Hkv, int T_,
-                               int dh, int t_real, int causal, int q_tiles,
-                               void* stream_ptr) {
-  if (dh > F_DH) return (int)cudaErrorInvalidValue;
-  dim3 grid(q_tiles, B * Hkv);
-  flash_f32<<<grid, F_THREADS, 0, static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, Hkv, T_, dh,
-      t_real, causal, LOG2E / sqrtf((float)dh));
-  return (int)cudaGetLastError();
+// The SIMT kernel: q (B, S, H, dh) over k, v (B, T, Hkv, dh) into o, all of
+// dtype `dtype` (0 f32, 1 bf16, 2 f16), any dh ("f32": f32 at dh <= 128;
+// "wide": any dtype at dh > 128); scores scaled by 1 / sqrt(dh_scale).
+int flash_attention_simt_launch(const void* q, const void* k, const void* v,
+                                void* o, int dtype, int B, int S, int H,
+                                int Hkv, int T_, int dh, int t_real,
+                                int causal, int q_tiles, int dh_scale,
+                                void* stream_ptr) {
+  auto run = dtype == 0 ? launch_simt<float>
+             : dtype == 1 ? launch_simt<bf16> : launch_simt<f16>;
+  return run(q, k, v, o, B, S, H, Hkv, T_, dh, t_real, causal, q_tiles,
+             LOG2E / sqrtf((float)dh_scale),
+             static_cast<cudaStream_t>(stream_ptr));
 }
 
 // the single-tile check: bf16 q (64 x 128), k and v (128 x 128), contiguous

@@ -20,11 +20,15 @@ routes from the dtype and shape: ``"wgmma"`` (bf16 or f16, dh 64 or 128,
 more than 16 rows per (b, kv head), G dividing 128: warp-specialised TMA +
 wgmma over 128-row q tiles and 128-key k/v tiles, P in registers as the
 PV product's A operand), ``"mma"`` (bf16 or f16, more than 16 rows, any
-other dh that is a multiple of 8 up to 128: mma.sync over 64-row tiles),
-``"split"`` (bf16 or f16, at most 16 rows: decode; the same mma.sync
-kernel with the key range split over blocks) and ``"f32"`` (f32 inputs in
-plain f32 FMAs). The G query heads of one kv head share a block, so each
-k/v tile is read once per group. :func:`bound_ms` is the least time on an
+other dh up to 128: mma.sync over 64-row tiles), ``"split"`` (bf16 or
+f16, at most 16 rows: decode; the same mma.sync kernel with the key range
+split over blocks), ``"f32"`` (f32 inputs in plain f32 FMAs) and
+``"wide"`` (any dtype at dh above 128: the f32 route's kernel looped over
+128-column chunks, reading bf16 or f16 and rounding only the output). A
+dh that is not a multiple of 8 is zero-padded to the next one, the scale
+staying 1/sqrt(dh); f64 inputs are computed in f32 (as the reference
+computes them with x64 off) and the output cast back. The G query heads
+of one kv head share a block, so each k/v tile is read once per group. :func:`bound_ms` is the least time on an
 H100: the attended (query, key) pairs' operations at the peak of the
 dtype, or q, o and the first ``t_real`` keys and values moved once at
 3.35 TB/s, whichever is larger.
@@ -32,8 +36,8 @@ dtype, or q, o and the first ``t_real`` keys and values moved once at
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (built
 with nvcc at first use, loaded with ctypes), CPU tensors take the plain
 version ``ref.flash_attention``. There is no fallback: a missing nvcc, a
-failed build, an input the kernels do not take (dh above 128 or not a
-multiple of 8) or a refused launch raises.
+failed build, an input the kernels do not take (another dtype, a view
+that is not contiguous) or a refused launch raises.
 """
 
 from __future__ import annotations
@@ -62,8 +66,9 @@ SMEM_PER_SM = 233_472
 
 #: csrc/flash_attention.cu's tiles: (rows, keys) of a block per route
 ROUTE_TILES = {"wgmma": (128, 128), "mma": (64, 64), "split": (16, 64),
-               "f32": (16, 32)}
-#: the widest head the kernels take, and the multiple every head width is
+               "f32": (16, 32), "wide": (16, 32)}
+#: the widest head of the tensor-core and f32 routes (wider: "wide"), and
+#: the multiple the wrapper pads every head width to
 WIDEST_HEAD, HEAD_STEP = 128, 8
 #: head widths the mma.sync kernel is built for (dh is padded to the next)
 MMA_WIDTHS = (16, 32, 64, 128)
@@ -93,8 +98,8 @@ def _library() -> tuple[ctypes.CDLL, Path]:
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, args in (
-            ("flash_attention_launch", [ptr] * 6 + [i32] * 14 + [ptr]),
-            ("flash_attention_f32_launch", [ptr] * 4 + [i32] * 9 + [ptr]),
+            ("flash_attention_launch", [ptr] * 6 + [i32] * 15 + [ptr]),
+            ("flash_attention_simt_launch", [ptr] * 4 + [i32] * 11 + [ptr]),
             ("flash_probe_launch", [ptr] * 6)):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = ctypes.c_int, args
@@ -117,16 +122,19 @@ def _mma_blocks_per_sm(dhp: int) -> int:
 @functools.lru_cache(maxsize=4096)
 def plan(B: int, S: int, H: int, Hkv: int, t_real: int, causal: bool,
          dh: int = 128, dtype: torch.dtype = torch.bfloat16) -> Plan:
-    """The launch of one call. f32 takes ``"f32"``. bf16 and f16 take
-    ``"split"`` when a (b, kv head) pair has at most 16 rows (``S * G``;
-    decode), else ``"wgmma"`` for dh of 64 or 128 with G dividing 128, else
-    ``"mma"``. On the split and mma routes, when the rows fit one tile and
-    the blocks do not fill the card, the key range is split over as many
-    blocks as fit one wave, none empty."""
+    """The launch of one call, at the head width the kernel gets (a
+    multiple of 8). dh above 128 takes ``"wide"``, f32 ``"f32"``. bf16 and
+    f16 take ``"split"`` when a (b, kv head) pair has at most 16 rows
+    (``S * G``; decode), else ``"wgmma"`` for dh of 64 or 128 with G
+    dividing 128, else ``"mma"``. On the split and mma routes, when the
+    rows fit one tile and the blocks do not fill the card, the key range is
+    split over as many blocks as fit one wave, none empty."""
     G = H // Hkv
     rows = S * G
     keys = min(t_real, S) if causal else t_real
-    if dtype == torch.float32:
+    if dh > WIDEST_HEAD:
+        route, dhp = "wide", dh
+    elif dtype == torch.float32:
         route, dhp = "f32", dh
     elif rows <= WARP_ROWS:
         route = "split"
@@ -162,10 +170,11 @@ def bound_ms(B: int, S: int, H: int, Hkv: int, t_real: int, causal: bool,
              dh: int = 128, itemsize: int = 2) -> float:
     """Least time of one call on an H100: ``4 * dh`` operations per
     attended (query, key) pair and head (QK^T and PV) at 989 TFLOP/s (67
-    for f32, ``itemsize`` 4), or q and o plus the first ``t_real`` keys
-    and values, each moved once, at 3.35 TB/s, whichever is larger."""
+    for f32 and f64, ``itemsize`` 4 or 8, computed in f32), or q and o
+    plus the first ``t_real`` keys and values, each moved once, at 3.35
+    TB/s, whichever is larger."""
     flops = 4.0 * dh * B * H * attended_pairs(S, t_real, causal)
-    peak = F32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S
+    peak = F32_FLOP_PER_S if itemsize >= 4 else BF16_FLOP_PER_S
     nbytes = itemsize * dh * (2 * B * S * H + 2 * B * t_real * Hkv)
     return max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
 
@@ -187,10 +196,11 @@ CHECK_CUT_KEYS = 64
 
 def error_bound(want: torch.Tensor) -> torch.Tensor:
     """Elementwise bound on |kernel - plain| around the plain version's
-    (B, S, H, dh) output ``want``, in f32: for f32 outputs ``F32_TOL`` of
-    |plain| + ``F32_TOL``, else the bf16/f16 bound above."""
+    (B, S, H, dh) output ``want``, in f32: for f32 and f64 outputs (both
+    computed in f32) ``F32_TOL`` of |plain| + ``F32_TOL``, else the
+    bf16/f16 bound above."""
     w = want.float().abs()
-    if want.dtype == torch.float32:
+    if want.dtype in (torch.float32, torch.float64):
         return F32_TOL * w + F32_TOL
     return RTOL * w + ROW_ATOL * w.amax(-1, keepdim=True)
 
@@ -215,28 +225,25 @@ def _check(q, k, v, t_real):
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
 
 
-class HeadWidthError(ValueError):
-    """A head width the kernels do not take: above 128 or not a multiple
-    of 8 (the plain version on the CPU takes any)."""
-
-
 def _kernel_check(q, k, v) -> None:
     """Raise unless the card's kernels take these inputs."""
-    if q.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise TypeError(f"the flash_attention kernels take bf16, f16 or f32, "
-                        f"got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float16, torch.float32,
+                       torch.float64):
+        raise TypeError(f"the flash_attention kernels take bf16, f16, f32 or "
+                        f"f64, got {q.dtype}")
     B, S, H, dh = q.shape
     Hkv = k.shape[2]
-    if dh > WIDEST_HEAD or dh % HEAD_STEP:
-        raise HeadWidthError(f"the flash_attention kernels take head widths "
-                             f"that are multiples of {HEAD_STEP} up to "
-                             f"{WIDEST_HEAD}, got dh = {dh}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"the flash_attention kernel takes contiguous, "
                              f"16-byte aligned inputs ({name} is not)")
     if B * Hkv > 65535:                   # the launch grid's y extent
         raise ValueError(f"B * Hkv = {B * Hkv} exceeds 65,535")
+
+
+def kernel_width(dh: int) -> int:
+    """The head width the kernels get: dh zero-padded to a multiple of 8."""
+    return -(-dh // HEAD_STEP) * HEAD_STEP
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -257,22 +264,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _kernel_check(q, k, v)
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    out_dtype = q.dtype
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    if out_dtype == torch.float64:
+        q, k, v = q.float(), k.float(), v.float()
+    dhk = kernel_width(dh)
+    if dhk != dh:
+        q, k, v = (torch.nn.functional.pad(x, (0, dhk - dh)) for x in (q, k, v))
     o = torch.empty_like(q)
-    if o.numel() == 0:
-        return o
-    p = plan(B, S, H, Hkv, t_real, causal, dh, q.dtype)
+    p = plan(B, S, H, Hkv, t_real, causal, dhk, q.dtype)
     lib = _library()[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if p.route == "f32":
-            rc = lib.flash_attention_f32_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S,
-                H, Hkv, T, dh, t_real, int(causal), p.q_tiles, stream)
+        if p.route in ("f32", "wide"):
+            rc = lib.flash_attention_simt_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                (torch.float32, torch.bfloat16, torch.float16).index(q.dtype),
+                B, S, H, Hkv, T, dhk, t_real, int(causal), p.q_tiles, dh,
+                stream)
         else:
             part_acc = part_ml = None
             if p.splits > 1:
                 rows = B * S * H
-                part_acc = torch.empty((p.splits, rows, dh),
+                part_acc = torch.empty((p.splits, rows, dhk),
                                        dtype=torch.float32, device=q.device)
                 part_ml = torch.empty((p.splits, rows, 2),
                                       dtype=torch.float32, device=q.device)
@@ -282,14 +297,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 part_ml.data_ptr() if p.splits > 1 else None,
                 int(q.dtype == torch.float16),
                 ("wgmma", "mma", "split").index(p.route), p.dhp, B, S, H,
-                Hkv, T, dh, t_real, int(causal), p.q_tiles, p.splits,
-                p.tiles_per_split, stream)
+                Hkv, T, dhk, t_real, int(causal), p.q_tiles, p.splits,
+                p.tiles_per_split, dh, stream)
     if rc:
         raise RuntimeError(f"flash_attention launch failed ({p.route} "
                            f"route): CUDA error {rc}")
     flash_attention.launches += 1
     flash_attention.routes[p.route] += 1
-    return o
+    if dhk != dh:
+        o = o[..., :dh].contiguous()
+    return o.to(out_dtype)
 
 
 def reset_counts() -> None:

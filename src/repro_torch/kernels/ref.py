@@ -54,6 +54,58 @@ def segmented_count_le(w: torch.Tensor, seg: torch.Tensor, thr: torch.Tensor,
     return torch.bincount(segc[hit], minlength=n).to(torch.int32)
 
 
+def stratum_sweep(tuv: torch.Tensor, seg: torch.Tensor, vptr: torch.Tensor,
+                  dst: torch.Tensor, ks: torch.Tensor, carry: torch.Tensor,
+                  inf: int, out: torch.Tensor) -> torch.Tensor:
+    """The k-stratified core-time sweep over one block of start times
+    (``csrc/stratum_sweep.cu`` states the function). For stratum ``i``
+    (``k = ks[i]``), from ``c = carry[i]``, for each row ``r`` of ``tuv``
+    (R, E) in order: probe ``w = max(tuv[r], c[dst])`` (every vertex has
+    ``count(w <= c_v) >= k`` or ``c_v >= inf``), else climb
+    ``c <- min(max(c, kth_k(w)), inf)`` per CSR segment (``inf`` where a
+    segment has fewer than k slots) and probe again; ``out[i, r] = c``.
+    ``carry`` (|K|, n) and ``out`` (|K|, R, n) are updated in place.
+    Returns int64 (|K|, 2): probes and climbs per stratum.
+
+    The climb takes the k-th smallest from one sort of segment-packed keys
+    (any exact selection gives the same update). Raises past ``n * inf + 1``
+    probes of one (k, ts), which a right input never reaches."""
+    R, E = tuv.shape
+    n = carry.shape[1]
+    segl, dstl, vptr = seg.long(), dst.long(), vptr.long()
+    deg = vptr[1:] - vptr[:-1]
+    packed = segl * (inf + 1)          # w <= inf: one sort orders each segment
+    base = torch.arange(n, device=tuv.device) * (inf + 1)
+    bound = n * inf + 1
+    stats = torch.zeros((ks.shape[0], 2), dtype=torch.int64, device=tuv.device)
+    for i, k in enumerate(ks.tolist()):
+        c = carry[i].clone()
+        probes = climbs = 0
+        for r in range(R):
+            for it in range(1, bound + 2):
+                if it > bound:
+                    raise RuntimeError(f"stratum k={k} did not converge in "
+                                       f"{bound} probes")
+                w = torch.maximum(tuv[r], c[dstl])
+                hit = torch.cat([w.new_zeros(1, dtype=torch.int64),
+                                 torch.cumsum((w <= c[segl]).long(), 0)])
+                cnt = hit[vptr[1:]] - hit[vptr[:-1]]
+                probes += 1
+                if bool(((cnt >= k) | (c >= inf)).all()):
+                    break
+                climbs += 1
+                kth = torch.full_like(c, inf)
+                if E:
+                    srt = torch.sort(packed + w).values
+                    sel = srt[(vptr[:-1] + (k - 1)).clamp(max=E - 1)] - base
+                    kth = torch.where(deg >= k, sel, inf).to(torch.int32)
+                c = torch.clamp(torch.maximum(c, kth), max=inf)
+            out[i, r] = c
+        carry[i] = c
+        stats[i, 0], stats[i, 1] = probes, climbs
+    return stats
+
+
 def degree_count(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
                  n: int) -> torch.Tensor:
     """int32[n] alive-weighted degree of every vertex, counting both

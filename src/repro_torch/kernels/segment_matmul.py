@@ -204,13 +204,14 @@ def _tma_args(M: int, N: int, K: int, p: Plan) -> tuple:
 def operand_dtype(a: torch.dtype, b: torch.dtype) -> torch.dtype:
     """The dtype both operands take on the card: their promotion
     (``torch.promote_types``), with f16 promoted to f32 (exact: every f16
-    value is an f32 value). Raises unless that is bf16 or f32: the kernels'
-    two operand types."""
+    value is an f32 value) and f64 computed in f32 (as the reference
+    computes it with x64 off). Raises unless that is bf16 or f32: the
+    kernels' two operand types."""
     dt = torch.promote_types(a, b)
-    if dt == torch.float16:
+    if dt in (torch.float16, torch.float64):
         dt = torch.float32
     if dt not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the matmul kernel takes bf16, f16 and f32 "
+        raise TypeError(f"the matmul kernel takes bf16, f16, f32 and f64 "
                         f"operands, got {a} and {b}")
     return dt
 
@@ -220,8 +221,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     On the card both operands are first cast to :func:`operand_dtype` (a
     bf16 activation times an f32 weight multiplies in f32), which leaves
-    every value as it was: the result is the reference's f32-accumulated
-    product of the promoted operands, ``ref.matmul``. They must be
+    every value as it was but f64's, rounded to f32 as the plain version
+    and the reference (x64 off) round them: the result is the
+    f32-accumulated product of the promoted operands, ``ref.matmul``. They must be
     contiguous. ``matmul.launches`` counts kernel launches (one per call
     that launches; CPU calls and empty outputs launch nothing), and
     ``matmul.routes`` the same launches by :func:`plan`'s route."""

@@ -19,6 +19,16 @@ PyTorch port of ``repro.kernels.segmented_select``:
   0.1 us at the sweep's shape, so each launch costs its overhead;
 * :func:`kth_smallest` — the counterpart of ``kth_smallest_pallas``: a
   host-driven bisection with B2 as its inner op, one launch per step;
+* :func:`stratum_sweep` — B2 redesigned for Hopper: the whole k-stratified
+  core-time sweep over one block of start times (every probe and every
+  climb of every stratum) as one launch of a hand-written CUDA kernel
+  (``csrc/stratum_sweep.cu``; replaces the reference's scan
+  ``src/repro/core/core_time.py:346`` and the Pallas counter it drives).
+  It is the construction's kernel: B2 and B2' stay as the counterparts of
+  the Pallas functions, off the build path. CPU tensors take the plain
+  version ``ref.stratum_sweep``. Bound by memory (:func:`sweep_bound_ms`)
+  but latency-bound in practice: its serial chain is the longest
+  stratum's probes;
 * :func:`segmented_kth_smallest_np` — the numpy reference.
 
 There is no fallback: a missing nvcc, a failed build or a refused launch
@@ -35,13 +45,20 @@ import numpy as np
 import torch
 
 from . import ref
-from ._args import cuda_only, int32_vector
+from ._args import cuda_only, int32_array, int32_vector
 from ._build import build_cuda
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "segmented_count_le.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SRC = _CSRC / "segmented_count_le.cu"
+_SWEEP_SRC = _CSRC / "stratum_sweep.cu"
 
 #: H100 SXM device-memory rate, bytes/s (the bound's denominator)
 HBM_BYTES_PER_S = 3.35e12
+#: shared memory one block may use on an H100 (227 KB): the sweep keeps its
+#: two int32 buffers of c there while 8 * n bytes fit
+SMEM_PER_BLOCK = 232_448
+#: the sweep's two routes for c, by size
+SWEEP_ROUTES = ("shared", "global")
 
 
 @functools.cache
@@ -55,9 +72,26 @@ def _library() -> tuple[ctypes.CDLL, Path]:
     return lib, so
 
 
+@functools.cache
+def _sweep_library() -> tuple[ctypes.CDLL, Path]:
+    so = build_cuda("stratum_sweep", [_SWEEP_SRC])
+    lib = ctypes.CDLL(str(so))
+    fn = lib.stratum_sweep_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2 + \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return lib, so
+
+
 def build() -> Path:
     """Build B2's library (if needed) and load it; returns its path."""
     return _library()[1]
+
+
+def build_sweep() -> Path:
+    """Build the stratum sweep's library (if needed) and load it; returns
+    its path."""
+    return _sweep_library()[1]
 
 
 def bound_ms(E: int, n: int) -> float:
@@ -167,3 +201,103 @@ def segmented_kth_smallest_np(w: np.ndarray, vptr: np.ndarray, k: int,
     if lo is not None:
         out = np.maximum(out, lo)
     return np.minimum(out, inf_value)
+
+
+def sweep_route(n: int) -> str:
+    """Where the sweep keeps c: ``"shared"`` while its two int32 buffers
+    (8 * n bytes) fit one block's shared memory, else ``"global"`` (a
+    scratch of 8 * n bytes per stratum in device memory)."""
+    return "shared" if 8 * n <= SMEM_PER_BLOCK else "global"
+
+
+def sweep_bound_ms(K: int, R: int, E: int, n: int) -> float:
+    """Least time of one :func:`stratum_sweep` launch on an H100: the t_uv
+    block read once (4 * R * E bytes), the rows written once (4 * K * R *
+    n), dst and vptr read once (4 * E + 4 * (n + 1)), ks read and carry
+    read and written once (4 * K + 8 * K * n), the counts written (16 * K),
+    over the memory rate. The compares are integer operations far below any
+    compute roof, so bytes bound it."""
+    nbytes = (4 * R * E + 4 * K * R * n + 4 * E + 4 * (n + 1) + 4 * K
+              + 8 * K * n + 16 * K)
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def stratum_sweep(tuv: torch.Tensor, seg: torch.Tensor, vptr: torch.Tensor,
+                  dst: torch.Tensor, ks: torch.Tensor, carry: torch.Tensor,
+                  inf: int, *, out: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every stratum's core-time sweep over one block of start times: for
+    stratum ``i`` (``k = ks[i]``) and each row ``r`` of ``tuv`` (R, E) in
+    order, the least fixpoint from ``carry[i]`` by probes and clamped
+    Jacobi climbs (``csrc/stratum_sweep.cu`` and ``ref.stratum_sweep`` state
+    the function), written to ``out[i, r]``.
+
+    ``tuv`` int32 (R, E) is the block of `core_time._tuv_rows` (values in
+    ``[0, inf]``); ``seg``, ``vptr`` and ``dst`` the pair CSR over sources
+    (``seg`` non-decreasing, ``vptr`` int32[n + 1] from 0 to E); ``ks``
+    int32[|K|], each >= 1; ``carry`` int32 (|K|, n), read and updated in
+    place. ``out`` (default: a new tensor) is int32 (|K|, R, n) with rows n
+    apart, e.g. a slice ``rows[:, ts0:ts1]`` of a (|K|, t_max + 1, n)
+    tensor. Returns ``(out, stats)``, ``stats`` int64 (|K|, 2): probes and
+    climbs per stratum. ``stratum_sweep.launches`` counts kernel launches
+    and ``stratum_sweep.routes`` the same by :func:`sweep_route` (CPU calls
+    and empty shapes launch nothing; with no stratum, row or vertex there
+    is no probe either)."""
+    if tuv.dim() != 2 or carry.dim() != 2:
+        raise ValueError(f"tuv (R, E) and carry (|K|, n) must be 2-D, got "
+                         f"{tuple(tuv.shape)} and {tuple(carry.shape)}")
+    (R, E), (K, n) = tuv.shape, carry.shape
+    device = tuv.device
+    int32_array("tuv", tuv, (R, E))
+    int32_array("carry", carry, (K, n), device)
+    seg = int32_vector("seg", seg, E, device)
+    dst = int32_vector("dst", dst, E, device)
+    vptr = int32_vector("vptr", vptr, n + 1, device)
+    ks = int32_vector("ks", ks, K, device)
+    if out is None:
+        out = torch.empty((K, R, n), dtype=torch.int32, device=device)
+    int32_array("out", out, (K, R, n), device)
+    if not (tuv.is_contiguous() and carry.is_contiguous()) or (
+            out.numel() and (out.stride(2) != 1 or out.stride(1) != n)):
+        raise ValueError("tuv and carry must be contiguous, and out's rows "
+                         "contiguous and n apart")
+    if E >= 2 ** 31 or int(inf) < 1 or int(inf) >= 2 ** 31 - 1:
+        raise ValueError(f"the sweep takes E < 2^31 and 1 <= inf < 2^31 - 1, "
+                         f"got E = {E}, inf = {inf}")
+    if K and int(ks.min()) < 1:
+        raise ValueError("every stratum must have k >= 1")
+    if int(vptr[0]) != 0 or int(vptr[-1]) != E:
+        raise ValueError(f"vptr must run from 0 to E = {E}")
+    if K == 0 or R == 0 or n == 0:        # nothing to sweep: no probe
+        return out, torch.zeros((K, 2), dtype=torch.int64, device=device)
+    if device.type == "cpu":
+        return out, ref.stratum_sweep(tuv, seg, vptr, dst, ks, carry,
+                                      int(inf), out)
+    cuda_only(device, "stratum_sweep")
+    stats = torch.empty((K, 2), dtype=torch.int64, device=device)
+    route = sweep_route(n)
+    scratch = (torch.empty((K, 2, n), dtype=torch.int32, device=device)
+               if route == "global" else None)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _sweep_library()[0].stratum_sweep_launch(
+            tuv.data_ptr(), vptr.data_ptr(), dst.data_ptr(), ks.data_ptr(),
+            carry.data_ptr(), out.data_ptr(), stats.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), E,
+            out.stride(0), n, R, K, int(inf), stream)
+    if rc:
+        raise RuntimeError(f"stratum_sweep launch failed ({route} route): "
+                           f"CUDA error {rc}")
+    stratum_sweep.launches += 1
+    stratum_sweep.routes[route] += 1
+    return out, stats
+
+
+def reset_sweep_counts() -> None:
+    """Set ``stratum_sweep.launches`` and every count of
+    ``stratum_sweep.routes`` to 0."""
+    stratum_sweep.launches = 0
+    stratum_sweep.routes = dict.fromkeys(SWEEP_ROUTES, 0)
+
+
+reset_sweep_counts()

@@ -5,7 +5,8 @@
         --queries 4096 --batch 256
 
 It builds the k-stratified index (core times on ``--device``: the card's
-sweep with the B2 kernel on CUDA, the host sweep with ``--device cpu``;
+sweep through the stratum-sweep kernel on CUDA, the host sweep with
+``--device cpu``;
 forests on the host), uploads it to the card,
 replays a random stream of typed mixed-k ``TCCSQuery`` specs (one ``--k``
 pins a single stratum) in batches of ``--batch``, and does what the

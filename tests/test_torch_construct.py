@@ -1,6 +1,6 @@
-"""The construction plane with the device engine (the sweep whose counter
-is B2), run on the CPU through B2's plain version, against the JAX
-reference: per-k core-time tables of the reference's ``"jax_pallas"``,
+"""The construction plane with the device engine (one `stratum_sweep`
+launch per t_uv block), run on the CPU through the sweep's plain version,
+against the JAX reference: per-k core-time tables of the reference's ``"jax_pallas"``,
 ``"jax"`` and ``"host"`` engines, the stratified table, the packed index,
 Algorithm 1, and reference tables carried into the port.
 
@@ -22,6 +22,7 @@ from repro_torch.core import core_time as ct  # noqa: E402
 from repro_torch.core.pecb_index import (build_pecb_index,  # noqa: E402
                                          build_stratified_index)
 from repro_torch.core.temporal_graph import (BENCH_WORKLOADS,  # noqa: E402
+                                             TemporalGraph,
                                              gen_temporal_graph,
                                              random_queries)
 from repro_torch.kernels import segmented_select as ss  # noqa: E402
@@ -31,6 +32,20 @@ G18 = dict(n=18, m=70, t_max=7, seed=3)
 G30 = dict(n=30, m=240, t_max=12, seed=5)
 G40 = dict(n=40, m=420, t_max=18, seed=31)
 FB_LIKE = BENCH_WORKLOADS["fb_like"]
+#: t_max past TUV_BLOCK: two t_uv blocks, the carry crossing launches
+T318 = dict(n=30, m=800, t_max=400, seed=9)    # 318 distinct times
+
+
+def hub_graph(seed=11):
+    """A graph whose vertex 0 has 1,100 distinct neighbours (a segment of
+    more than 1,024 pair slots), around a denser random core."""
+    rng = np.random.default_rng(seed)
+    n = 1_101
+    edges = [(0, v, int(rng.integers(1, 41))) for v in range(1, n)]
+    a, b = rng.integers(1, 60, (2, 900))
+    edges += [(int(u), int(v), int(t)) for u, v, t in
+              zip(a, b, rng.integers(1, 41, 900))]
+    return TemporalGraph.from_edges(n, edges)
 
 
 def graphs(cfg):
@@ -107,8 +122,8 @@ def test_stratified_device_engine_matches_host_engine_on_fb_like():
     for k in dev.ks:
         assert np.array_equal(dev.table_for(k).vertex_ct,
                               host.table_for(k).vertex_ct), k
-    # seeded from the stratum below, each ts of each stratum probes once
-    # more than it climbs
+    # each ts of each stratum ends on a passing probe: one probe more than
+    # it climbs
     assert stats["iterations"] - stats["climbs"] == g.t_max * len(dev.ks)
 
 
@@ -171,3 +186,51 @@ def test_empty_graph_and_strata():
     assert vct.shape == (g.t_max + 1, 5) and (vct == g.t_max + 1).all()
     g = gen_temporal_graph(**G14)
     assert ct._sweep_device_stratified(g, (), device="cpu") == []
+
+
+@pytest.mark.parametrize("cfg", [G14, G30], ids=["g14", "g30"])
+def test_plain_sweep_rows_equal_reference_scans(cfg):
+    """The device engine's rows through ``ref.stratum_sweep`` are the
+    reference's ``_sweep_jax`` rows (jnp), and its ``"jax_pallas"`` ones
+    (the Pallas counter in interpret mode), for every k."""
+    g, jg = graphs(cfg)
+    for k in ct.default_ks(g):
+        got = ct._sweep_device(g, k, device="cpu")
+        assert np.array_equal(got, jax_ct._sweep_jax(jg, k)), k
+        assert np.array_equal(got, jax_ct._sweep_jax(jg, k, use_pallas=True)), k
+
+
+@pytest.mark.parametrize("which", ["g14", "g18", "g30", "g40", "t318", "hub"])
+def test_stratified_sweep_equals_host_build(which, monkeypatch):
+    """Every field of the device engine's strata equals the host's fused
+    sweep (which seeds each stratum from the one below: the rows are the
+    same); each stratum's counts equal its per-k sweep's; one launch per
+    t_uv block, the carry crossing blocks when t_max > TUV_BLOCK."""
+    cfgs = {"g14": G14, "g18": G18, "g30": G30, "g40": G40, "t318": T318}
+    g = hub_graph() if which == "hub" else gen_temporal_graph(**cfgs[which])
+    if which == "hub":
+        assert np.diff(ct._pair_csr(g).vptr).max() > 1_024
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[0])
+        return ss.stratum_sweep(*args, **kw)
+
+    monkeypatch.setattr(ct, "stratum_sweep", counted)
+    stats = {}
+    dev = ct.stratified_core_times(g, engine="device", device="cpu",
+                                   stats=stats)
+    blocks = -(-g.t_max // ct.TUV_BLOCK)
+    assert calls == [min(ct.TUV_BLOCK, g.t_max - b * ct.TUV_BLOCK)
+                     for b in range(blocks)]
+    assert (which == "t318") == (blocks == 2)
+    assert_fields_equal(dev, ct.stratified_core_times(g, device="cpu"),
+                        "strata")
+    per = stats["strata"]
+    assert per.shape == (len(dev.ks), 2) and per.dtype == np.int64
+    assert (stats["iterations"], stats["climbs"]) == tuple(per.sum(0))
+    assert stats["iterations"] - stats["climbs"] == g.t_max * len(dev.ks)
+    for i, k in enumerate(dev.ks):
+        st = {}
+        ct._sweep_device(g, k, device="cpu", stats=st)
+        assert (st["iterations"], st["climbs"]) == tuple(per[i]), k

@@ -22,7 +22,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import batch_query as bq  # noqa: E402
 from repro_torch.core import core_time, kcore  # noqa: E402
 from repro_torch.core.pecb_index import build_stratified_index  # noqa: E402
-from repro_torch.core.temporal_graph import (gen_temporal_graph,  # noqa: E402
+from repro_torch.core.temporal_graph import (TemporalGraph,  # noqa: E402
+                                             gen_temporal_graph,
                                              random_queries)
 from repro_torch.kernels import (flash_attention, kcore_peel,  # noqa: E402
                                  label_prop, ops, ref, segment_matmul,
@@ -123,18 +124,148 @@ def test_kcore_fixpoint_on_card_equals_host_peeling(cuda):
 
 
 def test_device_engine_strata_on_card_equal_host_engine(cuda):
+    """The card build makes one stratum_sweep launch per t_uv block and no
+    B2 launch, and its strata equal the host's on every field."""
     g = gen_temporal_graph(n=40, m=420, t_max=18, seed=31)
     before = segmented_select.segmented_count_le.launches
+    sweeps = segmented_select.stratum_sweep.launches
     stats = {}
     dev = core_time.stratified_core_times(g, device=cuda, stats=stats)
-    launched = segmented_select.segmented_count_le.launches - before
-    assert launched == stats["iterations"] + \
-        segmented_select.bisection_steps(g.t_max + 1) * stats["climbs"]
+    assert segmented_select.segmented_count_le.launches == before
+    assert segmented_select.stratum_sweep.launches - sweeps == \
+        -(-g.t_max // core_time.TUV_BLOCK)
+    assert stats["iterations"] - stats["climbs"] == g.t_max * len(dev.ks)
     host = core_time.stratified_core_times(g, device="cpu")
     assert dev.ks == host.ks
     for f in ("kptr", "edge_id", "ts_from", "ts_to", "ct", "vptr",
               "v_ts_from", "v_ts_to", "v_ct"):
         assert np.array_equal(getattr(dev, f), getattr(host, f)), f
+
+
+def sweep_operands(g, dev, ts0=1, ts1=None):
+    """(tuv, seg, vptr, dst) of g's pair CSR on ``dev``, tuv the t_uv rows
+    of start times [ts0, ts1) (default: to t_max)."""
+    csr = core_time._pair_csr(g)
+    ts1 = g.t_max + 1 if ts1 is None else ts1
+    tuv = np.ascontiguousarray(core_time._tuv_rows(csr, ts0, ts1, g.t_max))
+    return [torch.as_tensor(a, device=dev) for a in
+            (tuv, csr.src, csr.vptr.astype(np.int32), csr.dst)]
+
+
+def hub_graph(seed=11):
+    """Vertex 0 with 1,100 distinct neighbours (a segment of more than
+    1,024 slots) around a denser random core."""
+    rng = np.random.default_rng(seed)
+    n = 1_101
+    edges = [(0, v, int(rng.integers(1, 41))) for v in range(1, n)]
+    a, b = rng.integers(1, 60, (2, 900))
+    edges += [(int(u), int(v), int(t)) for u, v, t in
+              zip(a, b, rng.integers(1, 41, 900))]
+    return TemporalGraph.from_edges(n, edges)
+
+
+def sweep_both(ops_, ks, n, inf, carry=None):
+    """The kernel and its plain version on the same card operands:
+    ((rows, carry, stats) of the kernel, the same of the plain version),
+    after checking the launch and its route."""
+    dev = ops_[0].device
+    ks = torch.as_tensor(np.asarray(ks, np.int32), device=dev)
+    carry = (torch.zeros((ks.shape[0], n), dtype=torch.int32, device=dev)
+             if carry is None else carry)
+    route = segmented_select.sweep_route(n)
+    before = (segmented_select.stratum_sweep.launches,
+              segmented_select.stratum_sweep.routes[route])
+    c_kern = carry.clone()
+    rows, stats = segmented_select.stratum_sweep(*ops_, ks, c_kern, inf)
+    torch.cuda.synchronize()
+    assert (segmented_select.stratum_sweep.launches,
+            segmented_select.stratum_sweep.routes[route]) == \
+        (before[0] + 1, before[1] + 1)
+    c_plain = carry.clone()
+    rows_p = torch.empty_like(rows)
+    stats_p = ref.stratum_sweep(*ops_, ks, c_plain, inf, rows_p)
+    return (rows, c_kern, stats), (rows_p, c_plain, stats_p)
+
+
+def assert_sweeps_equal(kern, plain):
+    for name, a, b in zip(("rows", "carry", "stats"), kern, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case", ["cm_like", "hub", "above_k_max",
+                                  "forced_global"])
+def test_stratum_sweep_kernel_matches_plain_version(cuda, case, monkeypatch):
+    """Rows, carry and probe/climb counts exactly equal to the plain
+    version's on the card: every stratum of a CollegeMsg-like graph (also
+    with c forced into the global scratch), a hub of 1,100 slots, and a
+    single k above k_max (every vertex climbs to inf)."""
+    g = hub_graph() if case == "hub" else gen_temporal_graph(
+        n=600, m=9000, t_max=190, seed=2)
+    ks = core_time.default_ks(g)
+    if case == "above_k_max":
+        ks = (ks[-1] + 1,)
+    if case == "forced_global":
+        monkeypatch.setattr(segmented_select, "sweep_route",
+                            lambda n: "global")
+    kern, plain = sweep_both(sweep_operands(g, cuda), ks, g.n, g.t_max + 1)
+    assert_sweeps_equal(kern, plain)
+    if case == "above_k_max":
+        assert bool((kern[0] == g.t_max + 1).all())
+
+
+@pytest.mark.parametrize("n,route", [(20_000, "shared"), (30_000, "global")])
+def test_stratum_sweep_kernel_routes_by_size(cuda, n, route):
+    """n = 20,000: c's two int32 buffers (160,000 bytes) fit a block's
+    shared memory only past the 48 KB default (the launch opts in); n =
+    30,000: they (240,000 bytes) do not fit its 232,448 bytes, so c lives
+    in device memory."""
+    g = gen_temporal_graph(n=n, m=3 * n, t_max=40, seed=4)
+    assert segmented_select.sweep_route(g.n) == route
+    ks = core_time.default_ks(g)
+    kern, plain = sweep_both(sweep_operands(g, cuda), (ks[0], ks[-1]), g.n,
+                             g.t_max + 1)
+    assert_sweeps_equal(kern, plain)
+
+
+def test_stratum_sweep_kernel_carries_across_blocks(cuda):
+    """t_max = 318 > TUV_BLOCK: two launches carrying c equal the plain
+    version over all 318 start times at once, and the card build equals
+    the host's."""
+    g = gen_temporal_graph(n=30, m=800, t_max=400, seed=9)
+    assert g.t_max > core_time.TUV_BLOCK
+    ks = core_time.default_ks(g)
+    inf, cut = g.t_max + 1, 1 + core_time.TUV_BLOCK
+    kt = torch.as_tensor(np.asarray(ks, np.int32), device=cuda)
+    carry = torch.zeros((len(ks), g.n), dtype=torch.int32, device=cuda)
+    rows = torch.empty((len(ks), g.t_max, g.n), dtype=torch.int32,
+                       device=cuda)
+    stats = 0
+    for lo, hi in ((1, cut), (cut, g.t_max + 1)):
+        stats = stats + segmented_select.stratum_sweep(
+            *sweep_operands(g, cuda, lo, hi), kt, carry, inf,
+            out=rows[:, lo - 1:hi - 1])[1]
+    torch.cuda.synchronize()
+    c_plain = torch.zeros_like(carry)
+    rows_p = torch.empty_like(rows)
+    stats_p = ref.stratum_sweep(*sweep_operands(g, cuda), kt, c_plain, inf,
+                                rows_p)
+    assert_sweeps_equal((rows, carry, stats), (rows_p, c_plain, stats_p))
+    dev = core_time.stratified_core_times(g, device=cuda)
+    host = core_time.stratified_core_times(g, device="cpu")
+    for f in ("kptr", "edge_id", "ts_from", "ts_to", "ct", "vptr",
+              "v_ts_from", "v_ts_to", "v_ct"):
+        assert np.array_equal(getattr(dev, f), getattr(host, f)), f
+
+
+def test_stratum_sweep_kernel_on_an_empty_graph(cuda):
+    """No slot: every vertex climbs to inf once, then each start time
+    probes once; kernel and plain version agree."""
+    z = torch.zeros(0, dtype=torch.int32, device=cuda)
+    ops_ = [torch.zeros((5, 0), dtype=torch.int32, device=cuda), z,
+            torch.zeros(8, dtype=torch.int32, device=cuda), z]
+    kern, plain = sweep_both(ops_, (2, 3), 7, 6)
+    assert_sweeps_equal(kern, plain)
+    assert bool((kern[0] == 6).all()) and kern[2].tolist() == [[6, 1]] * 2
 
 
 def test_batch_query_on_card_equals_cpu_and_algorithm_1(cuda):
@@ -242,7 +373,8 @@ def test_matmul_routes_are_counted(cuda):
 def test_matmul_kernel_masks_unaligned_operands(cuda):
     """Operands whose rows are not 16-byte multiples take the masked
     element-wise loads; a view that is not contiguous raises. Mixed float
-    operands multiply as their promotion (here f32), f64 raises."""
+    operands multiply as their promotion (here f32); f64 operands are
+    computed in f32, as the plain version computes them."""
     base = torch.randn(70, 131, device=cuda).bfloat16()
     a, b = base[:33, 1:66].contiguous(), base[3:68, 2:19].contiguous()
     assert segment_matmul.plan(33, 17, 65).route == "masked"
@@ -255,8 +387,12 @@ def test_matmul_kernel_masks_unaligned_operands(cuda):
                                ref.matmul(a.float(), b.float()), rtol=1e-4,
                                atol=1e-4)
     assert segment_matmul.matmul.routes["f32"] == before + 1
-    with pytest.raises(TypeError):
-        ops.matmul(a, b.double())
+    for a64, b64 in ((a, b.double()), (a.double(), b.double())):
+        got = ops.matmul(a64, b64)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, ref.matmul(a64, b64), rtol=1e-4,
+                                   atol=1e-4)
+    assert segment_matmul.matmul.routes["f32"] == before + 3
 
 
 @pytest.mark.parametrize("B,S,T,H,Hkv,t_real,causal,dh,dtype", [
@@ -339,16 +475,43 @@ def test_flash_attention_probe_matches_plain_version(cuda):
     assert bool(((o - want).abs() <= bound[0, :, 0]).all())
 
 
-def test_flash_attention_kernel_refuses_other_shapes(cuda):
-    """Head widths above 128 or not a multiple of 8 raise a named error on
-    every dtype (the plain version on the CPU takes them); so does a dtype
-    the kernels do not take."""
-    for dh, dt in ((136, torch.bfloat16), (12, torch.bfloat16),
-                   (256, torch.float32), (4, torch.float16)):
-        q = torch.zeros(1, 4, 4, dh, device=cuda, dtype=dt)
-        with pytest.raises(flash_attention.HeadWidthError):
-            ops.flash_attention(q, q, q)
-    q = torch.zeros(1, 4, 4, 64, device=cuda, dtype=torch.float64)
+@pytest.mark.parametrize("dh,dtype", [(12, "bf16"), (12, "f32"),
+                                      (136, "bf16"), (136, "f32"),
+                                      (256, "bf16"), (256, "f32"),
+                                      (4, "f16"), (64, "f64"), (12, "f64"),
+                                      (136, "f64")])
+def test_flash_attention_kernel_refuses_other_shapes(cuda, dh, dtype):
+    """Every head width and f64 now compute on the card, within
+    ``error_bound`` of the plain version: a dh that is not a multiple of 8
+    is zero-padded (scale 1/sqrt(dh) kept), a dh above 128 takes the
+    ``wide`` route (the f32 route's kernel over 128-column chunks), f64 is
+    computed in f32 and cast back. Another dtype still raises."""
+    dt = {"bf16": torch.bfloat16, "f16": torch.float16,
+          "f32": torch.float32, "f64": torch.float64}[dtype]
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    for B, S, T, H, Hkv, t_real, causal in ((2, 40, 40, 4, 2, None, True),
+                                            (3, 1, 300, 8, 2, 201, False),
+                                            (1, 70, 90, 6, 3, 80, True)):
+        q = torch.randn(B, S, H, dh, generator=gen, device=cuda).to(dt)
+        k, v = (torch.randn(B, T, Hkv, dh, generator=gen, device=cuda).to(dt)
+                for _ in range(2))
+        if t_real is not None:
+            k[:, t_real:], v[:, t_real:] = float("nan"), float("nan")
+        kdt = torch.float32 if dt == torch.float64 else dt
+        route = flash_attention.plan(
+            B, S, H, Hkv, T if t_real is None else t_real, causal,
+            flash_attention.kernel_width(dh), kdt).route
+        assert route == "wide" if dh > 128 else route != "wide"
+        before = flash_attention.flash_attention.routes[route]
+        got = ops.flash_attention(q, k, v, causal=causal, t_real=t_real)
+        torch.cuda.synchronize()
+        assert flash_attention.flash_attention.routes[route] == before + 1
+        want = ref.flash_attention(q, k, v, causal=causal, t_real=t_real)
+        assert got.dtype == dt and got.shape == q.shape
+        diff = (got.float() - want.float()).abs()
+        assert bool((diff <= flash_attention.error_bound(want)).all()), \
+            (B, S, float(diff.max()))
+    q = torch.zeros(1, 4, 4, 64, device=cuda, dtype=torch.int32)
     with pytest.raises(TypeError):
         ops.flash_attention(q, q, q)
 

@@ -87,13 +87,14 @@ def test_t_real_matches_pallas_kernel_on_the_first_keys(S, T, t_real, causal,
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("dh", [8, 64])
+@pytest.mark.parametrize("dh", [8, 12, 64, 136])
 @pytest.mark.parametrize("H,Hkv,S,T,causal", [(4, 2, 40, 40, True),
                                               (6, 3, 1, 70, False),
                                               (2, 2, 24, 33, True)])
 def test_head_widths_match_pallas_kernel(H, Hkv, S, T, causal, dh, dtype):
-    """The kernels' other head widths (dh 8, the narrowest; 64, the
-    wgmma route's other width) against the Pallas kernel."""
+    """The kernels' other head widths (dh 8, the narrowest; 12, which the
+    wrapper zero-pads to 16; 64, the wgmma route's other width; 136, the
+    wide route's) against the Pallas kernel."""
     check(2, S, T, H, Hkv, dh, causal, dtype, seed=dh + S * T)
 
 
@@ -154,6 +155,9 @@ def test_wrapper_rejects_what_it_cannot_attend(bad):
     (1, 100, 12, 4, 100, True, 128, "bf16", ("mma", 128, 5, 1, 2)),
     # f32: 16-row tiles, 32-key tiles
     (2, 40, 4, 2, 40, True, 16, "f32", ("f32", 16, 5, 1, 2)),
+    # dh above 128, any dtype: the wide route's 16-row, 32-key tiles
+    (2, 40, 4, 2, 40, True, 136, "bf16", ("wide", 136, 5, 1, 2)),
+    (3, 1, 8, 2, 300, False, 256, "f32", ("wide", 256, 1, 1, 10)),
 ])
 def test_plan(B, S, H, Hkv, t_real, causal, dh, dtype, want):
     p = fa.plan(B, S, H, Hkv, t_real, causal, dh, DTYPES[dtype][1])
@@ -162,7 +166,8 @@ def test_plan(B, S, H, Hkv, t_real, causal, dh, dtype, want):
     n_tiles = -(-keys // fa.ROUTE_TILES[p.route][1])
     assert (p.splits - 1) * p.tiles_per_split < n_tiles <= \
         p.splits * p.tiles_per_split
-    assert p.dhp >= dh and (p.route in ("wgmma", "f32") or p.dhp % 16 == 0)
+    assert p.dhp >= dh and (p.route in ("wgmma", "f32", "wide")
+                            or p.dhp % 16 == 0)
 
 
 def padded(x, dhp):
@@ -193,6 +198,36 @@ def test_zero_padding_of_the_head_width_changes_nothing(dh):
     op = op.reshape(B, S, H, dhp)
     assert not op[..., dh:].any()
     torch.testing.assert_close(op[..., :dh],
+                               ref.flash_attention(q, k, v, causal=True),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dh", [12, 136, 256])
+def test_wide_route_and_padding_arithmetic_change_nothing(dh):
+    """The SIMT kernel's arithmetic, emulated: dh zero-padded to a multiple
+    of 8 (kernel_width) with the scale kept at 1/sqrt(dh), the scores
+    summed over 128-column chunks of q and k, the output written one
+    128-column chunk per block: the plain version's output within f32
+    rounding."""
+    B, S, T, H, Hkv = 2, 9, 21, 4, 2
+    _, (q, k, v) = inputs(B, S, T, H, Hkv, dh, jnp.float32, torch.float32,
+                          seed=dh)
+    dhk = fa.kernel_width(dh)
+    assert dhk % fa.HEAD_STEP == 0 and 0 <= dhk - dh < fa.HEAD_STEP
+    route = fa.plan(B, S, H, Hkv, T, True, dhk, torch.bfloat16).route
+    assert route == ("wide" if dh > fa.WIDEST_HEAD else "mma")
+    qp, kp, vp = (padded(x, dhk) for x in (q, k, v))
+    G = H // Hkv
+    qg = qp.view(B, S, Hkv, G, dhk)
+    s = sum(torch.einsum("bsngd,btnd->bngst", qg[..., c:c + 128],
+                         kp[..., c:c + 128]) for c in range(0, dhk, 128))
+    s = (s / dh ** 0.5).masked_fill(
+        torch.arange(S)[:, None] < torch.arange(T), float("-inf"))
+    p = torch.softmax(s, -1)
+    o = torch.cat([torch.einsum("bngst,btnd->bsngd", p, vp[..., c:c + 128])
+                   for c in range(0, dhk, 128)], -1).reshape(B, S, H, dhk)
+    assert not o[..., dh:].any()
+    torch.testing.assert_close(o[..., :dh],
                                ref.flash_attention(q, k, v, causal=True),
                                rtol=1e-5, atol=1e-5)
 

@@ -153,8 +153,14 @@ def test_operand_dtype_promotes_to_a_kernel_type(a, b, want):
 
 
 def test_operand_dtype_refuses_f64():
+    """f64 is no kernel type: its operands are computed in f32, as the
+    reference computes them with x64 off (and as ``ref.matmul`` does);
+    a dtype that promotes to no float kernel type still raises."""
+    assert sm.operand_dtype(torch.float64, torch.float32) == torch.float32
+    assert sm.operand_dtype(torch.float64, torch.bfloat16) == torch.float32
+    assert sm.operand_dtype(torch.float64, torch.float64) == torch.float32
     with pytest.raises(TypeError):
-        sm.operand_dtype(torch.float64, torch.float32)
+        sm.operand_dtype(torch.complex64, torch.float32)
 
 
 @pytest.mark.parametrize("da,db", [("bf16", "f32"), ("f32", "bf16"),
