@@ -7,8 +7,9 @@ result line each; any failure raises and exits non-zero:
 
   gpu      card name and power limit (nvidia-smi)
   build    B1 (label propagation), B2 (segmented count), the stratum
-           sweep (B2 redesigned), B3 (k-core peel), B4 (segment sum), B5
-           (GEMM) and B6 (flash attention) with nvcc for sm_90a, the host
+           sweep (B2 redesigned), B3 (k-core peel round), the peel
+           fixpoint (B3 redesigned), B4 (segment sum), B5 (GEMM) and B6
+           (flash attention) with nvcc for sm_90a, the host
            forest engine with cc, all started together; each kernel's
            registers, shared memory and spills
   construct  a CollegeMsg-scale temporal graph (SNAP CollegeMsg: 1,899
@@ -36,10 +37,23 @@ result line each; any failure raises and exits non-zero:
            versions; kernel, plain and library times per call (CUDA events:
            the device time with the host ahead, behind a device sleep, the
            time back to back and the host time) and the bound
-  peel     the main path of B3: ``ops.kcore_fixpoint`` on the card over the
-           full window's distinct pairs for every k of the index and
-           k_max + 1, each equal to the host's distinct k-core mask; B3a
-           and B3b launch counts over this phase must be > 0
+  peel     the main path of B3, redesigned: ``ops.kcore_fixpoint`` on the
+           card, one launch of the fixpoint kernel per k (every round on
+           the card, no host read between rounds), counted: over the
+           CollegeMsg graph's 17,474 distinct pairs for every k of the
+           index and k_max + 1 (38 fixpoints), then over an
+           sx-superuser-scale graph (SNAP sx-superuser: 194,085 users,
+           1,443,339 interactions; generated from a seed): 461,605
+           distinct pairs, k = 2..k_max + 1 (121 fixpoints). For each: one
+           launch per fixpoint and no B3a/B3b launch; every mask
+           bit-equal to the plain version on the card and every round
+           count equal, in the counted run and in the timed one; each k at
+           CollegeMsg scale and k in {2, k_max/4, k_max/2, k_max,
+           k_max + 1} at sx-superuser scale equal to the host's distinct
+           k-core; the wall of all fixpoints, each one's device time by
+           CUDA events, the serial chain (the longest fixpoint's rounds)
+           and the byte bound; the old path (B3a + B3b and a flag read
+           per round) timed on the same operands
   upload   the index to the card
   serve    the main path through launch.serve: mixed-k vertex queries at
            bucket 256, one edges-mode batch at bucket 16, one 64-window
@@ -100,6 +114,7 @@ Then a line of kernel records (JSON), the nvidia-smi line, and last
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -116,6 +131,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 #: SNAP CollegeMsg's published scale (users, messages, days)
 COLLEGEMSG = dict(n=1899, m=59835, t_max=193, seed=7)
+#: SNAP sx-superuser's published scale (users, temporal interactions;
+#: snap.stanford.edu/data/sx-superuser.html), days cut to 2,000: the
+#: [peel] phase's second graph (461,605 distinct pairs, k_max 121)
+SX_SUPERUSER = dict(n=194085, m=1443339, t_max=2000, seed=7)
+#: ks of the sx-superuser peel checked against the host's k-core (each
+#: ~0.14 s there), as shares of k_max; k_max + 1 is checked too
+SX_HOST_KS = (0.0, 0.25, 0.5, 1.0)
 BUCKET = 256
 
 
@@ -1306,6 +1328,207 @@ def construct_phase(dev):
     return g, ks, strata, t_dev, t_host, b2_launches, record
 
 
+def distinct_pairs(g, dev):
+    """The graph's distinct pairs (min, max) as int32 on the card, sorted,
+    and the index of each edge's pair: (us, ud, inv)."""
+    from repro_torch.core import kcore
+
+    us, ud, inv = kcore.distinct_pairs(g.src, g.dst, g.n)
+    return (torch.as_tensor(us.astype(np.int32), device=dev),
+            torch.as_tensor(ud.astype(np.int32), device=dev), inv)
+
+
+def device_times(calls, sleep_ms: float):
+    """Device ms of each of ``calls`` (functions of no argument) by CUDA
+    events between them, the card asleep for ``sleep_ms`` + 10 ms first so
+    that the host enqueues ahead of it; run again, three times at most,
+    while the host fell behind all the same (the first event had
+    completed by the time the last call was enqueued). Returns (ms per
+    call, whether the host stayed ahead, the calls' results)."""
+    for _ in range(3):
+        evs = [torch.cuda.Event(enable_timing=True)
+               for _ in range(len(calls) + 1)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int((sleep_ms + 10.0) * 2e6))  # ~2 GHz cycles
+        evs[0].record()
+        outs = []
+        for call, ev in zip(calls, evs[1:]):
+            outs.append(call())
+            ev.record()
+        ahead = not evs[0].query()
+        torch.cuda.synchronize()
+        if ahead:
+            break
+    return ([a.elapsed_time(b) for a, b in zip(evs, evs[1:])], ahead,
+            outs)
+
+
+def old_fixpoint(us, ud, n: int, k: int):
+    """The peel as it ran before the fixpoint kernel: B3a then B3b per
+    round, one read of the change flag per round. (mask, rounds)."""
+    from repro_torch.kernels import kcore_peel
+
+    alive = torch.ones(us.shape[0], dtype=torch.bool, device=us.device)
+    changed = torch.zeros(1, dtype=torch.int32, device=us.device)
+    rounds = 0
+    while True:
+        changed.zero_()
+        new = kcore_peel.peel_round(us, ud, alive, n, k, changed=changed)
+        rounds += 1
+        if not int(changed.item()):
+            return new, rounds
+        alive = new
+
+
+def peel_graph(label: str, g, us, ud, inv, peel_ks, host_ks) -> dict:
+    """``[peel]`` on one graph: ``ops.kcore_fixpoint`` over its distinct
+    pairs for every k of ``peel_ks`` (the main path, counted: one launch
+    per fixpoint, no B3a/B3b launch); every mask and round count against
+    the plain version on the card, in the counted run and in the timed
+    one, the ks of ``host_ks`` against the host's k-core; the wall of all
+    fixpoints, the device time of each by CUDA events, the serial chain
+    and the bound; the old path (B3a + B3b and a flag read per round) on
+    the same operands."""
+    from repro_torch.core import kcore
+    from repro_torch.kernels import kcore_peel, ref
+    from repro_torch.kernels import ops as kernel_ops
+
+    dev, n, m, F = us.device, g.n, int(us.shape[0]), len(peel_ks)
+    rounds = torch.zeros(F, dtype=torch.int32, device=dev)
+    # one call outside the counted run: the kernel's module loads at its
+    # first launch
+    kcore_peel.kcore_fixpoint(us, ud, n, peel_ks[0])
+    torch.cuda.synchronize()
+    kcore_peel.kcore_fixpoint.launches = 0
+    kcore_peel.degree_count.launches = 0
+    kcore_peel.peel_threshold.launches = 0
+    masks, t_peel = wall(lambda: [
+        kernel_ops.kcore_fixpoint(us, ud, n, k, rounds=rounds[i:i + 1])
+        for i, k in enumerate(peel_ks)])
+    launches = kcore_peel.kcore_fixpoint.launches
+    b3 = (kcore_peel.degree_count.launches,
+          kcore_peel.peel_threshold.launches)
+    if launches <= 0:
+        raise AssertionError(f"the {label} peel launched kcore_fixpoint no "
+                             "time")
+    if launches != F:
+        raise AssertionError(f"the {label} peel made {launches} kcore_fixpoint"
+                             f" launches, expected {F}, one per fixpoint")
+    if b3 != (0, 0):
+        raise AssertionError(f"B3a/B3b launched {b3} times during the "
+                             f"{label} peel (they are off the fixpoint path)")
+
+    # every mask and round count against the plain version on the card
+    plain_rounds = torch.zeros_like(rounds)
+    plain, t_plain = wall(lambda: [
+        ref.kcore_fixpoint(us, ud, n, k, rounds=plain_rounds[i:i + 1])
+        for i, k in enumerate(peel_ks)])
+    err = max(check_equal(f"{label} {k}-core", a, b)
+              for k, a, b in zip(peel_ks, masks, plain))
+    err = max(err, check_equal(f"{label} rounds", rounds, plain_rounds))
+    per = rounds.cpu().tolist()
+
+    # the old path on the same operands
+    old, t_old = wall(lambda: [old_fixpoint(us, ud, n, k) for k in peel_ks])
+    for k, a, (b, r_old), r in zip(peel_ks, masks, old, per):
+        check_equal(f"{label} {k}-core by the old path", b, a)
+        if r_old != r:
+            raise AssertionError(f"{label} k={k}: the old path ran {r_old} "
+                                 f"rounds, the kernel {r}")
+
+    # the listed ks against the host's k-core
+    t0 = time.perf_counter()
+    for k in host_ks:
+        want = kcore.distinct_kcore_edge_mask(g.src, g.dst, n, k)
+        if not np.array_equal(masks[peel_ks.index(k)].cpu().numpy()[inv],
+                              want):
+            raise AssertionError(f"the card's {label} {k}-core differs from "
+                                 "the host's")
+    t_host = time.perf_counter() - t0
+    sizes = torch.stack(masks).sum(1).cpu().tolist() if m else [0] * F
+    if sizes[-1] != 0 or sizes[-2] == 0:
+        raise AssertionError(f"{label}: k_max's core must be non-empty, "
+                             "k_max + 1's empty")
+
+    # device time of each fixpoint, its masks and rounds held to the
+    # counted run's
+    timed_rounds = torch.zeros_like(rounds)
+    dev_ms, ahead, timed = device_times(
+        [functools.partial(kcore_peel.kcore_fixpoint, us, ud, n, k,
+                           rounds=timed_rounds[i:i + 1])
+         for i, k in enumerate(peel_ks)], 2 * t_peel * 1e3)
+    for k, a, b in zip(peel_ks, timed, masks):
+        check_equal(f"{label} {k}-core of the timed run", a, b)
+    check_equal(f"{label} rounds of the timed run", timed_rounds, rounds)
+    host = host_ms(lambda: kcore_peel.kcore_fixpoint(us, ud, n,
+                                                     peel_ks[F // 2]))
+    longest = int(np.argmax(per))
+    bound = kcore_peel.fixpoint_bound_ms(m)
+    print(f"[peel] {label}: ops.kcore_fixpoint on the card over {m} distinct "
+          f"pairs (n={n}) for k={peel_ks[0]}..{peel_ks[-1]} ({F} fixpoints):"
+          f" kcore_fixpoint launches {launches} (one per fixpoint, "
+          f"{kcore_peel.grid_blocks(m, n)} co-resident blocks of 1,024 "
+          f"threads), B3a launches {b3[0]}, B3b {b3[1]}; every mask "
+          f"bit-equal to ref.kcore_fixpoint on the card and every round "
+          f"count equal, in the counted and the timed run (max abs err "
+          f"{err}, tolerance 0: bool masks and integer counts), {sum(per)} "
+          f"rounds; k in {list(host_ks)} equal to "
+          f"kcore.distinct_kcore_edge_mask on the host ({t_host:.3f}s); "
+          f"core sizes (pairs) {sizes[0]}..{sizes[-2]}, then {sizes[-1]}")
+    print(f"[peel] {label}: wall of all {F} fixpoints {t_peel:.6f}s "
+          f"({t_peel / F * 1e3:.6f} ms each, host and card); device time by "
+          f"CUDA events {sum(dev_ms):.6f} ms ("
+          f"{'host ahead' if ahead else 'the host fell behind: back to back'}"
+          f"), {sum(dev_ms) / F:.6f} ms per fixpoint (min "
+          f"{min(dev_ms):.6f}, max {max(dev_ms):.6f}); host {host:.6f} ms per "
+          f"call; serial chain: the longest fixpoint's {per[longest]} rounds "
+          f"(k={peel_ks[longest]}) in {dev_ms[longest]:.6f} ms, "
+          f"{dev_ms[longest] * 1e3 / per[longest]:.3f} us per round; bound "
+          f"{bound:.6f} ms per fixpoint (bytes: 9*m + 4 at 3.35 TB/s), "
+          f"{bound * F:.6f} ms in all, {bound * F / sum(dev_ms):.6f} of the "
+          f"device time. The old path on the same operands (B3a + B3b per "
+          f"round, one flag read each; {sum(r for _, r in old)} rounds, masks "
+          f"equal): {t_old:.6f}s wall, {t_old / t_peel:.1f}x the kernel's; "
+          f"the plain version on the card {t_plain:.6f}s wall; library: none "
+          f"(no PyTorch call computes a k-core fixpoint)")
+    return dict(launches=launches, b3=b3, err=err, ms=sum(dev_ms) / F,
+                plain_ms=t_plain / F * 1e3, bound_ms=bound)
+
+
+def peel_phase(g, us, ud, inv, ks) -> tuple[dict, tuple[int, int]]:
+    """``[peel]`` on the CollegeMsg-scale graph (``ks``: every k of the
+    index and k_max + 1, each also against the host) and on an
+    sx-superuser-scale graph (k = 2..k_max + 1; SX_HOST_KS against the
+    host). Returns the kcore_fixpoint record (launches over both graphs,
+    times and bound from the CollegeMsg run, per fixpoint) and the B3a
+    and B3b launches of both peels."""
+    from repro_torch.core import kcore
+    from repro_torch.core.temporal_graph import gen_temporal_graph
+
+    cm = peel_graph("CollegeMsg", g, us, ud, inv, ks, ks)
+    t0 = time.perf_counter()
+    sx = gen_temporal_graph(**SX_SUPERUSER)
+    sx_us, sx_ud, sx_inv = distinct_pairs(sx, us.device)
+    sx_kmax = kcore.k_max(sx)
+    print(f"[peel] sx-superuser scale: n={sx.n} m={sx.m} t_max={sx.t_max}, "
+          f"{int(sx_us.shape[0])} distinct pairs, k_max {sx_kmax} on the "
+          f"host, made in {time.perf_counter() - t0:.2f}s")
+    sx_ks = list(range(2, sx_kmax + 2))
+    host_ks = sorted({max(2, int(f * sx_kmax)) for f in SX_HOST_KS}
+                     | {sx_kmax + 1})
+    sxr = peel_graph("sx-superuser", sx, sx_us, sx_ud, sx_inv, sx_ks,
+                     host_ks)
+    return {"name": "kcore_fixpoint", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/kcore_fixpoint.cu",
+            "replaces": "src/repro/kernels/kcore_peel.py:62, :117 (iterated "
+                        "by src/repro/kernels/ref.py:33)",
+            "launches": cm["launches"] + sxr["launches"],
+            "max_abs_err": max(cm["err"], sxr["err"]), "ms": cm["ms"],
+            "plain_ms": cm["plain_ms"], "bound_ms": cm["bound_ms"],
+            "bound_by": "bytes", "library_ms": None}, tuple(
+                a + b for a, b in zip(cm["b3"], sxr["b3"]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -1314,11 +1537,10 @@ def main() -> int:
 
     from repro_torch.core import batch_query as bq
     from repro_torch.core import core_time as ct
-    from repro_torch.core import ecb_native, kcore
+    from repro_torch.core import ecb_native
     from repro_torch.core.pecb_index import build_stratified_index
     from repro_torch.kernels import (flash_attention, kcore_peel, label_prop,
                                      ref, segment_matmul, segmented_select)
-    from repro_torch.kernels import ops as kernel_ops
     from repro_torch.launch import serve
     from repro_torch.serving import executor
 
@@ -1336,11 +1558,12 @@ def main() -> int:
 
     # -- build: every native library at once ------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(10) as pool:
         libs = {name: pool.submit(build) for name, build in (
             ("B1", label_prop.build), ("B2", segmented_select.build),
             ("sweep", segmented_select.build_sweep),
             ("B3", kcore_peel.build),
+            ("fixpoint", kcore_peel.build_fixpoint),
             ("B4", segment_matmul.build_segment_sum),
             ("B5", segment_matmul.build), ("B6", flash_attention.build))}
         host = pool.submit(ecb_native.available)
@@ -1350,7 +1573,8 @@ def main() -> int:
         print(f"[build] {name} {so.name}")
         for k in ptxas_kernels(so.with_suffix(".log").read_text()):
             print(f"[build] {name} ptxas {k}")
-    print(f"[build] B1, B2, the stratum sweep, B3, B4, B5, B6 + host "
+    print(f"[build] B1, B2, the stratum sweep, B3, the peel fixpoint, B4, "
+          f"B5, B6 + host "
           f"forest engine "
           f"({'native C' if native else 'Python: no C compiler'}) in "
           f"{time.perf_counter() - t0:.2f}s")
@@ -1451,11 +1675,7 @@ def main() -> int:
     src_e = torch.as_tensor(g.src, device=dev)
     dst_e = torch.as_tensor(g.dst, device=dev)
     alive_e = torch.as_tensor(rng.random(g.m) < 0.7, device=dev)
-    key = np.minimum(g.src, g.dst).astype(np.int64) * n + np.maximum(g.src,
-                                                                     g.dst)
-    uniq, inv = np.unique(key, return_inverse=True)
-    us = torch.as_tensor((uniq // n).astype(np.int32), device=dev)
-    ud = torch.as_tensor((uniq % n).astype(np.int32), device=dev)
+    us, ud, inv = distinct_pairs(g, dev)
     alive_p = torch.ones(us.shape[0], dtype=torch.bool, device=dev)
     b3_err = [0, 0]
     degs = []
@@ -1506,38 +1726,9 @@ def main() -> int:
           f"{g.m} edges (device time with the host ahead, else back to "
           f"back): B3a {full_ms[0]:.6f} ms, B3b {full_ms[1]:.6f} ms")
 
-    # -- peel: the main path of B3, counted ----------------------------------
-    peel_ks = list(ks) + [sx.k_max_graph + 1]
-    kcore_peel.degree_count.launches = 0
-    kcore_peel.peel_threshold.launches = 0
-    t0 = time.perf_counter()
-    masks = [kernel_ops.kcore_fixpoint(us, ud, n, k).cpu().numpy()
-             for k in peel_ks]
-    t_peel = time.perf_counter() - t0
-    b3a_launches = kcore_peel.degree_count.launches
-    b3b_launches = kcore_peel.peel_threshold.launches
-    if b3a_launches <= 0 or b3b_launches <= 0:
-        raise AssertionError("the peel launched B3a or B3b no time")
-    if b3a_launches != b3b_launches:
-        raise AssertionError("every peel round launches B3a then B3b")
-    t0 = time.perf_counter()
-    for k, mask in zip(peel_ks, masks):
-        want = kcore.distinct_kcore_edge_mask(g.src, g.dst, n, k)
-        if not np.array_equal(mask[inv], want):
-            raise AssertionError(f"the card's {k}-core differs from the "
-                                 "host's")
-    t_host_peel = time.perf_counter() - t0
-    sizes = [int(mk.sum()) for mk in masks]
-    if sizes[-1] != 0 or sizes[-2] == 0:
-        raise AssertionError("k_max's core must be non-empty, k_max + 1's "
-                             "empty")
-    print(f"[peel] ops.kcore_fixpoint on the card over {m_p} distinct "
-          f"pairs for k={peel_ks[0]}..{peel_ks[-1]} ({len(peel_ks)} "
-          f"fixpoints): each equal to kcore.distinct_kcore_edge_mask on the "
-          f"host; {b3b_launches} rounds (B3a {b3a_launches}, B3b "
-          f"{b3b_launches} launches, one flag read each) in "
-          f"{t_peel:.3f}s on the card, {t_host_peel:.3f}s on the host; "
-          f"core sizes (pairs) {sizes[0]}..{sizes[-2]}, then {sizes[-1]}")
+    # -- peel: the main path of B3 (the fixpoint kernel), counted ----------
+    fix_record, b3_peel = peel_phase(g, us, ud, inv,
+                                     list(ks) + [sx.k_max_graph + 1])
 
     # -- upload ------------------------------------------------------------
     dix, t_up = wall(lambda: bq.device_index(meta, arrays, dev))
@@ -1674,15 +1865,15 @@ def main() -> int:
         {"name": "degree_count", "route": "cuda",
          "source": csrc + "kcore_peel.cu",
          "replaces": "src/repro/kernels/kcore_peel.py:62",
-         "launches": b3a_launches, "max_abs_err": b3_err[0], "ms": b3a_ms,
+         "launches": b3_peel[0], "max_abs_err": b3_err[0], "ms": b3a_ms,
          "plain_ms": b3a_plain, "bound_ms": b3a_bound, "bound_by": "bytes",
          "library_ms": b3a_lib},
         {"name": "peel_threshold", "route": "cuda",
          "source": csrc + "kcore_peel.cu",
          "replaces": "src/repro/kernels/kcore_peel.py:117",
-         "launches": b3b_launches, "max_abs_err": b3_err[1], "ms": b3b_ms,
+         "launches": b3_peel[1], "max_abs_err": b3_err[1], "ms": b3b_ms,
          "plain_ms": b3b_plain, "bound_ms": b3b_bound, "bound_by": "bytes",
-         "library_ms": None}, b4_record] + lm_records
+         "library_ms": None}, fix_record, b4_record] + lm_records
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ against. They are deliberately simple; the fast paths live in
 ``core_time.py`` (host build plane) and ``batch_query.py`` / ``kernels``
 (device query plane).
 
-PyTorch port of ``repro.core.kcore``, copied verbatim so the port's
-tests and builds stand alone.
+PyTorch port of ``repro.core.kcore``, copied so the port's tests and
+builds stand alone; :func:`distinct_pairs` is the port's own, shared by
+the distinct k-core and the card's peel.
 """
 
 from __future__ import annotations
@@ -43,11 +44,17 @@ def distinct_kcore_edge_mask(src: np.ndarray, dst: np.ndarray, n: int, k: int) -
     is broadcast back to every parallel copy."""
     if src.size == 0:
         return np.zeros(0, bool)
+    us, ud, inv = distinct_pairs(src, dst, n)
+    return kcore_edge_mask(us, ud, n, k)[inv]
+
+
+def distinct_pairs(src: np.ndarray, dst: np.ndarray, n: int):
+    """The distinct undirected pairs (min, max) of the edges, sorted, as
+    int64 arrays ``us``, ``ud``, and the index of each edge's pair:
+    ``(us, ud, inv)``."""
     key = np.minimum(src, dst).astype(np.int64) * n + np.maximum(src, dst)
     uniq, inv = np.unique(key, return_inverse=True)
-    us = (uniq // n).astype(np.int64)
-    ud = (uniq % n).astype(np.int64)
-    return kcore_edge_mask(us, ud, n, k)[inv]
+    return uniq // n, uniq % n, inv
 
 
 def temporal_kcore_edges(g: TemporalGraph, k: int, ts: int, te: int) -> np.ndarray:

@@ -19,9 +19,9 @@
 // one thread to each edge: it reads the edge, gathers the two degrees
 // (deg[n] is 7.6 KB at n = 1.9k, so the gathers hit L1/L2) and writes a
 // one-byte mask. When an edge that was alive dies it stores 1 into the
-// int32 `changed` flag (every writer stores the same value); the host
-// fixpoint loop zeroes the flag before a round and reads it after, one
-// read per round, as B1 does.
+// int32 `changed` flag (every writer stores the same value); the caller
+// zeroes it before a round. The peel fixpoint no longer loops over these
+// two kernels: kcore_fixpoint.cu runs every round in one launch.
 //
 // Bound: memory, both. B3a reads src and dst (8 B) and alive (1 or 4 B) per
 // edge and writes 4 B per vertex; B3b reads 8 + (1 or 4) B per edge and

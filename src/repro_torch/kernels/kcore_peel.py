@@ -1,21 +1,27 @@
-"""B3a and B3b: one k-core peel round, as hand-written CUDA kernels.
+"""B3: the k-core peel on the card, as hand-written CUDA kernels.
 
-Replaces the TPU kernels of ``src/repro/kernels/kcore_peel.py``:
+Replaces the TPU kernels of ``src/repro/kernels/kcore_peel.py`` and the
+reference's fixpoint over them (``src/repro/kernels/ref.py:33``):
 
+* :func:`kcore_fixpoint` — B3 redesigned for Hopper: a whole peel
+  fixpoint (every round) as one cooperative launch of
+  ``csrc/kcore_fixpoint.cu``, with no host read between rounds. It is
+  the peel's kernel; B3a and B3b stay as the Pallas functions'
+  counterparts, off the fixpoint path. Bound by memory (:func:`fixpoint_bound_ms`) but
+  latency-bound in practice: its serial chain is the rounds;
 * B3a :func:`degree_count` (``:62``, Pallas body ``_degree_kernel``): the
   alive-weighted degree of every vertex, counting both endpoints;
 * B3b :func:`peel_threshold` (the ``_threshold_kernel`` half of
   ``peel_round``, ``:117``): the new alive mask
   ``alive > 0 & deg[src] >= k & deg[dst] >= k``, with an int32 change
-  flag like B1's so that :func:`kcore_fixpoint` loops on the device with
-  one flag read per round.
+  flag like B1's.
 
 :func:`peel_round` launches B3a then B3b, as the reference does. The CUDA
-source (``csrc/kcore_peel.cu``) states the design: one thread per edge,
-integer atomics for the degrees. Both kernels are bound by memory, a few
-bytes per edge and per vertex (:func:`degree_bound_ms`,
-:func:`threshold_bound_ms`), well under a microsecond at the CollegeMsg
-scale, so each launch costs its overhead.
+source ``csrc/kcore_peel.cu`` states their design: one thread per edge,
+integer atomics for the degrees. Both are bound by memory, a few bytes per
+edge and per vertex (:func:`degree_bound_ms`, :func:`threshold_bound_ms`),
+well under a microsecond at the CollegeMsg scale, so each launch costs its
+overhead.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernels
 (built with nvcc at first use, loaded with ctypes), CPU tensors take the
@@ -35,7 +41,9 @@ from . import ref
 from ._args import cuda_only, flag, int32_vector
 from ._build import build_cuda
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "kcore_peel.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SRC = _CSRC / "kcore_peel.cu"
+_FIXPOINT_SRC = _CSRC / "kcore_fixpoint.cu"
 
 #: H100 SXM device-memory rate, bytes/s (the bound's denominator)
 HBM_BYTES_PER_S = 3.35e12
@@ -57,9 +65,31 @@ def _library() -> tuple[ctypes.CDLL, Path]:
     return lib, so
 
 
+@functools.cache
+def _fixpoint_library() -> tuple[ctypes.CDLL, Path]:
+    so = build_cuda("kcore_fixpoint", [_FIXPOINT_SRC])
+    lib = ctypes.CDLL(str(so))
+    fn = lib.kcore_fixpoint_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
+        [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
+                                 ctypes.c_int64, ctypes.c_void_p]
+    blocks = lib.kcore_fixpoint_grid_blocks
+    blocks.restype = ctypes.c_int
+    blocks.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+    return lib, so
+
+
 def build() -> Path:
-    """Build the B3 library (if needed) and load it; returns its path."""
+    """Build the B3a/B3b library (if needed) and load it; returns its
+    path."""
     return _library()[1]
+
+
+def build_fixpoint() -> Path:
+    """Build the fixpoint kernel's library (if needed) and load it;
+    returns its path."""
+    return _fixpoint_library()[1]
 
 
 def degree_bound_ms(m: int, n: int, alive_bytes: int = 1) -> float:
@@ -73,6 +103,15 @@ def threshold_bound_ms(m: int, n: int, alive_bytes: int = 1) -> float:
     and the one-byte mask written once per edge, deg read once per
     vertex, over the memory rate."""
     return ((9 + alive_bytes) * m + 4 * n) / HBM_BYTES_PER_S * 1e3
+
+
+def fixpoint_bound_ms(m: int, alive_bytes: int = 0) -> float:
+    """Least time of one :func:`kcore_fixpoint` launch on an H100: src and
+    dst read once (8 B per edge), ``alive0`` read once (``alive_bytes``
+    per edge: 0 when it is None, 1 for bool, 4 for int32), the one-byte
+    mask and the 4-byte round count written once, over the memory rate.
+    The degrees are the kernel's scratch, not the function's operands."""
+    return ((9 + alive_bytes) * m + 4) / HBM_BYTES_PER_S * 1e3
 
 
 def _alive(alive: torch.Tensor, m: int, device) -> torch.Tensor:
@@ -171,17 +210,62 @@ def peel_round(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
 
 
 def kcore_fixpoint(src: torch.Tensor, dst: torch.Tensor, n: int, k: int,
-                   alive0: torch.Tensor | None = None) -> torch.Tensor:
-    """bool[m] k-core edge mask: peel rounds on the tensors' device until
-    none changes, one read of the change flag per round (the reference's
-    ``ref.kcore_fixpoint``; parallel edges each count toward a degree).
-    ``alive0`` defaults to every edge alive."""
-    alive = (torch.ones(src.shape, dtype=torch.bool, device=src.device)
-             if alive0 is None else alive0)
-    changed = torch.zeros(1, dtype=torch.int32, device=src.device)
-    while True:
-        changed.zero_()
-        new = peel_round(src, dst, alive, n, k, changed=changed)
-        if not int(changed.item()):
-            return new
-        alive = new
+                   alive0: torch.Tensor | None = None, *,
+                   rounds: torch.Tensor | None = None) -> torch.Tensor:
+    """bool[m] k-core edge mask: peel rounds until none changes, the
+    plain version ``ref.kcore_fixpoint`` (parallel edges each count toward
+    a degree, a self-loop twice; ``alive0``, default every edge alive, is a
+    bool or integer weight, counted in round 1 only).
+
+    CUDA tensors launch ``csrc/kcore_fixpoint.cu`` once, every round on
+    the card and no host synchronisation; a refused cooperative launch
+    raises. ``rounds`` (int32[1] on the edges' device), when given,
+    receives the number of rounds, the last one (where nothing dies)
+    included, as the plain loop counts them. ``kcore_fixpoint.launches``
+    counts launches (CPU calls launch nothing)."""
+    src = int32_vector("src", src)
+    dst = int32_vector("dst", dst, src.shape[0], src.device)
+    m, device = src.shape[0], src.device
+    if alive0 is not None:
+        alive0 = _alive(alive0, m, device)
+    if rounds is not None and (rounds.dtype != torch.int32
+                               or rounds.shape != (1,)
+                               or rounds.device != device):
+        raise ValueError(f"rounds must be an int32[1] tensor on {device}")
+    if not 0 <= n < 2 ** 31 or m >= 2 ** 31:
+        raise ValueError(f"the fixpoint takes 0 <= n < 2^31 and m < 2^31, "
+                         f"got n = {n}, m = {m}")
+    if device.type == "cpu":
+        return ref.kcore_fixpoint(src, dst, n, k, alive0, rounds=rounds)
+    cuda_only(device, "kcore_fixpoint")
+    out = torch.empty(m, dtype=torch.bool, device=device)
+    if rounds is None:
+        rounds = torch.empty(1, dtype=torch.int32, device=device)
+    scratch = torch.empty(2 * n + 1, dtype=torch.int32, device=device)
+    k = max(min(int(k), 2**63 - 1), -2**63)     # compared in int64
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _fixpoint_library()[0].kcore_fixpoint_launch(
+            src.data_ptr(), dst.data_ptr(),
+            None if alive0 is None else alive0.data_ptr(),
+            0 if alive0 is None else alive0.element_size(), out.data_ptr(),
+            rounds.data_ptr(), scratch.data_ptr(), m, n, k, stream)
+    if rc:
+        raise RuntimeError(f"kcore_fixpoint launch failed: CUDA error {rc}")
+    kcore_fixpoint.launches += 1
+    return out
+
+
+kcore_fixpoint.launches = 0
+
+
+def grid_blocks(m: int, n: int, alive_bytes: int = 0) -> int:
+    """Blocks of 1,024 threads that :func:`kcore_fixpoint` launches for m
+    edges and n vertices on the current card: one thread per edge or
+    vertex, capped at the blocks the card holds at once. Needs the card."""
+    blocks = _fixpoint_library()[0].kcore_fixpoint_grid_blocks(
+        m, n, alive_bytes)
+    if blocks < 0:
+        raise RuntimeError(f"kcore_fixpoint_grid_blocks: CUDA error "
+                           f"{-blocks}")
+    return blocks

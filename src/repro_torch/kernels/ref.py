@@ -124,12 +124,13 @@ def peel_threshold(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
                    deg: torch.Tensor, k: int) -> torch.Tensor:
     """bool[m] new alive mask ``alive > 0 & deg[src] >= k & deg[dst] >= k``
     (the threshold half of ``repro.kernels.kcore_peel.peel_round``); an
-    endpoint outside ``[0, len(deg))`` fails the threshold."""
+    endpoint outside ``[0, len(deg))`` fails the threshold. ``k`` is
+    compared in int64, so a k past the int32 range is no degree's."""
     n = deg.shape[0]
     keep = alive > 0
     if n == 0:
         return torch.zeros_like(keep)
-    ok = deg >= k
+    ok = deg.long() >= max(min(int(k), 2**63 - 1), -2**63)
     for ends in (src, dst):
         keep = keep & (ends >= 0) & (ends < n) & ok[ends.clamp(0, n - 1).long()]
     return keep
@@ -145,15 +146,25 @@ def kcore_peel_round(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
 
 
 def kcore_fixpoint(src: torch.Tensor, dst: torch.Tensor, n: int, k: int,
-                   alive0: torch.Tensor | None = None) -> torch.Tensor:
+                   alive0: torch.Tensor | None = None,
+                   rounds: torch.Tensor | None = None) -> torch.Tensor:
     """bool[m] k-core edge mask: peel rounds until none changes
     (``repro.kernels.ref.kcore_fixpoint``; ``alive0`` defaults to every
-    edge alive). Parallel edges each count toward a degree."""
+    edge alive). Parallel edges each count toward a degree. An integer
+    ``alive0`` is a weight in round 1 only: each round returns bool, as the
+    Pallas ``peel_round`` does (the jnp oracle keeps the integer and ands
+    it bitwise, so it differs on weights >= 2). ``rounds`` (int32[1]),
+    when given, receives the number of rounds, the last one (where nothing
+    changes) included."""
     alive = (torch.ones(src.shape, dtype=torch.bool, device=src.device)
              if alive0 is None else alive0)
+    count = 0
     while True:
         new, changed = kcore_peel_round(src, dst, alive, n, k)
+        count += 1
         if not bool(changed):
+            if rounds is not None:
+                rounds.fill_(count)
             return new
         alive = new
 

@@ -123,6 +123,166 @@ def test_kcore_fixpoint_on_card_equals_host_peeling(cuda):
             g.src, g.dst, g.n, k)), k
 
 
+def fixpoint_on_card(src, dst, n, k, alive0):
+    """The fixpoint kernel against the plain version on the same card
+    tensors: bit-equal masks and equal round counts. The kernel's call
+    runs under ``set_sync_debug_mode("error")`` (no host synchronisation)
+    and is one launch, no B3a or B3b launch. Returns (mask, rounds)."""
+    counts = (lambda: (kcore_peel.kcore_fixpoint.launches,
+                       kcore_peel.degree_count.launches,
+                       kcore_peel.peel_threshold.launches))
+    rounds = torch.zeros(1, dtype=torch.int32, device=src.device)
+    before = counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = kcore_peel.kcore_fixpoint(src, dst, n, k, alive0, rounds=rounds)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1], before[2])
+    want_rounds = torch.zeros(1, dtype=torch.int32, device=src.device)
+    want = ref.kcore_fixpoint(src, dst, n, k, alive0, rounds=want_rounds)
+    assert got.dtype == torch.bool and torch.equal(got, want), k
+    assert int(rounds) == int(want_rounds), k
+    return got, int(rounds)
+
+
+def fixpoint_case(name):
+    """(src, dst, n, alive0, ks) of an edge case of the fixpoint."""
+    rng = np.random.default_rng(len(name))
+    src = rng.integers(0, 12, 60).astype(np.int32)
+    dst = rng.integers(0, 12, 60).astype(np.int32)
+    n, alive0, ks = 12, None, (1, 2, 3, 4, 6)
+    if name == "self_loops":
+        src[::3] = dst[::3]
+    elif name == "out_of_range":
+        src[::5], dst[1::7], src[2::9] = -1, n, n + 5
+    elif name == "parallel":
+        src, dst = np.repeat(src[:15], 4), np.repeat(dst[:15], 4)
+    elif name == "m0":
+        src, dst = src[:0], dst[:0]
+    elif name == "n0":
+        n = 0
+    elif name == "all_false":
+        alive0 = np.zeros(60, bool)
+    elif name == "bool_alive0":
+        alive0 = rng.random(60) < 0.7
+    elif name == "int32_weights":
+        alive0 = rng.integers(-2, 4, 60).astype(np.int32)
+    elif name == "int32_kept_weights":   # kept weight-2 edges fall to 1
+        src, dst = np.array([0, 3, 2, 0, 2]), np.array([0, 3, 3, 0, 1])
+        src, dst, n, ks = src.astype(np.int32), dst.astype(np.int32), 4, (3,)
+        alive0 = np.array([-1, 1, 2, 2, 1], np.int32)
+    elif name == "two_chains":       # round 2's death read in round 4
+        src = np.array([1, 2, 3, 0, 0, 4, 0, 6, 7], np.int32)
+        dst = np.array([2, 3, 1, 1, 4, 5, 6, 7, 8], np.int32)
+        n, ks = 9, (2,)
+    elif name == "k_nonpositive":
+        ks = (0, -3, -2**40)
+    elif name == "k_above_every_degree":
+        ks = (121, 2**40)
+    return src, dst, n, alive0, ks
+
+
+@pytest.mark.parametrize("name", [
+    "self_loops", "out_of_range", "parallel", "m0", "n0", "all_false",
+    "bool_alive0", "int32_weights", "int32_kept_weights", "two_chains",
+    "k_nonpositive", "k_above_every_degree"])
+def test_fixpoint_kernel_edge_cases(cuda, name):
+    src, dst, n, alive0, ks = fixpoint_case(name)
+    src, dst = (torch.as_tensor(a, device=cuda) for a in (src, dst))
+    if alive0 is not None:
+        alive0 = torch.as_tensor(alive0, device=cuda)
+    for k in ks:
+        got, rounds = fixpoint_on_card(src, dst, n, k, alive0)
+        if name in ("m0", "all_false", "k_nonpositive"):
+            assert rounds == 1
+        if name in ("n0", "all_false", "k_above_every_degree"):
+            assert not bool(got.any())
+        if name == "two_chains":
+            assert rounds == 5 and got.tolist() == [True] * 3 + [False] * 6
+
+
+def test_fixpoint_kernel_on_a_hub(cuda):
+    """A hub with 1,809 pairs (CollegeMsg's largest degree) and a path
+    over its leaves: the hub's atomics merge across a warp; at k = 3 the
+    path peels two leaves a round from its ends (906 rounds), at k = 4
+    every leaf dies in round 1."""
+    leaves = np.arange(1, 1_810, dtype=np.int32)
+    src = np.concatenate([np.zeros(1_809, np.int32), leaves[:-1]])
+    dst = np.concatenate([leaves, leaves[1:]])
+    src, dst = (torch.as_tensor(a, device=cuda) for a in (src, dst))
+    for k in (1, 2, 3, 4, 1_809, 1_810):
+        got, rounds = fixpoint_on_card(src, dst, 1_810, k, None)
+        assert bool(got.all()) == (k <= 2) and bool(got.any()) == (k <= 2)
+        assert rounds == {1: 1, 2: 1, 3: 906}.get(k, 2)
+
+
+def distinct_pairs(g, device):
+    us, ud, inv = kcore.distinct_pairs(g.src, g.dst, g.n)
+    return [torch.as_tensor(a, dtype=torch.int32, device=device)
+            for a in (us, ud)] + [inv]
+
+
+def test_fixpoint_kernel_on_collegemsg_pairs_every_k(cuda):
+    """CollegeMsg's scale (1,899 users, 59,835 messages): its 17,474
+    distinct pairs, every k from 2 to k_max + 1; k_max's core equals the
+    host's."""
+    g = gen_temporal_graph(n=1_899, m=59_835, t_max=193, seed=7)
+    us, ud, inv = distinct_pairs(g, cuda)
+    assert us.shape[0] == 17_474
+    k_max = kcore.k_max(g)
+    for k in range(2, k_max + 2):
+        got, _ = fixpoint_on_card(us, ud, g.n, k, None)
+    assert not bool(got.any())
+    got, _ = fixpoint_on_card(us, ud, g.n, k_max, None)
+    assert np.array_equal(got.cpu().numpy()[inv],
+                          kcore.distinct_kcore_edge_mask(g.src, g.dst, g.n,
+                                                         k_max))
+
+
+def test_fixpoint_kernel_at_sx_superuser_scale(cuda):
+    """SNAP sx-superuser's scale (194,085 users, 1,443,339 interactions):
+    461,605 distinct pairs over more blocks than the card holds at once;
+    k in {2, k_max / 4, k_max / 2, k_max, k_max + 1}, each equal to the
+    plain version and the host's k-core."""
+    g = gen_temporal_graph(n=194_085, m=1_443_339, t_max=2_000, seed=7)
+    us, ud, inv = distinct_pairs(g, cuda)
+    assert us.shape[0] == 461_605
+    k_max = kcore.k_max(g)
+    for k in (2, k_max // 4, k_max // 2, k_max, k_max + 1):
+        got, _ = fixpoint_on_card(us, ud, g.n, k, None)
+        assert np.array_equal(got.cpu().numpy()[inv],
+                              kcore.distinct_kcore_edge_mask(
+                                  g.src, g.dst, g.n, k)), k
+    assert 1 <= kcore_peel.grid_blocks(us.shape[0], g.n) <= \
+        2 * torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def test_fixpoint_kernel_refuses_arguments_it_does_not_take(cuda):
+    """The C entry refuses a missing scratch, an alive0 without its width
+    and a weight of 2 bytes (cudaErrorInvalidValue) without running: the
+    mask and the round count stay as they were."""
+    src = torch.arange(8, dtype=torch.int32, device=cuda)
+    dst = src.roll(1)
+    out = torch.full((8,), True, device=cuda)
+    rounds = torch.full((1,), -7, dtype=torch.int32, device=cuda)
+    scratch = torch.zeros(2 * 8 + 1, dtype=torch.int32, device=cuda)
+    w16 = torch.ones(8, dtype=torch.int16, device=cuda)
+    lib = kcore_peel._fixpoint_library()[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    for alive0, width, scr in ((None, 0, None), (None, 1, scratch),
+                               (w16.data_ptr(), 2, scratch)):
+        rc = lib.kcore_fixpoint_launch(
+            src.data_ptr(), dst.data_ptr(), alive0, width, out.data_ptr(),
+            rounds.data_ptr(), None if scr is None else scr.data_ptr(), 8, 8,
+            3, stream)
+        torch.cuda.synchronize()
+        assert rc == 1 and int(rounds) == -7 and bool(out.all())
+    fixpoint_on_card(src, dst, 8, 3, None)
+
+
 def test_device_engine_strata_on_card_equal_host_engine(cuda):
     """The card build makes one stratum_sweep launch per t_uv block and no
     B2 launch, and its strata equal the host's on every field."""

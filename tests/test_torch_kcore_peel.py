@@ -1,6 +1,10 @@
 """B3a (degree count) and B3b (peel threshold): the port's plain versions
 and wrappers against the JAX reference's Pallas kernels (interpret mode)
 and jnp oracles, and the peel fixpoint against the host peeling oracle.
+The fixpoint kernel (B3 redesigned, ``csrc/kcore_fixpoint.cu``): its
+bound, its wrapper's argument checks and the int-weight divergence from
+the jnp oracle; the emulation of its rounds is in
+test_torch_kcore_fixpoint.py.
 
 Every output is an integer or a boolean, so the tolerance is exact
 equality. The kernels themselves run only on an NVIDIA card: their tests
@@ -157,3 +161,62 @@ def test_bounds_count_each_operand_once():
         (9 * 59_835 + 4 * 1_899) / 3.35e12 * 1e3)
     assert kp.threshold_bound_ms(59_835, 1_899, 4) == pytest.approx(
         (13 * 59_835 + 4 * 1_899) / 3.35e12 * 1e3)
+
+
+def test_fixpoint_bound_counts_each_operand_once():
+    # src + dst (8 B) per edge, alive0 (0, 1 or 4 B) per edge, the one-byte
+    # mask per edge and the 4-byte round count; the degrees are scratch
+    assert kp.fixpoint_bound_ms(17_474) == pytest.approx(
+        (9 * 17_474 + 4) / 3.35e12 * 1e3)
+    assert kp.fixpoint_bound_ms(1_000, 1) == pytest.approx(
+        (10 * 1_000 + 4) / 3.35e12 * 1e3)
+    assert kp.fixpoint_bound_ms(461_605, 4) == pytest.approx(
+        (13 * 461_605 + 4) / 3.35e12 * 1e3)
+
+
+def test_int_weight_fixpoint_follows_the_pallas_kernel_not_the_jnp_oracle():
+    """An int32 alive0 with weights >= 2 (ROADMAP.md §C, a caveat about the
+    reference): the Pallas peel_round (interpret mode) iterated to a
+    fixpoint keeps every edge, and so does the port; the jnp oracle ands
+    the weight bitwise (2 & 1 == 0) and kills the weight-2 edge."""
+    src = np.array([0, 1, 2, 0], np.int32)
+    dst = np.array([1, 2, 0, 1], np.int32)
+    w = np.array([2, 1, 1, 3], np.int32)
+    n, k = 3, 2
+    js, jd = jnp.asarray(src), jnp.asarray(dst)
+    alive, pallas_rounds = jnp.asarray(w), 0
+    while True:
+        new = jax_kp.peel_round(js, jd, alive, n, k)
+        pallas_rounds += 1
+        if np.array_equal(np.asarray(new), np.asarray(alive) > 0):
+            break
+        alive = new
+    pallas = np.asarray(new)
+    assert pallas.dtype == bool and pallas.tolist() == [True] * 4
+    rounds = torch.zeros(1, dtype=torch.int32)
+    port = kp.kcore_fixpoint(torch.as_tensor(src), torch.as_tensor(dst), n,
+                             k, torch.as_tensor(w), rounds=rounds)
+    assert np.array_equal(port.numpy(), pallas)
+    assert int(rounds) == pallas_rounds
+    oracle = np.asarray(jax_ref.kcore_fixpoint(js, jd, n, k,
+                                               jnp.asarray(w)))
+    assert oracle.dtype == np.int32 and oracle.tolist() == [0, 1, 1, 1]
+    assert not np.array_equal(oracle > 0, pallas)
+
+
+def test_fixpoint_wrapper_rejects_what_the_kernel_does_not_take():
+    src, dst, alive, _ = edges(10, 30, 4)
+    src, dst, alive = map(torch.as_tensor, (src, dst, alive))
+    before = kp.kcore_fixpoint.launches
+    with pytest.raises(ValueError, match="rounds must be an int32"):
+        kp.kcore_fixpoint(src, dst, 10, 2, rounds=torch.zeros(1))
+    with pytest.raises(ValueError, match="0 <= n < 2"):
+        kp.kcore_fixpoint(src, dst, -1, 2)
+    with pytest.raises(TypeError, match="integer"):
+        kp.kcore_fixpoint(src.float(), dst, 10, 2)
+    with pytest.raises(ValueError, match="alive"):
+        kp.kcore_fixpoint(src, dst, 10, 2, alive[:-1])
+    # the CPU path takes the plain version and launches nothing
+    assert torch.equal(kp.kcore_fixpoint(src, dst, 10, 2, alive),
+                       ref.kcore_fixpoint(src, dst, 10, 2, alive))
+    assert kp.kcore_fixpoint.launches == before
