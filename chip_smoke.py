@@ -66,6 +66,25 @@ result line each; any failure raises and exits non-zero:
            first-round operands (the kernel record)
   profile  the same batch served once more under torch.profiler: device
            busy time, idle share, B1's share, the top kernels
+  epoch    the epoch planes at CollegeMsg scale through the entry points:
+           epoch 0 = g.split_at(189) (bench_streaming.py's frac 0.98)
+           built cold on the card, then the days 190..193 as four suffix
+           epochs (extend, extend_stratified_core_times on the device
+           engine, one stratum_sweep launch each, extend_stratified_index,
+           refresh_device), each followed by one batch of 256 mixed-k
+           vertex queries through batch_query_full_mixed on B1 (every
+           fourth window ends on the newest day; 32 held to Algorithm 1,
+           0 mismatches); the day-193 index equal to the cold build of the
+           whole graph in every field and its mirror array for array; then
+           one trim, expire_before(96) (bench_retention.py's frac 0.5),
+           through the shrinks and refresh_device, equal to a cold card
+           build of the trimmed graph, freeing device memory, and one more
+           batch. Per epoch the edges, |K| and seconds per stage (the
+           sweep with its kernel by CUDA events, the download, recompress
+           + stratify, the forest extend or shrink, the refresh with its
+           reused/suffix/full counts and bytes) beside the cold build's;
+           the last daily epoch once more on the host engine (capped at
+           30 s); the phase's launches, seconds and peak device memory
   lm       first B6's single-tile check of its wgmma route (S = Q K^T from
            TMA-loaded tiles, then P V with P in bf16 registers, against the
            plain version); then glm4-9b at full width and depth
@@ -113,6 +132,7 @@ Then a line of kernel records (JSON), the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1529,6 +1549,376 @@ def peel_phase(g, us, ud, inv, ks) -> tuple[dict, tuple[int, int]]:
                 a + b for a, b in zip(cm["b3"], sxr["b3"]))
 
 
+#: the [epoch] phase's ingest split and trim cut, from the reference's
+#: benchmarks: bench_streaming.py's frac = 0.98 (epoch 0 ends on day
+#: int(193 * 0.98) = 189; the days 190..193 follow as one epoch each) and
+#: bench_retention.py's frac = 0.5 (t_cut = 96)
+EPOCH_FRAC = 0.98
+TRIM_FRAC = 0.5
+#: queries of each served batch held to Algorithm 1 (kcore.tccs_oracle)
+EPOCH_VERIFY = 32
+#: the host engine (the reference's frontier fixpoint), timed on the last
+#: daily epoch for comparison, starts no stratum after this many seconds
+HOST_EXTEND_CAP_S = 30.0
+
+
+@contextlib.contextmanager
+def epoch_stages(times: dict):
+    """Time the steps of the epoch-plane entry point called inside the
+    block, summed over calls into ``times``: ``sweep_s`` (the wall of
+    core_time's ``_sweep_device_stratified``: pair CSR, t_uv rows,
+    uploads, launches and download), ``kernel_ms`` (CUDA events around
+    each stratum_sweep launch), ``download_s`` (from the synchronize after
+    the last launch to the rows on the host), ``launches`` (the wrapper's
+    own count), ``rows_s`` (the host engine's rows,
+    ``_extend_rows_host``), ``expand_s`` (``StratifiedCoreTable.table_for``:
+    a stratum's dense rows re-expanded from its runs), ``records_s``
+    (``_compress`` or the interval recompress ``_extend_records``),
+    ``stratify_s`` (``StratifiedCoreTable.from_tables``) and ``layout_s``
+    (``batch_query._host_layout``)."""
+    from repro_torch.core import batch_query as bq
+    from repro_torch.core import core_time as ct
+    from repro_torch.kernels import segmented_select as ss
+
+    sweep_fn, kernel_fn = ct._sweep_device_stratified, ct.stratum_sweep
+    events, synced = [], []
+    for key in ("sweep_s", "kernel_ms", "download_s", "launches", "rows_s",
+                "expand_s", "records_s", "stratify_s", "layout_s"):
+        times.setdefault(key, 0)
+    before = ss.stratum_sweep.launches
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            times[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    def kernel(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = kernel_fn(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        events.append((start, end))
+        synced.append(time.perf_counter())
+        return out
+
+    def sweep(*args, **kw):
+        t0 = time.perf_counter()
+        out = sweep_fn(*args, **kw)
+        t1 = time.perf_counter()
+        times["sweep_s"] += t1 - t0
+        if synced:
+            times["download_s"] += t1 - synced[-1]
+            synced.clear()
+        return out
+
+    table = ct.StratifiedCoreTable
+    with contextlib.ExitStack() as stack:
+        for owner, name, fn in (
+                (ct, "_sweep_device_stratified", sweep),
+                (ct, "stratum_sweep", kernel),
+                (ct, "_extend_rows_host", timed("rows_s",
+                                                ct._extend_rows_host)),
+                (ct, "_compress", timed("records_s", ct._compress)),
+                (ct, "_extend_records", timed("records_s",
+                                              ct._extend_records)),
+                (table, "table_for", timed("expand_s", table.table_for)),
+                (table, "from_tables", staticmethod(
+                    timed("stratify_s", table.from_tables))),
+                (bq, "_host_layout", timed("layout_s", bq._host_layout))):
+            stack.enter_context(mock.patch.object(owner, name, fn))
+        yield times
+    times["kernel_ms"] += sum(s.elapsed_time(e) for s, e in events)
+    times["launches"] += ss.stratum_sweep.launches - before
+
+
+def staged(fn):
+    """``(result, seconds, step times)`` of ``fn`` under
+    :func:`epoch_stages`, the card synchronised after it."""
+    times: dict = {}
+    with epoch_stages(times):
+        out, t = wall(fn)
+    return out, t, times
+
+
+def cold_build(g, dev):
+    """A cold card build of ``g``'s k-stratified index through the entry
+    points, its stages timed: ``(strata, sx, dix, stages)``."""
+    from repro_torch.core import batch_query as bq
+    from repro_torch.core import core_time as ct
+    from repro_torch.core.pecb_index import build_stratified_index
+
+    strata, t_core, core = staged(lambda: ct.stratified_core_times(
+        g, engine="device", device=dev))
+    sx, t_forest, forest = staged(lambda: build_stratified_index(
+        g, strata=strata))
+    dix, t_up, up = staged(lambda: bq.to_device(sx, dev))
+    return strata, sx, dix, dict(core=(t_core, core),
+                                 forest=(t_forest, forest), up=(t_up, up))
+
+
+def core_line(t_core: float, t: dict) -> str:
+    """The core-time stage: the card sweep and the host steps after it."""
+    line = (f"core times {t_core:.4f}s = sweep {t['sweep_s']:.4f}s "
+            f"(stratum_sweep {t['kernel_ms']:.3f} ms by CUDA events, "
+            f"{t['launches']} launch(es); download {t['download_s']:.4f}s)"
+            f" + {'re' if t['expand_s'] else ''}compress + stratify "
+            f"{t_core - t['sweep_s']:.4f}s")
+    parts = [f"re-expand {t['expand_s']:.4f}s" if t["expand_s"] else "",
+             f"{'interval recompress' if t['expand_s'] else 'compress'} "
+             f"{t['records_s']:.4f}s",
+             f"stratify (from_tables) {t['stratify_s']:.4f}s"]
+    return line + f" ({', '.join(p for p in parts if p)})"
+
+
+def refresh_line(t_ref: float, t: dict, rs: dict) -> str:
+    return (f"refresh {t_ref:.4f}s (host layouts {t['layout_s']:.4f}s; "
+            f"reused {rs['reused']}, suffix {rs['suffix']}, full "
+            f"{rs['full']} arrays; reused {rs['reused_bytes'] / 1e6:.1f} MB, "
+            f"uploaded {rs['uploaded_bytes'] / 1e6:.1f} MB, freed "
+            f"{rs['freed_bytes'] / 1e6:.1f} MB)")
+
+
+def cold_line(c: dict) -> str:
+    (t_core, core), (t_forest, forest), (t_up, up) = (c["core"],
+                                                      c["forest"], c["up"])
+    return (f"{core_line(t_core, core)}, forest build {t_forest:.4f}s "
+            f"(re-expand {forest['expand_s']:.4f}s), upload {t_up:.4f}s "
+            f"(host layout {up['layout_s']:.4f}s); total "
+            f"{t_core + t_forest + t_up:.4f}s")
+
+
+def assert_index_equal(got, want, what: str) -> int:
+    """Raise unless two indexes (or tables) are equal in every dataclass
+    field, arrays by dtype and value (tolerance 0); returns the number of
+    fields compared."""
+    n = 0
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if dataclasses.is_dataclass(b):
+            n += assert_index_equal(a, b, f"{what}.{f.name}")
+            continue
+        same = (a.dtype == b.dtype and np.array_equal(a, b)
+                if isinstance(b, np.ndarray) else a == b)
+        if not same:
+            raise AssertionError(f"{what}: field {f.name} differs")
+        n += 1
+    return n
+
+
+def assert_mirror_equal(got, want, what: str) -> int:
+    """Raise unless two device mirrors are equal array for array (dtype,
+    device, values) and in every meta field; returns the arrays compared."""
+    from repro_torch.core import batch_query as bq
+
+    for f in bq._ARRAY_FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype != b.dtype or a.device != b.device or not torch.equal(a,
+                                                                         b):
+            raise AssertionError(f"{what}: mirror array {f} differs from "
+                                 "a fresh upload's")
+    for f in bq._META_FIELDS:
+        if getattr(got, f) != getattr(want, f):
+            raise AssertionError(f"{what}: mirror meta {f} differs")
+    return len(bq._ARRAY_FIELDS)
+
+
+def epoch_batch(g, sx, dix, dev, rng) -> dict:
+    """One batch of BUCKET mixed-k vertex queries through
+    ``batch_query_full_mixed`` on B1, every fourth window ending on the
+    newest day; the first EPOCH_VERIFY held to Algorithm 1
+    (``kcore.tccs_oracle``). Returns q/s, B1 launches, rounds, answers."""
+    from repro_torch.core import batch_query as bq
+    from repro_torch.core import kcore
+    from repro_torch.kernels import label_prop
+
+    u = rng.integers(0, g.n, BUCKET)
+    k = rng.choice(np.asarray(sx.supported_ks), BUCKET)
+    ts = rng.integers(1, g.t_max + 1, BUCKET)
+    te = rng.integers(ts, g.t_max + 1)
+    te[::4] = g.t_max
+    slot = bq.mixed_slots(sx, list(zip(u.tolist(), k.tolist())))
+    cols = [torch.as_tensor(np.asarray(a, np.int32), device=dev)
+            for a in (slot, ts, te, k)]
+    before = label_prop.label_prop_round.launches
+    stats: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vmask, _ = bq.batch_query_full_mixed(dix, *cols, stats=stats)
+    masks = vmask.cpu().numpy()
+    t_batch = time.perf_counter() - t0
+    launches = label_prop.label_prop_round.launches - before
+    if launches <= 0 or launches != sum(stats["rounds"]):
+        raise AssertionError(f"the batch made {launches} B1 launches for "
+                             f"{stats['rounds']} rounds")
+    bad = [i for i in range(EPOCH_VERIFY)
+           if set(np.flatnonzero(masks[i]).tolist()) != kcore.tccs_oracle(
+               g, int(k[i]), int(u[i]), int(ts[i]), int(te[i]))]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {EPOCH_VERIFY} answers differ "
+                             f"from Algorithm 1 (queries {bad[:5]})")
+    newest = masks[te == g.t_max].any(axis=1)
+    return dict(qps=BUCKET / t_batch, t=t_batch, launches=launches,
+                rounds=stats["rounds"][0], newest=int(newest.size),
+                newest_nonempty=int(newest.sum()),
+                nonempty=int(masks.any(axis=1).sum()))
+
+
+def batch_line(b: dict) -> str:
+    return (f"batch of {BUCKET} mixed-k queries: "
+            f"{b['qps']:.1f} q/s ({b['t']:.4f}s), B1 launches "
+            f"{b['launches']} ({b['rounds']} rounds), {b['nonempty']} "
+            f"non-empty answers, {b['newest']} windows end on the newest day "
+            f"({b['newest_nonempty']} non-empty); {EPOCH_VERIFY} checked "
+            f"against Algorithm 1, 0 mismatches")
+
+
+def host_extend(g1, prev, want, cap: float) -> tuple[list, float, dict]:
+    """The host engine (the reference's suffix sweep and frontier
+    fixpoint) on one epoch, stratum by stratum in ascending k until
+    ``cap`` seconds have passed; each stratum equal to ``want``'s (the
+    device engine's). Returns the strata covered, the seconds and the
+    step times (:func:`epoch_stages`)."""
+    from repro_torch.core import core_time as ct
+
+    done, times = [], {}
+    t0 = time.perf_counter()
+    with epoch_stages(times):
+        for k in want.ks:
+            if k not in prev.ks or time.perf_counter() - t0 > cap:
+                continue
+            got = ct.extend_core_times(g1, k, prev.table_for(k),
+                                       engine="host")
+            assert_index_equal(got, want.table_for(k), f"host engine k={k}")
+            done.append(k)
+    return done, time.perf_counter() - t0, times
+
+
+def epoch_phase(g, sx, dix, dev) -> tuple[int, int]:
+    """``[epoch]``: the epoch planes at CollegeMsg scale, driven through
+    the entry points a user calls. Epoch 0 is ``g.split_at(189)``, built
+    cold on the card; each of the days 190..193 is one suffix epoch
+    (``extend``, ``extend_stratified_core_times(engine="device")`` with
+    one stratum_sweep launch, ``extend_stratified_index``,
+    ``refresh_device``), followed by one served batch on B1; the day-193
+    index must equal ``sx`` (the cold build of ``g``) in every field and
+    its mirror ``dix`` array for array. Then one trim
+    (``expire_before(96)``, the shrinks, ``refresh_device``), equal to a
+    cold card build of the trimmed graph, and one more batch. Returns the
+    phase's stratum_sweep and B1 launches."""
+    from repro_torch.core import batch_query as bq
+    from repro_torch.core import core_time as ct
+    from repro_torch.core import streaming as st
+    from repro_torch.kernels import label_prop
+    from repro_torch.kernels import segmented_select as ss
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(19)
+    ss.reset_sweep_counts()
+    label_prop.label_prop_round.launches = 0
+
+    t_old = max(1, int(g.t_max * EPOCH_FRAC))
+    cur, suffix = g.split_at(t_old)
+    tab, sx_cur, dix_cur, cold = cold_build(cur, dev)
+    print(f"[epoch] epoch 0 = g.split_at({t_old}): m={cur.m} t_max="
+          f"{cur.t_max} |K|={len(sx_cur.ks)} N={sx_cur.num_nodes}; cold card "
+          f"build: {cold_line(cold)}; after the upload, "
+          + batch_line(epoch_batch(cur, sx_cur, dix_cur, dev, rng)))
+    n_cold = cold["core"][1]["launches"]
+    sweeps = n_cold
+    for day in range(t_old + 1, g.t_max + 1):
+        edges = [tuple(e) for e in suffix[suffix[:, 2] == day].tolist()]
+        g1 = cur.extend(edges)
+        ks = ct.default_ks(g1)
+        tab1, t_core, core = staged(
+            lambda: ct.extend_stratified_core_times(g1, tab, ks,
+                                                    engine="device",
+                                                    device=dev))
+        blocks = -(-g1.t_max // ct.TUV_BLOCK)
+        if core["launches"] != blocks:
+            raise AssertionError(f"day {day}'s extend made "
+                                 f"{core['launches']} stratum_sweep "
+                                 f"launches, expected {blocks}")
+        sweeps += core["launches"]
+        sx1, t_forest, forest = staged(lambda: st.extend_stratified_index(
+            g1, sx_cur, ks, strata=tab1))
+        (dix1, rs), t_ref, ref_t = staged(lambda: bq.refresh_device(
+            sx_cur, dix_cur, sx1))
+        print(f"[epoch] day {day}: appended {g1.m - cur.m} edges (m "
+              f"{cur.m} -> {g1.m}), |K| {len(tab.ks)} -> {len(ks)}, N "
+              f"{sx_cur.num_nodes} -> {sx1.num_nodes}; "
+              f"{core_line(t_core, core)}, forest extend {t_forest:.4f}s "
+              f"(re-expand {forest['expand_s']:.4f}s), "
+              f"{refresh_line(t_ref, ref_t, rs)}; epoch "
+              f"{t_core + t_forest + t_ref:.4f}s; after the refresh, "
+              + batch_line(epoch_batch(g1, sx1, dix1, dev, rng)))
+        if day == g.t_max:
+            done, t_host, host = host_extend(g1, tab, tab1,
+                                             HOST_EXTEND_CAP_S)
+            print(f"[epoch] day {day} on the host engine (the reference's "
+                  f"suffix sweep and frontier fixpoint), capped at "
+                  f"{HOST_EXTEND_CAP_S:.0f}s: {len(done)} of the "
+                  f"{len(tab.ks)} strata the epoch extends (k={done[0]}.."
+                  f"{done[-1]}) in {t_host:.4f}s, each equal to the device "
+                  f"engine's: rows {host['rows_s']:.4f}s "
+                  f"({host['rows_s'] / len(done):.4f}s per stratum), "
+                  f"re-expand {host['expand_s']:.4f}s, interval recompress "
+                  f"{host['records_s']:.4f}s; the device engine's rows (its "
+                  f"sweep of all {len(ks)} strata) took "
+                  f"{core['sweep_s']:.4f}s"
+                  if done else f"[epoch] day {day}: no stratum on the host "
+                  "engine within the cap")
+        cur, tab, sx_cur, dix_cur = g1, tab1, sx1, dix1
+    n_f = assert_index_equal(sx_cur, sx, "the day-193 index")
+    n_a = assert_mirror_equal(dix_cur, dix, "the day-193 mirror")
+    print(f"[epoch] day {g.t_max}: the extended index equals the cold build "
+          f"of g in all {n_f} fields (tolerance 0) and its refreshed mirror "
+          f"a fresh upload in all {n_a} arrays")
+
+    t_cut = max(2, int(g.t_max * TRIM_FRAC))
+    g2 = cur.expire_before(t_cut)
+    ks2 = tuple(k for k in ct.default_ks(g2) if k in tab.ks)
+    tab2, t_core, core = staged(lambda: ct.shrink_stratified_core_times(
+        g2, tab, ks2))
+    sx2, t_forest, forest = staged(lambda: st.shrink_stratified_index(
+        g2, sx_cur, ks2, strata=tab2))
+    (dix2, rs), t_ref, ref_t = staged(lambda: bq.refresh_device(
+        sx_cur, dix_cur, sx2))
+    if rs["freed_bytes"] <= 0:
+        raise AssertionError("the trim freed no device memory")
+    _, csx, cdix, cold2 = cold_build(g2, dev)
+    n_cold += cold2["core"][1]["launches"]
+    sweeps += cold2["core"][1]["launches"]
+    n_f = assert_index_equal(sx2, csx, "the trimmed index")
+    n_a = assert_mirror_equal(dix2, cdix, "the trimmed mirror")
+    print(f"[epoch] trim expire_before({t_cut}): expired {cur.m - g2.m} edges "
+          f"(m {cur.m} -> {g2.m}, t_max {cur.t_max} -> {g2.t_max}), |K| "
+          f"{len(tab.ks)} -> {len(ks2)}, N {sx_cur.num_nodes} -> "
+          f"{sx2.num_nodes}; core times {t_core:.4f}s (re-expand "
+          f"{core['expand_s']:.4f}s, stratify {core['stratify_s']:.4f}s), "
+          f"forest shrink {t_forest:.4f}s (re-expand "
+          f"{forest['expand_s']:.4f}s), {refresh_line(t_ref, ref_t, rs)}; "
+          f"trim {t_core + t_forest + t_ref:.4f}s; equal to the cold card "
+          f"build of the trimmed graph in all {n_f} fields and {n_a} mirror "
+          f"arrays; that build: {cold_line(cold2)}; after the refresh, "
+          + batch_line(epoch_batch(g2, sx2, dix2, dev, rng)))
+    if ss.stratum_sweep.launches != sweeps:
+        raise AssertionError("stratum_sweep launches outside the timed "
+                             "builds and extends")
+    b1 = label_prop.label_prop_round.launches
+    print(f"[epoch] phase: stratum_sweep launches {sweeps} (cold builds "
+          f"{n_cold}, extends {sweeps - n_cold}), B1 launches {b1}; "
+          f"{time.perf_counter() - t_phase:.2f}s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the "
+          f"batches' (256, V) version masks)")
+    return sweeps, b1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -1838,6 +2228,9 @@ def main() -> int:
     print(f"[profile] one batch of {BUCKET}: wall {t_batch:.4f}s, {busy}; "
           f"top kernels: " + top_rows(kern))
 
+    epoch_sweeps, epoch_b1 = epoch_phase(g, sx, dix, dev)
+    sweep_record["launches"] += epoch_sweeps
+
     lm_records = lm_phase(dev)
     smoke_b5, smoke_b6 = lm_smoke_phase(dev)
     lm_records[0]["launches"] += smoke_b5
@@ -1852,7 +2245,7 @@ def main() -> int:
         {"name": "label_prop_round", "route": "cuda",
          "source": csrc + "label_prop.cu",
          "replaces": "src/repro/kernels/label_prop.py:70",
-         "launches": launches, "max_abs_err": max_err, "ms": ms,
+         "launches": launches + epoch_b1, "max_abs_err": max_err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
          "library_ms": None},
         {"name": "segmented_count_le", "route": "cuda",

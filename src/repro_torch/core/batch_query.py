@@ -273,6 +273,62 @@ def to_device(index, device="cuda") -> DeviceIndex:
     return device_index(*_host_layout(index), device=device)
 
 
+def refresh_device(prev_host, prev_dev: DeviceIndex,
+                   new_host) -> tuple[DeviceIndex, dict]:
+    """Refresh a device mirror across a streaming epoch, re-uploading only
+    what changed.
+
+    ``prev_host``/``new_host`` are the old and new :class:`PECBIndex` or
+    :class:`StratifiedPECB`; ``prev_dev`` is the old mirror, whose device
+    receives every upload. Per array (compared in the shared host layout,
+    :func:`_host_layout`): if the new array equals the old one, the
+    resident tensor itself is handed over (zero transfer, same storage);
+    if the old array is a strict prefix of the new one (a pure suffix
+    grow), only the suffix is uploaded and ``torch.cat``-ed to the old
+    tensor on the device; otherwise the array is uploaded in full. The
+    old mirror is never mutated, so batches still running on it stay
+    exact. Always exact: the result equals ``to_device(new_host)`` array
+    for array (test-asserted). The returned stats (``reused``/``suffix``/
+    ``full`` counts, ``reused_bytes``, ``uploaded_bytes``) make the
+    transfer observable; ``freed_bytes`` is the net device memory a swap
+    returns (old mirror bytes minus new, 0 when the mirror grows), as in
+    a retention epoch, whose shifted arrays all take the full path.
+    """
+    _, old_arrays = _host_layout(prev_host)
+    meta, new_arrays = _host_layout(new_host)
+    device = prev_dev.device
+    stats = {"reused": 0, "suffix": 0, "full": 0,
+             "reused_bytes": 0, "uploaded_bytes": 0, "freed_bytes": 0}
+    old_total = sum(int(a.nbytes) for a in old_arrays.values())
+    new_total = sum(int(a.nbytes) for a in new_arrays.values())
+    stats["freed_bytes"] = max(0, old_total - new_total)
+    arrays = {}
+    for name in _ARRAY_FIELDS:
+        old_np, new_np = old_arrays[name], new_arrays[name]
+        old_dev = getattr(prev_dev, name)
+        resident = tuple(old_dev.shape) == old_np.shape
+        if (old_np.shape == new_np.shape and resident
+                and np.array_equal(old_np, new_np)):
+            arrays[name] = old_dev
+            stats["reused"] += 1
+            stats["reused_bytes"] += int(new_np.nbytes)
+        elif (old_np.shape[0] < new_np.shape[0] and resident
+              and np.array_equal(old_np, new_np[:old_np.shape[0]])):
+            suffix = _i32(new_np[old_np.shape[0]:], name)
+            arrays[name] = torch.cat([old_dev, torch.as_tensor(
+                np.ascontiguousarray(suffix), device=device)])
+            stats["suffix"] += 1
+            stats["reused_bytes"] += int(old_np.nbytes)
+            stats["uploaded_bytes"] += int(suffix.nbytes)
+        else:
+            arrays[name] = torch.as_tensor(
+                np.ascontiguousarray(_i32(new_np, name)), device=device)
+            stats["full"] += 1
+            stats["uploaded_bytes"] += int(new_np.nbytes)
+    return DeviceIndex(**{f: int(meta[f]) for f in _META_FIELDS},
+                       **arrays), stats
+
+
 def stratum_device(dix: DeviceIndex, sx: StratifiedPECB,
                    k: int) -> DeviceIndex:
     """Carve ONE stratum's block out of a fused stratified device mirror.

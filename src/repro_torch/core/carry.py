@@ -9,6 +9,9 @@ either of two plain forms, so nothing here imports the reference:
   arrays and scalars, with ``strata`` as the dict of its
   ``StratifiedCoreTable``'s fields (or None) — giving the port's
   :class:`StratifiedPECB` (host), or its upload when ``device`` is given;
+  a per-k ``PECBIndex``'s fields the same way, with ``versions`` as the
+  dict of its ``VersionStore``'s fields (or None) — giving the port's
+  :class:`PECBIndex` (an epoch to extend or shrink, or to upload);
 * the reference ``batch_query._host_layout``'s ``(meta, arrays)`` pair —
   giving a :class:`DeviceIndex` on ``device``.
 
@@ -30,10 +33,12 @@ import torch
 
 from .batch_query import DeviceIndex, device_index, to_device
 from .core_time import CoreTimeTable, StratifiedCoreTable
-from .pecb_index import StratifiedPECB
+from .pecb_index import PECBIndex, StratifiedPECB
+from .query_api import VersionStore
 
 
-def from_reference(state, *, device=None) -> StratifiedPECB | DeviceIndex:
+def from_reference(state, *, device=None
+                   ) -> StratifiedPECB | PECBIndex | DeviceIndex:
     """The port's index from a reference index's plain state (see the
     module docstring); ``device=None`` keeps a field dict on the host."""
     if isinstance(state, tuple):
@@ -42,11 +47,16 @@ def from_reference(state, *, device=None) -> StratifiedPECB | DeviceIndex:
             raise ValueError("a (meta, arrays) device layout needs a device")
         return device_index(meta, arrays, device)
     fields = dict(state)
-    strata = fields.pop("strata", None)
-    sx = StratifiedPECB(
-        **fields,
-        strata=StratifiedCoreTable(**strata) if strata is not None else None)
-    return sx if device is None else to_device(sx, device)
+    if "ks" in fields:
+        strata = fields.pop("strata", None)
+        index = StratifiedPECB(
+            **fields, strata=(core_times_from_reference(strata)
+                              if strata is not None else None))
+    else:
+        versions = fields.pop("versions", None)
+        index = PECBIndex(**fields, versions=(
+            VersionStore(**versions) if versions is not None else None))
+    return index if device is None else to_device(index, device)
 
 
 def core_times_from_reference(fields: dict

@@ -41,13 +41,25 @@ per-pair earliest timestamps >= ts), and both return bit-identical tables
   loop: the host builds and uploads each t_uv block, as the reference
   does, and downloads the rows once.
 
+* ``engine="legacy"`` — the seed's per-ts numpy lexsort loop, kept as the
+  differential-testing oracle.
+
 ``engine="auto"`` picks by the ``device`` argument: a CUDA device runs the
 device engine, the CPU the host engine. The result is delta-compressed by
 the vectorized run-length `_compress`.
 
+The epoch plane grows a table across a suffix append
+(`extend_core_times`, `extend_stratified_core_times`) and shrinks it
+across a prefix expiry (`shrink_core_times`,
+`shrink_stratified_core_times`), each bit-identical to a cold build of
+the new graph. Extend has the host and the device engine: the host runs
+the reference's suffix sweep and frontier fixpoint, the device sweeps
+every stratum of the new graph in the same launches as a cold build; both
+then keep the previous records verbatim and run-detect new ones only
+over the flipped intervals. Shrink is pure slicing on the host.
+
 PyTorch port of ``repro.core.core_time``, copied so the port stands
-alone. The ``"legacy"`` engine and the streaming extend/shrink functions
-come with the epoch plane.
+alone.
 """
 
 from __future__ import annotations
@@ -131,6 +143,62 @@ def _tuv_rows(csr: _PairCSR, ts0: int, ts1: int, t_max: int) -> np.ndarray:
 
 
 # ----------------------------------------------------------------------
+# Legacy per-ts fixpoint (seed implementation; oracle)
+# ----------------------------------------------------------------------
+
+def _simple_projection(g: TemporalGraph, ts: int):
+    """Doubled (directed) simple-graph arrays for window [ts, t_max]:
+    per (v, u) distinct pair the earliest timestamp >= ts."""
+    keep = g.t >= ts
+    s, d, t = g.src[keep], g.dst[keep], g.t[keep]
+    src_d = np.concatenate([s, d]).astype(np.int64)
+    dst_d = np.concatenate([d, s]).astype(np.int64)
+    t_d = np.concatenate([t, t]).astype(np.int64)
+    # group by (src, dst), keep min t
+    key = src_d * g.n + dst_d
+    order = np.lexsort((t_d, key))
+    key, t_d = key[order], t_d[order]
+    first = np.ones(key.shape[0], bool)
+    first[1:] = key[1:] != key[:-1]
+    key, t_d = key[first], t_d[first]
+    return (key // g.n).astype(np.int64), (key % g.n).astype(np.int64), t_d
+
+
+def vertex_core_times(g: TemporalGraph, k: int, ts: int,
+                      warm: np.ndarray | None = None) -> np.ndarray:
+    """int64[n] vertex core times for start time ts (INF = t_max + 1).
+
+    The seed's per-ts numpy lexsort fixpoint, kept verbatim: the batched
+    engines are asserted bit-identical against it."""
+    INF = g.t_max + 1
+    src_d, dst_d, t_d = _simple_projection(g, ts)
+    n = g.n
+    deg = np.bincount(src_d, minlength=n)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(deg, out=offsets[1:])
+    has_k = deg >= k
+    sel = offsets[:-1][has_k] + (k - 1)  # index of k-th smallest within segment
+
+    c = np.full(n, INF, np.int64)
+    if warm is not None:
+        c = np.maximum(warm, np.where(has_k, 0, INF))
+        c[~has_k] = INF
+    else:
+        # lower bound: k-th smallest edge timestamp per vertex
+        order = np.lexsort((t_d, src_d))
+        c[has_k] = t_d[order[sel]]
+    while True:
+        w = np.maximum(t_d, c[dst_d])
+        order = np.lexsort((w, src_d))
+        c_new = np.full(n, INF, np.int64)
+        c_new[has_k] = w[order[sel]]
+        c_new = np.minimum(c_new, INF)
+        if np.array_equal(c_new, c):
+            return c
+        c = c_new
+
+
+# ----------------------------------------------------------------------
 # Compressed table
 # ----------------------------------------------------------------------
 
@@ -168,6 +236,12 @@ class CoreTimeTable:
         core-time table alone, excluding the dense vertex_ct matrix)."""
         return int(self.edge_id.nbytes + self.ts_from.nbytes
                    + self.ts_to.nbytes + self.ct.nbytes)
+
+    def ct_at(self, edge: int, ts: int) -> int:
+        """CT(edge)_ts by scanning this edge's versions (test helper)."""
+        sel = (self.edge_id == edge) & (self.ts_from <= ts) & (ts <= self.ts_to)
+        idx = np.nonzero(sel)[0]
+        return int(self.ct[idx[0]]) if idx.size else self.INF
 
 
 def _as_table(g: TemporalGraph, edge_id, ts_from, ts_to, ct,
@@ -573,7 +647,63 @@ def _sweep_device(g: TemporalGraph, k: int, *, device,
 # Engine dispatch
 # ----------------------------------------------------------------------
 
-ENGINES = ("auto", "host", "device")
+def _edge_core_times_legacy(g: TemporalGraph, k: int) -> CoreTimeTable:
+    """The seed's construction loop: per-ts projection + lexsort
+    fixpoint, incremental version bookkeeping."""
+    t_max = g.t_max
+    INF = t_max + 1
+    m = g.m
+    su, sv, st = (g.src.astype(np.int64), g.dst.astype(np.int64),
+                  g.t.astype(np.int64))
+
+    cur = np.full(m, -1, np.int64)          # current CT per edge (-1 = unseen)
+    open_from = np.zeros(m, np.int64)       # ts at which `cur` became valid
+    recs_e, recs_a, recs_b, recs_c = [], [], [], []
+    vct = np.full((t_max + 2, g.n), INF, np.int64)
+
+    warm = None
+    for ts in range(1, t_max + 1):
+        c = vertex_core_times(g, k, ts, warm=warm)
+        warm = c
+        vct[ts] = c
+        ct_ts = np.maximum(st, np.maximum(c[su], c[sv]))
+        ct_ts = np.where(st >= ts, ct_ts, INF)
+        ct_ts = np.minimum(ct_ts, INF)
+        changed = ct_ts != cur
+        if changed.any():
+            idx = np.nonzero(changed)[0]
+            closing = idx[cur[idx] >= 0]
+            # close versions whose CT was finite
+            fin = closing[cur[closing] < INF]
+            if fin.size:
+                recs_e.append(fin)
+                recs_a.append(open_from[fin])
+                recs_b.append(np.full(fin.size, ts - 1, np.int64))
+                recs_c.append(cur[fin])
+            cur[idx] = ct_ts[idx]
+            open_from[idx] = ts
+    # close the tail versions
+    tail = np.nonzero((cur >= 0) & (cur < INF))[0]
+    if tail.size:
+        recs_e.append(tail)
+        recs_a.append(open_from[tail])
+        recs_b.append(np.full(tail.size, t_max, np.int64))
+        recs_c.append(cur[tail])
+
+    if recs_e:
+        edge_id = np.concatenate(recs_e)
+        ts_from = np.concatenate(recs_a)
+        ts_to = np.concatenate(recs_b)
+        ct = np.concatenate(recs_c)
+        order = np.lexsort((ts_from, edge_id))
+        edge_id, ts_from, ts_to, ct = (edge_id[order], ts_from[order],
+                                       ts_to[order], ct[order])
+    else:
+        edge_id = ts_from = ts_to = ct = np.zeros(0, np.int64)
+    return _as_table(g, edge_id, ts_from, ts_to, ct, vct[: t_max + 1])
+
+
+ENGINES = ("auto", "host", "device", "legacy")
 
 
 def _engine(engine: str, device) -> str:
@@ -594,11 +724,14 @@ def edge_core_times(g: TemporalGraph, k: int, *, engine: str = "auto",
     """CT(e)_ts for every edge and start time, delta-compressed.
 
     ``engine`` is ``"host"`` (numpy), ``"device"`` (the sweep on
-    ``device``, one `stratum_sweep` launch per t_uv block) or ``"auto"``
-    (by ``device``). Both
-    engines return bit-identical tables; ``stats`` collects the device
-    engine's counts (see `_sweep_device_stratified`)."""
-    if _engine(engine, device) == "host":
+    ``device``, one `stratum_sweep` launch per t_uv block), ``"legacy"``
+    (the seed's per-ts loop) or ``"auto"`` (by ``device``). Every engine
+    returns bit-identical tables; ``stats`` collects the device engine's
+    counts (see `_sweep_device_stratified`)."""
+    eng = _engine(engine, device)
+    if eng == "legacy":
+        return _edge_core_times_legacy(g, k)
+    if eng == "host":
         vct = _sweep_host(g, k)
     else:
         vct = _sweep_device(g, k, device=device, stats=stats)
@@ -610,12 +743,406 @@ def stratified_core_times(g: TemporalGraph, ks=None, *, engine: str = "auto",
                           stats: dict | None = None) -> StratifiedCoreTable:
     """One k-stratified core-time build covering every k in ``ks``
     (default: the full useful range ``default_ks(g)``): the fused
-    warm-seeded sweep of the chosen engine (``"auto"``: by ``device``).
-    Every stratum is bit-identical to the per-k table."""
+    warm-seeded sweep of the chosen engine (``"auto"``: by ``device``;
+    ``"legacy"`` runs per k). Every stratum is bit-identical to the per-k
+    table."""
     ks = _validate_ks(default_ks(g) if ks is None else ks)
-    if _engine(engine, device) == "host":
+    eng = _engine(engine, device)
+    if eng == "legacy":
+        tables = [_edge_core_times_legacy(g, k) for k in ks]
+        return StratifiedCoreTable.from_tables(g, ks, tables)
+    if eng == "host":
         vcts = _sweep_host_stratified(g, ks)
     else:
         vcts = _sweep_device_stratified(g, ks, device=device, stats=stats)
     return StratifiedCoreTable.from_tables(
         g, ks, [_compress(g, vct) for vct in vcts])
+
+
+# ----------------------------------------------------------------------
+# Streaming plane: incremental sweep for suffix-extended graphs
+# ----------------------------------------------------------------------
+
+def _extend_engine(engine: str, device) -> str:
+    eng = _engine(engine, device)
+    if eng == "legacy":
+        raise ValueError("extend runs the host or the device engine, not "
+                         "'legacy'")
+    return eng
+
+
+def _check_extend(g: TemporalGraph, prev) -> bool:
+    """Raise unless ``g`` suffix-extends the graph ``prev`` (a
+    ``CoreTimeTable`` or a ``StratifiedCoreTable``) was built for; True
+    when nothing was appended (the same epoch)."""
+    t_old, t_new = prev.t_max, g.t_max
+    m_old, m_new = prev.m, g.m
+    if prev.n != g.n:
+        raise ValueError(f"vertex count changed ({prev.n} -> {g.n}); "
+                         "extend_core_times needs the same vertex set")
+    if m_old > m_new or t_old > t_new:
+        raise ValueError("prev table does not describe a prefix of g")
+    if m_old and g.t[m_old - 1] > t_old:
+        raise ValueError("prev table does not match g's edge prefix")
+    if m_new > m_old and g.t[m_old] <= t_old:
+        raise ValueError(
+            f"appended edges must be a timestamp suffix (> {t_old}); "
+            "historical edges need a cold edge_core_times rebuild")
+    return m_new == m_old
+
+
+def _extend_rows_host(g: TemporalGraph, k: int,
+                      prev: CoreTimeTable) -> np.ndarray:
+    """The new epoch's (t_new+1, n) int32 vertex core times from the old
+    epoch's, on the host (the reference's algorithm): an ordinary sweep
+    over the shifted suffix for the new start times, a frontier fixpoint
+    over the old ones (see `extend_core_times`)."""
+    t_old, t_new = prev.t_max, g.t_max
+    m_old = prev.m
+    inf_new = t_new + 1
+    n = g.n
+    vct = np.full((t_new + 1, n), inf_new, np.int32)
+    vo = prev.vertex_ct
+
+    # -- new start times: ordinary sweep over the shifted suffix ---------
+    g_suf = TemporalGraph(n, g.src[m_old:], g.dst[m_old:],
+                          (g.t[m_old:] - t_old).astype(np.int32))
+    vs = _sweep_host(g_suf, k)            # (t_new - t_old + 1, n)
+    t_suf = t_new - t_old
+    fin = vs[1:] <= t_suf
+    block = np.full((t_suf, n), inf_new, np.int32)
+    block[fin] = (vs[1:][fin] + t_old).astype(np.int32)
+    vct[t_old + 1:] = block
+
+    # -- old start times: frontier fixpoint ------------------------------
+    csr = _pair_csr(g)
+    stride = np.int64(t_new + 2)
+    packed = csr.pidx * stride + csr.tsorted      # globally sorted
+    rowend = csr.ptr[1:]
+    deg_all = np.diff(csr.vptr)
+    S = np.int64(1)
+    while S < inf_new + 2:
+        S <<= 1
+    carry = np.zeros(n, np.int32)     # previous new row (lower bound)
+    for ts in range(1, t_old + 1):
+        old = vo[ts]
+        known = old <= t_old
+        vct[ts] = np.where(known, old, inf_new)
+        front = np.flatnonzero(~known & (carry <= t_new) & (deg_all >= k))
+        if front.size == 0:
+            carry = vct[ts]
+            continue
+        starts = csr.vptr[front]
+        counts = csr.vptr[front + 1] - starts
+        total = int(counts.sum())
+        segptr = np.zeros(front.size + 1, np.int64)
+        np.cumsum(counts, out=segptr[1:])
+        rows = (np.arange(total, dtype=np.int64)
+                - np.repeat(segptr[:-1], counts) + np.repeat(starts, counts))
+        # t_uv at this ts for the frontier's pair rows only
+        pos = np.searchsorted(packed, rows * stride + ts)
+        tuv = np.full(total, inf_new, np.int64)
+        valid = pos < rowend[rows]
+        tuv[valid] = csr.tsorted[pos[valid]]
+        dstv = csr.dst[rows].astype(np.int64)
+        base = np.repeat(np.arange(front.size, dtype=np.int64), counts) * S
+        segbase = np.arange(front.size, dtype=np.int64) * S
+        sel = segptr[:-1] + (k - 1)
+        val = vct[ts].astype(np.int64)    # known + settled-INF constants
+        c = np.maximum(carry[front].astype(np.int64), t_old + 1)
+        while True:
+            val[front] = c
+            key = base + np.maximum(tuv, val[dstv])
+            key.sort()
+            cnt = np.searchsorted(key, segbase + c + 1) - segptr[:-1]
+            if bool(((cnt >= k) | (c >= inf_new)).all()):
+                break
+            c_new = key[sel] % S          # k-th smallest per segment
+            np.minimum(c_new, inf_new, out=c_new)
+            np.maximum(c, c_new, out=c)
+        vct[ts, front] = c.astype(np.int32)
+        carry = vct[ts]
+    return vct
+
+
+def _extend_records(g: TemporalGraph, prev: CoreTimeTable,
+                    vct: np.ndarray) -> CoreTimeTable:
+    """The interval recompress: the new epoch's table from the old one's
+    records (kept verbatim) and the new epoch's (t_new+1, n) vertex core
+    times, whichever engine swept them.
+
+    Per vertex, the cells whose CT flipped old-INF -> new-finite form one
+    ts-interval [s_v, L_v] (both signals are monotone in ts): s_v = first
+    old-INF row, L_v = last new-finite row. A new record of an old edge
+    lives only where an endpoint flipped; appended edges are all-new over
+    [1, t(e)]. Flatten those per-edge intervals and run-detect over them."""
+    t_old, t_new = prev.t_max, g.t_max
+    m_old, m_new = prev.m, g.m
+    inf_new = t_new + 1
+    vo = prev.vertex_ct
+    s_v = (vo[1:] <= t_old).sum(axis=0).astype(np.int64) + 1
+    L_v = (vct[1:] <= t_new).sum(axis=0).astype(np.int64)
+    eu = g.src.astype(np.int64)
+    ev = g.dst.astype(np.int64)
+    te_e = g.t.astype(np.int64)
+    # old edges: union of the two endpoint intervals, clipped to [1, t(e)]
+    a1 = np.maximum(s_v[eu[:m_old]], 1)
+    b1 = np.minimum(L_v[eu[:m_old]], te_e[:m_old])
+    a2 = np.maximum(s_v[ev[:m_old]], 1)
+    b2 = np.minimum(L_v[ev[:m_old]], te_e[:m_old])
+    swap = a2 < a1
+    a1s, a2s = np.where(swap, a2, a1), np.where(swap, a1, a2)
+    b1s, b2s = np.where(swap, b2, b1), np.where(swap, b1, b2)
+    merged = a2s <= b1s + 1                     # touching/overlapping
+    lo_a = a1s
+    hi_a = np.where(merged, np.maximum(b1s, b2s), b1s)
+    lo_b = np.where(merged, 1, a2s)             # second piece (if distinct)
+    hi_b = np.where(merged, 0, b2s)
+    # appended edges: one full piece [1, t(e)]
+    app = np.arange(m_old, m_new, dtype=np.int64)
+    piece_e = np.concatenate([np.arange(m_old, dtype=np.int64)] * 2 + [app])
+    piece_lo = np.concatenate([lo_a, lo_b, np.ones(app.size, np.int64)])
+    piece_hi = np.concatenate([hi_a, hi_b, te_e[app]])
+    keep_p = piece_lo <= piece_hi
+    piece_e, piece_lo, piece_hi = piece_e[keep_p], piece_lo[keep_p], piece_hi[keep_p]
+    lens = piece_hi - piece_lo + 1
+    total_cells = int(lens.sum())
+    if total_cells == 0:
+        new_e = new_f = new_t = new_c = np.zeros(0, np.int64)
+    else:
+        # order pieces by (edge, ts) so runs are contiguous per edge
+        po = np.lexsort((piece_lo, piece_e))
+        piece_e, piece_lo, lens = piece_e[po], piece_lo[po], lens[po]
+        pp = np.zeros(piece_e.size + 1, np.int64)
+        np.cumsum(lens, out=pp[1:])
+        flat_ts = (np.arange(total_cells, dtype=np.int64)
+                   - np.repeat(pp[:-1], lens) + np.repeat(piece_lo, lens))
+        flat_e = np.repeat(piece_e, lens)
+        cu = vct[flat_ts, eu[flat_e]].astype(np.int64)
+        cv = vct[flat_ts, ev[flat_e]].astype(np.int64)
+        cval = np.maximum(np.maximum(cu, cv), te_e[flat_e])
+        np.minimum(cval, inf_new, out=cval)
+        # run boundaries: edge change, ts gap, or value change
+        brk = np.ones(total_cells, bool)
+        brk[1:] = ((flat_e[1:] != flat_e[:-1])
+                   | (flat_ts[1:] != flat_ts[:-1] + 1)
+                   | (cval[1:] != cval[:-1]))
+        sidx = np.flatnonzero(brk)
+        eidx = np.empty_like(sidx)
+        eidx[:-1] = sidx[1:] - 1
+        eidx[-1] = total_cells - 1
+        fin = cval[sidx] < inf_new
+        sidx, eidx = sidx[fin], eidx[fin]
+        new_e, new_f = flat_e[sidx], flat_ts[sidx]
+        new_t, new_c = flat_ts[eidx], cval[sidx]
+    edge_id = np.concatenate([prev.edge_id.astype(np.int64), new_e])
+    ts_from = np.concatenate([prev.ts_from.astype(np.int64), new_f])
+    ts_to = np.concatenate([prev.ts_to.astype(np.int64), new_t])
+    ct = np.concatenate([prev.ct.astype(np.int64), new_c])
+    order = np.lexsort((ts_from, edge_id))
+    return _as_table(g, edge_id[order], ts_from[order], ts_to[order],
+                     ct[order], vct)
+
+
+def extend_core_times(g: TemporalGraph, k: int, prev: CoreTimeTable, *,
+                      engine: str = "auto", device="cuda") -> CoreTimeTable:
+    """Extend a core-time table after a suffix append (streaming epochs).
+
+    ``g`` must be a suffix extension of the graph ``prev`` was built for
+    (``TemporalGraph.extend``): the old edges are a prefix of ``g``'s
+    arrays and every appended timestamp exceeds ``prev.t_max``. The result
+    is **bit-identical** to ``edge_core_times(g, k)`` (test-asserted), and
+    recomputes only what a suffix append can change:
+
+    * **Finite old entries are final.** For ``te <= t_old`` the window
+      ``[ts, te]`` contains no appended edge, so its k-core — and hence
+      any vertex core time that was ``<= t_old`` — is unchanged. Only
+      entries that were INF in the old epoch can move (into
+      ``(t_old, t_new]``, or to the new INF).
+    * **The new vertex rows** come from the chosen engine. ``"host"`` runs
+      the reference's algorithm: new start times see only the suffix, so
+      their rows come from one ordinary sweep over the (timestamp-shifted)
+      suffix subgraph; old start times run a frontier fixpoint that
+      re-solves only vertices whose old entry was INF *and* whose entry
+      at ts-1 is still finite (column monotonicity), from the lower bound
+      ``max(c[ts-1], t_old + 1)``, with every other vertex pinned. The
+      ``"device"`` engine sweeps the whole new graph on ``device`` (the
+      cold build's launches): since the least fixpoint is unique and the
+      finite old entries are final, its rows equal the host's.
+    * **Interval recompress** (`_extend_records`). Every previous record
+      is kept verbatim, and *new* records are detected only over the
+      cells that can hold one: a cell ``(e, ts)`` grows a record iff an
+      endpoint's vertex core time flipped from old-INF to new-finite
+      there, and by column monotonicity those cells form one ts-interval
+      per vertex (``[first old-INF, last new-finite]``). Runs never
+      straddle the interval boundary (values change from ``<= t_old`` to
+      ``> t_old`` across it), so run detection over the flattened
+      per-edge interval union is exact.
+
+    The same epoch (nothing appended) returns ``prev`` itself; an empty
+    old epoch builds cold.
+    """
+    eng = _extend_engine(engine, device)
+    if _check_extend(g, prev):
+        return prev                       # no appended edges: same epoch
+    if eng == "host":
+        if prev.m == 0 or prev.t_max == 0:
+            return _compress(g, _sweep_host(g, k))  # nothing to extend from
+        return _extend_records(g, prev, _extend_rows_host(g, k, prev))
+    vct = _sweep_device(g, k, device=device)
+    if prev.m == 0 or prev.t_max == 0:
+        return _compress(g, vct)
+    return _extend_records(g, prev, vct)
+
+
+# ----------------------------------------------------------------------
+# Retention plane: prefix expiry for sliding-window epochs
+# ----------------------------------------------------------------------
+
+def shrink_core_times(g: TemporalGraph, k: int,
+                      prev: CoreTimeTable) -> CoreTimeTable:
+    """Shrink a core-time table after prefix expiry (sliding-window epochs).
+
+    ``g`` must be the shifted epoch ``old_graph.expire_before(t_cut)`` of
+    the graph ``prev`` was built for: edges with timestamp ``< t_cut``
+    dropped, survivors shifted by ``shift = t_cut - 1`` and renumbered by
+    ``-cut`` (the expired edge count). The result is **bit-identical** to
+    ``edge_core_times(g, k)`` (test-asserted) at pure-slicing cost,
+    because of the *cut invariant*:
+
+        every surviving start time ``ts >= t_cut`` projects a window
+        ``[ts, te] ⊆ [ts, t_max]`` whose edges all have ``t >= ts >=
+        t_cut`` — no expired edge can appear in it.
+
+    So no vertex needs re-solving: the k-core of every surviving window
+    is untouched, and the whole table reduces by relabeling —
+
+    * **vertex rows**: new row ``ts`` = old row ``ts + shift``, finite
+      values shifted down, old-INF (``t_old + 1``) mapped to new-INF.
+    * **version records die or clip, never change.** A record survives
+      iff its start-time interval reaches the cut (``ts_to >= t_cut``);
+      a surviving record keeps its core time (shifted) with ``ts_from``
+      clipped to the cut. Clipping cannot merge runs (run values are
+      constant and maximal already) and preserves the ``(edge_id,
+      ts_from)`` sort, so the record stream needs no re-sort and no
+      re-run-detection. Records of expired edges always die: their
+      intervals end at ``ts_to <= t(e) < t_cut``.
+
+    Raises ``ValueError`` when ``(g, prev)`` is not a consistent
+    prefix-expiry pair, so a wrong table is never produced silently.
+    """
+    shift = prev.t_max - g.t_max
+    cut_m = prev.m - g.m
+    t_cut = shift + 1
+    if prev.n != g.n:
+        raise ValueError(f"vertex count changed ({prev.n} -> {g.n}); "
+                         "shrink_core_times needs the same vertex set")
+    if shift < 0 or cut_m < 0:
+        raise ValueError("prev table does not describe a supergraph of g "
+                         "(shrink goes forward in time; use "
+                         "extend_core_times to grow)")
+    if shift == 0 and cut_m == 0:
+        return prev                       # no cut: same epoch
+    if g.m == 0 or g.t_max == 0:
+        return _compress(g, _sweep_host(g, k))   # everything expired
+    inf_old, inf_new = prev.t_max + 1, g.t_max + 1
+
+    # -- vertex rows: slice + shift, INF remapped -------------------------
+    vo = prev.vertex_ct[t_cut:].astype(np.int64)
+    vct = np.full((g.t_max + 1, g.n), inf_new, np.int32)
+    fin = vo < inf_old
+    block = np.full(vo.shape, inf_new, np.int64)
+    block[fin] = vo[fin] - shift
+    # values are core times bounded by inf_new = g.t_max + 1: int32
+    vct[1:] = block.astype(np.int32)
+
+    # -- records: drop dead, clip the cut straddlers, shift, renumber -----
+    keep = prev.ts_to.astype(np.int64) >= t_cut
+    edge_id = prev.edge_id[keep].astype(np.int64) - cut_m
+    if edge_id.size and edge_id.min() < 0:
+        raise ValueError(
+            "a surviving version references an expired edge; prev is not "
+            "the table of g's pre-expiry epoch")
+    ts_from = np.maximum(prev.ts_from[keep].astype(np.int64), t_cut) - shift
+    ts_to = prev.ts_to[keep].astype(np.int64) - shift
+    ct = prev.ct[keep].astype(np.int64) - shift
+    return _as_table(g, edge_id, ts_from, ts_to, ct, vct)
+
+
+# ----------------------------------------------------------------------
+# K-stratified epochs: one call covers every stratum
+# ----------------------------------------------------------------------
+
+def extend_stratified_core_times(g: TemporalGraph, prev: StratifiedCoreTable,
+                                 ks=None, *, engine: str = "auto",
+                                 device="cuda") -> StratifiedCoreTable:
+    """Suffix-append epoch for every stratum at once: existing strata are
+    extended (bit-identical incremental, see `extend_core_times`), strata
+    newly requested via ``ks`` (e.g. the appended edges raised k_max) are
+    built cold. ``ks`` defaults to ``prev.ks``.
+
+    The ``"device"`` engine sweeps every stratum that needs rows, old and
+    new, in one `_sweep_device_stratified` call (one `stratum_sweep`
+    launch per t_uv block); the ``"host"`` engine extends stratum by
+    stratum as the reference does. Both return bit-identical tables."""
+    ks = _validate_ks(prev.ks if ks is None else ks)
+    eng = _extend_engine(engine, device)
+    if eng == "host":
+        tables = [extend_core_times(g, k, prev.table_for(k), engine="host")
+                  if k in prev.ks else _compress(g, _sweep_host(g, k))
+                  for k in ks]
+        return StratifiedCoreTable.from_tables(g, ks, tables)
+    # the host path's checks, raised under the same conditions
+    same = any(k in prev.ks for k in ks) and _check_extend(g, prev)
+    sweep = [k for k in ks if k not in prev.ks or not same]
+    rows = dict(zip(sweep, _sweep_device_stratified(g, sweep,
+                                                    device=device)))
+    cold = prev.m == 0 or prev.t_max == 0
+    tables = []
+    for k in ks:
+        if k in prev.ks and same:
+            tables.append(prev.table_for(k))
+        elif k in prev.ks and not cold:
+            tables.append(_extend_records(g, prev.table_for(k), rows[k]))
+        else:
+            tables.append(_compress(g, rows[k]))
+    return StratifiedCoreTable.from_tables(g, ks, tables)
+
+
+def shrink_stratified_core_times(g: TemporalGraph, prev: StratifiedCoreTable,
+                                 ks=None) -> StratifiedCoreTable:
+    """Prefix-expiry epoch for every stratum at once (see
+    `shrink_core_times`); ``ks`` defaults to ``prev.ks`` and may drop
+    strata (expiry can lower k_max) but must not add any."""
+    ks = _validate_ks(prev.ks if ks is None else ks)
+    missing = [k for k in ks if k not in prev.ks]
+    if missing:
+        raise ValueError(f"shrink cannot add strata {missing}; "
+                         "build them cold instead")
+    return StratifiedCoreTable.from_tables(
+        g, ks, [shrink_core_times(g, k, prev.table_for(k)) for k in ks])
+
+
+# ----------------------------------------------------------------------
+# Brute-force oracle (tests only): CT by scanning te for each (ts, e).
+# ----------------------------------------------------------------------
+
+def edge_core_time_naive(g: TemporalGraph, k: int, ts: int) -> np.ndarray:
+    """int64[m] CT(e)_ts by recomputing the k-core for every te."""
+    from .kcore import kcore_edge_mask
+
+    INF = g.t_max + 1
+    out = np.full(g.m, INF, np.int64)
+    for te in range(ts, g.t_max + 1):
+        s, d, ids = g.project(ts, te)
+        if ids.size == 0:
+            continue
+        # distinct-neighbour degrees: collapse parallel edges for peeling
+        key = np.minimum(s, d).astype(np.int64) * g.n + np.maximum(s, d)
+        uniq, inv = np.unique(key, return_inverse=True)
+        us, ud = (uniq // g.n).astype(np.int64), (uniq % g.n).astype(np.int64)
+        alive_simple = kcore_edge_mask(us, ud, g.n, k)
+        alive = alive_simple[inv]
+        newly = ids[alive]
+        out[newly] = np.minimum(out[newly], te)
+    return out

@@ -18,8 +18,8 @@ modes; it is deliberately excluded from ``nbytes()`` so the paper's index-size c
 
 PyTorch port of ``repro.core.pecb_index`` (host code, copied so the port
 stands alone): the per-k index, the k-stratified index and their packing
-are the reference's, bit for bit (tests assert array equality). The
-streaming resume path arrives with the epoch plane.
+are the reference's, bit for bit (tests assert array equality), and so
+is the streaming resume path (``build_pecb_index(..., resume_from=)``).
 """
 
 from __future__ import annotations
@@ -155,11 +155,27 @@ def pack_index(g: TemporalGraph, k: int, b: IncrementalBuilder) -> PECBIndex:
 
 def build_pecb_index(g: TemporalGraph, k: int,
                      tab: CoreTimeTable | None = None, *,
-                     engine: str = "auto", device="cuda") -> PECBIndex:
+                     engine: str = "auto", device="cuda",
+                     resume_from: PECBIndex | None = None) -> PECBIndex:
     """End-to-end PECB construction (Alg 3) for one k: core times (``tab``,
     or built on ``device`` by ``engine``, see
     :func:`core_time.edge_core_times`) -> incremental forest maintenance
-    -> packed index."""
+    -> packed index.
+
+    ``resume_from`` is the streaming plane's epoch-resume path: pass the
+    previous epoch's index (built for a graph that ``g`` suffix-extends via
+    ``TemporalGraph.extend``) together with the extended table ``tab``
+    (``extend_core_times``), and the index is *grown* from the previous
+    epoch's packed arrays instead of replaying every version
+    (``streaming.extend_pecb_index``). The result is bit-identical to a
+    cold ``build_pecb_index(g, k)`` (test-asserted)."""
+    if resume_from is not None:
+        if tab is None:
+            raise ValueError(
+                "resume_from needs the extended table: pass "
+                "tab=extend_core_times(g, k, prev_tab)")
+        from .streaming import extend_pecb_index
+        return extend_pecb_index(g, k, tab, resume_from)
     if tab is None:
         tab = edge_core_times(g, k, engine=engine, device=device)
     return pack_index(g, k, IncrementalBuilder(g, tab).run())
@@ -376,7 +392,7 @@ class StratifiedPECB:
 def _assemble_stratified(g: TemporalGraph, stab: StratifiedCoreTable,
                          indices: list, k_max_graph: int) -> StratifiedPECB:
     """Pack per-stratum indices + the stratified table into one
-    :class:`StratifiedPECB`."""
+    :class:`StratifiedPECB` (shared by cold build and streaming)."""
     eid = stab.edge_id
     return StratifiedPECB.from_parts(
         stab, indices, k_max_graph,

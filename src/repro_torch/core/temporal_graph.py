@@ -11,8 +11,8 @@ without conversion.
 
 PyTorch port of ``repro.core.temporal_graph``: the class, the seeded
 generator and the named workloads are copied verbatim (same seed, same
-graph); the streaming-epoch methods (``extend``/``expire_before``) arrive
-with the epoch plane.
+graph), and so are the streaming-epoch methods (``extend``,
+``expire_before``, ``retain_last``, ``split_at``).
 """
 
 from __future__ import annotations
@@ -80,6 +80,98 @@ class TemporalGraph:
             arr[:, 1].astype(np.int32),
             arr[:, 2].astype(np.int32),
         )
+
+    # -- streaming epochs ----------------------------------------------
+    def extend(self, edges: Iterable[tuple[int, int, int]]) -> "TemporalGraph":
+        """Append *suffix* edges (all strictly newer than ``t_max``) and
+        return the next graph epoch.
+
+        The suffix condition is what makes the streaming plane cheap and
+        exact: because edges are stored sorted by ``(t, src, dst)``, a
+        suffix append keeps every existing edge id (the old edge arrays are
+        a prefix of the new ones), so core-time tables, PECB indexes and
+        cached results built for this epoch remain valid for every window
+        with ``te <= t_max`` and can be *extended* rather than rebuilt
+        (``core_time.extend_core_times``, ``pecb_index.build_pecb_index``
+        with ``resume_from``). Out-of-order (historical) edges are
+        rejected: they would invalidate the prefix property and require a
+        cold rebuild — callers wanting that should build a new graph.
+
+        Self-loops are dropped (as in :meth:`from_edges`); an empty
+        ``edges`` returns ``self``.
+        """
+        arr = np.asarray(
+            [(u, v, t) for (u, v, t) in edges if u != v], dtype=np.int64)
+        if arr.size == 0:
+            return self
+        if int(arr[:, 2].min()) <= self.t_max:
+            raise ValueError(
+                f"extend() takes suffix edges only: got timestamp "
+                f"{int(arr[:, 2].min())} <= t_max={self.t_max}; historical "
+                "edges need a cold rebuild (TemporalGraph.from_edges)")
+        if int(arr[:, :2].max()) >= self.n or int(arr[:, :2].min()) < 0:
+            raise ValueError(
+                f"extend() edge endpoints must lie in [0, {self.n})")
+        order = np.lexsort((arr[:, 1], arr[:, 0], arr[:, 2]))
+        arr = arr[order]
+        return TemporalGraph(
+            self.n,
+            np.concatenate([self.src, arr[:, 0].astype(np.int32)]),
+            np.concatenate([self.dst, arr[:, 1].astype(np.int32)]),
+            np.concatenate([self.t, arr[:, 2].astype(np.int32)]),
+        )
+
+    def expire_before(self, t_cut: int) -> "TemporalGraph":
+        """Drop every edge with timestamp ``< t_cut`` (prefix expiry) and
+        return the next graph epoch with surviving timestamps *shifted* to
+        start at 1 again (new ``t`` = old ``t - (t_cut - 1)``).
+
+        The shift is what keeps long-running deployments bounded: every
+        downstream structure — the dense ``vertex_ct`` matrix, the packed
+        index's per-ts entry streams, device buffers — is sized by
+        ``t_max``, so retention must shrink the time axis, not merely thin
+        the edge list. The shifted epoch is exactly the graph a cold
+        ``from_edges`` build over the surviving triples would produce:
+        edges stay sorted by ``(t, src, dst)`` (a constant shift preserves
+        the order) and the surviving edges keep their relative ids
+        (new id = old id - #expired), which is what lets
+        ``core_time.shrink_core_times`` / ``streaming.shrink_pecb_index``
+        reduce the retained indices by pure slicing instead of a rebuild.
+
+        ``t_cut <= 1`` expires nothing and returns ``self``; ``t_cut >
+        t_max`` expires everything (an empty epoch over the same vertex
+        set). Note a cut below the smallest timestamp still *shifts* —
+        retention contracts the timeline, not just the edge list.
+        """
+        t_cut = int(t_cut)
+        if t_cut <= 1:
+            return self
+        cut = int(np.searchsorted(self.t, t_cut, side="left"))
+        return TemporalGraph(
+            self.n,
+            np.ascontiguousarray(self.src[cut:]),
+            np.ascontiguousarray(self.dst[cut:]),
+            np.ascontiguousarray(self.t[cut:] - np.int32(t_cut - 1)),
+        )
+
+    def retain_last(self, w: int) -> "TemporalGraph":
+        """Sliding-window retention: keep only the last ``w`` timestamps
+        (``expire_before(t_max - w + 1)``). ``w >= t_max`` keeps everything
+        and returns ``self``."""
+        if w <= 0:
+            raise ValueError(f"retention window must be positive, got {w}")
+        return self.expire_before(self.t_max - int(w) + 1)
+
+    def split_at(self, t: int) -> tuple["TemporalGraph", np.ndarray]:
+        """(epoch graph of edges with timestamp <= t, suffix triples after
+        ``t`` as an int64[(s, 3)] array) — the replay harness for streaming
+        benchmarks/tests: ``g0.extend(suffix)`` reproduces ``self``."""
+        cut = int(np.searchsorted(self.t, t, side="right"))
+        g0 = TemporalGraph(self.n, self.src[:cut], self.dst[:cut],
+                           self.t[:cut])
+        suffix = np.stack([self.src[cut:], self.dst[cut:],
+                           self.t[cut:]], axis=1).astype(np.int64)
+        return g0, suffix
 
     def window_mask(self, ts: int, te: int) -> np.ndarray:
         return (self.t >= ts) & (self.t <= te)

@@ -173,7 +173,8 @@ def test_engine_follows_the_device_argument():
     assert ct._engine("auto", torch.device("cuda", 0)) == "device"
     assert ct._engine("auto", "cpu") == "host"
     assert ct._engine("device", "cpu") == "device"
-    assert ct.ENGINES == ("auto", "host", "device")
+    assert ct._engine("legacy", "cuda") == "legacy"
+    assert ct.ENGINES == ("auto", "host", "device", "legacy")
     with pytest.raises(ValueError, match="unknown engine"):
         ct._engine("jax", "cpu")
     with pytest.raises(ValueError, match="no construction engine"):

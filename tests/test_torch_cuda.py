@@ -302,6 +302,92 @@ def test_device_engine_strata_on_card_equal_host_engine(cuda):
         assert np.array_equal(getattr(dev, f), getattr(host, f)), f
 
 
+@pytest.mark.parametrize("frac", [0.3, 0.9])
+def test_extend_on_card_equals_host_engine(cuda, frac):
+    """``extend_stratified_core_times(engine="device")`` sweeps every
+    stratum, the old ones and those the appended edges add, in one
+    stratum_sweep launch per t_uv block, and equals the host engine (the
+    frontier fixpoint) and a cold build on every field and dtype."""
+    from repro_torch.core import streaming
+    g = gen_temporal_graph(n=40, m=420, t_max=18, seed=31)
+    g0, suffix = g.split_at(max(1, int(g.t_max * frac)))
+    dense = [(u, v, g.t_max + 1) for u in range(9) for v in range(u + 1, 9)]
+    g1 = g0.extend([tuple(e) for e in suffix.tolist()] + dense)
+    prev = core_time.stratified_core_times(g0, device="cpu")
+    ks = core_time.default_ks(g1)
+    assert set(ks) - set(prev.ks)
+    sweeps = segmented_select.stratum_sweep.launches
+    got = core_time.extend_stratified_core_times(g1, prev, ks,
+                                                 engine="device",
+                                                 device=cuda)
+    torch.cuda.synchronize()
+    assert segmented_select.stratum_sweep.launches - sweeps == \
+        -(-g1.t_max // core_time.TUV_BLOCK)
+    host = core_time.extend_stratified_core_times(g1, prev, ks,
+                                                  engine="host",
+                                                  device="cpu")
+    cold = core_time.stratified_core_times(g1, device="cpu")
+    for want in (host, cold):
+        assert got.ks == want.ks
+        for f in ("kptr", "edge_id", "ts_from", "ts_to", "ct", "vptr",
+                  "v_ts_from", "v_ts_to", "v_ct"):
+            a, b = getattr(got, f), getattr(want, f)
+            assert a.dtype == b.dtype and np.array_equal(a, b), f
+    for k in prev.ks:
+        assert np.array_equal(
+            core_time.extend_core_times(g1, k, prev.table_for(k),
+                                        device=cuda).vertex_ct,
+            cold.table_for(k).vertex_ct)
+    sx1 = streaming.extend_stratified_index(
+        g1, build_stratified_index(g0, strata=prev), ks, strata=got)
+    want_sx = build_stratified_index(g1, strata=cold)
+    for f in ("node_u", "node_ct", "row_ptr", "ent_ts", "ent_left",
+              "ent_parent", "vrow_ptr", "vent_node", "knode_ptr"):
+        assert np.array_equal(getattr(sx1, f), getattr(want_sx, f)), f
+
+
+def test_refresh_device_on_card(cuda):
+    """``refresh_device`` on CUDA tensors: a no-op epoch hands over every
+    resident tensor (same data_ptr), a per-k suffix epoch grows ver_k by
+    a suffix upload on the card and uploads the rest in full; the result
+    equals a fresh upload, lives on the old mirror's device, and the old
+    mirror is never mutated."""
+    from repro_torch.core import streaming
+    from repro_torch.core.pecb_index import build_pecb_index
+    g = gen_temporal_graph(n=40, m=420, t_max=18, seed=31)
+    g0, suffix = g.split_at(11)
+    tab0 = core_time.edge_core_times(g0, 2, device=cuda)
+    idx0 = build_pecb_index(g0, 2, tab0)
+    dix0 = bq.to_device(idx0, cuda)
+    same, stats = bq.refresh_device(idx0, dix0, idx0)
+    assert stats["reused"] == len(bq._ARRAY_FIELDS)
+    assert stats["uploaded_bytes"] == 0
+    for f in bq._ARRAY_FIELDS:
+        assert getattr(same, f).data_ptr() == getattr(dix0, f).data_ptr()
+    before = {f: getattr(dix0, f).clone() for f in bq._ARRAY_FIELDS}
+    g1 = g0.extend([tuple(e) for e in suffix.tolist()])
+    tab1 = core_time.extend_core_times(g1, 2, tab0, device=cuda)
+    idx1 = streaming.extend_pecb_index(g1, 2, tab1, idx0)
+    dix1, stats = bq.refresh_device(idx0, dix0, idx1)
+    torch.cuda.synchronize()
+    assert stats["suffix"] >= 1 and stats["full"] >= 1
+    assert stats["reused"] + stats["suffix"] + stats["full"] == \
+        len(bq._ARRAY_FIELDS)
+    fresh = bq.to_device(idx1, cuda)
+    for f in bq._ARRAY_FIELDS:
+        a = getattr(dix1, f)
+        assert a.device == dix0.device and a.dtype == torch.int32, f
+        assert torch.equal(a, getattr(fresh, f)), f
+        assert torch.equal(getattr(dix0, f), before[f]), f
+    for f in bq._META_FIELDS:
+        assert getattr(dix1, f) == getattr(fresh, f), f
+    grown = [f for f in bq._ARRAY_FIELDS
+             if getattr(dix1, f).shape[0] > getattr(dix0, f).shape[0]
+             and torch.equal(getattr(dix1, f)[:getattr(dix0, f).shape[0]],
+                             getattr(dix0, f))]
+    assert "ver_k" in grown
+
+
 def sweep_operands(g, dev, ts0=1, ts1=None):
     """(tuv, seg, vptr, dst) of g's pair CSR on ``dev``, tuv the t_uv rows
     of start times [ts0, ts1) (default: to t_max)."""
