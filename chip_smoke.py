@@ -85,6 +85,25 @@ result line each; any failure raises and exits non-zero:
            reused/suffix/full counts and bytes) beside the cold build's;
            the last daily epoch once more on the host engine (capped at
            30 s); the phase's launches, seconds and peak device memory
+  engine   the port's serving engine (ServingEngine on the card) at
+           CollegeMsg scale, bench_engine.py's settings (max_batch 256,
+           flush 2 ms, no cache): the registry's cold build of epoch 0 =
+           g.split_at(189) through warmup; 2,048 mixed-k specs open loop
+           from 4 caller threads and at offered loads of 250 and 1,000
+           q/s (q/s, e2e p50/p95/p99, batches and padded slots); 32
+           straggler submissions of 3 on the host route, held to one device
+           batch too; the stream twice through a 4,096-entry cache; a
+           64-window sweep equal to serve.serve_sweep's; 16 EDGES/SUBGRAPH
+           specs at max_batch 16 (peak device memory); the days 190..193
+           ingested one at a time while a caller thread keeps serving (each
+           refresh's time, p99 before and during the refreshes, answers
+           from the old epoch before each swap), the day-193 handle equal
+           to the cold build of g in every field; retain(96), the trimmed
+           handle equal to a cold card build; the Chrome trace exported and
+           loaded. 256 sampled answers of each stream held to Algorithm 1;
+           B1 launches equal to the rounds the engines ran, stratum_sweep
+           launches to the builds and extends; each line carries the
+           card's name and power limit
   lm       first B6's single-tile check of its wgmma route (S = Q K^T from
            TMA-loaded tiles, then P V with P in bf16 registers, against the
            plain version); then glm4-9b at full width and depth
@@ -132,12 +151,15 @@ Then a line of kernel records (JSON), the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1919,6 +1941,397 @@ def epoch_phase(g, sx, dix, dev) -> tuple[int, int]:
     return sweeps, b1
 
 
+#: the [engine] phase: bench_engine.py's engine settings and traffic
+ENGINE_QUERIES = 2048
+ENGINE_CHUNK = 256
+ENGINE_THREADS = 4
+ENGINE_LOADS = (250.0, 1000.0)
+ENGINE_VERIFY = 256
+ENGINE_STRAGGLERS = 32
+ENGINE_EDGES = 16
+#: queries per submission of the thread that serves during the ingests
+INGEST_CHUNK = 64
+
+
+def pct(xs, q) -> float:
+    """The q-th percentile of a list of seconds, in ms (0 when empty)."""
+    return float(np.percentile(np.asarray(xs), q)) * 1e3 if xs else 0.0
+
+
+def submit_all(eng, name, specs, threads: int = 1,
+               chunk: int = ENGINE_CHUNK) -> tuple[list, float]:
+    """``specs`` through ``submit_specs`` in chunks, chunk i from caller
+    thread i % threads, then one flush: the results in order and the
+    seconds from the first submission to the last answer."""
+    chunks = [specs[i:i + chunk] for i in range(0, len(specs), chunk)]
+    futs = [None] * len(chunks)
+
+    def caller(t):
+        for i in range(t, len(chunks), threads):
+            futs[i] = eng.submit_specs(name, chunks[i])
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        for f in [pool.submit(caller, t) for t in range(threads)]:
+            f.result()
+    eng.flush()
+    results = [f.result(timeout=300) for fs in futs for f in fs]
+    return results, time.perf_counter() - t0
+
+
+def paced(eng, name, specs, load: float) -> tuple[list, float]:
+    """``specs`` one at a time at ``load`` queries/s, as
+    ``benchmarks/bench_engine.py`` paces an offered load."""
+    t0 = time.perf_counter()
+    period = 1.0 / load
+    futures = []
+    for i, q in enumerate(specs):
+        delay = t0 + i * period - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        futures.append(eng.submit_spec(name, q))
+    eng.flush()
+    results = [f.result(timeout=300) for f in futures]
+    return results, time.perf_counter() - t0
+
+
+def check_alg1(pecb, specs, results, what: str, n: int = ENGINE_VERIFY
+               ) -> int:
+    """``n`` answers spread over the stream against Algorithm 1 on the
+    host (``pecb.answer``); raises on a mismatch. Edge modes compare the
+    member edge ids too."""
+    idx = np.linspace(0, len(specs) - 1, min(n, len(specs))).astype(int)
+    bad = []
+    for i in idx.tolist():
+        want, got = pecb.answer(specs[i]), results[i]
+        same = (got.vertices == want.vertices
+                and got.num_vertices == want.num_vertices)
+        if want.edges is not None:
+            same = same and got.edges.edge_ids() == want.edges.edge_ids()
+        if not same:
+            bad.append(i)
+    if bad:
+        raise AssertionError(f"[engine] {what}: {len(bad)} of {len(idx)} "
+                             f"answers differ from Algorithm 1 ({bad[:5]})")
+    return len(idx)
+
+
+def traffic_line(eng, results, t: float, rounds: list) -> str:
+    """q/s, e2e percentiles and route counts of one replay, read from the
+    engine's metrics, which are then reset; the replay's propagation
+    rounds are added to ``rounds`` first."""
+    snap = eng.metrics.snapshot(include_sources=False)
+    c, e2e = snap["counters"], snap["latency"].get("e2e", {})
+    rounds.append(c.get("propagation_rounds", 0))
+    eng.metrics.reset()
+    routes = dict(collections.Counter(r.provenance.route for r in results))
+    return (f"{len(results) / t:.1f} q/s ({len(results)} in {t:.4f}s); e2e "
+            f"p50 {e2e.get('p50_ms', 0):.3f} p95 {e2e.get('p95_ms', 0):.3f} "
+            f"p99 {e2e.get('p99_ms', 0):.3f} ms; device batches "
+            f"{c.get('device_batches', 0)}, host batches "
+            f"{c.get('host_batches', 0)}, padded slots "
+            f"{c.get('device_padded_slots', 0)}; B1 rounds "
+            f"{c.get('propagation_rounds', 0)}; routes {routes}")
+
+
+def serve_during_ingest(eng, name, ks, t_last: int, seed: int):
+    """One caller thread submitting INGEST_CHUNK mixed-k vertex specs at a
+    time (windows ending on ``t_last``, the newest day to come) until
+    ``stop`` is set, each chunk awaited. Returns (thread, stop event,
+    records [(t_submit, t_done, spec, result)])."""
+    from repro_torch.core.query_api import TCCSQuery
+
+    stop = threading.Event()
+    records = []
+    rng = np.random.default_rng(seed)
+    n = eng.registry.resolve_graph(name).n
+
+    def run():
+        while not stop.is_set():
+            specs = [TCCSQuery(int(rng.integers(0, n)),
+                               int(rng.integers(1, t_last - 4)), t_last,
+                               int(rng.choice(ks)))
+                     for _ in range(INGEST_CHUNK)]
+            t0 = time.perf_counter()
+            futs = eng.submit_specs(name, specs)
+            eng.flush()
+            for q, f in zip(specs, futs):
+                r = f.result(timeout=300)
+                records.append((t0, time.perf_counter(), q, r))
+
+    th = threading.Thread(target=run, name="ingest-traffic")
+    th.start()
+    return th, stop, records
+
+
+def engine_phase(g, sx, dev, smi: str) -> tuple[int, int]:
+    """``[engine]``: the port's serving engine on the card at CollegeMsg
+    scale, through the entry points a user calls. Epoch 0 =
+    ``g.split_at(189)``, registered by name; ``warmup`` runs the registry's
+    cold build on the card; then open-loop traffic from four caller
+    threads, paced offered loads, stragglers on the host route, a cached
+    replay, a window sweep, an edges-mode batch, the days 190..193 ingested
+    one at a time while a caller thread keeps serving, and one trim. Every
+    stream's sampled answers are held to Algorithm 1, the day-193 handle to
+    ``sx`` (the cold build of ``g``) and the trimmed one to a cold card
+    build. Returns the phase's B1 and stratum_sweep launches, each checked
+    against the rounds and builds the engine ran."""
+    from repro_torch.core import batch_query as bq
+    from repro_torch.core import core_time as ct
+    from repro_torch.core.query_api import ResultMode, TCCSQuery, WindowSweep
+    from repro_torch.core.temporal_graph import random_queries
+    from repro_torch.kernels import kcore_peel, label_prop
+    from repro_torch.kernels import segmented_select as ss
+    from repro_torch.launch import serve
+    from repro_torch.serving import EngineConfig, ServingEngine
+
+    tag = f"({smi})"
+    t_phase = time.perf_counter()
+    ss.reset_sweep_counts()
+    label_prop.label_prop_round.launches = 0
+    fix0 = kcore_peel.kcore_fixpoint.launches
+    rounds: list = []
+    name = "collegemsg"
+    t_old = max(1, int(g.t_max * EPOCH_FRAC))
+    g0, suffix = g.split_at(t_old)
+    cfg = EngineConfig(max_batch=256, flush_ms=2.0, cache_capacity=0)
+    with ServingEngine(cfg, device=dev) as eng:
+        eng.register_graph(name, g0)
+        h, t_warm = wall(lambda: eng.warmup(name))
+        builds = ss.stratum_sweep.launches
+        print(f"[engine] {tag} cold build through warmup: epoch 0 = "
+              f"g.split_at({t_old}), m={g0.m}, |K|={len(h.supported_ks)}, "
+              f"N={h.pecb.num_nodes}; {h.build_seconds:.4f}s (stages "
+              + ", ".join(f"{s} {v:.4f}s" for s, v in h.build_stages.items())
+              + f"), warmup {t_warm:.4f}s with the buckets 8..256; "
+              f"stratum_sweep launches {builds}; kernel builds "
+              f"{eng.metrics.counter('kernel_builds')} (B1's library was "
+              f"loaded in [build])")
+        rounds.append(eng.metrics.counter("propagation_rounds"))
+        eng.metrics.reset()
+
+        rng = np.random.default_rng(10)
+        specs = [TCCSQuery(u, ts, te, int(rng.choice(h.supported_ks)))
+                 for (u, ts, te) in random_queries(g0, ENGINE_QUERIES,
+                                                   seed=9)]
+        res, t = submit_all(eng, name, specs, threads=ENGINE_THREADS)
+        n_ok = check_alg1(h.pecb, specs, res, "open loop")
+        first = res
+        print(f"[engine] {tag} open loop, {ENGINE_QUERIES} mixed-k specs in "
+              f"chunks of {ENGINE_CHUNK} from {ENGINE_THREADS} threads: "
+              + traffic_line(eng, res, t, rounds)
+              + f"; {n_ok} checked against Algorithm 1, 0 mismatches")
+        for load in ENGINE_LOADS:
+            res, t = paced(eng, name, specs, load)
+            n_ok = check_alg1(h.pecb, specs, res, f"offered {load:g} q/s")
+            print(f"[engine] {tag} offered load {load:g} q/s: "
+                  + traffic_line(eng, res, t, rounds)
+                  + f"; {n_ok} checked, 0 mismatches")
+
+        strag = [specs[i:i + 3] for i in range(0, 3 * ENGINE_STRAGGLERS, 3)]
+        res = []
+        t0 = time.perf_counter()
+        for batch in strag:
+            futs = eng.submit_specs(name, batch)
+            eng.flush()
+            res += [f.result(timeout=300) for f in futs]
+        t = time.perf_counter() - t0
+        flat = [q for b in strag for q in b]
+        c = eng.metrics.snapshot(include_sources=False)["counters"]
+        if (c.get("host_batches"), c.get("device_batches", 0)) != (
+                ENGINE_STRAGGLERS, 0):
+            raise AssertionError(f"[engine] stragglers: routes {c}")
+        check_alg1(h.pecb, flat, res, "stragglers")
+        # the engine's executor: its rounds count in the engine's metrics
+        dev_masks = eng.executor.run(
+            h.device, bq.mixed_slots(h.pecb, [(q.u, q.k) for q in flat]),
+            [q.ts for q in flat], [q.te for q in flat],
+            eng.executor.final_bucket(len(flat), 8, 256))
+        if any(frozenset(np.flatnonzero(m).tolist()) != r.vertices
+               for m, r in zip(dev_masks, res)):
+            raise AssertionError("[engine] stragglers: the host route "
+                                 "disagrees with a device batch")
+        print(f"[engine] {tag} stragglers, {ENGINE_STRAGGLERS} submissions "
+              f"of 3 flushed one at a time: " + traffic_line(eng, res, t,
+                                                            rounds)
+              + "; every answer equal to Algorithm 1 and to one device "
+              "batch of the same specs (its B1 rounds are those above)")
+
+        ccfg = EngineConfig(max_batch=256, flush_ms=2.0, cache_capacity=4096)
+        with ServingEngine(ccfg, registry=eng.registry, device=dev) as ce:
+            res1, t1 = submit_all(ce, name, specs)
+            line1 = traffic_line(ce, res1, t1, rounds)
+            res2, t2 = submit_all(ce, name, specs)
+            share = sum(r.provenance.route == "cache" for r in res2) / len(
+                res2)
+            if any(a.vertices != b.vertices for a, b in zip(res2, res1)) or \
+                    any(a.vertices != b.vertices for a, b in zip(res1, first)):
+                raise AssertionError("[engine] cached answers differ")
+            print(f"[engine] {tag} cache (4,096 entries), the open-loop "
+                  f"stream twice: first pass {line1}; second pass "
+                  + traffic_line(ce, res2, t2, rounds)
+                  + f"; cache share {share:.4f}, answers equal the first "
+                  "pass's and the open loop's")
+
+        k_sweep = h.supported_ks[len(h.supported_ks) // 4]
+        windows = [(d, min(d + 40, g.t_max)) for d in range(1, 65)]
+        (sw, t_sw) = wall(lambda: eng.sweep(name, WindowSweep(
+            u=0, k=k_sweep, windows=windows)))
+        direct = serve.serve_sweep(h.pecb, h.device, 0, k_sweep, windows)
+        rounds.append(sum(direct["rounds"]))
+        c = eng.metrics.snapshot(include_sources=False)["counters"]
+        rounds.append(c.get("propagation_rounds", 0))
+        eng.metrics.reset()
+        if [r.vertices for r in sw] != direct["answers"]:
+            raise AssertionError("[engine] sweep differs from serve_sweep")
+        print(f"[engine] {tag} sweep u=0 k={k_sweep}, {len(windows)} "
+              f"windows: {t_sw:.4f}s, {c.get('sweep_launches', 0)} device "
+              f"batch(es), equal to serve.serve_sweep's answers (each "
+              f"checked against Algorithm 1, 0 mismatches)")
+
+        torch.cuda.reset_peak_memory_stats()
+        ecfg = EngineConfig(max_batch=ENGINE_EDGES, flush_ms=2.0,
+                            cache_capacity=0)
+        # the busiest vertices at the three lowest k over long windows:
+        # components with many member edges to check
+        deg = np.bincount(np.concatenate([g0.src, g0.dst]), minlength=g0.n)
+        modes = (ResultMode.EDGES, ResultMode.SUBGRAPH)
+        especs = [TCCSQuery(int(u), 1 + 20 * (i % 4), g0.t_max,
+                            h.supported_ks[i % 3], modes[i % 2])
+                  for i, u in enumerate(np.argsort(deg)[-ENGINE_EDGES:])]
+        with ServingEngine(ecfg, registry=eng.registry, device=dev) as ee:
+            res, t = submit_all(ee, name, especs, chunk=ENGINE_EDGES)
+            check_alg1(h.pecb, especs, res, "edges")
+            line = traffic_line(ee, res, t, rounds)
+        if min(r.num_edges for r in res) == 0:
+            raise AssertionError("[engine] edges: an empty component")
+        print(f"[engine] {tag} edges: {ENGINE_EDGES} EDGES and SUBGRAPH "
+              f"specs at max_batch {ENGINE_EDGES}: {line}; "
+              f"{sum(r.num_edges for r in res)} member edges (each answer "
+              f"{min(r.num_edges for r in res)}.."
+              f"{max(r.num_edges for r in res)}), every edge set equal to "
+              f"Algorithm 1's; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the "
+              f"({ENGINE_EDGES}, V) version masks, V = "
+              f"{h.device.num_versions:,})")
+
+        # -- ingest while serving ------------------------------------------
+        th, stop, recs = serve_during_ingest(eng, name, h.supported_ks,
+                                             g.t_max, seed=12)
+        time.sleep(1.0)                       # the baseline before any ingest
+        spans, handles = [], {t_old: h}
+        cur = g0
+        for day in range(t_old + 1, g.t_max + 1):
+            edges = [tuple(e) for e in suffix[suffix[:, 2] == day].tolist()]
+            t0 = time.perf_counter()
+            fut = eng.ingest(name, edges)[name]
+            hd = fut.result(timeout=300)
+            t1 = time.perf_counter()
+            cur = cur.extend(edges)
+            handles[day] = hd
+            spans.append((day, t0, t1, hd))
+            time.sleep(0.5)                   # serve the new epoch a while
+        stop.set()
+        th.join(timeout=300)
+        if th.is_alive():
+            raise AssertionError("[engine] the serving thread is stuck")
+        eng.drain(timeout=300)
+        base = [b - a for a, b, _, _ in recs if b < spans[0][1]]
+        during = [b - a for a, b, _, _ in recs
+                  if any(t0 <= a < t1 for _, t0, t1, _ in spans)]
+        for day, t0, t1, hd in spans:
+            old = sum(1 for a, _, _, r in recs
+                      if t0 <= a < t1 and r.query.te == day - 1)
+            print(f"[engine] {tag} ingest day {day}: refresh "
+                  f"{hd.build_seconds:.4f}s (" + ", ".join(
+                      f"{s} {v:.4f}s" for s, v in hd.build_stages.items())
+                  + f"), ingest to swap {t1 - t0:.4f}s; {old} answers "
+                  f"served from epoch {day - 1 - t_old} while it ran")
+        by_epoch = collections.defaultdict(list)
+        for _, _, q, r in recs:
+            by_epoch[r.query.te].append((q, r))
+        n_ok = 0
+        for te, pairs in sorted(by_epoch.items()):
+            qs, rs = zip(*pairs)
+            n_ok += check_alg1(handles[te].pecb, list(qs), list(rs),
+                               f"ingest, epoch ending {te}",
+                               n=ENGINE_VERIFY // len(by_epoch) + 1)
+        print(f"[engine] {tag} served during the ingests: {len(recs)} "
+              f"queries in chunks of {INGEST_CHUNK}; p99 before any ingest "
+              f"{pct(base, 99):.3f} ms (p50 {pct(base, 50):.3f}, "
+              f"{len(base)} queries), p99 while a refresh was in flight "
+              f"{pct(during, 99):.3f} ms (p50 {pct(during, 50):.3f}, "
+              f"{len(during)} queries); {n_ok} checked against Algorithm 1 "
+              f"on their own epoch, 0 mismatches")
+        c = eng.metrics.snapshot(include_sources=False)["counters"]
+        rounds.append(c.get("propagation_rounds", 0))
+        eng.metrics.reset()
+        hd = eng.registry.get_nowait(name)
+        n_f = assert_index_equal(hd.pecb, sx, "the day-193 handle")
+        rng = np.random.default_rng(13)
+        vspecs = [TCCSQuery(u, ts, te, int(rng.choice(hd.supported_ks)))
+                  for (u, ts, te) in random_queries(g, ENGINE_VERIFY,
+                                                    seed=14)]
+        res, t = submit_all(eng, name, vspecs)
+        check_alg1(hd.pecb, vspecs, res, "day 193")
+        print(f"[engine] {tag} day {g.t_max}: the handle equals the cold "
+              f"build of g in all {n_f} fields (tolerance 0); "
+              f"{len(vspecs)} queries: " + traffic_line(eng, res, t, rounds)
+              + ", 0 mismatches against Algorithm 1")
+
+        # -- trim --------------------------------------------------------
+        t_cut = max(2, int(g.t_max * TRIM_FRAC))
+        (futs, t_trim) = wall(lambda: eng.retain(name, t_cut, wait=True,
+                                                 timeout=300))
+        ht = futs[name].result()
+        freed = eng.metrics.counter("retention_freed_bytes")
+        g2 = cur.expire_before(t_cut)
+        _, csx, cdix, _ = cold_build(g2, dev)
+        n_f = assert_index_equal(ht.pecb, csx, "the trimmed handle")
+        n_a = assert_mirror_equal(ht.device, cdix, "the trimmed mirror")
+        tspecs = [TCCSQuery(u, ts, te, int(rng.choice(ht.supported_ks)))
+                  for (u, ts, te) in random_queries(g2, ENGINE_VERIFY,
+                                                    seed=15)]
+        res, t = submit_all(eng, name, tspecs)
+        check_alg1(ht.pecb, tspecs, res, "after the trim")
+        print(f"[engine] {tag} trim retain({t_cut}): {t_trim:.4f}s, "
+              f"{freed / 1e6:.1f} MB freed, the handle equal to the cold card "
+              f"build of the trimmed graph in all {n_f} fields and {n_a} "
+              f"mirror arrays; {len(tspecs)} queries: "
+              + traffic_line(eng, res, t, rounds) + ", 0 mismatches")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "engine_trace.json"
+            eng.export_trace(str(path))
+            doc = json.loads(path.read_text())
+        names = collections.Counter(e["name"] for e in doc["traceEvents"]
+                                    if e["ph"] == "X")
+        print(f"[engine] {tag} trace: {len(doc['traceEvents'])} events load "
+              f"as JSON ({doc['otherData']['dropped_spans']} spans dropped "
+              f"by the ring), spans by name {dict(names)}")
+
+    b1 = label_prop.label_prop_round.launches
+    sweeps = ss.stratum_sweep.launches
+    if b1 <= 0 or b1 != sum(rounds):
+        raise AssertionError(f"[engine] B1 launches {b1} != rounds run "
+                             f"{sum(rounds)}")
+    # one launch per t_uv block of each card sweep: the cold build of
+    # epoch 0, each ingest's extend, the trimmed graph's cold build
+    want = sum(-(-t // ct.TUV_BLOCK)
+               for t in [t_old, *range(t_old + 1, g.t_max + 1), g2.t_max])
+    if sweeps != want:
+        raise AssertionError(f"[engine] stratum_sweep launches {sweeps}, "
+                             f"expected {want}")
+    print(f"[engine] {tag} phase: B1 launches {b1} (= the rounds the "
+          f"engines' executors and serve_sweep ran, counted exactly across "
+          f"the batcher worker threads), "
+          f"stratum_sweep launches {sweeps} (cold build, 4 ingests, the "
+          f"trimmed graph's cold build), kcore_fixpoint launches "
+          f"{kcore_peel.kcore_fixpoint.launches - fix0}; "
+          f"{time.perf_counter() - t_phase:.2f}s")
+    return b1, sweeps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -2214,11 +2627,12 @@ def main() -> int:
           f"per round in the loop (kernel + flag read)")
 
     # -- profile: one served batch under torch.profiler ---------------------
-    executor.run(dix, slots, ts, te, BUCKET)            # warm
+    ex = executor.ShardedExecutor(dev)
+    ex.run(dix, slots, ts, te, BUCKET)                  # warm
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        _, t_batch = wall(lambda: executor.run(dix, slots, ts, te, BUCKET))
+        _, t_batch = wall(lambda: ex.run(dix, slots, ts, te, BUCKET))
     kern = device_rows(prof)
     busy_us = sum(t for _, t, _ in kern)
     b1_us = sum(t for key, t, _ in kern if "label_prop_round" in key)
@@ -2230,6 +2644,8 @@ def main() -> int:
 
     epoch_sweeps, epoch_b1 = epoch_phase(g, sx, dix, dev)
     sweep_record["launches"] += epoch_sweeps
+    engine_b1, engine_sweeps = engine_phase(g, sx, dev, smi)
+    sweep_record["launches"] += engine_sweeps
 
     lm_records = lm_phase(dev)
     smoke_b5, smoke_b6 = lm_smoke_phase(dev)
@@ -2245,7 +2661,8 @@ def main() -> int:
         {"name": "label_prop_round", "route": "cuda",
          "source": csrc + "label_prop.cu",
          "replaces": "src/repro/kernels/label_prop.py:70",
-         "launches": launches + epoch_b1, "max_abs_err": max_err, "ms": ms,
+         "launches": launches + epoch_b1 + engine_b1,
+         "max_abs_err": max_err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
          "library_ms": None},
         {"name": "segmented_count_le", "route": "cuda",

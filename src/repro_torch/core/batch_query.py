@@ -574,3 +574,65 @@ def window_sweep(dix: DeviceIndex, u, ts: torch.Tensor, te: torch.Tensor,
     vhi = dix.vrow_ptr[u + 1].expand(W)
     e0_ok, e0c = _entry_nodes(dix, vlo, vhi, ts, te)
     return _component_masks(dix, e0_ok, e0c, ts, te, stats)
+
+
+def _query_columns(queries, cols, device) -> list[torch.Tensor]:
+    """int32 tensors on ``device`` of the given columns of ``queries``."""
+    return [torch.as_tensor(np.asarray([q[c] for q in queries], np.int32),
+                            device=device) for c in cols]
+
+
+def batch_query_np(index, queries: list[tuple[int, int, int]],
+                   device="cuda") -> list[set[int]]:
+    """Host convenience wrapper returning vertex sets (for tests/benches):
+    uploads ``index`` to ``device`` and answers ``(u, ts, te)`` queries."""
+    dix = to_device(index, device)
+    mask = batch_query(dix, *_query_columns(queries, (0, 1, 2), device))
+    return [set(np.flatnonzero(row).tolist()) for row in mask.cpu().numpy()]
+
+
+def batch_query_edges_np(index, queries: list[tuple[int, int, int]],
+                         device="cuda") -> list[set[int]]:
+    """Host wrapper over :func:`batch_query_full` returning per-query member
+    *edge id* sets (for tests/benches)."""
+    store = index.versions
+    if store is None:
+        raise ValueError("index has no version store")
+    dix = to_device(index, device)
+    _, vermask = batch_query_full(dix, *_query_columns(queries, (0, 1, 2),
+                                                       device))
+    vermask = vermask[:, :dix.num_versions].cpu().numpy()
+    return [set(store.edge_id[np.flatnonzero(row)].tolist())
+            for row in vermask]
+
+
+def _mixed_np(sx: StratifiedPECB, queries, device):
+    """The mirror and the masks of a mixed-k ``(u, ts, te, k)`` batch."""
+    dix = to_device(sx, device)
+    slot = torch.as_tensor(mixed_slots(sx, [(u, k) for (u, _, _, k)
+                                            in queries]), device=device)
+    vmask, vermask = batch_query_full_mixed(
+        dix, slot, *_query_columns(queries, (1, 2, 3), device))
+    return dix, vmask.cpu().numpy(), vermask
+
+
+def batch_query_mixed_np(sx: StratifiedPECB,
+                         queries: list[tuple[int, int, int, int]],
+                         device="cuda") -> list[set[int]]:
+    """Host wrapper: mixed-k ``(u, ts, te, k)`` batch -> vertex sets
+    (tests/benches)."""
+    _, mask, _ = _mixed_np(sx, queries, device)
+    return [set(np.flatnonzero(row).tolist()) for row in mask]
+
+
+def batch_query_mixed_edges_np(sx: StratifiedPECB,
+                               queries: list[tuple[int, int, int, int]],
+                               device="cuda") -> list[set[int]]:
+    """Host wrapper: mixed-k ``(u, ts, te, k)`` batch -> member *edge id*
+    sets (tests/benches)."""
+    if sx.strata is None:
+        raise ValueError("index has no version store")
+    dix, _, vermask = _mixed_np(sx, queries, device)
+    vermask = vermask[:, :dix.num_versions].cpu().numpy()
+    eid = sx.strata.edge_id
+    return [set(eid[np.flatnonzero(row)].tolist()) for row in vermask]

@@ -352,6 +352,9 @@ class StratifiedPECB:
             f"k={q.k} is not served by this index "
             f"(supported_ks={self.ks}, k_max={self.k_max_graph})")
 
+    def answer_many(self, specs) -> list:
+        return [self.answer(q) for q in specs]
+
     @classmethod
     def from_parts(cls, strata: StratifiedCoreTable,
                    indices: list, k_max_graph: int,

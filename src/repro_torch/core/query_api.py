@@ -22,10 +22,14 @@ entry point and the tests:
   component routine (``_component_vertices``) plus its
   :class:`VersionStore` into the full typed surface.
 
+* :class:`WindowSweep` — one vertex over many windows (the trajectory
+  query the serving engine answers in one device batch).
+* :class:`TCCSBackend` — the protocol every index speaks (``k`` and
+  ``answer``).
+
 PyTorch port of ``repro.core.query_api`` (host code, copied so the port
 stands alone). The legacy positional ``query(u, ts, te)`` shims are not
-carried over, and the window-sweep spec arrives with the serving engine;
-``batch_query.window_sweep`` serves sweeps directly.
+carried over.
 
 Edge membership is exact, not approximate: version ``j`` of edge
 ``edge_id[j]`` is in the temporal k-core of ``[ts, te]`` iff
@@ -40,7 +44,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
-from typing import Iterable
+from typing import Iterable, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
@@ -132,6 +136,39 @@ class TCCSQuery:
         return (self.u, self.ts, self.te, self.k, self.mode.value)
 
 
+@dataclasses.dataclass(frozen=True)
+class WindowSweep:
+    """One vertex, many windows: the trajectory form of TCCS.
+
+    The device plane answers all ``windows`` in one batch
+    (``batch_query.window_sweep``), sharing the per-vertex entry-segment
+    resolution across windows — this is the contact-tracing incubation
+    sweep served at device batch rates.
+    """
+
+    u: int
+    k: int
+    windows: tuple
+    mode: ResultMode = ResultMode.VERTICES
+
+    def __post_init__(self):
+        object.__setattr__(self, "u", int(self.u))
+        object.__setattr__(self, "k", int(self.k))
+        object.__setattr__(
+            self, "windows",
+            tuple((int(a), int(b)) for (a, b) in self.windows))
+        if isinstance(self.mode, str):
+            object.__setattr__(self, "mode", ResultMode(self.mode))
+
+    @property
+    def num_windows(self) -> int:
+        return len(self.windows)
+
+    def specs(self) -> list[TCCSQuery]:
+        return [TCCSQuery(self.u, ts, te, self.k, self.mode)
+                for (ts, te) in self.windows]
+
+
 # ----------------------------------------------------------------------
 # Results
 # ----------------------------------------------------------------------
@@ -172,8 +209,7 @@ class Provenance:
     """Where and how a result was computed (per-query observability).
 
     ``trace_id``/``span_id`` link the result back to its query-lifecycle
-    span tree once the serving engine's tracer is ported; until then they
-    stay None. Excluded from equality — two runs of the same query are the *same
+    span tree (the serving engine's tracer). Excluded from equality — two runs of the same query are the *same
     answer* with different traces."""
 
     route: str                       # host | device | sweep | cache | trivial
@@ -343,6 +379,17 @@ def empty_result(cq: TCCSQuery, n: int,
     return TCCSResult(cq, frozenset(), 0, provenance=provenance)
 
 
+@runtime_checkable
+class TCCSBackend(Protocol):
+    """What every TCCS index speaks: one typed query surface. Implemented
+    by PECBIndex (via :class:`ComponentBackend`), so tests and benchmarks
+    compare backends through one interface."""
+
+    k: int
+
+    def answer(self, q: TCCSQuery) -> TCCSResult: ...
+
+
 class ComponentBackend:
     """Mixin: native component routine + VersionStore -> full v2 surface.
 
@@ -377,3 +424,6 @@ class ComponentBackend:
         res = build_result(cq, vertices, store, prov)
         prov.timings["total_s"] = time.perf_counter() - t0
         return res
+
+    def answer_many(self, specs: Sequence[TCCSQuery]) -> list[TCCSResult]:
+        return [self.answer(q) for q in specs]

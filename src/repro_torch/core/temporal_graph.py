@@ -12,7 +12,8 @@ without conversion.
 PyTorch port of ``repro.core.temporal_graph``: the class, the seeded
 generator and the named workloads are copied verbatim (same seed, same
 graph), and so are the streaming-epoch methods (``extend``,
-``expire_before``, ``retain_last``, ``split_at``).
+``expire_before``, ``retain_last``, ``split_at``), ``aggregate_days``
+and the contact-tracing generator ``gen_contact_network``.
 """
 
 from __future__ import annotations
@@ -187,6 +188,11 @@ class TemporalGraph:
         uniq, inv = np.unique(self.t, return_inverse=True)
         return TemporalGraph(self.n, self.src, self.dst, (inv + 1).astype(np.int32))
 
+    def aggregate_days(self, edges_per_day: int) -> "TemporalGraph":
+        """Coarsen timestamps (the paper's day-level aggregation, §6)."""
+        t = ((self.t - 1) // edges_per_day + 1).astype(np.int32)
+        return TemporalGraph(self.n, self.src, self.dst, t)
+
 
 # ----------------------------------------------------------------------
 # Synthetic workload generators (the Table 3 datasets are not bundled;
@@ -249,3 +255,22 @@ def random_queries(g: TemporalGraph, n_q: int, seed: int = 0) -> list[tuple[int,
     te = np.minimum(ts + rng.integers(0, g.t_max, n_q), g.t_max)
     return list(zip(u.tolist(), ts.tolist(), te.tolist()))
 
+
+
+def gen_contact_network(n: int, days: int, *, seed: int = 0, meetings_per_day: int | None = None) -> TemporalGraph:
+    """Contact-tracing style workload: small-world daily meetings."""
+    rng = np.random.default_rng(seed)
+    meetings_per_day = meetings_per_day or 4 * n
+    edges = []
+    home = rng.integers(0, max(1, n // 20), size=n)  # household clusters
+    for day in range(1, days + 1):
+        a = rng.integers(0, n, size=meetings_per_day)
+        same = rng.random(meetings_per_day) < 0.5
+        b = np.where(
+            same,
+            (a + rng.integers(1, 6, meetings_per_day)) % n,  # near ids = same household-ish
+            rng.integers(0, n, size=meetings_per_day),
+        )
+        keep = a != b
+        edges.extend(zip(a[keep].tolist(), b[keep].tolist(), [day] * int(keep.sum())))
+    return TemporalGraph.from_edges(n, edges)

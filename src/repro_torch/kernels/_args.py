@@ -1,13 +1,29 @@
-"""Argument checks shared by the kernel wrappers.
+"""Argument checks and launch counts shared by the kernel wrappers.
 
 A wrapper hands raw device pointers to a kernel, so it checks what the
 kernel assumes (dtype, rank, length, device, contiguity) and raises on
-anything else instead of letting the kernel read out of bounds.
+anything else instead of letting the kernel read out of bounds. After a
+launch it adds one to its count through :func:`count_launch`.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, route: str | None = None) -> None:
+    """Add one to ``fn.launches`` (and to ``fn.routes[route]``) under one
+    lock. Several host threads launch kernels (the serving engine's batcher
+    workers, the registry's build and refresh workers), and ``+= 1`` on an
+    attribute is a read-modify-write that loses counts between threads."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+        if route is not None:
+            fn.routes[route] += 1
 
 
 def int32_vector(name: str, t: torch.Tensor, length: int | None = None,

@@ -51,7 +51,7 @@ from typing import NamedTuple
 import torch
 
 from . import ref
-from ._args import cuda_only
+from ._args import count_launch, cuda_only
 from ._build import build_cuda
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -302,8 +302,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc:
         raise RuntimeError(f"flash_attention launch failed ({p.route} "
                            f"route): CUDA error {rc}")
-    flash_attention.launches += 1
-    flash_attention.routes[p.route] += 1
+    count_launch(flash_attention, p.route)
     if dhk != dh:
         o = o[..., :dh].contiguous()
     return o.to(out_dtype)

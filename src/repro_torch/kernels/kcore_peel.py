@@ -38,7 +38,7 @@ from pathlib import Path
 import torch
 
 from . import ref
-from ._args import cuda_only, flag, int32_vector
+from ._args import count_launch, cuda_only, flag, int32_vector
 from ._build import build_cuda
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -153,7 +153,7 @@ def degree_count(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
             alive.element_size(), deg.data_ptr(), m, n, stream)
     if rc:
         raise RuntimeError(f"degree_count launch failed: CUDA error {rc}")
-    degree_count.launches += 1
+    count_launch(degree_count)
     return deg
 
 
@@ -194,7 +194,7 @@ def peel_threshold(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
             changed.data_ptr(), m, n, k, stream)
     if rc:
         raise RuntimeError(f"peel_threshold launch failed: CUDA error {rc}")
-    peel_threshold.launches += 1
+    count_launch(peel_threshold)
     return out
 
 
@@ -252,7 +252,7 @@ def kcore_fixpoint(src: torch.Tensor, dst: torch.Tensor, n: int, k: int,
             rounds.data_ptr(), scratch.data_ptr(), m, n, k, stream)
     if rc:
         raise RuntimeError(f"kcore_fixpoint launch failed: CUDA error {rc}")
-    kcore_fixpoint.launches += 1
+    count_launch(kcore_fixpoint)
     return out
 
 

@@ -33,6 +33,7 @@ from pathlib import Path
 import torch
 
 from . import ref
+from ._args import count_launch
 from ._build import build_cuda
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "label_prop.cu"
@@ -121,7 +122,7 @@ def label_prop_round(labels: torch.Tensor, link_l: torch.Tensor,
             changed.data_ptr(), B, N, stream)
     if rc:
         raise RuntimeError(f"label_prop_round launch failed: CUDA error {rc}")
-    label_prop_round.launches += 1
+    count_launch(label_prop_round)
     return out
 
 

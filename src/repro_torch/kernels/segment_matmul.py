@@ -55,7 +55,7 @@ from typing import NamedTuple
 import torch
 
 from . import ref
-from ._args import cuda_only, int32_vector
+from ._args import count_launch, cuda_only, int32_vector
 from ._build import build_cuda
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
@@ -273,8 +273,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if rc:
         raise RuntimeError(f"matmul launch failed ({p.route} route): CUDA "
                            f"error {rc}")
-    matmul.launches += 1
-    matmul.routes[p.route] += 1
+    count_launch(matmul, p.route)
     return out
 
 
@@ -375,7 +374,7 @@ def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
             vals.data_ptr(), ids.data_ptr(), out.data_ptr(), E, d, S, stream)
     if rc:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {rc}")
-    segment_sum.launches += 1
+    count_launch(segment_sum)
     return out
 
 

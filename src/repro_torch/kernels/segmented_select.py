@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from . import ref
-from ._args import cuda_only, int32_array, int32_vector
+from ._args import count_launch, cuda_only, int32_array, int32_vector
 from ._build import build_cuda
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -126,7 +126,7 @@ def segmented_count_le(w: torch.Tensor, seg: torch.Tensor, thr: torch.Tensor,
             E, n, stream)
     if rc:
         raise RuntimeError(f"segmented_count_le launch failed: CUDA error {rc}")
-    segmented_count_le.launches += 1
+    count_launch(segmented_count_le)
     return out
 
 
@@ -288,8 +288,7 @@ def stratum_sweep(tuv: torch.Tensor, seg: torch.Tensor, vptr: torch.Tensor,
     if rc:
         raise RuntimeError(f"stratum_sweep launch failed ({route} route): "
                            f"CUDA error {rc}")
-    stratum_sweep.launches += 1
-    stratum_sweep.routes[route] += 1
+    count_launch(stratum_sweep, route)
     return out, stats
 
 

@@ -1,24 +1,24 @@
-"""TCCS query serving from the command line, the port's counterpart of
+"""TCCS query-serving driver — thin client of the serving engine
+(``repro_torch.serving``, DESIGN.md §7), the port's counterpart of
 ``python -m repro.launch.serve``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --workload cm_like \\
-        --queries 4096 --batch 256
+        --k 3 --queries 4096 --batch 256 --flush-ms 2
 
-It builds the k-stratified index (core times on ``--device``: the card's
-sweep through the stratum-sweep kernel on CUDA, the host sweep with
-``--device cpu``;
-forests on the host), uploads it to the card,
-replays a random stream of typed mixed-k ``TCCSQuery`` specs (one ``--k``
-pins a single stratum) in batches of ``--batch``, and does what the
-reference planner's device branch does (``repro/serving/planner.py``):
-specs become entry slots ``k_index(k) * n + u``, each batch runs
-``executor.run`` (or ``run_full_mixed`` when a spec wants edges) and the
-masks become ``TCCSResult``s. It then verifies a sample against the
-port's own Algorithm 1 and fails on any mismatch.
+``main`` owns nothing but the traffic: it warms the engine (the index
+build on ``--device``, default ``cuda``: the core times through the
+stratum-sweep kernel there, the host sweep with ``--device cpu``; forests
+on the host; the mirror uploaded; every bucket run once), replays a random
+stream of typed ``TCCSQuery`` specs through ``submit_specs`` (``--mode``
+picks the result mode), prints the engine's own per-stage metrics,
+compares against the sequential Algorithm 1 baseline, and verifies
+exactness on a sample. All batching, routing and caching policy lives in
+the engine. ``--store-dir`` (the disk tier) raises until ROADMAP A6.
 
-The serving engine — micro-batcher, result cache, index registry, host/
-device planner, metrics and tracing — is not ported yet (ROADMAP A4):
-here every batch goes to the device, in arrival order.
+``serve_graph`` and ``serve_sweep`` drive the device plane directly,
+without the engine: every batch goes to the device in arrival order
+through :class:`~repro_torch.serving.executor.ShardedExecutor`, and the
+answers are checked against the port's Algorithm 1.
 """
 
 from __future__ import annotations
@@ -30,12 +30,14 @@ import numpy as np
 
 from repro_torch.core.batch_query import (mixed_slots, stratum_device,
                                           to_device)
+from repro_torch.core.kcore import k_max
 from repro_torch.core.pecb_index import StratifiedPECB, build_stratified_index
-from repro_torch.core.query_api import (Provenance, ResultMode, TCCSQuery,
-                                        build_result)
+from repro_torch.core.query_api import Provenance, ResultMode, TCCSQuery
 from repro_torch.core.temporal_graph import (BENCH_WORKLOADS, TemporalGraph,
                                              bench_graph, random_queries)
-from repro_torch.serving import executor
+from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving.executor import ShardedExecutor
+from repro_torch.serving.planner import assemble_device_results
 
 _EDGE_MODES = (ResultMode.EDGES, ResultMode.SUBGRAPH)
 
@@ -61,30 +63,27 @@ def answer_batch(sx: StratifiedPECB, dix, specs, *, max_batch: int = 256,
     if not lanes:
         return results
     b = len(lanes)
-    bucket = executor.final_bucket(b, min(8, max_batch), max_batch)
+    ex = ShardedExecutor(dix.device)
+    bucket = ex.final_bucket(b, min(8, max_batch), max_batch)
     slots = mixed_slots(sx, [(q.u, q.k) for _, q in lanes])
     ts = [q.ts for _, q in lanes]
     te = [q.te for _, q in lanes]
     need_edges = any(q.mode in _EDGE_MODES for _, q in lanes)
     t0 = time.perf_counter()
     if need_edges:
-        vmask, vermask = executor.run_full_mixed(
+        vmask, vermask = ex.run_full_mixed(
             dix, slots, ts, te, [q.k for _, q in lanes], bucket, stats=stats)
     else:
-        vmask = executor.run(dix, slots, ts, te, bucket, stats=stats)
+        vmask = ex.run(dix, slots, ts, te, bucket, stats=stats)
         vermask = None
     prov = Provenance(route="device",
                       backend="pecb-device" + ("-full" if need_edges else ""),
                       batch_size=b, bucket=bucket,
                       timings={"exec_s": time.perf_counter() - t0})
-    store = sx.versions
-    for j, (i, q) in enumerate(lanes):
-        vertices = frozenset(np.flatnonzero(vmask[j]).tolist())
-        edge_set = (store.select(np.flatnonzero(vermask[j]))
-                    if vermask is not None and q.mode in _EDGE_MODES
-                    else None)
-        results[i] = build_result(q, vertices, store, prov,
-                                  edge_set=edge_set)
+    done = assemble_device_results(sx.versions, [q for _, q in lanes],
+                                   vmask, vermask, prov)
+    for (i, _), res in zip(lanes, done):
+        results[i] = res
     return results
 
 
@@ -179,13 +178,15 @@ def serve_graph(g: TemporalGraph, *, k: int | None = None,
 def serve_sweep(sx: StratifiedPECB, dix, u: int, k: int, windows) -> dict:
     """One vertex over many windows in one device batch, on the stratum
     ``k`` carved out of the fused mirror (``stratum_device``); every
-    window is checked against Algorithm 1 (raises on a mismatch)."""
+    window is checked against Algorithm 1 (raises on a mismatch). Returns
+    the batch's numbers and each window's vertex set (``answers``)."""
     sd = stratum_device(dix, sx, k)
     ts = [a for a, _ in windows]
     te = [b for _, b in windows]
     stats: dict = {}
     t0 = time.perf_counter()
-    mask = executor.run_sweep(sd, u, ts, te, len(windows), stats=stats)
+    mask = ShardedExecutor(sd.device).run_sweep(sd, u, ts, te, len(windows),
+                                                stats=stats)
     dt = time.perf_counter() - t0
     ix = sx.slice_k(k)
     bad = sum(frozenset(np.flatnonzero(mask[i]).tolist())
@@ -199,30 +200,120 @@ def serve_sweep(sx: StratifiedPECB, dix, u: int, k: int, windows) -> dict:
     if bad:
         raise RuntimeError(f"{bad} swept windows disagree with Algorithm 1")
     return {"seconds": dt, "rounds": stats.get("rounds"), "mismatches": bad,
-            "largest": int(sizes.max())}
+            "largest": int(sizes.max()),
+            "answers": [frozenset(np.flatnonzero(row).tolist())
+                        for row in mask]}
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="cm_like",
                     choices=sorted(BENCH_WORKLOADS))
-    ap.add_argument("--k", type=int, default=None,
-                    help="serve one stratum (default: k drawn per query)")
+    ap.add_argument("--k", type=int, default=None)
     ap.add_argument("--queries", type=int, default=2048)
     ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--flush-ms", type=float, default=2.0)
+    ap.add_argument("--cache", type=int, default=4096)
     ap.add_argument("--mode", default="vertices",
-                    choices=["vertices", "edges", "count"])
+                    choices=[m.value for m in ResultMode])
     ap.add_argument("--verify", type=int, default=32)
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace-export", metavar="PATH", default=None,
+                    help="write the run's query-lifecycle spans as Chrome "
+                         "trace-event JSON (Perfetto / chrome://tracing)")
+    ap.add_argument("--slow-query-ms", type=float, default=None,
+                    help="log queries slower than this threshold with "
+                         "their full span tree")
+    ap.add_argument("--store-dir", metavar="DIR", default=None,
+                    help="persistent index store root (DESIGN.md §13); "
+                         "not ported yet (ROADMAP A6): raises")
+    ap.add_argument("--expect-warm", action="store_true",
+                    help="fail unless the warmup index was promoted from "
+                         "the store (needs --store-dir)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the index is built and served (default "
+                         "cuda; nothing falls back to the CPU)")
     args = ap.parse_args(argv)
+
+    if args.expect_warm and not args.store_dir:
+        ap.error("--expect-warm requires --store-dir")
     if args.batch < 1:
         ap.error("--batch must be >= 1")
     g = bench_graph(args.workload)
-    print(f"[serve] workload={args.workload} n={g.n} m={g.m} "
-          f"t_max={g.t_max} device={args.device}")
-    out = serve_graph(g, k=args.k, n_queries=args.queries, batch=args.batch,
-                      mode=args.mode, verify=args.verify, device=args.device)
-    return out["qps"]
+    k = args.k or max(2, int(0.7 * k_max(g)))
+    cfg = EngineConfig(max_batch=args.batch, flush_ms=args.flush_ms,
+                       cache_capacity=args.cache,
+                       min_bucket=min(8, args.batch),
+                       slow_query_ms=args.slow_query_ms,
+                       store_dir=args.store_dir)
+    print(f"[engine] workload={args.workload} n={g.n} m={g.m} "
+          f"t_max={g.t_max} k={k} device={args.device} config={cfg}")
+
+    with ServingEngine(cfg, device=args.device) as eng:
+        t0 = time.perf_counter()
+        # edge modes use the full-mode batch: run it once now, not inside
+        # the timed replay (one warmup covers every k — the index is
+        # k-stratified and k rides as the entry slot)
+        handle = eng.warmup(args.workload,
+                            full=args.mode in ("edges", "subgraph"))
+        print(f"[warmup] index built in {handle.build_seconds:.2f}s "
+              f"(nodes={handle.pecb.num_nodes} size={handle.nbytes/1e6:.2f} "
+              f"MB, stages { {s: round(t, 3) for s, t in handle.build_stages.items()} }); "
+              f"buckets run in "
+              f"{time.perf_counter() - t0 - handle.build_seconds:.2f}s")
+
+        queries = random_queries(g, args.queries, seed=0)
+        specs = [TCCSQuery(u, ts, te, k, ResultMode(args.mode))
+                 for (u, ts, te) in queries]
+        t0 = time.perf_counter()
+        futures = []
+        for i in range(0, len(specs), args.batch):
+            futures += eng.submit_specs(args.workload, specs[i:i + args.batch])
+        eng.flush()
+        results = [f.result(timeout=120) for f in futures]
+        dt = time.perf_counter() - t0
+        total = len(queries)
+        print(f"[serve] {total} queries in {dt:.3f}s -> {total/dt:,.0f} q/s "
+              f"({dt/total*1e6:.1f} us/query)")
+        routes = {}
+        for r in results:
+            routes[r.provenance.route] = routes.get(r.provenance.route, 0) + 1
+        print(f"[serve] result routes: {routes}")
+        print(eng.format_stats())
+
+        # sequential Algorithm 1 comparison (per-k stratum view)
+        ref = handle.pecb.slice_k(k)
+        n_seq = min(args.verify * 8, total)
+        t0 = time.perf_counter()
+        for (u, ts, te) in queries[:n_seq]:
+            ref._component_vertices(u, ts, te)
+        t_seq = (time.perf_counter() - t0) / n_seq
+        print(f"[serve] sequential Alg 1: {t_seq*1e6:.1f} us/query "
+              f"(engine speedup {t_seq/(dt/total):.1f}x)")
+
+        # exactness spot check (COUNT mode carries sizes only)
+        def matches(i):
+            want = ref._component_vertices(*queries[i])
+            if results[i].query.mode is ResultMode.COUNT:
+                return results[i].num_vertices == len(want)
+            return results[i].vertices == frozenset(want)
+        bad = sum(not matches(i) for i in range(min(args.verify, total)))
+        print(f"[verify] {min(args.verify, total)} queries checked against "
+              f"Algorithm 1, {bad} mismatches")
+        if bad:
+            raise RuntimeError(f"{bad} served results disagree with the "
+                               "host-side PECB reference")
+
+        if args.slow_query_ms is not None:
+            print(f"[slow-queries] threshold={args.slow_query_ms}ms "
+                  f"logged={len(eng.slow_queries)}")
+            print(eng.slow_queries.format())
+        if args.trace_export:
+            doc = eng.export_trace(args.trace_export,
+                                   extra={"workload": args.workload, "k": k})
+            print(f"[trace] {len(doc['traceEvents'])} events -> "
+                  f"{args.trace_export} (dropped="
+                  f"{doc['otherData']['dropped_spans']})")
+        return total / dt
 
 
 if __name__ == "__main__":

@@ -14,6 +14,8 @@ bf16 outputs are held to ``flash_attention.error_bound``, as in
 chip_smoke.py: 2e-2 of |plain| for the outputs' bf16 roundings plus 1e-2
 of the largest |plain| in the element's row for the kernel's bf16 P."""
 
+import threading
+
 import numpy as np
 import pytest
 
@@ -31,6 +33,8 @@ from repro_torch.kernels import (flash_attention, kcore_peel,  # noqa: E402
 from repro_torch.data import graph_sampler as gs  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.serving import (EngineConfig, ServingEngine,  # noqa: E402
+                                 TCCSQuery)
 
 pytestmark = pytest.mark.cuda
 
@@ -536,6 +540,64 @@ def test_batch_query_on_card_equals_cpu_and_algorithm_1(cuda):
     for i, ((u, a, b), k) in enumerate(zip(qs, ks)):
         assert set(np.flatnonzero(masks["cuda"][i].numpy()).tolist()) == \
             sx.slice_k(k)._component_vertices(u, a, b)
+
+
+def test_label_prop_launches_counted_exactly_from_threads(cuda):
+    """Four host threads launching B1 at once: the count is exact (the
+    serving engine's batcher, build and refresh threads all launch)."""
+    rng = np.random.default_rng(3)
+    ops_ = [torch.as_tensor(rng.integers(-1, 500, (8, 500), dtype=np.int32),
+                            device=cuda) for _ in range(4)]
+    active = torch.ones((8, 500), dtype=torch.bool, device=cuda)
+    before = label_prop.label_prop_round.launches
+
+    def launch():
+        flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+        for _ in range(200):
+            label_prop.label_prop_round(*ops_, active, changed=flag)
+
+    threads = [threading.Thread(target=launch) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads)
+    assert label_prop.label_prop_round.launches == before + 800
+
+
+def test_serving_engine_on_card_equals_algorithm_1(cuda):
+    """The engine with its default device: the registry's build sweeps
+    on the card, device batches run B1, an ingest refreshes on the card;
+    every answer equals Algorithm 1 on its epoch's graph."""
+    g = gen_temporal_graph(n=40, m=420, t_max=18, seed=31)
+    g0, suffix = g.split_at(15)
+    cfg = EngineConfig(max_batch=64, flush_ms=500.0, host_threshold=0)
+    sweeps = segmented_select.stratum_sweep.launches
+    b1 = label_prop.label_prop_round.launches
+    with ServingEngine(cfg) as eng:
+        assert eng.executor.device.type == "cuda"
+        eng.register_graph("g", g0)
+        h = eng.warmup("g")
+        assert h.device.device.type == "cuda"
+        for graph in (g0, g):
+            rng = np.random.default_rng(graph.t_max)
+            specs = [TCCSQuery(u, ts, te, int(rng.choice(h.supported_ks)))
+                     for (u, ts, te) in random_queries(graph, 40, seed=2)]
+            futs = eng.submit_specs("g", specs)
+            eng.flush()
+            for q, f in zip(specs, futs):
+                r = f.result(timeout=120)
+                assert r.provenance.route in ("device", "cache")
+                assert set(r.vertices) == kcore.tccs_oracle(
+                    graph, q.k, q.u, q.ts, q.te)
+            if graph is g0:
+                eng.ingest("g", [tuple(e) for e in suffix.tolist()],
+                           wait=True, timeout=120)
+                h = eng.registry.get_nowait("g")
+        rounds = eng.metrics.counter("propagation_rounds")
+    assert segmented_select.stratum_sweep.launches - sweeps == 2
+    assert label_prop.label_prop_round.launches - b1 == rounds > 0
 
 
 @pytest.mark.parametrize("M,K,N", [(64, 64, 64), (200, 300, 150),

@@ -97,7 +97,7 @@ class TestExecutor:
         assert executor.bucket_size(200, max_batch=256) == 256
         assert executor.bucket_size(255, min_bucket=8, max_batch=256) == 256
         assert executor.bucket_size(3, min_bucket=4, max_batch=16) == 4
-        assert executor.final_bucket(13, 8, 64) == 16
+        assert executor.ShardedExecutor("cpu").final_bucket(13, 8, 64) == 16
         with pytest.raises(ValueError):
             executor.bucket_size(0)
         with pytest.raises(ValueError):
@@ -123,16 +123,17 @@ class TestExecutor:
         ts = [q[1] for q in qs]
         te = [q[2] for q in qs]
         ref = ShardedExecutor()
-        bucket = executor.final_bucket(5, 8, 64)
+        port = executor.ShardedExecutor("cpu")
+        bucket = port.final_bucket(5, 8, 64)
         assert bucket == ref.final_bucket(5, 8, 64) == 8
-        got = executor.run(dix, slot, ts, te, bucket)
+        got = port.run(dix, slot, ts, te, bucket)
         assert got.shape == (5, g.n)
         assert np.array_equal(got, ref.run(jdix, slot, ts, te, bucket))
-        vm, ver = executor.run_full_mixed(dix, slot, ts, te, ks, bucket)
+        vm, ver = port.run_full_mixed(dix, slot, ts, te, ks, bucket)
         jvm, jver = ref.run_full_mixed(jdix, slot, ts, te, ks, bucket)
         assert np.array_equal(vm, jvm) and np.array_equal(ver, jver)
         assert ver.shape == (5, dix.num_versions)
         sd = bq.stratum_device(dix, sx, sx.ks[0])
         jsd = jax_bq.stratum_device(jdix, jsx, sx.ks[0])
-        sw = executor.run_sweep(sd, 2, ts, te, bucket)
+        sw = port.run_sweep(sd, 2, ts, te, bucket)
         assert np.array_equal(sw, ref.run_sweep(jsd, 2, ts, te, bucket))
