@@ -104,6 +104,31 @@ result line each; any failure raises and exits non-zero:
            B1 launches equal to the rounds the engines ran, stratum_sweep
            launches to the builds and extends; each line carries the
            card's name and power limit
+  store    the disk tier at CollegeMsg scale: an engine with store_dir
+           (max_batch 256, flush 2 ms, no cache) builds epoch 0 =
+           g.split_at(189) cold on the card and writes it through (a full
+           commit), ingests the days 190..193 (one stratum_sweep launch
+           and one commit each, mode and bytes printed), retain(96),
+           closes; a second engine on the same directory adopts the graph
+           and promotes the stored index with no build (source disk, one
+           promotion, no stratum_sweep launch; the split: open_latest with
+           crc verification, from_parts, upload, beside the cold build's
+           seconds), equal to a cold card build of the trimmed graph in
+           every field and mirror array; 256 mixed-k random_queries(seed=9)
+           through B1 with route disk, all equal to Algorithm 1; 16 EDGES
+           and SUBGRAPH specs at max_batch 16; one more day ingested onto
+           the promoted handle as a delta commit, equal to a cold card
+           build of the grown graph; one byte of the newest segment
+           flipped (the previous epoch recovered and promoted, equal to
+           its cold build); every manifest deleted (warmup falls back to a
+           cold build, source build); the serving CLI twice on one store
+           directory (the second run, --expect-warm, promoted, 0
+           mismatches); graphsage-reddit's 192,384 parameters checkpointed
+           from the card (save, save_async + wait) and restored onto cuda:0
+           bit-equal; the bytes on disk, commits by mode, loads,
+           store_load_failures and store_commit_failures (both 0), B1
+           launches equal to the engines' rounds, stratum_sweep launches
+           to the builds and ingests, seconds and peak device memory
   lm       first B6's single-tile check of its wgmma route (S = Q K^T from
            TMA-loaded tiles, then P V with P in bf16 registers, against the
            plain version); then glm4-9b at full width and depth
@@ -156,6 +181,8 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2332,6 +2359,370 @@ def engine_phase(g, sx, dev, smi: str) -> tuple[int, int]:
     return b1, sweeps
 
 
+#: the [store] phase: the ingest feed's engine settings, no cache (every
+#: answer must show the index's own provenance), and the CLI's workload
+STORE_VERIFY = 256
+STORE_CLI = ("--workload", "fb_like", "--queries", "256", "--batch", "64")
+
+
+def store_commits(store, before: dict, what: str) -> dict:
+    """The one commit ``store`` made since its stats read ``before``: its
+    mode and bytes, and the ``store_commit`` span's seconds."""
+    st = store.stats()
+    modes = [m for m in ("full", "delta", "noop")
+             if st[f"commits_{m}"] > before[f"commits_{m}"]]
+    if st["commits"] + st["commits_noop"] != before["commits"] + before[
+            "commits_noop"] + 1 or len(modes) != 1:
+        raise AssertionError(f"[store] {what}: expected one commit, stats "
+                             f"{before} -> {st}")
+    span = store.tracer.spans("store_commit")[-1]
+    return dict(mode=modes[0], seconds=span.duration_s,
+                bytes=st["bytes_written"] - before["bytes_written"])
+
+
+def commit_line(c: dict) -> str:
+    return (f"{c['mode']} commit {c['bytes'] / 1e6:.3f} MB in "
+            f"{c['seconds']:.4f}s")
+
+
+def dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def store_phase(g, dev, smi: str) -> tuple[int, int]:
+    """``[store]``: the disk tier (A6) at CollegeMsg scale, through the
+    entry points a user calls. An engine with ``store_dir`` builds epoch
+    0 = ``g.split_at(189)`` cold on the card and writes it through, ingests
+    the days 190..193 (one delta commit each), trims with retain(96) and
+    closes. A second engine on the same directory adopts the graph and
+    promotes the stored index to the card with no build: equal to a cold
+    card build of the trimmed graph in every field and mirror array; 256
+    mixed-k answers through B1 with provenance ``disk`` equal to
+    Algorithm 1, 16 EDGES specs at max_batch 16; one more day ingested
+    onto the promoted handle as a delta commit, equal to a cold build.
+    Then a corrupted newest segment (the previous epoch recovered and
+    promoted), every manifest deleted (a cold build, the asserted
+    outcome), the serving CLI twice on one store (the second run
+    promoted), and graphsage-reddit's parameters checkpointed from the
+    card and restored onto it bit-equal. Returns the phase's B1 and
+    stratum_sweep launches, each checked against the rounds and builds the
+    engines ran."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import core_time as ct
+    from repro_torch.core.query_api import ResultMode, TCCSQuery
+    from repro_torch.core.temporal_graph import random_queries
+    from repro_torch.kernels import label_prop
+    from repro_torch.kernels import segmented_select as ss
+    from repro_torch.models import gnn
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.store import segment as seg
+    from repro_torch.store.index_store import key_dirname
+
+    tag = f"({smi})"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ss.reset_sweep_counts()
+    label_prop.label_prop_round.launches = 0
+    name = "collegemsg"
+    root = tempfile.mkdtemp(prefix="store-")
+    keydir = Path(root) / key_dirname(name)
+    cfg = EngineConfig(store_dir=root, max_batch=256, flush_ms=2.0,
+                       cache_capacity=0)
+    t_old = max(1, int(g.t_max * EPOCH_FRAC))
+    g0, suffix = g.split_at(t_old)
+    stores, registries, rounds = [], [], []
+
+    def engine(**kw):
+        eng = ServingEngine(kw.pop("config", cfg), device=dev, **kw)
+        if eng.store is not None:
+            stores.append(eng.store)
+            registries.append(eng.registry)
+        return eng
+
+    def sweeps_since(before: int, want: int, what: str) -> int:
+        got = ss.stratum_sweep.launches - before
+        if got != want:
+            raise AssertionError(f"[store] {what}: stratum_sweep launches "
+                                 f"{got}, expected {want}")
+        return got
+
+    try:
+        # -- 1. the first process: cold build, ingests, trim ----------------
+        with engine() as eng:
+            eng.register_graph(name, g0)
+            st0 = eng.store.stats()
+            h0 = eng.warmup(name)
+            c = store_commits(eng.store, st0, "epoch 0")
+            if (h0.source, c["mode"]) != ("build", "full"):
+                raise AssertionError(f"[store] epoch 0: {h0.source}, {c}")
+            t_cold = h0.build_seconds
+            print(f"[store] {tag} epoch 0 = g.split_at({t_old}), m={g0.m}: "
+                  f"cold card build {t_cold:.4f}s (" + ", ".join(
+                      f"{s} {v:.4f}s" for s, v in h0.build_stages.items())
+                  + f"); write-through {commit_line(c)}")
+            cur = g0
+            for day in range(t_old + 1, g.t_max + 1):
+                edges = [tuple(e) for e in suffix[suffix[:, 2] == day].tolist()]
+                st0, s0 = eng.store.stats(), ss.stratum_sweep.launches
+                hd = eng.ingest(name, edges)[name].result(timeout=300)
+                cur = cur.extend(edges)
+                sweeps_since(s0, 1, f"ingest of day {day}")
+                c = store_commits(eng.store, st0, f"day {day}")
+                print(f"[store] {tag} ingest day {day} ({len(edges)} edges, "
+                      f"epoch {hd.epoch}): refresh {hd.build_seconds:.4f}s, "
+                      f"1 stratum_sweep launch; {commit_line(c)}")
+            t_cut = max(2, int(g.t_max * TRIM_FRAC))
+            st0 = eng.store.stats()
+            ht = eng.retain(name, t_cut, wait=True, timeout=300)[name].result()
+            c = store_commits(eng.store, st0, "trim")
+            g_trim = cur.expire_before(t_cut)
+            print(f"[store] {tag} trim retain({t_cut}) (epoch {ht.epoch}): "
+                  f"shrink {ht.build_seconds:.4f}s; {commit_line(c)}; "
+                  f"{dir_bytes(root) / 1e6:.1f} MB on disk; the engine "
+                  "closes")
+            rounds.append(eng.metrics.counter("propagation_rounds"))
+
+        # -- 2. warm restart: adopt the graph, promote, no build ------------
+        s0 = ss.stratum_sweep.launches
+        with engine() as eng:
+            hp, t_warm = wall(lambda: eng.warmup(name))
+            sweeps_since(s0, 0, "warm restart")
+            st = eng.registry.stats()
+            if (hp.source, st["promotions"], st["builds"], hp.epoch) != (
+                    "disk", 1, 0, ht.epoch):
+                raise AssertionError(f"[store] warm restart: source "
+                                     f"{hp.source}, registry {st}")
+            if hp.device.device != dev:
+                raise AssertionError("[store] the promoted mirror is not on "
+                                     "the card")
+            stages = hp.build_stages
+            print(f"[store] {tag} warm restart: warmup {t_warm:.4f}s, "
+                  f"source disk, promotions 1, builds 0, stratum_sweep "
+                  f"launches 0; promotion {hp.build_seconds:.4f}s = "
+                  f"open_latest with crc32 verification "
+                  f"{stages['open']:.4f}s + from_parts "
+                  f"{stages['assemble']:.4f}s + upload to the card "
+                  f"{stages['device']:.4f}s ({hp.device.nbytes() / 1e6:.1f} "
+                  f"MB), against the cold build's {t_cold:.4f}s "
+                  f"({t_cold / hp.build_seconds:.1f}x); "
+                  f"{eng.store.stats()['load_bytes'] / 1e6:.1f} MB loaded")
+            s0 = ss.stratum_sweep.launches
+            _, csx, cdix, _ = cold_build(g_trim, dev)
+            sweeps_since(s0, 1, "the trimmed graph's cold build")
+            n_f = assert_index_equal(hp.pecb, csx, "the promoted handle")
+            n_a = assert_mirror_equal(hp.device, cdix, "the promoted mirror")
+            print(f"[store] {tag} the promoted handle equals a cold card "
+                  f"build of the trimmed graph in all {n_f} fields and its "
+                  f"mirror in all {n_a} arrays (tolerance 0)")
+
+            # -- 3. serve from it ---------------------------------------
+            rng = np.random.default_rng(10)
+            specs = [TCCSQuery(u, ts, te, int(rng.choice(hp.supported_ks)))
+                     for (u, ts, te) in random_queries(g_trim, STORE_VERIFY,
+                                                       seed=9)]
+            res, t = submit_all(eng, name, specs)
+            routes = collections.Counter(r.provenance.route for r in res)
+            if routes != {"disk": len(specs)}:
+                raise AssertionError(f"[store] routes {dict(routes)}")
+            n_ok = check_alg1(hp.pecb, specs, res, "promoted",
+                              n=STORE_VERIFY)
+            c = eng.metrics.snapshot(include_sources=False)["counters"]
+            print(f"[store] {tag} {len(specs)} mixed-k specs from the "
+                  f"promoted handle: {len(specs) / t:.1f} q/s, device "
+                  f"batches {c.get('device_batches', 0)}, B1 rounds "
+                  f"{c.get('propagation_rounds', 0)}; routes "
+                  f"{dict(routes)}; {n_ok} checked against Algorithm 1, 0 "
+                  "mismatches")
+            ecfg = EngineConfig(max_batch=ENGINE_EDGES, flush_ms=2.0,
+                                cache_capacity=0)
+            deg = np.bincount(np.concatenate([g_trim.src, g_trim.dst]),
+                              minlength=g_trim.n)
+            modes = (ResultMode.EDGES, ResultMode.SUBGRAPH)
+            especs = [TCCSQuery(int(u), 1 + 10 * (i % 4), g_trim.t_max,
+                                hp.supported_ks[i % 3], modes[i % 2])
+                      for i, u in enumerate(np.argsort(deg)[-ENGINE_EDGES:])]
+            with engine(config=ecfg, registry=eng.registry) as ee:
+                eres, _ = submit_all(ee, name, especs, chunk=ENGINE_EDGES)
+                check_alg1(hp.pecb, especs, eres, "promoted edges")
+                rounds.append(ee.metrics.counter("propagation_rounds"))
+            if {r.provenance.route for r in eres} != {"disk"}:
+                raise AssertionError("[store] edges: a route other than disk")
+            print(f"[store] {tag} {ENGINE_EDGES} EDGES and SUBGRAPH specs at "
+                  f"max_batch {ENGINE_EDGES}: route disk, "
+                  f"{sum(r.num_edges for r in eres)} member edges, every "
+                  "edge set equal to Algorithm 1's")
+
+            # -- 4. ingest onto the promoted handle -------------------------
+            day = g_trim.t_max
+            edges = [(int(u), int(v), day + 1) for u, v, t in zip(
+                g_trim.src, g_trim.dst, g_trim.t) if t == day]
+            st0, s0 = eng.store.stats(), ss.stratum_sweep.launches
+            hi = eng.ingest(name, edges)[name].result(timeout=300)
+            sweeps_since(s0, 1, "the ingest after promotion")
+            c = store_commits(eng.store, st0, "ingest after promotion")
+            if c["mode"] != "delta":
+                raise AssertionError(f"[store] the ingest after promotion "
+                                     f"made a {c['mode']} commit")
+            g_grown = g_trim.extend(edges)
+            s0 = ss.stratum_sweep.launches
+            _, gsx, gdix, _ = cold_build(g_grown, dev)
+            sweeps_since(s0, 1, "the grown graph's cold build")
+            n_f = assert_index_equal(hi.pecb, gsx, "the ingested handle")
+            n_a = assert_mirror_equal(hi.device, gdix, "the ingested mirror")
+            print(f"[store] {tag} ingest after promotion: day {day} "
+                  f"re-appended as day {day + 1} ({len(edges)} edges, epoch "
+                  f"{hi.epoch}), refresh {hi.build_seconds:.4f}s from the "
+                  f"mmap-backed arrays; {commit_line(c)} onto the promoted "
+                  f"chain; equal to a cold card build of the grown graph in "
+                  f"all {n_f} fields and {n_a} mirror arrays")
+            rounds.append(eng.metrics.counter("propagation_rounds"))
+        del gsx, gdix
+
+        # -- 5. recovery -------------------------------------------------
+        newest, prev = [json.loads((keydir / n).read_text()) for _, n in
+                        seg.list_manifests(str(keydir))[:2]]
+        part = next(p for ent in newest["arrays"].values()
+                    for p in ent["parts"]
+                    if p["segment"] not in prev["segments"])
+        with open(keydir / part["segment"], "r+b") as f:
+            f.seek(part["offset"])
+            byte = f.read(1)
+            f.seek(part["offset"])
+            f.write(bytes([byte[0] ^ 0xFF]))
+        s0 = ss.stratum_sweep.launches
+        with engine() as eng:
+            eng.register_graph(name, g_trim)   # the last good commit's graph
+            hr = eng.warmup(name)
+            sweeps_since(s0, 0, "recovery")
+            st = eng.store.stats()
+            opened = eng.store.tracer.spans("store_open")[-1].attrs
+            if hr.source != "disk" or opened["epoch"] != prev["epoch"] or \
+                    st["recovered_commits"] < 1:
+                raise AssertionError(f"[store] recovery: {hr.source}, "
+                                     f"{opened}, {st}")
+            n_f = assert_index_equal(hr.pecb, csx, "the recovered handle")
+            n_a = assert_mirror_equal(hr.device, cdix, "the recovered mirror")
+            rounds.append(eng.metrics.counter("propagation_rounds"))
+        print(f"[store] {tag} recovery: one byte of {part['segment']} "
+              f"flipped (epoch {newest['epoch']}'s delta); the reopened store "
+              f"skipped {st['recovered_commits']} commit(s) and promoted "
+              f"epoch {opened['epoch']} in {hr.build_seconds:.4f}s, equal to its "
+              f"cold card build in all {n_f} fields and {n_a} mirror arrays")
+        del csx, cdix
+        for man in keydir.glob("manifest_*.json"):
+            man.unlink()
+        s0 = ss.stratum_sweep.launches
+        with engine() as eng:
+            eng.register_graph(name, g_trim)
+            hb = eng.warmup(name)
+            sweeps_since(s0, 1, "the cold build after total loss")
+            if hb.source != "build" or eng.registry.stats()["builds"] != 1:
+                raise AssertionError(f"[store] total loss: source "
+                                     f"{hb.source}")
+            rounds.append(eng.metrics.counter("propagation_rounds"))
+        print(f"[store] {tag} every manifest deleted: warmup fell back to a "
+              f"cold card build (source build, {hb.build_seconds:.4f}s), the "
+              "one case in which a rebuild is the asserted outcome")
+
+        # -- 6. the CLI on one store, twice --------------------------------
+        cli_root = tempfile.mkdtemp(prefix="store-cli-")
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        outs = []
+        for extra in ((), ("--expect-warm",)):
+            cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+                   *STORE_CLI, "--store-dir", cli_root, *extra]
+            (p, t) = wall(lambda: subprocess.run(
+                cmd, capture_output=True, text=True, timeout=300, env=env))
+            if p.returncode:
+                raise AssertionError(f"[store] CLI {extra} exited "
+                                     f"{p.returncode}:\n{p.stdout[-3000:]}"
+                                     f"\n{p.stderr[-3000:]}")
+            lines = p.stdout.splitlines()
+            warm = next(x for x in lines if x.startswith("[warmup]"))
+            verify = next(x for x in lines if x.startswith("[verify]"))
+            store_line = next(x for x in lines if x.startswith("[store]"))
+            if not verify.endswith(" 0 mismatches"):
+                raise AssertionError(f"[store] CLI: {verify}")
+            outs.append((warm, store_line, verify, t))
+        if "index built" not in outs[0][0] or \
+                "index promoted from store" not in outs[1][0]:
+            raise AssertionError(f"[store] CLI: {outs}")
+        for (warm, store_line, verify, t), what in zip(outs, (
+                "first run", "second run, --expect-warm")):
+            print(f"[store] {tag} CLI {' '.join(STORE_CLI)} --store-dir "
+                  f"({what}, {t:.2f}s): {warm} | "
+                  f"{store_line.split(' ', 2)[2]} | {verify}")
+        shutil.rmtree(cli_root, ignore_errors=True)
+
+        # -- 7. the checkpoint manager on the card -------------------------
+        spec = configs.get(GNN_ARCH)
+        mcfg = configs.cell_model_cfg(spec, GNN_SHAPE)
+        model = gnn.init_params(mcfg, torch.Generator(device=dev).manual_seed(
+            GNN_SEED), device=dev)
+        sd = model.state_dict()
+        n_params = sum(v.numel() for v in sd.values())
+        mgr = CheckpointManager(tempfile.mkdtemp(prefix="ckpt-"))
+        _, t_save = wall(lambda: mgr.save(1, sd, {"arch": GNN_ARCH}))
+        _, t_async = wall(lambda: mgr.save_async(2, sd))
+        _, t_wait = wall(mgr.wait)
+        for step in (1, 2):
+            (got_step, got, _), t_rest = wall(lambda: mgr.restore(
+                step, device=dev))
+            if got_step != step or list(got) != list(sd) or not all(
+                    v.device == dev
+                    and v.dtype == sd[k].dtype and torch.equal(v, sd[k])
+                    for k, v in got.items()):
+                raise AssertionError(f"[store] checkpoint step {step} is not "
+                                     f"bit-equal on {dev}")
+        shutil.rmtree(mgr.dir, ignore_errors=True)
+        print(f"[store] {tag} checkpoint of {GNN_ARCH}'s {n_params:,} f32 "
+              f"parameters from the card: save {t_save:.4f}s, save_async "
+              f"{t_async:.4f}s + wait {t_wait:.4f}s, restore onto {dev} "
+              f"{t_rest:.4f}s; both steps bit-equal")
+
+        # -- 8. the phase's totals -----------------------------------------
+        totals = collections.Counter()
+        for s in stores:
+            totals.update({k: v for k, v in s.stats().items()
+                           if k != "root"})
+        fails = collections.Counter()
+        for r in registries:
+            st = r.stats()
+            fails.update(load=st["store_load_failures"],
+                         commit=st["store_commit_failures"])
+        if fails["load"] or fails["commit"]:
+            raise AssertionError(f"[store] store failures {dict(fails)}")
+        on_disk = dir_bytes(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    b1 = label_prop.label_prop_round.launches
+    sweeps = ss.stratum_sweep.launches
+    if b1 <= 0 or b1 != sum(rounds):
+        raise AssertionError(f"[store] B1 launches {b1} != rounds run "
+                             f"{sum(rounds)}")
+    want = sum(-(-t // ct.TUV_BLOCK) for t in (
+        t_old, *range(t_old + 1, g.t_max + 1), g_trim.t_max,
+        g_trim.t_max + 1, g_trim.t_max + 1, g_trim.t_max))
+    if sweeps != want:
+        raise AssertionError(f"[store] stratum_sweep launches {sweeps}, "
+                             f"expected {want}")
+    print(f"[store] {tag} phase: {on_disk / 1e6:.1f} MB on disk at the end; "
+          f"commits full {totals['commits_full']}, delta "
+          f"{totals['commits_delta']}, noop {totals['commits_noop']} "
+          f"({totals['bytes_written'] / 1e6:.1f} MB written); loads "
+          f"{totals['loads']} ({totals['load_bytes'] / 1e6:.1f} MB), "
+          f"recovered commits {totals['recovered_commits']}; "
+          f"store_load_failures 0, store_commit_failures 0; B1 launches "
+          f"{b1} (= the engines' rounds), stratum_sweep launches {sweeps} (5 "
+          f"builds and ingests of the first process, 2 cold builds to "
+          f"compare, 1 ingest after promotion, 1 cold build after total "
+          f"loss; 0 for each promotion); "
+          f"{time.perf_counter() - t_phase:.2f}s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return b1, sweeps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -2646,6 +3037,8 @@ def main() -> int:
     sweep_record["launches"] += epoch_sweeps
     engine_b1, engine_sweeps = engine_phase(g, sx, dev, smi)
     sweep_record["launches"] += engine_sweeps
+    store_b1, store_sweeps = store_phase(g, dev, smi)
+    sweep_record["launches"] += store_sweeps
 
     lm_records = lm_phase(dev)
     smoke_b5, smoke_b6 = lm_smoke_phase(dev)
@@ -2661,7 +3054,7 @@ def main() -> int:
         {"name": "label_prop_round", "route": "cuda",
          "source": csrc + "label_prop.cu",
          "replaces": "src/repro/kernels/label_prop.py:70",
-         "launches": launches + epoch_b1 + engine_b1,
+         "launches": launches + epoch_b1 + engine_b1 + store_b1,
          "max_abs_err": max_err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
          "library_ms": None},

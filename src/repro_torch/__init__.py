@@ -5,7 +5,9 @@ host build plane (``core``: temporal graphs, core times, ECB forests, the
 k-stratified PECB index), the batched device query plane
 (``core.batch_query``) whose fixpoint loop runs the hand-written CUDA
 label-propagation kernel (``kernels``), the one-GPU executor
-(``serving.executor``) and the serving entry point (``launch.serve``); and
+(``serving.executor``) and the serving entry point (``launch.serve``),
+the persistent index store the serving registry writes through to and
+promotes from (``store``) and tensor-tree checkpoints (``checkpoint``); and
 for the model cells the dense LM (``models.transformer``, its projections
 on the B5 GEMM kernel and its attention on the B6 flash-attention kernel)
 and GraphSAGE (``models.gnn``, its aggregation on the B4 segment-sum

@@ -83,16 +83,18 @@ def _ported(spec: ArchSpec) -> None:
             "A8)")
 
 
-def cell_model_cfg(spec: ArchSpec, shape_name: str):
-    """The cell's model config: an LM's own (no per-shape change);
-    GraphSAGE's with ``d_in`` set to the shape's feature width."""
+def cell_model_cfg(spec: ArchSpec, shape_name: str, smoke: bool = False):
+    """The cell's model config (``spec.smoke_cfg`` with ``smoke``): an LM's
+    own (no per-shape change); GraphSAGE's with ``d_in`` set to the
+    shape's feature width, or to 8 for a smoke config."""
     _ported(spec)
     if shape_name not in spec.shapes:
         raise KeyError(f"{spec.id} has no shape {shape_name!r}")
+    cfg = spec.smoke_cfg if smoke else spec.model_cfg
     if spec.family == "gnn":
-        return dataclasses.replace(spec.model_cfg,
-                                   d_in=spec.shapes[shape_name]["d_feat"])
-    return spec.model_cfg
+        d_feat = 8 if smoke else spec.shapes[shape_name]["d_feat"]
+        return dataclasses.replace(cfg, d_in=d_feat)
+    return cfg
 
 
 def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
@@ -133,18 +135,19 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
                               "not ported yet (ROADMAP A8)")
 
 
-def model_flops(spec: ArchSpec, shape_name: str, dims: dict | None = None
-                ) -> float:
+def model_flops(spec: ArchSpec, shape_name: str, dims: dict | None = None,
+                model_cfg=None) -> float:
     """Analytic useful FLOPs for one step of a cell (global, all chips), as
     the reference counts them. Dense LM: 6·N·tokens (+ the quadratic
     attention term) to train, 2·N per token to infer, plus the attention
     over the cache at decode; N counts every parameter, the embedding
     included. GraphSAGE: the dense products over all ``n`` nodes of the
     shape (self and neighbour projections of every layer, the head), three
-    times that to train; the aggregation's adds are not counted."""
+    times that to train; the aggregation's adds are not counted.
+    ``model_cfg`` counts another config than the cell's (a smoke one)."""
     _ported(spec)
     dims = dims or spec.shapes[shape_name]
-    cfg = cell_model_cfg(spec, shape_name)
+    cfg = model_cfg or cell_model_cfg(spec, shape_name)
     if spec.family == "gnn":
         n, h = dims["n"], cfg.d_hidden
         per_node = (2 * (2.0 * cfg.d_in * h)                 # self + neigh

@@ -12,7 +12,8 @@ recorded entry is below ``ts`` are not in the forest at ``ts``.
 
 Query surface: the typed API (``answer(TCCSQuery) -> TCCSResult``, via
 :class:`query_api.ComponentBackend`) over Algorithm 1
-(``_component_vertices``). The attached :class:`VersionStore` (the
+(``_component_vertices``) is primary; ``query(u, ts, te)`` remains as a
+thin deprecation shim over the same component routine. The attached :class:`VersionStore` (the
 core-time table carried through construction) powers the EDGES/SUBGRAPH
 modes; it is deliberately excluded from ``nbytes()`` so the paper's index-size comparison stays undistorted.
 
@@ -25,6 +26,7 @@ is the streaming resume path (``build_pecb_index(..., resume_from=)``).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 
@@ -97,6 +99,20 @@ class PECBIndex(ComponentBackend):
         return int(self.vent_node[i])
 
     # -- Algorithm 1 -----------------------------------------------------
+    def query(self, u: int, ts: int, te: int) -> set[int]:
+        """All vertices of the temporal k-core component of u in [ts, te].
+
+        .. deprecated:: kept as a thin shim over the v2 surface; prefer
+           ``answer(TCCSQuery(u, ts, te, k))`` which validates, carries
+           result modes and records provenance. Emits
+           :class:`DeprecationWarning`.
+        """
+        warnings.warn(
+            "PECBIndex.query(u, ts, te) is deprecated; use "
+            "answer(TCCSQuery(u, ts, te, k))",
+            DeprecationWarning, stacklevel=2)
+        return self._component_vertices(u, ts, te)
+
     def _component_vertices(self, u: int, ts: int, te: int) -> set[int]:
         e0 = self.entry_node(u, ts)
         if e0 == NONE or self.node_ct[e0] > te:

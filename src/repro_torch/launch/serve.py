@@ -13,7 +13,10 @@ stream of typed ``TCCSQuery`` specs through ``submit_specs`` (``--mode``
 picks the result mode), prints the engine's own per-stage metrics,
 compares against the sequential Algorithm 1 baseline, and verifies
 exactness on a sample. All batching, routing and caching policy lives in
-the engine. ``--store-dir`` (the disk tier) raises until ROADMAP A6.
+the engine. With ``--store-dir`` the engine's registry writes the index
+through to a persistent store, and a second run on the same directory
+promotes the stored index instead of rebuilding it (``--expect-warm``
+fails the run unless it did).
 
 ``serve_graph`` and ``serve_sweep`` drive the device plane directly,
 without the engine: every batch goes to the device in arrival order
@@ -224,8 +227,9 @@ def main(argv=None):
                     help="log queries slower than this threshold with "
                          "their full span tree")
     ap.add_argument("--store-dir", metavar="DIR", default=None,
-                    help="persistent index store root (DESIGN.md §13); "
-                         "not ported yet (ROADMAP A6): raises")
+                    help="persistent index store root (DESIGN.md §13): "
+                         "builds write through to it and a restart "
+                         "promotes the stored index instead of rebuilding")
     ap.add_argument("--expect-warm", action="store_true",
                     help="fail unless the warmup index was promoted from "
                          "the store (needs --store-dir)")
@@ -255,11 +259,24 @@ def main(argv=None):
         # k-stratified and k rides as the entry slot)
         handle = eng.warmup(args.workload,
                             full=args.mode in ("edges", "subgraph"))
-        print(f"[warmup] index built in {handle.build_seconds:.2f}s "
+        how = "promoted from store" if handle.source == "disk" else "built"
+        print(f"[warmup] index {how} in {handle.build_seconds:.2f}s "
               f"(nodes={handle.pecb.num_nodes} size={handle.nbytes/1e6:.2f} "
               f"MB, stages { {s: round(t, 3) for s, t in handle.build_stages.items()} }); "
               f"buckets run in "
               f"{time.perf_counter() - t0 - handle.build_seconds:.2f}s")
+        if args.store_dir:
+            st = eng.store.stats()
+            print(f"[store] root={st['root']} commits={st['commits']} "
+                  f"(full={st['commits_full']} delta={st['commits_delta']} "
+                  f"noop={st['commits_noop']}) loads={st['loads']} "
+                  f"load_bytes={st['load_bytes']} "
+                  f"recovered={st['recovered_commits']}")
+        if args.expect_warm and handle.source != "disk":
+            raise RuntimeError(
+                f"--expect-warm: warmup fell back to a cold build "
+                f"(source={handle.source!r}) — the store at "
+                f"{args.store_dir!r} held no promotable epoch")
 
         queries = random_queries(g, args.queries, seed=0)
         specs = [TCCSQuery(u, ts, te, k, ResultMode(args.mode))

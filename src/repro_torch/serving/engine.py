@@ -87,6 +87,7 @@ from repro_torch.core.query_api import (Provenance, TCCSQuery, TCCSResult,
 from repro_torch.obs.export import write_chrome_trace
 from repro_torch.obs.locks import named_lock
 from repro_torch.obs.trace import SlowQueryLog, Tracer
+from repro_torch.store import IndexStore
 
 from .batcher import MicroBatcher, Request
 from .cache import ResultCache
@@ -147,7 +148,7 @@ class EngineConfig:
     trace: bool = True           # record query-lifecycle spans (§11)
     trace_buffer: int = 16384    # finished-span ring capacity
     slow_query_ms: float | None = None  # slow-query log threshold (off=None)
-    store_dir: str | None = None  # persistent index store root (§13): A6
+    store_dir: str | None = None  # persistent index store root (§13; off=None)
 
 
 class ServingEngine:
@@ -159,10 +160,6 @@ class ServingEngine:
             raise ValueError(
                 f"need 1 <= min_bucket <= max_batch, got min_bucket="
                 f"{cfg.min_bucket} max_batch={cfg.max_batch}")
-        if cfg.store_dir is not None:
-            raise NotImplementedError(
-                "EngineConfig.store_dir: the persistent index store (disk "
-                "tier) is not ported yet: ROADMAP A6")
         device = torch.device(device)
         if registry is not None and registry.device != device:
             raise ValueError(f"the registry builds on {registry.device}, "
@@ -175,9 +172,16 @@ class ServingEngine:
                                          tracer=self.tracer)
         self.cache = ResultCache(cfg.cache_capacity)
         self._owns_registry = registry is None
+        # persistent index store (DESIGN.md §13): only wired when this
+        # engine owns its registry — a shared registry's store is its
+        # owner's call (and its handles may already be backed elsewhere)
+        self.store = None
+        if self._owns_registry and cfg.store_dir is not None:
+            self.store = IndexStore(cfg.store_dir, metrics=self.metrics,
+                                    tracer=self.tracer)
         self.registry = registry if registry is not None else IndexRegistry(
             cfg.registry_capacity, metrics=self.metrics,
-            tracer=self.tracer, device=device)
+            tracer=self.tracer, store=self.store, device=device)
         self.executor = ShardedExecutor(device, metrics=self.metrics,
                                         tracer=self.tracer)
         self.planner = QueryPlanner(
@@ -205,6 +209,8 @@ class ServingEngine:
         # planes, exportable as JSON via repro_torch.obs.export
         self.metrics.register_source("cache", self.cache.stats)
         self.metrics.register_source("registry", self.registry.stats)
+        if self.store is not None:
+            self.metrics.register_source("store", self.store.stats)
 
     # -- graph/index management -----------------------------------------
     def register_graph(self, name: str, g) -> None:
@@ -880,6 +886,7 @@ class ServingEngine:
             "engine": self.metrics.snapshot(include_sources=False),
             "cache": self.cache.stats(),
             "registry": self.registry.stats(),
+            "store": self.store.stats() if self.store is not None else None,
             "devices": self.executor.num_devices,
             "kernel_libraries": self.executor.compile_count(),
             "trace": self.tracer.stats(),

@@ -114,6 +114,11 @@ class QueryPlanner:
         specs = [self._spec_of(r, k) for r in batch]
         store = handle.pecb.versions
         route = self.route(handle, b)
+        # a promoted handle (mmap'd from the persistent store, never
+        # rebuilt) stamps route="disk" on its answers' provenance; the
+        # execution plane still follows `route` — provenance records where
+        # the *index* came from, `backend` keeps the execution detail
+        src_disk = getattr(handle, "source", "build") == "disk"
         t0 = time.perf_counter()
         self._trace_pre_exec(batch, route, t0)
         if route == "host":
@@ -130,6 +135,8 @@ class QueryPlanner:
                 prov = dataclasses.replace(
                     res.provenance, index_key=handle.key, batch_size=b,
                     trace_id=tr, span_id=sp)
+                if src_disk:
+                    prov = dataclasses.replace(prov, route="disk")
                 results.append(dataclasses.replace(res, provenance=prov))
             self.metrics.observe("host_exec", time.perf_counter() - t0)
             self.metrics.count("host_batches")
@@ -172,7 +179,7 @@ class QueryPlanner:
             for es in exec_spans:
                 if es is not None:
                     es.end(t_end)
-            prov = Provenance(route="device",
+            prov = Provenance(route="disk" if src_disk else "device",
                               backend="pecb-device" + ("-full" if need_edges else ""),
                               index_key=handle.key, batch_size=b,
                               bucket=bucket, timings={"exec_s": dt})

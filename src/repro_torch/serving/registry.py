@@ -64,8 +64,17 @@ CUDA, the host sweep on the CPU), the forests on the host, the mirror
 uploaded to it. With no card the default registry raises on its first
 build; it never carries on on the CPU.
 
-Disk tier (DESIGN.md §13): not ported yet (ROADMAP A6). A registry built
-with a ``store`` raises ``NotImplementedError``.
+Disk tier (DESIGN.md §13): with a :class:`~repro_torch.store.IndexStore`
+attached, the registry is durable — cold builds first try *promotion*
+(mmap the stored epoch + upload to the registry's device, no rebuild),
+landed builds and epoch swaps are written through (suffix epochs as
+per-stratum deltas), LRU eviction *demotes* instead of discarding, and
+unregistered workload names resolve from the store's persisted graphs, so
+a restarted process warm-opens without a build. A store failure costs
+durability, not serving (the build proceeds as if no store were
+attached), and is counted (``store_load_failures``,
+``store_commit_failures``); a failed upload of a promoted index to the
+device raises like a failed build's upload.
 
 Retention (DESIGN.md §10): ``retain(name, t_cut)`` is the epoch
 lifecycle's second leg — prefix expiry. It expires edges below ``t_cut``,
@@ -88,6 +97,7 @@ import warnings
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from repro_torch.obs.locks import named_lock
@@ -141,6 +151,10 @@ class IndexHandle:
     epoch: int = 0
     tab: StratifiedCoreTable | None = dataclasses.field(default=None,
                                                         compare=False)
+    # how the host arrays got here: "build" (cold construction or epoch
+    # refresh) vs "disk" (promoted from the persistent store — mmap + device
+    # upload, no rebuild). The planner stamps this onto result provenance.
+    source: str = dataclasses.field(default="build", compare=False)
     # lazy per-k slices of the fused mirror for single-k launches (the
     # window sweep) — see :meth:`stratum_device`
     _stratum_dev: dict = dataclasses.field(default_factory=dict,
@@ -191,13 +205,13 @@ class IndexRegistry:
                  ks=None, device="cuda"):
         if capacity < 1:
             raise ValueError(f"registry capacity must be >= 1, got {capacity}")
-        if store is not None:
-            raise NotImplementedError(
-                "the persistent index store (disk tier) is not ported yet: "
-                "ROADMAP A6; build the registry with store=None")
         self.capacity = capacity
         self.device = torch.device(device)
         self._metrics = metrics
+        # optional repro_torch.store.IndexStore: the disk tier (DESIGN.md
+        # §13.4). All store I/O runs on the background build/refresh
+        # workers, never under the registry lock.
+        self._store = store
         # optional repro_torch.obs.trace.Tracer: background builds / refreshes /
         # retention trims record spans (the engine passes its tracer when
         # it owns the registry). Epoch mutations accept an explicit parent
@@ -238,6 +252,11 @@ class IndexRegistry:
         self.evictions = 0
         self.refreshes = 0
         self.retentions = 0
+        self.promotions = 0      # cold builds answered from the disk tier
+        self.demotions = 0       # evictions preserved into the disk tier
+        # store failures degraded to a cold build / a skipped commit
+        self.store_load_failures = 0
+        self.store_commit_failures = 0
 
     def add_evict_listener(self, cb) -> None:
         with self._lock:
@@ -315,6 +334,22 @@ class IndexRegistry:
         with self._lock:
             if name in self._graphs:
                 return self._graphs[name]
+        # warm-restart adoption: a store holding this workload's persisted
+        # epochs rebinds the name (and its epoch counter) from disk, so a
+        # restarted process can keep serving — and keep ingesting — a graph
+        # the previous process registered, without re-registration
+        if self._store is not None:
+            try:
+                got = self._store.load_graph(name)
+            except Exception:
+                got = None   # adoption is best-effort; fall through
+            if got is not None:
+                g, epoch = got
+                with self._lock:
+                    if name not in self._graphs:
+                        self._graphs[name] = g
+                        self._epochs[name] = epoch
+                    return self._graphs[name]
         if name in BENCH_WORKLOADS:
             g = bench_graph(name)
             # concurrent cold builds of different workloads race to generate
@@ -433,6 +468,10 @@ class IndexRegistry:
                                 upload["reused_bytes"])
         span.set("swapped", swapped).end()
         if swapped:
+            # delta commit against the epoch the store already holds (the
+            # replaced handle was written through when it landed); runs on
+            # this FIFO worker, so per-key commits stay strictly ordered
+            self._persist(key, handle, prev=replaced)
             for cb in listeners:
                 cb(key, replaced, handle)
         fut.set_result(handle)
@@ -585,6 +624,9 @@ class IndexRegistry:
                                 upload["freed_bytes"])
         span.set("swapped", swapped).end()
         if swapped:
+            # prefix-expiry epochs rarely delta (arrays shrink and shift),
+            # but put_handle still avoids a rewrite when nothing changed
+            self._persist(key, handle, prev=replaced)
             for cb in listeners:
                 cb(key, replaced, handle, t_cut)
         fut.set_result(handle)
@@ -659,6 +701,10 @@ class IndexRegistry:
                 self._pending.pop(key, None)
             fut.set_exception(exc)
             return
+        # write-through *before* the future resolves: once any caller has
+        # seen the handle, a crash (even kill -9) must find this epoch on
+        # disk
+        self._persist(key, handle)
         evicted = []
         catchup = None
         with self._lock:
@@ -686,6 +732,7 @@ class IndexRegistry:
                 catchup = (self._refresh_pool, handle, cur_g,
                            self._epochs.get(key, 0))
         for (k2, h2) in evicted:
+            self._demote(k2, h2)
             for cb in listeners:
                 cb(k2, h2)
         fut.set_result(handle)
@@ -707,6 +754,10 @@ class IndexRegistry:
             g = self._graphs.get(workload, g)
             epoch = self._epochs.get(workload, 0)
         ks = self._ks_for(workload, g)
+        if self._store is not None:
+            promoted = self._promote(key, g, epoch, ks)
+            if promoted is not None:
+                return promoted
         span = self._span("index_build", workload=workload,
                           num_strata=len(ks), epoch=epoch)
         stages = {}
@@ -741,6 +792,108 @@ class IndexRegistry:
                 self._metrics.observe(f"index_build_{stage}", seconds)
         return handle
 
+    # -- disk tier (DESIGN.md §13.4) --------------------------------------
+    def _count_store_failure(self, name: str) -> None:
+        with self._lock:
+            setattr(self, name, getattr(self, name) + 1)
+        if self._metrics is not None:
+            self._metrics.count(name)
+
+    def _promote(self, key: str, g: TemporalGraph, epoch: int,
+                 ks: tuple) -> IndexHandle | None:
+        """Try to answer a cold build from the store: mmap the stored
+        epoch, check it describes exactly the graph the build would target
+        (same edge arrays — epoch counters reset across processes, so the
+        arrays are authoritative) AND the strata the current policy asks
+        for, upload it to the registry's device, and mint a
+        ``source="disk"`` handle. ``None`` on a miss, a mismatch or a
+        failed load (counted as ``store_load_failures``) — the caller falls
+        through to the cold build. A failed upload raises: it is the
+        device failing, not the store, and a rebuild would upload again.
+
+        Stages: ``open`` (``open_latest`` with crc verification),
+        ``assemble`` (``from_parts``: the per-k blocks into the stratified
+        index and table) and ``device`` (the upload); ``build_seconds`` is
+        their sum."""
+        span = self._span("index_promote", workload=key, epoch=epoch)
+        try:
+            stored = self._store.load(key)
+        except Exception as exc:
+            self._count_store_failure("store_load_failures")
+            span.set("error", repr(exc)).end()
+            return None
+        if stored is None:
+            span.set("outcome", "miss").end()
+            return None
+        sg = stored.graph
+        if not (sg.n == g.n and sg.m == g.m
+                and np.array_equal(sg.src, g.src)
+                and np.array_equal(sg.dst, g.dst)
+                and np.array_equal(sg.t, g.t)):
+            span.set("outcome", "stale").end()
+            return None
+        if tuple(stored.pecb.supported_ks) != tuple(ks):
+            span.set("outcome", "ks-mismatch").end()
+            return None
+        stages = dict(stored.load_stages)
+        t0 = time.perf_counter()
+        try:
+            dev = to_device(stored.pecb, self.device)
+        except BaseException as exc:
+            span.set("error", repr(exc)).end()
+            raise
+        stages["device"] = time.perf_counter() - t0
+        total = sum(stages.values())
+        span.child("device", t0=t0).end()
+        span.set("outcome", "promoted").end()
+        with self._lock:
+            self.promotions += 1
+        if self._metrics is not None:
+            self._metrics.count("promotions")
+            self._metrics.observe("index_promote", total)
+            for stage, seconds in stages.items():
+                self._metrics.observe(f"index_promote_{stage}", seconds)
+        # the handle binds the *registry's* graph object (identity matters
+        # to the epoch lifecycle), the store's mmap-backed index arrays,
+        # and the fresh device mirror
+        return IndexHandle(key, g, stored.pecb, dev, total, stages,
+                           epoch=epoch, tab=stored.tab, source="disk")
+
+    def _persist(self, key: str, handle: IndexHandle,
+                 prev: IndexHandle | None = None) -> dict | None:
+        """Write ``handle`` through to the store (delta against ``prev``
+        when given). Best-effort: a failure is counted
+        (``store_commit_failures``) and returns ``None`` — durability
+        degrades, serving does not."""
+        if self._store is None:
+            return None
+        if handle.source == "disk" and prev is None:
+            return None     # just promoted from this store: already current
+        try:
+            return self._store.put_handle(key, handle, prev=prev)
+        except Exception as exc:
+            self._count_store_failure("store_commit_failures")
+            if self.tracer is not None:
+                self._span("store_commit_failed", workload=key,
+                           error=repr(exc)).end()
+            return None
+
+    def _demote(self, key: str, handle: IndexHandle) -> None:
+        """Eviction hook: preserve the evicted handle's epoch in the store
+        (write-through usually already has it — then this is a cheap
+        manifest probe, not a rewrite) instead of discarding built work."""
+        if self._store is None:
+            return
+        res = self._persist(key, handle, prev=None)
+        if res is None and handle.source != "disk":
+            return          # commit failed: nothing preserved
+        with self._lock:
+            self.demotions += 1
+        if self._metrics is not None:
+            self._metrics.count("evictions_demoted")
+            if res is not None and res["mode"] != "current":
+                self._metrics.count("demote_bytes", res["bytes_written"])
+
     def close(self, wait: bool = True) -> None:
         """Stop the build and refresh pools. Pending futures still resolve
         when ``wait=True`` (builds run to completion)."""
@@ -766,6 +919,10 @@ class IndexRegistry:
                 "evictions": self.evictions,
                 "refreshes": self.refreshes,
                 "retentions": self.retentions,
+                "promotions": self.promotions,
+                "demotions": self.demotions,
+                "store_load_failures": self.store_load_failures,
+                "store_commit_failures": self.store_commit_failures,
                 "epochs": dict(self._epochs),
                 "pending": list(self._pending),
                 "supported_ks": {w: list(h.supported_ks)

@@ -1,9 +1,12 @@
 """The port's host build plane against the JAX reference's, array for
 array: the seeded graph generator, the core-time sweeps, the stratified
 core-time table, the ECB forest builders, the packed k-stratified index
-and its device layout. Every output is integer, so equality is exact."""
+and its device layout. Every output is integer, so equality is exact.
+Also the query surface the two share: the deprecated ``PECBIndex.query``
+shim and ``core``'s exports."""
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -12,18 +15,23 @@ pytest.importorskip("torch")
 
 from repro.core import batch_query as jax_bq  # noqa: E402
 from repro.core import core_time as jax_ct  # noqa: E402
+import repro.core as jax_core  # noqa: E402
 from repro.core import kcore as jax_kcore  # noqa: E402
+from repro.core.pecb_index import \
+    build_pecb_index as jax_build_k  # noqa: E402
 from repro.core.pecb_index import \
     build_stratified_index as jax_build  # noqa: E402
 from repro.core.temporal_graph import \
     gen_temporal_graph as jax_gen  # noqa: E402
+import repro_torch.core as port_core  # noqa: E402
 from repro_torch.core import batch_query as bq  # noqa: E402
+from repro_torch.core import query_api  # noqa: E402
 from repro_torch.core import core_time as ct  # noqa: E402
 from repro_torch.core import ecb_native, kcore  # noqa: E402
 from repro_torch.core.ecb_forest import (FastIncrementalBuilder,  # noqa: E402
                                          IncrementalBuilder)
-from repro_torch.core.pecb_index import (build_stratified_index,  # noqa: E402
-                                         pack_index)
+from repro_torch.core.pecb_index import (build_pecb_index,  # noqa: E402
+                                         build_stratified_index, pack_index)
 from repro_torch.core.temporal_graph import (BENCH_WORKLOADS,  # noqa: E402
                                              gen_temporal_graph)
 
@@ -142,3 +150,53 @@ def test_native_library_lives_in_the_port_build_dir():
     from repro_torch.kernels._build import BUILD_DIR
     assert any(BUILD_DIR.glob("ecb_native_*.so"))
     assert BUILD_DIR.parent.name == "repro_torch"
+
+
+# the inputs of tests/test_query_api.py's legacy-shim test (ten random
+# windows) and tests/test_streaming.py's shim warning (one window)
+SHIM_CASES = {
+    "query_api": (dict(n=35, m=280, t_max=16, seed=8), 10),
+    "streaming": (dict(n=20, m=140, t_max=8, seed=51), 0),
+}
+
+
+def shim_windows(g, n_q):
+    """tests/test_query_api.py's ``random_windows(g, n_q, rng(1))``, or
+    tests/test_streaming.py's ``(0, 1, 5)`` when ``n_q`` is 0."""
+    if not n_q:
+        return [(0, 1, 5)]
+    rng = np.random.default_rng(1)
+    out = []
+    for _ in range(n_q):
+        u = int(rng.integers(0, g.n))
+        ts = int(rng.integers(1, g.t_max + 1))
+        out.append((u, ts, int(rng.integers(ts, g.t_max + 1))))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(SHIM_CASES))
+def test_query_shim_warns_and_answers_as_the_reference(case):
+    cfg, n_q = SHIM_CASES[case]
+    g, jg = gen_temporal_graph(**cfg), jax_gen(**cfg)
+    idx = build_pecb_index(g, 2, device="cpu")
+    jidx = jax_build_k(jg, 2, jax_ct.edge_core_times(jg, 2))
+    for (u, ts, te) in shim_windows(g, n_q):
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            answer = idx.query(u, ts, te)
+        with warnings.catch_warnings(record=True) as want:
+            warnings.simplefilter("always")
+            jax_answer = jidx.query(u, ts, te)
+        assert answer == jax_answer == idx._component_vertices(u, ts, te)
+        assert [(w.category, str(w.message)) for w in got] == [
+            (w.category, str(w.message)) for w in want]
+        assert got[0].category is DeprecationWarning
+        assert got[0].filename == __file__          # stacklevel=2
+    with pytest.warns(DeprecationWarning, match="deprecated"):
+        idx.query(0, 1, g.t_max)
+
+
+def test_core_exports_the_query_api_as_the_reference():
+    assert port_core.__all__ == jax_core.__all__
+    for name in port_core.__all__:
+        assert getattr(port_core, name) is getattr(query_api, name)

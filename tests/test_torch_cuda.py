@@ -950,3 +950,67 @@ def test_sage_forward_on_card_matches_plain_versions_and_cpu(cuda):
     on_cpu = step(cpu_model, {k: v.cpu() for k, v in feed.items()})
     for want in (plain, on_cpu.to(cuda)):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_store_promotion_on_card_equals_cold_build(cuda, tmp_path):
+    """The disk tier on the card: a registry writes its cold build through,
+    a second registry promotes it with no stratum sweep, and the promoted
+    mirror equals a fresh upload of a cold card build array for array;
+    then one ingest onto the promoted (mmap-backed) handle equals a cold
+    card build of the grown graph, mirror included."""
+    from repro_torch.serving import IndexRegistry
+    from repro_torch.store import IndexStore
+
+    g = gen_temporal_graph(n=40, m=420, t_max=18, seed=31)
+    g0, suffix = g.split_at(15)
+    reg = IndexRegistry(store=IndexStore(str(tmp_path)), device=cuda)
+    reg.register_graph("g", g0)
+    reg.get("g", timeout=120)
+    reg.close()
+    sweeps = segmented_select.stratum_sweep.launches
+    reg = IndexRegistry(store=IndexStore(str(tmp_path)), device=cuda)
+    h = reg.get("g", timeout=120)
+    assert h.source == "disk" and reg.stats()["promotions"] == 1
+    assert segmented_select.stratum_sweep.launches == sweeps
+    for graph, handle in ((g0, h), (g, None)):
+        if handle is None:
+            before = segmented_select.stratum_sweep.launches
+            fut = reg.extend_graph("g", [tuple(e) for e in suffix.tolist()])
+            handle = fut["g"].result(timeout=120)
+            assert segmented_select.stratum_sweep.launches == before + 1
+        cold = build_stratified_index(graph, device=cuda)
+        fresh = bq.to_device(cold, cuda)
+        for f in bq._ARRAY_FIELDS:
+            got, want = getattr(handle.device, f), getattr(fresh, f)
+            assert got.device.type == "cuda" and torch.equal(got, want), f
+        for f in ("node_u", "ent_ts", "vent_node", "knode_ptr"):
+            assert np.array_equal(getattr(handle.pecb, f), getattr(cold, f))
+    st = reg.stats()
+    reg.close()
+    assert (st["store_load_failures"], st["store_commit_failures"]) == (0, 0)
+    assert IndexStore(str(tmp_path)).current_epoch("g") == 1
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """graphsage-reddit's parameters from the card through save and
+    save_async, restored onto cuda:0 bit-equal."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+
+    cfg = configs.cell_model_cfg(configs.get("graphsage-reddit"),
+                                 "minibatch_lg")
+    model = gnn.init_params(cfg, torch.Generator(cuda).manual_seed(3),
+                            device=cuda)
+    sd = model.state_dict()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, sd)
+    mgr.save_async(2, {"params": sd, "bf16": torch.randn(
+        4, 8, device=cuda).bfloat16()})
+    mgr.wait()
+    _, got, _ = mgr.restore(1, device="cuda:0")
+    assert list(got) == list(sd)
+    for k, v in got.items():
+        assert v.device == torch.device("cuda", 0) and torch.equal(v, sd[k])
+    _, got2, _ = mgr.restore(device="cuda:0")
+    assert all(torch.equal(got2["params"][k], v) for k, v in sd.items())
+    assert got2["bf16"].dtype == torch.bfloat16

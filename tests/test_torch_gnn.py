@@ -35,8 +35,7 @@ def models(smoke: bool, shape: str = "minibatch_lg", seed: int = 0):
     """(jax cfg, jax params, port cfg, port model) with the same weights."""
     jspec, spec = jax_configs.get(ARCH), configs.get(ARCH)
     jcfg = jax_configs.cell_model_cfg(jspec, shape, smoke=smoke)
-    cfg = (dataclasses.replace(spec.smoke_cfg, d_in=jcfg.d_in) if smoke
-           else configs.cell_model_cfg(spec, shape))
+    cfg = configs.cell_model_cfg(spec, shape, smoke=smoke)
     params = jax_gnn.sage_init(jcfg, jax.random.PRNGKey(seed))
     model = gnn.GraphSAGE(cfg, device="cpu")
     model.load_state_dict(sage_params_from_reference(
@@ -186,6 +185,22 @@ def test_registry_resolves_minibatch_lg_to_the_published_widths():
 def test_model_flops_match_reference(shape):
     got = configs.model_flops(configs.get(ARCH), shape)
     want = jax_configs.model_flops(jax_configs.get(ARCH), shape)
+    assert got == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("shape", sorted(configs.GNN_SHAPES))
+def test_cell_model_cfg_and_model_flops_take_the_reference_arguments(
+        shape, smoke):
+    """``cell_model_cfg(smoke=)`` (a smoke GNN takes ``d_feat`` 8) and
+    ``model_flops(model_cfg=)`` return the reference's values."""
+    spec, jspec = configs.get(ARCH), jax_configs.get(ARCH)
+    cfg = configs.cell_model_cfg(spec, shape, smoke=smoke)
+    jcfg = jax_configs.cell_model_cfg(jspec, shape, smoke=smoke)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert cfg.d_in == (8 if smoke else configs.GNN_SHAPES[shape]["d_feat"])
+    got = configs.model_flops(spec, shape, model_cfg=cfg)
+    want = jax_configs.model_flops(jspec, shape, model_cfg=jcfg)
     assert got == pytest.approx(want, rel=1e-12)
 
 

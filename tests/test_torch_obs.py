@@ -251,10 +251,45 @@ def test_witnessed_engine_respects_hierarchy(monkeypatch):
     four threads, an ingest and its refresh swap record only edges that
     respect the hierarchy, into the port's process-wide witness."""
     monkeypatch.setenv("REPRO_LOCK_WITNESS", "1")
+    run_witnessed_engine(EngineConfig(max_batch=16, flush_ms=1.0,
+                                      host_threshold=4))
+
+
+def test_witnessed_engine_with_store_respects_hierarchy(monkeypatch,
+                                                        tmp_path):
+    """The same with the disk tier attached: the store's counter lock
+    nests nowhere against the order, and every file operation of the
+    store (the probes, loads and commits of the build and the ingest)
+    runs while its thread holds no hierarchy lock."""
+    from repro_torch.store import index_store
+
+    monkeypatch.setenv("REPRO_LOCK_WITNESS", "1")
+    held = []
+
+    def watched(fn):
+        def call(*args, **kw):
+            held.append((fn.__name__, locks.WITNESS.held()))
+            return fn(*args, **kw)
+        return call
+
+    for name in ("open_latest", "load_arrays", "write_commit"):
+        monkeypatch.setattr(index_store, name,
+                            watched(getattr(index_store, name)))
+    eng = run_witnessed_engine(EngineConfig(
+        max_batch=16, flush_ms=1.0, host_threshold=4,
+        store_dir=str(tmp_path)))
+    assert isinstance(eng.store._lock, locks.WitnessLock)
+    assert eng.store.stats()["commits"] == 2
+    assert {n for n, _ in held} >= {"open_latest", "write_commit"}
+    assert [h for _, h in held if h] == []
+
+
+def run_witnessed_engine(cfg):
+    """Drive one witnessed engine (see the tests above) and check the
+    witness's report; returns the closed engine."""
     locks.WITNESS.reset()
     g = gen_temporal_graph(**GRAPH)
     g0, suffix = g.split_at(14)
-    cfg = EngineConfig(max_batch=16, flush_ms=1.0, host_threshold=4)
     with ServingEngine(cfg, device="cpu") as eng:
         assert isinstance(eng._lock, locks.WitnessLock)
         eng.register_graph("g", g0)
@@ -289,3 +324,4 @@ def test_witnessed_engine_respects_hierarchy(monkeypatch):
     assert report["acquisitions"] > 0
     edges = {(e["outer"], e["inner"]) for e in report["edges"]}
     assert ("batcher", "metrics") in edges
+    return eng

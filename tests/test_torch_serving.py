@@ -13,7 +13,7 @@ Also the engine's own contracts: clamped and empty windows share one
 cache key, cache hits re-stamped ``route="cache"``, window sweeps, the
 deprecation shims, warmup with a non-power-of-two ``max_batch``, a cold
 workload that does not block the submit path, LRU eviction, close
-draining, ``store_dir`` raising, the default ``cuda`` device, the port's
+draining, ``store_dir`` and ``store=`` wiring the disk tier, the default ``cuda`` device, the port's
 compile accounting (kernel builds, not XLA compiles), and exact kernel
 launch counts under threads."""
 
@@ -352,11 +352,34 @@ def test_close_drains_pending_work(graphs):
     eng.close()                                  # idempotent
 
 
-def test_store_dir_raises_naming_a6(tmp_path):
-    with pytest.raises(NotImplementedError, match="A6"):
-        ServingEngine(EngineConfig(store_dir=str(tmp_path)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        IndexRegistry(store=object(), device="cpu")
+def test_store_dir_and_store_build_a_working_engine_and_registry(
+        graphs, tmp_path):
+    """``EngineConfig(store_dir=)`` wires an IndexStore into the engine's
+    own registry (a shared registry keeps its owner's); ``store=`` makes a
+    registry write its builds through. Both serve on the CPU."""
+    from repro_torch.store import IndexStore
+
+    g, _ = graphs
+    cfg = EngineConfig(store_dir=str(tmp_path / "engine"), flush_ms=1.0)
+    with port_engine(cfg) as eng:
+        assert isinstance(eng.store, IndexStore)
+        assert eng.registry._store is eng.store
+        eng.register_graph("g", g)
+        eng.warmup("g")
+        res = eng.answer("g", TCCSQuery(1, 1, g.t_max, 2), timeout=TIMEOUT)
+        assert res.vertices == frozenset(tccs_oracle(g, 2, 1, 1, g.t_max))
+        assert eng.stats()["store"]["commits_full"] == 1
+        with port_engine(cfg, registry=eng.registry) as shared:
+            assert shared.store is None and shared.stats()["store"] is None
+    with port_engine() as eng:
+        assert eng.store is None and eng.stats()["store"] is None
+    store = IndexStore(str(tmp_path / "registry"))
+    reg = IndexRegistry(store=store, device="cpu")
+    reg.register_graph("g", g)
+    h = reg.get("g", timeout=TIMEOUT)
+    reg.close()
+    assert h.source == "build" and store.current_epoch("g") == 0
+    assert reg.stats()["store_commit_failures"] == 0
 
 
 def test_default_device_is_cuda_and_nothing_falls_back(graphs):

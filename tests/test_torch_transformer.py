@@ -83,6 +83,24 @@ def test_configs_match_the_reference(arch):
     assert spec.model_cfg.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cell_model_cfg_and_model_flops_take_the_reference_arguments(
+        arch, smoke):
+    """``cell_model_cfg(smoke=)`` and ``model_flops(model_cfg=)`` on every
+    shape return the reference's values."""
+    spec, ref = configs.get(arch), jax_configs.get(arch)
+    for shape in spec.shapes:
+        cfg = configs.cell_model_cfg(spec, shape, smoke=smoke)
+        rcfg = jax_configs.cell_model_cfg(ref, shape, smoke=smoke)
+        assert cfg is (spec.smoke_cfg if smoke else spec.model_cfg)
+        for f in ("name", "n_layer", "d_model", "n_head", "n_kv", "d_ff",
+                  "vocab", "d_head"):
+            assert getattr(cfg, f) == getattr(rcfg, f), f
+        assert configs.model_flops(spec, shape, model_cfg=cfg) == \
+            jax_configs.model_flops(ref, shape, model_cfg=rcfg)
+
+
 def test_glm4_has_the_published_parameter_count():
     cfg = configs.get("glm4-9b").model_cfg
     assert cfg.param_count == 9_399_951_360 == \
