@@ -24,9 +24,12 @@ result line each; any failure raises and exits non-zero:
            (the longest stratum's probes); the whole build under
            torch.profiler (idle share); the kernel against its plain
            version on the card, stratum k0 alone (the old path's cost) and
-           every stratum: rows, carry and counts equal
+           every stratum: rows, carry and counts equal; the k range
+           (default_ks) peeled on the card, one kcore_fixpoint launch per
+           k_max probe
   index    the k-stratified PECB index: forests built on the host from the
-           card-built strata, so everything served below comes from them
+           card-built strata, so everything served below comes from them;
+           its k_max_graph peeled on the card
   kernel   B1 against its plain PyTorch version at (256, N) on the card:
            bit-identical int32 output; kernel, plain and bound times (the
            bound counts link bytes for the active pairs only). B2 on the
@@ -54,6 +57,22 @@ result line each; any failure raises and exits non-zero:
            CUDA events, the serial chain (the longest fixpoint's rounds)
            and the byte bound; the old path (B3a + B3b and a flag read
            per round) timed on the same operands
+  baselines  the paper's comparison (Figures 4-6) at CollegeMsg scale:
+           k_max on the card (kcore.k_max, one kcore_fixpoint launch per
+           probe of its doubling and bisection) equal to numpy's; at 0.5,
+           0.7 and 0.9 of it (bench_vary_k's shares; 0.7 is bench_paper's
+           default k) edge_core_times on the card, equal to the host
+           engine's, and PECB, CT-MSF and EF built from it: bytes, build
+           seconds, EF's chain forests, distinct cores and enumerated core
+           edges, every count equal to the reference package's; at the
+           default k Borůvka's MSF as torch ops on the card at every start
+           time, equal to Kruskal and to EF's stored forest (rounds, ms
+           per start time); 1,000 random_queries at each k through PECB,
+           CT-MSF and EF on the host (us per query) and the PECB's device
+           batch on B1 in buckets of 256 (q/s), all four equal; 64 of them
+           against tccs_oracle and tccs_oracle_edges on the card (one
+           fixpoint launch per window) and EF's and CT-MSF's four answer
+           modes; the phase's seconds, peak memory and launches
   upload   the index to the card
   serve    the main path through launch.serve: mixed-k vertex queries at
            bucket 256, one edges-mode batch at bucket 16, one 64-window
@@ -170,7 +189,10 @@ result line each; any failure raises and exits non-zero:
            yardstick (index_add_, torch.matmul); sampling, copy and forward
            times per batch, seeds/s; one forward under torch.profiler
 
-Then a line of kernel records (JSON), the nvidia-smi line, and last
+The card builds, ingests and trims of epoch, engine and store peel their
+k ranges on the card too; a ``[kcore]`` line sums kcore_fixpoint's
+launches. Then a line of kernel records (JSON), the nvidia-smi line, and
+last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1245,8 +1267,21 @@ def construct_phase(dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels import segmented_select as ss
 
+    from repro_torch.core import kcore
+    from repro_torch.kernels import kcore_peel
+
     g = gen_temporal_graph(**COLLEGEMSG)
-    ks = ct.default_ks(g)
+    f0 = kcore_peel.kcore_fixpoint.launches
+    ks, t_ks = wall(lambda: ct.default_ks(g, device=dev))
+    fix = kcore_peel.kcore_fixpoint.launches - f0
+    if ks != ct.default_ks(g) or fix != kmax_probes(ks[-1]):
+        raise AssertionError(f"the card's k range {ks[0]}..{ks[-1]} ({fix} "
+                             f"kcore_fixpoint launches) differs from "
+                             f"numpy's or from one launch per k_max probe")
+    print(f"[construct] k range on the card: default_ks = {ks[0]}.."
+          f"{ks[-1]} through kcore.k_max (kcore_fixpoint launches {fix}, one "
+          f"per probe; equal to numpy's k_max {kcore.k_max(g)}) in "
+          f"{t_ks:.4f}s")
     inf = g.t_max + 1
     host_strata, t_host = wall(lambda: ct.stratified_core_times(
         g, ks, device="cpu"))
@@ -1598,6 +1633,256 @@ def peel_phase(g, us, ud, inv, ks) -> tuple[dict, tuple[int, int]]:
                 a + b for a, b in zip(cm["b3"], sxr["b3"]))
 
 
+#: [baselines]: the shares of k_max bench_paper.py's bench_vary_k sweeps
+#: around the default k (benchmarks/common.py default_k: 0.7), its query
+#: count, and the queries also held to the brute-force oracle on the card
+BASELINE_FRACS = (0.5, 0.7, 0.9)
+BASELINE_QUERIES = 1000
+BASELINE_ORACLE = 64
+#: the reference package's counts on the COLLEGEMSG graph per k (its
+#: core_time, pecb_index, ctmsf_index and ef_index): versions, PECB,
+#: CT-MSF and EF bytes, EF chain forests, distinct cores and enumerated
+#: core edges; the port must reproduce them exactly
+BASELINE_COUNTS = {
+    19: (595532, 784468, 349896, 2852600, 158, 12459, 206178150),
+    27: (669785, 406768, 179944, 1776640, 104, 5628, 117414963),
+    34: (455461, 144532, 62044, 715640, 43, 1058, 27749364)}
+
+
+def kmax_probes(km: int) -> int:
+    """Fixpoints ``kcore.k_max`` runs to find ``km``: the doubling's
+    probes (the last one empty), then the bisection's."""
+    probes, lo, hi = 0, 1, 1
+    while hi <= km:
+        probes += 1
+        lo, hi = hi, hi * 2
+    probes += 1
+    while lo + 1 < hi:
+        probes += 1
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if mid <= km else (lo, mid)
+    return probes
+
+
+def boruvka_check(g, tab, ef, dev) -> dict:
+    """Borůvka on the card (torch ops) at every start time with active
+    versions, each mask array-equal to the host's Kruskal and to the
+    forest EF stores for that start time."""
+    from repro_torch.core import ctmsf
+    from repro_torch.core.ecb_forest import active_versions
+
+    stats: dict = {}
+    t_card = t_host = 0.0
+    edges = 0
+    for ts in range(1, g.t_max + 1):
+        e_ids, cts = active_versions(tab, ts)
+        if not e_ids.size:
+            continue
+        u, v = g.src[e_ids], g.dst[e_ids]
+        ops_ = [torch.as_tensor(a, device=dev) for a in (u, v, cts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ctmsf.boruvka_msf(*ops_, g.n, stats=stats).cpu().numpy()
+        t_card += time.perf_counter() - t0
+        want, t = wall(lambda: ctmsf.kruskal_msf(u, v, cts, g.n))
+        t_host += t
+        if not np.array_equal(got, want):
+            raise AssertionError(f"Borůvka on the card differs from Kruskal "
+                                 f"at ts={ts}")
+        f = ef.forests[int(ef.ts_to_forest[ts])]
+        if not (np.array_equal(f.node_u, u[got]) and np.array_equal(
+                f.node_v, v[got]) and np.array_equal(f.node_ct, cts[got])):
+            raise AssertionError(f"Borůvka's forest differs from EF's at "
+                                 f"ts={ts}")
+        edges += int(got.sum())
+    r = stats["rounds"]
+    return dict(checked=len(r), rounds=r, card_s=t_card, host_s=t_host,
+                edges=edges)
+
+
+def baselines_phase(g, dev, smi: str) -> tuple[int, int, int]:
+    """``[baselines]``: the paper's comparison (Figures 4-6) at CollegeMsg
+    scale through the port's entry points. k_max on the card (one
+    kcore_fixpoint launch per probe) equal to numpy's; at 0.5, 0.7 and 0.9
+    of it the core-time table on the card (equal to the host engine's) and
+    PECB, CT-MSF and EF built from it, each one's bytes and build seconds,
+    EF's forests, distinct cores and enumerated core edges, all equal to
+    BASELINE_COUNTS; at the default k Borůvka on the card against Kruskal
+    at every start time; 1,000 random_queries at each k through the three
+    host answerers and the PECB's device batch on B1, all equal, 64 of
+    them against the oracle on the card (one fixpoint launch per window
+    and oracle) and every answer mode of EF and CT-MSF. Returns the
+    phase's (kcore_fixpoint, B1, stratum_sweep) launches."""
+    from repro_torch.core import batch_query as bq
+    from repro_torch.core import core_time as ct
+    from repro_torch.core import kcore
+    from repro_torch.core.ctmsf_index import CTMSFIndex
+    from repro_torch.core.ef_index import EFIndex
+    from repro_torch.core.pecb_index import build_pecb_index
+    from repro_torch.core.query_api import ResultMode, TCCSQuery
+    from repro_torch.core.temporal_graph import random_queries
+    from repro_torch.kernels import kcore_peel, label_prop
+    from repro_torch.kernels import segmented_select as ss
+
+    tag = f"({smi})"
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    kcore_peel.kcore_fixpoint.launches = 0
+    label_prop.label_prop_round.launches = 0
+    ss.reset_sweep_counts()
+
+    km, t_km = wall(lambda: kcore.k_max(g, device=dev))
+    probes = kcore_peel.kcore_fixpoint.launches
+    km_np, t_km_np = wall(lambda: kcore.k_max(g))
+    if km != km_np:
+        raise AssertionError(f"k_max on the card {km} != numpy's {km_np}")
+    if probes != kmax_probes(km):
+        raise AssertionError(f"k_max made {probes} kcore_fixpoint launches, "
+                             f"expected {kmax_probes(km)} (one per probe)")
+    ks = [max(2, int(round(f * km))) for f in BASELINE_FRACS]
+    k_def = ks[BASELINE_FRACS.index(0.7)]
+    print(f"[baselines] {tag} k_max {km} on the card (equal to numpy's "
+          f"{km_np}): kcore_fixpoint launches {probes} (one per probe of "
+          f"the doubling and the bisection, one upload), {t_km:.4f}s, numpy "
+          f"{t_km_np:.4f}s; default k max(2, round(0.7 * k_max)) = {k_def}; "
+          f"ks {ks} (0.5, 0.7, 0.9 of k_max)")
+
+    built = {}
+    for k in ks:
+        tab, t_tab = wall(lambda: ct.edge_core_times(g, k, device=dev))
+        host_tab, t_tab_host = wall(lambda: ct.edge_core_times(
+            g, k, device="cpu"))
+        for f in ("edge_id", "ts_from", "ts_to", "ct", "vertex_ct"):
+            if not np.array_equal(getattr(tab, f), getattr(host_tab, f)):
+                raise AssertionError(f"k={k}: the card's core-time table "
+                                     f"differs from the host's in {f}")
+        pecb, t_pecb = wall(lambda: build_pecb_index(g, k, tab))
+        cm, t_cm = wall(lambda: CTMSFIndex(g, k, tab))
+        ef, t_ef = wall(lambda: EFIndex(g, k, tab))
+        counts = (tab.num_versions, pecb.nbytes(), cm.nbytes(), ef.nbytes(),
+                  len(ef.forests), ef.num_distinct_cores,
+                  ef.enumerated_core_edges)
+        if counts != BASELINE_COUNTS.get(k):
+            raise AssertionError(f"k={k}: counts {counts} differ from the "
+                                 f"reference's {BASELINE_COUNTS.get(k)}")
+        built[k] = tab, pecb, cm, ef
+        print(f"[baselines] {tag} k={k}: core-time table on the card "
+              f"{t_tab:.4f}s (host engine {t_tab_host:.4f}s, every field "
+              f"equal), {counts[0]} versions. Bytes (Figure 4): PECB "
+              f"{counts[1]}, CT-MSF {counts[2]}, EF {counts[3]} (EF / PECB "
+              f"{counts[3] / counts[1]:.3f}, CT-MSF / PECB "
+              f"{counts[2] / counts[1]:.3f}). Build s from the table (Figure "
+              f"5, host): PECB {t_pecb:.4f}, CT-MSF {t_cm:.4f}, EF "
+              f"{t_ef:.4f} (EF / PECB {t_ef / t_pecb:.2f}x); EF "
+              f"{counts[4]} chain forests, {counts[5]} distinct cores, "
+              f"{counts[6]} enumerated core edges; all equal to the "
+              f"reference's counts")
+
+    tab, pecb, cm, ef = built[k_def]
+    bo = boruvka_check(g, tab, ef, dev)
+    r = bo["rounds"]
+    print(f"[baselines] {tag} Borůvka at k={k_def} on the card (torch "
+          f"ops): {bo['checked']} start times with active versions, every "
+          f"mask array-equal to Kruskal on the host and to EF's stored "
+          f"forest ({bo['edges']} forest edges in all); rounds "
+          f"{min(r)}..{max(r)}, {sum(r)} in all; card "
+          f"{bo['card_s'] / bo['checked'] * 1e3:.3f} ms per start time "
+          f"(upload, rounds with one flag read each, download), host "
+          f"Kruskal {bo['host_s'] / bo['checked'] * 1e3:.3f} ms")
+
+    qs = random_queries(g, BASELINE_QUERIES)
+    modes = (ResultMode.VERTICES, ResultMode.EDGES, ResultMode.SUBGRAPH,
+             ResultMode.COUNT)
+    oracle_fix = 0
+    for k in ks:
+        tab, pecb, cm, ef = built[k]
+        answers, us_q = {}, {}
+        for name, idx in (("PECB", pecb), ("CT-MSF", cm), ("EF", ef)):
+            answers[name], t = wall(lambda: [
+                idx._component_vertices(u, ts, te) for (u, ts, te) in qs])
+            us_q[name] = t / len(qs) * 1e6
+        dix = bq.to_device(pecb, dev)
+        b0 = label_prop.label_prop_round.launches
+        stats: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = []
+        for i in range(0, len(qs), BUCKET):
+            cols = bq._query_columns(qs[i:i + BUCKET], (0, 1, 2), dev)
+            mask = bq.batch_query(dix, *cols, stats=stats).cpu().numpy()
+            got += [set(np.flatnonzero(row).tolist()) for row in mask]
+        t_b1 = time.perf_counter() - t0
+        b1 = label_prop.label_prop_round.launches - b0
+        if b1 <= 0 or b1 != sum(stats["rounds"]):
+            raise AssertionError(f"k={k}: B1 launches {b1} != rounds "
+                                 f"{stats['rounds']}")
+        answers["PECB on B1"] = got
+        bad = sum(len({frozenset(a[i]) for a in answers.values()}) != 1
+                  for i in range(len(qs)))
+        if bad:
+            raise AssertionError(f"k={k}: the four answerers disagree on "
+                                 f"{bad} of {len(qs)} queries")
+        f0 = kcore_peel.kcore_fixpoint.launches
+        windows = 0
+        for i, (u, ts, te) in enumerate(qs[:BASELINE_ORACLE]):
+            want_v = frozenset(kcore.tccs_oracle(g, k, u, ts, te,
+                                                 device=dev))
+            want_e = frozenset(kcore.tccs_oracle_edges(g, k, u, ts, te,
+                                                       device=dev))
+            windows += 2 * int(g.project(ts, te)[0].size > 0)
+            if frozenset(answers["PECB"][i]) != want_v:
+                raise AssertionError(f"k={k}: query {i} differs from the "
+                                     "oracle on the card")
+            for idx in (cm, ef):
+                res = {md: idx.answer(TCCSQuery(u, ts, te, k, md))
+                       for md in modes}
+                e_ids = res[ResultMode.EDGES].edges.edge_ids()
+                if not (res[ResultMode.VERTICES].vertices == want_v
+                        and res[ResultMode.EDGES].vertices == want_v
+                        and e_ids == want_e
+                        and res[ResultMode.SUBGRAPH].subgraph.m == len(want_e)
+                        and res[ResultMode.COUNT].num_vertices == len(want_v)):
+                    raise AssertionError(f"k={k}: {idx.backend_name}'s "
+                                         f"answer modes differ from the "
+                                         f"oracle on query {i}")
+        fix = kcore_peel.kcore_fixpoint.launches - f0
+        if fix != windows or fix <= 0:
+            raise AssertionError(f"k={k}: the oracle made {fix} "
+                                 f"kcore_fixpoint launches, expected "
+                                 f"{windows} (one per window with edges)")
+        oracle_fix += fix
+        sizes = [len(a) for a in answers["EF"]]
+        print(f"[baselines] {tag} k={k}: {len(qs)} random_queries, PECB, "
+              f"CT-MSF, EF and the PECB's device batch on B1 agree on all "
+              f"(0 mismatches; {sum(1 for s in sizes if s)} non-empty, "
+              f"largest {max(sizes)} vertices). Host us per query (Figure "
+              f"6): PECB {us_q['PECB']:.2f}, CT-MSF {us_q['CT-MSF']:.2f}, "
+              f"EF {us_q['EF']:.2f}. B1 batches of {BUCKET}: "
+              f"{len(qs) / t_b1:.1f} q/s ({t_b1:.4f}s with uploads and "
+              f"downloads), B1 launches {b1} = rounds {stats['rounds']}. "
+              f"{BASELINE_ORACLE} held to tccs_oracle and tccs_oracle_edges "
+              f"on the card (kcore_fixpoint launches {fix}, one per window "
+              f"and oracle) and to EF's and CT-MSF's VERTICES, EDGES, "
+              f"SUBGRAPH and COUNT answers: 0 mismatches")
+
+    fix = kcore_peel.kcore_fixpoint.launches
+    if fix != probes + oracle_fix:
+        raise AssertionError(f"kcore_fixpoint launches {fix} != the phase's "
+                             f"fixpoints {probes + oracle_fix}")
+    b1 = label_prop.label_prop_round.launches
+    sweeps = ss.stratum_sweep.launches
+    if sweeps != len(ks) * -(-g.t_max // ct.TUV_BLOCK):
+        raise AssertionError(f"stratum_sweep launches {sweeps}, expected one "
+                             f"per t_uv block of each table")
+    print(f"[baselines] {tag} phase: {time.perf_counter() - t_phase:.2f}s, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"kcore_fixpoint launches {fix} (= fixpoints run: {probes} k_max "
+          f"probes + {oracle_fix} oracle windows), B1 launches {b1}, "
+          f"stratum_sweep launches {sweeps} (the {len(ks)} tables)")
+    return fix, b1, sweeps
+
+
 #: the [epoch] phase's ingest split and trim cut, from the reference's
 #: benchmarks: bench_streaming.py's frac = 0.98 (epoch 0 ends on day
 #: int(193 * 0.98) = 189; the days 190..193 follow as one epoch each) and
@@ -1704,7 +1989,7 @@ def cold_build(g, dev):
     strata, t_core, core = staged(lambda: ct.stratified_core_times(
         g, engine="device", device=dev))
     sx, t_forest, forest = staged(lambda: build_stratified_index(
-        g, strata=strata))
+        g, strata=strata, device=dev))
     dix, t_up, up = staged(lambda: bq.to_device(sx, dev))
     return strata, sx, dix, dict(core=(t_core, core),
                                  forest=(t_forest, forest), up=(t_up, up))
@@ -1883,7 +2168,7 @@ def epoch_phase(g, sx, dix, dev) -> tuple[int, int]:
     for day in range(t_old + 1, g.t_max + 1):
         edges = [tuple(e) for e in suffix[suffix[:, 2] == day].tolist()]
         g1 = cur.extend(edges)
-        ks = ct.default_ks(g1)
+        ks = ct.default_ks(g1, device=dev)
         tab1, t_core, core = staged(
             lambda: ct.extend_stratified_core_times(g1, tab, ks,
                                                     engine="device",
@@ -1895,7 +2180,7 @@ def epoch_phase(g, sx, dix, dev) -> tuple[int, int]:
                                  f"launches, expected {blocks}")
         sweeps += core["launches"]
         sx1, t_forest, forest = staged(lambda: st.extend_stratified_index(
-            g1, sx_cur, ks, strata=tab1))
+            g1, sx_cur, ks, strata=tab1, device=dev))
         (dix1, rs), t_ref, ref_t = staged(lambda: bq.refresh_device(
             sx_cur, dix_cur, sx1))
         print(f"[epoch] day {day}: appended {g1.m - cur.m} edges (m "
@@ -1931,11 +2216,11 @@ def epoch_phase(g, sx, dix, dev) -> tuple[int, int]:
 
     t_cut = max(2, int(g.t_max * TRIM_FRAC))
     g2 = cur.expire_before(t_cut)
-    ks2 = tuple(k for k in ct.default_ks(g2) if k in tab.ks)
+    ks2 = tuple(k for k in ct.default_ks(g2, device=dev) if k in tab.ks)
     tab2, t_core, core = staged(lambda: ct.shrink_stratified_core_times(
         g2, tab, ks2))
     sx2, t_forest, forest = staged(lambda: st.shrink_stratified_index(
-        g2, sx_cur, ks2, strata=tab2))
+        g2, sx_cur, ks2, strata=tab2, device=dev))
     (dix2, rs), t_ref, ref_t = staged(lambda: bq.refresh_device(
         sx_cur, dix_cur, sx2))
     if rs["freed_bytes"] <= 0:
@@ -2724,6 +3009,7 @@ def store_phase(g, dev, smi: str) -> tuple[int, int]:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
               "runs on an NVIDIA card", file=sys.stderr)
@@ -2773,14 +3059,22 @@ def main() -> int:
           f"({'native C' if native else 'Python: no C compiler'}) in "
           f"{time.perf_counter() - t0:.2f}s")
 
+    kcore_peel.kcore_fixpoint.launches = 0
     g, ks, strata, t_dev, t_host, b2_launches, sweep_record = \
         construct_phase(dev)
     csr = ct._pair_csr(g)
 
     # -- index: forests on the host from the card-built strata -------------
     t0 = time.perf_counter()
-    sx = build_stratified_index(g, strata=strata)
+    sx = build_stratified_index(g, strata=strata, device=dev)
     t_build = time.perf_counter() - t0
+    # the k ranges of the card build: construct's default_ks and the
+    # index's k_max_graph, one kcore_fixpoint launch per probe each
+    fix_builds = kcore_peel.kcore_fixpoint.launches
+    if fix_builds != 2 * kmax_probes(sx.k_max_graph):
+        raise AssertionError(f"the card build's k ranges made {fix_builds} "
+                             f"kcore_fixpoint launches, expected "
+                             f"{2 * kmax_probes(sx.k_max_graph)}")
     meta, arrays = bq._host_layout(sx)
     layout_mb = sum(a.nbytes for a in arrays.values()) / 1e6
     N = sx.num_nodes
@@ -2790,7 +3084,9 @@ def main() -> int:
           f"versions={meta['num_versions']} index_MB={layout_mb:.1f} "
           f"forests_from_card_strata_s={t_build:.2f} "
           f"(build from graph: {t_dev + t_build:.2f}s with the card's "
-          f"strata, {t_host + t_build:.2f}s with the host's)")
+          f"strata, {t_host + t_build:.2f}s with the host's); k_max_graph "
+          f"{sx.k_max_graph} on the card; kcore_fixpoint launches of the "
+          f"build's k ranges {fix_builds}")
 
     # -- kernel: B1 vs its plain version at (256, N) ------------------------
     rng = np.random.default_rng(11)
@@ -2924,6 +3220,10 @@ def main() -> int:
     fix_record, b3_peel = peel_phase(g, us, ud, inv,
                                      list(ks) + [sx.k_max_graph + 1])
 
+    # -- baselines: EF-Index, CT-MSF, Borůvka and the oracle on the card ----
+    base_fix, base_b1, base_sweeps = baselines_phase(g, dev, smi)
+    sweep_record["launches"] += base_sweeps
+
     # -- upload ------------------------------------------------------------
     dix, t_up = wall(lambda: bq.device_index(meta, arrays, dev))
     print(f"[upload] {dix.nbytes() / 1e6:.1f} MB to {dix.device} in "
@@ -3033,12 +3333,25 @@ def main() -> int:
     print(f"[profile] one batch of {BUCKET}: wall {t_batch:.4f}s, {busy}; "
           f"top kernels: " + top_rows(kern))
 
+    f0 = kcore_peel.kcore_fixpoint.launches
     epoch_sweeps, epoch_b1 = epoch_phase(g, sx, dix, dev)
     sweep_record["launches"] += epoch_sweeps
     engine_b1, engine_sweeps = engine_phase(g, sx, dev, smi)
     sweep_record["launches"] += engine_sweeps
     store_b1, store_sweeps = store_phase(g, dev, smi)
     sweep_record["launches"] += store_sweeps
+    fix_epochs = kcore_peel.kcore_fixpoint.launches - f0
+    if fix_epochs <= 0:
+        raise AssertionError("the card builds, ingests and trims of [epoch], "
+                             "[engine] and [store] peeled no k range on the "
+                             "card")
+    peel_fix = fix_record["launches"]
+    fix_record["launches"] = peel_fix + base_fix + fix_builds + fix_epochs
+    print(f"[kcore] kcore_fixpoint launches {fix_record['launches']}: [peel] "
+          f"{peel_fix}, [baselines] {base_fix}, the k ranges of the card "
+          f"builds "
+          f"{fix_builds} ([construct] and [index]) + {fix_epochs} (the "
+          f"builds, ingests and trims of [epoch], [engine] and [store])")
 
     lm_records = lm_phase(dev)
     smoke_b5, smoke_b6 = lm_smoke_phase(dev)
@@ -3054,7 +3367,7 @@ def main() -> int:
         {"name": "label_prop_round", "route": "cuda",
          "source": csrc + "label_prop.cu",
          "replaces": "src/repro/kernels/label_prop.py:70",
-         "launches": launches + epoch_b1 + engine_b1 + store_b1,
+         "launches": launches + base_b1 + epoch_b1 + engine_b1 + store_b1,
          "max_abs_err": max_err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
          "library_ms": None},
@@ -3077,6 +3390,8 @@ def main() -> int:
          "launches": b3_peel[1], "max_abs_err": b3_err[1], "ms": b3b_ms,
          "plain_ms": b3b_plain, "bound_ms": b3b_bound, "bound_by": "bytes",
          "library_ms": None}, fix_record, b4_record] + lm_records
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s"
+          f" ({smi})")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -516,14 +516,22 @@ def _validate_ks(ks) -> tuple[int, ...]:
     return ks
 
 
-def default_ks(g: TemporalGraph) -> tuple[int, ...]:
+def default_ks(g: TemporalGraph, device=None) -> tuple[int, ...]:
     """The full useful range 2..k_max(g): below 2 a TCCS query is invalid,
-    above the degeneracy every answer is exactly empty (no stratum needed)."""
+    above the degeneracy every answer is exactly empty (no stratum needed).
+    ``device`` is :func:`kcore.k_max`'s: None peels in numpy, a torch device
+    through the peel fixpoint there."""
     from .kcore import k_max
 
     if g.m == 0:
         return ()
-    return tuple(range(2, k_max(g) + 1))
+    return tuple(range(2, k_max(g, device) + 1))
+
+
+def kcore_device(engine: str, device):
+    """Where a build's k range is peeled: on ``device`` when the build runs
+    the device engine, in numpy (None) for the host and legacy engines."""
+    return device if _engine(engine, device) == "device" else None
 
 
 def _sweep_host_stratified(g: TemporalGraph, ks) -> list[np.ndarray]:
@@ -742,11 +750,14 @@ def stratified_core_times(g: TemporalGraph, ks=None, *, engine: str = "auto",
                           device="cuda",
                           stats: dict | None = None) -> StratifiedCoreTable:
     """One k-stratified core-time build covering every k in ``ks``
-    (default: the full useful range ``default_ks(g)``): the fused
+    (default: the full useful range ``default_ks(g)``, its k-core peeled
+    on ``device`` by the device engine, see :func:`kcore_device`): the fused
     warm-seeded sweep of the chosen engine (``"auto"``: by ``device``;
     ``"legacy"`` runs per k). Every stratum is bit-identical to the per-k
     table."""
-    ks = _validate_ks(default_ks(g) if ks is None else ks)
+    if ks is None:
+        ks = default_ks(g, kcore_device(engine, device))
+    ks = _validate_ks(ks)
     eng = _engine(engine, device)
     if eng == "legacy":
         tables = [_edge_core_times_legacy(g, k) for k in ks]

@@ -17,9 +17,16 @@ application); when the chains meet, the meeting node is the LCA of
 Lemma 5.7 — the expired edge — and is deleted, its parent adopting the
 merged chain.
 
+:func:`build_forest_at` is the from-scratch construction per start time,
+directly from Def 4.9: Kruskal over ranks, then a union-find sweep in
+ascending rank where each component tracks its maximum-rank node; a new
+node's left/right children are the component maxima of its endpoints. It
+is the oracle the builder is tested against (uniqueness of the ECB forest
+follows from the total order), and :func:`active_versions` feeds the
+baselines (``ef_index``, ``ctmsf``).
+
 PyTorch port of ``repro.core.ecb_forest`` (host code, copied so the port
-stands alone); the from-scratch ``build_forest_at`` oracle stays in the
-reference. The builder's hot structures are numpy-backed stores:
+stands alone). The builder's hot structures are numpy-backed stores:
 
 * the node table is a set of preallocated flat arrays (one slot per version
   record — an upper bound on inserts), not per-node Python lists;
@@ -46,6 +53,7 @@ silently).
 from __future__ import annotations
 
 import bisect
+import dataclasses
 
 import numpy as np
 
@@ -64,6 +72,78 @@ except ImportError:  # pragma: no cover - scipy is bundled in CI/dev images
 class ForestInvariantError(RuntimeError):
     """A structural invariant of the ECB forest was violated (corrupt
     builder state); raised eagerly so a broken index is never served."""
+
+
+# ----------------------------------------------------------------------
+# From-scratch reference construction (Def 4.9)
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ForestSnapshot:
+    """ECB forest for one start time. Arrays indexed by *version id* into the
+    version table of the CoreTimeTable ordering used to build it."""
+
+    version_key: dict  # (edge_id, ct) -> local node index
+    u: np.ndarray
+    v: np.ndarray
+    ct: np.ndarray
+    edge_id: np.ndarray
+    left: np.ndarray
+    right: np.ndarray
+    parent: np.ndarray
+    in_forest: np.ndarray  # bool; False = version active at ts but not in MSF
+
+
+def active_versions(tab: CoreTimeTable, ts: int):
+    """(edge_id, ct) of versions valid at start time ts, rank-sorted."""
+    sel = (tab.ts_from <= ts) & (ts <= tab.ts_to)
+    e, c = tab.edge_id[sel], tab.ct[sel]
+    order = np.lexsort((e, c))
+    return e[order], c[order]
+
+
+def build_forest_at(g, tab: CoreTimeTable, ts: int) -> ForestSnapshot:
+    e_ids, cts = active_versions(tab, ts)
+    nn = e_ids.shape[0]
+    u = g.src[e_ids].astype(np.int64)
+    v = g.dst[e_ids].astype(np.int64)
+    left = np.full(nn, NONE, np.int64)
+    right = np.full(nn, NONE, np.int64)
+    parent = np.full(nn, NONE, np.int64)
+    in_forest = np.zeros(nn, bool)
+
+    # union-find over graph vertices; each root remembers the max-rank node
+    uf = {}
+    comp_max = {}
+
+    def find(x):
+        root = x
+        while uf.get(root, root) != root:
+            root = uf[root]
+        while uf.get(x, x) != x:
+            uf[x], x = root, uf[x]
+        return root
+
+    for i in range(nn):
+        a, b = int(u[i]), int(v[i])
+        ra, rb = find(a), find(b)
+        if ra == rb:
+            continue  # not in MSF (cycle)
+        in_forest[i] = True
+        la = comp_max.get(ra, NONE)
+        lb = comp_max.get(rb, NONE)
+        left[i], right[i] = la, lb
+        if la != NONE:
+            parent[la] = i
+        if lb != NONE:
+            parent[lb] = i
+        uf[ra] = rb
+        comp_max[rb] = i
+        comp_max.pop(ra, None)
+
+    key = {(int(e_ids[i]), int(cts[i])): i for i in range(nn)}
+    return ForestSnapshot(key, u, v, cts.astype(np.int64), e_ids.astype(np.int64),
+                          left, right, parent, in_forest)
 
 
 # ----------------------------------------------------------------------

@@ -31,7 +31,7 @@ import warnings
 import numpy as np
 
 from .core_time import (CoreTimeTable, StratifiedCoreTable, edge_core_times,
-                        stratified_core_times)
+                        kcore_device, stratified_core_times)
 from .ecb_forest import (NONE, FastIncrementalBuilder, ForestInvariantError,
                         IncrementalBuilder)
 from .query_api import (ComponentBackend, InvalidQueryError, Provenance,
@@ -442,7 +442,8 @@ def build_stratified_index(g: TemporalGraph, ks=None, *,
 
     ``ks=None`` covers the graph's full coreness range
     (:func:`core_time.default_ks`); pass ``strata`` to reuse a table
-    already built.
+    already built. ``k_max_graph`` is peeled on the build's device
+    (:func:`core_time.kcore_device`), also when ``strata`` is given.
     """
     from .kcore import k_max as _graph_k_max
     stab = strata if strata is not None else stratified_core_times(
@@ -451,4 +452,5 @@ def build_stratified_index(g: TemporalGraph, ks=None, *,
     for k in stab.ks:
         b = _forest_builder(g, stab.table_for(int(k)))
         indices.append(pack_index(g, int(k), b))
-    return _assemble_stratified(g, stab, indices, _graph_k_max(g))
+    return _assemble_stratified(g, stab, indices, _graph_k_max(
+        g, kcore_device(engine, device)))

@@ -64,7 +64,7 @@ from __future__ import annotations
 import numpy as np
 
 from .core_time import (CoreTimeTable, default_ks,
-                        extend_stratified_core_times,
+                        extend_stratified_core_times, kcore_device,
                         shrink_stratified_core_times)
 from .ecb_forest import NONE, ForestInvariantError
 from .pecb_index import (PECBIndex, StratifiedPECB, _assemble_stratified,
@@ -756,7 +756,9 @@ def extend_stratified_index(g: TemporalGraph, prev: StratifiedPECB,
     engine. One call replaces |K| per-k lifecycle operations. Pass
     ``strata`` to reuse an already-extended table (a caller that times
     the core and forest stages separately); otherwise the table is
-    extended on ``device`` by ``engine``.
+    extended on ``device`` by ``engine``. The default ``ks`` and
+    ``k_max_graph`` are peeled on the build's device
+    (:func:`core_time.kcore_device`).
     """
     from .kcore import k_max as _graph_k_max
     from .pecb_index import build_stratified_index
@@ -764,8 +766,9 @@ def extend_stratified_index(g: TemporalGraph, prev: StratifiedPECB,
     if prev.strata is None:
         return build_stratified_index(g, ks, strata=strata, engine=engine,
                                       device=device)
+    kdev = kcore_device(engine, device)
     if ks is None:
-        ks = default_ks(g)
+        ks = default_ks(g, kdev)
     stab = (strata if strata is not None
             else extend_stratified_core_times(g, prev.strata, ks,
                                               engine=engine, device=device))
@@ -777,7 +780,7 @@ def extend_stratified_index(g: TemporalGraph, prev: StratifiedPECB,
                                              prev.slice_k(k)))
         else:
             indices.append(pack_index(g, int(k), _forest_builder(g, tab)))
-    return _assemble_stratified(g, stab, indices, _graph_k_max(g))
+    return _assemble_stratified(g, stab, indices, _graph_k_max(g, kdev))
 
 
 def shrink_stratified_index(g: TemporalGraph, prev: StratifiedPECB,
@@ -788,18 +791,21 @@ def shrink_stratified_index(g: TemporalGraph, prev: StratifiedPECB,
     defaults to ``default_ks(g)`` — expiry can lower the degeneracy, in
     which case the dropped strata simply disappear (queries above the
     new ``k_max_graph`` stay exactly empty). ``engine``/``device`` serve
-    only the cold build of an index that carries no table."""
+    the cold build of an index that carries no table, and pick where the
+    default ``ks`` and ``k_max_graph`` are peeled
+    (:func:`core_time.kcore_device`)."""
     from .kcore import k_max as _graph_k_max
     from .pecb_index import build_stratified_index
 
     if prev.strata is None:
         return build_stratified_index(g, ks, strata=strata, engine=engine,
                                       device=device)
+    kdev = kcore_device(engine, device)
     if ks is None:
-        ks = default_ks(g)
+        ks = default_ks(g, kdev)
     stab = (strata if strata is not None
             else shrink_stratified_core_times(g, prev.strata, ks))
     indices = [shrink_pecb_index(g, int(k), stab.table_for(int(k)),
                                  prev.slice_k(k))
                for k in stab.ks]
-    return _assemble_stratified(g, stab, indices, _graph_k_max(g))
+    return _assemble_stratified(g, stab, indices, _graph_k_max(g, kdev))

@@ -33,6 +33,7 @@ import numpy as np
 
 from repro_torch.core.batch_query import (mixed_slots, stratum_device,
                                           to_device)
+from repro_torch.core.core_time import kcore_device
 from repro_torch.core.kcore import k_max
 from repro_torch.core.pecb_index import StratifiedPECB, build_stratified_index
 from repro_torch.core.query_api import Provenance, ResultMode, TCCSQuery
@@ -243,7 +244,8 @@ def main(argv=None):
     if args.batch < 1:
         ap.error("--batch must be >= 1")
     g = bench_graph(args.workload)
-    k = args.k or max(2, int(0.7 * k_max(g)))
+    k = args.k or max(2, int(0.7 * k_max(
+        g, kcore_device("auto", args.device))))
     cfg = EngineConfig(max_batch=args.batch, flush_ms=args.flush_ms,
                        cache_capacity=args.cache,
                        min_bucket=min(8, args.batch),

@@ -107,6 +107,7 @@ from repro_torch.core.temporal_graph import (BENCH_WORKLOADS, TemporalGraph,
 from repro_torch.core.core_time import (StratifiedCoreTable, _validate_ks,
                                         default_ks,
                                         extend_stratified_core_times,
+                                        kcore_device,
                                         shrink_stratified_core_times,
                                         stratified_core_times)
 from repro_torch.core.pecb_index import StratifiedPECB, build_stratified_index
@@ -311,7 +312,9 @@ class IndexRegistry:
     def _ks_for(self, workload: str, g: TemporalGraph) -> tuple:
         with self._lock:
             explicit = self._ks_policy.get(workload, self._default_ks)
-        return default_ks(g) if explicit is None else explicit
+        if explicit is not None:
+            return explicit
+        return default_ks(g, kcore_device("auto", self.device))
 
     # -- graph sources --------------------------------------------------
     def register_graph(self, name: str, g: TemporalGraph) -> None:
@@ -436,7 +439,8 @@ class IndexRegistry:
             stages["core_times"] = time.perf_counter() - t1
             span.child("core_times", t0=t1).end()
             t1 = time.perf_counter()
-            idx2 = extend_stratified_index(g2, old.pecb, ks, strata=tab2)
+            idx2 = extend_stratified_index(g2, old.pecb, ks, strata=tab2,
+                                           device=self.device)
             stages["forest"] = time.perf_counter() - t1
             span.child("forest", t0=t1).end()
             t1 = time.perf_counter()
@@ -584,7 +588,8 @@ class IndexRegistry:
                 span.child("core_times", t0=t1).end()
                 t1 = time.perf_counter()
                 idx2 = shrink_stratified_index(g2, cur.pecb, ks,
-                                               strata=tab2)
+                                               strata=tab2,
+                                               device=self.device)
                 stages["forest"] = time.perf_counter() - t1
                 span.child("forest", t0=t1).end()
             else:
@@ -597,7 +602,8 @@ class IndexRegistry:
                 stages["core_times"] = time.perf_counter() - t1
                 span.child("core_times", t0=t1, cold=True).end()
                 t1 = time.perf_counter()
-                idx2 = build_stratified_index(g2, ks, strata=tab2)
+                idx2 = build_stratified_index(g2, ks, strata=tab2,
+                                              device=self.device)
                 stages["forest"] = time.perf_counter() - t1
                 span.child("forest", t0=t1, cold=True).end()
             t1 = time.perf_counter()
@@ -767,7 +773,8 @@ class IndexRegistry:
             stages["core_times"] = time.perf_counter() - t0
             span.child("core_times", t0=t0).end()
             t1 = time.perf_counter()
-            idx = build_stratified_index(g, ks, strata=tab)
+            idx = build_stratified_index(g, ks, strata=tab,
+                                         device=self.device)
             stages["forest"] = time.perf_counter() - t1
             span.child("forest", t0=t1).end()
             t1 = time.perf_counter()

@@ -25,7 +25,7 @@ from repro_torch.core import batch_query as bq  # noqa: E402
 from repro_torch.core import core_time, kcore  # noqa: E402
 from repro_torch.core.pecb_index import build_stratified_index  # noqa: E402
 from repro_torch.core.temporal_graph import (TemporalGraph,  # noqa: E402
-                                             gen_temporal_graph,
+                                             bench_graph, gen_temporal_graph,
                                              random_queries)
 from repro_torch.kernels import (flash_attention, kcore_peel,  # noqa: E402
                                  label_prop, ops, ref, segment_matmul,
@@ -1014,3 +1014,141 @@ def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
     _, got2, _ = mgr.restore(device="cuda:0")
     assert all(torch.equal(got2["params"][k], v) for k, v in sd.items())
     assert got2["bf16"].dtype == torch.bfloat16
+
+
+# ----------------------------------------------------------------------
+# the baselines (A7) and the k-core on the peel fixpoint
+# ----------------------------------------------------------------------
+
+def kmax_probes(km: int) -> int:
+    """Fixpoints :func:`kcore.k_max` runs to find ``km``: the doubling's
+    probes (the last one empty), then the bisection's."""
+    probes, lo, hi = 0, 1, 1
+    while hi <= km:
+        probes += 1
+        lo, hi = hi, hi * 2
+    probes += 1
+    while lo + 1 < hi:
+        probes += 1
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if mid <= km else (lo, mid)
+    return probes
+
+
+def test_boruvka_on_card_equals_kruskal(cuda):
+    """Borůvka as torch ops on card tensors selects the Kruskal forest at
+    every start time of cm_like at its default k."""
+    from repro_torch.core import ctmsf, ecb_forest
+
+    g = bench_graph("cm_like")
+    tab = core_time.edge_core_times(g, 12, device=cuda)
+    checked = 0
+    for ts in range(1, g.t_max + 1):
+        e_ids, cts = ecb_forest.active_versions(tab, ts)
+        if not e_ids.size:
+            continue
+        u, v = g.src[e_ids], g.dst[e_ids]
+        stats = {}
+        got = ctmsf.boruvka_msf(*(torch.as_tensor(a, device=cuda)
+                                  for a in (u, v, cts)), g.n, stats=stats)
+        assert got.device.type == cuda.type and stats["rounds"][0] >= 1
+        want = ctmsf.kruskal_msf(u, v, cts, g.n)
+        assert np.array_equal(got.cpu().numpy(), want), ts
+        assert np.array_equal(ctmsf.boruvka_msf_np(u, v, cts, g.n,
+                                                   device=cuda), want)
+        checked += 1
+    assert checked > 100
+
+
+def test_k_max_on_card_counts_one_launch_per_probe(cuda):
+    for g in (bench_graph("cm_like"),
+              gen_temporal_graph(n=1899, m=59835, t_max=193, seed=7)):
+        km = kcore.k_max(g)
+        before = kcore_peel.kcore_fixpoint.launches
+        assert kcore.k_max(g, device=cuda) == km
+        assert kcore_peel.kcore_fixpoint.launches - before == kmax_probes(km)
+        assert core_time.default_ks(g, device=cuda) == core_time.default_ks(g)
+
+
+def test_distinct_kcore_on_card_with_self_loops_and_parallel_edges(cuda):
+    rng = np.random.default_rng(23)
+    n, m = 60, 900
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = np.where(rng.random(m) < 0.05, src, rng.integers(0, n, m))
+    dst = dst.astype(np.int32)
+    src, dst = np.concatenate([src, src[:200]]), np.concatenate([dst,
+                                                                 dst[:200]])
+    for k in (-1, 0, 1, 2, 5, 9, 14, 40):
+        before = kcore_peel.kcore_fixpoint.launches
+        got = kcore.distinct_kcore_edge_mask(src, dst, n, k, device=cuda)
+        assert kcore_peel.kcore_fixpoint.launches == before + 1
+        assert np.array_equal(got, kcore.distinct_kcore_edge_mask(
+            src, dst, n, k)), k
+
+
+def test_window_oracles_on_card_equal_numpy(cuda):
+    """One fixpoint launch per window with edges; the same vertex and edge
+    sets as the numpy peel."""
+    g = bench_graph("cm_like")
+    for k in (2, 12):
+        for (u, ts, te) in random_queries(g, 24, seed=k):
+            nonempty = int(g.project(ts, te)[0].size > 0)
+            before = kcore_peel.kcore_fixpoint.launches
+            got = kcore.tccs_oracle(g, k, u, ts, te, device=cuda)
+            got_e = kcore.tccs_oracle_edges(g, k, u, ts, te, device=cuda)
+            assert kcore_peel.kcore_fixpoint.launches - before == 2 * nonempty
+            assert got == kcore.tccs_oracle(g, k, u, ts, te)
+            assert got_e == kcore.tccs_oracle_edges(g, k, u, ts, te)
+
+
+def test_card_build_takes_its_k_range_on_the_card(cuda):
+    """A card build peels its default k range and k_max_graph through the
+    fixpoint kernel; strata and index are those of the host build."""
+    from repro_torch.core import streaming
+
+    g = gen_temporal_graph(n=300, m=4000, t_max=160, seed=1)
+    km = kcore.k_max(g)
+    before = kcore_peel.kcore_fixpoint.launches
+    dev = core_time.stratified_core_times(g, device=cuda)
+    assert kcore_peel.kcore_fixpoint.launches - before == kmax_probes(km)
+    host = core_time.stratified_core_times(g, device="cpu")
+    assert dev.ks == host.ks == core_time.default_ks(g)
+    for f in ("kptr", "edge_id", "ts_from", "ts_to", "ct", "vptr"):
+        assert np.array_equal(getattr(dev, f), getattr(host, f)), f
+    before = kcore_peel.kcore_fixpoint.launches
+    sx = build_stratified_index(g, strata=dev, device=cuda)
+    assert kcore_peel.kcore_fixpoint.launches - before == kmax_probes(km)
+    want = build_stratified_index(g, strata=host, device="cpu")
+    assert sx.k_max_graph == want.k_max_graph == km
+    for f in ("node_u", "ent_ts", "vent_node", "knode_ptr"):
+        assert np.array_equal(getattr(sx, f), getattr(want, f)), f
+    g0, suffix = g.split_at(150)
+    sx0 = build_stratified_index(g0, device=cuda)
+    g1 = g0.extend(map(tuple, suffix.tolist()))
+    before = kcore_peel.kcore_fixpoint.launches
+    sx1 = streaming.extend_stratified_index(g1, sx0, device=cuda)
+    assert kcore_peel.kcore_fixpoint.launches > before
+    assert sx1.ks == want.ks and sx1.k_max_graph == km
+    g2 = g1.expire_before(80)
+    sx2 = streaming.shrink_stratified_index(g2, sx1, device=cuda)
+    assert sx2.ks == core_time.default_ks(g2)
+    assert sx2.k_max_graph == kcore.k_max(g2)
+
+
+@pytest.mark.parametrize("backend", ["ef", "ctmsf"])
+def test_baseline_index_builds_its_table_on_the_card(cuda, backend):
+    from repro_torch.core.ctmsf_index import CTMSFIndex
+    from repro_torch.core.ef_index import EFIndex
+
+    g = bench_graph("cm_like")
+    cls = EFIndex if backend == "ef" else CTMSFIndex
+    got = cls(g, 12, device=cuda)
+    want = cls(g, 12, core_time.edge_core_times(g, 12, device="cpu"))
+    assert got.nbytes() == want.nbytes()
+    assert np.array_equal(got.node_u if backend == "ctmsf"
+                          else got.ts_to_forest,
+                          want.node_u if backend == "ctmsf"
+                          else want.ts_to_forest)
+    for (u, ts, te) in random_queries(g, 50, seed=4):
+        assert got._component_vertices(u, ts, te) == \
+            want._component_vertices(u, ts, te)
