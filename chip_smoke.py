@@ -8,8 +8,9 @@ result line each; any failure raises and exits non-zero:
   gpu      card name and power limit (nvidia-smi)
   build    B1 (label propagation), B2 (segmented count), the stratum
            sweep (B2 redesigned), B3 (k-core peel round), the peel
-           fixpoint (B3 redesigned), B4 (segment sum), B5 (GEMM) and B6
-           (flash attention) with nvcc for sm_90a, the host
+           fixpoint (B3 redesigned), B4 (segment sum and its gradient
+           gather), B5 (GEMM), B6 (flash attention) and B6's backward with
+           nvcc for sm_90a, the host
            forest engine with cc, all started together; each kernel's
            registers, shared memory and spills
   construct  a CollegeMsg-scale temporal graph (SNAP CollegeMsg: 1,899
@@ -188,6 +189,28 @@ result line each; any failure raises and exits non-zero:
            layers' shapes, each timed beside its bound and library
            yardstick (index_add_, torch.matmul); sampling, copy and forward
            times per batch, seeds/s; one forward under torch.profiler
+  train    the training path: glm4-9b at full width cut in depth (n_layer
+           40 -> 8, batch 256 -> 1, one sequence of train_4k's 4,096
+           tokens from launch.train's TokenStream batches at the full
+           vocab, remat) through configs.make_train_step for 4 AdamW steps,
+           the first counted (B5 28L + 3 launches on the wgmma route, 14L + 2
+           of them gradient products; B6 2L forward on wgmma, L backward on
+           mma); losses finite, the first near ln(vocab); step seconds,
+           tokens/s, the model-FLOP share, the host data time, AdamW's
+           seconds, peak memory, one step under torch.profiler; B6's
+           backward at the path's shape against the plain backward (dq, dk,
+           dv within bwd_error_bound, lse, bitwise reproducible) and B5's
+           gradient products against their plain versions, each timed beside
+           its bound and library call; a 1-layer full-width model's loss and
+           every gradient against the plain versions; graphsage-reddit at
+           minibatch_lg's full dims through make_batch_fn and
+           make_train_step (B4 5, its gather 1, B5 13 per step), loss and
+           gradients against the plain versions, steps/s, seeds/s and the
+           sampler's host time, B4's gather bit-equal to its plain version
+           and timed; the training CLI with --inject-failure on the card for
+           both, the replayed losses equal to an uninterrupted run's (bit for
+           bit for glm4; within rtol 1e-5 for GraphSAGE, whose B4 sums
+           reorder under float atomics)
 
 The card builds, ingests and trims of epoch, engine and store peel their
 k ranges on the card too; a ``[kcore]`` line sums kcore_fixpoint's
@@ -1203,6 +1226,491 @@ def gnn_phase(dev) -> tuple[dict, int, float]:
               "bound_ms": main["bound_ms"], "bound_by": "bytes",
               "library_ms": main["library_ms"]}
     return record, b5_n, max(r["max_abs_err"] for r in b5.values())
+
+
+#: the [train] phase: glm4-9b at full width cut in depth to TRAIN_LAYERS of
+#: its 40 layers (one card's memory: the reference's f32 moments make 40
+#: layers 112.8 GB of state alone) on train_4k's sequence of TRAIN_SEQ
+#: tokens, batch TRAIN_BATCH of its 256, TRAIN_STEPS steps (the first
+#: counted, the rest timed); the plain comparison on a 1-layer model of the
+#: same width (the plain attention's (32, 4,096, 4,096) f32 scores fit)
+TRAIN_ARCH = "glm4-9b"
+TRAIN_LAYERS = 8
+TRAIN_SEQ, TRAIN_BATCH = 4096, 1
+TRAIN_STEPS = 4
+TRAIN_SEED = 19
+#: bf16 gradients, kernels against the plain versions: each leaf within this
+#: share of its largest |plain gradient| (PERF.md section 2's bf16 logits
+#: bound), the loss within TRAIN_LOSS_TOL of itself. The key bias's gradient
+#: sums the positions' key gradients, which nearly cancel (before RoPE a
+#: row's key gradients sum to zero), so it is held to the scale its
+#: per-position errors add up to: the same layer's wk gradient's
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_LOSS_TOL = 1e-2
+#: f32 GraphSAGE gradients: within this share of each leaf's largest
+GNN_GRAD_TOL = 1e-4
+#: the restart check: the --smoke CLI for RESTART_STEPS steps, a checkpoint
+#: every RESTART_EVERY, a failure injected at RESTART_FAIL
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 6, 2, 3
+
+
+def grad_leaf_errs(got: dict, want: dict) -> dict:
+    """Each gradient's largest |kernel - plain| over the largest |plain| of
+    its scale leaf (the key bias takes wk's: see TRAIN_GRAD_TOL)."""
+    out = {}
+    for name, g in got.items():
+        scale_of = name.replace(".bk", ".wk") if name.endswith(".bk") else name
+        scale = float(want[scale_of].float().abs().max())
+        out[name] = float((g.float() - want[name].float()).abs().max()) / max(
+            scale, 1e-30)
+    return out
+
+
+def plain_ops():
+    """Patches that put the plain versions in the models' kernel calls (the
+    differentiable ops of kernels/ops.py): autograd then runs through plain
+    PyTorch."""
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels import ref
+    return [mock.patch.object(kernel_ops, "matmul", ref.matmul),
+            mock.patch.object(kernel_ops, "flash_attention",
+                              ref.flash_attention),
+            mock.patch.object(kernel_ops, "segment_sum", ref.segment_sum),
+            mock.patch.object(kernel_ops, "gather_rows",
+                              lambda x, idx: x[idx.long()])]
+
+
+def loss_and_grads(spec, cfg, model, batch, plain: bool = False):
+    """(loss, {name: gradient}) of one batch, with the kernels or, with
+    ``plain``, the plain versions."""
+    from repro_torch import configs
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    with contextlib.ExitStack() as stack:
+        for patch in plain_ops() if plain else ():
+            stack.enter_context(patch)
+        loss = configs.loss_for(spec, cfg)(model, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+def b6_bwd_check(q, k, v, causal: bool, smi: str) -> dict:
+    """B6's backward against the plain backward on the same inputs (``do``
+    drawn from a seed), dq, dk and dv within ``bwd_error_bound``, lse
+    within 1e-4; timed beside its bound, the plain version and the library
+    call (scaled_dot_product_attention's backward with enable_gqa, its
+    forward run once outside the timing)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    gen = torch.Generator(device=q.device).manual_seed(TRAIN_SEED)
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    o = fa.flash_attention(q, k, v, causal=causal)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    if fa.flash_attention_bwd.launches != before + 1:
+        raise AssertionError("B6's backward did not launch")
+    want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    scales = ref.flash_attention_bwd_scales(q, k, v, o, do, causal=causal)
+    worst, err = {}, 0.0
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (a.float() - w.float()).abs()
+        bound = fa.bwd_error_bound(w, *scales[name])
+        worst[name] = float((diff / bound).max())
+        err = max(err, float(diff.max()))
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"B6's backward: {name} disagrees with the "
+                                 f"plain version ({worst[name]} of the bound)")
+    lse_err = float((got[3] - want[3].float()).abs().max())
+    if not lse_err <= 1e-4:
+        raise AssertionError(f"B6's backward: lse off by {lse_err}")
+    again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("B6's backward is not bitwise reproducible")
+    del got, want, scales, again
+    t, kern = call_times(lambda: fa.flash_attention_bwd(
+        q, k, v, o, do, causal=causal), iters=10)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_bwd(
+        q, k, v, o, do, causal=causal), iters=1, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms, lib = call_times(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    del out, qt, kt, vt, dot
+    bound = fa.bwd_bound_ms(B, S, H, Hkv, T, T, causal, dh, q.element_size())
+    print(f"[train] B6 backward at the path's shape: q ({B}, {S}, {H}, {dh}) "
+          f"over k, v ({B}, {T}, {Hkv}, {dh}), {str(q.dtype)[6:]}, causal "
+          f"{causal}, route {fa.bwd_plan(dh, q.dtype)[0]}: dq, dk, dv at "
+          f"{worst['dq']:.3f}, {worst['dk']:.3f}, {worst['dv']:.3f} of "
+          f"bwd_error_bound at most (max abs err {err:.3e}), lse within "
+          f"{lse_err:.2e}, bitwise reproducible; kernel {kern}; plain "
+          f"{plain_ms:.4f} ms back to back; library "
+          f"scaled_dot_product_attention backward (enable_gqa) {lib}; bound "
+          f"{bound:.4f} ms (operations: five products of the attended "
+          f"pairs at 989 TFLOP/s) = {bound / t:.3f} of the kernel's time | "
+          f"{smi}")
+    return dict(max_abs_err=err, ms=t, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by="operations")
+
+
+def b4_gather_check(dout, ids, what: str, smi: str) -> dict:
+    """B4's gradient gather against its plain version, bit for bit, and
+    timed beside its bound, the plain version and the library call
+    ``dout.index_select(0, ids)`` (every id of a sampled batch is in range,
+    so no clamp is needed there)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_matmul as sm
+
+    got = sm.segment_gather(dout, ids)
+    want = ref.segment_gather(dout, ids, torch.float32)
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"B4's gather ({what}) differs from its plain "
+                             f"version (max abs err {err})")
+    del got, want
+    E, d = ids.shape[0], dout.shape[1]
+    if not bool(((ids >= 0) & (ids < dout.shape[0])).all()):
+        raise AssertionError("the path's ids lie outside [0, S)")
+    idl = ids.long()
+    t, kern = call_times(lambda: sm.segment_gather(dout, ids))
+    plain_ms = cuda_ms(lambda: ref.segment_gather(dout, ids, torch.float32),
+                       iters=5, warmup=1)
+    lib_ms, lib = call_times(lambda: dout.index_select(0, idl))
+    rows = int(torch.unique(ids).numel())
+    bound = sm.segment_gather_bound_ms(E, d, rows)
+    print(f"[train] B4 gather {what}: ({dout.shape[0]} x {d}) rows gathered "
+          f"by {E} ids ({rows} distinct): bit-equal to the plain version; "
+          f"kernel {kern}; plain {plain_ms:.6f} ms back to back; library "
+          f"index_select {lib}; bound {bound:.6f} ms (bytes: 4*rows*d + 4*E "
+          f"+ 4*E*d at 3.35 TB/s) = {bound / t:.3f} of the kernel's time | "
+          f"{smi}")
+    return dict(max_abs_err=err, ms=t, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by="bytes")
+
+
+def restart_check(arch: str, dev, smi: str) -> bool:
+    """The training CLI (``--smoke``, on the card) with a checkpoint every
+    RESTART_EVERY steps and a failure injected at RESTART_FAIL, against an
+    uninterrupted run: the replayed steps' losses must equal the
+    uninterrupted ones bit for bit where every kernel of the path is
+    deterministic (the LM), within rtol 1e-5 where B4's float atomics
+    reorder sums (GraphSAGE). Returns whether they were bit-equal."""
+    from repro_torch.launch import train as train_cli
+
+    base = ["--arch", arch, "--smoke", "--steps", str(RESTART_STEPS),
+            "--log-every", str(10 * RESTART_STEPS), "--device", str(dev)]
+    with contextlib.redirect_stdout(sys.stderr):
+        clean = train_cli.main(base)
+        with tempfile.TemporaryDirectory() as d:
+            replayed = train_cli.main(base + [
+                "--ckpt-dir", d, "--ckpt-every", str(RESTART_EVERY),
+                "--inject-failure", str(RESTART_FAIL)])
+    back = (RESTART_FAIL // RESTART_EVERY) * RESTART_EVERY
+    want = clean[:RESTART_FAIL] + clean[back:]
+    if len(replayed) != len(want) or not all(np.isfinite(replayed)):
+        raise AssertionError(f"{arch}: the restarted run gave {replayed}")
+    exact = replayed == want
+    if arch.startswith("graphsage"):
+        np.testing.assert_allclose(replayed, want, rtol=1e-5)
+    elif not exact:
+        raise AssertionError(f"{arch}: the restarted run's losses {replayed} "
+                             f"are not the uninterrupted run's {want}")
+    print(f"[train] restart: launch.train --arch {arch} --smoke --steps "
+          f"{RESTART_STEPS} --ckpt-every {RESTART_EVERY} --inject-failure "
+          f"{RESTART_FAIL} on the card: rolled back to step {back}, "
+          f"{len(replayed)} losses, the replayed ones "
+          f"{'bit-equal to' if exact else 'within rtol 1e-5 of'} the "
+          f"uninterrupted run's ({' '.join(f'{x:.6f}' for x in replayed)})"
+          f"{'' if exact else ' (B4 float atomics reorder its sums)'} | "
+          f"{smi}")
+    return exact
+
+
+def train_phase(dev, smi: str) -> dict:
+    """[train]: the training path on the card through its entry points.
+
+    glm4-9b at full width, TRAIN_LAYERS layers, remat, one sequence of
+    TRAIN_SEQ tokens from ``launch.train.make_batch_fn`` (TokenStream at the
+    full vocab) through ``configs.make_train_step``: the first step
+    counted (every launch of B5 and its gradient, B6 and its backward
+    asserted from the code), then timed steps, the step split into data,
+    forward + backward and AdamW, one step under torch.profiler; the
+    kernels at the path's shapes against their plain versions; a 1-layer
+    full-width model's loss and gradients against the plain versions;
+    then graphsage-reddit at minibatch_lg the same way; then the restart
+    check of the CLI. Returns the launches and records of the phase."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segment_matmul as sm
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    spec = configs.get(TRAIN_ARCH)
+    full = spec.model_cfg
+    cfg = dataclasses.replace(full, n_layer=TRAIN_LAYERS)
+    L = cfg.n_layer
+    dims = dict(spec.shapes["train_4k"], batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    model, t_init = wall(lambda: configs.init_params(spec, cfg, gen,
+                                                     device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count}")
+    opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+    step = configs.make_train_step(spec, cfg, opt_cfg)
+    state = adamw.init_state(dict(model.named_parameters()))
+    batch_fn = train_cli.make_batch_fn(spec, cfg, dims, dev)
+    print(f"[train] {TRAIN_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_head} query heads over {cfg.n_kv} kv heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, QKV bias), cut "
+          f"in depth: reduced n_layer {full.n_layer} -> {L}; batch "
+          f"{spec.shapes['train_4k']['batch']} -> {TRAIN_BATCH} (seq "
+          f"{TRAIN_SEQ}); remat {cfg.remat}; {n_params:,} parameters in "
+          f"{cfg.dtype}, drawn on the card from seed {TRAIN_SEED} in "
+          f"{t_init:.2f}s; AdamW with f32 moments | {smi}")
+
+    losses, step_s, data_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch, t_data = wall(lambda: batch_fn(i))
+        if i == 0:
+            sm.reset_counts()
+            fa.reset_counts()
+            fa.reset_bwd_counts()
+        (_, state, m), t = wall(lambda: step(model, state, batch))
+        if i == 0:
+            b5, b5_grad = sm.matmul.launches, sm.matmul_grads.launches
+            b5_by_route = b5_routes(sm, {"wgmma": 28 * L + 3}, "a train step")
+            b6, b6_bwd = fa.flash_attention.launches, \
+                fa.flash_attention_bwd.launches
+            b6_by_route = b6_routes(fa, {"wgmma": 2 * L}, "a train step")
+            want = (28 * L + 3, 14 * L + 2, 2 * L, L)
+            if (b5, b5_grad, b6, b6_bwd) != want:
+                raise AssertionError(
+                    f"a train step launched B5 {b5} (gradients {b5_grad}), B6 "
+                    f"{b6} and its backward {b6_bwd} times, not {want}")
+            if fa.flash_attention_bwd.routes["mma"] != L:
+                raise AssertionError("B6's backward left the mma route")
+        losses.append(float(m["loss"]))
+        step_s.append(t)
+        data_s.append(t_data)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses are not finite: {losses}")
+    ln_v = float(np.log(cfg.vocab))
+    if not abs(losses[0] - ln_v) <= 1.5:
+        raise AssertionError(f"the first loss {losses[0]} is not near ln("
+                             f"{cfg.vocab}) = {ln_v}")
+    timed = sorted(step_s[1:])
+    t_step = timed[len(timed) // 2]
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops = configs.model_flops(spec, "train_4k", dims=dims, model_cfg=cfg)
+    data_step = sorted(data_s[1:])[len(data_s[1:]) // 2]
+    print(f"[train] main path: {TRAIN_STEPS} steps of make_train_step, the "
+          f"first counted: B5 {b5} per step ({b5_by_route}: 7L + 1 forward, "
+          f"7L recomputed by remat, 14L + 2 gradient products = {b5_grad}), "
+          f"B6 forward {b6} ({b6_by_route}: L + L recomputed), B6 backward "
+          f"{b6_bwd} (all on the mma route); losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (ln {cfg.vocab} = "
+          f"{ln_v:.4f}); step {t_step:.4f}s (median of {len(timed)} timed; "
+          f"first {step_s[0]:.4f}s) = {tokens / t_step:.1f} tokens/s; model "
+          f"FLOPs {flops:.4e} per step = {flops / t_step / 989e12:.4f} of "
+          f"989 TFLOP/s; data (TokenStream.batch on the host at vocab "
+          f"{cfg.vocab} + upload) {data_step:.4f}s per step, outside the "
+          f"step; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+
+    # -- the step's split, and one step under the profiler ----------------
+    batch = batch_fn(TRAIN_STEPS)
+    params = dict(model.named_parameters())
+    (_, grads), t_fb = wall(lambda: loss_and_grads(spec, cfg, model, batch))
+    _, t_opt = wall(lambda: adamw.apply_updates(opt_cfg, params, grads,
+                                                state))
+    del grads
+    t_copy = cuda_ms(lambda: model.head.t().contiguous(), iters=3, warmup=1)
+    print(f"[train] step split: forward + backward {t_fb:.4f}s, AdamW "
+          f"{t_opt:.4f}s ({n_params:,} parameters, f32 moments), data "
+          f"{data_step:.4f}s on the host; B5's gradient copies each "
+          f"transposed operand: the head's (1.24 GB) takes {t_copy:.4f} ms "
+          f"| {smi}")
+    print(f"[train] one train step under torch.profiler: " + profiled(
+        lambda: step(model, state, batch),
+        {"B5": is_b5, "B6": lambda k: "flash_wgmma<" in k,
+         "B6 backward": lambda k: "flash_bwd" in k}) + f" | {smi}")
+    del model, state, params, batch
+    torch.cuda.empty_cache()
+
+    # -- kernels at the path's shapes ---------------------------------------
+    one = dataclasses.replace(full, n_layer=1, remat=False)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    m1 = configs.init_params(spec, one, gen, device=dev)
+    b1 = batch_fn(0)
+    p0 = m1.layers[0]
+    pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=dev)[None, :]
+    with torch.no_grad():
+        h = tfm.rms_norm(m1.embed[b1["tokens"].long()], p0.ln1)
+        q, k, v = tfm.qkv(p0, one, h, pos)
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    b6_rec = b6_bwd_check(q, k, v, True, smi)
+    del q, k, v
+    g2 = torch.Generator(device=dev).manual_seed(TRAIN_SEED + 1)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g2, device=dev).bfloat16()
+
+    x2, dq_ = h[0].contiguous(), rnd(TRAIN_SEQ, cfg.n_head * cfg.d_head)
+    dff, dvoc = rnd(TRAIN_SEQ, cfg.d_ff), rnd(TRAIN_SEQ, cfg.vocab)
+    b5g = kernel_checks({
+        "grad dA of wq (dC @ wq^T)": (dq_, p0.wq.detach().t().contiguous()),
+        "grad dB of ffn.wi (x^T @ dC)": (x2.t().contiguous(), dff),
+        "grad dA of ffn.wo (dC @ wo^T)": (
+            rnd(TRAIN_SEQ, cfg.d_model),
+            p0.ffn.wo.detach().t().contiguous()),
+        "grad dB of head (x^T @ dC)": (x2.t().contiguous(), dvoc),
+        "grad dA of head (dC @ head^T)": (
+            dvoc, m1.head.detach().t().contiguous())}, {}, tag="train")
+    del x2, dq_, dff, dvoc, h
+
+    # -- a 1-layer full-width model: kernels against the plain versions ----
+    (loss_k, grads_k), t_k = wall(lambda: loss_and_grads(spec, one, m1, b1))
+    (loss_p, grads_p), t_p = wall(lambda: loss_and_grads(spec, one, m1, b1,
+                                                         plain=True))
+    errs = grad_leaf_errs(grads_k, grads_p)
+    worst = max(errs, key=errs.get)
+    if not abs(loss_k - loss_p) <= TRAIN_LOSS_TOL * abs(loss_p):
+        raise AssertionError(f"1-layer loss {loss_k} with the kernels, "
+                             f"{loss_p} with the plain versions")
+    if not errs[worst] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"gradient {worst} differs from the plain "
+                             f"version's by {errs[worst]} of its scale")
+    print(f"[train] 1-layer full-width {TRAIN_ARCH}, one sequence of "
+          f"{TRAIN_SEQ}: loss {loss_k:.6f} with the kernels ({t_k:.3f}s), "
+          f"{loss_p:.6f} with the plain versions on the card ({t_p:.3f}s; "
+          f"tolerance {TRAIN_LOSS_TOL} relative); every one of the "
+          f"{len(errs)} gradients within {errs[worst]:.3e} of its largest "
+          f"|plain| at most ({worst}; tolerance {TRAIN_GRAD_TOL}; per leaf "
+          + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()) + f") | {smi}")
+    del m1, grads_k, grads_p
+    torch.cuda.empty_cache()
+    peak_lm = torch.cuda.max_memory_allocated() / 2**30
+
+    # -- graphsage-reddit at minibatch_lg ------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    gspec = configs.get(GNN_ARCH)
+    gcfg = configs.cell_model_cfg(gspec, GNN_SHAPE)
+    gdims = dict(gspec.shapes[GNN_SHAPE])
+    gfn, t_graph = wall(lambda: train_cli.make_batch_fn(gspec, gcfg, gdims,
+                                                        dev))
+    gmodel = configs.init_params(gspec, gcfg,
+                                 torch.Generator(device=dev).manual_seed(
+                                     TRAIN_SEED), device=dev)
+    gstep = configs.make_train_step(gspec, gcfg, opt_cfg)
+    gstate = adamw.init_state(dict(gmodel.named_parameters()))
+    seeds_n = max(gdims["n"] // 8, 2)
+    g_losses, g_step, g_data = [], [], []
+    for i in range(TRAIN_STEPS):
+        gb, t_data = wall(lambda: gfn(i))
+        if i == 0:
+            sm.reset_counts()
+            sm.segment_sum.launches = sm.segment_gather.launches = 0
+            first_gb = gb
+        (_, gstate, m), t = wall(lambda: gstep(gmodel, gstate, gb))
+        if i == 0:
+            counts = (sm.segment_sum.launches, sm.segment_gather.launches,
+                      sm.matmul.launches, sm.matmul_grads.launches)
+            if counts != (5, 1, 13, 8):
+                raise AssertionError(f"a GraphSAGE train step launched B4 "
+                                     f"{counts[0]}, its gather {counts[1]} "
+                                     f"and B5 {counts[2]} (gradients "
+                                     f"{counts[3]}) times, not (5, 1, 13, 8)")
+            g_routes = b5_routes(sm, {"f32": 13}, "a GraphSAGE train step")
+        g_losses.append(float(m["loss"]))
+        g_step.append(t)
+        g_data.append(t_data)
+    if not all(np.isfinite(g_losses)):
+        raise AssertionError(f"GraphSAGE losses are not finite: {g_losses}")
+    gt = sorted(g_step[1:])[len(g_step[1:]) // 2]
+    gd = sorted(g_data[1:])[len(g_data[1:]) // 2]
+    E = int(first_gb["src"].shape[0])
+    print(f"[train] {GNN_ARCH} at {GNN_SHAPE}'s full dims ({gdims['n']:,} "
+          f"nodes, d_in {gcfg.d_in}, hidden {gcfg.d_hidden}, "
+          f"{gcfg.n_classes} classes) through launch.train's make_batch_fn "
+          f"(power-law graph, average degree 6, built in {t_graph:.2f}s; "
+          f"{seeds_n:,} seeds a step, fanout (5, 5), {E:,} edges padded) and "
+          f"make_train_step: first step counted: B4 {counts[0]} (4 forward, "
+          f"1 the neighbour gather's gradient), B4 gather {counts[1]}, B5 "
+          f"{counts[2]} ({g_routes}; {counts[3]} of them gradients); losses "
+          f"{' '.join(f'{x:.4f}' for x in g_losses)}; step {gt:.4f}s = "
+          f"{1 / gt:.3f} steps/s = {seeds_n / gt:.1f} seeds/s trained on the "
+          f"card; the sampler {gd:.4f}s per step on the host (outside the "
+          f"step) | {smi}")
+    (gl_k, gg_k), _ = wall(lambda: loss_and_grads(gspec, gcfg, gmodel,
+                                                  first_gb))
+    (gl_p, gg_p), _ = wall(lambda: loss_and_grads(gspec, gcfg, gmodel,
+                                                  first_gb, plain=True))
+    gerrs = grad_leaf_errs(gg_k, gg_p)
+    gworst = max(gerrs, key=gerrs.get)
+    if not (abs(gl_k - gl_p) <= 1e-5 * abs(gl_p)
+            and gerrs[gworst] <= GNN_GRAD_TOL):
+        raise AssertionError(f"GraphSAGE: loss {gl_k} against {gl_p}, "
+                             f"gradient {gworst} off by {gerrs[gworst]}")
+    print(f"[train] GraphSAGE loss {gl_k:.7f} with the kernels, {gl_p:.7f} "
+          f"with the plain versions; gradients within {gerrs[gworst]:.3e} of "
+          f"each leaf's largest |plain| ({gworst}; tolerance "
+          f"{GNN_GRAD_TOL}) | {smi}")
+    gather_recs = [
+        b4_gather_check(torch.randn(gdims["n"], gcfg.d_hidden, generator=gen,
+                                    device=dev), first_gb["dst"],
+                        "layer 2 (d = 128), the path's", smi),
+        b4_gather_check(torch.randn(gdims["n"], gcfg.d_in, generator=gen,
+                                    device=dev), first_gb["dst"],
+                        "at d = 602", smi)]
+    print(f"[train] GraphSAGE peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; glm4's "
+          f"{peak_lm:.2f} GiB | {smi}")
+    del gmodel, gstate, first_gb, gb
+    torch.cuda.empty_cache()
+
+    exact = restart_check(TRAIN_ARCH, dev, smi)
+    restart_check(GNN_ARCH, dev, smi)
+    print(f"[train] phase {time.perf_counter() - t_phase:.1f}s | {smi}")
+    csrc = "src/repro_torch/kernels/csrc/"
+    gmain = gather_recs[0]
+    bmain = b5g["grad dB of ffn.wi (x^T @ dC)"]
+    return {
+        "b5": b5 - b5_grad + counts[2] - counts[3], "b6": b6,
+        "b4": counts[0], "restart_exact": exact,
+        "records": [
+            {"name": "matmul (gradient)", "route": "cuda",
+             "source": csrc + "matmul.cu",
+             "replaces": "src/repro/kernels/segment_matmul.py:52",
+             "launches": b5_grad + counts[3],
+             "max_abs_err": max(r["max_abs_err"] for r in b5g.values()),
+             "ms": bmain["ms"], "plain_ms": bmain["plain_ms"],
+             "bound_ms": bmain["bound_ms"], "bound_by": bmain["bound_by"],
+             "library_ms": bmain["library_ms"]},
+            {"name": "flash_attention_bwd", "route": "cuda",
+             "source": csrc + "flash_attention_bwd.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:96",
+             "launches": b6_bwd, **b6_rec},
+            {"name": "segment_gather", "route": "cuda",
+             "source": csrc + "segment_sum.cu",
+             "replaces": "src/repro/kernels/segment_matmul.py:104",
+             "launches": counts[1],
+             "max_abs_err": max(r["max_abs_err"] for r in gather_recs),
+             **{k: gmain[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}]}
 
 
 def sweep_split(g, ks, dev) -> dict:
@@ -3045,7 +3553,8 @@ def main() -> int:
             ("B3", kcore_peel.build),
             ("fixpoint", kcore_peel.build_fixpoint),
             ("B4", segment_matmul.build_segment_sum),
-            ("B5", segment_matmul.build), ("B6", flash_attention.build))}
+            ("B5", segment_matmul.build), ("B6", flash_attention.build),
+            ("B6 backward", flash_attention.build_bwd))}
         host = pool.submit(ecb_native.available)
         libs = {name: f.result() for name, f in libs.items()}
         native = host.result()
@@ -3053,8 +3562,8 @@ def main() -> int:
         print(f"[build] {name} {so.name}")
         for k in ptxas_kernels(so.with_suffix(".log").read_text()):
             print(f"[build] {name} ptxas {k}")
-    print(f"[build] B1, B2, the stratum sweep, B3, the peel fixpoint, B4, "
-          f"B5, B6 + host "
+    print(f"[build] B1, B2, the stratum sweep, B3, the peel fixpoint, B4 "
+          f"(and its gradient gather), B5, B6, B6's backward + host "
           f"forest engine "
           f"({'native C' if native else 'Python: no C compiler'}) in "
           f"{time.perf_counter() - t0:.2f}s")
@@ -3361,6 +3870,10 @@ def main() -> int:
     b5_record = lm_records[0]
     b5_record["launches"] += b5_gnn_launches
     b5_record["max_abs_err"] = max(b5_record["max_abs_err"], b5_gnn_err)
+    trained = train_phase(dev, smi)
+    b5_record["launches"] += trained["b5"]
+    lm_records[1]["launches"] += trained["b6"]
+    b4_record["launches"] += trained["b4"]
 
     csrc = "src/repro_torch/kernels/csrc/"
     records = [
@@ -3389,7 +3902,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/kcore_peel.py:117",
          "launches": b3_peel[1], "max_abs_err": b3_err[1], "ms": b3b_ms,
          "plain_ms": b3b_plain, "bound_ms": b3b_bound, "bound_by": "bytes",
-         "library_ms": None}, fix_record, b4_record] + lm_records
+         "library_ms": None}, fix_record, b4_record] + lm_records + \
+        trained["records"]
     print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f}s"
           f" ({smi})")
     print(json.dumps({"kernels": records}))

@@ -11,8 +11,11 @@ promotes from (``store``) and tensor-tree checkpoints (``checkpoint``); and
 for the model cells the dense LM (``models.transformer``, its projections
 on the B5 GEMM kernel and its attention on the B6 flash-attention kernel)
 and GraphSAGE (``models.gnn``, its aggregation on the B4 segment-sum
-kernel, its projections on B5) with their configs and serve steps
-(``configs``) and the GraphSAGE neighbour sampler (``data``). Entry points run on the
+kernel, its projections on B5) with their configs, serve steps and train
+steps (``configs``; every kernel's gradient is a kernel too), AdamW
+(``optim``), the restarting step loop (``runtime``), the training CLI
+(``launch.train``), the token stream and the GraphSAGE neighbour sampler
+(``data``). Entry points run on the
 card (``device="cuda"``) unless the caller passes ``device="cpu"``.
 Imports torch, numpy and the standard library only.
 """

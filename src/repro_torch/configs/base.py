@@ -3,10 +3,13 @@ parts of ``repro.configs.base``.
 
 Every (arch x shape) cell resolves to a model config
 (:func:`cell_model_cfg`), a serve step (:func:`make_serve_step`: an LM's
-prefill and decode, GraphSAGE's forward) and its analytic model FLOPs
-(:func:`model_flops`). The train step, the sharding specs, MoE LMs, the
-other GNN families (MeshGraphNet, NequIP, MACE) and recsys are not ported
-yet (ROADMAP A8) and raise.
+prefill and decode, GraphSAGE's forward), a train step
+(:func:`make_train_step`: the loss of :func:`loss_for` differentiated
+through the kernels' gradients, then one AdamW update in place) and its
+analytic model FLOPs (:func:`model_flops`); :func:`init_params` draws a
+model and :func:`smoke_dims` gives a cell's reduced dims. The sharding
+specs, MoE LMs, the other GNN families (MeshGraphNet, NequIP, MACE) and
+recsys are not ported yet (ROADMAP A8) and raise.
 """
 
 from __future__ import annotations
@@ -14,8 +17,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
 from ..models import gnn as gnn_mod
 from ..models import transformer as tfm
+from ..optim import adamw
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,8 +137,76 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
             return tfm.decode_step(_model_of(model), batch["tokens"],
                                    batch["cache"], batch["cache_len"])
         return serve_step
-    raise NotImplementedError(f"{spec.id} x {shape_name}: the {kind} step is "
-                              "not ported yet (ROADMAP A8)")
+    raise NotImplementedError(f"{spec.id} x {shape_name}: a {kind} cell has "
+                              "no serve step (make_train_step trains it)")
+
+
+def smoke_dims(spec: ArchSpec, shape_name: str) -> dict:
+    """Reduced dims of the same kind, for CPU smoke runs (the
+    reference's): an LM's batch 2 x 32 tokens; a GNN's 24 nodes and 48
+    edges per graph (at most 4 graphs), 8 features, no seed count."""
+    _ported(spec)
+    dims = dict(spec.shapes[shape_name])
+    if spec.family.startswith("lm"):
+        dims.update(seq=32, batch=2)
+    else:
+        graphs = min(dims.get("graphs", 1), 4)
+        dims.update(n=24 * graphs, e=48 * graphs, d_feat=8, graphs=graphs)
+        dims.pop("seeds", None)
+    return dims
+
+
+def init_params(spec: ArchSpec, model_cfg, generator: torch.Generator,
+                device="cuda"):
+    """A model of ``model_cfg`` drawn from ``generator`` (which lives on
+    ``device``) with the reference's initial distributions: the port's
+    ``init_params`` of the family."""
+    _ported(spec)
+    if spec.family == "gnn":
+        return gnn_mod.init_params(model_cfg, generator, device=device)
+    return tfm.init_params(model_cfg, generator, device=device)
+
+
+def loss_for(spec: ArchSpec, model_cfg) -> Callable:
+    """``loss(model, batch)``, the reference's: an LM's
+    ``transformer.loss_fn`` over ``{"tokens", "labels"}``, GraphSAGE's
+    ``gnn.sage_loss`` over the graph batch with ``labels`` and
+    ``seed_mask``."""
+    _ported(spec)
+    if spec.family == "gnn":
+        return lambda model, batch: gnn_mod.sage_loss(model, batch)
+    return lambda model, batch: tfm.loss_fn(model, batch["tokens"],
+                                            batch["labels"])
+
+
+def make_train_step(spec: ArchSpec, model_cfg,
+                    opt_cfg: adamw.AdamWConfig | None = None) -> Callable:
+    """``train_step(model, opt_state, batch) -> (model, opt_state,
+    {"loss", "grad_norm", "lr"})``, the reference's: the loss and the
+    gradient of every parameter (autograd through the kernels' backward
+    kernels), then ``adamw.apply_updates``. Unlike the reference's, which
+    returns new arrays, the step updates ``model``'s parameters and the
+    moments of ``opt_state`` IN PLACE and returns the same objects; the
+    metrics are 0-dim tensors on the model's device."""
+    _ported(spec)
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+    loss = loss_for(spec, model_cfg)
+
+    def train_step(model, opt_state, batch):
+        if model.cfg != model_cfg:
+            raise ValueError(f"the model is {model.cfg.name}, the step was "
+                             f"made for {model_cfg.name}")
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        lval = loss(model, batch)
+        grads = dict(zip(params, torch.autograd.grad(
+            lval, list(params.values()))))
+        _, opt_state, metrics = adamw.apply_updates(opt_cfg, params, grads,
+                                                    opt_state)
+        return model, opt_state, {"loss": lval.detach(), **metrics}
+
+    return train_step
 
 
 def model_flops(spec: ArchSpec, shape_name: str, dims: dict | None = None,

@@ -13,7 +13,7 @@ SPEC = register(ArchSpec(
     ),
     smoke_cfg=LMConfig(
         name="glm4-smoke", n_layer=2, d_model=64, n_head=4, n_kv=2,
-        d_ff=128, vocab=256, d_head=16, qkv_bias=True,
+        d_ff=128, vocab=256, d_head=16, qkv_bias=True, remat=False,
     ),
     shapes=LM_SHAPES, skips=LM_SKIPS,
     source="hf:THUDM/glm-4-9b; hf",

@@ -22,8 +22,9 @@ its dataclass fields, ready for the port's forest builders
 tab)``).
 
 :func:`lm_params_from_reference` carries a reference LM's weights (the
-JAX params pytree as numpy arrays) into the port's state dict, and
-:func:`sage_params_from_reference` a reference GraphSAGE's.
+JAX params pytree as numpy arrays) into the port's state dict,
+:func:`sage_params_from_reference` a reference GraphSAGE's, and
+:func:`adamw_state_from_reference` the reference AdamW state of either.
 """
 
 from __future__ import annotations
@@ -118,3 +119,18 @@ def sage_params_from_reference(tree) -> dict[str, torch.Tensor]:
         for name, val in layer.items():
             state[f"layers.{i}.{name}"] = _tensor(val)
     return state
+
+
+def adamw_state_from_reference(state) -> dict:
+    """The port's AdamW state (``optim.adamw.init_state``'s form) from the
+    reference's ``{"mu", "nu", "step"}`` (``repro.optim.adamw``'s state as
+    numpy arrays): ``mu`` and ``nu``, pytrees of the params' structure,
+    become ``{name: tensor}`` under the port's parameter names (through
+    :func:`lm_params_from_reference` for an LM's tree, which has
+    ``embed``, else :func:`sage_params_from_reference`), ``step`` an int32
+    0-dim tensor. CPU tensors; ``.to(device)`` them for the card."""
+    carry = (lm_params_from_reference if "embed" in state["mu"]
+             else sage_params_from_reference)
+    return {"mu": carry(state["mu"]), "nu": carry(state["nu"]),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32)}

@@ -1,2 +1,3 @@
 """Input pipelines of the port: the GraphSAGE neighbour sampler
-(``graph_sampler``), a numpy copy of the reference's."""
+(``graph_sampler``) and the synthetic LM token stream (``lm_data``), numpy
+copies of the reference's."""

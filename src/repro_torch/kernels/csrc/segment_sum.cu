@@ -31,6 +31,18 @@
 // written once (4 * S * d): 1.22 GB, 0.365 ms at 3.35 TB/s, for GraphSAGE's
 // layer-1 aggregation at minibatch_lg (E = 337,920, d = 602, S = 169,984).
 // The E * d adds are far below the f32 peak.
+//
+// The gradient. With respect to vals the segment sum's gradient is a gather:
+//     dvals[i, :] = dout[ids[i], :] where 0 <= ids[i] < S, else 0     (f32)
+// (`segment_gather_kernel`). A block takes kGatherRows consecutive rows and
+// a chunk of blockDim.x columns, one thread per column, so neighbouring
+// threads read neighbouring floats of one dout row and write neighbouring
+// floats of one output row. Every output element is written once, by one
+// thread, with no atomics: the gather is bitwise reproducible. Bound:
+// memory, the distinct dout rows read once, the ids, and E * d floats
+// written (0.18 ms at 3.35 TB/s for GraphSAGE training at minibatch_lg:
+// d = 128, E = 1,019,392 ids into 169,984 rows). A row is read once per
+// id that names it; the 50 MB L2 keeps most repeats off device memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,7 +93,48 @@ segment_sum_kernel(const float* __restrict__ vals,
         atomicAdd(out + static_cast<int64_t>(cur) * d + c, acc);
 }
 
+constexpr int kGatherRows = 16;  // rows per block of the gather
+
+__global__ void __launch_bounds__(kMaxThreads)
+segment_gather_kernel(const float* __restrict__ dout,
+                      const int32_t* __restrict__ ids,
+                      float* __restrict__ out, int64_t E, int64_t d,
+                      int32_t S) {
+    const int64_t c = static_cast<int64_t>(blockIdx.y) * blockDim.x +
+                      threadIdx.x;
+    if (c >= d) return;
+    const int64_t r0 = static_cast<int64_t>(blockIdx.x) * kGatherRows;
+#pragma unroll 4
+    for (int i = 0; i < kGatherRows; ++i) {
+        const int64_t e = r0 + i;
+        if (e >= E) break;
+        const int32_t id = __ldg(ids + e);
+        out[e * d + c] = id >= 0 && id < S
+                             ? __ldg(dout + static_cast<int64_t>(id) * d + c)
+                             : 0.f;
+    }
+}
+
 }  // namespace
+
+// Plain C entry for ctypes: the gradient gather. f32 dout[S, d], int32
+// ids[E], f32 out[E, d], contiguous device tensors; launches on `stream`
+// without synchronising and returns the first CUDA error (0 when none).
+// The caller never passes E or d of 0.
+extern "C" int segment_gather_launch(const void* dout, const void* ids,
+                                     void* out, int64_t E, int64_t d,
+                                     int64_t S, void* stream) {
+    const int threads = d >= kMaxThreads ? kMaxThreads
+                                         : static_cast<int>((d + 31) / 32 * 32);
+    const dim3 grid(
+        static_cast<unsigned int>((E + kGatherRows - 1) / kGatherRows),
+        static_cast<unsigned int>((d + threads - 1) / threads));
+    segment_gather_kernel<<<grid, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(dout), static_cast<const int32_t*>(ids),
+        static_cast<float*>(out), E, d, static_cast<int32_t>(S));
+    return static_cast<int>(cudaGetLastError());
+}
 
 // Plain C entry for ctypes. Pointers are device pointers of contiguous
 // tensors: f32 vals[E, d], int32 ids[E], f32 out[S, d]. `stream` is the

@@ -33,11 +33,20 @@ H100: the attended (query, key) pairs' operations at the peak of the
 dtype, or q, o and the first ``t_real`` keys and values moved once at
 3.35 TB/s, whichever is larger.
 
+The gradient, :func:`flash_attention_bwd`, is a kernel of its own
+(``csrc/flash_attention_bwd.cu`` states its design): FlashAttention-2's
+recurrence on mma.sync for bf16 and f16 and in f32 FMAs for f32, the row
+log-sum-exp recomputed, the G query heads of a kv head split over blocks
+and their partials summed in a fixed order (no atomics, bitwise
+reproducible); heads up to 128 wide. :func:`bwd_bound_ms` counts its five
+products, :func:`bwd_error_bound` its tolerance.
+
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (built
 with nvcc at first use, loaded with ctypes), CPU tensors take the plain
-version ``ref.flash_attention``. There is no fallback: a missing nvcc, a
-failed build, an input the kernels do not take (another dtype, a view
-that is not contiguous) or a refused launch raises.
+versions ``ref.flash_attention`` and ``ref.flash_attention_bwd``. There is
+no fallback: a missing nvcc, a failed build, an input the kernels do not
+take (another dtype, a view that is not contiguous, a backward wider than
+128) or a refused launch raises.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from ._args import count_launch, cuda_only
 from ._build import build_cuda
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_BWD_SRC = _SRC.with_name("flash_attention_bwd.cu")
 
 #: H100 SXM peaks (NVIDIA's data sheet, dense): the bound's denominators
 HBM_BYTES_PER_S = 3.35e12
@@ -343,3 +353,161 @@ def rs_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     if rc:
         raise RuntimeError(f"flash_attention probe failed: CUDA error {rc}")
     return s, o
+
+
+# ----------------------------------------------------------------------
+# the gradient (csrc/flash_attention_bwd.cu)
+# ----------------------------------------------------------------------
+
+#: the backward's routes: "mma" (bf16 and f16, mma.sync) and "f32" (f32 and
+#: f64 inputs in f32 FMAs)
+BWD_ROUTES = ("mma", "f32")
+
+
+@functools.cache
+def _bwd_library() -> tuple[ctypes.CDLL, Path]:
+    so = build_cuda("flash_attention_bwd", [_BWD_SRC])
+    lib = ctypes.CDLL(str(so))
+    fn = lib.flash_attention_bwd_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p]
+    return lib, so
+
+
+def build_bwd() -> Path:
+    """Build the backward kernels' library (if needed) and load it; returns
+    its path."""
+    return _bwd_library()[1]
+
+
+def bwd_plan(dh: int, dtype: torch.dtype) -> tuple[str, int]:
+    """``(route, head width of the kernel)`` of the backward at the padded
+    head width ``dh`` (a multiple of 8): ``"f32"`` for f32 and f64 inputs,
+    else ``"mma"`` at the next of 16, 32, 64, 128. Heads wider than 128
+    have no backward kernel yet (ROADMAP B6) and raise."""
+    if dh > WIDEST_HEAD:
+        raise NotImplementedError(
+            f"flash_attention has no backward kernel for heads wider than "
+            f"{WIDEST_HEAD} (got {dh}; ROADMAP B6)")
+    if dtype in (torch.float32, torch.float64):
+        return "f32", dh
+    return "mma", next(w for w in MMA_WIDTHS if w >= dh)
+
+
+def bwd_bound_ms(B: int, S: int, H: int, Hkv: int, T: int, t_real: int,
+                 causal: bool, dh: int = 128, itemsize: int = 2) -> float:
+    """Least time of one backward on an H100: five products of ``2 * dh``
+    operations per attended pair and head (q k^T recomputed, do v^T,
+    P^T do, dS^T q, dS k) at 989 TFLOP/s (67 for f32 and f64), or q, o, do
+    and the first ``t_real`` keys and values read once and dq, dk, dv
+    written once at 3.35 TB/s, whichever is larger."""
+    flops = 10.0 * dh * B * H * attended_pairs(S, t_real, causal)
+    peak = F32_FLOP_PER_S if itemsize >= 4 else BF16_FLOP_PER_S
+    nbytes = itemsize * dh * (4 * B * S * H + 2 * B * (t_real + T) * Hkv)
+    return max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+#: how far the backward's dq, dk, dv may lie from the plain version's,
+#: elementwise (:func:`bwd_error_bound`): RTOL of |plain| for the
+#: outputs' rounding to bf16 or f16 (the forward's), BWD_ROUNDED of the
+#: sum of the absolute terms whose first factor the kernels round to the
+#: dtype before their products (P and dS: 2^-9 relative each, so 2^-7 has a
+#: margin of 4), and BWD_NOISE of the sums with P (|dP| + |D|) in place of
+#: |dS| (f32 rounding inside dP - D, which cancel exactly where a position
+#: attends a single key; 2^-16 covers f32 sums of a few hundred terms).
+#: The scales come from ``ref.flash_attention_bwd_scales``. f32 inputs are
+#: rounded nowhere: BWD_F32_RTOL of |plain| and the noise term.
+BWD_ROUNDED, BWD_NOISE = 2.0 ** -7, 2.0 ** -16
+BWD_F32_RTOL = 1e-5
+
+
+def bwd_error_bound(want: torch.Tensor, rounded: torch.Tensor,
+                    noise: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| around one of the plain
+    backward's gradients ``want``, in f32, given that gradient's two
+    scales from ``ref.flash_attention_bwd_scales``."""
+    w = want.float().abs()
+    if want.dtype in (torch.float32, torch.float64):
+        return BWD_F32_RTOL * w + BWD_NOISE * noise
+    return RTOL * w + BWD_ROUNDED * rounded + BWD_NOISE * noise
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = False, t_real: int | None = None):
+    """B6's gradient: ``(dq, dk, dv, lse)`` of :func:`flash_attention`
+    with output ``o`` (B, S, H, dh), given ``do`` of o's shape. dq, dk, dv
+    come in their inputs' dtype, keys at or past ``t_real`` get 0; ``lse``
+    (B, H, S) f32 is each row's log-sum-exp, which the kernels recompute
+    (the forward does not keep it). Deterministic: the G query heads of a
+    kv head write f32 partials that one pass sums in a fixed order.
+
+    CPU tensors take ``ref.flash_attention_bwd``; CUDA tensors launch the
+    kernels of ``csrc/flash_attention_bwd.cu`` on :func:`bwd_plan`'s route
+    (f64 computed in f32, dh zero-padded to a multiple of 8, at most 128)
+    or raise. ``flash_attention_bwd.launches`` counts calls that launch
+    (three kernels each), ``flash_attention_bwd.routes`` the same by
+    route."""
+    t_real = k.shape[1] if t_real is None else int(t_real)
+    _check(q, k, v, t_real)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if o.device != q.device or do.device != q.device:
+        raise ValueError("o and do must lie on q's device")
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       t_real=t_real)
+    cuda_only(q.device, "flash_attention backward")
+    dtype = q.dtype
+    o, do = o.to(dtype).contiguous(), do.to(dtype).contiguous()
+    _kernel_check(q, k, v)
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if o.data_ptr() % 16 or do.data_ptr() % 16:
+        raise ValueError("the flash_attention backward takes 16-byte aligned "
+                         "o and do")
+    if B * H > 65535:                     # the launch grids' y extent
+        raise ValueError(f"B * H = {B * H} exceeds 65,535")
+    dev = q.device
+    if q.numel() == 0:
+        return (torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v),
+                torch.empty((B, H, S), dtype=torch.float32, device=dev))
+    if dtype == torch.float64:
+        q, k, v, o, do = (x.float() for x in (q, k, v, o, do))
+    dhk = kernel_width(dh)
+    route, dhp = bwd_plan(dhk, q.dtype)
+    if dhk != dh:
+        q, k, v, o, do = (torch.nn.functional.pad(x, (0, dhk - dh))
+                          for x in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    dsum = torch.empty_like(lse)
+    dk_part = torch.empty((B, T, H, dhk), dtype=torch.float32, device=dev)
+    dv_part = torch.empty_like(dk_part)
+    with torch.cuda.device(dev):
+        rc = _bwd_library()[0].flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), dk_part.data_ptr(),
+            dv_part.data_ptr(),
+            (torch.float32, torch.bfloat16, torch.float16).index(q.dtype),
+            dhp, B, S, H, Hkv, T, dhk, t_real, int(causal), dh,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash_attention backward launch failed ({route} "
+                           f"route): CUDA error {rc}")
+    count_launch(flash_attention_bwd, route)
+    if dhk != dh:
+        dq, dk, dv = (x[..., :dh].contiguous() for x in (dq, dk, dv))
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype), lse
+
+
+def reset_bwd_counts() -> None:
+    """Set ``flash_attention_bwd.launches`` and its route counts to 0."""
+    flash_attention_bwd.launches = 0
+    flash_attention_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)
+
+
+reset_bwd_counts()

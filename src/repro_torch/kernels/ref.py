@@ -234,3 +234,137 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.einsum("bngst,btnd->bsngd", p, vf)
     l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]       # (B, S, Hkv, G, 1)
     return (o / l.clamp_min(1e-30)).reshape(B, S, H, dh).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# the backward functions: the gradients of matmul (B5), segment_sum (B4)
+# and flash_attention (B6), written out as explicit formulas
+# ----------------------------------------------------------------------
+
+def _grad_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type a backward formula computes in: f32, or f64 for f64 inputs
+    (so that an f64 gradcheck holds the formula itself; the card computes
+    f64 in f32, as its forward does)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def matmul_grads(a: torch.Tensor, b: torch.Tensor, dc: torch.Tensor,
+                 need_a: bool = True, need_b: bool = True):
+    """``(da, db)`` of ``c = a @ b`` given ``dc`` (M, N): ``da = dc @ b^T``
+    and ``db = a^T @ dc``, each accumulated in f32 and rounded to its
+    operand's dtype (None where not needed). For bf16 operands ``dc`` is
+    first rounded to bf16, the type the card multiplies them in, as
+    ``jax.grad`` of a bf16 ``x @ w`` hands the product a bf16 cotangent."""
+    common = torch.promote_types(a.dtype, b.dtype)
+    ct = _grad_dtype(common)
+    if common == torch.bfloat16:
+        dc = dc.to(torch.bfloat16)
+    dc = dc.to(ct)
+    da = (dc @ b.to(ct).t()).to(a.dtype) if need_a else None
+    db = (a.to(ct).t() @ dc).to(b.dtype) if need_b else None
+    return da, db
+
+
+def segment_gather(dout: torch.Tensor, ids: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The gradient of :func:`segment_sum` with respect to ``vals``: row
+    ``e`` is ``dout[ids[e]]`` where ``0 <= ids[e] < S`` (S rows of
+    ``dout``), else 0; computed in f32 (f64 for f64) and cast to
+    ``dtype``."""
+    S = dout.shape[0]
+    ok = (ids >= 0) & (ids < S)
+    rows = dout.to(_grad_dtype(dtype))[ids.clamp(0, max(S - 1, 0)).long()] \
+        if S else dout.new_zeros((ids.shape[0], dout.shape[1]))
+    return torch.where(ok[:, None], rows, 0).to(dtype)
+
+
+def _attention_terms(q, k, v, o, do, causal, t_real, ct):
+    """The backward's shared terms in the compute type ``ct``: q, k, do in
+    the grouped layout, P, dP = do v^T and D = rowsum(do * o) (B, Hkv, G,
+    S, 1), and sqrt(dh)."""
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    _full_f32()
+    qf = q.to(ct).view(B, S, Hkv, G, dh)
+    kf, vf = k[:, :t_real].to(ct), v[:, :t_real].to(ct)
+    of, dof = (x.to(ct).view(B, S, Hkv, G, dh) for x in (o, do))
+    scale = float(dh) ** 0.5
+    s = torch.einsum("bsngd,btnd->bngst", qf, kf) / scale
+    if causal:
+        qpos = torch.arange(S, device=q.device)[:, None]
+        kpos = torch.arange(t_real, device=q.device)[None, :]
+        s = s.masked_fill(qpos < kpos, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)                         # (B, Hkv, G, S)
+    p = torch.exp(s - lse[..., None])
+    dsum = (dof * of).sum(-1).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bsngd,btnd->bngst", dof, vf)
+    return qf, kf, vf, dof, p, dp, dsum, lse, scale
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = False, t_real: int | None = None):
+    """``(dq, dk, dv, lse)``: the gradient of :func:`flash_attention` with
+    output ``o``, given ``do``, as FlashAttention-2's recurrence in f32
+    (f64 for f64 inputs), the semantics of the forward (GQA without the
+    expansion, causal aligned at 0, keys at or past ``t_real`` masked):
+
+    * ``lse = logsumexp(s)`` over the attended keys, ``s = q k^T / sqrt(dh)``;
+    * ``D = rowsum(do * o)``;
+    * ``P = exp(s - lse)``, ``dS = P * (do v^T - D)``;
+    * ``dq = dS k / sqrt(dh)``, ``dk = dS^T q / sqrt(dh)`` and
+      ``dv = P^T do``, the last two summed over the query heads of each kv
+      head; keys at or past ``t_real`` get 0.
+
+    dq, dk, dv in their inputs' dtype; ``lse`` (B, H, S) in the compute
+    type."""
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    t_real = T if t_real is None else t_real
+    ct = _grad_dtype(q.dtype)
+    qf, kf, _, dof, p, dp, dsum, lse, scale = _attention_terms(
+        q, k, v, o, do, causal, t_real, ct)
+    ds = p * (dp - dsum)
+    dq = torch.einsum("bngst,btnd->bsngd", ds, kf) / scale
+    dk = torch.zeros((B, T, Hkv, dh), dtype=ct, device=q.device)
+    dv = torch.zeros_like(dk)
+    dk[:, :t_real] = torch.einsum("bngst,bsngd->btnd", ds, qf) / scale
+    dv[:, :t_real] = torch.einsum("bngst,bsngd->btnd", p, dof)
+    return (dq.reshape(B, S, H, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype), lse.reshape(B, H, S))
+
+
+def flash_attention_bwd_scales(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor,
+                               do: torch.Tensor, *, causal: bool = False,
+                               t_real: int | None = None) -> dict:
+    """The magnitudes a backward's rounding errors scale with, per
+    gradient element, in f32: ``{"dq": (rounded, noise), "dk": ...,
+    "dv": ...}``. ``rounded`` sums the absolute terms whose first factor a
+    kernel may round to the inputs' dtype before its product (``|dS| |k|``
+    for dq, ``|dS|^T |q|`` for dk, ``P^T |do|`` for dv, times the scale);
+    ``noise`` the same sums with ``P (|do| |v|^T + |D|)`` in place of
+    ``|dS|`` (for dv ``P^T |do|`` again): f32 rounding inside ``dP - D``,
+    which cancel exactly where a position attends one key, is relative to
+    these. ``flash_attention.bwd_error_bound`` weighs the two."""
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    t_real = T if t_real is None else t_real
+    qf, kf, vf, dof, p, dp, dsum, _, scale = _attention_terms(
+        q, k, v, o, do, causal, t_real, torch.float32)
+    rounded = (p * (dp - dsum)).abs()
+    noise = p * (torch.einsum("bsngd,btnd->bngst", dof.abs(), vf.abs())
+                 + dsum.abs())
+    out = {}
+    for name, m in (("rounded", rounded), ("noise", noise)):
+        gq = torch.einsum("bngst,btnd->bsngd", m, kf.abs()) / scale
+        gk = torch.zeros((B, T, Hkv, dh), device=q.device)
+        gk[:, :t_real] = torch.einsum("bngst,bsngd->btnd", m,
+                                      qf.abs()) / scale
+        out[name] = (gq.reshape(B, S, H, dh), gk)
+    gv = torch.zeros((B, T, Hkv, dh), device=q.device)
+    gv[:, :t_real] = torch.einsum("bngst,bsngd->btnd", p, dof.abs())
+    return {"dq": (out["rounded"][0], out["noise"][0]),
+            "dk": (out["rounded"][1], out["noise"][1]),
+            "dv": (gv, gv)}

@@ -37,11 +37,17 @@ flush instead of the TPU's one-hot GEMM; its float atomics make the sums'
 order, and so their last bits, change from run to run.
 :func:`segment_sum_bound_ms` counts its bytes.
 
+The gradients (``kernels/ops.py`` wires them into autograd):
+:func:`matmul_grads` is B5 twice on transposed operands (``da = dc @
+b^T``, ``db = a^T @ dc``), and :func:`segment_gather` is B4's gradient, a
+gather of the output gradient's rows by the same ids (its kernel sits in
+``csrc/segment_sum.cu``; no atomics, so it is bitwise reproducible).
+
 Dispatch is by the tensors' device: CUDA tensors launch the kernels (built
 with nvcc at first use, loaded with ctypes), CPU tensors take the plain
-versions ``ref.matmul`` and ``ref.segment_sum``. There is no fallback: a
-missing nvcc, a failed build, an operand a kernel does not take or a
-refused launch raises.
+versions ``ref.matmul``, ``ref.segment_sum``, ``ref.matmul_grads`` and
+``ref.segment_gather``. There is no fallback: a missing nvcc, a failed
+build, an operand a kernel does not take or a refused launch raises.
 """
 
 from __future__ import annotations
@@ -278,12 +284,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def reset_counts() -> None:
-    """Set ``matmul.launches`` and every count of ``matmul.routes`` to 0."""
+    """Set ``matmul.launches``, every count of ``matmul.routes`` and
+    ``matmul_grads.launches`` to 0."""
     matmul.launches = 0
     matmul.routes = dict.fromkeys(ROUTE_TILES, 0)
-
-
-reset_counts()
+    matmul_grads.launches = 0
 
 
 def wgmma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -312,10 +317,11 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _segsum_library() -> tuple[ctypes.CDLL, Path]:
     so = build_cuda("segment_sum", [_SEGSUM_SRC])
     lib = ctypes.CDLL(str(so))
-    fn = lib.segment_sum_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
-        ctypes.c_void_p]
+    for name in ("segment_sum_launch", "segment_gather_launch"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
+            ctypes.c_void_p]
     return lib, so
 
 
@@ -379,3 +385,78 @@ def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
 
 
 segment_sum.launches = 0
+
+
+def matmul_grads(a: torch.Tensor, b: torch.Tensor, dc: torch.Tensor,
+                 need_a: bool = True, need_b: bool = True):
+    """B5's gradient: ``(da, db)`` of ``c = a @ b`` given ``dc`` (M, N),
+    ``da = dc @ b^T`` and ``db = a^T @ dc``, each one :func:`matmul` launch
+    (f32 accumulation) rounded to its operand's dtype, None where not
+    needed. ``dc`` is taken in the operands' type on the card
+    (:func:`operand_dtype`: bf16 for a bf16 product, whose f32 output the
+    models round to bf16 at once, so the rounding is exact there). The
+    transposed operands are contiguous copies (the kernel reads its
+    operands as they lie): glm4's head, 1.24 GB, is copied once a step.
+    CPU tensors take ``ref.matmul_grads``. ``matmul_grads.launches`` counts
+    the B5 launches made here (also counted in ``matmul.launches``)."""
+    if a.device.type == "cpu":
+        return ref.matmul_grads(a, b, dc, need_a, need_b)
+    dt = operand_dtype(a.dtype, b.dtype)
+    dc = dc.to(dt).contiguous()
+    da = db = None
+    if need_a:
+        da = matmul(dc, b.to(dt).t().contiguous()).to(a.dtype)
+        count_launch(matmul_grads)
+    if need_b:
+        db = matmul(a.to(dt).t().contiguous(), dc).to(b.dtype)
+        count_launch(matmul_grads)
+    return da, db
+
+
+def segment_gather_bound_ms(E: int, d: int, rows: int) -> float:
+    """Least time of one :func:`segment_gather` on an H100: the ``rows``
+    distinct f32 rows of width ``d`` it reads (the in-range ids' rows),
+    each once, the int32 ids and the ``E`` output rows written once, over
+    the memory rate."""
+    return (4 * rows * d + 4 * E + 4 * E * d) / HBM_BYTES_PER_S * 1e3
+
+
+def segment_gather(dout: torch.Tensor, ids: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B4's gradient (a new tensor): row ``e`` of the (E, d) result is
+    ``dout[ids[e]]`` where ``0 <= ids[e] < S`` (the rows of ``dout``), else
+    0, gathered in f32 and cast to ``dtype`` (the values' dtype of the
+    segment sum it differentiates). Deterministic: every element is
+    written once. ``segment_gather.launches`` counts kernel launches (CPU
+    calls, which take ``ref.segment_gather``, and empty shapes launch
+    nothing)."""
+    if dout.dim() != 2:
+        raise ValueError(f"segment_gather takes (S, d) gradients, got shape "
+                         f"{tuple(dout.shape)}")
+    ids = int32_vector("ids", ids, device=dout.device)
+    if dout.device.type == "cpu":
+        return ref.segment_gather(dout, ids, dtype)
+    cuda_only(dout.device, "segment_gather")
+    dout = dout.float().contiguous()
+    S, d = dout.shape
+    E = ids.shape[0]
+    out = torch.empty((E, d), dtype=torch.float32, device=dout.device)
+    if E == 0 or d == 0:
+        return out.to(dtype)
+    if S == 0:
+        return out.zero_().to(dtype)
+    if d > 65535 * 128:
+        raise ValueError(f"the segment_gather kernel takes rows of at most "
+                         f"8,388,480 values, got {d}")
+    with torch.cuda.device(dout.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _segsum_library()[0].segment_gather_launch(
+            dout.data_ptr(), ids.data_ptr(), out.data_ptr(), E, d, S, stream)
+    if rc:
+        raise RuntimeError(f"segment_gather launch failed: CUDA error {rc}")
+    count_launch(segment_gather)
+    return out.to(dtype)
+
+
+segment_gather.launches = 0
+reset_counts()

@@ -12,6 +12,13 @@ reference aggregates with ``jax.ops.segment_sum`` and projects with
 * every dense product (``w_self``, ``w_neigh``, the head) is
   ``ops.matmul`` (B5, its f32 path).
 
+Serving runs :func:`sage_forward` under ``torch.inference_mode()``;
+training differentiates :func:`sage_loss` (the reference's), where every
+gradient is a kernel too: B5 on transposed operands for the products,
+B4's gather for the neighbour sums and B4 itself for the gradient of the
+neighbours' row gather (``ops.gather_rows``). The degree counts need no
+gradient.
+
 A batch is the reference's unified graph batch as tensors on one device:
 ``node_feat`` (n, d_in) f32, ``src`` and ``dst`` (E,) int32 and, for a
 padded minibatch, ``edge_mask`` (E,) f32 (0.0 on the padding edges, which
@@ -104,25 +111,43 @@ def sage_layer(layer: SAGELayer, x: torch.Tensor, src: torch.Tensor,
     neighbours' rows (masked edges counted out), both projections plus the
     bias, relu, and each row scaled to norm 1 (floored at 1e-6)."""
     n = x.shape[0]
+    rows = ops.gather_rows(x, src)
     if mask is not None:
-        msum = ops.segment_sum(x[src] * mask[:, None], dst, n)
+        msum = ops.segment_sum(rows * mask[:, None], dst, n)
         cnt = ops.segment_sum(mask[:, None], dst, n)
         agg = msum / cnt.clamp_min(1.0)
     else:
-        agg = segment_mean(x[src], dst, n)
+        agg = segment_mean(rows, dst, n)
     x = ops.matmul(x, layer.w_self) + ops.matmul(agg, layer.w_neigh) + layer.b
     x = torch.relu(x)
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(
         1e-6)
 
 
-@torch.inference_mode()
-def sage_forward(model: GraphSAGE, batch: dict) -> torch.Tensor:
-    """Logits (n, n_classes) in f32 of every node of ``batch``:
-    ``2 * n_layers`` B4 calls and ``2 * n_layers + 1`` B5 calls."""
+def sage_logits(model: GraphSAGE, batch: dict) -> torch.Tensor:
+    """Logits (n, n_classes) in f32 of every node of ``batch``, with
+    autograd: ``2 * n_layers`` B4 calls and ``2 * n_layers + 1`` B5
+    calls."""
     src, dst = batch["src"], batch["dst"]
     mask = batch.get("edge_mask")
     x = batch["node_feat"]
     for layer in model.layers:
         x = sage_layer(layer, x, src, dst, mask)
     return ops.matmul(x, model.head)
+
+
+@torch.inference_mode()
+def sage_forward(model: GraphSAGE, batch: dict) -> torch.Tensor:
+    """:func:`sage_logits` for serving, under inference mode."""
+    return sage_logits(model, batch)
+
+
+def sage_loss(model: GraphSAGE, batch: dict) -> torch.Tensor:
+    """The reference's ``sage_loss``: the mean over the seed nodes
+    (``seed_mask``) of the negative log-softmax at each node's label
+    (``labels``), the sum over the seeds divided by their count floored
+    at 1."""
+    logp = torch.log_softmax(sage_logits(model, batch), dim=-1)
+    nll = -logp.gather(-1, batch["labels"].long()[:, None])[:, 0]
+    w = batch["seed_mask"].to(torch.float32)
+    return (nll * w).sum() / w.sum().clamp_min(1.0)

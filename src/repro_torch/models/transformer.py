@@ -15,9 +15,15 @@ jnp (``gqa_attention``), the port calls its kernels:
   each query head reading its kv head without the GQA expansion.
 
 Layers are a ``ModuleList`` run in a Python loop (the reference's
-``lax.scan``); everything runs under ``torch.inference_mode()``. There is
-no MoE path and no training step yet (ROADMAP A8): a config with ``moe``
-set raises.
+``lax.scan``). The serving functions (:func:`forward`,
+:func:`decode_step`) run under ``torch.inference_mode()``; training goes
+through :func:`train_forward` and :func:`loss_fn`, with autograd and, when
+``cfg.remat`` is set (the reference's default), each layer recomputed in
+the backward pass (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``). Each kernel's gradient is a kernel too (B5 on
+transposed operands, B6's backward; ``kernels/ops.py``); the embedding's
+gradient is PyTorch's own scatter of the indexing backward. There is no MoE
+path yet (ROADMAP A8): a config with ``moe`` set raises.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..kernels import ops
@@ -60,6 +67,9 @@ class LMConfig:
     qkv_bias: bool = False
     moe: MoEConfig | None = None
     dtype: torch.dtype = torch.bfloat16
+    #: recompute each layer in the backward pass instead of keeping its
+    #: activations (the reference's jax.checkpoint of the layer body)
+    remat: bool = True
 
     @property
     def param_count(self) -> int:
@@ -80,6 +90,7 @@ class LMConfig:
 # ----------------------------------------------------------------------
 
 def _param(shape, dtype, device) -> nn.Parameter:
+    # frozen for serving; the train step turns gradients on
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -257,6 +268,52 @@ def forward(model: Transformer, tokens: torch.Tensor):
     x = rms_norm(x, model.ln_f)
     return (linear(x, model.head).float(),
             torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def train_forward(model: Transformer, tokens: torch.Tensor):
+    """tokens (B, S) -> (logits (B, S, vocab) in f32, aux), with autograd:
+    :func:`forward`'s arithmetic outside ``inference_mode``, each layer
+    under ``torch.utils.checkpoint`` when ``cfg.remat`` is set (its
+    kernels run again in the backward pass). ``aux`` is 0 for a dense
+    model. A token id past the vocabulary takes the last row and passes
+    no gradient to it, as the reference's clamped gather and its
+    transpose, which drops an out-of-bounds update, do (``TokenStream``
+    emits the id ``vocab`` now and then: its f32 CDF ends a little below
+    1)."""
+    cfg = model.cfg
+    S = tokens.shape[1]
+    ids = tokens.long()
+    x = model.embed[ids.clamp(0, cfg.vocab - 1)]
+    inside = ((ids >= 0) & (ids < cfg.vocab))[..., None]
+    x = torch.where(inside, x, x.detach())
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    for p in model.layers:
+        if cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _layer, p, cfg, x, positions, use_reentrant=False)
+        else:
+            x = _layer(p, cfg, x, positions)
+    x = rms_norm(x, model.ln_f)
+    return (linear(x, model.head).float(),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token cross entropy plus ``aux_weight * aux`` (the
+    reference's ``loss_fn``): per position the log-sum-exp of the f32
+    logits minus the label's logit. The label logit is a gather where the
+    reference sums a one-hot product: both pick exactly one logit, so the
+    values are equal, and the gather needs no (B, S, vocab) one-hot (2.5
+    GB in f32 at glm4's vocab and 4,096 tokens). A label outside the
+    vocabulary matches no column of the one-hot: its label logit is 0."""
+    logits, aux = train_forward(model, tokens)
+    logz = torch.logsumexp(logits, dim=-1)
+    lab = labels.long()
+    vocab = logits.shape[-1]
+    picked = logits.gather(-1, lab.clamp(0, vocab - 1)[..., None])[..., 0]
+    label_logit = torch.where((lab >= 0) & (lab < vocab), picked, 0.0)
+    return (logz - label_logit).mean() + aux_weight * aux
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,

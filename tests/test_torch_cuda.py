@@ -1152,3 +1152,217 @@ def test_baseline_index_builds_its_table_on_the_card(cuda, backend):
     for (u, ts, te) in random_queries(g, 50, seed=4):
         assert got._component_vertices(u, ts, te) == \
             want._component_vertices(u, ts, te)
+
+
+# -- the training path's gradients (B5 on transposed operands, B4's gather,
+# B6's backward) and the train step, against the plain versions ------------
+
+def _attn_inputs(cuda, B, S, T, H, Hkv, dh, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed + S + T + H + dh)
+    q = torch.randn(B, S, H, dh, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, T, Hkv, dh, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, S, H, dh, generator=g, device=cuda).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32], ids=["bf16", "f16", "f32"])
+def test_flash_attention_backward_kernel_matches_plain_version(
+        cuda, dtype, dh, G, causal):
+    B, S, T, Hkv = 2, 150, 150 if causal else 170, 2
+    t_real = T if causal else 161
+    q, k, v, do = _attn_inputs(cuda, B, S, T, G * Hkv, Hkv, dh, dtype)
+    o = ref.flash_attention(q, k, v, causal=causal, t_real=t_real)
+    route = flash_attention.bwd_plan(dh, dtype)[0]
+    before = flash_attention.flash_attention_bwd.routes[route]
+    got = flash_attention.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                              t_real=t_real)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_bwd.routes[route] == before + 1
+    want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                   t_real=t_real)
+    scales = ref.flash_attention_bwd_scales(q, k, v, o, do, causal=causal,
+                                            t_real=t_real)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        diff = (a.float() - w.float()).abs()
+        bound = flash_attention.bwd_error_bound(w, *scales[name])
+        assert bool((diff <= bound).all()), \
+            (name, float(diff.max()), float((diff / bound).max()))
+    if t_real < T:                    # keys past t_real: no gradient
+        assert float(got[1][:, t_real:].float().abs().max()) == 0.0
+        assert float(got[2][:, t_real:].float().abs().max()) == 0.0
+    torch.testing.assert_close(got[3], want[3].float(), rtol=1e-5, atol=1e-4)
+    again = flash_attention.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                                t_real=t_real)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("dh", [12, 40])
+def test_flash_attention_backward_pads_odd_head_widths(cuda, dh):
+    q, k, v, do = _attn_inputs(cuda, 1, 70, 70, 6, 3, dh, torch.bfloat16)
+    o = ops.flash_attention(q, k, v, causal=True)
+    got = flash_attention.flash_attention_bwd(q, k, v, o, do, causal=True)
+    want = ref.flash_attention_bwd(q, k, v, o, do, causal=True)
+    scales = ref.flash_attention_bwd_scales(q, k, v, o, do, causal=True)
+    for name, a, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        assert a.shape == w.shape
+        assert bool(((a.float() - w.float()).abs() <= flash_attention
+                     .bwd_error_bound(w, *scales[name])).all())
+
+
+def test_flash_attention_backward_refuses_wide_heads(cuda):
+    q, k, v, do = _attn_inputs(cuda, 1, 8, 8, 2, 1, 136, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="B6"):
+        flash_attention.flash_attention_bwd(q, k, v, q, do)
+
+
+@pytest.mark.parametrize("E,d,S", [(1, 1, 1), (37, 5, 4), (2_000, 128, 900),
+                                   (3_001, 602, 1_500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_gather_kernel_matches_plain_version(cuda, E, d, S, dtype):
+    rng = np.random.default_rng(E + d)
+    ids = rng.integers(0, S, E)
+    ids[rng.random(E) < 0.1] = -1
+    ids[rng.random(E) < 0.05] = S + 3
+    ids = torch.as_tensor(ids.astype(np.int32), device=cuda)
+    dout = torch.as_tensor(rng.normal(size=(S, d)).astype(np.float32),
+                           device=cuda)
+    before = segment_matmul.segment_gather.launches
+    got = segment_matmul.segment_gather(dout, ids, dtype)
+    torch.cuda.synchronize()
+    assert segment_matmul.segment_gather.launches == before + 1
+    want = ref.segment_gather(dout, ids, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 48, 40), (300, 256, 96),
+                                   (1_000, 130, 72)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_matmul_gradient_kernels_match_plain_version(cuda, M, K, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    b = torch.randn(K, N, generator=g, device=cuda).to(dtype)
+    dc = torch.randn(N, M, generator=g, device=cuda).t()   # not contiguous
+    if dtype == torch.bfloat16:
+        dc = dc.bfloat16().float()
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    before = segment_matmul.matmul.launches
+    c = ops.matmul(a, b)
+    da, db = torch.autograd.grad(c, (a, b), dc)
+    torch.cuda.synchronize()
+    assert segment_matmul.matmul.launches == before + 3
+    wa, wb = ref.matmul_grads(a.detach(), b.detach(), dc)
+    assert da.dtype == wa.dtype == dtype and db.dtype == dtype
+    for got, want, k in ((da, wa, N), (db, wb, M)):
+        tol = 1e-4 * want.float().abs() + 1e-6 * k
+        if dtype == torch.bfloat16:          # both rounded to bf16 last
+            tol = 2 ** -7 * want.float().abs() + 1e-6 * k
+        assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def _plain_ops():
+    from unittest import mock
+    return (mock.patch.object(ops, "matmul", ref.matmul),
+            mock.patch.object(ops, "flash_attention", ref.flash_attention),
+            mock.patch.object(ops, "segment_sum", ref.segment_sum),
+            mock.patch.object(ops, "gather_rows",
+                              lambda x, idx: x[idx.long()]))
+
+
+def _loss_and_grads(spec, cfg, model, batch, plain=False):
+    import contextlib
+    from repro_torch import configs
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    with contextlib.ExitStack() as stack:
+        if plain:
+            for patch in _plain_ops():
+                stack.enter_context(patch)
+        loss = configs.loss_for(spec, cfg)(model, batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_lm_train_gradients_match_plain_versions_on_card(cuda, dtype):
+    """A narrow glm4-shaped model (dh 128, GQA 16:1, 2 layers, remat): the
+    loss and every gradient with the kernels against the plain versions;
+    bf16 within 5e-2 of each leaf's largest |gradient| (the key bias's,
+    a sum of position gradients that nearly cancel, against wk's scale:
+    chip_smoke.py's TRAIN_GRAD_TOL), f32 within 1e-3."""
+    from repro_torch import configs
+    spec = configs.get("glm4-9b")
+    cfg = tfm.LMConfig("narrow", n_layer=2, d_model=256, n_head=32, n_kv=2,
+                       d_ff=512, vocab=1000, d_head=128, qkv_bias=True,
+                       dtype=dtype)
+    model = tfm.init_params(cfg, torch.Generator(device=cuda).manual_seed(1),
+                            device=cuda)
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 97)).astype(
+        np.int32), device=cuda)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    before = (segment_matmul.matmul.launches,
+              flash_attention.flash_attention_bwd.launches)
+    loss, grads = _loss_and_grads(spec, cfg, model, batch)
+    L = cfg.n_layer
+    assert segment_matmul.matmul.launches - before[0] == 28 * L + 3
+    assert flash_attention.flash_attention_bwd.launches - before[1] == L
+    want_loss, want = _loss_and_grads(spec, cfg, model, batch, plain=True)
+    share = 5e-2 if dtype == torch.bfloat16 else 1e-3
+    assert abs(loss - want_loss) <= share * abs(want_loss)
+    for name, g in grads.items():
+        scale_of = name.replace(".bk", ".wk") if name.endswith(".bk") else name
+        scale = float(want[scale_of].float().abs().max())
+        assert float((g.float() - want[name].float()).abs().max()) <= \
+            share * scale, name
+
+
+def test_sage_train_gradients_match_plain_versions_on_card(cuda):
+    from repro_torch import configs
+    spec = configs.get("graphsage-reddit")
+    cfg = configs.cell_model_cfg(spec, "minibatch_lg", smoke=False)
+    model = gnn.init_params(cfg, torch.Generator(device=cuda).manual_seed(2),
+                            device=cuda)
+    src, dst = gs.random_powerlaw_graph(3_000, 8, seed=3)
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(3_000, cfg.d_in)).astype(np.float32)
+    labels = rng.integers(0, cfg.n_classes, 3_000).astype(np.int32)
+    b = gs.sample_subgraph_batch(gs.CSRGraph(3_000, src, dst), feats, labels,
+                                 rng.choice(3_000, 300, replace=False),
+                                 (5, 5), rng)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in b.items()}
+    before = (segment_matmul.segment_sum.launches,
+              segment_matmul.segment_gather.launches,
+              segment_matmul.matmul.launches)
+    loss, grads = _loss_and_grads(spec, cfg, model, batch)
+    assert (segment_matmul.segment_sum.launches - before[0],
+            segment_matmul.segment_gather.launches - before[1],
+            segment_matmul.matmul.launches - before[2]) == (5, 1, 13)
+    want_loss, want = _loss_and_grads(spec, cfg, model, batch, plain=True)
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    for name, g in grads.items():
+        w = want[name]
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "graphsage-reddit"])
+def test_train_cli_replays_an_injected_failure_on_card(cuda, arch, tmp_path):
+    from repro_torch.launch import train
+    base = ["--arch", arch, "--smoke", "--steps", "6", "--log-every", "100"]
+    clean = train.main(base)
+    losses = train.main(base + ["--ckpt-dir", str(tmp_path), "--ckpt-every",
+                                "2", "--inject-failure", "3"])
+    assert len(losses) == 7 and all(np.isfinite(losses))
+    if arch == "glm4-9b":          # B5 and B6 and their gradients: no atomics
+        assert losses == clean[:3] + clean[2:]
+    else:                          # B4's float atomics reorder its sums
+        np.testing.assert_allclose(losses, clean[:3] + clean[2:], rtol=1e-5)

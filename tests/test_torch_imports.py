@@ -31,3 +31,27 @@ def test_no_jax_or_reference_import(path):
     bad = [m for m in imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+#: the training path's modules (slice 13): each a file of the port, each
+#: importable without JAX or the reference package
+TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.data.lm_data",
+                 "repro_torch.runtime.fault_tolerance",
+                 "repro_torch.launch.train")
+
+
+@pytest.mark.parametrize("module", TRAIN_MODULES)
+def test_training_modules_stand_alone(module):
+    """Each module is among the files checked above, and imports in a fresh
+    interpreter without loading ``jax`` or ``repro``."""
+    import os
+    import subprocess
+    import sys
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path in PORT_FILES
+    code = (f"import sys; import {module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                   timeout=120)

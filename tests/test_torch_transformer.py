@@ -230,7 +230,7 @@ def test_serve_steps(arch):
     with pytest.raises(ValueError):                  # a model of another cfg
         prefill(tfm.init_params(spec.smoke_cfg, torch.Generator(),
                                 device="cpu"), {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="make_train_step"):
         configs.make_serve_step(spec, "train_4k", cfg)
 
 
