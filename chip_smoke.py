@@ -195,11 +195,14 @@ result line each; any failure raises and exits non-zero:
            vocab, remat) through configs.make_train_step for 4 AdamW steps,
            the first counted (B5 28L + 3 launches on the wgmma route, 14L + 2
            of them gradient products; B6 2L forward on wgmma, L backward on
-           mma); losses finite, the first near ln(vocab); step seconds,
-           tokens/s, the model-FLOP share, the host data time, AdamW's
-           seconds, peak memory, one step under torch.profiler; B6's
-           backward at the path's shape against the plain backward (dq, dk,
-           dv within bwd_error_bound, lse, bitwise reproducible) and B5's
+           wgmma from the lse the forward kept); losses finite, the first
+           near ln(vocab); step seconds, tokens/s, the model-FLOP share, the
+           host data time, AdamW's seconds, peak memory, one step under
+           torch.profiler, the step and B6 backward's share of busy beside
+           the mma backward's; B6's backward at the path's shape given the
+           forward's lse against the plain backward (dq, dk, dv within
+           bwd_error_bound, lse, bitwise reproducible, bit-equal with
+           lse=None), timed beside its bound, floor and SDPA's, and B5's
            gradient products against their plain versions, each timed beside
            its bound and library call; a 1-layer full-width model's loss and
            every gradient against the plain versions; graphsage-reddit at
@@ -245,6 +248,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 #: SNAP CollegeMsg's published scale (users, messages, days)
 COLLEGEMSG = dict(n=1899, m=59835, t_max=193, seed=7)
+#: the glm4 train step and B6's backward's share of its busy time when the
+#: backward ran on the mma route (H100 80GB HBM3 at 700 W; PERF.md section
+#: 6), printed beside this run's
+MMA_BWD_STEP_S, MMA_BWD_SHARE = 0.4521, 0.059
 #: SNAP sx-superuser's published scale (users, temporal interactions;
 #: snap.stanford.edu/data/sx-superuser.html), days cut to 2,000: the
 #: [peel] phase's second graph (461,605 distinct pairs, k_max 121)
@@ -455,12 +462,13 @@ def is_b4(key: str) -> bool:
     return "segment_sum_kernel(" in key
 
 
-def profiled(fn, kernels: dict) -> str:
+def profiled(fn, kernels: dict, shares: dict | None = None) -> str:
     """``fn`` once under torch.profiler: wall, device busy, idle share, the
     share in the busy time of each kernel of ``kernels`` (name -> a test of
     a device row's name) with the launches the profiler recorded for it
     (it can drop records), the top device rows and the top host operations
-    by their own time."""
+    by their own time. ``shares``, where given, receives each kernel's
+    share of busy by name."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -469,17 +477,19 @@ def profiled(fn, kernels: dict) -> str:
     busy = sum(us for _, us, _ in rows) / 1e6
     if not busy:
         return f"wall {t:.4f}s, device busy not measured (no device events)"
-    shares = []
+    parts = []
     for name, test in kernels.items():
         secs = sum(us for k, us, _ in rows if test(k)) / 1e6
         n = sum(c for k, _, c in rows if test(k))
-        shares.append(f"{name} {secs:.4f}s ({secs / busy:.3f} of busy, "
-                      f"{n} launches recorded)")
+        if shares is not None:
+            shares[name] = secs / busy
+        parts.append(f"{name} {secs:.4f}s ({secs / busy:.3f} of busy, "
+                     f"{n} launches recorded)")
     host = [(e.key, e.self_cpu_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU]
     return (f"wall {t:.4f}s, device busy {busy:.4f}s (idle share "
-            f"{1 - busy / t:.3f}), " + ", ".join(shares) + "; top kernels: "
+            f"{1 - busy / t:.3f}), " + ", ".join(parts) + "; top kernels: "
             + top_rows(rows) + "; top host operations (self time, profiler "
             "on): " + top_rows(host))
 
@@ -1266,6 +1276,44 @@ def grad_leaf_errs(got: dict, want: dict) -> dict:
     return out
 
 
+class ReluPattern:
+    """One run's relu pattern, replayed on another run. GraphSAGE's relu
+    has a kink at 0. The kernels and the plain versions sum in other
+    orders, and the float atomics of B4 and of ``index_add_`` change the
+    order from run to run, so a pre-activation within the f32 rounding of
+    0 can take one sign in one run and the other in the next. Both
+    gradients are then right, and differ by that entry's whole term: at
+    graphsage-reddit's minibatch_lg such a flip put layers.1.w_self's
+    gradient 1.06e-2 of its scale off the plain one's (H100 80GB HBM3,
+    700 W), where the gradients otherwise agree within 7e-6. ``record`` is relu that keeps each call's input; ``replay``
+    multiplies the n-th call's input by the n-th kept input's mask
+    (> 0), so the second run differentiates the same piece of the
+    function as the first. It counts in ``flips`` the entries whose own
+    sign disagreed, and keeps the kept inputs' least nonzero |value|
+    (``nearest``) and the two runs' largest difference (``gap``)."""
+
+    def __init__(self):
+        self.inputs, self.flips, self.entries = [], 0, 0
+        self.nearest, self.gap = float("inf"), 0.0
+        self._relu, self._next = torch.relu, 0
+
+    def record(self, x: torch.Tensor) -> torch.Tensor:
+        self.inputs.append(x.detach().clone())
+        return self._relu(x)
+
+    def replay(self, x: torch.Tensor) -> torch.Tensor:
+        kept = self.inputs[self._next]
+        self._next += 1
+        mask = kept > 0
+        self.flips += int(((x.detach() > 0) != mask).sum())
+        self.entries += mask.numel()
+        nonzero = kept[kept != 0]
+        if nonzero.numel():
+            self.nearest = min(self.nearest, float(nonzero.abs().min()))
+        self.gap = max(self.gap, float((x.detach() - kept).abs().max()))
+        return x * mask
+
+
 def plain_ops():
     """Patches that put the plain versions in the models' kernel calls (the
     differentiable ops of kernels/ops.py): autograd then runs through plain
@@ -1280,9 +1328,11 @@ def plain_ops():
                               lambda x, idx: x[idx.long()])]
 
 
-def loss_and_grads(spec, cfg, model, batch, plain: bool = False):
+def loss_and_grads(spec, cfg, model, batch, plain: bool = False,
+                   relu=None):
     """(loss, {name: gradient}) of one batch, with the kernels or, with
-    ``plain``, the plain versions."""
+    ``plain``, the plain versions; ``relu``, where given, stands in for
+    ``torch.relu`` during the call (see :class:`ReluPattern`)."""
     from repro_torch import configs
     params = dict(model.named_parameters())
     for p in params.values():
@@ -1290,6 +1340,8 @@ def loss_and_grads(spec, cfg, model, batch, plain: bool = False):
     with contextlib.ExitStack() as stack:
         for patch in plain_ops() if plain else ():
             stack.enter_context(patch)
+        if relu is not None:
+            stack.enter_context(mock.patch.object(torch, "relu", relu))
         loss = configs.loss_for(spec, cfg)(model, batch)
         grads = torch.autograd.grad(loss, list(params.values()))
     return float(loss.detach()), dict(zip(params, grads))
@@ -1297,10 +1349,13 @@ def loss_and_grads(spec, cfg, model, batch, plain: bool = False):
 
 def b6_bwd_check(q, k, v, causal: bool, smi: str) -> dict:
     """B6's backward against the plain backward on the same inputs (``do``
-    drawn from a seed), dq, dk and dv within ``bwd_error_bound``, lse
-    within 1e-4; timed beside its bound, the plain version and the library
-    call (scaled_dot_product_attention's backward with enable_gqa, its
-    forward run once outside the timing)."""
+    drawn from a seed), given the forward's lse as the train step gives it:
+    dq, dk and dv within ``bwd_error_bound``, lse within 1e-4, bitwise
+    reproducible, and bit-equal with ``lse=None`` (which takes lse from one
+    more counted forward launch); timed beside its bound (five products),
+    the routes' seven-product floor, the plain version and the library call
+    (scaled_dot_product_attention's backward with enable_gqa, its forward
+    run once outside the timing)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1310,12 +1365,14 @@ def b6_bwd_check(q, k, v, causal: bool, smi: str) -> dict:
     T, Hkv = k.shape[1], k.shape[2]
     gen = torch.Generator(device=q.device).manual_seed(TRAIN_SEED)
     do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
-    o = fa.flash_attention(q, k, v, causal=causal)
-    before = fa.flash_attention_bwd.launches
-    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    plan = fa.bwd_plan(B, S, H, Hkv, T, causal, dh, q.dtype)
+    before = fa.flash_attention_bwd.routes[plan.route]
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
     torch.cuda.synchronize()
-    if fa.flash_attention_bwd.launches != before + 1:
-        raise AssertionError("B6's backward did not launch")
+    if fa.flash_attention_bwd.routes[plan.route] != before + 1:
+        raise AssertionError(f"B6's backward did not launch on its "
+                             f"{plan.route} route")
     want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal)
     scales = ref.flash_attention_bwd_scales(q, k, v, o, do, causal=causal)
     worst, err = {}, 0.0
@@ -1330,12 +1387,19 @@ def b6_bwd_check(q, k, v, causal: bool, smi: str) -> dict:
     lse_err = float((got[3] - want[3].float()).abs().max())
     if not lse_err <= 1e-4:
         raise AssertionError(f"B6's backward: lse off by {lse_err}")
-    again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("B6's backward is not bitwise reproducible")
-    del got, want, scales, again
+    fwd = fa.flash_attention.launches
+    own = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    if fa.flash_attention.launches != fwd + 1 or not all(
+            torch.equal(a, b) for a, b in zip(got, own)):
+        raise AssertionError("B6's backward with lse=None did not take lse "
+                             "from one forward launch, bit-equal")
+    del got, want, scales, again, own
     t, kern = call_times(lambda: fa.flash_attention_bwd(
-        q, k, v, o, do, causal=causal), iters=10)
+        q, k, v, o, do, causal=causal, lse=lse), iters=10)
     plain_ms = cuda_ms(lambda: ref.flash_attention_bwd(
         q, k, v, o, do, causal=causal), iters=1, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
@@ -1346,20 +1410,25 @@ def b6_bwd_check(q, k, v, causal: bool, smi: str) -> dict:
     lib_ms, lib = call_times(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), iters=10)
     del out, qt, kt, vt, dot
-    bound = fa.bwd_bound_ms(B, S, H, Hkv, T, T, causal, dh, q.element_size())
+    size = q.element_size()
+    bound = fa.bwd_bound_ms(B, S, H, Hkv, T, T, causal, dh, size)
+    floor = fa.bwd_bound_ms(B, S, H, Hkv, T, T, causal, dh, size, products=7)
     print(f"[train] B6 backward at the path's shape: q ({B}, {S}, {H}, {dh}) "
           f"over k, v ({B}, {T}, {Hkv}, {dh}), {str(q.dtype)[6:]}, causal "
-          f"{causal}, route {fa.bwd_plan(dh, q.dtype)[0]}: dq, dk, dv at "
-          f"{worst['dq']:.3f}, {worst['dk']:.3f}, {worst['dv']:.3f} of "
-          f"bwd_error_bound at most (max abs err {err:.3e}), lse within "
-          f"{lse_err:.2e}, bitwise reproducible; kernel {kern}; plain "
-          f"{plain_ms:.4f} ms back to back; library "
-          f"scaled_dot_product_attention backward (enable_gqa) {lib}; bound "
-          f"{bound:.4f} ms (operations: five products of the attended "
-          f"pairs at 989 TFLOP/s) = {bound / t:.3f} of the kernel's time | "
-          f"{smi}")
+          f"{causal}, {plan}: dq, dk, dv at {worst['dq']:.3f}, "
+          f"{worst['dk']:.3f}, {worst['dv']:.3f} of bwd_error_bound at most "
+          f"(max abs err {err:.3e}), lse (the forward's) within {lse_err:.2e} "
+          f"of the plain one, bitwise reproducible, bit-equal with lse=None "
+          f"(one forward launch); kernel {kern}; plain {plain_ms:.4f} ms back "
+          f"to back; library scaled_dot_product_attention backward "
+          f"(enable_gqa) {lib}; {t / lib_ms:.3f}x the library's time; bound "
+          f"{bound:.4f} ms (operations: five products of the attended pairs "
+          f"at 989 TFLOP/s) = {bound / t:.3f} of the kernel's time; the "
+          f"routes' floor (seven products) {floor:.4f} ms = {floor / t:.3f} "
+          f"| {smi}")
     return dict(max_abs_err=err, ms=t, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound, bound_by="operations")
+                bound_ms=bound, bound_by="operations", kernel_route=plan.route,
+                floor_ms=floor)
 
 
 def b4_gather_check(dout, ids, what: str, smi: str) -> dict:
@@ -1501,8 +1570,9 @@ def train_phase(dev, smi: str) -> dict:
                 raise AssertionError(
                     f"a train step launched B5 {b5} (gradients {b5_grad}), B6 "
                     f"{b6} and its backward {b6_bwd} times, not {want}")
-            if fa.flash_attention_bwd.routes["mma"] != L:
-                raise AssertionError("B6's backward left the mma route")
+            if fa.flash_attention_bwd.routes["wgmma"] != L:
+                raise AssertionError("B6's backward left the wgmma route: "
+                                     f"{fa.flash_attention_bwd.routes}")
         losses.append(float(m["loss"]))
         step_s.append(t)
         data_s.append(t_data)
@@ -1521,7 +1591,7 @@ def train_phase(dev, smi: str) -> dict:
           f"first counted: B5 {b5} per step ({b5_by_route}: 7L + 1 forward, "
           f"7L recomputed by remat, 14L + 2 gradient products = {b5_grad}), "
           f"B6 forward {b6} ({b6_by_route}: L + L recomputed), B6 backward "
-          f"{b6_bwd} (all on the mma route); losses "
+          f"{b6_bwd} (all on the wgmma route); losses "
           f"{' '.join(f'{x:.4f}' for x in losses)} (ln {cfg.vocab} = "
           f"{ln_v:.4f}); step {t_step:.4f}s (median of {len(timed)} timed; "
           f"first {step_s[0]:.4f}s) = {tokens / t_step:.1f} tokens/s; model "
@@ -1544,10 +1614,17 @@ def train_phase(dev, smi: str) -> dict:
           f"{data_step:.4f}s on the host; B5's gradient copies each "
           f"transposed operand: the head's (1.24 GB) takes {t_copy:.4f} ms "
           f"| {smi}")
+    shares = {}
     print(f"[train] one train step under torch.profiler: " + profiled(
         lambda: step(model, state, batch),
         {"B5": is_b5, "B6": lambda k: "flash_wgmma<" in k,
-         "B6 backward": lambda k: "flash_bwd" in k}) + f" | {smi}")
+         "B6 backward": lambda k: "flash_bwd" in k}, shares) + f" | {smi}")
+    print(f"[train] beside the step with the mma backward (H100 80GB HBM3, "
+          f"700 W): step {t_step:.4f}s (then {MMA_BWD_STEP_S}s), forward + "
+          f"backward "
+          f"{t_fb:.4f}s, AdamW {t_opt:.4f}s; B6's backward "
+          f"{shares.get('B6 backward', float('nan')):.3f} of the busy time "
+          f"(then {MMA_BWD_SHARE}) | {smi}")
     del model, state, params, batch
     torch.cuda.empty_cache()
 
@@ -1559,7 +1636,10 @@ def train_phase(dev, smi: str) -> dict:
     p0 = m1.layers[0]
     pos = torch.arange(TRAIN_SEQ, dtype=torch.int32, device=dev)[None, :]
     with torch.no_grad():
-        h = tfm.rms_norm(m1.embed[b1["tokens"].long()], p0.ln1)
+        # the id vocab, which TokenStream emits now and then, takes the
+        # last row, as in transformer.train_forward
+        ids = b1["tokens"].long().clamp(0, one.vocab - 1)
+        h = tfm.rms_norm(m1.embed[ids], p0.ln1)
         q, k, v = tfm.qkv(p0, one, h, pos)
         q, k, v = (x.contiguous() for x in (q, k, v))
     b6_rec = b6_bwd_check(q, k, v, True, smi)
@@ -1655,20 +1735,27 @@ def train_phase(dev, smi: str) -> dict:
           f"{1 / gt:.3f} steps/s = {seeds_n / gt:.1f} seeds/s trained on the "
           f"card; the sampler {gd:.4f}s per step on the host (outside the "
           f"step) | {smi}")
-    (gl_k, gg_k), _ = wall(lambda: loss_and_grads(gspec, gcfg, gmodel,
-                                                  first_gb))
-    (gl_p, gg_p), _ = wall(lambda: loss_and_grads(gspec, gcfg, gmodel,
-                                                  first_gb, plain=True))
+    pattern = ReluPattern()
+    (gl_k, gg_k), _ = wall(lambda: loss_and_grads(
+        gspec, gcfg, gmodel, first_gb, relu=pattern.record))
+    (gl_p, gg_p), _ = wall(lambda: loss_and_grads(
+        gspec, gcfg, gmodel, first_gb, plain=True, relu=pattern.replay))
     gerrs = grad_leaf_errs(gg_k, gg_p)
     gworst = max(gerrs, key=gerrs.get)
     if not (abs(gl_k - gl_p) <= 1e-5 * abs(gl_p)
             and gerrs[gworst] <= GNN_GRAD_TOL):
         raise AssertionError(f"GraphSAGE: loss {gl_k} against {gl_p}, "
-                             f"gradient {gworst} off by {gerrs[gworst]}")
+                             f"gradient {gworst} off by {gerrs[gworst]} "
+                             f"({pattern.flips} relu inputs flipped; per "
+                             f"leaf {gerrs})")
     print(f"[train] GraphSAGE loss {gl_k:.7f} with the kernels, {gl_p:.7f} "
           f"with the plain versions; gradients within {gerrs[gworst]:.3e} of "
           f"each leaf's largest |plain| ({gworst}; tolerance "
-          f"{GNN_GRAD_TOL}) | {smi}")
+          f"{GNN_GRAD_TOL}); the plain run differentiates the kernel run's "
+          f"relu pattern, where {pattern.flips} of {pattern.entries:,} "
+          f"pre-activations took the other sign (the nearest to 0 "
+          f"{pattern.nearest:.3e}, the runs' largest difference "
+          f"{pattern.gap:.3e}) | {smi}")
     gather_recs = [
         b4_gather_check(torch.randn(gdims["n"], gcfg.d_hidden, generator=gen,
                                     device=dev), first_gb["dst"],

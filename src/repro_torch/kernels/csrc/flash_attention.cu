@@ -10,7 +10,10 @@
 // kv tiles wholly above the diagonal skipped, the diagonal tile masked; keys
 // at kpos >= t_real masked and never read; l floored at 1e-30; output in
 // q's dtype. Here t_real is a run-time argument (the decode mask arange(T)
-// <= cache_len), and only o is returned: m, l and acc stay in registers.
+// <= cache_len). m, l and acc stay in registers; given a non-null `lse`
+// pointer, every route also writes each row's log-sum-exp (B, H, S) f32,
+// natural log, for the backward (csrc/flash_attention_bwd.cu), and only
+// then: serving passes null.
 //
 // Layout: q (B, S, H, dh), k and v (B, T, Hkv, dh), o (B, S, H, dh), all
 // contiguous, of one dtype. Query head h reads kv head h / G, G = H / Hkv,
@@ -182,6 +185,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// the row log-sum-exp (natural log) from the running max m (log2 domain)
+// and sum l; +inf for a row that attended no key (l = 0: the output floors
+// l at 1e-30 and the backward's P = exp(s - lse) is then 0)
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * 0.6931471805599453f : INFINITY;
+}
+
 // ---- the mma and split routes (mma.sync) -----------------------------------
 
 constexpr int BKV = 64;      // keys per k/v tile
@@ -224,9 +234,10 @@ template <typename T, int DHP, int NWQ>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_mma(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ part_acc, float* __restrict__ part_ml,
-              int S, int H, int Hkv, int T_, int dh, int t_real, int causal,
-              float scale_log2, int tiles_per_split) {
+              float* __restrict__ lse, float* __restrict__ part_acc,
+              float* __restrict__ part_ml, int S, int H, int Hkv, int T_,
+              int dh, int t_real, int causal, float scale_log2,
+              int tiles_per_split) {
   typedef MmaCfg<DHP> C;
   constexpr int KSTR = C::KSTR, OSTR = C::OSTR;
   constexpr int NWK = 4 / NWQ;
@@ -444,6 +455,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
       const int s = grow / G, h = hk * G + grow % G;
       o[(((size_t)b * S + s) * H + h) * dh + d] =
           Elem<T>::from(A / fmaxf(L, 1e-30f));
+      if (lse && d == 0) lse[((size_t)b * H + h) * S + s] = row_lse(M, L);
     }
   }
 }
@@ -452,7 +464,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
 template <typename T>
 __global__ void flash_combine(const float* __restrict__ part_acc,
                               const float* __restrict__ part_ml,
-                              T* __restrict__ o, int BHkv, int S, int H,
+                              T* __restrict__ o, float* __restrict__ lse,
+                              int BHkv, int S, int H,
                               int Hkv, int dh, int splits) {
   const int G = H / Hkv, rows = S * G;
   const long long n = (long long)BHkv * rows * dh;
@@ -476,11 +489,13 @@ __global__ void flash_combine(const float* __restrict__ part_acc,
   const int s = grow / G, h = hk * G + grow % G;
   o[(((size_t)b * S + s) * H + h) * dh + d] =
       Elem<T>::from(A / fmaxf(L, 1e-30f));
+  if (lse && d == 0) lse[((size_t)b * H + h) * S + s] = row_lse(M, L);
 }
 
 template <typename T, int DHP, int NWQ>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
-               float* part_acc, float* part_ml, int B, int S, int H, int Hkv,
+               float* lse, float* part_acc, float* part_ml, int B, int S,
+               int H, int Hkv,
                int T_, int dh, int t_real, int causal, int q_tiles,
                int splits, int tiles_per_split, float scale_log2,
                cudaStream_t stream) {
@@ -499,38 +514,40 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   dim3 grid(q_tiles, B * Hkv, splits);
   kern<<<grid, MMA_THREADS, MmaCfg<DHP>::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), part_acc, part_ml, S, H,
-      Hkv, T_, dh, t_real, causal, scale_log2, tiles_per_split);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, part_acc, part_ml,
+      S, H, Hkv, T_, dh, t_real, causal, scale_log2, tiles_per_split);
   int err = (int)cudaGetLastError();
   if (err || splits == 1) return err;
   long long n = (long long)B * Hkv * S * (H / Hkv) * dh;
   flash_combine<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      part_acc, part_ml, static_cast<T*>(o), B * Hkv, S, H, Hkv, dh, splits);
+      part_acc, part_ml, static_cast<T*>(o), lse, B * Hkv, S, H, Hkv, dh,
+      splits);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int NWQ>
 int mma_by_width(int dhp, const void* q, const void* k, const void* v,
-                 void* o, float* pa, float* pm, int B, int S, int H, int Hkv,
-                 int T_, int dh, int t_real, int causal, int q_tiles,
-                 int splits, int per, float scale_log2, cudaStream_t s) {
+                 void* o, float* ls, float* pa, float* pm, int B, int S,
+                 int H, int Hkv, int T_, int dh, int t_real, int causal,
+                 int q_tiles, int splits, int per, float sl2,
+                 cudaStream_t s) {
   switch (dhp) {
     case 16:
-      return launch_mma<T, 16, NWQ>(q, k, v, o, pa, pm, B, S, H, Hkv, T_, dh,
-                                    t_real, causal, q_tiles, splits, per,
-                                    scale_log2, s);
+      return launch_mma<T, 16, NWQ>(q, k, v, o, ls, pa, pm, B, S, H, Hkv,
+                                    T_, dh, t_real, causal, q_tiles, splits,
+                                    per, sl2, s);
     case 32:
-      return launch_mma<T, 32, NWQ>(q, k, v, o, pa, pm, B, S, H, Hkv, T_, dh,
-                                    t_real, causal, q_tiles, splits, per,
-                                    scale_log2, s);
+      return launch_mma<T, 32, NWQ>(q, k, v, o, ls, pa, pm, B, S, H, Hkv,
+                                    T_, dh, t_real, causal, q_tiles, splits,
+                                    per, sl2, s);
     case 64:
-      return launch_mma<T, 64, NWQ>(q, k, v, o, pa, pm, B, S, H, Hkv, T_, dh,
-                                    t_real, causal, q_tiles, splits, per,
-                                    scale_log2, s);
+      return launch_mma<T, 64, NWQ>(q, k, v, o, ls, pa, pm, B, S, H, Hkv,
+                                    T_, dh, t_real, causal, q_tiles, splits,
+                                    per, sl2, s);
     case 128:
-      return launch_mma<T, 128, NWQ>(q, k, v, o, pa, pm, B, S, H, Hkv, T_,
-                                     dh, t_real, causal, q_tiles, splits, per,
-                                     scale_log2, s);
+      return launch_mma<T, 128, NWQ>(q, k, v, o, ls, pa, pm, B, S, H, Hkv,
+                                     T_, dh, t_real, causal, q_tiles, splits,
+                                     per, sl2, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -560,9 +577,9 @@ __device__ __forceinline__ void put(f16* p, float x) { *p = __float2half_rn(x); 
 template <typename T>
 __global__ void __launch_bounds__(F_THREADS)
     flash_simt(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o, int S, int H,
-               int Hkv, int T_, int dh, int t_real, int causal,
-               float scale_log2) {
+               const T* __restrict__ v, T* __restrict__ o,
+               float* __restrict__ lse, int S, int H, int Hkv, int T_, int dh,
+               int t_real, int causal, float scale_log2) {
   __shared__ float qs[F_BQ][F_DH];
   __shared__ float ks[F_BK][F_DH + 1];  // + 1: lane j reads row j
   __shared__ float vs[F_BK][F_DH];
@@ -655,6 +672,8 @@ __global__ void __launch_bounds__(F_THREADS)
   for (int i = 0; i < 2; ++i) {
     int rr = row0 + 2 * warp + i;
     if (rr >= rows) continue;
+    if (lse && blockIdx.z == 0 && lane == 0)
+      lse[((size_t)b * H + hk * G + rr % G) * S + rr / G] = row_lse(m[i], l[i]);
     T* orow = o + (((size_t)b * S + rr / G) * H + hk * G + rr % G) * dh + col0;
 #pragma unroll
     for (int j = 0; j < F_DH / 32; ++j)
@@ -664,13 +683,14 @@ __global__ void __launch_bounds__(F_THREADS)
 }
 
 template <typename T>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int H, int Hkv, int T_, int dh, int t_real, int causal,
-                int q_tiles, float scale_log2, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int H, int Hkv, int T_, int dh,
+                int t_real, int causal, int q_tiles, float scale_log2,
+                cudaStream_t stream) {
   dim3 grid(q_tiles, B * Hkv, (dh + F_DH - 1) / F_DH);
   flash_simt<T><<<grid, F_THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, T_, dh,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, T_, dh,
       t_real, causal, scale_log2);
   return (int)cudaGetLastError();
 }
@@ -756,8 +776,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     flash_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
-                int S, int H, int Hkv, int t_real, int causal,
-                float scale_log2, int q_tiles, int BHkv) {
+                float* __restrict__ lse, int S, int H, int Hkv, int t_real,
+                int causal, float scale_log2, int q_tiles, int BHkv) {
   typedef WgCfg<DH> C;
   constexpr bool F16 = Elem<T>::F16;
   extern __shared__ uint8_t smem_raw[];
@@ -904,6 +924,10 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int grow = wrow0 + 8 * r;
+      if (lse && c == 0 && grow < rows)
+        lse[((size_t)b * H + hk * G + grow % G) * S + grow / G] =
+            row_lse(m[r], l[r]);
       l[r] = 1.f / fmaxf(l[r], 1e-30f);
     }
 #pragma unroll
@@ -944,9 +968,10 @@ int wgmma_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
 }
 
 template <typename T, int DH>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int S, int H, int Hkv, int T_, int t_real, int causal,
-                 int q_tiles, float scale_log2, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int S, int H, int Hkv, int T_, int t_real,
+                 int causal, int q_tiles, float scale_log2,
+                 cudaStream_t stream) {
   const int G = H / Hkv;
   if (W_BQ % G) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
@@ -963,36 +988,36 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   }
   const long long blocks = (long long)q_tiles * B * Hkv;
   kern<<<(unsigned)blocks, W_THREADS, WgCfg<DH>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<T*>(o), S, H, Hkv, t_real, causal, scale_log2,
-      q_tiles, B * Hkv);
+      tq, tk, tv, static_cast<T*>(o), lse, S, H, Hkv, t_real, causal,
+      scale_log2, q_tiles, B * Hkv);
   return (int)cudaGetLastError();
 }
 
 // one launch of the wgmma, mma or split route (0, 1, 2) in T
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v, void* o,
-                 float* pa, float* pm, int route, int dhp, int B, int S,
-                 int H, int Hkv, int T_, int dh, int t_real, int causal,
-                 int q_tiles, int splits, int per, float scale_log2,
-                 cudaStream_t s) {
+                 float* ls, float* pa, float* pm, int route, int dhp, int B,
+                 int S, int H, int Hkv, int T_, int dh, int t_real,
+                 int causal, int q_tiles, int splits, int per,
+                 float scale_log2, cudaStream_t s) {
   if (route == 0) {
     if (splits != 1 || dh != dhp) return (int)cudaErrorInvalidValue;
     if (dh == 128)
-      return launch_wgmma<T, 128>(q, k, v, o, B, S, H, Hkv, T_, t_real,
+      return launch_wgmma<T, 128>(q, k, v, o, ls, B, S, H, Hkv, T_, t_real,
                                   causal, q_tiles, scale_log2, s);
     if (dh == 64)
-      return launch_wgmma<T, 64>(q, k, v, o, B, S, H, Hkv, T_, t_real,
+      return launch_wgmma<T, 64>(q, k, v, o, ls, B, S, H, Hkv, T_, t_real,
                                  causal, q_tiles, scale_log2, s);
     return (int)cudaErrorInvalidValue;
   }
   if (dh > dhp || dh % 8) return (int)cudaErrorInvalidValue;
   if (route == 1)
-    return mma_by_width<T, 4>(dhp, q, k, v, o, pa, pm, B, S, H, Hkv, T_, dh,
-                              t_real, causal, q_tiles, splits, per,
+    return mma_by_width<T, 4>(dhp, q, k, v, o, ls, pa, pm, B, S, H, Hkv, T_,
+                              dh, t_real, causal, q_tiles, splits, per,
                               scale_log2, s);
   if (route == 2)
-    return mma_by_width<T, 1>(dhp, q, k, v, o, pa, pm, B, S, H, Hkv, T_, dh,
-                              t_real, causal, q_tiles, splits, per,
+    return mma_by_width<T, 1>(dhp, q, k, v, o, ls, pa, pm, B, S, H, Hkv, T_,
+                              dh, t_real, causal, q_tiles, splits, per,
                               scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -1096,18 +1121,20 @@ extern "C" {
 // q_tiles of them), 1 "mma" (64-row tiles) or 2 "split" (16-row tiles, the
 // keys of a tile split over the warps), the last two on a kernel of head
 // width dhp (16, 32, 64 or 128, >= dh); scores scaled by 1 / sqrt(dh_scale)
-// (the true head width when the wrapper padded dh). With splits > 1 (routes
-// 1 and 2),
+// (the true head width when the wrapper padded dh). A non-null lse (B, H, S)
+// f32 receives the rows' log-sum-exp. With splits > 1 (routes 1 and 2),
 // part_acc (splits, B * Hkv * S * G, dh) and part_ml (splits, B * Hkv * S
 // * G, 2) take the partials and flash_combine writes o.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, void* part_acc, void* part_ml, int is_f16,
+                           void* o, void* lse, void* part_acc, void* part_ml,
+                           int is_f16,
                            int route, int dhp, int B, int S, int H, int Hkv,
                            int T_, int dh, int t_real, int causal,
                            int q_tiles, int splits, int tiles_per_split,
                            int dh_scale, void* stream_ptr) {
   auto run = is_f16 ? launch_typed<f16> : launch_typed<bf16>;
-  return run(q, k, v, o, static_cast<float*>(part_acc),
+  return run(q, k, v, o, static_cast<float*>(lse),
+             static_cast<float*>(part_acc),
              static_cast<float*>(part_ml), route, dhp, B, S, H, Hkv, T_, dh,
              t_real, causal, q_tiles, splits, tiles_per_split,
              LOG2E / sqrtf((float)dh_scale),
@@ -1116,15 +1143,18 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 
 // The SIMT kernel: q (B, S, H, dh) over k, v (B, T, Hkv, dh) into o, all of
 // dtype `dtype` (0 f32, 1 bf16, 2 f16), any dh ("f32": f32 at dh <= 128;
-// "wide": any dtype at dh > 128); scores scaled by 1 / sqrt(dh_scale).
+// "wide": any dtype at dh > 128); scores scaled by 1 / sqrt(dh_scale); a
+// non-null lse (B, H, S) f32 receives the rows' log-sum-exp.
 int flash_attention_simt_launch(const void* q, const void* k, const void* v,
-                                void* o, int dtype, int B, int S, int H,
+                                void* o, void* lse, int dtype, int B, int S,
+                                int H,
                                 int Hkv, int T_, int dh, int t_real,
                                 int causal, int q_tiles, int dh_scale,
                                 void* stream_ptr) {
   auto run = dtype == 0 ? launch_simt<float>
              : dtype == 1 ? launch_simt<bf16> : launch_simt<f16>;
-  return run(q, k, v, o, B, S, H, Hkv, T_, dh, t_real, causal, q_tiles,
+  return run(q, k, v, o, static_cast<float*>(lse), B, S, H, Hkv, T_, dh,
+             t_real, causal, q_tiles,
              LOG2E / sqrtf((float)dh_scale),
              static_cast<cudaStream_t>(stream_ptr));
 }

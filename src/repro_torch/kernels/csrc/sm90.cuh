@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels:
 // tensor maps, the TMA tile load, mbarriers, wgmma descriptors and the
 // wgmma instructions, register rebalancing between warpgroups. Raw PTX as
-// the PTX ISA gives it; no CUTLASS. Included by matmul.cu (B5); written so
-// that flash_attention.cu (B6) can include it for QK^T and PV.
+// the PTX ISA gives it; no CUTLASS. Included by matmul.cu (B5),
+// flash_attention.cu (B6: QK^T and PV) and flash_attention_bwd.cu (B6's
+// gradient).
 //
 // The shared-memory layout these helpers assume is the one a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: a box whose inner extent is 128 bytes
@@ -392,6 +393,20 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
                  : "l"(da), "l"(db), "r"(scale_d));
   else
     wgmma_m64n128<0, 0>(d, da, db, scale_d);
+}
+
+// D (64 x 64) += A (64 x 16) B (16 x 64), both K-major in shared memory
+template <bool F16>
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  if constexpr (F16)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 {"
+                 SM90_REGS32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+                 : SM90_ACC32
+                 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    wgmma_m64n64<0, 0>(d, da, db, scale_d);
 }
 
 // D (64 x 128) += A (64 x 16, registers) B (16 x 128, shared); TB = 1

@@ -11,8 +11,9 @@ Semantics are the Pallas kernel's (``ref.flash_attention`` states them):
 queries (B, S, H, dh), keys and values (B, T, Hkv, dh) with query head
 ``h`` on kv head ``h // (H // Hkv)``, the causal mask aligned at position
 0, keys at or past ``t_real`` masked and never read, output in q's dtype.
-Only ``o`` is returned: the Pallas kernel's ``m``/``l``/``acc`` outputs
-exist for its interpret mode alone.
+``o`` is returned, and with ``return_lse`` also the rows' log-sum-exp
+(B, H, S) f32, which the backward reuses; the Pallas kernel's
+``m``/``l``/``acc`` outputs exist for its interpret mode alone.
 
 The CUDA source (``csrc/flash_attention.cu``, with the Hopper helpers of
 ``csrc/sm90.cuh``) states the design. :func:`plan` picks one of four
@@ -35,18 +36,21 @@ dtype, or q, o and the first ``t_real`` keys and values moved once at
 
 The gradient, :func:`flash_attention_bwd`, is a kernel of its own
 (``csrc/flash_attention_bwd.cu`` states its design): FlashAttention-2's
-recurrence on mma.sync for bf16 and f16 and in f32 FMAs for f32, the row
-log-sum-exp recomputed, the G query heads of a kv head split over blocks
-and their partials summed in a fixed order (no atomics, bitwise
-reproducible); heads up to 128 wide. :func:`bwd_bound_ms` counts its five
-products, :func:`bwd_error_bound` its tolerance.
+recurrence from the forward's lse, on four routes that :func:`bwd_plan`
+picks: ``"wgmma"`` (TMA + wgmma, the forward's conditions), ``"mma"``
+(mma.sync for the other bf16 and f16 shapes), ``"f32"`` and ``"wide"``
+(f32 FMAs; above 128 columns in 128-column chunks). A kv head's gradient
+is summed over its query heads in a fixed order (no atomics, bitwise
+reproducible). :func:`bwd_bound_ms` counts the five products the gradient
+needs (seven, the routes' own floor, with ``products=7``),
+:func:`bwd_error_bound` its tolerance.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (built
 with nvcc at first use, loaded with ctypes), CPU tensors take the plain
 versions ``ref.flash_attention`` and ``ref.flash_attention_bwd``. There is
 no fallback: a missing nvcc, a failed build, an input the kernels do not
-take (another dtype, a view that is not contiguous, a backward wider than
-128) or a refused launch raises.
+take (another dtype, a view that is not contiguous) or a refused launch
+raises.
 """
 
 from __future__ import annotations
@@ -108,8 +112,8 @@ def _library() -> tuple[ctypes.CDLL, Path]:
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, args in (
-            ("flash_attention_launch", [ptr] * 6 + [i32] * 15 + [ptr]),
-            ("flash_attention_simt_launch", [ptr] * 4 + [i32] * 11 + [ptr]),
+            ("flash_attention_launch", [ptr] * 7 + [i32] * 15 + [ptr]),
+            ("flash_attention_simt_launch", [ptr] * 5 + [i32] * 11 + [ptr]),
             ("flash_probe_launch", [ptr] * 6)):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = ctypes.c_int, args
@@ -257,10 +261,14 @@ def kernel_width(dh: int) -> int:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = False,
-                    t_real: int | None = None) -> torch.Tensor:
+                    causal: bool = False, t_real: int | None = None,
+                    return_lse: bool = False):
     """(B, S, H, dh) attention of ``q`` over the first ``t_real`` (default
-    T) of ``k``, ``v`` (B, T, Hkv, dh), in q's dtype (a new tensor).
+    T) of ``k``, ``v`` (B, T, Hkv, dh), in q's dtype (a new tensor). With
+    ``return_lse``, ``(o, lse)``: ``lse`` (B, H, S) f32 is each row's
+    log-sum-exp of its scaled scores (natural log; +inf for a row that
+    attends no key), written by the same launch, which
+    :func:`flash_attention_bwd` takes. Without it the kernel writes none.
 
     ``flash_attention.launches`` counts kernel launches (one per call that
     launches; CPU calls and empty outputs launch nothing), and
@@ -269,14 +277,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     t_real = k.shape[1] if t_real is None else int(t_real)
     _check(q, k, v, t_real)
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, t_real=t_real)
+        return ref.flash_attention(q, k, v, causal=causal, t_real=t_real,
+                                   return_lse=return_lse)
     cuda_only(q.device, "flash_attention")
     _kernel_check(q, k, v)
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out_dtype = q.dtype
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if q.numel() == 0:
-        return torch.empty_like(q)
+        return (torch.empty_like(q), lse) if return_lse else \
+            torch.empty_like(q)
     if out_dtype == torch.float64:
         q, k, v = q.float(), k.float(), v.float()
     dhk = kernel_width(dh)
@@ -290,6 +302,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if p.route in ("f32", "wide"):
             rc = lib.flash_attention_simt_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr() if return_lse else None,
                 (torch.float32, torch.bfloat16, torch.float16).index(q.dtype),
                 B, S, H, Hkv, T, dhk, t_real, int(causal), p.q_tiles, dh,
                 stream)
@@ -303,6 +316,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                       dtype=torch.float32, device=q.device)
             rc = lib.flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr() if return_lse else None,
                 part_acc.data_ptr() if p.splits > 1 else None,
                 part_ml.data_ptr() if p.splits > 1 else None,
                 int(q.dtype == torch.float16),
@@ -315,7 +329,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     count_launch(flash_attention, p.route)
     if dhk != dh:
         o = o[..., :dh].contiguous()
-    return o.to(out_dtype)
+    o = o.to(out_dtype)
+    return (o, lse) if return_lse else o
 
 
 def reset_counts() -> None:
@@ -359,18 +374,39 @@ def rs_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 # the gradient (csrc/flash_attention_bwd.cu)
 # ----------------------------------------------------------------------
 
-#: the backward's routes: "mma" (bf16 and f16, mma.sync) and "f32" (f32 and
-#: f64 inputs in f32 FMAs)
-BWD_ROUTES = ("mma", "f32")
+#: the backward's routes (csrc/flash_attention_bwd.cu): "wgmma" (bf16 and
+#: f16 at the forward's wgmma conditions), "mma" (the other bf16 and f16
+#: shapes), "f32" (f32 and f64 inputs, dh <= 128), "wide" (dh > 128)
+BWD_ROUTES = ("wgmma", "mma", "f32", "wide")
+#: rows of a dK/dV q/do tile and keys of a dK/dV block on the wgmma route
+#: (csrc: W_BR, 2 * W_BK)
+BWD_ROW_TILE, BWD_KEYS = 64, 128
+#: the fewest dK/dV blocks (one an SM) the wgmma route aims for by
+#: splitting a kv head's query heads into head groups, each group's f32
+#: partial summed in group order: about two waves. At glm4's causal 4,096
+#: on an H100 four groups (256 blocks) ran 1% faster than eight (512;
+#: their partials cost 0.03 ms to sum) and 1.5x faster than two (128
+#: blocks, under one wave) (PERF.md)
+BWD_KV_BLOCKS = 256
+
+
+class BwdPlan(NamedTuple):
+    """How one backward launches: its route, the kernels' head width
+    ``dhp``, and on the wgmma route the head groups of the dK/dV blocks
+    (``groups``; 1 writes dk and dv without partials)."""
+    route: str
+    dhp: int
+    groups: int = 1
 
 
 @functools.cache
 def _bwd_library() -> tuple[ctypes.CDLL, Path]:
-    so = build_cuda("flash_attention_bwd", [_BWD_SRC])
+    so = build_cuda("flash_attention_bwd", [_BWD_SRC],
+                    deps=[_SRC.with_name("sm90.cuh")])
     lib = ctypes.CDLL(str(so))
     fn = lib.flash_attention_bwd_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 + [
         ctypes.c_void_p]
     return lib, so
 
@@ -381,28 +417,44 @@ def build_bwd() -> Path:
     return _bwd_library()[1]
 
 
-def bwd_plan(dh: int, dtype: torch.dtype) -> tuple[str, int]:
-    """``(route, head width of the kernel)`` of the backward at the padded
-    head width ``dh`` (a multiple of 8): ``"f32"`` for f32 and f64 inputs,
-    else ``"mma"`` at the next of 16, 32, 64, 128. Heads wider than 128
-    have no backward kernel yet (ROADMAP B6) and raise."""
+@functools.lru_cache(maxsize=4096)
+def bwd_plan(B: int, S: int, H: int, Hkv: int, t_real: int, causal: bool,
+             dh: int = 128, dtype: torch.dtype = torch.bfloat16) -> BwdPlan:
+    """The backward's launch at the head width the kernels get (a multiple
+    of 8): ``"wide"`` above 128, ``"f32"`` for f32 and f64, else
+    ``"wgmma"`` where the forward takes it (dh 64 or 128, G dividing 128,
+    more than 16 rows per (b, kv head)) and ``"mma"`` at the next of 16,
+    32, 64, 128 otherwise. On the wgmma route the G query heads of a kv
+    head split into the fewest head groups (a power of two of at most 64
+    heads each) that give ``BWD_KV_BLOCKS`` dK/dV blocks over the keys
+    some position attends (the first ``t_real``, under the causal mask at
+    most S), or into G groups."""
+    G = H // Hkv
     if dh > WIDEST_HEAD:
-        raise NotImplementedError(
-            f"flash_attention has no backward kernel for heads wider than "
-            f"{WIDEST_HEAD} (got {dh}; ROADMAP B6)")
+        return BwdPlan("wide", dh)
     if dtype in (torch.float32, torch.float64):
-        return "f32", dh
-    return "mma", next(w for w in MMA_WIDTHS if w >= dh)
+        return BwdPlan("f32", dh)
+    if dh in WGMMA_WIDTHS and 128 % G == 0 and S * G > WARP_ROWS:
+        keys = min(t_real, S) if causal else t_real
+        tiles = math.ceil(keys / BWD_KEYS)
+        groups = max(1, G // BWD_ROW_TILE)
+        while groups < G and B * Hkv * groups * tiles < BWD_KV_BLOCKS:
+            groups *= 2
+        return BwdPlan("wgmma", dh, groups)
+    return BwdPlan("mma", next(w for w in MMA_WIDTHS if w >= dh))
 
 
 def bwd_bound_ms(B: int, S: int, H: int, Hkv: int, T: int, t_real: int,
-                 causal: bool, dh: int = 128, itemsize: int = 2) -> float:
+                 causal: bool, dh: int = 128, itemsize: int = 2,
+                 products: int = 5) -> float:
     """Least time of one backward on an H100: five products of ``2 * dh``
     operations per attended pair and head (q k^T recomputed, do v^T,
     P^T do, dS^T q, dS k) at 989 TFLOP/s (67 for f32 and f64), or q, o, do
     and the first ``t_real`` keys and values read once and dq, dk, dv
-    written once at 3.35 TB/s, whichever is larger."""
-    flops = 10.0 * dh * B * H * attended_pairs(S, t_real, causal)
+    written once at 3.35 TB/s, whichever is larger. ``products=7`` gives
+    the routes' own floor: their dq and dk/dv kernels each recompute q k^T
+    and do v^T."""
+    flops = 2.0 * products * dh * B * H * attended_pairs(S, t_real, causal)
     peak = F32_FLOP_PER_S if itemsize >= 4 else BF16_FLOP_PER_S
     nbytes = itemsize * dh * (4 * B * S * H + 2 * B * (t_real + T) * Hkv)
     return max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
@@ -435,19 +487,22 @@ def bwd_error_bound(want: torch.Tensor, rounded: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = False, t_real: int | None = None):
+                        causal: bool = False, t_real: int | None = None,
+                        lse: torch.Tensor | None = None):
     """B6's gradient: ``(dq, dk, dv, lse)`` of :func:`flash_attention`
-    with output ``o`` (B, S, H, dh), given ``do`` of o's shape. dq, dk, dv
-    come in their inputs' dtype, keys at or past ``t_real`` get 0; ``lse``
-    (B, H, S) f32 is each row's log-sum-exp, which the kernels recompute
-    (the forward does not keep it). Deterministic: the G query heads of a
-    kv head write f32 partials that one pass sums in a fixed order.
+    with output ``o`` (B, S, H, dh), given ``do`` of o's shape and the
+    forward's row log-sum-exp ``lse`` (B, H, S) f32 (``return_lse``). dq,
+    dk, dv come in their inputs' dtype, keys at or past ``t_real`` get 0;
+    the lse used is returned. With ``lse=None`` it comes from one more
+    forward launch (counted in ``flash_attention.launches``), or on the CPU
+    from the plain version. Deterministic: a kv head's gradient is summed
+    over its query heads in a fixed order.
 
     CPU tensors take ``ref.flash_attention_bwd``; CUDA tensors launch the
     kernels of ``csrc/flash_attention_bwd.cu`` on :func:`bwd_plan`'s route
-    (f64 computed in f32, dh zero-padded to a multiple of 8, at most 128)
-    or raise. ``flash_attention_bwd.launches`` counts calls that launch
-    (three kernels each), ``flash_attention_bwd.routes`` the same by
+    (f64 computed in f32, dh zero-padded to a multiple of 8) or raise.
+    ``flash_attention_bwd.launches`` counts calls that launch (a D pass and
+    the route's kernels each), ``flash_attention_bwd.routes`` the same by
     route."""
     t_real = k.shape[1] if t_real is None else int(t_real)
     _check(q, k, v, t_real)
@@ -456,14 +511,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"have q's shape {tuple(q.shape)}")
     if o.device != q.device or do.device != q.device:
         raise ValueError("o and do must lie on q's device")
+    B, S, H, dh = q.shape
+    if lse is not None and (lse.shape != (B, H, S) or lse.device != q.device
+                            or not lse.is_floating_point()):
+        raise ValueError(f"lse must be a float {(B, H, S)} tensor on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on "
+                         f"{lse.device}")
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                       t_real=t_real)
+                                       t_real=t_real, lse=lse)
     cuda_only(q.device, "flash_attention backward")
     dtype = q.dtype
     o, do = o.to(dtype).contiguous(), do.to(dtype).contiguous()
     _kernel_check(q, k, v)
-    B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     if o.data_ptr() % 16 or do.data_ptr() % 16:
         raise ValueError("the flash_attention backward takes 16-byte aligned "
@@ -474,31 +534,40 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return (torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v),
                 torch.empty((B, H, S), dtype=torch.float32, device=dev))
+    if lse is None:
+        lse = flash_attention(q, k, v, causal=causal, t_real=t_real,
+                              return_lse=True)[1]
+    lse = lse.float().contiguous()
     if dtype == torch.float64:
         q, k, v, o, do = (x.float() for x in (q, k, v, o, do))
     dhk = kernel_width(dh)
-    route, dhp = bwd_plan(dhk, q.dtype)
+    p = bwd_plan(B, S, H, Hkv, t_real, causal, dhk, q.dtype)
     if dhk != dh:
         q, k, v, o, do = (torch.nn.functional.pad(x, (0, dhk - dh))
                           for x in (q, k, v, o, do))
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     dsum = torch.empty_like(lse)
-    dk_part = torch.empty((B, T, H, dhk), dtype=torch.float32, device=dev)
-    dv_part = torch.empty_like(dk_part)
+    dk_part = dv_part = None
+    if p.route != "wgmma" or p.groups > 1:      # f32 partials per kv head
+        parts = p.groups if p.route == "wgmma" else H // Hkv
+        dk_part = torch.empty((B, T, Hkv * parts, dhk), dtype=torch.float32,
+                              device=dev)
+        dv_part = torch.empty_like(dk_part)
+    route = {"wgmma": 0, "mma": 1}.get(p.route, 2)
     with torch.cuda.device(dev):
         rc = _bwd_library()[0].flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), dk_part.data_ptr(),
-            dv_part.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(),
+            None if dk_part is None else dk_part.data_ptr(),
+            None if dv_part is None else dv_part.data_ptr(),
             (torch.float32, torch.bfloat16, torch.float16).index(q.dtype),
-            dhp, B, S, H, Hkv, T, dhk, t_real, int(causal), dh,
-            torch.cuda.current_stream().cuda_stream)
+            route, p.dhp, p.groups, B, S, H, Hkv, T, dhk,
+            t_real, int(causal), dh, torch.cuda.current_stream().cuda_stream)
     if rc:
-        raise RuntimeError(f"flash_attention backward launch failed ({route} "
-                           f"route): CUDA error {rc}")
-    count_launch(flash_attention_bwd, route)
+        raise RuntimeError(f"flash_attention backward launch failed "
+                           f"({p.route} route): CUDA error {rc}")
+    count_launch(flash_attention_bwd, p.route)
     if dhk != dh:
         dq, dk, dv = (x[..., :dh].contiguous() for x in (dq, dk, dv))
     return dq.to(dtype), dk.to(dtype), dv.to(dtype), lse

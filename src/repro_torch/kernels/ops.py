@@ -59,18 +59,24 @@ class _SegmentSum(torch.autograd.Function):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, t_real):
-        o = _fa.flash_attention(q, k, v, causal=causal, t_real=t_real)
-        ctx.save_for_backward(q, k, v, o)
+    def forward(ctx, q, k, v, causal, t_real, keep_lse):
         ctx.causal, ctx.t_real = causal, t_real
+        if not keep_lse:
+            o = _fa.flash_attention(q, k, v, causal=causal, t_real=t_real)
+            ctx.save_for_backward(q, k, v, o)
+            return o
+        o, lse = _fa.flash_attention(q, k, v, causal=causal, t_real=t_real,
+                                     return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, *lse = ctx.saved_tensors
         dq, dk, dv, _ = _fa.flash_attention_bwd(
-            q, k, v, o, do, causal=ctx.causal, t_real=ctx.t_real)
-        return dq, dk, dv, None, None
+            q, k, v, o, do, causal=ctx.causal, t_real=ctx.t_real,
+            lse=lse[0] if lse else None)
+        return dq, dk, dv, None, None, None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -105,9 +111,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False,
                     t_real: int | None = None) -> torch.Tensor:
     """B6 (``flash_attention.flash_attention``), differentiable in q, k and
-    v through B6's backward kernels."""
+    v through B6's backward kernels. Where a gradient can flow (grad mode
+    on and an input that requires it) the forward also keeps each row's
+    log-sum-exp for the backward; otherwise (serving, under
+    ``torch.inference_mode``) it writes none."""
     t_real = k.shape[1] if t_real is None else int(t_real)
-    return _FlashAttention.apply(q, k, v, causal, t_real)
+    keep_lse = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, t_real, keep_lse)
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -200,8 +200,8 @@ def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = False,
-                    t_real: int | None = None) -> torch.Tensor:
+                    causal: bool = False, t_real: int | None = None,
+                    return_lse: bool = False):
     """(B, S, H, dh) attention over keys and values (B, T, Hkv, dh), in
     q's dtype, with the semantics of the Pallas kernel
     ``repro.kernels.flash_attention.flash_attention`` (not of
@@ -216,6 +216,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       when S != T;
     * scores, softmax and ``p @ v`` in float32; the row sum is floored at
       1e-30 before the division.
+
+    With ``return_lse``, ``(o, lse)``: ``lse`` (B, H, S) f32 is each row's
+    log-sum-exp of its scaled scores, ``max + log(sum)`` (natural log),
+    and +inf for a row whose sum is 0 (no key attended: the floor above),
+    so that the backward's ``P = exp(s - lse)`` is 0 there.
     """
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -230,10 +235,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qpos = torch.arange(S, device=q.device)[:, None]
         kpos = torch.arange(t_real, device=q.device)[None, :]
         s = s.masked_fill(qpos < kpos, float("-inf"))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
     o = torch.einsum("bngst,btnd->bsngd", p, vf)
-    l = p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]       # (B, S, Hkv, G, 1)
-    return (o / l.clamp_min(1e-30)).reshape(B, S, H, dh).to(q.dtype)
+    rs = p.sum(dim=-1)                                      # (B, Hkv, G, S)
+    l = rs.permute(0, 3, 1, 2)[..., None]                   # (B, S, Hkv, G, 1)
+    o = (o / l.clamp_min(1e-30)).reshape(B, S, H, dh).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(rs > 0, m[..., 0] + torch.log(rs), float("inf"))
+    return o, lse.reshape(B, H, S)
 
 
 # ----------------------------------------------------------------------
@@ -278,10 +289,12 @@ def segment_gather(dout: torch.Tensor, ids: torch.Tensor,
     return torch.where(ok[:, None], rows, 0).to(dtype)
 
 
-def _attention_terms(q, k, v, o, do, causal, t_real, ct):
+def _attention_terms(q, k, v, o, do, causal, t_real, ct, lse=None):
     """The backward's shared terms in the compute type ``ct``: q, k, do in
     the grouped layout, P, dP = do v^T and D = rowsum(do * o) (B, Hkv, G,
-    S, 1), and sqrt(dh)."""
+    S, 1), lse (B, Hkv, G, S) and sqrt(dh). ``lse`` (B, H, S), where given,
+    is the forward's; else the scores' log-sum-exp, +inf where no key is
+    attended (P = 0 there, as the forward's lse gives)."""
     B, S, H, dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -295,7 +308,11 @@ def _attention_terms(q, k, v, o, do, causal, t_real, ct):
         qpos = torch.arange(S, device=q.device)[:, None]
         kpos = torch.arange(t_real, device=q.device)[None, :]
         s = s.masked_fill(qpos < kpos, float("-inf"))
-    lse = torch.logsumexp(s, dim=-1)                         # (B, Hkv, G, S)
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1)                     # (B, Hkv, G, S)
+        lse = lse.masked_fill(torch.isneginf(lse), float("inf"))
+    else:
+        lse = lse.to(ct).reshape(B, Hkv, G, S)
     p = torch.exp(s - lse[..., None])
     dsum = (dof * of).sum(-1).permute(0, 2, 3, 1)[..., None]
     dp = torch.einsum("bsngd,btnd->bngst", dof, vf)
@@ -304,13 +321,16 @@ def _attention_terms(q, k, v, o, do, causal, t_real, ct):
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = False, t_real: int | None = None):
+                        causal: bool = False, t_real: int | None = None,
+                        lse: torch.Tensor | None = None):
     """``(dq, dk, dv, lse)``: the gradient of :func:`flash_attention` with
     output ``o``, given ``do``, as FlashAttention-2's recurrence in f32
     (f64 for f64 inputs), the semantics of the forward (GQA without the
     expansion, causal aligned at 0, keys at or past ``t_real`` masked):
 
-    * ``lse = logsumexp(s)`` over the attended keys, ``s = q k^T / sqrt(dh)``;
+    * ``lse = logsumexp(s)`` over the attended keys, ``s = q k^T / sqrt(dh)``
+      (or the forward's ``lse`` (B, H, S), where given: see
+      :func:`flash_attention`'s ``return_lse``);
     * ``D = rowsum(do * o)``;
     * ``P = exp(s - lse)``, ``dS = P * (do v^T - D)``;
     * ``dq = dS k / sqrt(dh)``, ``dk = dS^T q / sqrt(dh)`` and
@@ -324,7 +344,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     t_real = T if t_real is None else t_real
     ct = _grad_dtype(q.dtype)
     qf, kf, _, dof, p, dp, dsum, lse, scale = _attention_terms(
-        q, k, v, o, do, causal, t_real, ct)
+        q, k, v, o, do, causal, t_real, ct, lse)
     ds = p * (dp - dsum)
     dq = torch.einsum("bngst,btnd->bsngd", ds, kf) / scale
     dk = torch.zeros((B, T, Hkv, dh), dtype=ct, device=q.device)

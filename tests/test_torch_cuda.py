@@ -1166,6 +1166,27 @@ def _attn_inputs(cuda, B, S, T, H, Hkv, dh, dtype, seed=0):
     return q, k, v, do
 
 
+def _bwd_checked(q, k, v, o, do, got, causal, t_real):
+    """Hold a backward's (dq, dk, dv, lse) to the plain backward: each
+    gradient within ``bwd_error_bound``, keys past t_real 0, lse within
+    1e-4."""
+    want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                   t_real=t_real)
+    scales = ref.flash_attention_bwd_scales(q, k, v, o, do, causal=causal,
+                                            t_real=t_real)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == q.dtype and a.shape == w.shape
+        diff = (a.float() - w.float()).abs()
+        bound = flash_attention.bwd_error_bound(w, *scales[name])
+        assert bool((diff <= bound).all()), \
+            (name, float(diff.max()), float((diff / bound).max()))
+    T = k.shape[1]
+    if t_real is not None and t_real < T:   # keys past t_real: no gradient
+        assert float(got[1][:, t_real:].float().abs().max()) == 0.0
+        assert float(got[2][:, t_real:].float().abs().max()) == 0.0
+    torch.testing.assert_close(got[3], want[3].float(), rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("G", [1, 4, 16])
 @pytest.mark.parametrize("dh", [16, 64, 128])
@@ -1173,33 +1194,89 @@ def _attn_inputs(cuda, B, S, T, H, Hkv, dh, dtype, seed=0):
                                    torch.float32], ids=["bf16", "f16", "f32"])
 def test_flash_attention_backward_kernel_matches_plain_version(
         cuda, dtype, dh, G, causal):
+    """Every route at the plan's choice (wgmma for bf16 and f16 at dh 64
+    and 128, mma at dh 16, f32), given the forward's lse: within
+    ``bwd_error_bound`` of the plain backward, and bit-equal to a second
+    call with ``lse=None``, which takes lse from one forward launch."""
     B, S, T, Hkv = 2, 150, 150 if causal else 170, 2
     t_real = T if causal else 161
-    q, k, v, do = _attn_inputs(cuda, B, S, T, G * Hkv, Hkv, dh, dtype)
-    o = ref.flash_attention(q, k, v, causal=causal, t_real=t_real)
-    route = flash_attention.bwd_plan(dh, dtype)[0]
+    H = G * Hkv
+    q, k, v, do = _attn_inputs(cuda, B, S, T, H, Hkv, dh, dtype)
+    o, lse = flash_attention.flash_attention(q, k, v, causal=causal,
+                                             t_real=t_real, return_lse=True)
+    route = flash_attention.bwd_plan(B, S, H, Hkv, t_real, causal, dh,
+                                     dtype).route
+    assert route == ("f32" if dtype == torch.float32 else
+                     "wgmma" if dh in (64, 128) else "mma")
     before = flash_attention.flash_attention_bwd.routes[route]
     got = flash_attention.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                              t_real=t_real)
+                                              t_real=t_real, lse=lse)
     torch.cuda.synchronize()
     assert flash_attention.flash_attention_bwd.routes[route] == before + 1
-    want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                   t_real=t_real)
-    scales = ref.flash_attention_bwd_scales(q, k, v, o, do, causal=causal,
-                                            t_real=t_real)
-    for name, a, w in zip(("dq", "dk", "dv"), got, want):
-        assert a.dtype == dtype and a.shape == w.shape
-        diff = (a.float() - w.float()).abs()
-        bound = flash_attention.bwd_error_bound(w, *scales[name])
-        assert bool((diff <= bound).all()), \
-            (name, float(diff.max()), float((diff / bound).max()))
-    if t_real < T:                    # keys past t_real: no gradient
-        assert float(got[1][:, t_real:].float().abs().max()) == 0.0
-        assert float(got[2][:, t_real:].float().abs().max()) == 0.0
-    torch.testing.assert_close(got[3], want[3].float(), rtol=1e-5, atol=1e-4)
+    _bwd_checked(q, k, v, o, do, got, causal, t_real)
+    fwd = flash_attention.flash_attention.launches
     again = flash_attention.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                                 t_real=t_real)
+    assert flash_attention.flash_attention.launches == fwd + 1
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4, 8, 16])
+def test_flash_attention_backward_wgmma_head_groups_at_4000(cuda, groups,
+                                                            monkeypatch):
+    """glm4's causal backward at a ragged 4,000 positions on the wgmma
+    route with each split of the kv heads' 16 query heads into head groups
+    (the plan's and the others): within ``bwd_error_bound`` of the plain
+    backward and bitwise reproducible."""
+    B, S, H, Hkv, dh = 1, 4000, 32, 2, 128
+    q, k, v, do = _attn_inputs(cuda, B, S, S, H, Hkv, dh, torch.bfloat16)
+    o, lse = flash_attention.flash_attention(q, k, v, causal=True,
+                                             return_lse=True)
+    plan = flash_attention.bwd_plan(B, S, H, Hkv, S, True, dh,
+                                    torch.bfloat16)
+    assert plan.route == "wgmma"
+    monkeypatch.setattr(flash_attention, "bwd_plan",
+                        lambda *a: plan._replace(groups=groups))
+    got = flash_attention.flash_attention_bwd(q, k, v, o, do, causal=True,
+                                              lse=lse)
+    again = flash_attention.flash_attention_bwd(q, k, v, o, do, causal=True,
+                                                lse=lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _bwd_checked(q, k, v, o, do, got, True, None)
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,t_real,causal,dh,dtype,route", [
+    (1, 300, 300, 32, 2, None, True, 128, "bf16", "wgmma"),
+    (2, 100, 150, 4, 2, 140, False, 64, "f16", "wgmma"),
+    (2, 40, 40, 4, 2, None, True, 16, "bf16", "mma"),
+    (1, 100, 100, 12, 4, None, True, 128, "bf16", "mma"),
+    (16, 1, 1000, 32, 2, None, False, 128, "bf16", "split"),
+    (4, 1, 5000, 16, 1, 4097, False, 128, "bf16", "split"),
+    (1, 70, 90, 8, 2, 80, True, 128, "f32", "f32"),
+    (1, 70, 90, 6, 3, 80, True, 136, "bf16", "wide"),
+    (2, 40, 40, 4, 2, None, True, 256, "f32", "wide"),
+    (1, 30, 30, 4, 2, None, True, 64, "f64", "f32")])
+def test_flash_attention_forward_lse_on_every_route(cuda, B, S, T, H, Hkv,
+                                                    t_real, causal, dh,
+                                                    dtype, route):
+    """Every forward route writes the rows' lse when asked, within 1e-4 of
+    the plain version's, and its output is the one without lse, bit for
+    bit (serving asks for none)."""
+    dt = {"bf16": torch.bfloat16, "f16": torch.float16,
+          "f32": torch.float32, "f64": torch.float64}[dtype]
+    q, k, v, _ = _attn_inputs(cuda, B, S, T, H, Hkv, dh, dt)
+    before = flash_attention.flash_attention.routes[route]
+    o = flash_attention.flash_attention(q, k, v, causal=causal, t_real=t_real)
+    o2, lse = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              t_real=t_real, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.routes[route] == before + 2
+    assert torch.equal(o, o2)
+    _, want = ref.flash_attention(q, k, v, causal=causal, t_real=t_real,
+                                  return_lse=True)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want.float(), rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("dh", [12, 40])
@@ -1216,9 +1293,26 @@ def test_flash_attention_backward_pads_odd_head_widths(cuda, dh):
 
 
 def test_flash_attention_backward_refuses_wide_heads(cuda):
-    q, k, v, do = _attn_inputs(cuda, 1, 8, 8, 2, 1, 136, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="B6"):
-        flash_attention.flash_attention_bwd(q, k, v, q, do)
+    """Heads wider than 128 have a backward on the card now (they raised
+    before): the ``wide`` route, in bf16, f16 and f32, within
+    ``bwd_error_bound`` of the plain backward and bitwise reproducible."""
+    for dh, dtype in ((136, torch.bfloat16), (200, torch.float16),
+                      (256, torch.float32)):
+        q, k, v, do = _attn_inputs(cuda, 1, 40, 50, 4, 2, dh, dtype)
+        o, lse = flash_attention.flash_attention(q, k, v, causal=True,
+                                                 t_real=45, return_lse=True)
+        before = flash_attention.flash_attention_bwd.routes["wide"]
+        got = flash_attention.flash_attention_bwd(q, k, v, o, do,
+                                                  causal=True, t_real=45,
+                                                  lse=lse)
+        again = flash_attention.flash_attention_bwd(q, k, v, o, do,
+                                                    causal=True, t_real=45,
+                                                    lse=lse)
+        torch.cuda.synchronize()
+        assert flash_attention.flash_attention_bwd.routes["wide"] == \
+            before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _bwd_checked(q, k, v, o, do, got, True, 45)
 
 
 @pytest.mark.parametrize("E,d,S", [(1, 1, 1), (37, 5, 4), (2_000, 128, 900),
@@ -1275,8 +1369,9 @@ def _plain_ops():
                               lambda x, idx: x[idx.long()]))
 
 
-def _loss_and_grads(spec, cfg, model, batch, plain=False):
+def _loss_and_grads(spec, cfg, model, batch, plain=False, relu=None):
     import contextlib
+    from unittest import mock
     from repro_torch import configs
     params = dict(model.named_parameters())
     for p in params.values():
@@ -1285,6 +1380,8 @@ def _loss_and_grads(spec, cfg, model, batch, plain=False):
         if plain:
             for patch in _plain_ops():
                 stack.enter_context(patch)
+        if relu is not None:
+            stack.enter_context(mock.patch.object(torch, "relu", relu))
         loss = configs.loss_for(spec, cfg)(model, batch)
         grads = torch.autograd.grad(loss, list(params.values()))
     return float(loss.detach()), dict(zip(params, grads))
@@ -1327,6 +1424,12 @@ def test_lm_train_gradients_match_plain_versions_on_card(cuda, dtype):
 
 
 def test_sage_train_gradients_match_plain_versions_on_card(cuda):
+    """GraphSAGE's loss and gradients with the kernels against the plain
+    versions, f32 within 1e-4 of each leaf's largest |gradient|. The plain
+    run multiplies each relu input by the kernel run's mask, so that a
+    pre-activation within the f32 rounding of 0 cannot take the other
+    sign there and move a gradient by a whole term (chip_smoke.py's
+    ReluPattern)."""
     from repro_torch import configs
     spec = configs.get("graphsage-reddit")
     cfg = configs.cell_model_cfg(spec, "minibatch_lg", smoke=False)
@@ -1343,11 +1446,20 @@ def test_sage_train_gradients_match_plain_versions_on_card(cuda):
     before = (segment_matmul.segment_sum.launches,
               segment_matmul.segment_gather.launches,
               segment_matmul.matmul.launches)
-    loss, grads = _loss_and_grads(spec, cfg, model, batch)
+    masks, relu = [], torch.relu
+
+    def record(x):
+        masks.append(x.detach() > 0)
+        return relu(x)
+
+    loss, grads = _loss_and_grads(spec, cfg, model, batch, relu=record)
     assert (segment_matmul.segment_sum.launches - before[0],
             segment_matmul.segment_gather.launches - before[1],
             segment_matmul.matmul.launches - before[2]) == (5, 1, 13)
-    want_loss, want = _loss_and_grads(spec, cfg, model, batch, plain=True)
+    kept = iter(masks)
+    want_loss, want = _loss_and_grads(spec, cfg, model, batch, plain=True,
+                                      relu=lambda x: x * next(kept))
+    assert next(kept, None) is None
     assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
     for name, g in grads.items():
         w = want[name]

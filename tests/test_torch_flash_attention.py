@@ -369,3 +369,199 @@ def test_error_bound_admits_bf16_p_and_sees_a_missing_key_tile(S, T, t_real,
     cut = ref.flash_attention(q, k, v, causal=causal,
                               t_real=t_real - fa.CHECK_CUT_KEYS)
     assert bool(((cut.float() - want.float()).abs() > tol).any())
+
+
+# -- the forward's lse and the backward's routes --------------------------------
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,dh,t_real,causal", [
+    (2, 20, 20, 8, 2, 16, 20, True),      # GQA, causal S = T
+    (1, 12, 30, 6, 3, 8, 30, True),       # causal S != T (aligned at 0)
+    (2, 5, 40, 4, 1, 16, 29, False),      # t_real < T
+    (2, 1, 50, 16, 1, 64, 37, False)])    # decode, G = 16
+def test_plain_lse_is_the_scores_logsumexp(B, S, T, H, Hkv, dh, t_real,
+                                           causal):
+    """``return_lse`` gives each row's log-sum-exp of its scaled scores over
+    the attended keys: torch.logsumexp of the scores, and jax.nn.logsumexp
+    of the same scores formed as the reference model forms them (the kv
+    heads expanded with ``take``, scaled in f32), within f32 rounding; the
+    output is the one without ``return_lse``, bit for bit."""
+    import jax
+
+    (jq, jk, _), (q, k, v) = inputs(B, S, T, H, Hkv, dh, jnp.float32,
+                                    torch.float32, seed=S + T + H)
+    o, lse = ref.flash_attention(q, k, v, causal=causal, t_real=t_real,
+                                 return_lse=True)
+    assert torch.equal(o, ref.flash_attention(q, k, v, causal=causal,
+                                              t_real=t_real))
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    kh = k[:, :t_real].repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", q, kh) / dh ** 0.5
+    mask = torch.arange(S)[:, None] < torch.arange(t_real)[None, :]
+    if causal:
+        s = s.masked_fill(mask, float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), rtol=1e-6,
+                               atol=1e-6)
+    head_map = jnp.arange(H) // (H // Hkv)
+    js = jnp.einsum("bshd,bthd->bhst", jq,
+                    jnp.take(jk, head_map, axis=2)[:, :t_real])
+    js = js.astype(jnp.float32) / np.sqrt(dh)
+    if causal:
+        js = jnp.where(jnp.asarray(mask.numpy())[None, None], -jnp.inf, js)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(
+        jax.nn.logsumexp(js, axis=-1)), rtol=1e-5, atol=1e-5)
+    # the wrapper takes the plain version on the CPU, launching nothing
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, t_real=t_real,
+                             return_lse=True)
+    assert fa.flash_attention.launches == before
+    assert torch.equal(got[0], o) and torch.equal(got[1], lse)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,t_real,dh,dtype,want", [
+    # glm4's train step (1 x 4,096, G = 16): wgmma, the kv heads' 16 query
+    # heads in head groups that fill the card
+    (1, 4096, 32, 2, 4096, 128, "bf16", ("wgmma", 128)),
+    (1, 4000, 32, 2, 4000, 128, "f16", ("wgmma", 128)),
+    (1, 4096, 32, 32, 4096, 128, "bf16", ("wgmma", 128)),   # codeqwen, G 1
+    (2, 300, 8, 2, 300, 64, "bf16", ("wgmma", 64)),
+    (1, 100, 256, 2, 100, 64, "bf16", ("wgmma", 64)),       # G 128
+    (1, 100, 12, 4, 100, 128, "bf16", ("mma", 128)),        # G 3
+    (2, 8, 4, 2, 40, 128, "bf16", ("mma", 128)),            # 16 rows
+    (2, 96, 4, 2, 96, 16, "bf16", ("mma", 16)),             # smoke LMs
+    (1, 50, 6, 2, 50, 24, "f16", ("mma", 32)),
+    (2, 40, 4, 2, 40, 128, "f32", ("f32", 128)),
+    (2, 40, 4, 2, 40, 64, "f64", ("f32", 64)),
+    (2, 40, 4, 2, 40, 136, "bf16", ("wide", 136)),
+    (3, 1, 8, 2, 300, 256, "f32", ("wide", 256))])
+def test_bwd_plan(B, S, H, Hkv, t_real, dh, dtype, want):
+    """The backward's route by dtype, head width, G and rows, as the
+    forward's ``plan`` picks it; on the wgmma route the head groups divide
+    G, hold at most 64 heads each and are the fewest that give
+    ``BWD_KV_BLOCKS`` dK/dV blocks (or G of them)."""
+    dt = {"f64": torch.float64, **{n: d[1] for n, d in DTYPES.items()}}[dtype]
+    p = fa.bwd_plan(B, S, H, Hkv, t_real, True, dh, dt)
+    assert (p.route, p.dhp) == want
+    G = H // Hkv
+    if p.route != "wgmma":
+        assert p.groups == 1
+        return
+    assert fa.plan(B, S, H, Hkv, t_real, True, dh, dt).route == "wgmma"
+    assert G % p.groups == 0 and G // p.groups <= fa.BWD_ROW_TILE
+    tiles = -(-min(t_real, S) // fa.BWD_KEYS)
+    assert p.groups == G or B * Hkv * p.groups * tiles >= fa.BWD_KV_BLOCKS
+    assert p.groups == 1 or B * Hkv * (p.groups // 2) * tiles \
+        < fa.BWD_KV_BLOCKS
+
+
+def wgmma_backward(q, k, v, o, do, lse, *, causal, t_real, groups):
+    """csrc/flash_attention_bwd.cu's wgmma route on the CPU, in f32 but
+    for its roundings: D = rowsum(do * o); P from the forward's lse; dQ per
+    128-row tile of (position, head) pairs over 64-key tiles; dK and dV per
+    (64 keys of a consumer warpgroup, kv head, head group) over 64-row
+    tiles of the group's (position, head) pairs, from the keys' diagonal on
+    (the kernel's 128-key block starts at its lower half's diagonal: the
+    upper half's extra tiles add exact zeros); P and dS rounded
+    to the inputs' dtype before their products; the groups' f32 partials
+    summed in group order, then rounded."""
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    Gg, dt = G // groups, q.dtype
+    scale = 1.0 / dh ** 0.5
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    kf[:, t_real:] = 0.0                     # the maps stop at t_real
+    vf[:, t_real:] = 0.0
+    dsum = (dof * of).sum(-1)                # (B, S, H)
+    lse_r = lse.permute(0, 2, 1)             # (B, S, H)
+    dq = torch.zeros(B, S, H, dh)
+    dk = torch.zeros(B, T, Hkv, dh)
+    dv = torch.zeros(B, T, Hkv, dh)
+
+    def masked_p(s, kpos, qpos, lse_rows):
+        p = torch.exp(s * scale - lse_rows)
+        keep = kpos < t_real
+        if causal:
+            keep = keep & (kpos <= qpos)
+        return torch.where(keep, p, 0.0)
+
+    for b in range(B):
+        for hk in range(Hkv):
+            # dQ: the forward's rows, 128 a tile, over 64-key tiles
+            hs = slice(hk * G, (hk + 1) * G)
+            rows = S * G
+            qr = qf[b, :, hs].reshape(rows, dh)
+            dr = dof[b, :, hs].reshape(rows, dh)
+            lr = lse_r[b, :, hs].reshape(rows)
+            Dr = dsum[b, :, hs].reshape(rows)
+            dq_rows = torch.zeros(rows, dh)
+            for r0 in range(0, rows, 128):
+                r1 = min(r0 + 128, rows)
+                qpos = torch.arange(r0, r1)[:, None] // G
+                limit = min(t_real, (r1 - 1) // G + 1) if causal else t_real
+                acc = torch.zeros(r1 - r0, dh)
+                for kv0 in range(0, limit, 64):
+                    kt, vt = kf[b, kv0:kv0 + 64, hk], vf[b, kv0:kv0 + 64, hk]
+                    kpos = torch.arange(kv0, kv0 + kt.shape[0])[None, :]
+                    p = masked_p(qr[r0:r1] @ kt.T, kpos, qpos,
+                                 lr[r0:r1, None])
+                    ds = p * (dr[r0:r1] @ vt.T - Dr[r0:r1, None])
+                    acc += ds.to(dt).float() @ kt
+                dq_rows[r0:r1] = acc * scale
+            dq[b, :, hs] = dq_rows.view(S, G, dh)
+            # dK, dV: per head group, partials summed in group order
+            parts = []
+            for grp in range(groups):
+                gs = slice(hk * G + grp * Gg, hk * G + (grp + 1) * Gg)
+                rows, P = S * Gg, 64 // Gg
+                qr = qf[b, :, gs].reshape(rows, dh)
+                dr = dof[b, :, gs].reshape(rows, dh)
+                lr = lse_r[b, :, gs].reshape(rows)
+                Dr = dsum[b, :, gs].reshape(rows)
+                pk, pv = torch.zeros(T, dh), torch.zeros(T, dh)
+                for kv0 in range(0, min(T, t_real), 64):
+                    kt, vt = kf[b, kv0:kv0 + 64, hk], vf[b, kv0:kv0 + 64, hk]
+                    kpos = torch.arange(kv0, kv0 + kt.shape[0])[:, None]
+                    first = kv0 if causal else 0
+                    for p0 in range((first // P) * P, S, P):
+                        r0, r1 = p0 * Gg, min(p0 * Gg + 64, rows)
+                        qpos = torch.arange(r0, r1)[None, :] // Gg
+                        pt = masked_p(kt @ qr[r0:r1].T, kpos, qpos,
+                                      lr[None, r0:r1])
+                        dst = pt * (vt @ dr[r0:r1].T - Dr[None, r0:r1])
+                        pv[kv0:kv0 + 64] += pt.to(dt).float() @ dr[r0:r1]
+                        pk[kv0:kv0 + 64] += dst.to(dt).float() @ qr[r0:r1]
+                parts.append((pk * scale, pv))
+            dk[b, :, hk] = sum(pk for pk, _ in parts)
+            dv[b, :, hk] = sum(pv for _, pv in parts)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+@pytest.mark.parametrize("B,S,T,H,Hkv,t_real,causal,dh,groups", [
+    (1, 40, 40, 32, 2, 40, True, 64, 4),      # glm4's G = 16 in 4 groups
+    (1, 40, 40, 32, 2, 40, True, 64, 16),     # one head a group
+    (2, 70, 90, 8, 2, 81, False, 64, 2),      # G = 4, t_real < T
+    (1, 150, 150, 2, 2, 150, True, 128, 1),   # G = 1: no partials
+    (1, 33, 33, 16, 1, 33, True, 64, 1)])     # G = 16 in one group
+def test_wgmma_backward_tiling_within_error_bound(B, S, T, H, Hkv, t_real,
+                                                  causal, dh, groups,
+                                                  dtype):
+    """The wgmma backward's tiles, head-group partials and rounded P and
+    dS (emulated) stay within ``bwd_error_bound`` of the plain backward,
+    and the keys past t_real get no gradient."""
+    _, (q, k, v) = inputs(B, S, T, H, Hkv, dh, DTYPES[dtype][0],
+                          DTYPES[dtype][1], seed=S + H + groups)
+    do = torch.as_tensor(np.random.default_rng(S).normal(
+        size=q.shape).astype(np.float32)).to(q.dtype)
+    o, lse = ref.flash_attention(q, k, v, causal=causal, t_real=t_real,
+                                 return_lse=True)
+    got = wgmma_backward(q, k, v, o, do, lse, causal=causal, t_real=t_real,
+                         groups=groups)
+    want = ref.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                   t_real=t_real)
+    scales = ref.flash_attention_bwd_scales(q, k, v, o, do, causal=causal,
+                                            t_real=t_real)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        bound = fa.bwd_error_bound(w, *scales[name])
+        assert bool(((a.float() - w.float()).abs() <= bound).all()), name
+    assert not got[1][:, t_real:].any() and not got[2][:, t_real:].any()

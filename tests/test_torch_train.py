@@ -327,6 +327,7 @@ ATTN_CASES = {
     "t_real, not causal": (2, 5, 40, 4, 1, 16, False, 29),
     "MHA dh 12": (1, 9, 9, 2, 2, 12, True, 9),
     "decode G=16": (2, 1, 50, 16, 1, 16, False, 37),
+    "wide dh 136": (1, 6, 6, 4, 2, 136, True, 6),
 }
 
 
@@ -493,16 +494,70 @@ def test_cpu_training_launches_no_kernel():
 
 
 def test_backward_kernels_refuse_a_cpu_device_and_wide_heads():
-    with pytest.raises(NotImplementedError, match="B6"):
-        fa.bwd_plan(136, torch.bfloat16)
-    assert fa.bwd_plan(16, torch.bfloat16) == ("mma", 16)
-    assert fa.bwd_plan(24, torch.float16) == ("mma", 32)
-    assert fa.bwd_plan(128, torch.float32) == ("f32", 128)
+    """Heads wider than 128 have a backward kernel now (the ``wide``
+    route, for every dtype, where they raised before); the other routes
+    by dtype and width; arguments the kernels cannot take raise."""
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        assert fa.bwd_plan(1, 8, 2, 1, 8, True, 136, dt) == ("wide", 136, 1)
+    assert fa.bwd_plan(3, 1, 8, 2, 300, False, 256, torch.float32).route \
+        == "wide"
+    assert fa.bwd_plan(2, 96, 4, 2, 96, True, 16, torch.bfloat16) == (
+        "mma", 16, 1)
+    assert fa.bwd_plan(1, 50, 6, 2, 50, True, 24, torch.float16) == (
+        "mma", 32, 1)
+    assert fa.bwd_plan(2, 40, 4, 2, 40, True, 128, torch.float32) == (
+        "f32", 128, 1)
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="shape"):
         fa.flash_attention_bwd(q, q, q, q, q[:, :2])
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, q, q, q, q, lse=torch.zeros(1, 4, 2))
+    pairs = 8_390_656                     # causal 4,096: 4,096 * 4,097 / 2
     assert fa.bwd_bound_ms(1, 4096, 32, 2, 4096, 4096, True) == pytest.approx(
-        10 * 128 * 32 * 8_390_656 / 989e12 * 1e3)
+        10 * 128 * 32 * pairs / 989e12 * 1e3)
+    assert fa.bwd_bound_ms(1, 4096, 32, 2, 4096, 4096, True, products=7) \
+        == pytest.approx(14 * 128 * 32 * pairs / 989e12 * 1e3)
+
+
+LSE_CASES = {
+    "causal S = T, GQA G=4": (2, 24, 24, 8, 2, 16, True, 24),
+    "causal S = T, MHA": (1, 17, 17, 3, 3, 8, True, 17),
+    "kv_len_mask, t_real < T": (2, 5, 30, 8, 4, 16, False, 19),
+    "kv_len_mask, decode G=16": (3, 1, 16, 16, 1, 16, False, 11),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LSE_CASES))
+def test_flash_attention_backward_from_the_forward_lse_matches_jax_vjp(case):
+    """The plain backward fed the forward's lse (``return_lse``) equals the
+    one that recomputes it, and both equal ``jax.vjp`` of the reference
+    model's ``gqa_attention`` in f32: causal at S = T, or over the first
+    t_real keys through ``kv_len_mask`` (the decode mask). Keys at or past
+    t_real get no gradient."""
+    B, S, T, H, Hkv, dh, causal, t_real = LSE_CASES[case]
+    rng = np.random.default_rng(len(case) + T)
+    qn, kn, vn, don = (rng.normal(size=shape).astype(np.float32) for shape in (
+        (B, S, H, dh), (B, T, Hkv, dh), (B, T, Hkv, dh), (B, S, H, dh)))
+    q, k, v, do = (torch.tensor(x) for x in (qn, kn, vn, don))
+    o, lse = ref.flash_attention(q, k, v, causal=causal, t_real=t_real,
+                                 return_lse=True)
+    fed = ref.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                  t_real=t_real, lse=lse)
+    own = ref.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                  t_real=t_real)
+    for a, b in zip(fed, own):
+        close_to(a, b, rtol=1e-5, share=1e-6)
+    assert torch.equal(fed[3], lse)
+    mask = None if causal else jnp.broadcast_to(
+        jnp.arange(T)[None, :] < t_real, (B, T))
+    out, vjp = jax.vjp(lambda q, k, v: jax_tfm.gqa_attention(
+        q, k, v, causal=causal, kv_len_mask=mask), *map(jnp.asarray,
+                                                        (qn, kn, vn)))
+    close_to(o, torch.tensor(np.asarray(out)).view(B, S, H, dh))
+    grads = vjp(jnp.asarray(don.reshape(B, S, H * dh)))
+    for got, want in zip(fed[:3], grads):
+        close_to(got, torch.tensor(np.asarray(want)))
+    assert not fed[1][:, t_real:].any() and not fed[2][:, t_real:].any()
 
 
 # -- the CLI --------------------------------------------------------------------
