@@ -214,6 +214,35 @@ result line each; any failure raises and exits non-zero:
            both, the replayed losses equal to an uninterrupted run's (bit for
            bit for glm4; within rtol 1e-5 for GraphSAGE, whose B4 sums
            reorder under float atomics)
+  moe      the MoE LMs: qwen2-moe-a2.7b at full width and depth
+           (14,315,735,040 parameters, 2,689,124,352 active; 60 experts of
+           1,408, top-4, 4 shared; bf16, drawn on the card from a seed):
+           prefill 1 x 4,096 through make_serve_step(spec, "prefill_32k")
+           and 4 greedy decode steps of batch 4 over a 32,768-slot cache
+           through make_serve_step(spec, "decode_32k"), each counted (B5 per
+           layer: 4 attention projections, the router on the f32 route,
+           3 per expert and 9 for the shared experts, wgmma at prefill and
+           skinny at decode; B6 once a layer); the routing (capacity C,
+           dropped assignments, the smallest top-K margin); the prefill's
+           logits against the plain versions replaying the kernel run's
+           routes, and the assignments a plain run routing on its own sends
+           elsewhere; an 8-token decode against a prefill of those tokens,
+           each step replaying the prefill's routes of its tokens; the MoE
+           layer's pieces (router, route + dispatch, experts, combine,
+           shared experts) timed alone; B5 at the expert shapes and the f32
+           router against its plain version; tokens/s, the model-FLOP share
+           on the active parameters, expert rows executed against assigned,
+           decode ms per step, launches, idle share and peak memory.
+           dbrx-132b and qwen1.5-110b at full width cut to 2 layers:
+           prefill 1 x 4,096 counted and against the plain versions (routes
+           replayed). The train step on qwen2-moe at full width, 4 layers,
+           one sequence of 4,096, remat: launches counted, the remat
+           recompute's routes equal to the first pass's, a repeat from the
+           same state bit-equal in loss and every parameter; a 1-layer
+           full-width model's loss and every gradient against the plain
+           versions with the routes replayed; at 4 layers, the bf16
+           kernels' and plain versions' gradients each against an f32
+           plain run, and the f32 kernels' against the f32 plain versions
 
 The card builds, ingests and trims of epoch, engine and store peel their
 k ranges on the card too; a ``[kcore]`` line sums kcore_fixpoint's
@@ -468,7 +497,7 @@ def profiled(fn, kernels: dict, shares: dict | None = None) -> str:
     a device row's name) with the launches the profiler recorded for it
     (it can drop records), the top device rows and the top host operations
     by their own time. ``shares``, where given, receives each kernel's
-    share of busy by name."""
+    share of busy by name, and the busy seconds as ``busy_s``."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -477,6 +506,8 @@ def profiled(fn, kernels: dict, shares: dict | None = None) -> str:
     busy = sum(us for _, us, _ in rows) / 1e6
     if not busy:
         return f"wall {t:.4f}s, device busy not measured (no device events)"
+    if shares is not None:
+        shares["busy_s"] = busy
     parts = []
     for name, test in kernels.items():
         secs = sum(us for k, us, _ in rows if test(k)) / 1e6
@@ -1798,6 +1829,716 @@ def train_phase(dev, smi: str) -> dict:
              "max_abs_err": max(r["max_abs_err"] for r in gather_recs),
              **{k: gmain[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")}}]}
+
+
+#: the [moe] phase: qwen2-moe-a2.7b at full width and depth (24 layers; 60
+#: routed experts of 1,408, top-4, 4 shared), drawn on the card from
+#: MOE_SEED: prefill 1 x MOE_SEQ tokens (prefill_32k cut as [lm]'s: batch
+#: 32 -> 1, seq 32,768 -> 4,096), decode MOE_DECODE_BATCH sequences over
+#: decode_32k's 32,768 slots (batch 128 -> 4: the cache of 16 kv heads is
+#: 25.8 GB at 4, 825 GB at 128), MOE_STEPS timed steps, decode against
+#: prefill over an MOE_PREFIX-token prefix; dbrx-132b and qwen1.5-110b at
+#: full width, n_layer cut to MOE_CUT_LAYERS (their 40 and 80 layers are
+#: 263 and 222 GB in bf16), prefill only; the train step on qwen2-moe at
+#: full width, n_layer 24 -> MOE_TRAIN_LAYERS, batch 256 -> 1 (one
+#: sequence of 4,096), remat, MOE_TRAIN_STEPS steps; the bf16 comparison
+#: of the loss and gradients with the plain versions on a 1-layer model of
+#: the same width, as [train]'s (bf16 noise grows with depth: on an H100
+#: 80GB HBM3 at 700 W the worst leaf was 1.2-1.5e-2 of its scale at 1
+#: layer, 2.6-4.0e-2 at 2 and 4.5-5.5e-2 at 4 over five batches, against
+#: TRAIN_GRAD_TOL), and at MOE_TRAIN_LAYERS layers the two witnesses of
+#: :func:`moe_depth_witness`
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_SEED = 23
+MOE_SEQ = 4096
+MOE_DECODE_BATCH = 4
+MOE_STEPS = 4
+MOE_PREFIX = 8
+MOE_CUT_ARCHS = ("dbrx-132b", "qwen1.5-110b")
+MOE_CUT_LAYERS = 2
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS = 3
+#: the 4-layer witnesses: in f32 each gradient leaf of the kernels within
+#: MOE_F32_GRAD_TOL of its largest |plain gradient| (PERF.md section 2's f32
+#: bound) and the loss within it of itself; in bf16 the kernels' worst leaf,
+#: taken against an f32 plain run, within MOE_BF16_SPREAD times the bf16
+#: plain versions' worst leaf against the same run
+MOE_F32_GRAD_TOL = 1e-4
+MOE_BF16_SPREAD = 2.0
+
+
+def routed_apart(a: torch.Tensor, b: torch.Tensor, E: int) -> int:
+    """Assignments of ``a`` (T, K) expert ids whose expert is not among the
+    same token's in ``b``."""
+    ha = torch.zeros(a.shape[0], E, device=a.device).scatter_(1, a, 1.0)
+    hb = torch.zeros(b.shape[0], E, device=b.device).scatter_(1, b, 1.0)
+    return int((ha * (1 - hb)).sum())
+
+
+class RoutePattern:
+    """One run's MoE routing, recorded and replayed on another run. Each
+    layer sends a token to its top-K router probabilities. The kernels and
+    the plain versions sum the f32 router product and everything before it
+    in other orders, so where two probabilities lie within that rounding
+    the runs can route a token differently, and then both outputs are
+    right but a whole expert's term apart. ``record`` stands in for
+    ``transformer.route``: it routes, keeps the indices and the smallest
+    top-K margin (the K-th largest probability minus the next one).
+    ``replay`` gives the n-th call the n-th kept indices and counts in
+    ``flips`` the assignments that the call's own routing would have sent
+    elsewhere. ``dispatch`` stands in for ``transformer.dispatch`` and
+    keeps each call's dropped assignments. Nothing here reads the card
+    until :meth:`summary`."""
+
+    def __init__(self):
+        from repro_torch.models import transformer as tfm
+        self.tfm = tfm
+        self._route, self._dispatch = tfm.route, tfm.dispatch
+        self.kept, self.drops, self.margins, self.flips = [], [], [], []
+        self.assignments, self._next = 0, 0
+
+    def record(self, probs, k):
+        eidx = self._route(probs, k)
+        top = torch.topk(probs.detach(), k + 1, dim=-1).values
+        self.margins.append((top[:, k - 1] - top[:, k]).min())
+        self.kept.append(eidx)
+        return eidx
+
+    def replay(self, probs, k):
+        eidx = self.kept[self._next]
+        self._next += 1
+        self.flips.append(routed_apart(self._route(probs, k), eidx,
+                                       probs.shape[-1]))
+        self.assignments += eidx.numel()
+        return eidx
+
+    def dispatch(self, eidx, E, C):
+        out = self._dispatch(eidx, E, C)
+        self.drops.append((~out[4]).sum())
+        return out
+
+    def patches(self, replay: bool = False):
+        return [mock.patch.object(self.tfm, "route",
+                                  self.replay if replay else self.record),
+                mock.patch.object(self.tfm, "dispatch", self.dispatch)]
+
+    def margin(self) -> float:
+        return float(torch.stack(self.margins).min())
+
+    def dropped(self) -> int:
+        return int(torch.stack(self.drops).sum()) if self.drops else 0
+
+
+def moe_b5_per_layer(cfg) -> int:
+    """B5 launches of one layer's forward: wq, wk, wv, wo; for MoE the
+    router (f32), three per expert of ``e_total`` and, with s shared
+    experts, two per shared expert and one for ``shared_wo``; for a dense
+    layer wi, wg, wo."""
+    m = cfg.moe
+    if m is None:
+        return 7
+    return 4 + 1 + 3 * m.e_total + (2 * m.n_shared + 1 if m.n_shared else 0)
+
+
+def moe_prefill_check(spec, cfg, model, toks, what: str) -> dict:
+    """One prefill of ``toks`` through ``make_serve_step(spec,
+    "prefill_32k", cfg)``: counted (B5 per layer and the head, the router
+    on the f32 route, every other product on wgmma; B6 once a layer on
+    the route its plan gives), the routes recorded; then timed; then the
+    same forward with the plain versions on the card replaying the
+    kernel run's routes, within LM_LOGIT_TOL of max|logit|, and once more
+    routing on its own, counting the assignments routed elsewhere.
+    Returns the numbers."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segment_matmul as sm
+
+    L, (B, S) = cfg.n_layer, toks.shape
+    prefill = configs.make_serve_step(spec, "prefill_32k", cfg)
+    kern = RoutePattern()
+    sm.reset_counts()
+    fa.reset_counts()
+    with contextlib.ExitStack() as stack:
+        for patch in kern.patches():
+            stack.enter_context(patch)
+        logits, t_first = wall(lambda: prefill(model, {"tokens": toks}))
+    b5, b6 = sm.matmul.launches, fa.flash_attention.launches
+    per = moe_b5_per_layer(cfg)
+    if (b5, b6) != (per * L + 1, L):
+        raise AssertionError(f"{what} prefill launched B5 {b5} and B6 {b6} "
+                             f"times, not {per * L + 1} and {L}")
+    f32 = L if cfg.moe is not None else 0
+    b5_by = b5_routes(sm, {r: n for r, n in (("wgmma", (per * L + 1) - f32),
+                                              ("f32", f32)) if n},
+                      f"{what} prefill")
+    route6 = fa.plan(B, S, cfg.n_head, cfg.n_kv, S, True, cfg.d_head,
+                     cfg.dtype).route
+    b6_by = b6_routes(fa, {route6: L}, f"{what} prefill")
+    if logits.shape != (B, S, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{what} prefill logits are not finite")
+    _, t_pre = wall(lambda: prefill(model, {"tokens": toks}))
+    out = dict(b5=b5, b6=b6, b5_by=b5_by, b6_by=b6_by, t_first=t_first,
+               t_pre=t_pre)
+    with contextlib.ExitStack() as stack:
+        for patch in plain_ops() + (kern.patches(replay=True)
+                                    if cfg.moe is not None else []):
+            stack.enter_context(patch)
+        plain, t_plain = wall(lambda: prefill(model, {"tokens": toks}))
+    out.update(err=rel_err(logits, plain), agree=top1(logits, plain),
+               t_plain=t_plain)
+    del plain
+    if not out["err"] <= LM_LOGIT_TOL:
+        raise AssertionError(f"{what} prefill with the kernels differs from "
+                             f"the plain versions by {out['err']} of "
+                             f"max|logit|")
+    if cfg.moe is not None:
+        own = RoutePattern()
+        with contextlib.ExitStack() as stack:
+            for patch in plain_ops() + own.patches():
+                stack.enter_context(patch)
+            prefill(model, {"tokens": toks})
+        E = cfg.moe.e_total
+        out.update(
+            margin=kern.margin(), flips=sum(kern.flips),
+            assignments=kern.assignments,
+            dropped=int(torch.stack(kern.drops[:L]).sum()),
+            dropped_replayed=int(torch.stack(kern.drops[L:]).sum()),
+            apart=sum(routed_apart(a, b, E)
+                      for a, b in zip(own.kept, kern.kept)),
+            dropped_own=own.dropped())
+        if out["dropped_replayed"] != out["dropped"]:
+            raise AssertionError(f"{what}: the replayed plain run dropped "
+                                 f"{out['dropped_replayed']} assignments, "
+                                 f"the kernel run {out['dropped']}")
+    return out
+
+
+def moe_routing_clause(r: dict, cfg, T: int) -> str:
+    """The routing numbers of :func:`moe_prefill_check` as a clause."""
+    from repro_torch.models import transformer as tfm
+    m, L = cfg.moe, cfg.n_layer
+    G, C = tfm.capacity(m, T)
+    return (f"routing: C = {C} rows per expert (G = {G}), {r['dropped']:,} "
+            f"of {L * T * m.top_k:,} assignments dropped ({r['dropped']:,} in "
+            f"the replayed plain run, equal), smallest top-{m.top_k} margin "
+            f"{r['margin']:.3e}; the plain run replays the kernel run's "
+            f"routes, where its own routing would have sent "
+            f"{r['flips']:,} of {r['assignments']:,} assignments elsewhere; "
+            f"routing on its own, the plain run sends {r['apart']:,} "
+            f"elsewhere and drops {r['dropped_own']:,}")
+
+
+def moe_depth_witness(spec, cfg, batch, dev, smi: str) -> None:
+    """The MoE train step's loss and gradients at MOE_TRAIN_LAYERS layers,
+    where bf16 kernels against bf16 plain versions straddle
+    TRAIN_GRAD_TOL, held two ways, every run replaying the first run's
+    routes. (1) bf16: the kernels' gradients and the plain versions' each
+    against the plain versions' in f32 from the same weights; the kernels
+    may sit at most MOE_BF16_SPREAD times as far from it as the plain
+    versions do. (2) f32: the kernels (B5's and B6's f32 routes, B6's f32
+    backward) against the plain versions, each leaf within
+    MOE_F32_GRAD_TOL of its scale. Launches here compare kernels with
+    their plain versions and are not counted on the main path."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segment_matmul as sm
+
+    tcfg = dataclasses.replace(cfg, n_layer=MOE_TRAIN_LAYERS)
+    f32cfg = dataclasses.replace(tcfg, dtype=torch.float32)
+    L, K, seq = tcfg.n_layer, cfg.moe.top_k, batch["tokens"].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    model = configs.init_params(spec, tcfg, gen, device=dev)
+    first = RoutePattern()
+
+    def run(model, plain: bool):
+        """(loss, gradients, seconds, pattern): the first call records the
+        routes, every later one replays them."""
+        pattern = first
+        if first.kept:
+            pattern = RoutePattern()
+            pattern.kept = first.kept
+        with contextlib.ExitStack() as stack:
+            for patch in pattern.patches(replay=pattern is not first):
+                stack.enter_context(patch)
+            (loss, grads), t = wall(lambda: loss_and_grads(
+                spec, model.cfg, model, batch, plain=plain))
+        return loss, grads, t, pattern
+
+    loss_k, grads_k, t_k, _ = run(model, False)
+    loss_p, grads_p, t_p, rp = run(model, True)
+    m32 = configs.init_params(spec, f32cfg, gen, device=dev)
+    src = dict(model.named_parameters())
+    with torch.no_grad():
+        for n, p in m32.named_parameters():
+            p.copy_(src[n])
+    del src
+    del model
+    loss_f, grads_f, t_f, rf = run(m32, True)
+    kern, plain = (grad_leaf_errs(grads_k, grads_f),
+                   grad_leaf_errs(grads_p, grads_f))
+    apart = grad_leaf_errs(grads_k, grads_p)
+    del grads_k, grads_p
+    sm.reset_counts()
+    fa.reset_counts()
+    fa.reset_bwd_counts()
+    loss_fk, grads_fk, t_fk, rk = run(m32, False)
+    per = moe_b5_per_layer(tcfg)
+    b5_by = b5_routes(sm, {"f32": 4 * per * L + 3}, "the f32 MoE step")
+    route6 = fa.plan(1, seq, cfg.n_head, cfg.n_kv, seq, True, cfg.d_head,
+                     torch.float32).route
+    b6_by = b6_routes(fa, {route6: 2 * L}, "the f32 MoE step")
+    bwd6 = fa.bwd_plan(1, seq, cfg.n_head, cfg.n_kv, seq, True, cfg.d_head,
+                       torch.float32).route
+    if {r: n for r, n in fa.flash_attention_bwd.routes.items() if n} != {
+            bwd6: L}:
+        raise AssertionError(f"the f32 MoE step's B6 backward: "
+                             f"{fa.flash_attention_bwd.routes}")
+    f32 = grad_leaf_errs(grads_fk, grads_f)
+    del m32, grads_f, grads_fk
+    torch.cuda.empty_cache()
+    drops = [r.dropped() for r in (first, rp, rf, rk)]
+    if len(set(drops)) != 1:
+        raise AssertionError(f"the 4-layer runs dropped {drops} assignments")
+    worst = {name: max(e, key=e.get) for name, e in
+             (("kern", kern), ("plain", plain), ("apart", apart),
+              ("f32", f32))}
+    w_k, w_p = kern[worst["kern"]], plain[worst["plain"]]
+    w_f32 = f32[worst["f32"]]
+    if not abs(loss_fk - loss_f) <= MOE_F32_GRAD_TOL * abs(loss_f):
+        raise AssertionError(f"f32 MoE loss {loss_fk} with the kernels, "
+                             f"{loss_f} with the plain versions")
+    if not w_f32 <= MOE_F32_GRAD_TOL:
+        raise AssertionError(f"f32 MoE gradient {worst['f32']} differs from "
+                             f"the plain version's by {w_f32} of its scale")
+    if not w_k <= MOE_BF16_SPREAD * w_p:
+        raise AssertionError(f"the bf16 kernels' gradients sit {w_k} from "
+                             f"the f32 plain run's ({worst['kern']}), the "
+                             f"bf16 plain versions' {w_p} ({worst['plain']})")
+    moe_k = max(e for n, e in kern.items() if ".moe." in n)
+    moe_p = max(e for n, e in plain.items() if ".moe." in n)
+    print(f"[moe] train, {L} layers at full width (remat), the first step's "
+          f"sequence of {seq}, every run replaying the first run's routes "
+          f"(the plain bf16 run's own routing would have sent "
+          f"{sum(rp.flips):,} of {rp.assignments:,} assignments elsewhere, "
+          f"the f32 runs' {sum(rf.flips):,} and {sum(rk.flips):,}; smallest "
+          f"top-{K} margin {first.margin():.3e}; {drops[0]:,} dropped in "
+          f"each run): (1) bf16 against the plain versions in f32 "
+          f"({loss_f:.6f}, {t_f:.3f}s): the kernels' worst leaf {w_k:.3e} "
+          f"({worst['kern']}; MoE leaves {moe_k:.3e}; loss {loss_k:.6f}, "
+          f"{t_k:.3f}s), the plain versions' {w_p:.3e} ({worst['plain']}; "
+          f"MoE leaves {moe_p:.3e}; loss {loss_p:.6f}, {t_p:.3f}s): ratio "
+          f"{w_k / w_p:.3f} (at most {MOE_BF16_SPREAD}); kernels against "
+          f"plain in bf16 {apart[worst['apart']]:.3e} ({worst['apart']}; "
+          f"TRAIN_GRAD_TOL {TRAIN_GRAD_TOL} is held at 1 layer); (2) f32, "
+          f"the kernels (B5 {b5_by}; B6 {b6_by}, backward {L} on the {bwd6} "
+          f"route; {t_fk:.3f}s) against the plain versions: loss "
+          f"{loss_fk:.8f} against {loss_f:.8f}, every one of the "
+          f"{len(f32)} gradients within {w_f32:.3e} of its largest |plain| "
+          f"({worst['f32']}; tolerance {MOE_F32_GRAD_TOL}) | {smi}")
+
+
+def moe_phase(dev, smi: str) -> dict:
+    """[moe]: the MoE LMs on the card through their entry points.
+
+    qwen2-moe-a2.7b (:data:`MOE_ARCH`) at full width and depth: prefill
+    and decode through ``make_serve_step``, each counted (B5's launches by
+    route and B6's asserted from the design: per layer four attention
+    projections, the router on the f32 route, three per expert, two per
+    shared expert and one for ``shared_wo``), the prefill's logits against
+    the plain versions with the routes replayed, decode against prefill
+    with the prefill's routes replayed per token, the layer's pieces timed
+    alone, B5 at the expert shapes; dbrx-132b and qwen1.5-110b at full
+    width cut in depth, prefill against plain; then the MoE train step
+    (launches, the remat recompute's routes equal to the first pass's, a
+    repeat from the same state bit-equal), a 1-layer model's loss and
+    gradients against the plain versions with the routes replayed, and
+    the 4-layer step's two witnesses (:func:`moe_depth_witness`). Returns
+    the phase's launches
+    of B5 (forward), its gradient, B6 and B6's backward."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segment_matmul as sm
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    spec = configs.get(MOE_ARCH)
+    cfg = spec.model_cfg
+    m, L = cfg.moe, cfg.n_layer
+    E, K, d, f = m.e_total, m.top_k, cfg.d_model, m.d_ff_expert
+    seq, batch, steps, prefix = (MOE_SEQ, MOE_DECODE_BATCH, MOE_STEPS,
+                                 MOE_PREFIX)
+    slots = spec.shapes["decode_32k"]["seq"]
+    pre_dims = dict(spec.shapes["prefill_32k"], batch=1, seq=seq)
+    dec_dims = dict(spec.shapes["decode_32k"], batch=batch, seq=slots)
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    model, t_init = wall(lambda: tfm.init_params(cfg, gen, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != cfg.param_count:
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count}")
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    print(f"[moe] {MOE_ARCH} at full width and depth ({L} layers, d_model "
+          f"{d}, {cfg.n_head} query heads over {cfg.n_kv} kv heads of "
+          f"{cfg.d_head}, {m.n_experts} experts of {f}, top-{K}, "
+          f"{m.n_shared} shared, vocab {cfg.vocab}): {n_params:,} parameters "
+          f"({cfg.active_param_count:,} active), {gb:.2f} GB in {cfg.dtype}, "
+          f"drawn on the card from seed {MOE_SEED} in {t_init:.2f}s | {smi}")
+
+    # -- prefill: the main path, counted; against the plain versions ------
+    toks = torch.randint(0, cfg.vocab, (1, seq), generator=gen, device=dev)
+    r = moe_prefill_check(spec, cfg, model, toks, MOE_ARCH)
+    b5_n, b6_n = r["b5"], r["b6"]
+    _, C = tfm.capacity(m, seq)
+    flops = configs.model_flops(spec, "prefill_32k", dims=pre_dims)
+    kept = L * seq * K - r["dropped"]
+    print(f"[moe] prefill 1 x {seq} through make_serve_step(spec, "
+          f"'prefill_32k') (reduced: batch "
+          f"{spec.shapes['prefill_32k']['batch']} -> 1, seq "
+          f"{spec.shapes['prefill_32k']['seq']} -> {seq}): {r['t_pre']:.4f}s = {seq / r['t_pre']:.1f} "
+          f"tokens/s (first call {r['t_first']:.4f}s); model FLOPs on the "
+          f"active parameters {flops:.4e} = "
+          f"{flops / r['t_pre'] / 989e12:.4f} of 989 TFLOP/s; launches B5 "
+          f"{b5_n} ({r['b5_by']}: {moe_b5_per_layer(cfg)} a layer + the "
+          f"head), B6 {b6_n} ({r['b6_by']}); expert rows executed E*C = "
+          f"{E * C:,} a layer against T*K = {seq * K:,} assigned "
+          f"({E * C / (seq * K):.3f}x; {kept / L:,.0f} kept a layer: "
+          f"{E * C * L / kept:.3f}x the useful expert FLOPs); "
+          + moe_routing_clause(r, cfg, seq) + f". Logits against the same "
+          f"forward with the plain versions on the card ({r['t_plain']:.4f}s,"
+          f" routes replayed): largest |diff| {r['err']:.4e} of max|logit| "
+          f"(tolerance {LM_LOGIT_TOL}), top-1 agreement {r['agree']:.4f} | "
+          f"{smi}")
+    prefill = configs.make_serve_step(spec, "prefill_32k")
+    shares = {}
+    print(f"[moe] prefill under torch.profiler: " + profiled(
+        lambda: prefill(model, {"tokens": toks}),
+        {"B5": is_b5, "B6": is_b6, "every kernel": lambda k: True}, shares)
+        + f" | {smi}")
+
+    # -- the layer's pieces alone, on layer 0's operands ----------------------
+    p0 = model.layers[0]
+    pos = torch.arange(seq, dtype=torch.int32, device=dev)[None, :]
+    with torch.inference_mode():
+        x = model.embed[toks]
+        x = x + tfm.attention_block(p0, cfg, tfm.rms_norm(x, p0.ln1), pos)
+        h = tfm.rms_norm(x, p0.ln2)[0]
+        probs = tfm.router_probs(p0.moe, m, h)
+        eidx = tfm.route(probs, K)
+        gate = probs.gather(-1, eidx)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        order, se, _, _, _, dest = tfm.dispatch(eidx, E, C)
+        buf = tfm.dispatch_rows(h, order, dest, K, E * C)
+        ho = tfm.experts(p0.moe, buf, C)
+
+        def dispatched():
+            o, _, _, _, _, dst = tfm.dispatch(tfm.route(probs, K), E, C)
+            return tfm.dispatch_rows(h, o, dst, K, E * C)
+
+        pieces = {
+            "router (B5 f32 + softmax)": lambda: tfm.router_probs(p0.moe, m,
+                                                                  h),
+            "route + dispatch (top-k, sort, searchsorted, the row gather)":
+                dispatched,
+            f"experts ({3 * E} B5 launches)": lambda: tfm.experts(p0.moe,
+                                                                  buf, C),
+            "combine (K gathers, gate products and bf16 adds)":
+                lambda: tfm.combine(ho, eidx, gate, order, dest),
+            f"shared experts ({2 * m.n_shared + 1} B5 launches)":
+                lambda: tfm.shared_experts(p0.moe, m, h)}
+        times = {name: call_times(fn, iters=10) for name, fn in
+                 pieces.items()}
+    layer_ms = sum(t for t, _ in times.values())
+    busy = shares.get("busy_s", float("nan"))
+    print(f"[moe] one MoE layer's pieces alone on layer 0's prefill operands "
+          f"({layer_ms:.4f} ms together; x {L} layers = "
+          f"{layer_ms * L / 1e3:.4f}s, {layer_ms * L / 1e3 / busy:.3f} of the "
+          f"profiled prefill's device busy {busy:.4f}s): "
+          + "; ".join(f"{n} {t:.4f} ms ({t / layer_ms:.3f})"
+                      for n, (t, _) in times.items()) + "; " + show(times)
+          + f" | {smi}")
+    busiest = int(torch.bincount(eidx.flatten(), minlength=E).argmax())
+    rows = buf[busiest * C:(busiest + 1) * C]
+    with torch.inference_mode():
+        act = tfm.silu(tfm.linear(rows, p0.moe.wg[busiest])) * tfm.linear(
+            rows, p0.moe.wi[busiest])
+    b5_cases = {
+        f"prefill expert wg ({C} rows)": (rows, p0.moe.wg[busiest]),
+        f"prefill expert wo ({C} rows)": (act, p0.moe.wo[busiest]),
+        "decode expert wg (32 rows)": (rows[:32].contiguous(),
+                                       p0.moe.wg[busiest]),
+        "router (f32)": (h.float(), p0.moe.router)}
+    results = kernel_checks(b5_cases, {}, tag="moe")
+    del x, h, probs, eidx, gate, order, se, dest, buf, ho, rows, act
+    torch.cuda.empty_cache()
+
+    # -- decode: against prefill with its routes replayed per token ----------
+    decode = configs.make_serve_step(spec, "decode_32k")
+    cache = tfm.init_cache(cfg, batch, slots, device=dev)
+    cache["k"].normal_(generator=gen)          # a stand-in cache from the seed
+    cache["v"].normal_(generator=gen)
+    cache_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
+    pre_toks = torch.randint(0, cfg.vocab, (batch, prefix), generator=gen,
+                             device=dev)
+    pre = RoutePattern()
+    with contextlib.ExitStack() as stack:
+        for patch in pre.patches():
+            stack.enter_context(patch)
+        want = prefill(model, {"tokens": pre_toks})
+    if pre.dropped():
+        raise AssertionError(f"the {batch} x {prefix} prefill dropped "
+                             f"{pre.dropped()} assignments")
+    by_token = [e.view(batch, prefix, K) for e in pre.kept]
+    errs, agrees, step_drops = [], [], []
+    flips = assigned = 0
+    for i in range(prefix):
+        layer = iter(by_token)
+        dec = RoutePattern()
+        dec.kept = [next(layer)[:, i] for _ in range(L)]
+        with contextlib.ExitStack() as stack:
+            for patch in dec.patches(replay=True):
+                stack.enter_context(patch)
+            step, cache = decode(model, {"tokens": pre_toks[:, i:i + 1],
+                                         "cache": cache, "cache_len": i})
+        errs.append(rel_err(step, want[:, i]))
+        agrees.append(top1(step, want[:, i]))
+        step_drops.append(dec.dropped())
+        flips, assigned = flips + sum(dec.flips), assigned + dec.assignments
+    del want, step
+    if not max(errs) <= LM_LOGIT_TOL or any(step_drops):
+        raise AssertionError(f"decode differs from prefill by {max(errs)} "
+                             f"of max|logit| (drops {step_drops})")
+    print(f"[moe] decode against prefill: {batch} sequences of {prefix} "
+          f"tokens decoded one by one into the {slots}-slot cache (the other "
+          f"slots random, masked), each step replaying the {batch} x {prefix} "
+          f"prefill's routes of its tokens (the prefill at C = "
+          f"{tfm.capacity(m, batch * prefix)[1]} and every step at C = "
+          f"{tfm.capacity(m, batch)[1]} dropped nothing): largest |diff| "
+          f"{max(errs):.4e} of max|logit| (tolerance {LM_LOGIT_TOL}; per step "
+          f"{' '.join(f'{e:.2e}' for e in errs)}), top-1 agreement "
+          f"{sum(agrees) / len(agrees):.4f}; decode's own routing would have "
+          f"sent {flips} of {assigned} assignments elsewhere | {smi}")
+
+    tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev)
+    sm.reset_counts()
+    fa.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        out, cache = decode(model, {"tokens": tok, "cache": cache,
+                                    "cache_len": slots - steps + i})
+        tok = out.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    t_dec = (time.perf_counter() - t0) / steps
+    per = moe_b5_per_layer(cfg)
+    b5_dec, b6_dec = sm.matmul.launches, fa.flash_attention.launches
+    if (b5_dec, b6_dec) != (steps * (per * L + 1), steps * L):
+        raise AssertionError(f"decode launched B5 {b5_dec} and B6 {b6_dec} "
+                             f"times")
+    dec_b5 = b5_routes(sm, {"skinny": steps * ((per - 1) * L + 1),
+                            "f32": steps * L}, "MoE decode")
+    dec_b6 = b6_routes(fa, {"split": steps * L}, "MoE decode")
+    if out.shape != (batch, cfg.vocab) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("MoE decode logits are not finite (B, vocab)")
+    b5_n, b6_n = b5_n + b5_dec, b6_n + b6_dec
+    flops_dec = configs.model_flops(spec, "decode_32k", dims=dec_dims)
+    print(f"[moe] decode {batch} x 1 tokens over the {slots}-slot cache "
+          f"({cache_gb:.2f} GB) through make_serve_step(spec, 'decode_32k') "
+          f"(reduced: batch {spec.shapes['decode_32k']['batch']} -> {batch}), "
+          f"{steps} greedy steps at cache_len {slots - steps}..{slots - 1}: "
+          f"{t_dec * 1e3:.3f} ms per step = {batch / t_dec:.1f} tokens/s; "
+          f"model FLOPs on the active parameters {flops_dec:.4e} per step = "
+          f"{flops_dec / t_dec / 989e12:.6f} of 989 TFLOP/s; launches B5 "
+          f"{b5_dec} ({dec_b5}; {per * L + 1} a step, the experts at C = "
+          f"{tfm.capacity(m, batch)[1]} rows), B6 {b6_dec} ({dec_b6}); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB | {smi}")
+    print(f"[moe] one decode step under torch.profiler: " + profiled(
+        lambda: decode(model, {"tokens": tok, "cache": cache,
+                               "cache_len": slots - 1}),
+        {"B5": is_b5, "B6": is_b6, "every kernel": lambda k: True})
+        + f" | {smi}")
+    peak_serve = torch.cuda.max_memory_allocated() / 2**30
+    del model, cache, out, tok
+    torch.cuda.empty_cache()
+
+    # -- dbrx-132b and qwen1.5-110b at full width, cut in depth --------------
+    for arch in MOE_CUT_ARCHS:
+        aspec = configs.get(arch)
+        full = aspec.model_cfg
+        acfg = dataclasses.replace(full, n_layer=MOE_CUT_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        agen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+        amodel, t_ainit = wall(lambda: tfm.init_params(acfg, agen,
+                                                       device=dev))
+        an = sum(p.numel() for p in amodel.parameters())
+        if an != acfg.param_count:
+            raise AssertionError(f"{arch}: {an} parameters, the config "
+                                 f"counts {acfg.param_count}")
+        atoks = torch.randint(0, acfg.vocab, (1, seq), generator=agen,
+                              device=dev)
+        ar = moe_prefill_check(aspec, acfg, amodel, atoks, arch)
+        b5_n, b6_n = b5_n + ar["b5"], b6_n + ar["b6"]
+        aflops = configs.model_flops(aspec, "prefill_32k", dims=pre_dims,
+                                     model_cfg=acfg)
+        what = (moe_routing_clause(ar, acfg, seq) + "; " if acfg.moe
+                else "dense; ")
+        print(f"[moe] {arch} at full width (d_model {acfg.d_model}, "
+              f"{acfg.n_head} query heads over {acfg.n_kv} kv heads, "
+              + (f"{acfg.moe.n_experts} experts of {acfg.moe.d_ff_expert}, "
+                 f"top-{acfg.moe.top_k}" if acfg.moe else
+                 f"d_ff {acfg.d_ff}") + f", vocab {acfg.vocab}), cut in "
+              f"depth: reduced n_layer {full.n_layer} -> {MOE_CUT_LAYERS} "
+              f"({an:,} parameters, "
+              f"{sum(p.numel() * p.element_size() for p in amodel.parameters()) / 1e9:.2f}"
+              f" GB, drawn in {t_ainit:.2f}s); prefill 1 x {seq}: "
+              f"{ar['t_pre']:.4f}s = {seq / ar['t_pre']:.1f} tokens/s, model "
+              f"FLOPs {aflops:.4e} = {aflops / ar['t_pre'] / 989e12:.4f} of "
+              f"989 TFLOP/s; launches B5 {ar['b5']} ({ar['b5_by']}), B6 "
+              f"{ar['b6']} ({ar['b6_by']}); " + what + f"logits against the "
+              f"plain versions ({ar['t_plain']:.4f}s) largest |diff| "
+              f"{ar['err']:.4e} of max|logit| (tolerance {LM_LOGIT_TOL}), "
+              f"top-1 {ar['agree']:.4f}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+        del amodel, atoks
+        torch.cuda.empty_cache()
+
+    # -- the MoE train step ---------------------------------------------------
+    tcfg = dataclasses.replace(cfg, n_layer=MOE_TRAIN_LAYERS)
+    TL = tcfg.n_layer
+    tdims = dict(spec.shapes["train_4k"], batch=1, seq=seq)
+    torch.cuda.reset_peak_memory_stats()
+    tgen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    tmodel = configs.init_params(spec, tcfg, tgen, device=dev)
+    tn = sum(p.numel() for p in tmodel.parameters())
+    opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+    step = configs.make_train_step(spec, tcfg, opt_cfg)
+    batch_fn = train_cli.make_batch_fn(spec, tcfg, tdims, dev)
+    params = dict(tmodel.named_parameters())
+    state = adamw.init_state(params)
+    b0 = batch_fn(0)
+    start = {n: p.detach().clone() for n, p in params.items()}
+    rec = RoutePattern()
+    sm.reset_counts()
+    fa.reset_counts()
+    fa.reset_bwd_counts()
+    with contextlib.ExitStack() as stack:
+        for patch in rec.patches():
+            stack.enter_context(patch)
+        (_, state, m0), t_first = wall(lambda: step(tmodel, state, b0))
+    b5, b5_grad = sm.matmul.launches, sm.matmul_grads.launches
+    b6, b6_bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    fwd = per * TL + 1
+    want = (4 * per * TL + 3, 2 * fwd, 2 * TL, TL)
+    if (b5, b5_grad, b6, b6_bwd) != want:
+        raise AssertionError(f"a MoE train step launched B5 {b5} (gradients "
+                             f"{b5_grad}), B6 {b6} and its backward {b6_bwd} "
+                             f"times, not {want}")
+    t_b5 = b5_routes(sm, {"wgmma": want[0] - 4 * TL, "f32": 4 * TL},
+                     "a MoE train step")
+    t_b6 = b6_routes(fa, {"wgmma": 2 * TL}, "a MoE train step")
+    bwd_route = fa.bwd_plan(1, seq, cfg.n_head, cfg.n_kv, seq, True,
+                            cfg.d_head, cfg.dtype).route
+    if fa.flash_attention_bwd.routes[bwd_route] != TL:
+        raise AssertionError(f"B6's backward: {fa.flash_attention_bwd.routes}")
+    if len(rec.kept) != 2 * TL:
+        raise AssertionError(f"{len(rec.kept)} routings in a remat step, "
+                             f"not {2 * TL}")
+    same = sum(int((a == b).all(dim=-1).sum()) * K for a, b in
+               zip(rec.kept[:TL], rec.kept[TL:][::-1]))
+    if same != TL * seq * K:
+        raise AssertionError(f"the remat recompute routed {same} of "
+                             f"{TL * seq * K} assignments as the first pass")
+    loss0 = float(m0["loss"])
+    after = {n: p.detach().clone() for n, p in params.items()}
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(start[n])
+    state = adamw.init_state(params)
+    (_, state, m1), _ = wall(lambda: step(tmodel, state, b0))
+    repeat = float(m1["loss"]) == loss0 and all(
+        torch.equal(p, after[n]) for n, p in params.items())
+    if not repeat:
+        raise AssertionError("two MoE train steps from the same state differ")
+    del start, after
+    losses, t_steps = [loss0], []
+    for i in range(1, MOE_TRAIN_STEPS + 1):
+        bi = batch_fn(i)
+        (_, state, mi), t = wall(lambda: step(tmodel, state, bi))
+        losses.append(float(mi["loss"]))
+        t_steps.append(t)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"MoE train losses are not finite: {losses}")
+    t_step = sorted(t_steps)[len(t_steps) // 2]
+    tflops = configs.model_flops(spec, "train_4k", dims=tdims,
+                                 model_cfg=tcfg)
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[moe] train: {MOE_ARCH} at full width cut in depth: reduced "
+          f"n_layer {L} -> {TL}, batch {spec.shapes['train_4k']['batch']} -> "
+          f"1 (seq {seq}); remat {tcfg.remat}; {tn:,} parameters; one step "
+          f"of make_train_step counted: B5 {b5} ({t_b5}: {fwd} forward, "
+          f"{fwd - 1} recomputed by remat, {b5_grad} gradient products), B6 "
+          f"forward {b6} ({t_b6}), backward {b6_bwd} (all on the {bwd_route} "
+          f"route); the remat recompute routed all {same:,} assignments as "
+          f"the first pass; the step repeated from the same state: loss and "
+          f"every parameter bit-equal; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (ln {cfg.vocab} = "
+          f"{np.log(cfg.vocab):.4f}); step {t_step:.4f}s (median of "
+          f"{len(t_steps)}; first {t_first:.4f}s) = {seq / t_step:.1f} "
+          f"tokens/s; model FLOPs on the active parameters {tflops:.4e} = "
+          f"{tflops / t_step / 989e12:.4f} of 989 TFLOP/s; peak device "
+          f"memory {peak_train:.2f} GiB | {smi}")
+    del tmodel, state, params
+    torch.cuda.empty_cache()
+
+    # -- a 1-layer full-width model: kernels against the plain versions ----
+    one = dataclasses.replace(cfg, n_layer=1)
+    m1 = configs.init_params(spec, one,
+                             torch.Generator(device=dev).manual_seed(MOE_SEED),
+                             device=dev)
+    kr = RoutePattern()
+    with contextlib.ExitStack() as stack:
+        for patch in kr.patches():
+            stack.enter_context(patch)
+        (loss_k, grads_k), t_k = wall(lambda: loss_and_grads(spec, one, m1,
+                                                             b0))
+    with contextlib.ExitStack() as stack:
+        for patch in kr.patches(replay=True):
+            stack.enter_context(patch)
+        (loss_p, grads_p), t_p = wall(lambda: loss_and_grads(
+            spec, one, m1, b0, plain=True))
+    errs = grad_leaf_errs(grads_k, grads_p)
+    worst = max(errs, key=errs.get)
+    if not abs(loss_k - loss_p) <= TRAIN_LOSS_TOL * abs(loss_p):
+        raise AssertionError(f"MoE loss {loss_k} with the kernels, {loss_p} "
+                             f"with the plain versions")
+    if not errs[worst] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"MoE gradient {worst} differs from the plain "
+                             f"version's by {errs[worst]} of its scale")
+    moe_leaves = {n: e for n, e in errs.items() if ".moe." in n}
+    print(f"[moe] train: a 1-layer full-width {MOE_ARCH} (remat), the first "
+          f"step's sequence of {seq}: loss {loss_k:.6f} with the kernels "
+          f"({t_k:.3f}s), {loss_p:.6f} with the plain versions on the card "
+          f"({t_p:.3f}s), routes replayed (the plain run's own routing would "
+          f"have sent {sum(kr.flips):,} of {kr.assignments:,} assignments "
+          f"elsewhere; smallest top-{K} margin {kr.margin():.3e}; dropped "
+          f"{kr.dropped():,} over the pass and the recompute); every one of "
+          f"the {len(errs)} gradients within {errs[worst]:.3e} of its "
+          f"largest |plain| at most ({worst}; tolerance {TRAIN_GRAD_TOL}); "
+          f"the MoE leaves at most {max(moe_leaves.values()):.3e} "
+          f"({max(moe_leaves, key=moe_leaves.get)}) | {smi}")
+    del m1, grads_k, grads_p
+    torch.cuda.empty_cache()
+    moe_depth_witness(spec, cfg, b0, dev, smi)
+    print(f"[moe] phase {time.perf_counter() - t_phase:.1f}s; peak device "
+          f"memory serving {peak_serve:.2f} GiB, training {peak_train:.2f} "
+          f"GiB | {smi}")
+    return {"b5": b5_n + b5 - b5_grad, "b5_grad": b5_grad, "b6": b6_n + b6,
+            "b6_bwd": b6_bwd,
+            "max_abs_err": max(x["max_abs_err"] for x in results.values())}
 
 
 def sweep_split(g, ks, dev) -> dict:
@@ -3961,6 +4702,13 @@ def main() -> int:
     b5_record["launches"] += trained["b5"]
     lm_records[1]["launches"] += trained["b6"]
     b4_record["launches"] += trained["b4"]
+    moe = moe_phase(dev, smi)
+    b5_record["launches"] += moe["b5"]
+    b5_record["max_abs_err"] = max(b5_record["max_abs_err"],
+                                   moe["max_abs_err"])
+    lm_records[1]["launches"] += moe["b6"]
+    trained["records"][0]["launches"] += moe["b5_grad"]
+    trained["records"][1]["launches"] += moe["b6_bwd"]
 
     csrc = "src/repro_torch/kernels/csrc/"
     records = [

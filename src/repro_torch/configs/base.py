@@ -1,20 +1,24 @@
-"""Architecture/shape registry of the port: the dense-LM and GraphSAGE
-parts of ``repro.configs.base``.
+"""Architecture/shape registry of the port: the LM (dense and MoE) and
+GraphSAGE parts of ``repro.configs.base``.
 
-Every (arch x shape) cell resolves to a model config
-(:func:`cell_model_cfg`), a serve step (:func:`make_serve_step`: an LM's
-prefill and decode, GraphSAGE's forward), a train step
-(:func:`make_train_step`: the loss of :func:`loss_for` differentiated
-through the kernels' gradients, then one AdamW update in place) and its
-analytic model FLOPs (:func:`model_flops`); :func:`init_params` draws a
-model and :func:`smoke_dims` gives a cell's reduced dims. The sharding
-specs, MoE LMs, the other GNN families (MeshGraphNet, NequIP, MACE) and
-recsys are not ported yet (ROADMAP A8) and raise.
+Every (arch x shape) cell (:func:`all_cells`) resolves to a model config
+(:func:`cell_model_cfg`), its inputs and parameters as shapes and dtypes
+on the ``meta`` device (:func:`input_specs`, :func:`abstract_params`), a
+serve step (:func:`make_serve_step`: an LM's prefill and decode,
+GraphSAGE's forward), a train step (:func:`make_train_step`: the loss of
+:func:`loss_for` differentiated through the kernels' gradients, then one
+AdamW update in place) and its analytic model FLOPs
+(:func:`model_flops`); :func:`init_params` draws a model and
+:func:`smoke_dims` gives a cell's reduced dims. The sharding specs
+(``param_specs``, ``batch_specs``, ``opt_specs``: they need a mesh), the
+other GNN families (MeshGraphNet, NequIP, MACE) and recsys are not ported
+yet (ROADMAP A8) and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -50,6 +54,19 @@ def get(arch_id: str) -> ArchSpec:
     return REGISTRY[arch_id]
 
 
+def all_cells(include_skipped: bool = False):
+    """Yield ``(arch_id, shape_name)`` for every cell of the port's
+    registry, the skipped ones too with ``include_skipped``."""
+    if not REGISTRY:
+        from . import load_all
+        load_all()
+    for aid, spec in REGISTRY.items():
+        for shape in spec.shapes:
+            if shape in spec.skips and not include_skipped:
+                continue
+            yield aid, shape
+
+
 LM_SHAPES = {
     "train_4k":    dict(kind="train", seq=4096, batch=256),
     "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
@@ -74,10 +91,7 @@ GNN_SHAPES = {
 
 
 def _ported(spec: ArchSpec) -> None:
-    """Raise unless the arch is a dense LM or GraphSAGE."""
-    if spec.family == "lm-moe":
-        raise NotImplementedError(f"{spec.id}: MoE LMs are not ported yet "
-                                  "(ROADMAP A8)")
+    """Raise unless the arch is an LM (dense or MoE) or GraphSAGE."""
     if spec.family == "gnn":
         if not isinstance(spec.model_cfg, gnn_mod.SAGEConfig):
             raise NotImplementedError(
@@ -101,6 +115,53 @@ def cell_model_cfg(spec: ArchSpec, shape_name: str, smoke: bool = False):
         d_feat = 8 if smoke else spec.shapes[shape_name]["d_feat"]
         return dataclasses.replace(cfg, d_in=d_feat)
     return cfg
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(int(n) for n in shape), dtype=dtype,
+                       device="meta")
+
+
+def input_specs(spec: ArchSpec, shape_name: str, dims: dict | None = None,
+                model_cfg=None) -> dict:
+    """The cell's step inputs as tensors on ``torch.device("meta")``
+    (shapes and dtypes, nothing allocated), the reference's: an LM's
+    int32 ``tokens`` (and ``labels`` to train), at decode ``tokens`` (B,
+    1), the ``cache`` (:func:`models.transformer.abstract_cache`) and a
+    0-dim int32 ``cache_len``; GraphSAGE's unified graph batch, its edge
+    arrays doubled and padded to a multiple of 512."""
+    _ported(spec)
+    dims = dims or spec.shapes[shape_name]
+    cfg = model_cfg or cell_model_cfg(spec, shape_name)
+    kind = dims["kind"]
+    if spec.family.startswith("lm"):
+        B, S = dims["batch"], dims["seq"]
+        if kind == "train":
+            return {"tokens": _meta((B, S), torch.int32),
+                    "labels": _meta((B, S), torch.int32)}
+        if kind == "prefill":
+            return {"tokens": _meta((B, S), torch.int32)}
+        return {"tokens": _meta((B, 1), torch.int32),
+                "cache": tfm.abstract_cache(cfg, B, S),
+                "cache_len": _meta((), torch.int32)}
+    n = dims["n"]
+    e2 = math.ceil(2 * dims["e"] / 512) * 512
+    return {"node_feat": _meta((n, dims["d_feat"]), torch.float32),
+            "src": _meta((e2,), torch.int32),
+            "dst": _meta((e2,), torch.int32),
+            "edge_mask": _meta((e2,), torch.float32),
+            "labels": _meta((n,), torch.int32),
+            "seed_mask": _meta((n,), torch.bool)}
+
+
+def abstract_params(spec: ArchSpec, model_cfg) -> torch.nn.Module:
+    """A model of ``model_cfg`` on ``torch.device("meta")``: its
+    parameters' names, shapes and dtypes, nothing allocated (the
+    reference's ``jax.eval_shape`` of the family's init)."""
+    _ported(spec)
+    if spec.family == "gnn":
+        return gnn_mod.GraphSAGE(model_cfg, device="meta")
+    return tfm.abstract_params(model_cfg)
 
 
 def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
@@ -212,9 +273,10 @@ def make_train_step(spec: ArchSpec, model_cfg,
 def model_flops(spec: ArchSpec, shape_name: str, dims: dict | None = None,
                 model_cfg=None) -> float:
     """Analytic useful FLOPs for one step of a cell (global, all chips), as
-    the reference counts them. Dense LM: 6·N·tokens (+ the quadratic
-    attention term) to train, 2·N per token to infer, plus the attention
-    over the cache at decode; N counts every parameter, the embedding
+    the reference counts them. LM: 6·N·tokens (+ the quadratic attention
+    term) to train, 2·N per token to infer, plus the attention over the
+    cache at decode; N counts the active parameters (every one of a dense
+    model; a MoE model's routed top-k and shared experts), the embedding
     included. GraphSAGE: the dense products over all ``n`` nodes of the
     shape (self and neighbour projections of every layer, the head), three
     times that to train; the aggregation's adds are not counted.
@@ -229,7 +291,7 @@ def model_flops(spec: ArchSpec, shape_name: str, dims: dict | None = None,
                     + 2.0 * h * cfg.n_classes)               # head
         return (3.0 if dims["kind"] == "train" else 1.0) * per_node * n
     B, S = dims["batch"], dims["seq"]
-    N = cfg.param_count
+    N = cfg.active_param_count
     L, Hq, dh = cfg.n_layer, cfg.n_head, cfg.d_head
     if dims["kind"] == "train":
         return 6.0 * N * B * S + 3 * (2.0 * L * B * S * S * Hq * dh)

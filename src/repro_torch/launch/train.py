@@ -5,10 +5,10 @@ the port's ``repro.launch.train``.
         --steps 50 --ckpt-dir /tmp/ckpt --resume auto
 
 The same arguments as the reference's CLI, plus ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain versions). Dense LMs train on
-the synthetic token stream (``data.lm_data``), GraphSAGE on neighbour
-samples of a synthetic power-law graph (``data.graph_sampler``); the other
-families are not ported yet (ROADMAP A8) and raise. Every step goes
+``cuda``; ``cpu`` runs the kernels' plain versions). The LMs, dense and
+MoE, train on the synthetic token stream (``data.lm_data``), GraphSAGE on
+neighbour samples of a synthetic power-law graph (``data.graph_sampler``);
+the other families are not ported yet (ROADMAP A8) and raise. Every step goes
 through ``configs.make_train_step`` (the kernels' forward and backward,
 then AdamW in place); the :class:`RestartingRunner` saves a checkpoint
 every ``--ckpt-every`` steps through the port's ``CheckpointManager``
@@ -46,7 +46,7 @@ def make_batch_fn(spec, cfg, dims, device="cuda"):
     uniform labels, and per step ``n // 8`` seeds drawn by
     ``default_rng(step + 1)``, sampled with fanout (5, 5) and padded to n
     nodes and the graph's edge count rounded up to a multiple of 512."""
-    if spec.family == "lm-dense":
+    if spec.family.startswith("lm"):
         stream = TokenStream(cfg.vocab, seed=0)
 
         def fn(step):
@@ -55,7 +55,7 @@ def make_batch_fn(spec, cfg, dims, device="cuda"):
                     "labels": torch.as_tensor(labels, device=device)}
         return fn
     if not isinstance(cfg, SAGEConfig):
-        raise NotImplementedError(f"{spec.id}: only dense LMs and GraphSAGE "
+        raise NotImplementedError(f"{spec.id}: only the LMs and GraphSAGE "
                                   "train in the port (ROADMAP A8)")
     n = dims["n"]
     rng0 = np.random.default_rng(0)

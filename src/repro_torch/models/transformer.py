@@ -1,18 +1,30 @@
-"""Decoder-only dense LM: GQA + RoPE, prefill and decode on the port's kernels.
+"""Decoder-only LM, dense and MoE: GQA + RoPE, prefill and decode on the
+port's kernels.
 
-Counterpart of ``repro.models.transformer`` for the dense architectures
-(glm4-9b, codeqwen1.5-7b): the same parameters under the same names, the
-same arithmetic and dtypes, so the reference's weights carried over by
+Counterpart of ``repro.models.transformer`` for the five LM architectures
+(glm4-9b, codeqwen1.5-7b, qwen1.5-110b dense; qwen2-moe-a2.7b, dbrx-132b
+MoE): the same parameters under the same names, the same arithmetic and
+dtypes, so the reference's weights carried over by
 ``core.carry.lm_params_from_reference`` give its logits. Where the
-reference writes the projections as ``x @ w`` and the attention inline in
-jnp (``gqa_attention``), the port calls its kernels:
+reference writes the projections as ``x @ w`` (or ``einsum``) and the
+attention inline in jnp (``gqa_attention``), the port calls its kernels:
 
-* every dense projection (wq, wk, wv, wo, the FFN's wi/wg/wo and the head)
-  is ``ops.matmul`` (B5) on the ``(d_in, d_out)`` weight, its f32 result
-  rounded to the activation's dtype as the reference's ``x @ w`` is;
+* every dense projection (wq, wk, wv, wo, the FFN's wi/wg/wo, each
+  expert's and shared expert's wi/wg/wo, the MoE router in f32 and the
+  head) is ``ops.matmul`` (B5) on the ``(d_in, d_out)`` weight, its f32
+  result rounded to the activation's dtype as the reference's ``x @ w``
+  is;
 * attention is ``ops.flash_attention`` (B6): causal over the prompt at
   prefill, over the KV cache with ``t_real = cache_len + 1`` at decode,
   each query head reading its kv head without the GQA expansion.
+
+The MoE layer (:func:`moe_ffn`) is the reference's sort-based dispatch
+with a static capacity: top-k routing (:func:`route`), a stable sort of
+the assignments by expert, a capacity-bounded buffer of ``E * C`` rows,
+one B5 launch per expert and weight on the expert's contiguous rows, and
+a combine that adds each token's contributions in ascending expert order
+in the activation's dtype, as the reference's scatter-add does. Neither
+the dispatch nor the combine, nor their gradients, use float atomics.
 
 Layers are a ``ModuleList`` run in a Python loop (the reference's
 ``lax.scan``). The serving functions (:func:`forward`,
@@ -22,13 +34,16 @@ through :func:`train_forward` and :func:`loss_fn`, with autograd and, when
 the backward pass (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint``). Each kernel's gradient is a kernel too (B5 on
 transposed operands, B6's backward; ``kernels/ops.py``); the embedding's
-gradient is PyTorch's own scatter of the indexing backward. There is no MoE
-path yet (ROADMAP A8): a config with ``moe`` set raises.
+gradient is PyTorch's own scatter of the indexing backward. The
+reference's sharding hooks (``set_activation_sharding``,
+``set_moe_sharding``, ``set_weight_use_sharding``) and its MoE override
+(``set_moe_impl``) wait for the port's ``runtime/`` (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.utils.checkpoint
@@ -36,21 +51,24 @@ from torch import nn
 
 from ..kernels import ops
 
-_NO_MOE = ("MoE layers are not ported yet (ROADMAP A8: MoE dispatch, the "
-           "train step and the other families come in later slices)")
-
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """The reference's MoE settings, kept so a config can name them; the
-    port has no MoE path yet and refuses a config that sets them."""
+    """The reference's MoE settings (``repro.models.transformer.MoEConfig``).
+    ``groups`` > 1 routes each of that many token groups on its own, with
+    a group-local capacity; ``pad_experts`` adds experts that are never
+    routed (their router logits are masked)."""
     n_experts: int
     top_k: int
     d_ff_expert: int
-    n_shared: int = 0
+    n_shared: int = 0          # shared (always-on) experts, qwen2-moe style
     capacity_factor: float = 1.25
     groups: int = 1
     pad_experts: int = 0
+
+    @property
+    def e_total(self) -> int:
+        return self.n_experts + self.pad_experts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,16 +91,31 @@ class LMConfig:
 
     @property
     def param_count(self) -> int:
-        """Total parameters (embedding + blocks + head) of the dense model,
-        exact; every one is touched per token."""
-        if self.moe is not None:
-            raise NotImplementedError(f"{self.name}: {_NO_MOE}")
+        """Total parameters (embedding + blocks + head), the reference's
+        count: exact for a dense model; for MoE it counts ``n_experts``
+        experts and router columns (pad experts left out)."""
         d, dh = self.d_model, self.d_head
         attn = d * dh * (self.n_head + 2 * self.n_kv) + self.n_head * dh * d
         if self.qkv_bias:
             attn += dh * (self.n_head + 2 * self.n_kv)
-        block = attn + 3 * d * self.d_ff + 2 * d
+        if self.moe is None:
+            ffn = 3 * d * self.d_ff
+        else:
+            m = self.moe
+            ffn = ((m.n_experts + m.n_shared) * 3 * d * m.d_ff_expert
+                   + d * m.n_experts)                      # router
+        block = attn + ffn + 2 * d
         return self.vocab * d * 2 + self.n_layer * block + d
+
+    @property
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: the routed top-k and the
+        shared experts only)."""
+        if self.moe is None:
+            return self.param_count
+        m = self.moe
+        inactive = (m.n_experts - m.top_k) * 3 * self.d_model * m.d_ff_expert
+        return self.param_count - self.n_layer * inactive
 
 
 # ----------------------------------------------------------------------
@@ -107,8 +140,31 @@ class DenseFFN(nn.Module):
         return linear(silu(linear(x, self.wg)) * linear(x, self.wi), self.wo)
 
 
+class MoE(nn.Module):
+    """One MoE layer's parameters, named as the reference's ``moe`` dict:
+    ``router`` (d, E) in f32, the experts' ``wi``, ``wg`` (E, d, f) and
+    ``wo`` (E, f, d), and with ``n_shared`` = s > 0 the shared experts'
+    ``shared_wi``, ``shared_wg`` (s, d, f) and ``shared_wo`` (s, f, d);
+    E is ``e_total``."""
+
+    def __init__(self, cfg: LMConfig, device=None):
+        super().__init__()
+        m, d, dt = cfg.moe, cfg.d_model, cfg.dtype
+        e, f = m.e_total, m.d_ff_expert
+        self.router = _param((d, e), torch.float32, device)
+        self.wi = _param((e, d, f), dt, device)
+        self.wg = _param((e, d, f), dt, device)
+        self.wo = _param((e, f, d), dt, device)
+        if m.n_shared:
+            s = m.n_shared
+            self.shared_wi = _param((s, d, f), dt, device)
+            self.shared_wg = _param((s, d, f), dt, device)
+            self.shared_wo = _param((s, f, d), dt, device)
+
+
 class Block(nn.Module):
-    """One layer's parameters, named as the reference's layer dict."""
+    """One layer's parameters, named as the reference's layer dict: the
+    attention's, then ``ffn`` for a dense model or ``moe``."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
@@ -124,17 +180,18 @@ class Block(nn.Module):
             self.bq = _param((hq * dh,), dt, device)
             self.bk = _param((hk * dh,), dt, device)
             self.bv = _param((hk * dh,), dt, device)
-        self.ffn = DenseFFN(cfg, device)
+        if cfg.moe is None:
+            self.ffn = DenseFFN(cfg, device)
+        else:
+            self.moe = MoE(cfg, device)
 
 
 class Transformer(nn.Module):
-    """The dense LM's parameters: ``embed``, ``layers.<i>.*``, ``ln_f``,
+    """The LM's parameters: ``embed``, ``layers.<i>.*``, ``ln_f``,
     ``head`` (the reference's pytree with its stacked layers split)."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: {_NO_MOE}")
         self.cfg = cfg
         self.embed = _param((cfg.vocab, cfg.d_model), cfg.dtype, device)
         self.head = _param((cfg.d_model, cfg.vocab), cfg.dtype, device)
@@ -148,9 +205,11 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
                 device="cuda") -> Transformer:
     """A model with the reference's initial distributions
     (``transformer.py:110-162``): dense weights N(0, 1/d_in) in
-    ``cfg.dtype``, the embedding N(0, 0.02^2), RMSNorm gains 1, QKV biases
-    0. Drawn from ``generator``, which lives on ``device``; the bits are
-    not the reference's."""
+    ``cfg.dtype``, the router N(0, 1/d) in f32, the embedding
+    N(0, 0.02^2), RMSNorm gains 1, QKV biases 0. The (E, d, f) and
+    (s, d, f) expert weights take the reference's scale 1/sqrt(shape[0]),
+    i.e. 1/sqrt(E) and 1/sqrt(s). Drawn from ``generator``, which lives on
+    ``device``; the bits are not the reference's."""
     model = Transformer(cfg, device)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -166,6 +225,13 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     return model
 
 
+def abstract_params(cfg: LMConfig) -> Transformer:
+    """The model on ``torch.device("meta")``: every parameter's shape and
+    dtype, nothing allocated (the reference's ``jax.eval_shape`` of
+    ``init_params``)."""
+    return Transformer(cfg, device="meta")
+
+
 # ----------------------------------------------------------------------
 # building blocks
 # ----------------------------------------------------------------------
@@ -177,12 +243,33 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype).reshape(*lead, w.shape[1])
 
 
+class _SiLU(torch.autograd.Function):
+    """:func:`silu` with the reference's gradient, ``g * s + (g * x) *
+    (s * (1 - s))`` from the logistic ``s`` (jax's rule for ``logistic``).
+    Autograd of ``1 / (1 + exp(-x))`` would multiply 0 by the overflowed
+    ``exp(-x)`` where x < -88 and give NaN; pre-activations that low are
+    common under the reference's 1/sqrt(E) init of the (E, d, f) expert
+    weights (qwen2-moe's shared experts: a standard deviation near 23)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
 def silu(x):
     """``x * sigmoid(x)`` as the reference's ``jax.nn.silu`` rounds it: the
     logistic as ``1 / (1 + exp(-x))``, every operation in x's dtype (one
     rounding in f32 would differ from the reference in ~30% of bf16
-    elements by one unit in the last place)."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    elements by one unit in the last place). Its backward is
+    :class:`_SiLU`'s, which stays finite where ``exp(-x)`` overflows."""
+    return _SiLU.apply(x)
 
 
 def rms_norm(x, gain, eps=1e-5):
@@ -244,11 +331,178 @@ def attention_block(p: Block, cfg: LMConfig, x, positions, *, cache=None,
     return out.to(x.dtype)
 
 
+def capacity(mcfg: MoEConfig, T: int) -> tuple[int, int]:
+    """``(G, C)`` of a MoE layer over ``T`` tokens, the reference's: ``G =
+    groups`` where it divides T, else 1; per group of ``Tg = T / G`` tokens
+    ``C = max(1, min(ceil(Tg * top_k / n_experts * capacity_factor),
+    Tg))`` rows per expert, rounded up to a multiple of 32."""
+    G = mcfg.groups if T % max(mcfg.groups, 1) == 0 else 1
+    Tg = T // G
+    C = max(1, min(math.ceil(Tg * mcfg.top_k / mcfg.n_experts
+                             * mcfg.capacity_factor), Tg))
+    return G, math.ceil(C / 32) * 32
+
+
+def route(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """The experts each token is routed to: the indices of its ``k``
+    largest router probabilities, largest first ((T, k) int64; the
+    reference's ``jax.lax.top_k``)."""
+    return torch.topk(probs, k, dim=-1).indices
+
+
+def starts_of(se: torch.Tensor, E: int) -> torch.Tensor:
+    """Where each expert's run starts in the sorted expert ids ``se``."""
+    return torch.searchsorted(se, torch.arange(E, device=se.device),
+                              side="left")
+
+
+def dispatch(eidx: torch.Tensor, E: int, C: int):
+    """The reference's sort-based dispatch of (Tg, K) expert ids: the
+    assignments (flattened token-major, ``i = t * K + k``) stably sorted by
+    expert (``order``), each one's expert ``se`` and token ``st``, its
+    position in its expert's run ``pos``, ``keep = pos < C`` and its buffer
+    row ``dest`` (``se * C + pos``, or the overflow row ``E * C`` where
+    dropped), all in sorted order."""
+    Tg, K = eidx.shape
+    flat_e = eidx.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    se = flat_e[order]
+    st = order // K
+    pos = torch.arange(Tg * K, device=se.device) - starts_of(se, E)[se]
+    keep = pos < C
+    dest = torch.where(keep, se * C + pos, E * C)
+    return order, se, st, pos, keep, dest
+
+
+def router_probs(p: MoE, mcfg: MoEConfig, xt: torch.Tensor
+                 ) -> torch.Tensor:
+    """(Tg, E) f32 router probabilities: the logits as one f32 B5 product
+    ``xt @ router``, pad experts' set to -1e30, then a softmax."""
+    logits = ops.matmul(xt.float(), p.router)
+    if mcfg.pad_experts:
+        pad = torch.arange(mcfg.e_total, device=xt.device) >= mcfg.n_experts
+        logits = logits.masked_fill(pad, -1e30)
+    return torch.softmax(logits, dim=-1)
+
+
+def dispatch_rows(xt: torch.Tensor, order: torch.Tensor,
+                  dest: torch.Tensor, K: int, rows: int) -> torch.Tensor:
+    """The dispatch buffer (rows, d): row ``dest[j]`` holds the token of
+    sorted assignment j where kept, zeros elsewhere. It is gathered from
+    the tokens' rows repeated K times, one row per assignment, so each row
+    is read at most once: the gather's gradient needs no atomics, and the
+    repeat's is a sum over K."""
+    Tg, d = xt.shape
+    src = torch.full((rows + 1,), Tg * K, dtype=torch.long, device=xt.device)
+    src[dest] = order                  # the overflow row is never read
+    repeated = torch.cat([xt[:, None].expand(Tg, K, d).reshape(Tg * K, d),
+                          xt.new_zeros(1, d)])
+    return repeated[src[:rows]]
+
+
+def experts(p: MoE, buf: torch.Tensor, C: int) -> torch.Tensor:
+    """Each expert's ``silu(h wg) * (h wi)`` then ``wo`` over its C rows
+    of ``buf`` (contiguous, as its weights are): three B5 launches an
+    expert. Returns the (E * C + 1, d) outputs, the last row 0 (where
+    dropped assignments point)."""
+    wi, wg, wo = p.wi.unbind(0), p.wg.unbind(0), p.wo.unbind(0)
+    ho = [linear(silu(linear(h, wg[e])) * linear(h, wi[e]), wo[e])
+          for e, h in enumerate(buf.split(C))]
+    return torch.cat(ho + [buf.new_zeros(1, buf.shape[1])])
+
+
+def combine(ho: torch.Tensor, eidx: torch.Tensor, gate: torch.Tensor,
+            order: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
+    """(Tg, d): each token's K contributions (gate times its expert's
+    output row, in ho's dtype; 0 where dropped) added one after another in
+    ascending expert order, the order in which the reference's scatter-add
+    meets them (its assignments sorted by expert)."""
+    Tg, K = eidx.shape
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(Tg * K, device=order.device)
+    by_expert = eidx.argsort(dim=1)
+    slot = dest[inv].view(Tg, K).gather(1, by_expert)
+    g = gate.gather(1, by_expert).to(ho.dtype)
+    out = ho[slot[:, 0]] * g[:, :1]
+    for j in range(1, K):
+        out = out + ho[slot[:, j]] * g[:, j:j + 1]
+    return out
+
+
+def _moe_group(p: MoE, mcfg: MoEConfig, xt: torch.Tensor, C: int):
+    """One token group (Tg, d) through the routed experts: ``(out (Tg, d)
+    in xt's dtype, aux)``, the reference's ``_moe_group``: router
+    probabilities, top-k routing with the gates renormalised, the sorted
+    dispatch into an (E * C, d) buffer, the experts' products and the
+    combine; aux is the Switch-style load-balance loss, whose expert shares
+    count dropped assignments too."""
+    Tg, _ = xt.shape
+    E, K = mcfg.e_total, mcfg.top_k
+    probs = router_probs(p, mcfg, xt)
+    eidx = route(probs, K)
+    gate = probs.gather(-1, eidx)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    order, se, _, _, _, dest = dispatch(eidx, E, C)
+    buf = dispatch_rows(xt, order, dest, K, E * C)
+    out = combine(experts(p, buf, C), eidx, gate, order, dest)
+    counts = torch.diff(starts_of(se, E), append=se.new_tensor([Tg * K]))
+    aux = E * torch.sum(counts.float() / (Tg * K) * probs.mean(dim=0))
+    return out, aux
+
+
+def shared_experts(p: MoE, mcfg: MoEConfig, xt: torch.Tensor
+                   ) -> torch.Tensor:
+    """(T, d): ``silu(x wg_s) * (x wi_s)`` of every shared expert s (one
+    B5 launch per expert and weight), contracted with ``shared_wo`` over
+    (s, f) as one B5 product of K = s * f (the reference's ``tsf,sfd->td``
+    einsum)."""
+    T, d = xt.shape
+    s, f = mcfg.n_shared, mcfg.d_ff_expert
+    wg, wi = p.shared_wg.unbind(0), p.shared_wi.unbind(0)
+    h = torch.stack([silu(linear(xt, wg[i])) * linear(xt, wi[i])
+                     for i in range(s)], dim=1)             # (T, s, f)
+    return linear(h.reshape(T, s * f), p.shared_wo.reshape(s * f, d))
+
+
+def moe_ffn(p: MoE, cfg: LMConfig, x: torch.Tensor):
+    """The capacity-bounded MoE layer: x (B, S, d) -> ``(out (B, S, d) in
+    x's dtype, aux)``, the reference's ``moe_ffn``. With G > 1 groups
+    (:func:`capacity`) each group is routed on its own and ``aux`` is the
+    groups' mean. The shared experts' output (:func:`shared_experts`) is
+    added to the routed one in x's dtype."""
+    mcfg = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    G, C = capacity(mcfg, T)
+    xt = x.reshape(T, d)
+    if G == 1:
+        out, aux = _moe_group(p, mcfg, xt, C)
+    else:
+        parts = [_moe_group(p, mcfg, xg, C) for xg in xt.chunk(G)]
+        out = torch.cat([o for o, _ in parts])
+        aux = torch.stack([a for _, a in parts]).mean()
+    if mcfg.n_shared:
+        out = out + shared_experts(p, mcfg, xt)
+    return out.reshape(B, S, d), aux
+
+
 def _layer(p: Block, cfg: LMConfig, x, positions, cache=None,
            cache_len=None):
+    """One layer: ``(x, aux)``, aux the MoE loss (a 0-dim f32 tensor) or
+    None for a dense layer."""
     x = x + attention_block(p, cfg, rms_norm(x, p.ln1), positions,
                             cache=cache, cache_len=cache_len)
-    return x + p.ffn(rms_norm(x, p.ln2))
+    h = rms_norm(x, p.ln2)
+    if cfg.moe is None:
+        return x + p.ffn(h), None
+    f, aux = moe_ffn(p.moe, cfg, h)
+    return x + f, aux
+
+
+def _sum_aux(auxes: list, device) -> torch.Tensor:
+    """The layers' aux losses summed (0 for a dense model)."""
+    return sum((a for a in auxes if a is not None),
+               torch.zeros((), dtype=torch.float32, device=device))
 
 
 # ----------------------------------------------------------------------
@@ -258,23 +512,26 @@ def _layer(p: Block, cfg: LMConfig, x, positions, cache=None,
 @torch.inference_mode()
 def forward(model: Transformer, tokens: torch.Tensor):
     """tokens (B, S) -> (logits (B, S, vocab) in f32, aux). ``aux`` is the
-    reference's MoE auxiliary loss: 0 for a dense model."""
+    reference's MoE auxiliary loss summed over the layers: 0 for a dense
+    model."""
     cfg = model.cfg
     S = tokens.shape[1]
     x = model.embed[tokens]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    auxes = []
     for p in model.layers:
-        x = _layer(p, cfg, x, positions)
+        x, aux = _layer(p, cfg, x, positions)
+        auxes.append(aux)
     x = rms_norm(x, model.ln_f)
-    return (linear(x, model.head).float(),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return linear(x, model.head).float(), _sum_aux(auxes, x.device)
 
 
 def train_forward(model: Transformer, tokens: torch.Tensor):
     """tokens (B, S) -> (logits (B, S, vocab) in f32, aux), with autograd:
     :func:`forward`'s arithmetic outside ``inference_mode``, each layer
     under ``torch.utils.checkpoint`` when ``cfg.remat`` is set (its
-    kernels run again in the backward pass). ``aux`` is 0 for a dense
+    kernels run again in the backward pass; a MoE layer routes again, on
+    the same bits). ``aux`` is the layers' MoE loss, 0 for a dense
     model. A token id past the vocabulary takes the last row and passes
     no gradient to it, as the reference's clamped gather and its
     transpose, which drops an out-of-bounds update, do (``TokenStream``
@@ -287,15 +544,16 @@ def train_forward(model: Transformer, tokens: torch.Tensor):
     inside = ((ids >= 0) & (ids < cfg.vocab))[..., None]
     x = torch.where(inside, x, x.detach())
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+    auxes = []
     for p in model.layers:
         if cfg.remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 _layer, p, cfg, x, positions, use_reentrant=False)
         else:
-            x = _layer(p, cfg, x, positions)
+            x, aux = _layer(p, cfg, x, positions)
+        auxes.append(aux)
     x = rms_norm(x, model.ln_f)
-    return (linear(x, model.head).float(),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return linear(x, model.head).float(), _sum_aux(auxes, x.device)
 
 
 def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
@@ -327,12 +585,19 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def abstract_cache(cfg: LMConfig, batch: int, max_len: int) -> dict:
+    """The KV cache on ``torch.device("meta")``: shapes and ``cfg.dtype``,
+    nothing allocated (the reference's ``abstract_cache``)."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
 @torch.inference_mode()
 def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict,
                 cache_len):
     """One decode step. tokens (B, 1); cache (L, B, T, Hkv, dh) x 2;
     ``cache_len`` an int (or 0-dim tensor) in [0, T). Returns
-    ``(logits (B, vocab) in f32, cache)``.
+    ``(logits (B, vocab) in f32, cache)``; a MoE model's aux loss is
+    dropped, as the reference drops it.
 
     Unlike the reference, which returns an updated copy of the cache, the
     new token's k/v are written into ``cache`` IN PLACE (slot
@@ -349,7 +614,8 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict,
     positions = torch.full((B, 1), cache_len, dtype=torch.int32,
                            device=x.device)
     for i, p in enumerate(model.layers):
-        x = _layer(p, cfg, x, positions,
-                   cache=(cache["k"][i], cache["v"][i]), cache_len=cache_len)
+        x, _ = _layer(p, cfg, x, positions,
+                      cache=(cache["k"][i], cache["v"][i]),
+                      cache_len=cache_len)
     x = rms_norm(x, model.ln_f)
     return linear(x[:, 0], model.head).float(), cache

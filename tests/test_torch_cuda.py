@@ -14,6 +14,7 @@ bf16 outputs are held to ``flash_attention.error_bound``, as in
 chip_smoke.py: 2e-2 of |plain| for the outputs' bf16 roundings plus 1e-2
 of the largest |plain| in the element's row for the kernel's bf16 P."""
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -1478,3 +1479,121 @@ def test_train_cli_replays_an_injected_failure_on_card(cuda, arch, tmp_path):
         assert losses == clean[:3] + clean[2:]
     else:                          # B4's float atomics reorder its sums
         np.testing.assert_allclose(losses, clean[:3] + clean[2:], rtol=1e-5)
+
+
+# -- the MoE layer (slice 15) ---------------------------------------------------
+
+class _Routes:
+    """``transformer.route`` recorded on one run and replayed on another:
+    the plain run routes every token as the kernel run did (the f32 router
+    products of B5 and of the plain version sum in other orders, so a
+    near-tie could flip)."""
+
+    def __init__(self):
+        self.kept, self.next = [], 0
+        self._route = tfm.route
+
+    def record(self, probs, k):
+        out = self._route(probs, k)
+        self.kept.append(out)
+        return out
+
+    def replay(self, probs, k):
+        out = self.kept[self.next]
+        self.next += 1
+        return out
+
+
+def _moe_on_card_and_plain(cfg, x, grads: bool = False):
+    """(kernel output, plain output, B5 launches) of ``moe_ffn`` over the
+    first layer's MoE of a model drawn from a seed, the plain run
+    replaying the kernel run's routes."""
+    from unittest import mock
+    model = tfm.init_params(cfg, torch.Generator(device=x.device).manual_seed(
+        3), device=x.device)
+    p = model.layers[0].moe
+    routes = _Routes()
+    before = segment_matmul.matmul.launches
+    with mock.patch.object(tfm, "route", routes.record), torch.no_grad():
+        got, aux = tfm.moe_ffn(p, cfg, x)
+    launches = segment_matmul.matmul.launches - before
+    with mock.patch.object(tfm, "route", routes.replay), \
+            mock.patch.object(ops, "matmul", ref.matmul), torch.no_grad():
+        want, want_aux = tfm.moe_ffn(p, cfg, x)
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * abs(float(want_aux))
+    return got, want, launches
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "dbrx-132b"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_moe_layer_on_card_matches_plain_version(cuda, arch, dtype):
+    """The smoke config's MoE layer over 2 x 96 tokens on the card (B5 for
+    the router, 3 launches per expert, the shared experts' 2 per expert
+    and 1) against the plain versions, routes replayed: bf16 within 3e-2
+    of max|out|, f32 within 1e-4."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get(arch).smoke_cfg, dtype=dtype)
+    m = cfg.moe
+    x = torch.randn(2, 96, cfg.d_model,
+                    generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda).to(dtype)
+    got, want, launches = _moe_on_card_and_plain(cfg, x)
+    G, _ = tfm.capacity(m, 192)
+    assert launches == G * (1 + 3 * m.e_total) + (
+        2 * m.n_shared + 1 if m.n_shared else 0)
+    share = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((got.float() - want.float()).abs().max()) <= \
+        share * float(want.float().abs().max())
+
+
+def test_moe_layer_on_card_at_full_width(cuda):
+    """qwen2-moe-a2.7b's MoE layer at full width (d 2,048, 60 experts of
+    1,408, 4 shared) over 1,024 tokens in bf16: the experts' products on
+    B5's wgmma route at C = 96, the router's on the f32 route, against the
+    plain versions with the routes replayed, within 3e-2 of max|out|."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get("qwen2-moe-a2.7b").model_cfg,
+                              n_layer=1)
+    x = torch.randn(1, 1024, cfg.d_model,
+                    generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda).bfloat16()
+    segment_matmul.reset_counts()
+    got, want, launches = _moe_on_card_and_plain(cfg, x)
+    assert tfm.capacity(cfg.moe, 1024) == (1, 96)
+    assert launches == 1 + 3 * 60 + 2 * 4 + 1
+    assert segment_matmul.matmul.routes["f32"] == 1
+    assert segment_matmul.matmul.routes["wgmma"] == 3 * 60 + 2 * 4 + 1
+    assert float((got.float() - want.float()).abs().max()) <= \
+        3e-2 * float(want.float().abs().max())
+
+
+def test_moe_layer_on_card_is_bitwise_reproducible(cuda):
+    """Two runs of a MoE layer's forward and backward on the card (bf16,
+    capacity 0.5 so that assignments drop) give the same bits: the
+    dispatch and the combine use no float atomics, nor their gradients."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get("qwen2-moe-a2.7b").smoke_cfg,
+                              moe=tfm.MoEConfig(n_experts=6, top_k=2,
+                                                d_ff_expert=32, n_shared=1,
+                                                capacity_factor=0.5))
+    model = tfm.init_params(cfg, torch.Generator(device=cuda).manual_seed(6),
+                            device=cuda)
+    p = model.layers[0].moe
+    params = dict(p.named_parameters())
+    for t in params.values():
+        t.requires_grad_(True)
+    x0 = torch.randn(4, 256, cfg.d_model,
+                     generator=torch.Generator(device=cuda).manual_seed(7),
+                     device=cuda).bfloat16()
+    runs = []
+    for _ in range(2):
+        x = x0.clone().requires_grad_(True)
+        out, aux = tfm.moe_ffn(p, cfg, x)
+        loss = out.float().square().mean() + aux
+        runs.append([out, aux] + list(torch.autograd.grad(
+            loss, [x] + list(params.values()))))
+    # 1,024 x 2 / 6 x 0.5 = 171 rows an expert, rounded up to 192: about
+    # 341 assignments an expert, so many are dropped
+    assert tfm.capacity(cfg.moe, 1024) == (1, 192)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -235,18 +235,132 @@ def test_serve_steps(arch):
 
 
 def test_moe_config_raises():
+    """A MoE config builds a model and a serve step since slice 15; a GNN
+    family other than GraphSAGE (MeshGraphNet's config) still raises,
+    naming A8."""
     moe = tfm.MoEConfig(n_experts=4, top_k=2, d_ff_expert=16)
     cfg = tfm.LMConfig("m", n_layer=1, d_model=32, n_head=2, n_kv=2, d_ff=0,
                        vocab=64, d_head=16, moe=moe)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tfm.Transformer(cfg, device="cpu")
     spec = configs.ArchSpec(id="m", family="lm-moe", model_cfg=cfg,
                             smoke_cfg=cfg, shapes=configs.LM_SHAPES, skips={})
-    with pytest.raises(NotImplementedError, match="A8"):
-        configs.make_serve_step(spec, "prefill_32k")
+    assert configs.make_serve_step(spec, "prefill_32k")
     gnn = dataclasses.replace(spec, family="gnn")
     with pytest.raises(NotImplementedError, match="A8"):
         configs.cell_model_cfg(gnn, "prefill_32k")
+
+
+def _jax_dtype(dtype) -> str:
+    return np.dtype(dtype).name
+
+
+def _torch_dtype(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _flatten_reference(tree, lm: bool) -> dict:
+    """{port name: (shape, dtype name)} of a reference params tree of
+    ShapeDtypeStructs: an LM's stacked layers split by layer (the names of
+    ``core.carry.lm_params_from_reference``), GraphSAGE's list of layers."""
+    out = {}
+    if lm:
+        for name in ("embed", "head", "ln_f"):
+            out[name] = (tuple(tree[name].shape), _jax_dtype(tree[name].dtype))
+
+        def split(prefix, node):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    split(f"{prefix}{k}.", v)
+                    continue
+                for i in range(v.shape[0]):
+                    out[f"layers.{i}.{prefix}{k}"] = (tuple(v.shape[1:]),
+                                                      _jax_dtype(v.dtype))
+        split("", tree["layers"])
+        return out
+    out["head"] = (tuple(tree["head"].shape), _jax_dtype(tree["head"].dtype))
+    for i, layer in enumerate(tree["layers"]):
+        for k, v in layer.items():
+            out[f"layers.{i}.{k}"] = (tuple(v.shape), _jax_dtype(v.dtype))
+    return out
+
+
+def _port_shapes(tensors: dict) -> dict:
+    return {n: (tuple(t.shape), _torch_dtype(t.dtype))
+            for n, t in tensors.items()}
+
+
+def test_all_cells_are_the_references_of_the_ported_archs():
+    ported = set(configs.REGISTRY)
+    for skipped in (False, True):
+        want = [c for c in jax_configs.all_cells(include_skipped=skipped)
+                if c[0] in ported]
+        assert list(configs.all_cells(include_skipped=skipped)) == want
+    assert ported == {"dbrx-132b", "qwen2-moe-a2.7b", "glm4-9b",
+                      "codeqwen1.5-7b", "qwen1.5-110b", "graphsage-reddit"}
+
+
+@pytest.mark.parametrize(
+    "arch,shape", list(configs.all_cells(include_skipped=True)),
+    ids=[f"{a}-{s}" for a, s in configs.all_cells(include_skipped=True)])
+def test_input_specs_match_the_reference(arch, shape):
+    """Every ported cell's inputs at full size, on the meta device: the
+    reference's ``input_specs`` in shape and dtype, name for name (the
+    decode cache's k and v too)."""
+    spec, ref = configs.get(arch), jax_configs.get(arch)
+    got = configs.input_specs(spec, shape)
+    want = jax_configs.input_specs(ref, shape)
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        g = got[name]
+        if isinstance(w, dict):                       # the decode cache
+            assert g.keys() == w.keys()
+            pairs = [(g[k], w[k]) for k in w]
+        else:
+            pairs = [(g, w)]
+        for gt, wt in pairs:
+            assert gt.device.type == "meta"
+            assert (tuple(gt.shape), _torch_dtype(gt.dtype)) == \
+                (tuple(wt.shape), _jax_dtype(wt.dtype)), name
+
+
+@pytest.mark.parametrize("arch", sorted(
+    {a for a, _ in configs.all_cells(include_skipped=True)}))
+def test_abstract_params_match_the_references_eval_shape(arch):
+    """``abstract_params`` of every ported architecture at full size (its
+    first cell's config), on the meta device: every parameter of the
+    reference's ``jax.eval_shape`` of its init, same name, shape and
+    dtype, nothing allocated."""
+    spec, ref = configs.get(arch), jax_configs.get(arch)
+    shape = next(iter(spec.shapes))
+    cfg = configs.cell_model_cfg(spec, shape)
+    model = configs.abstract_params(spec, cfg)
+    assert all(p.device.type == "meta" for p in model.parameters())
+    tree = jax_configs.abstract_params(ref, jax_configs.cell_model_cfg(
+        ref, shape))
+    lm = spec.family.startswith("lm")
+    assert _port_shapes(dict(model.named_parameters())) == \
+        _flatten_reference(tree, lm)
+    if lm:
+        cache = tfm.abstract_cache(cfg, 2, 64)
+        want = jax_tfm.abstract_cache(ref.model_cfg, 2, 64)
+        assert _port_shapes(cache) == {
+            k: (tuple(v.shape), _jax_dtype(v.dtype)) for k, v in want.items()}
+
+
+def test_spec_surface_raises_for_unported_families():
+    """``input_specs`` and ``abstract_params`` of a recsys cell and of a
+    GNN family other than GraphSAGE raise, naming A8."""
+    cfg = configs.get("glm4-9b").model_cfg
+    for spec in (configs.ArchSpec(id="r", family="recsys", model_cfg=cfg,
+                                  smoke_cfg=cfg, shapes=configs.LM_SHAPES,
+                                  skips={}),
+                 configs.ArchSpec(id="mgn", family="gnn", model_cfg=object(),
+                                  smoke_cfg=object(),
+                                  shapes=configs.GNN_SHAPES, skips={})):
+        shape = next(iter(spec.shapes))
+        with pytest.raises(NotImplementedError, match="A8"):
+            configs.input_specs(spec, shape, model_cfg=spec.model_cfg)
+        with pytest.raises(NotImplementedError, match="A8"):
+            configs.abstract_params(spec, spec.model_cfg)
 
 
 def test_decode_step_rejects_bad_positions():
