@@ -242,7 +242,33 @@ result line each; any failure raises and exits non-zero:
            full-width model's loss and every gradient against the plain
            versions with the routes replayed; at 4 layers, the bf16
            kernels' and plain versions' gradients each against an f32
-           plain run, and the f32 kernels' against the f32 plain versions
+           plain run, and the f32 kernels' against the f32 plain versions;
+           routing alone (the stable sort that breaks ties as
+           jax.lax.top_k) beside torch.topk, with the tied tokens counted
+  mgn      meshgraphnet at full width and depth (15 layers, hidden 128,
+           2-layer MLPs; f32, drawn on the card from a seed): serving on
+           full_graph_sm's full dims (2,708 nodes, 21,504 padded directed
+           edges, 1,433 features) through make_serve_step, counted (B5 99,
+           B4 15 a forward, all B5 on the f32 route), outputs against the
+           plain versions; 3 make_train_step steps on launch.train's
+           batches, the first counted (B5 295, B4 45, its gather 15), the
+           loss and every gradient against the plain versions (relu pattern
+           replayed); serving at ogb_products' shape with n and e divided
+           by 16 (153,064 nodes, 7,732,736 directed edges): counted,
+           against the plain versions, its peak memory, and B4 (the layer
+           aggregation) and B5 (the edge MLP's 384 -> 128 product) at its
+           shapes beside their bounds and library calls
+  geo      nequip (5 layers, C 32) and mace (2 layers, C 128, correlation
+           3) at full width and depth on molecule's full dims (128
+           molecules of 30 atoms, 16,384 directed edges with 1,024 padding
+           edges at node 0; one-hot species; from a seed): energies through
+           make_serve_step and forces by autograd, each counted and against
+           the plain versions; a rotated copy within the reference's
+           equivariance tolerances; 3 train steps (energy + 10 x force loss,
+           so the step differentiates the forces again through B4 and B5),
+           the first counted; the loss and every gradient, and the force
+           loss's gradient alone, against the plain versions; molecules/s,
+           step seconds, idle shares, peak memory
 
 The card builds, ingests and trims of epoch, engine and store peel their
 k ranges on the card too; a ``[kcore]`` line sums kcore_fixpoint's
@@ -1047,12 +1073,12 @@ B4_TOL = 1e-4
 GNN_LOGIT_TOL = 1e-4
 
 
-def b4_checks(cases: dict) -> dict:
+def b4_checks(cases: dict, tag: str = "gnn") -> dict:
     """B4 ``(vals, ids, S)`` cases, each held against its plain version on
     the same inputs (rtol = atol = :data:`B4_TOL`) and, for ids all in
     range (the path's), timed beside its bound, its plain version and the
     library call ``torch.zeros(S, d).index_add_(0, ids, vals)``; one
-    ``[gnn]`` line per case. Returns each case's numbers."""
+    ``[tag]`` line per case. Returns each case's numbers."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_matmul as sm
 
@@ -1069,7 +1095,7 @@ def b4_checks(cases: dict) -> dict:
         in_range = bool(((ids >= 0) & (ids < S)).all())
         del got, want, diff
         bound = sm.segment_sum_bound_ms(E, d, S)
-        line = (f"[gnn] B4 {name}: ({E} x {d}) into {S} segments: max abs "
+        line = (f"[{tag}] B4 {name}: ({E} x {d}) into {S} segments: max abs "
                 f"err {err:.3e} against the plain version (tolerance "
                 f"{B4_TOL} + {B4_TOL} of |plain|)")
         rec = dict(max_abs_err=err, bound_ms=bound)
@@ -1360,11 +1386,14 @@ def plain_ops():
 
 
 def loss_and_grads(spec, cfg, model, batch, plain: bool = False,
-                   relu=None):
+                   relu=None, loss_fn=None):
     """(loss, {name: gradient}) of one batch, with the kernels or, with
     ``plain``, the plain versions; ``relu``, where given, stands in for
-    ``torch.relu`` during the call (see :class:`ReluPattern`)."""
+    ``torch.relu`` during the call (see :class:`ReluPattern`);
+    ``loss_fn(model, batch)`` another loss than the cell's. A parameter the
+    loss does not reach gets a zero gradient."""
     from repro_torch import configs
+    loss_fn = loss_fn or configs.loss_for(spec, cfg)
     params = dict(model.named_parameters())
     for p in params.values():
         p.requires_grad_(True)
@@ -1373,8 +1402,9 @@ def loss_and_grads(spec, cfg, model, batch, plain: bool = False,
             stack.enter_context(patch)
         if relu is not None:
             stack.enter_context(mock.patch.object(torch, "relu", relu))
-        loss = configs.loss_for(spec, cfg)(model, batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        loss = loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True, materialize_grads=True)
     return float(loss.detach()), dict(zip(params, grads))
 
 
@@ -1831,6 +1861,489 @@ def train_phase(dev, smi: str) -> dict:
                                       "bound_by", "library_ms")}}]}
 
 
+#: the [mgn] phase: meshgraphnet at its published width and depth (15
+#: layers, hidden 128, 2-layer MLPs), drawn on the card from MGN_SEED.
+#: (a) full_graph_sm at its full dims (2,708 nodes, 10,556 undirected
+#: edges doubled and padded to 21,504, 1,433 features; nothing cut):
+#: MGN_SERVES timed forwards after a counted one, then MGN_STEPS
+#: make_train_step steps on launch.train's batches. (b) ogb_products'
+#: shape for serving only, its n and e divided by MGN_OGB_CUT (the full
+#: graph's edge state alone is 123.7M x 128 x 4 B = 63 GB, its message
+#: input 190 GB), at ogb_products' average degree and feature width.
+MGN_ARCH = "meshgraphnet"
+MGN_SEED = 29
+MGN_SERVES = 4
+MGN_STEPS = 3
+MGN_OGB_CUT = 16
+#: f32 throughout: the kernels' outputs within this share of max|out| of
+#: the plain versions', every gradient leaf within this share of its
+#: largest |plain| (GNN_GRAD_TOL's rule)
+MGN_TOL = 1e-4
+#: (B5, B4, B4's gather) launches of one serve step and one train step
+#: (tests/test_torch_double_backward.py's GNN_CALLS holds the same on the
+#: CPU)
+GNN_LAUNCHES = {
+    "meshgraphnet": {"serve": (99, 15, 0), "train": (295, 45, 15)},
+    "nequip": {"serve": (33, 16, 0), "forces": (62, 30, 14),
+               "train": (207, 56, 42)},
+    "mace": {"serve": (27, 7, 0), "forces": (51, 12, 7),
+             "train": (171, 22, 19)},
+}
+
+
+def reset_b4_b5() -> None:
+    from repro_torch.kernels import segment_matmul as sm
+    sm.reset_counts()
+    sm.segment_sum.launches = sm.segment_gather.launches = 0
+
+
+def b4_b5_launches(want: tuple, what: str) -> tuple:
+    """(B5, B4, B4's gather, B5's gradient) launches since
+    :func:`reset_b4_b5`; raises unless the first three are ``want`` and
+    every B5 launch took the f32 route."""
+    from repro_torch.kernels import segment_matmul as sm
+    got = (sm.matmul.launches, sm.segment_sum.launches,
+           sm.segment_gather.launches)
+    if got != tuple(want):
+        raise AssertionError(f"{what} launched (B5, B4, B4 gather) {got}, "
+                             f"not {tuple(want)}")
+    b5_routes(sm, {"f32": got[0]}, what)
+    return got + (sm.matmul_grads.launches,)
+
+
+def launch_clause(n: tuple) -> str:
+    return (f"B5 {n[0]} (all on the f32 route; {n[3]} of them gradients), "
+            f"B4 {n[1]}, B4 gather {n[2]}")
+
+
+def mgn_graph(cfg, n: int, e: int, seed: int, dev) -> dict:
+    """A MeshGraphNet serve batch on the card: a power-law graph of ``n``
+    nodes (``random_powerlaw_graph`` at average degree ceil(2e / n) + 1,
+    ``seed``) cut to its first ``e`` undirected pairs, doubled and padded
+    to a multiple of 512 with edges at node 0 (``edge_mask`` 0); N(0, 1)
+    node and edge features drawn on the card."""
+    from repro_torch.data import graph_sampler as gs
+    a, b = gs.random_powerlaw_graph(n, -(-2 * e // n) + 1, seed=seed)
+    if a.shape[0] // 2 < e:
+        raise AssertionError(f"the graph has {a.shape[0] // 2} pairs, "
+                             f"fewer than {e}")
+    a, b = a[:e], b[:e]                     # the first half: one per pair
+    E = -(-2 * e // 512) * 512
+    src = np.zeros(E, np.int32)
+    dst = np.zeros(E, np.int32)
+    src[:2 * e] = np.concatenate([a, b])
+    dst[:2 * e] = np.concatenate([b, a])
+    mask = np.zeros(E, np.float32)
+    mask[:2 * e] = 1.0
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"node_feat": torch.randn(n, cfg.d_node_in, generator=gen,
+                                     device=dev),
+            "edge_feat": torch.randn(E, cfg.d_edge_in, generator=gen,
+                                     device=dev),
+            "src": torch.as_tensor(src, device=dev),
+            "dst": torch.as_tensor(dst, device=dev),
+            "edge_mask": torch.as_tensor(mask, device=dev)}
+
+
+def plain_outputs(fn):
+    """``fn()`` with the plain versions in the models' kernel calls."""
+    with contextlib.ExitStack() as stack:
+        for patch in plain_ops():
+            stack.enter_context(patch)
+        return fn()
+
+
+def grads_check(spec, cfg, model, batch, what: str, tol: float, smi: str,
+                loss_fn=None) -> float:
+    """The loss (``loss_fn``, else the cell's) and every gradient with the
+    kernels against the plain versions on the card, the plain run replaying
+    the kernel run's relu pattern; one line; returns the worst leaf's
+    error."""
+    pattern = ReluPattern()
+    (l_k, g_k), t_k = wall(lambda: loss_and_grads(
+        spec, cfg, model, batch, relu=pattern.record, loss_fn=loss_fn))
+    (l_p, g_p), t_p = wall(lambda: loss_and_grads(
+        spec, cfg, model, batch, plain=True, relu=pattern.replay,
+        loss_fn=loss_fn))
+    errs = grad_leaf_errs(g_k, g_p)
+    worst = max(errs, key=errs.get)
+    if not (abs(l_k - l_p) <= tol * abs(l_p) and errs[worst] <= tol):
+        raise AssertionError(f"{what}: loss {l_k} against {l_p}, gradient "
+                             f"{worst} off by {errs[worst]} of its scale "
+                             f"({pattern.flips} relu inputs flipped)")
+    print(f"[{spec.id}] {what}: loss {l_k:.7f} with the kernels ({t_k:.3f}s)"
+          f", {l_p:.7f} with the plain versions ({t_p:.3f}s); all "
+          f"{len(errs)} gradients within {errs[worst]:.3e} of their largest "
+          f"|plain| ({worst}; tolerance {tol}); the plain run replays the "
+          f"kernel run's relu pattern ({pattern.flips} of "
+          f"{pattern.entries:,} inputs took the other sign, the nearest to 0 "
+          f"{pattern.nearest:.3e}) | {smi}")
+    return errs[worst]
+
+
+def mgn_phase(dev, smi: str) -> dict:
+    """[mgn]: meshgraphnet served and trained on the card at full width and
+    depth (full_graph_sm), and served at ogb_products' shape cut by
+    MGN_OGB_CUT. Every entry point's launches are counted (set to 0 just
+    before, read just after) and held to GNN_LAUNCHES; outputs and every
+    gradient against the plain versions on the card; B4 and B5 against
+    their plain versions at the large graph's shapes. Returns the launches
+    and the largest errors."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False    # the plain versions' f32
+    spec = configs.get(MGN_ARCH)
+    dims = spec.shapes["full_graph_sm"]
+    cfg = configs.cell_model_cfg(spec, "full_graph_sm")
+    want = GNN_LAUNCHES[MGN_ARCH]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(MGN_SEED)
+    model = configs.init_params(spec, cfg, gen, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = mgn_graph(cfg, dims["n"], dims["e"], MGN_SEED, dev)
+    E = int(batch["src"].shape[0])
+    serve = configs.make_serve_step(spec, "full_graph_sm")
+    reset_b4_b5()
+    out, t_first = wall(lambda: serve(model, batch))
+    served = b4_b5_launches(want["serve"], "a meshgraphnet serve step")
+    if out.shape != (dims["n"], cfg.d_out) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError("meshgraphnet outputs are not finite "
+                             f"({dims['n']}, {cfg.d_out})")
+    plain = plain_outputs(lambda: serve(model, batch))
+    err_a = rel_err(out, plain)
+    if not err_a <= MGN_TOL:
+        raise AssertionError(f"meshgraphnet outputs with the kernels differ "
+                             f"from the plain versions' by {err_a} of max|out|")
+    fwd = sorted(wall(lambda: serve(model, batch))[1]
+                 for _ in range(MGN_SERVES))[MGN_SERVES // 2]
+    flops = configs.model_flops(spec, "full_graph_sm",
+                                dims=dict(dims, kind="serve"))
+    print(f"[mgn] {MGN_ARCH} at full width and depth ({cfg.n_layers} layers, "
+          f"hidden {cfg.d_hidden}, {cfg.mlp_layers}-layer MLPs; {n_params:,} "
+          f"f32 parameters from seed {MGN_SEED}) on full_graph_sm's full dims "
+          f"({dims['n']:,} nodes, {dims['e']:,} undirected edges -> {E:,} "
+          f"directed, padded; {cfg.d_node_in} features; nothing cut): "
+          f"make_serve_step launched {launch_clause(served)} (first forward "
+          f"{t_first:.3f}s); outputs within {err_a:.3e} of max|out| of the "
+          f"plain versions' (tolerance {MGN_TOL}); forward {fwd * 1e3:.3f} "
+          f"ms (median of {MGN_SERVES}) = {dims['n'] / fwd:,.0f} nodes/s; "
+          f"model FLOPs {flops:.4e} = {flops / fwd / 67e12:.4f} of the 67 "
+          f"TFLOP/s f32 peak | {smi}")
+    print(f"[mgn] one forward under torch.profiler: " + profiled(
+        lambda: serve(model, batch), {"B4": is_b4, "B5": is_b5}) + f" | {smi}")
+    del out, plain
+
+    opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+    step = configs.make_train_step(spec, cfg, opt_cfg)
+    state = adamw.init_state(dict(model.named_parameters()))
+    batch_fn = train_cli.make_batch_fn(spec, cfg, dict(dims), dev)
+    losses, step_s = [], []
+    for i in range(MGN_STEPS):
+        b, t_data = wall(lambda: batch_fn(i))
+        if i == 0:
+            first = b
+            reset_b4_b5()
+        (_, state, m), t = wall(lambda: step(model, state, b))
+        if i == 0:
+            trained = b4_b5_launches(want["train"], "a meshgraphnet train "
+                                     "step")
+        losses.append(float(m["loss"]))
+        step_s.append(t)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"meshgraphnet losses are not finite: {losses}")
+    ts = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    print(f"[mgn] train: {MGN_STEPS} make_train_step steps on "
+          f"launch.train's batches ({dims['n']:,} nodes, "
+          f"{int(first['src'].shape[0]):,} padded edges); the first launched "
+          f"{launch_clause(trained)}; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; step {ts:.4f}s after "
+          f"the first ({step_s[0]:.3f}s) | {smi}")
+    print(f"[mgn] one train step under torch.profiler: " + profiled(
+        lambda: step(model, state, first), {"B4": is_b4, "B5": is_b5})
+        + f" | {smi}")
+    worst_a = grads_check(spec, cfg, model, first, "train step's loss and "
+                          "gradients (first batch)", MGN_TOL, smi)
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    del model, state, first, b, batch
+    torch.cuda.empty_cache()
+
+    # -- (b) ogb_products' shape, cut, served -----------------------------
+    torch.cuda.reset_peak_memory_stats()
+    odims = spec.shapes["ogb_products"]
+    ocfg = configs.cell_model_cfg(spec, "ogb_products")
+    n, e = odims["n"] // MGN_OGB_CUT, odims["e"] // MGN_OGB_CUT
+    omodel = configs.init_params(spec, ocfg, gen, device=dev)
+    obatch, t_graph = wall(lambda: mgn_graph(ocfg, n, e, MGN_SEED + 1, dev))
+    E = int(obatch["src"].shape[0])
+    oserve = configs.make_serve_step(spec, "ogb_products")
+    reset_b4_b5()
+    out, t_fwd = wall(lambda: oserve(omodel, obatch))
+    served_b = b4_b5_launches(want["serve"], "an ogb_products serve step")
+    peak_b = torch.cuda.max_memory_allocated() / 2**30
+    plain, t_plain = wall(lambda: plain_outputs(lambda: oserve(omodel,
+                                                               obatch)))
+    err_b = rel_err(out, plain)
+    if not err_b <= MGN_TOL or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"ogb_products outputs with the kernels differ "
+                             f"from the plain versions' by {err_b}")
+    oflops = configs.model_flops(spec, "ogb_products",
+                                 dims=dict(odims, n=n, e=e, kind="serve"))
+    print(f"[mgn] ogb_products' shape for serving, n and e divided by "
+          f"{MGN_OGB_CUT} ({odims['n']:,} -> {n:,} nodes, {odims['e']:,} -> "
+          f"{e:,} undirected edges -> {E:,} directed, padded; average degree "
+          f"{2 * e / n:.2f} as ogb_products' {2 * odims['e'] / odims['n']:.2f}; "
+          f"{ocfg.d_node_in} features; power-law graph built in "
+          f"{t_graph:.2f}s): launched {launch_clause(served_b)}; forward "
+          f"{t_fwd:.3f}s (plain versions {t_plain:.3f}s) = {n / t_fwd:,.0f} "
+          f"nodes/s, model FLOPs {oflops:.4e} = "
+          f"{oflops / t_fwd / 67e12:.4f} of the f32 peak; peak device "
+          f"memory {peak_b:.2f} GiB; outputs within {err_b:.3e} of max|out| "
+          f"of the plain versions' (tolerance {MGN_TOL}) | {smi}")
+    del out, plain
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        x0 = gnn._layernorm(gnn._mlp(omodel.enc_node, obatch["node_feat"]))
+        e0 = gnn._layernorm(gnn._mlp(omodel.enc_edge, obatch["edge_feat"])
+                            ) * obatch["edge_mask"][:, None]
+        msg = torch.cat([e0, x0[obatch["src"]], x0[obatch["dst"]]], dim=-1)
+    b4 = b4_checks({f"layer aggregation ({E:,} x {ocfg.d_hidden} into {n:,} "
+                    f"rows)": (e0, obatch["dst"], n)}, tag="mgn")
+    b5 = kernel_checks({f"edge MLP's first product ({E:,} x "
+                        f"{3 * ocfg.d_hidden} @ {3 * ocfg.d_hidden} x "
+                        f"{ocfg.d_hidden})":
+                        (msg, omodel.layers[0].edge_mlp[0].w)}, {},
+                       tag="mgn")
+    del x0, e0, msg, omodel, obatch
+    torch.cuda.empty_cache()
+    print(f"[mgn] peak device memory: full_graph_sm {peak_a:.2f} GiB, "
+          f"ogb_products / {MGN_OGB_CUT} {peak_b:.2f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f}s | {smi}")
+    return {"b5": served[0] + trained[0] + served_b[0] - trained[3],
+            "b5_grad": trained[3], "b4": served[1] + trained[1] + served_b[1],
+            "gather": trained[2],
+            "b4_err": max(r["max_abs_err"] for r in b4.values()),
+            "b5_err": max(r["max_abs_err"] for r in b5.values()),
+            "worst_grad": worst_a}
+
+
+#: the [geo] phase: nequip (5 layers, C 32) and mace (2 layers, C 128,
+#: correlation 3) at their published widths and depths on molecule's full
+#: dims, nothing cut: 128 molecules of 30 atoms, each in a cube of side
+#: GEO_BOX of its own (the cubes GEO_SPACING apart on a grid around the
+#: origin), its GEO_PAIRS shortest pairs as 120 directed edges, 1,024
+#: padding edges at node 0 (edge_mask 0), one-hot species, targets from
+#: the seed; GEO_SERVES timed serve steps, GEO_STEPS train steps.
+GEO_ARCHS = ("nequip", "mace")
+GEO_SEED = 31
+GEO_BOX, GEO_SPACING, GEO_PAIRS = 3.0, 10.0, 60
+GEO_SERVES = 4
+GEO_STEPS = 3
+#: f32: energies, forces and every gradient leaf within this share of the
+#: plain versions' largest |value|; a rotated copy's energies (rtol = atol)
+#: and forces within the reference's equivariance tolerances
+#: (tests/test_models.py)
+GEO_TOL = 1e-4
+GEO_ROT_E, GEO_ROT_F = 1e-4, 1e-3
+
+
+def molecule_batch(cfg, dims: dict, rng, dev) -> dict:
+    """A molecule batch on the card (see GEO_BOX): positions, the
+    GEO_PAIRS shortest pairs of each molecule in both directions, padded
+    to molecule's 512-multiple edge count with edges at node 0; one-hot
+    species, ``graph_id``, normal energy and force targets."""
+    G = dims["graphs"]
+    A = dims["n"] // G
+    E = -(-2 * dims["e"] // 512) * 512
+    grid = np.stack(np.meshgrid(*[np.arange(k) for k in (8, 4, 4)],
+                                indexing="ij"), -1).reshape(-1, 3)[:G]
+    pos = rng.uniform(0.0, GEO_BOX, (G, A, 3)) + GEO_SPACING * (
+        grid - grid.mean(0))[:, None, :]
+    iu, ju = np.triu_indices(A, 1)
+    d = np.linalg.norm(pos[:, iu] - pos[:, ju], axis=-1)
+    pick = np.argsort(d, axis=1)[:, :GEO_PAIRS]
+    if not np.take_along_axis(d, pick, 1).max() < cfg.cutoff:
+        raise AssertionError("a molecule's edge reaches the cutoff")
+    base = (A * np.arange(G))[:, None]
+    a, b = (iu[pick] + base).ravel(), (ju[pick] + base).ravel()
+    real = 2 * a.shape[0]
+    src = np.zeros(E, np.int32)
+    dst = np.zeros(E, np.int32)
+    src[:real], dst[:real] = np.concatenate([a, b]), np.concatenate([b, a])
+    mask = np.zeros(E, np.float32)
+    mask[:real] = 1.0
+    species = rng.integers(0, cfg.d_species, G * A)
+    host = {"node_feat": np.eye(cfg.d_species, dtype=np.float32)[species],
+            "pos": pos.reshape(-1, 3).astype(np.float32),
+            "src": src, "dst": dst, "edge_mask": mask,
+            "graph_id": np.repeat(np.arange(G), A).astype(np.int32),
+            "energy_target": rng.normal(size=G).astype(np.float32),
+            "force_target": rng.normal(size=(G * A, 3)).astype(np.float32)}
+    return {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+
+
+def geo_arch(arch: str, dev, smi: str) -> dict:
+    """One geometric architecture of [geo]: serving (energies, then forces
+    by autograd), the rotated copy, training; see :func:`geo_phase`."""
+    from repro_torch import configs
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+
+    spec = configs.get(arch)
+    dims = spec.shapes["molecule"]
+    cfg = configs.cell_model_cfg(spec, "molecule")
+    want = GNN_LAUNCHES[arch]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(GEO_SEED)
+    model = configs.init_params(spec, cfg, gen, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    (batch, t_data) = wall(lambda: molecule_batch(
+        cfg, dims, np.random.default_rng(GEO_SEED), dev))
+    G, E = dims["graphs"], int(batch["src"].shape[0])
+    serve = configs.make_serve_step(spec, "molecule")
+    reset_b4_b5()
+    (energy, svt), t_first = wall(lambda: serve(model, batch))
+    served = b4_b5_launches(want["serve"], f"a {arch} serve step")
+    if energy.shape != (G,) or not bool(torch.isfinite(energy).all()):
+        raise AssertionError(f"{arch} energies are not finite ({G},)")
+    plain_e, _ = plain_outputs(lambda: serve(model, batch))
+    err_e = rel_err(energy, plain_e)
+    pattern = ReluPattern()
+    reset_b4_b5()
+    with mock.patch.object(torch, "relu", pattern.record):
+        (e_k, f_k), t_forces = wall(lambda: gnn.energy_and_forces(model,
+                                                                  batch))
+    forced = b4_b5_launches(want["forces"], f"{arch}'s forces")
+    with mock.patch.object(torch, "relu", pattern.replay):
+        e_p, f_p = plain_outputs(lambda: gnn.energy_and_forces(model, batch))
+    err_f = rel_err(f_k, f_p)
+    if not (err_e <= GEO_TOL and err_f <= GEO_TOL
+            and bool(torch.isfinite(f_k).all())):
+        raise AssertionError(f"{arch}: energies {err_e}, forces {err_f} of "
+                             f"max|plain| from the plain versions'")
+    th = 0.9
+    R = torch.tensor([[np.cos(th), -np.sin(th), 0.0],
+                      [np.sin(th), np.cos(th), 0.0], [0.0, 0.0, 1.0]],
+                     dtype=torch.float32, device=dev)
+    rotated = dict(batch, pos=batch["pos"] @ R.T)
+
+    def rot_shares(e_r, f_r):
+        return (float(((e_r - e_k).abs() / (GEO_ROT_E + GEO_ROT_E
+                                            * e_k.abs())).max()),
+                float(((f_r - f_k @ R.T).abs() / (GEO_ROT_F + GEO_ROT_F
+                                                  * f_r.abs())).max()))
+    # relu's inputs (radial MLPs, readout) are rotation-invariant, but the
+    # rotated positions round differently in f32, so an input within that
+    # rounding of 0 can take the other sign and move a force by a whole
+    # term: the rotated run replays the first run's relu pattern
+    own = rot_shares(*gnn.energy_and_forces(model, rotated))
+    rot = ReluPattern()
+    rot.inputs = pattern.inputs
+    with mock.patch.object(torch, "relu", rot.replay):
+        rot_e, rot_f = rot_shares(*gnn.energy_and_forces(model, rotated))
+    if not (rot_e <= 1.0 and rot_f <= 1.0):
+        raise AssertionError(f"{arch}: a rotated copy's energies reach "
+                             f"{rot_e} and forces {rot_f} of their tolerance "
+                             f"({rot.flips} relu inputs flipped)")
+    fwd = sorted(wall(lambda: serve(model, batch))[1]
+                 for _ in range(GEO_SERVES))[GEO_SERVES // 2]
+    flops = configs.model_flops(spec, "molecule",
+                                dims=dict(dims, kind="serve"))
+    print(f"[geo] {arch} at full width and depth ({cfg.n_layers} layers, C "
+          f"{cfg.d_hidden}, n_rbf {cfg.n_rbf}, cutoff {cfg.cutoff}"
+          + (f", correlation {cfg.correlation_order}"
+             if hasattr(cfg, "correlation_order") else "")
+          + f"; {n_params:,} f32 parameters from seed {GEO_SEED}) on "
+          f"molecule's full dims ({G} molecules x {dims['n'] // G} atoms, "
+          f"{E:,} directed edges with {E - int(batch['edge_mask'].sum()):,} "
+          f"padding at node 0; batch built in {t_data:.3f}s; nothing cut): "
+          f"make_serve_step launched {launch_clause(served)} (first "
+          f"{t_first:.3f}s); energies within {err_e:.3e} of max|plain| of "
+          f"the plain versions'; forces by autograd ({launch_clause(forced)}; "
+          f"{t_forces:.3f}s) within {err_f:.3e} (tolerance {GEO_TOL}; the "
+          f"plain run replays the kernel run's relu pattern, "
+          f"{pattern.flips} flips); a copy rotated 0.9 rad about z, "
+          f"replaying the relu pattern ({rot.flips} of {rot.entries:,} "
+          f"inputs flipped): energies at {rot_e:.3f} and forces at "
+          f"{rot_f:.3f} of the reference's tolerances ({GEO_ROT_E}, "
+          f"{GEO_ROT_F}; on its own pattern {own[0]:.3f} and {own[1]:.3f}); "
+          f"max|F| {float(f_k.abs().max()):.3e}; serving "
+          f"{fwd * 1e3:.3f} ms a batch (median of {GEO_SERVES}) = "
+          f"{G / fwd:,.1f} molecules/s, model FLOPs {flops:.4e} = "
+          f"{flops / fwd / 67e12:.4f} of the f32 peak | {smi}")
+    print(f"[geo] {arch} serve step under torch.profiler: " + profiled(
+        lambda: serve(model, batch), {"B4": is_b4, "B5": is_b5}) + f" | {smi}")
+    del svt, energy, plain_e, e_k, f_k, e_p, f_p
+
+    opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+    step = configs.make_train_step(spec, cfg, opt_cfg)
+    state = adamw.init_state(dict(model.named_parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for i in range(GEO_STEPS):
+        b = batch if i == 0 else molecule_batch(
+            cfg, dims, np.random.default_rng(GEO_SEED + i), dev)
+        if i == 0:
+            reset_b4_b5()
+        (_, state, m), t = wall(lambda: step(model, state, b))
+        if i == 0:
+            trained = b4_b5_launches(want["train"], f"a {arch} train step")
+        losses.append(float(m["loss"]))
+        step_s.append(t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch} losses are not finite: {losses}")
+    ts = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    print(f"[geo] {arch} train: {GEO_STEPS} make_train_step steps (energy "
+          f"+ 10 x force loss; the forces by autograd with create_graph, so "
+          f"the step differentiates them again through B4 and B5); the first "
+          f"launched {launch_clause(trained)}; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; step {ts:.4f}s after the "
+          f"first ({step_s[0]:.3f}s) = {G / ts:,.1f} molecules/s trained; "
+          f"peak device memory {peak:.2f} GiB | {smi}")
+    print(f"[geo] {arch} train step under torch.profiler: " + profiled(
+        lambda: step(model, state, batch), {"B4": is_b4, "B5": is_b5})
+        + f" | {smi}")
+    worst = grads_check(spec, cfg, model, batch, "train step's loss and "
+                        "every gradient", GEO_TOL, smi)
+    worst_f = grads_check(spec, cfg, model, batch, "the force loss's "
+                          "gradient alone (10 x f_loss: it exists only "
+                          "through the second derivative)", GEO_TOL, smi,
+                          loss_fn=lambda mm, bb: 10.0 * gnn.geo_loss_terms(
+                              mm, bb)[1])
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return {"b5": served[0] + forced[0] + trained[0] - forced[3]
+            - trained[3], "b5_grad": forced[3] + trained[3],
+            "b4": served[1] + forced[1] + trained[1],
+            "gather": forced[2] + trained[2], "peak": peak,
+            "worst_grad": max(worst, worst_f)}
+
+
+def geo_phase(dev, smi: str) -> dict:
+    """[geo]: nequip and mace served and trained on the card at full width
+    and depth on molecule's full dims. Per architecture: the serve step's
+    energies (launches counted and held to GNN_LAUNCHES), the forces by
+    autograd of their sum (counted), both against the plain versions on
+    the card; a rotated copy within the reference's equivariance
+    tolerances; GEO_STEPS train steps (the first counted), then the loss
+    and every gradient, and the force loss's gradient alone, against the
+    plain versions. Returns the launches summed over both."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = [geo_arch(arch, dev, smi) for arch in GEO_ARCHS]
+    out = {k: sum(r[k] for r in runs) for k in ("b5", "b5_grad", "b4",
+                                                 "gather")}
+    print(f"[geo] phase {time.perf_counter() - t_phase:.1f}s; launches over "
+          f"both: B5 {out['b5'] + out['b5_grad']} ({out['b5_grad']} "
+          f"gradients), B4 {out['b4']}, B4 gather {out['gather']} | {smi}")
+    return out
+
+
 #: the [moe] phase: qwen2-moe-a2.7b at full width and depth (24 layers; 60
 #: routed experts of 1,408, top-4, 4 shared), drawn on the card from
 #: MOE_SEED: prefill 1 x MOE_SEQ tokens (prefill_32k cut as [lm]'s: batch
@@ -2241,7 +2754,8 @@ def moe_phase(dev, smi: str) -> dict:
         pieces = {
             "router (B5 f32 + softmax)": lambda: tfm.router_probs(p0.moe, m,
                                                                   h),
-            "route + dispatch (top-k, sort, searchsorted, the row gather)":
+            "route + dispatch (two stable sorts, searchsorted, the row "
+            "gather)":
                 dispatched,
             f"experts ({3 * E} B5 launches)": lambda: tfm.experts(p0.moe,
                                                                   buf, C),
@@ -2251,6 +2765,19 @@ def moe_phase(dev, smi: str) -> dict:
                 lambda: tfm.shared_experts(p0.moe, m, h)}
         times = {name: call_times(fn, iters=10) for name, fn in
                  pieces.items()}
+        # route is a stable descending sort (ties to the lower index, as
+        # jax.lax.top_k); its earlier form, torch.topk, timed beside it
+        route_t = {"route (stable sort)": call_times(
+                       lambda: tfm.route(probs, K), iters=10),
+                   "torch.topk (the earlier route)": call_times(
+                       lambda: torch.topk(probs, K, dim=-1).indices,
+                       iters=10)}
+        top = probs.topk(K + 1, dim=-1).values
+        ties = int((top[:, K - 1] == top[:, K]).sum())
+    print(f"[moe] routing alone on layer 0's {seq:,} x {E} probabilities, "
+          f"top-{K}: " + show(route_t) + f"; {ties} tokens tie at the "
+          f"{K}-th probability, where the sort keeps the lower expert "
+          f"index | {smi}")
     layer_ms = sum(t for t, _ in times.values())
     busy = shares.get("busy_s", float("nan"))
     print(f"[moe] one MoE layer's pieces alone on layer 0's prefill operands "
@@ -4709,6 +5236,15 @@ def main() -> int:
     lm_records[1]["launches"] += moe["b6"]
     trained["records"][0]["launches"] += moe["b5_grad"]
     trained["records"][1]["launches"] += moe["b6_bwd"]
+    mgn = mgn_phase(dev, smi)
+    geo = geo_phase(dev, smi)
+    for run in (mgn, geo):
+        b5_record["launches"] += run["b5"]
+        b4_record["launches"] += run["b4"]
+        trained["records"][0]["launches"] += run["b5_grad"]
+        trained["records"][2]["launches"] += run["gather"]
+    b5_record["max_abs_err"] = max(b5_record["max_abs_err"], mgn["b5_err"])
+    b4_record["max_abs_err"] = max(b4_record["max_abs_err"], mgn["b4_err"])
 
     csrc = "src/repro_torch/kernels/csrc/"
     records = [

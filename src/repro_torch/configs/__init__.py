@@ -1,6 +1,6 @@
 """Config registry of the port: one module per ported architecture (the
-five LMs, dense and MoE, and GraphSAGE; the reference's other
-architectures wait for ROADMAP A8)."""
+five LMs, dense and MoE, and the four GNNs; the reference's recsys
+architecture, mind, waits for ROADMAP A8)."""
 
 from .base import (GNN_SHAPES, LM_SHAPES, LM_SKIPS, REGISTRY, ArchSpec,
                    abstract_params, all_cells, cell_model_cfg, get,
@@ -14,7 +14,8 @@ __all__ = ["GNN_SHAPES", "LM_SHAPES", "LM_SKIPS", "REGISTRY", "ArchSpec",
            "smoke_dims"]
 
 _ARCH_MODULES = ("dbrx_132b", "qwen2_moe_a2_7b", "glm4_9b", "codeqwen1_5_7b",
-                 "qwen1_5_110b", "graphsage_reddit")
+                 "qwen1_5_110b", "meshgraphnet", "nequip", "graphsage_reddit",
+                 "mace")
 
 
 def load_all():

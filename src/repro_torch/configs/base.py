@@ -1,18 +1,18 @@
 """Architecture/shape registry of the port: the LM (dense and MoE) and
-GraphSAGE parts of ``repro.configs.base``.
+GNN parts of ``repro.configs.base``.
 
 Every (arch x shape) cell (:func:`all_cells`) resolves to a model config
 (:func:`cell_model_cfg`), its inputs and parameters as shapes and dtypes
 on the ``meta`` device (:func:`input_specs`, :func:`abstract_params`), a
-serve step (:func:`make_serve_step`: an LM's prefill and decode,
-GraphSAGE's forward), a train step (:func:`make_train_step`: the loss of
+serve step (:func:`make_serve_step`: an LM's prefill and decode, a
+GNN's forward), a train step (:func:`make_train_step`: the loss of
 :func:`loss_for` differentiated through the kernels' gradients, then one
 AdamW update in place) and its analytic model FLOPs
 (:func:`model_flops`); :func:`init_params` draws a model and
 :func:`smoke_dims` gives a cell's reduced dims. The sharding specs
-(``param_specs``, ``batch_specs``, ``opt_specs``: they need a mesh), the
-other GNN families (MeshGraphNet, NequIP, MACE) and recsys are not ported
-yet (ROADMAP A8) and raise.
+(``param_specs``, ``batch_specs``, ``opt_specs``: they need a mesh) and
+recsys are not ported yet (ROADMAP A8) and raise, as does a GNN config
+type the port does not know.
 """
 
 from __future__ import annotations
@@ -91,12 +91,14 @@ GNN_SHAPES = {
 
 
 def _ported(spec: ArchSpec) -> None:
-    """Raise unless the arch is an LM (dense or MoE) or GraphSAGE."""
+    """Raise unless the arch is an LM (dense or MoE) or one of the four
+    GNNs (its config one of the port's GNN config types)."""
     if spec.family == "gnn":
-        if not isinstance(spec.model_cfg, gnn_mod.SAGEConfig):
+        if type(spec.model_cfg) not in gnn_mod.MODELS:
             raise NotImplementedError(
-                f"{spec.id}: of the GNN family only GraphSAGE is ported "
-                "(ROADMAP A8: MeshGraphNet, NequIP and MACE come later)")
+                f"{spec.id}: the port's GNN family is MeshGraphNet, "
+                f"GraphSAGE, NequIP and MACE, and knows no "
+                f"{type(spec.model_cfg).__name__} (ROADMAP A8)")
     elif not spec.family.startswith("lm"):
         raise NotImplementedError(
             f"{spec.id}: the {spec.family} family is not ported yet (ROADMAP "
@@ -105,15 +107,19 @@ def _ported(spec: ArchSpec) -> None:
 
 def cell_model_cfg(spec: ArchSpec, shape_name: str, smoke: bool = False):
     """The cell's model config (``spec.smoke_cfg`` with ``smoke``): an LM's
-    own (no per-shape change); GraphSAGE's with ``d_in`` set to the
-    shape's feature width, or to 8 for a smoke config."""
+    own (no per-shape change); a GNN's with its input width set to the
+    shape's feature width, or to 8 for a smoke config: MeshGraphNet's
+    ``d_node_in``, GraphSAGE's ``d_in``, NequIP's and MACE's
+    ``d_species``."""
     _ported(spec)
     if shape_name not in spec.shapes:
         raise KeyError(f"{spec.id} has no shape {shape_name!r}")
     cfg = spec.smoke_cfg if smoke else spec.model_cfg
     if spec.family == "gnn":
         d_feat = 8 if smoke else spec.shapes[shape_name]["d_feat"]
-        return dataclasses.replace(cfg, d_in=d_feat)
+        field = {gnn_mod.MGNConfig: "d_node_in",
+                 gnn_mod.SAGEConfig: "d_in"}.get(type(cfg), "d_species")
+        return dataclasses.replace(cfg, **{field: d_feat})
     return cfg
 
 
@@ -128,8 +134,11 @@ def input_specs(spec: ArchSpec, shape_name: str, dims: dict | None = None,
     (shapes and dtypes, nothing allocated), the reference's: an LM's
     int32 ``tokens`` (and ``labels`` to train), at decode ``tokens`` (B,
     1), the ``cache`` (:func:`models.transformer.abstract_cache`) and a
-    0-dim int32 ``cache_len``; GraphSAGE's unified graph batch, its edge
-    arrays doubled and padded to a multiple of 512."""
+    0-dim int32 ``cache_len``; a GNN's unified graph batch, its edge
+    arrays doubled and padded to a multiple of 512, with MeshGraphNet's
+    ``edge_feat`` and ``target``, GraphSAGE's ``labels`` and
+    ``seed_mask``, or NequIP's and MACE's ``pos``, ``graph_id``,
+    ``energy_target`` and ``force_target``."""
     _ported(spec)
     dims = dims or spec.shapes[shape_name]
     cfg = model_cfg or cell_model_cfg(spec, shape_name)
@@ -146,12 +155,22 @@ def input_specs(spec: ArchSpec, shape_name: str, dims: dict | None = None,
                 "cache_len": _meta((), torch.int32)}
     n = dims["n"]
     e2 = math.ceil(2 * dims["e"] / 512) * 512
-    return {"node_feat": _meta((n, dims["d_feat"]), torch.float32),
-            "src": _meta((e2,), torch.int32),
-            "dst": _meta((e2,), torch.int32),
-            "edge_mask": _meta((e2,), torch.float32),
-            "labels": _meta((n,), torch.int32),
-            "seed_mask": _meta((n,), torch.bool)}
+    out = {"node_feat": _meta((n, dims["d_feat"]), torch.float32),
+           "src": _meta((e2,), torch.int32),
+           "dst": _meta((e2,), torch.int32),
+           "edge_mask": _meta((e2,), torch.float32)}
+    if isinstance(cfg, gnn_mod.MGNConfig):
+        out["edge_feat"] = _meta((e2, cfg.d_edge_in), torch.float32)
+        out["target"] = _meta((n, cfg.d_out), torch.float32)
+    elif isinstance(cfg, gnn_mod.SAGEConfig):
+        out["labels"] = _meta((n,), torch.int32)
+        out["seed_mask"] = _meta((n,), torch.bool)
+    else:                                             # NequIP, MACE
+        out["pos"] = _meta((n, 3), torch.float32)
+        out["graph_id"] = _meta((n,), torch.int32)
+        out["energy_target"] = _meta((dims["graphs"],), torch.float32)
+        out["force_target"] = _meta((n, 3), torch.float32)
+    return out
 
 
 def abstract_params(spec: ArchSpec, model_cfg) -> torch.nn.Module:
@@ -160,7 +179,7 @@ def abstract_params(spec: ArchSpec, model_cfg) -> torch.nn.Module:
     reference's ``jax.eval_shape`` of the family's init)."""
     _ported(spec)
     if spec.family == "gnn":
-        return gnn_mod.GraphSAGE(model_cfg, device="meta")
+        return gnn_mod.model_of(model_cfg, device="meta")
     return tfm.abstract_params(model_cfg)
 
 
@@ -170,10 +189,12 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
     reference's: prefill takes ``{"tokens": (B, S)}`` and returns the f32
     logits (B, S, vocab); decode takes ``{"tokens": (B, 1), "cache",
     "cache_len"}`` and returns ``(logits (B, vocab), cache)``, the cache
-    updated in place (``models.transformer.decode_step``). GraphSAGE's,
-    for any of its shapes, takes the unified graph batch (``node_feat``,
-    ``src``, ``dst``, optionally ``edge_mask``) and returns the f32 logits
-    (n, n_classes) (``models.gnn.sage_forward``)."""
+    updated in place (``models.transformer.decode_step``). A GNN's, for
+    any of its shapes, takes the unified graph batch under inference mode
+    and returns the reference's outputs: MeshGraphNet's (n, d_out)
+    (``models.gnn.mgn_forward``), GraphSAGE's f32 logits (n, n_classes)
+    (``sage_forward``), NequIP's and MACE's ``(energy (graphs,), (s, V,
+    T))`` (``geo_forward``)."""
     cfg = model_cfg or cell_model_cfg(spec, shape_name)
     _ported(spec)
     kind = spec.shapes[shape_name]["kind"]
@@ -185,8 +206,10 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
         return model
 
     if spec.family == "gnn":
+        fwd = gnn_mod.FORWARDS[type(cfg)]
+
         def serve_step(model, batch):
-            return gnn_mod.sage_forward(_model_of(model), batch)
+            return fwd(_model_of(model), batch)
         return serve_step
     if kind == "prefill":
         def serve_step(model, batch):
@@ -230,12 +253,14 @@ def init_params(spec: ArchSpec, model_cfg, generator: torch.Generator,
 
 def loss_for(spec: ArchSpec, model_cfg) -> Callable:
     """``loss(model, batch)``, the reference's: an LM's
-    ``transformer.loss_fn`` over ``{"tokens", "labels"}``, GraphSAGE's
-    ``gnn.sage_loss`` over the graph batch with ``labels`` and
-    ``seed_mask``."""
+    ``transformer.loss_fn`` over ``{"tokens", "labels"}``; a GNN's over
+    the graph batch: ``gnn.mgn_loss`` (``target``), ``gnn.sage_loss``
+    (``labels``, ``seed_mask``) or ``gnn.geo_loss`` (energies and forces,
+    the forces with their graph, so that the train step differentiates
+    them once more)."""
     _ported(spec)
     if spec.family == "gnn":
-        return lambda model, batch: gnn_mod.sage_loss(model, batch)
+        return gnn_mod.LOSSES[type(model_cfg)]
     return lambda model, batch: tfm.loss_fn(model, batch["tokens"],
                                             batch["labels"])
 
@@ -261,8 +286,12 @@ def make_train_step(spec: ArchSpec, model_cfg,
         for p in params.values():
             p.requires_grad_(True)
         lval = loss(model, batch)
+        # a parameter the loss does not reach (NequIP's last mix_v and
+        # mix_t: the energy reads the last layer's scalars only) gets a
+        # zero gradient, as jax.grad gives it
         grads = dict(zip(params, torch.autograd.grad(
-            lval, list(params.values()))))
+            lval, list(params.values()), allow_unused=True,
+            materialize_grads=True)))
         _, opt_state, metrics = adamw.apply_updates(opt_cfg, params, grads,
                                                     opt_state)
         return model, opt_state, {"loss": lval.detach(), **metrics}
@@ -277,19 +306,16 @@ def model_flops(spec: ArchSpec, shape_name: str, dims: dict | None = None,
     term) to train, 2·N per token to infer, plus the attention over the
     cache at decode; N counts the active parameters (every one of a dense
     model; a MoE model's routed top-k and shared experts), the embedding
-    included. GraphSAGE: the dense products over all ``n`` nodes of the
-    shape (self and neighbour projections of every layer, the head), three
-    times that to train; the aggregation's adds are not counted.
+    included. A GNN: the reference's closed forms from the layer algebra,
+    over all ``n`` nodes and ``2e`` directed edges of the shape (the
+    aggregation's adds are not counted), three times that to train.
     ``model_cfg`` counts another config than the cell's (a smoke one)."""
     _ported(spec)
     dims = dims or spec.shapes[shape_name]
     cfg = model_cfg or cell_model_cfg(spec, shape_name)
     if spec.family == "gnn":
-        n, h = dims["n"], cfg.d_hidden
-        per_node = (2 * (2.0 * cfg.d_in * h)                 # self + neigh
-                    + (cfg.n_layers - 1) * 2 * (2.0 * h * h)
-                    + 2.0 * h * cfg.n_classes)               # head
-        return (3.0 if dims["kind"] == "train" else 1.0) * per_node * n
+        fwd = _gnn_forward_flops(cfg, dims["n"], 2 * dims["e"])
+        return 3.0 * fwd if dims["kind"] == "train" else fwd
     B, S = dims["batch"], dims["seq"]
     N = cfg.active_param_count
     L, Hq, dh = cfg.n_layer, cfg.n_head, cfg.d_head
@@ -298,3 +324,39 @@ def model_flops(spec: ArchSpec, shape_name: str, dims: dict | None = None,
     if dims["kind"] == "prefill":
         return 2.0 * N * B * S + 2.0 * L * B * S * S * Hq * dh
     return 2.0 * N * B + 4.0 * L * B * S * Hq * dh
+
+
+def _mlp_flops(dims: list, rows: float) -> float:
+    return sum(2.0 * a * b for a, b in zip(dims[:-1], dims[1:])) * rows
+
+
+def _gnn_forward_flops(cfg, n: int, e2: int) -> float:
+    """One forward's model FLOPs over ``n`` nodes and ``e2`` directed
+    edges, the reference's terms in its order (``model_flops``)."""
+    h = cfg.d_hidden
+    fwd = 0.0
+    if isinstance(cfg, gnn_mod.MGNConfig):
+        hid = [h] * cfg.mlp_layers
+        fwd += _mlp_flops([cfg.d_node_in] + hid + [h], n)
+        fwd += _mlp_flops([cfg.d_edge_in] + hid + [h], e2)
+        fwd += cfg.n_layers * (_mlp_flops([3 * h] + hid + [h], e2)
+                               + _mlp_flops([2 * h] + hid + [h], n))
+        fwd += _mlp_flops([h] + hid + [cfg.d_out], n)
+    elif isinstance(cfg, gnn_mod.SAGEConfig):
+        fwd += 2 * _mlp_flops([cfg.d_in, h], n)                # self+neigh
+        fwd += (cfg.n_layers - 1) * 2 * _mlp_flops([h, h], n)
+        fwd += _mlp_flops([h, cfg.n_classes], n)
+    else:            # NequIP, MACE (Cartesian irreps: 1, 3, 9; 3 paths each)
+        C = cfg.d_hidden
+        irrep_sz = 1 + 3 + 9
+        per_edge = (_mlp_flops([cfg.n_rbf, cfg.radial_hidden, 3 * C * 3], 1.0)
+                    + 2.0 * 3 * C * irrep_sz)   # path products + weighting
+        per_node = 2.0 * C * C * irrep_sz       # channel mixes
+        fwd += cfg.n_layers * (per_edge * e2 + per_node * n)
+        if isinstance(cfg, gnn_mod.MACEConfig):
+            # correlation products + B-basis projections (orders 2, 3)
+            fwd += cfg.n_layers * n * (2.0 * (3 * C) * C
+                                       + 2 * 2.0 * (2 * C) * C * 3
+                                       + 2 * 2.0 * (2 * C) * C * 9) * 2
+        fwd += _mlp_flops([C, C, 1], n)
+    return fwd

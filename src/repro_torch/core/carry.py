@@ -23,8 +23,9 @@ tab)``).
 
 :func:`lm_params_from_reference` carries a reference LM's weights (the
 JAX params pytree as numpy arrays) into the port's state dict,
-:func:`sage_params_from_reference` a reference GraphSAGE's, and
-:func:`adamw_state_from_reference` the reference AdamW state of either.
+:func:`gnn_params_from_reference` a reference GNN's (MeshGraphNet,
+GraphSAGE, NequIP, MACE), and :func:`adamw_state_from_reference` the
+reference AdamW state of any of them.
 """
 
 from __future__ import annotations
@@ -107,17 +108,27 @@ def lm_params_from_reference(tree) -> dict[str, torch.Tensor]:
     return state
 
 
-def sage_params_from_reference(tree) -> dict[str, torch.Tensor]:
-    """The port's GraphSAGE state dict from a reference GraphSAGE params
-    pytree (``repro.models.gnn.sage_init``'s dict as numpy arrays:
-    ``layers``, a list of ``{w_self, w_neigh, b}``, and ``head``). Returns
-    ``{name: tensor}`` under the names of ``models.gnn.GraphSAGE``
-    (``layers.<i>.w_self``, ..., ``head``), each of its array's dtype, for
-    ``GraphSAGE.load_state_dict``."""
-    state = {"head": _tensor(tree["head"])}
-    for i, layer in enumerate(tree["layers"]):
-        for name, val in layer.items():
-            state[f"layers.{i}.{name}"] = _tensor(val)
+def gnn_params_from_reference(tree) -> dict[str, torch.Tensor]:
+    """The port's state dict of a GNN from a reference GNN params pytree
+    (``repro.models.gnn``'s ``mgn_init``, ``sage_init``, ``nequip_init``
+    or ``mace_init`` as numpy arrays): nested dicts and lists flattened
+    into dotted names, a list's items by position (``enc_node.0.w``,
+    ``layers.3.edge_mlp.1.b``, ``layers.0.prod.s2``, ``head``), the names
+    of ``models.gnn``'s modules; each tensor of its array's dtype, for
+    ``load_state_dict``."""
+    state = {}
+
+    def walk(prefix: str, node) -> None:
+        items = (node.items() if isinstance(node, dict)
+                 else enumerate(node) if isinstance(node, (list, tuple))
+                 else None)
+        if items is None:
+            state[prefix[:-1]] = _tensor(node)
+            return
+        for key, val in items:
+            walk(f"{prefix}{key}.", val)
+
+    walk("", tree)
     return state
 
 
@@ -125,12 +136,15 @@ def adamw_state_from_reference(state) -> dict:
     """The port's AdamW state (``optim.adamw.init_state``'s form) from the
     reference's ``{"mu", "nu", "step"}`` (``repro.optim.adamw``'s state as
     numpy arrays): ``mu`` and ``nu``, pytrees of the params' structure,
-    become ``{name: tensor}`` under the port's parameter names (through
-    :func:`lm_params_from_reference` for an LM's tree, which has
-    ``embed``, else :func:`sage_params_from_reference`), ``step`` an int32
-    0-dim tensor. CPU tensors; ``.to(device)`` them for the card."""
-    carry = (lm_params_from_reference if "embed" in state["mu"]
-             else sage_params_from_reference)
+    become ``{name: tensor}`` under the port's parameter names, ``step``
+    an int32 0-dim tensor. The carrier is picked by the tree's structure:
+    an LM's ``layers`` is a dict of arrays stacked on a layer axis
+    (:func:`lm_params_from_reference`), a GNN's a list of per-layer dicts
+    (:func:`gnn_params_from_reference`; NequIP and MACE have an ``embed``
+    too, an MLP where an LM's is a table). CPU tensors; ``.to(device)``
+    them for the card."""
+    lm = isinstance(state["mu"].get("layers"), dict)
+    carry = lm_params_from_reference if lm else gnn_params_from_reference
     return {"mu": carry(state["mu"]), "nu": carry(state["nu"]),
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32)}

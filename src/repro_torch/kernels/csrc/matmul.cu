@@ -314,13 +314,14 @@ template <int BM, int BN, int BK, int NTHREADS>
 __device__ __forceinline__ void load_tiles(bf16* As, bf16* Bs,
                                            const bf16* __restrict__ A,
                                            const bf16* __restrict__ B, int M,
-                                           int N, int K, int m0, int n0,
+                                           int N, int K, long long m0, int n0,
                                            int k0, int k_end) {
   constexpr int LDA = BK + 8, LDB = BN + 8;
   constexpr int A_CHUNKS = BM * BK / 8, B_CHUNKS = BK * BN / 8;
   for (int c = threadIdx.x; c < A_CHUNKS; c += NTHREADS) {
     int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-    int gm = m0 + r, gk = k0 + kc;
+    long long gm = m0 + r;
+    int gk = k0 + kc;
     bf16* dst = As + r * LDA + kc;
 #pragma unroll
     for (int e = 0; e < 8; ++e)
@@ -358,7 +359,9 @@ __global__ void __launch_bounds__(MK_THREADS)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / (MK_BN / MK_WN), wn = warp % (MK_BN / MK_WN);
-  const int m0 = blockIdx.y * MK_BM, n0 = blockIdx.x * MK_BN;
+  // row tiles on the grid's x (up to 2^31 - 1 of them), column tiles on y
+  const long long m0 = (long long)blockIdx.x * MK_BM;
+  const int n0 = blockIdx.y * MK_BN;
   const int k_begin = blockIdx.z * k_split;
   const int k_end = min(K, k_begin + k_split);
   C += (size_t)blockIdx.z * M * N;
@@ -404,7 +407,7 @@ __global__ void __launch_bounds__(MK_THREADS)
       wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
       int r = lane / 2, c0 = (lane % 2) * 8;
-      int gm = m0 + wm * MK_WM + i * 16 + r;
+      long long gm = m0 + wm * MK_WM + i * 16 + r;
       int gn = n0 + wn * MK_WN + j * 16 + c0;
       if (gm < M) {
 #pragma unroll
@@ -475,7 +478,9 @@ __global__ void __launch_bounds__((BM / 8) * (BN / 8), 384 / (BM / 8 * BN / 8))
   __shared__ __align__(16) float As[2][A_ELEMS];
   __shared__ __align__(16) float Bs[2][B_ELEMS];
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // row tiles on the grid's x (up to 2^31 - 1 of them), column tiles on y
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
   const int n_k = (K + F_BK - 1) / F_BK;
 
   // load coordinates, fixed over the K loop
@@ -547,7 +552,7 @@ __global__ void __launch_bounds__((BM / 8) * (BN / 8), 384 / (BM / 8 * BN / 8))
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    int gm = m0 + (i / 4) * (BM / 2) + 4 * ty + i % 4;
+    long long gm = m0 + (i / 4) * (BM / 2) + 4 * ty + i % 4;
     if (gm >= M) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -569,7 +574,7 @@ __global__ void __launch_bounds__((BM / 8) * (BN / 8), 384 / (BM / 8 * BN / 8))
 template <int BM, int BN, bool B_VEC>
 static int launch_f32(const float* A, const float* B, float* C, int M, int N,
                       int K, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
   gemm_f32<BM, BN, B_VEC><<<grid, (BM / 8) * (BN / 8), 0, stream>>>(
       A, B, C, M, N, K);
   return (int)cudaGetLastError();
@@ -611,7 +616,7 @@ int matmul_tma_launch(const void* A, const void* B, void* out, int M, int N,
 int matmul_masked_launch(const void* A, const void* B, void* out, int M,
                          int N, int K, int k_split, int splits,
                          void* stream_ptr) {
-  dim3 grid((N + MK_BN - 1) / MK_BN, (M + MK_BM - 1) / MK_BM, splits);
+  dim3 grid((M + MK_BM - 1) / MK_BM, (N + MK_BN - 1) / MK_BN, splits);
   gemm_bf16_masked<<<grid, MK_THREADS, MK_SMEM,
                      static_cast<cudaStream_t>(stream_ptr)>>>(
       static_cast<const bf16*>(A), static_cast<const bf16*>(B),

@@ -11,10 +11,19 @@ The three kernels the models run, B5 :func:`matmul`, B4
 ``torch.autograd.Function``s whose backward is a kernel too: B5 twice on
 transposed operands (``segment_matmul.matmul_grads``), B4's gather
 (``segment_matmul.segment_gather``) and B6's backward
-(``flash_attention.flash_attention_bwd``), each on the plain formula of
-``ref.py`` for CPU tensors. :func:`gather_rows` is a row gather whose
-gradient is B4. Under ``torch.inference_mode`` (serving) they run their
-forward alone.
+(``flash_attention.flash_attention_bwd``). :func:`gather_rows` is a row
+gather whose gradient is B4. Under ``torch.inference_mode`` (serving)
+they run their forward alone.
+
+B5 and B4 are twice differentiable, on either device: the backward of
+:func:`matmul` calls :func:`matmul` itself, that of :func:`segment_sum`
+the gather as a Function whose own gradient is :func:`segment_sum`, and
+that of :func:`gather_rows` :func:`segment_sum`. A gradient taken with
+``create_graph=True`` (NequIP's and MACE's forces) therefore has a graph
+of these Functions, and the force loss's gradient runs on the kernels
+too. Without ``create_graph`` the backward launches what it launched
+before. B6's backward is once differentiable and says so: a second
+backward through it raises.
 """
 
 import torch
@@ -39,7 +48,8 @@ class _MatMul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dc):
         a, b = ctx.saved_tensors
-        return _sm.matmul_grads(a, b, dc, *ctx.needs_input_grad[:2])
+        return _sm.matmul_grads(a, b, dc, *ctx.needs_input_grad[:2],
+                                mm=matmul)
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -54,7 +64,23 @@ class _SegmentSum(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
             return None, None, None
-        return _sm.segment_gather(dout, ids, ctx.vals_dtype), None, None
+        return _SegmentGather.apply(dout, ids, ctx.vals_dtype), None, None
+
+
+class _SegmentGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dout, ids, dtype):
+        ctx.save_for_backward(ids)
+        ctx.S, ctx.dout_dtype = dout.shape[0], dout.dtype
+        return _sm.segment_gather(dout, ids, dtype)
+
+    @staticmethod
+    def backward(ctx, dg):
+        (ids,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        return (segment_sum(dg.contiguous(), ids, ctx.S).to(ctx.dout_dtype),
+                None, None)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -71,6 +97,7 @@ class _FlashAttention(torch.autograd.Function):
         return o
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, do):
         q, k, v, o, *lse = ctx.saved_tensors
         dq, dk, dv, _ = _fa.flash_attention_bwd(
@@ -89,21 +116,24 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         (idx,) = ctx.saved_tensors
-        return segment_sum(dy, idx, ctx.n).to(dy.dtype), None
+        # dy may be a slice of a wider gradient (a concatenation's)
+        return segment_sum(dy.contiguous(), idx, ctx.n).to(dy.dtype), None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """B5: f32[M, N] = a @ b (``segment_matmul.matmul``), differentiable:
-    ``da = dc @ b^T`` and ``db = a^T @ dc`` as two more B5 launches, each
-    rounded to its operand's dtype."""
+    """B5: f32[M, N] = a @ b (``segment_matmul.matmul``), twice
+    differentiable: ``da = dc @ b^T`` and ``db = a^T @ dc`` are two more
+    calls of this function (B5 launches on the card), each rounded to its
+    operand's dtype."""
     return _MatMul.apply(a, b)
 
 
 def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """B4: f32[num_segments, d] sums of ``vals``' rows by ``ids``
-    (``segment_matmul.segment_sum``), differentiable in ``vals``: the
-    gradient is B4's gather, in ``vals``' dtype."""
+    (``segment_matmul.segment_sum``), twice differentiable in ``vals``: the
+    gradient is B4's gather, in ``vals``' dtype, whose gradient is this
+    function again."""
     return _SegmentSum.apply(vals, ids, num_segments)
 
 

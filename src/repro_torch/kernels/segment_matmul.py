@@ -242,6 +242,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("the matmul kernel takes contiguous operands")
     (M, K), N = a.shape, b.shape[1]
+    if max(M, N, K) >= 2**31:
+        raise ValueError(f"the matmul kernel takes dims below 2**31, got "
+                         f"({M}, {K}) @ ({K}, {N})")
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     if M == 0 or N == 0:
         return out
@@ -249,9 +252,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out.zero_()
     p = plan(M, N, K, a.dtype,
              a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
-    if p.route in ("masked", "f32") and math.ceil(M / p.tile[0]) > 65535:
-        raise ValueError(f"the {p.route} route takes at most "
-                         f"{65535 * p.tile[0]:,} rows, got {M}")
     lib = _library()[0]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -388,28 +388,39 @@ segment_sum.launches = 0
 
 
 def matmul_grads(a: torch.Tensor, b: torch.Tensor, dc: torch.Tensor,
-                 need_a: bool = True, need_b: bool = True):
+                 need_a: bool = True, need_b: bool = True, mm=None):
     """B5's gradient: ``(da, db)`` of ``c = a @ b`` given ``dc`` (M, N),
-    ``da = dc @ b^T`` and ``db = a^T @ dc``, each one :func:`matmul` launch
-    (f32 accumulation) rounded to its operand's dtype, None where not
-    needed. ``dc`` is taken in the operands' type on the card
-    (:func:`operand_dtype`: bf16 for a bf16 product, whose f32 output the
-    models round to bf16 at once, so the rounding is exact there). The
-    transposed operands are contiguous copies (the kernel reads its
-    operands as they lie): glm4's head, 1.24 GB, is copied once a step.
-    CPU tensors take ``ref.matmul_grads``. ``matmul_grads.launches`` counts
-    the B5 launches made here (also counted in ``matmul.launches``)."""
-    if a.device.type == "cpu":
-        return ref.matmul_grads(a, b, dc, need_a, need_b)
-    dt = operand_dtype(a.dtype, b.dtype)
-    dc = dc.to(dt).contiguous()
+    ``da = dc @ b^T`` and ``db = a^T @ dc``, each one product ``mm`` (f32
+    accumulation) rounded to its operand's dtype, None where not needed.
+    ``dc`` is rounded to bf16 for a bf16 product (:func:`operand_dtype`:
+    the type the card multiplies it in; the models round its f32 output
+    to bf16 at once, so the rounding is exact there). The transposed
+    operands are contiguous copies (the kernel reads its operands as they
+    lie): glm4's head, 1.24 GB, is copied once a step.
+
+    ``mm`` is :func:`matmul` by default, and CPU tensors then take
+    ``ref.matmul_grads``; ``kernels.ops`` passes its differentiable
+    ``ops.matmul``, on either device, so that a gradient taken with
+    ``create_graph=True`` is differentiable through B5 again.
+    ``matmul_grads.launches`` counts the B5 launches made here (also
+    counted in ``matmul.launches``)."""
+    if mm is None:
+        if a.device.type == "cpu":
+            return ref.matmul_grads(a, b, dc, need_a, need_b)
+        mm = matmul
+    if operand_dtype(a.dtype, b.dtype) == torch.bfloat16:
+        dc = dc.to(torch.bfloat16)
+    dc = dc.contiguous()
+    counted = a.device.type == "cuda"
     da = db = None
     if need_a:
-        da = matmul(dc, b.to(dt).t().contiguous()).to(a.dtype)
-        count_launch(matmul_grads)
+        da = mm(dc, b.t().contiguous()).to(a.dtype)
+        if counted:
+            count_launch(matmul_grads)
     if need_b:
-        db = matmul(a.to(dt).t().contiguous(), dc).to(b.dtype)
-        count_launch(matmul_grads)
+        db = mm(a.t().contiguous(), dc).to(b.dtype)
+        if counted:
+            count_launch(matmul_grads)
     return da, db
 
 

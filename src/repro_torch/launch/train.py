@@ -6,9 +6,10 @@ the port's ``repro.launch.train``.
 
 The same arguments as the reference's CLI, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain versions). The LMs, dense and
-MoE, train on the synthetic token stream (``data.lm_data``), GraphSAGE on
-neighbour samples of a synthetic power-law graph (``data.graph_sampler``);
-the other families are not ported yet (ROADMAP A8) and raise. Every step goes
+MoE, train on the synthetic token stream (``data.lm_data``), the GNNs
+(MeshGraphNet, GraphSAGE, NequIP, MACE) on neighbour samples of a
+synthetic power-law graph (``data.graph_sampler``); recsys is not ported
+yet (ROADMAP A8) and raises. Every step goes
 through ``configs.make_train_step`` (the kernels' forward and backward,
 then AdamW in place); the :class:`RestartingRunner` saves a checkpoint
 every ``--ckpt-every`` steps through the port's ``CheckpointManager``
@@ -31,7 +32,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.graph_sampler import (CSRGraph, random_powerlaw_graph,
                                             sample_subgraph_batch)
 from repro_torch.data.lm_data import TokenStream
-from repro_torch.models.gnn import SAGEConfig
+from repro_torch.models import gnn
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import (FailureInjector,
                                                  HeartbeatMonitor,
@@ -40,12 +41,16 @@ from repro_torch.runtime.fault_tolerance import (FailureInjector,
 
 def make_batch_fn(spec, cfg, dims, device="cuda"):
     """``step -> batch`` dict of tensors on ``device`` (the host data
-    pipeline), the reference's: an LM's tokens and labels from
-    ``TokenStream(cfg.vocab, seed=0)``; for GraphSAGE a power-law graph of
+    pipeline), the reference's, array for array: an LM's tokens and labels
+    from ``TokenStream(cfg.vocab, seed=0)``; for a GNN a power-law graph of
     ``dims["n"]`` nodes (average degree 6, seed 0) with normal features and
     uniform labels, and per step ``n // 8`` seeds drawn by
     ``default_rng(step + 1)``, sampled with fanout (5, 5) and padded to n
-    nodes and the graph's edge count rounded up to a multiple of 512."""
+    nodes and the graph's edge count rounded up to a multiple of 512. From
+    the same generator, after the sample: MeshGraphNet's normal
+    ``edge_feat`` and ``target`` in place of ``labels`` and
+    ``seed_mask``; NequIP's and MACE's normal ``pos`` (times 2), one graph
+    (``graph_id`` 0) and zero targets."""
     if spec.family.startswith("lm"):
         stream = TokenStream(cfg.vocab, seed=0)
 
@@ -54,8 +59,8 @@ def make_batch_fn(spec, cfg, dims, device="cuda"):
             return {"tokens": torch.as_tensor(toks, device=device),
                     "labels": torch.as_tensor(labels, device=device)}
         return fn
-    if not isinstance(cfg, SAGEConfig):
-        raise NotImplementedError(f"{spec.id}: only the LMs and GraphSAGE "
+    if type(cfg) not in gnn.MODELS:
+        raise NotImplementedError(f"{spec.id}: only the LMs and the GNNs "
                                   "train in the port (ROADMAP A8)")
     n = dims["n"]
     rng0 = np.random.default_rng(0)
@@ -70,6 +75,17 @@ def make_batch_fn(spec, cfg, dims, device="cuda"):
         seeds = rng.choice(n, size=max(n // 8, 2), replace=False)
         b = sample_subgraph_batch(g, feats, labels, seeds, (5, 5), rng,
                                   pad_nodes=n, pad_edges=e2)
+        if not isinstance(cfg, gnn.SAGEConfig):
+            del b["labels"], b["seed_mask"]
+        if isinstance(cfg, gnn.MGNConfig):
+            b["edge_feat"] = rng.normal(size=(e2, cfg.d_edge_in)).astype(
+                np.float32)
+            b["target"] = rng.normal(size=(n, cfg.d_out)).astype(np.float32)
+        elif not isinstance(cfg, gnn.SAGEConfig):       # NequIP, MACE
+            b["pos"] = rng.normal(size=(n, 3)).astype(np.float32) * 2
+            b["graph_id"] = np.zeros(n, np.int32)
+            b["energy_target"] = np.zeros(1, np.float32)
+            b["force_target"] = np.zeros((n, 3), np.float32)
         return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
     return fn
 

@@ -1,40 +1,178 @@
-"""GraphSAGE (mean aggregator) on the port's B4 and B5 kernels.
+"""The GNN family on the port's B4 and B5 kernels: MeshGraphNet,
+GraphSAGE, NequIP and MACE.
 
-Counterpart of the GraphSAGE part of ``repro.models.gnn``
-(``SAGEConfig``, ``sage_init``, ``sage_forward``, ``segment_mean``): the
-same parameters under the same names, in f32, and the same arithmetic, so
-the reference's weights carried over by
-``core.carry.sage_params_from_reference`` give its logits. Where the
-reference aggregates with ``jax.ops.segment_sum`` and projects with
-``x @ w``, the port calls its kernels:
+Counterpart of ``repro.models.gnn``: the same configs, the parameters
+under the reference's names (``core.carry.gnn_params_from_reference``
+flattens its nested dicts and lists into them: ``enc_node.0.w``,
+``layers.3.edge_mlp.1.b``, ``layers.0.prod.s2``), all f32, and the same
+arithmetic, so the reference's weights give its outputs. Where the
+reference aggregates with ``jax.ops.segment_sum``, gathers with
+``x[src]`` and projects with ``x @ w``, the port calls its kernels:
 
-* every neighbour sum and degree count is ``ops.segment_sum`` (B4);
-* every dense product (``w_self``, ``w_neigh``, the head) is
-  ``ops.matmul`` (B5, its f32 path).
+* every aggregation, degree count and per-graph energy sum is
+  ``ops.segment_sum`` (B4);
+* every row gather by an edge end is ``ops.gather_rows``, whose gradient
+  is B4;
+* every dense product (each MLP layer, the radial MLPs, NequIP's and
+  MACE's channel mixes, MACE's product-basis projections) is
+  ``ops.matmul`` (B5, its f32 route).
 
-Serving runs :func:`sage_forward` under ``torch.inference_mode()``;
-training differentiates :func:`sage_loss` (the reference's), where every
-gradient is a kernel too: B5 on transposed operands for the products,
-B4's gather for the neighbour sums and B4 itself for the gradient of the
-neighbours' row gather (``ops.gather_rows``). The degree counts need no
-gradient.
+The channel mixes ``nci,cd->ndi`` and ``ncij,cd->ndij`` are B5 products
+on the irreps' contiguous (n * 3, C) and (n * 9, C) transposes. The
+equivariant contractions themselves (``models/equivariant.py``) stay
+plain PyTorch, as the reference keeps them in ``jnp.einsum``.
+
+Serving runs each family's forward under ``torch.inference_mode()``;
+training differentiates its loss. NequIP's and MACE's losses hold forces,
+``-dE/dpos``, taken with ``create_graph=True``, so the train step's
+gradient differentiates a gradient: B4 and B5 are twice differentiable
+(``kernels/ops.py``), and the force term's gradient runs on them too.
 
 A batch is the reference's unified graph batch as tensors on one device:
-``node_feat`` (n, d_in) f32, ``src`` and ``dst`` (E,) int32 and, for a
-padded minibatch, ``edge_mask`` (E,) f32 (0.0 on the padding edges, which
-the sampler points at node 0). The reference's other GNN families
-(MeshGraphNet, NequIP, MACE) are not ported yet (ROADMAP A8).
+``node_feat`` (n, d) f32, ``src`` and ``dst`` (E,) int32 and, for a
+padded batch, ``edge_mask`` (E,) f32 (0.0 on the padding edges, which
+point at node 0); MeshGraphNet adds ``edge_feat`` (E, d_edge_in) and
+``target`` (n, d_out), GraphSAGE ``labels`` and ``seed_mask``, NequIP and
+MACE ``pos`` (n, 3), ``graph_id`` (n,), ``energy_target`` (graphs,) and
+``force_target`` (n, 3). The reference's node-sharding hook
+(``set_node_sharding``) is the identity on one device and is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
 
 from ..kernels import ops
+from . import equivariant as eq
 
+
+# ======================================================================
+# shared pieces
+# ======================================================================
+
+def _param(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32,
+                                    device=device), requires_grad=False)
+
+
+class Dense(nn.Module):
+    """One MLP layer's parameters: ``w`` (d_in, d_out) and ``b`` (d_out,),
+    the reference's ``{"w", "b"}``."""
+
+    def __init__(self, d_in: int, d_out: int, device=None):
+        super().__init__()
+        self.w = _param((d_in, d_out), device)
+        self.b = _param((d_out,), device)
+
+
+def _mlp_params(dims: list[int], device) -> nn.ModuleList:
+    """The reference's ``_mlp_init`` list: one :class:`Dense` per pair of
+    consecutive ``dims``."""
+    return nn.ModuleList(Dense(a, b, device)
+                         for a, b in zip(dims[:-1], dims[1:]))
+
+
+def _mlp(layers: nn.ModuleList, x: torch.Tensor,
+         final_act: bool = False) -> torch.Tensor:
+    """The reference's ``_mlp``: ``x @ w + b`` per layer (B5), relu between
+    the layers (and after the last with ``final_act``)."""
+    for i, lyr in enumerate(layers):
+        x = ops.matmul(x, lyr.w) + lyr.b
+        if i < len(layers) - 1 or final_act:
+            x = torch.relu(x)
+    return x
+
+
+def _layernorm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last axis without scale or shift (the
+    reference's ``_layernorm``)."""
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+# ======================================================================
+# MeshGraphNet  [arXiv:2010.03409]
+# ======================================================================
+
+@dataclasses.dataclass(frozen=True)
+class MGNConfig:
+    name: str = "meshgraphnet"
+    n_layers: int = 15
+    d_hidden: int = 128
+    mlp_layers: int = 2
+    d_node_in: int = 8
+    d_edge_in: int = 4
+    d_out: int = 3
+
+
+class MGNLayer(nn.Module):
+    """One processor layer: ``edge_mlp`` (3h -> h) and ``node_mlp``
+    (2h -> h), each ``mlp_layers`` hidden layers of h."""
+
+    def __init__(self, cfg: MGNConfig, device=None):
+        super().__init__()
+        h, hidden = cfg.d_hidden, [cfg.d_hidden] * cfg.mlp_layers
+        self.edge_mlp = _mlp_params([3 * h] + hidden + [h], device)
+        self.node_mlp = _mlp_params([2 * h] + hidden + [h], device)
+
+
+class MeshGraphNet(nn.Module):
+    """MeshGraphNet's parameters, named as the reference's tree:
+    ``enc_node``, ``enc_edge``, ``dec`` and ``layers.<i>.edge_mlp``,
+    ``node_mlp``, each a list of ``{w, b}``."""
+
+    def __init__(self, cfg: MGNConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h, hidden = cfg.d_hidden, [cfg.d_hidden] * cfg.mlp_layers
+        self.enc_node = _mlp_params([cfg.d_node_in] + hidden + [h], device)
+        self.enc_edge = _mlp_params([cfg.d_edge_in] + hidden + [h], device)
+        self.dec = _mlp_params([h] + hidden + [cfg.d_out], device)
+        self.layers = nn.ModuleList(MGNLayer(cfg, device)
+                                    for _ in range(cfg.n_layers))
+
+
+def mgn_outputs(model: MeshGraphNet, batch: dict) -> torch.Tensor:
+    """The reference's ``mgn_forward`` with autograd: (n, d_out) f32.
+    Encoders, then per layer the edge update from ``[e, x[src], x[dst]]``
+    (two gathers), masked edges zeroed, the B4 sum of the edges into their
+    ``dst`` and the node update from ``[x, agg]``; every MLP output layer
+    normed; the decoder."""
+    n = batch["node_feat"].shape[0]
+    src, dst = batch["src"], batch["dst"]
+    mask = batch.get("edge_mask")
+    mask = mask[:, None] if mask is not None else 1.0
+    x = _layernorm(_mlp(model.enc_node, batch["node_feat"]))
+    e = _layernorm(_mlp(model.enc_edge, batch["edge_feat"])) * mask
+    for lyr in model.layers:
+        msg_in = torch.cat([e, ops.gather_rows(x, src),
+                            ops.gather_rows(x, dst)], dim=-1)
+        e = (e + _layernorm(_mlp(lyr.edge_mlp, msg_in))) * mask
+        agg = ops.segment_sum(e, dst, n)
+        x = x + _layernorm(_mlp(lyr.node_mlp, torch.cat([x, agg], dim=-1)))
+    return _mlp(model.dec, x)
+
+
+@torch.inference_mode()
+def mgn_forward(model: MeshGraphNet, batch: dict) -> torch.Tensor:
+    """:func:`mgn_outputs` for serving, under inference mode."""
+    return mgn_outputs(model, batch)
+
+
+def mgn_loss(model: MeshGraphNet, batch: dict) -> torch.Tensor:
+    """The reference's ``mgn_loss``: the mean squared error against
+    ``target``."""
+    return ((mgn_outputs(model, batch) - batch["target"]) ** 2).mean()
+
+
+# ======================================================================
+# GraphSAGE (mean aggregator)  [arXiv:1706.02216]
+# ======================================================================
 
 @dataclasses.dataclass(frozen=True)
 class SAGEConfig:
@@ -50,11 +188,6 @@ class SAGEConfig:
         h = self.d_hidden
         dims = [self.d_in] + [h] * (self.n_layers - 1)
         return sum(2 * d * h + h for d in dims) + h * self.n_classes
-
-
-def _param(shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=torch.float32,
-                                    device=device), requires_grad=False)
 
 
 class SAGELayer(nn.Module):
@@ -78,22 +211,6 @@ class GraphSAGE(nn.Module):
         self.layers = nn.ModuleList(SAGELayer(d, cfg.d_hidden, device)
                                     for d in dims)
         self.head = _param((cfg.d_hidden, cfg.n_classes), device)
-
-
-@torch.no_grad()
-def init_params(cfg: SAGEConfig, generator: torch.Generator,
-                device="cuda") -> GraphSAGE:
-    """A model with the reference's initial distributions (``sage_init``):
-    weights N(0, 1) / sqrt(fan-in), biases 0. Drawn from ``generator``,
-    which lives on ``device``; the bits are not the reference's."""
-    model = GraphSAGE(cfg, device)
-    for name, p in model.named_parameters():
-        if name.endswith(".b"):
-            p.zero_()
-        else:
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=p.device).div_(p.shape[0] ** 0.5))
-    return model
 
 
 def segment_mean(vals: torch.Tensor, ids: torch.Tensor,
@@ -151,3 +268,258 @@ def sage_loss(model: GraphSAGE, batch: dict) -> torch.Tensor:
     nll = -logp.gather(-1, batch["labels"].long()[:, None])[:, 0]
     w = batch["seed_mask"].to(torch.float32)
     return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
+# ======================================================================
+# NequIP (Cartesian-irrep adaptation, l_max = 2)  [arXiv:2101.03164]
+# ======================================================================
+
+@dataclasses.dataclass(frozen=True)
+class NequIPConfig:
+    name: str = "nequip"
+    n_layers: int = 5
+    d_hidden: int = 32          # channels per irrep
+    l_max: int = 2
+    n_rbf: int = 8
+    cutoff: float = 5.0
+    d_species: int = 16
+    radial_hidden: int = 64
+    bf16_state: bool = False    # node irreps rounded to bf16 between layers
+
+
+class Interaction(nn.Module):
+    """One equivariant layer's parameters (the reference's
+    ``_interaction_init``): the ``radial`` MLP (n_rbf -> radial_hidden ->
+    3 * C * N_PATHS), the channel mixers ``mix_s``, ``mix_v``, ``mix_t``
+    (C, C) and the ``gates`` MLP (C -> 2C)."""
+
+    def __init__(self, C: int, n_rbf: int, radial_hidden: int, device=None):
+        super().__init__()
+        self.radial = _mlp_params([n_rbf, radial_hidden, 3 * C * eq.N_PATHS],
+                                  device)
+        self.mix_s = _param((C, C), device)
+        self.mix_v = _param((C, C), device)
+        self.mix_t = _param((C, C), device)
+        self.gates = _mlp_params([C, 2 * C], device)
+
+
+class ProductBasis(nn.Module):
+    """MACE's B-basis projections back to C channels: ``s2``, ``s3``
+    (3C, C), ``v2``, ``t2``, ``v3``, ``t3`` (2C, C)."""
+
+    def __init__(self, C: int, device=None):
+        super().__init__()
+        for name, k in (("s2", 3), ("v2", 2), ("t2", 2), ("s3", 3),
+                        ("v3", 2), ("t3", 2)):
+            setattr(self, name, _param((k * C, C), device))
+
+
+class GeoLayer(Interaction):
+    """A MACE layer: an :class:`Interaction` and its ``prod``."""
+
+    def __init__(self, C: int, n_rbf: int, radial_hidden: int, device=None):
+        super().__init__(C, n_rbf, radial_hidden, device)
+        self.prod = ProductBasis(C, device)
+
+
+class GeoModel(nn.Module):
+    """NequIP's or MACE's parameters (by ``cfg``'s type), named as the
+    reference's tree: ``embed`` (d_species -> C), ``layers.<i>`` (an
+    :class:`Interaction`, with ``prod`` for MACE) and ``readout`` (C -> C
+    -> 1)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.cfg = cfg
+        C = cfg.d_hidden
+        layer = GeoLayer if isinstance(cfg, MACEConfig) else Interaction
+        self.embed = _mlp_params([cfg.d_species, C], device)
+        self.layers = nn.ModuleList(
+            layer(C, cfg.n_rbf, cfg.radial_hidden, device)
+            for _ in range(cfg.n_layers))
+        self.readout = _mlp_params([C, C, 1], device)
+
+
+def _mix(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("nk...,kc->nc...", x, w)`` as one B5 product: x (n, K,
+    *irrep) on its contiguous (n * r, K) transpose (r = 3 or 9 irrep
+    components), times w (K, C), back to (n, C, *irrep)."""
+    n, K, *irrep = x.shape
+    r = math.prod(irrep)
+    xt = x.reshape(n, K, r).transpose(1, 2).contiguous().reshape(n * r, K)
+    y = ops.matmul(xt, w).reshape(n, r, w.shape[1])
+    return y.transpose(1, 2).reshape(n, w.shape[1], *irrep)
+
+
+def _interaction(lyr: Interaction, C: int, s, V, T, src, dst, rbf, rhat, Y2,
+                 n: int, mask=None):
+    """One equivariant message-passing layer (the reference's
+    ``_interaction``, shared by NequIP and MACE): per-edge path weights
+    from the radial MLP (masked edges send nothing), the senders' irreps
+    gathered as (n, C), (n, 3C) and (n, 9C) rows, the three tensor-product
+    messages, their B4 sums into ``dst`` as (E, C), (E, 3C) and (E, 9C)
+    rows, the channel mixes, and the gated nonlinearity."""
+    E = rbf.shape[0]
+    rw = _mlp(lyr.radial, rbf).reshape(E, 3, C, eq.N_PATHS)
+    if mask is not None:
+        rw = rw * mask[:, None, None, None]
+    # bf16 state (bf16_state) meets f32 edge terms in f32, as jnp promotes
+    s_e = ops.gather_rows(s, src).float()
+    V_e = ops.gather_rows(V.reshape(n, 3 * C), src).float().reshape(E, C, 3)
+    T_e = ops.gather_rows(T.reshape(n, 9 * C), src).float().reshape(
+        E, C, 3, 3)
+    m_s = (eq.tp_to_scalar(s_e, V_e, T_e, rhat, Y2) * rw[:, 0]).sum(-1)
+    m_v = torch.einsum("ecip,ecp->eci",
+                       eq.tp_to_vector(s_e, V_e, T_e, rhat, Y2), rw[:, 1])
+    m_t = torch.einsum("ecijp,ecp->ecij",
+                       eq.tp_to_tensor(s_e, V_e, T_e, rhat, Y2), rw[:, 2])
+    a_s = ops.segment_sum(m_s.contiguous(), dst, n)
+    a_v = ops.segment_sum(m_v.reshape(E, 3 * C).contiguous(), dst,
+                          n).reshape(n, C, 3)
+    a_t = ops.segment_sum(m_t.reshape(E, 9 * C).contiguous(), dst,
+                          n).reshape(n, C, 3, 3)
+    s2 = s + ops.matmul(a_s, lyr.mix_s)
+    V2 = V + _mix(a_v, lyr.mix_v)
+    T2 = T + _mix(a_t, lyr.mix_t)
+    gates = _mlp(lyr.gates, s2)
+    return eq.gated_nonlin(s2, V2, T2, gates)
+
+
+def _product_basis(prod: ProductBasis, s, V, T):
+    """MACE's correlation orders 2 and 3 (``mace_forward``'s loop body
+    after the interaction): the order-2 products of (s, V, T), projected
+    to C channels on B5; the order-2 products of those projections (order
+    3), projected; both added to the features."""
+    s2b, v2b, t2b = eq.correlation_products(s, V, T)
+    ps2 = ops.matmul(s2b, prod.s2)
+    pv2, pt2 = _mix(v2b, prod.v2), _mix(t2b, prod.t2)
+    s3b, v3b, t3b = eq.correlation_products(ps2, pv2, pt2)
+    return (s + ps2 + ops.matmul(s3b, prod.s3),
+            V + pv2 + _mix(v3b, prod.v3),
+            T + pt2 + _mix(t3b, prod.t3))
+
+
+def geo_outputs(model: GeoModel, batch: dict, n_graphs: int | None = None):
+    """The reference's ``nequip_forward`` / ``mace_forward`` with autograd:
+    ``(energy (graphs,), (s, V, T))``. The edge vectors ``pos[src] -
+    pos[dst]`` (two gathers), their basis and radial features, the
+    embedding, the layers (MACE's with its product basis; with
+    ``bf16_state`` the features rounded to bf16 after each), the readout
+    per atom, and the B4 sum of the atoms' energies by ``graph_id``."""
+    cfg = model.cfg
+    feat = batch["node_feat"]
+    n = feat.shape[0]
+    ng = n_graphs if n_graphs is not None else batch["energy_target"].shape[0]
+    C = cfg.d_hidden
+    src, dst = batch["src"], batch["dst"]
+    rvec = ops.gather_rows(batch["pos"], src) - ops.gather_rows(batch["pos"],
+                                                                dst)
+    d, rhat, Y2 = eq.edge_basis(rvec)
+    rbf = eq.bessel_rbf(d, cfg.n_rbf, cfg.cutoff)
+    s = _mlp(model.embed, feat)
+    V = feat.new_zeros((n, C, 3))
+    T = feat.new_zeros((n, C, 3, 3))
+    mace = isinstance(cfg, MACEConfig)
+    for lyr in model.layers:
+        s, V, T = _interaction(lyr, C, s, V, T, src, dst, rbf, rhat, Y2, n,
+                               mask=batch.get("edge_mask"))
+        if mace:
+            s, V, T = _product_basis(lyr.prod, s, V, T)
+        if cfg.bf16_state:
+            s, V, T = (x.to(torch.bfloat16) for x in (s, V, T))
+    atom_e = _mlp(model.readout, s.float())
+    energy = ops.segment_sum(atom_e, batch["graph_id"], ng)[:, 0]
+    return energy, (s, V, T)
+
+
+@torch.inference_mode()
+def geo_forward(model: GeoModel, batch: dict, n_graphs: int | None = None):
+    """:func:`geo_outputs` for serving, under inference mode: the
+    reference's ``(energy, (s, V, T))``."""
+    return geo_outputs(model, batch, n_graphs)
+
+
+def energy_and_forces(model: GeoModel, batch: dict,
+                      create_graph: bool = False):
+    """``(energy, forces)``: the per-graph energies and ``-dE/dpos`` (n, 3)
+    of the summed energy, by autograd on a ``pos`` leaf (the reference's
+    ``jax.value_and_grad`` of ``energy_fn``). With ``create_graph`` the
+    energies and forces keep their graph, so a loss of them differentiates
+    again (through B4 and B5 twice); without, both come detached."""
+    with torch.enable_grad():
+        pos = batch["pos"].detach().requires_grad_(True)
+        energy, _ = geo_outputs(model, {**batch, "pos": pos})
+        (dpos,) = torch.autograd.grad(energy.sum(), pos,
+                                      create_graph=create_graph)
+    return (energy if create_graph else energy.detach()), -dpos
+
+
+def geo_loss_terms(model: GeoModel, batch: dict):
+    """``(e_loss, f_loss)``: the mean squared errors of the energies
+    against ``energy_target`` and of the forces against
+    ``force_target``, the forces with their graph."""
+    energy, forces = energy_and_forces(model, batch, create_graph=True)
+    e_loss = ((energy - batch["energy_target"]) ** 2).mean()
+    f_loss = ((forces - batch["force_target"]) ** 2).mean()
+    return e_loss, f_loss
+
+
+def geo_loss(model: GeoModel, batch: dict) -> torch.Tensor:
+    """The reference's ``nequip_loss`` / ``mace_loss``: ``e_loss + 10 *
+    f_loss``."""
+    e_loss, f_loss = geo_loss_terms(model, batch)
+    return e_loss + 10.0 * f_loss
+
+
+# ======================================================================
+# MACE (Cartesian adaptation, correlation order 3)  [arXiv:2206.07697]
+# ======================================================================
+
+@dataclasses.dataclass(frozen=True)
+class MACEConfig:
+    name: str = "mace"
+    n_layers: int = 2
+    d_hidden: int = 128
+    l_max: int = 2
+    correlation_order: int = 3
+    n_rbf: int = 8
+    cutoff: float = 5.0
+    d_species: int = 16
+    radial_hidden: int = 64
+    bf16_state: bool = False    # node irreps rounded to bf16 between layers
+
+
+# ======================================================================
+# the family's surface
+# ======================================================================
+
+#: each config type's model, serve forward and loss
+MODELS = {MGNConfig: MeshGraphNet, SAGEConfig: GraphSAGE,
+          NequIPConfig: GeoModel, MACEConfig: GeoModel}
+FORWARDS = {MGNConfig: mgn_forward, SAGEConfig: sage_forward,
+            NequIPConfig: geo_forward, MACEConfig: geo_forward}
+LOSSES = {MGNConfig: mgn_loss, SAGEConfig: sage_loss,
+          NequIPConfig: geo_loss, MACEConfig: geo_loss}
+
+
+def model_of(cfg, device=None) -> nn.Module:
+    """An uninitialised model of ``cfg`` (a GNN config) on ``device``."""
+    return MODELS[type(cfg)](cfg, device)
+
+
+@torch.no_grad()
+def init_params(cfg, generator: torch.Generator,
+                device="cuda") -> nn.Module:
+    """A model of ``cfg`` with the reference's initial distributions
+    (``mgn_init``, ``sage_init``, ``nequip_init``, ``mace_init``): every
+    weight N(0, 1) / sqrt(its first dimension, the fan-in), every bias 0.
+    Drawn from ``generator``, which lives on ``device``; the bits are not
+    the reference's."""
+    model = model_of(cfg, device)
+    for name, p in model.named_parameters():
+        if name.endswith(".b"):
+            p.zero_()
+        else:
+            p.copy_(torch.randn(p.shape, generator=generator,
+                                device=p.device).div_(p.shape[0] ** 0.5))
+    return model

@@ -346,8 +346,11 @@ def capacity(mcfg: MoEConfig, T: int) -> tuple[int, int]:
 def route(probs: torch.Tensor, k: int) -> torch.Tensor:
     """The experts each token is routed to: the indices of its ``k``
     largest router probabilities, largest first ((T, k) int64; the
-    reference's ``jax.lax.top_k``)."""
-    return torch.topk(probs, k, dim=-1).indices
+    reference's ``jax.lax.top_k``). Equal probabilities keep the lower
+    index first, as ``jax.lax.top_k`` does (``torch.topk`` promises no
+    order among ties), so a stable descending sort picks them."""
+    return torch.sort(probs, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
 
 
 def starts_of(se: torch.Tensor, E: int) -> torch.Tensor:

@@ -1384,7 +1384,8 @@ def _loss_and_grads(spec, cfg, model, batch, plain=False, relu=None):
         if relu is not None:
             stack.enter_context(mock.patch.object(torch, "relu", relu))
         loss = configs.loss_for(spec, cfg)(model, batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True, materialize_grads=True)
     return float(loss.detach()), dict(zip(params, grads))
 
 
@@ -1597,3 +1598,184 @@ def test_moe_layer_on_card_is_bitwise_reproducible(cuda):
     # 341 assignments an expert, so many are dropped
     assert tfm.capacity(cfg.moe, 1024) == (1, 192)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# -- second derivatives through B4 and B5, NequIP and MACE, the
+# -- row limit of B5's f32 and masked routes, routing ties ----------------
+
+def _hvp(f, xs, plain):
+    """The gradient of sum(|grad f|^2) over ``xs`` (a second derivative),
+    with the kernels or, with ``plain``, the plain versions."""
+    import contextlib
+    with contextlib.ExitStack() as stack:
+        if plain:
+            for patch in _plain_ops():
+                stack.enter_context(patch)
+        gs_ = torch.autograd.grad(f(*xs), xs, create_graph=True)
+        return gs_, torch.autograd.grad(sum((g ** 2).sum() for g in gs_), xs)
+
+
+def test_double_backward_through_b4_and_b5_on_card(cuda):
+    """A second derivative through B5 (product), B4 (sum) and the gather:
+    the first gradient taken with ``create_graph`` carries the port's
+    Function nodes on the card, the second backward launches B5, B4 and
+    B4's gather again, and both match the plain versions (f32, 1e-4 of
+    each result's largest |value|)."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn(40, 24, generator=g, device=cuda, requires_grad=True)
+    w = torch.randn(24, 16, generator=g, device=cuda, requires_grad=True)
+    idx = torch.randint(0, 40, (300,), generator=g, device=cuda,
+                        dtype=torch.int32)
+
+    def f(x, w):
+        rows = ops.gather_rows(x, idx)
+        return ops.segment_sum(ops.matmul(rows, w).tanh(), idx, 40
+                               ).pow(2).sum()
+
+    before = (segment_matmul.matmul.launches,
+              segment_matmul.segment_sum.launches,
+              segment_matmul.segment_gather.launches)
+    (gx, gw), (hx, hw) = _hvp(f, (x, w), plain=False)
+    torch.cuda.synchronize()
+    assert type(gw.grad_fn).__name__ == "_MatMulBackward"
+    after = (segment_matmul.matmul.launches,
+             segment_matmul.segment_sum.launches,
+             segment_matmul.segment_gather.launches)
+    # forward 1 + 1 + 0, first backward 2 + 1 + 1, second more of each
+    assert all(a - b > n for a, b, n in zip(after, before, (3, 2, 1)))
+    (px, pw), (qx, qw) = _hvp(f, (x, w), plain=True)
+    for got, want in ((gx, px), (gw, pw), (hx, qx), (hw, qw)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def _geo_on_card(arch, cuda, n_layers=1, seed=0):
+    from repro_torch import configs
+    spec = configs.get(arch)
+    cfg = dataclasses.replace(configs.cell_model_cfg(spec, "molecule",
+                                                     smoke=True),
+                              n_layers=n_layers)
+    model = gnn.init_params(cfg, torch.Generator(device=cuda).manual_seed(
+        seed), device=cuda)
+    rng = np.random.default_rng(seed)
+    n, G, e = 40, 4, 96
+    pos = rng.uniform(0, 2.5, (n, 3)) + 10.0 * np.repeat(np.arange(G),
+                                                          n // G)[:, None]
+    gid = np.repeat(np.arange(G), n // G)
+    src, dst = [], []
+    for k in range(G):
+        a = rng.integers(0, n // G, (e // G, 2))
+        a = a[a[:, 0] != a[:, 1]] + k * (n // G)
+        src.append(a[:, 0])
+        dst.append(a[:, 1])
+    src = np.concatenate(src + [np.zeros(8, int)])
+    dst = np.concatenate(dst + [np.zeros(8, int)])
+    mask = (np.arange(src.shape[0]) < src.shape[0] - 8).astype(np.float32)
+    b = {"node_feat": np.eye(cfg.d_species, dtype=np.float32)[
+             rng.integers(0, cfg.d_species, n)],
+         "pos": pos.astype(np.float32), "src": src.astype(np.int32),
+         "dst": dst.astype(np.int32), "edge_mask": mask,
+         "graph_id": gid.astype(np.int32),
+         "energy_target": rng.normal(size=G).astype(np.float32),
+         "force_target": rng.normal(size=(n, 3)).astype(np.float32)}
+    return spec, cfg, model, {k: torch.as_tensor(v, device=cuda)
+                              for k, v in b.items()}
+
+
+@pytest.mark.parametrize("arch", ["nequip", "mace"])
+def test_one_layer_geo_loss_gradients_match_plain_versions_on_card(cuda,
+                                                                   arch):
+    """A one-layer NequIP or MACE at the smoke widths on the card: the
+    loss, every gradient and the force term's gradient alone with the
+    kernels against the plain versions (f32, 1e-4 of each leaf's largest
+    |gradient|; the plain run replays the kernel run's relu masks)."""
+    spec, cfg, model, batch = _geo_on_card(arch, cuda)
+    masks, relu = [], torch.relu
+
+    def record(x):
+        masks.append(x.detach() > 0)
+        return relu(x)
+
+    gather = segment_matmul.segment_gather.launches
+    loss, grads = _loss_and_grads(spec, cfg, model, batch, relu=record)
+    # the force term's gradient runs B4's gather as well as B4
+    assert segment_matmul.segment_gather.launches > gather
+    kept = iter(masks)
+    want_loss, want = _loss_and_grads(spec, cfg, model, batch, plain=True,
+                                      relu=lambda x: x * next(kept))
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    for name, g in grads.items():
+        scale = float(want[name].abs().max())
+        assert float((g - want[name]).abs().max()) <= 1e-4 * max(
+            scale, 1e-30), name
+    # the force loss alone: its gradient exists only through the second
+    # derivative, so a dropped one shows here
+    params = dict(model.named_parameters())
+
+    def f_grads(plain):
+        import contextlib
+        with contextlib.ExitStack() as stack:
+            if plain:
+                for patch in _plain_ops():
+                    stack.enter_context(patch)
+            f = gnn.geo_loss_terms(model, batch)[1]
+            return torch.autograd.grad(f, list(params.values()),
+                                       allow_unused=True,
+                                       materialize_grads=True)
+    for name, g, w in zip(params, f_grads(False), f_grads(True)):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * max(scale, 1e-30), name
+    assert max(float(w.abs().max()) for w in f_grads(False)) > 0
+
+
+@pytest.mark.parametrize("arch", ["nequip", "mace"])
+def test_kernel_forces_are_equivariant(cuda, arch):
+    """Energies and forces with the kernels: a rotated copy of the
+    positions gives the same energies (1e-4) and rotated forces (1e-3),
+    tests/test_models.py's tolerances."""
+    _, cfg, model, batch = _geo_on_card(arch, cuda, n_layers=2, seed=3)
+    th = 0.9
+    R = torch.tensor([[np.cos(th), -np.sin(th), 0],
+                      [np.sin(th), np.cos(th), 0], [0, 0, 1.0]],
+                     dtype=torch.float32, device=cuda)
+    e1, f1 = gnn.energy_and_forces(model, batch)
+    e2, f2 = gnn.energy_and_forces(model, dict(batch, pos=batch["pos"] @ R.T))
+    torch.testing.assert_close(e1, e2, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(f1 @ R.T, f2, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,K,N", [(torch.float32, 16, 16),
+                                       (torch.bfloat16, 12, 20)],
+                         ids=["f32", "masked"])
+def test_matmul_rows_beyond_the_old_grid_limit(cuda, dtype, K, N):
+    """B5's f32 and masked routes at 8,400,000 rows (past 65,535 row
+    tiles of 128, the old grid's y limit): against ``ref.matmul``, the
+    last rows too."""
+    M = 8_400_000
+    assert M > 65_535 * 128
+    g = torch.Generator(device=cuda).manual_seed(22)
+    a = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    b = torch.randn(K, N, generator=g, device=cuda).to(dtype)
+    route = segment_matmul.plan(M, N, K, dtype).route
+    assert route == ("f32" if dtype == torch.float32 else "masked")
+    got = segment_matmul.matmul(a, b)
+    want = ref.matmul(a, b)
+    tol = 1e-4 * want.abs() + 1e-6 * K
+    assert bool(((got - want).abs() <= tol).all())
+    assert float(got[-1000:].abs().sum()) > 0
+
+
+def test_route_breaks_ties_on_card(cuda):
+    """Routing ties on the card: exact ties among router probabilities
+    keep the lower index first (numpy's stable descending order, the
+    order ``jax.lax.top_k`` gives)."""
+    rng = np.random.default_rng(5)
+    T, E = 4096, 60
+    p = rng.random((T, E)).astype(np.float32)
+    p[:, [10, 40, 50, 55, 59]] = 0.9
+    p[: T // 4, 20:30] = p[: T // 4, [1]]
+    p /= p.sum(-1, keepdims=True)
+    for k in (1, 4, 8):
+        got = tfm.route(torch.as_tensor(p, device=cuda), k).cpu().numpy()
+        want = np.argsort(-p, axis=-1, kind="stable")[:, :k]
+        np.testing.assert_array_equal(got, want)

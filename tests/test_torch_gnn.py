@@ -1,6 +1,6 @@
 """The GraphSAGE slice (sampler copy, config, model, weight carry, serve
 step) against the JAX reference, with the reference's weights carried by
-``sage_params_from_reference``: at the smoke config on a random graph,
+``gnn_params_from_reference``: at the smoke config on a random graph,
 with and without an edge mask, and at graphsage-reddit's full width on a
 sampled minibatch of a small power-law pool.
 
@@ -22,7 +22,7 @@ import repro.configs as jax_configs  # noqa: E402
 from repro.data import graph_sampler as jax_gs  # noqa: E402
 from repro.models import gnn as jax_gnn  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.core.carry import sage_params_from_reference  # noqa: E402
+from repro_torch.core.carry import gnn_params_from_reference  # noqa: E402
 from repro_torch.data import graph_sampler as gs  # noqa: E402
 from repro_torch.kernels import segment_matmul as sm  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
@@ -38,7 +38,7 @@ def models(smoke: bool, shape: str = "minibatch_lg", seed: int = 0):
     cfg = configs.cell_model_cfg(spec, shape, smoke=smoke)
     params = jax_gnn.sage_init(jcfg, jax.random.PRNGKey(seed))
     model = gnn.GraphSAGE(cfg, device="cpu")
-    model.load_state_dict(sage_params_from_reference(
+    model.load_state_dict(gnn_params_from_reference(
         jax.tree.map(np.asarray, params)))
     return jcfg, params, cfg, model
 
@@ -211,8 +211,9 @@ def test_minibatch_lg_forward_counts_65_gflop():
 
 
 def test_other_gnn_families_raise():
-    """The reference's MeshGraphNet config under a gnn spec: nothing of the
-    port takes it."""
+    """A gnn spec whose config is a type the port does not know (the
+    reference's own MeshGraphNet config class, not the port's): nothing
+    of the port takes it."""
     spec = configs.ArchSpec(id="meshgraphnet", family="gnn",
                             model_cfg=jax_gnn.MGNConfig(),
                             smoke_cfg=jax_gnn.MGNConfig(),
@@ -234,7 +235,7 @@ def test_serve_step_refuses_a_model_of_another_config():
 
 def test_carry_names_every_parameter():
     _, params, cfg, _ = models(smoke=False)
-    state = sage_params_from_reference(jax.tree.map(np.asarray, params))
+    state = gnn_params_from_reference(jax.tree.map(np.asarray, params))
     assert set(state) == set(gnn.GraphSAGE(cfg, device="meta").state_dict())
     assert all(t.dtype == torch.float32 for t in state.values())
     assert np.array_equal(state["layers.1.w_neigh"].numpy(),

@@ -636,3 +636,63 @@ def test_cli_trains_qwen2_moe_smoke(capsys):
                          "2", "--device", "cpu", "--log-every", "1"])
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert "[done]" in capsys.readouterr().out
+
+
+# -- ties among router probabilities ------------------------------------------
+
+def tied_probs(T=64, E=8, seed=5):
+    """(T, E) f32 probabilities with exact ties: rows of random values
+    where columns 3 and 4 copy column 1 and column 6 copies column 2, so
+    ties fall inside the top K, across the K-th boundary and below it;
+    plus rows all equal and rows with only the pad experts' zeros tied."""
+    rng = np.random.default_rng(seed)
+    p = rng.random((T, E)).astype(np.float32)
+    p[:, 3] = p[:, 4] = p[:, 1]
+    p[:, 6] = p[:, 2]
+    p[: T // 8] = 1.0 / E
+    p[T // 8: T // 4, E - 2:] = 0.0
+    return p / p.sum(-1, keepdims=True)
+
+
+@pytest.mark.parametrize("K", [1, 2, 4])
+def test_route_breaks_ties_as_jax_top_k(K):
+    """``route`` on probabilities with exact ties picks the experts,
+    in the order, that ``jax.lax.top_k`` picks on the same array: the lower
+    index first among equal values."""
+    probs = tied_probs()
+    _, want = jax.lax.top_k(jnp.asarray(probs), K)
+    got = tfm.route(torch.as_tensor(probs), K)
+    top = -np.sort(-probs, axis=-1)
+    assert (top[:, K - 1] == top[:, K]).sum() >= 8     # boundary ties occur
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", ["base", "pad_experts_2"])
+def test_moe_group_with_tied_router_columns_matches_the_reference(
+        case, monkeypatch):
+    """Ties through the layer: router columns copied so that every token's
+    logits tie exactly (experts 3 and 4 copy expert 1, 5 copies 2), at the
+    K-th boundary too; the port's ``eidx`` and ``dest`` equal the
+    reference's ``jax.lax.top_k`` routing and dispatch, and the aux loss
+    the reference's within 1e-6."""
+    jcfg, jp, cfg, p = moe_layer(case, "f32")
+    router = np.asarray(jp["router"]).copy()
+    router[:, 3] = router[:, 4] = router[:, 1]
+    router[:, 5] = router[:, 2]
+    jp = dict(jp, router=jnp.asarray(router))
+    with torch.no_grad():
+        p.router.copy_(torch.as_tensor(router))
+    xt = activations(cfg.d_model).reshape(-1, cfg.d_model)
+    _, C = tfm.capacity(cfg.moe, xt.shape[0])
+    K = cfg.moe.top_k
+    r = reference_routing(jp, jcfg.moe, jnp.asarray(xt), C)
+    _, want_aux = jax_moe_group(jp, jcfg.moe, jnp.asarray(xt), C)
+    rec = Recorder(monkeypatch)
+    with torch.no_grad():
+        _, aux = tfm._moe_group(p, cfg.moe, torch.as_tensor(xt), C)
+    probs, eidx = rec.routes[0]
+    top = -np.sort(-probs, axis=-1)
+    assert (top[:, K - 1] == top[:, K]).any()           # boundary ties occur
+    np.testing.assert_array_equal(eidx, r["eidx"])
+    np.testing.assert_array_equal(rec.dispatches[0][5], r["dest"])
+    assert abs(float(aux) - float(want_aux)) <= 1e-6

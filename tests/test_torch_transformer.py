@@ -235,9 +235,9 @@ def test_serve_steps(arch):
 
 
 def test_moe_config_raises():
-    """A MoE config builds a model and a serve step since slice 15; a GNN
-    family other than GraphSAGE (MeshGraphNet's config) still raises,
-    naming A8."""
+    """A MoE config builds a model and a serve step; a gnn
+    spec whose config is no GNN config of the port (an LM config) still
+    raises, naming A8."""
     moe = tfm.MoEConfig(n_experts=4, top_k=2, d_ff_expert=16)
     cfg = tfm.LMConfig("m", n_layer=1, d_model=32, n_head=2, n_kv=2, d_ff=0,
                        vocab=64, d_head=16, moe=moe)
@@ -260,7 +260,8 @@ def _torch_dtype(dtype) -> str:
 def _flatten_reference(tree, lm: bool) -> dict:
     """{port name: (shape, dtype name)} of a reference params tree of
     ShapeDtypeStructs: an LM's stacked layers split by layer (the names of
-    ``core.carry.lm_params_from_reference``), GraphSAGE's list of layers."""
+    ``core.carry.lm_params_from_reference``), a GNN's nested dicts and
+    lists flattened into dotted names (``gnn_params_from_reference``'s)."""
     out = {}
     if lm:
         for name in ("embed", "head", "ln_f"):
@@ -276,10 +277,14 @@ def _flatten_reference(tree, lm: bool) -> dict:
                                                       _jax_dtype(v.dtype))
         split("", tree["layers"])
         return out
-    out["head"] = (tuple(tree["head"].shape), _jax_dtype(tree["head"].dtype))
-    for i, layer in enumerate(tree["layers"]):
-        for k, v in layer.items():
-            out[f"layers.{i}.{k}"] = (tuple(v.shape), _jax_dtype(v.dtype))
+    def walk(prefix, node):
+        if isinstance(node, (dict, list)):
+            items = node.items() if isinstance(node, dict) else enumerate(node)
+            for k, v in items:
+                walk(f"{prefix}{k}.", v)
+        else:
+            out[prefix[:-1]] = (tuple(node.shape), _jax_dtype(node.dtype))
+    walk("", tree)
     return out
 
 
@@ -295,7 +300,8 @@ def test_all_cells_are_the_references_of_the_ported_archs():
                 if c[0] in ported]
         assert list(configs.all_cells(include_skipped=skipped)) == want
     assert ported == {"dbrx-132b", "qwen2-moe-a2.7b", "glm4-9b",
-                      "codeqwen1.5-7b", "qwen1.5-110b", "graphsage-reddit"}
+                      "codeqwen1.5-7b", "qwen1.5-110b", "meshgraphnet",
+                      "nequip", "graphsage-reddit", "mace"}
 
 
 @pytest.mark.parametrize(
@@ -348,7 +354,7 @@ def test_abstract_params_match_the_references_eval_shape(arch):
 
 def test_spec_surface_raises_for_unported_families():
     """``input_specs`` and ``abstract_params`` of a recsys cell and of a
-    GNN family other than GraphSAGE raise, naming A8."""
+    gnn spec whose config type the port does not know raise, naming A8."""
     cfg = configs.get("glm4-9b").model_cfg
     for spec in (configs.ArchSpec(id="r", family="recsys", model_cfg=cfg,
                                   smoke_cfg=cfg, shapes=configs.LM_SHAPES,
