@@ -15,13 +15,15 @@ import torch
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(fn, route: str | None = None) -> None:
-    """Add one to ``fn.launches`` (and to ``fn.routes[route]``) under one
-    lock. Several host threads launch kernels (the serving engine's batcher
-    workers, the registry's build and refresh workers), and ``+= 1`` on an
-    attribute is a read-modify-write that loses counts between threads."""
+def count_launch(fn, route: str | None = None,
+                 attr: str = "launches") -> None:
+    """Add one to ``fn.launches`` (or to the count ``attr``; and to
+    ``fn.routes[route]``) under one lock. Several host threads launch
+    kernels (the serving engine's batcher workers, the registry's build and
+    refresh workers), and ``+= 1`` on an attribute is a read-modify-write
+    that loses counts between threads."""
     with _COUNT_LOCK:
-        fn.launches += 1
+        setattr(fn, attr, getattr(fn, attr) + 1)
         if route is not None:
             fn.routes[route] += 1
 

@@ -15,6 +15,13 @@ transposed operands (``segment_matmul.matmul_grads``), B4's gather
 gather whose gradient is B4. Under ``torch.inference_mode`` (serving)
 they run their forward alone.
 
+B4 and the row gather take an id vector or its :class:`SegmentPlan`
+(:func:`segment_plan`: the ids' stable sort, built once per graph); the
+Functions keep what they were given for their backward passes, so a plan
+built for a forward serves every gradient of it, the second ones too. On
+the card B4's sums are bitwise reproducible (a fixed order of adds, no
+float atomics), with a plan or without.
+
 B5 and B4 are twice differentiable, on either device: the backward of
 :func:`matmul` calls :func:`matmul` itself, that of :func:`segment_sum`
 the gather as a Function whose own gradient is :func:`segment_sum`, and
@@ -34,9 +41,12 @@ from .kcore_peel import degree_count, kcore_fixpoint, peel_round
 from .label_prop import label_prop_round
 from .segmented_select import kth_smallest, segmented_count_le
 
-__all__ = ["degree_count", "flash_attention", "gather_rows", "kcore_fixpoint",
-           "kcore_peel_round", "kth_smallest", "label_prop_round", "matmul",
-           "segment_sum", "segmented_count_le"]
+__all__ = ["SegmentPlan", "degree_count", "flash_attention", "gather_rows",
+           "kcore_fixpoint", "kcore_peel_round", "kth_smallest",
+           "label_prop_round", "matmul", "segment_plan", "segment_sum",
+           "segmented_count_le"]
+
+SegmentPlan = _sm.SegmentPlan
 
 
 class _MatMul(torch.autograd.Function):
@@ -55,32 +65,31 @@ class _MatMul(torch.autograd.Function):
 class _SegmentSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vals, ids, num_segments):
-        ctx.save_for_backward(ids)
+        ctx.ids = ids           # an id vector or its plan
         ctx.vals_dtype = vals.dtype
         return _sm.segment_sum(vals, ids, num_segments)
 
     @staticmethod
     def backward(ctx, dout):
-        (ids,) = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
             return None, None, None
-        return _SegmentGather.apply(dout, ids, ctx.vals_dtype), None, None
+        return (_SegmentGather.apply(dout, ctx.ids, ctx.vals_dtype),
+                None, None)
 
 
 class _SegmentGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dout, ids, dtype):
-        ctx.save_for_backward(ids)
+        ctx.ids = ids           # an id vector or its plan
         ctx.S, ctx.dout_dtype = dout.shape[0], dout.dtype
-        return _sm.segment_gather(dout, ids, dtype)
+        return _sm.segment_gather(dout, _sm.plan_ids(ids), dtype)
 
     @staticmethod
     def backward(ctx, dg):
-        (ids,) = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
             return None, None, None
-        return (segment_sum(dg.contiguous(), ids, ctx.S).to(ctx.dout_dtype),
-                None, None)
+        return (segment_sum(dg.contiguous(), ctx.ids,
+                            ctx.S).to(ctx.dout_dtype), None, None)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -109,15 +118,15 @@ class _FlashAttention(torch.autograd.Function):
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, idx):
-        ctx.save_for_backward(idx)
+        ctx.ids = idx
         ctx.n = x.shape[0]
-        return x[idx]
+        return x[_sm.plan_ids(idx)]
 
     @staticmethod
     def backward(ctx, dy):
-        (idx,) = ctx.saved_tensors
         # dy may be a slice of a wider gradient (a concatenation's)
-        return segment_sum(dy.contiguous(), idx, ctx.n).to(dy.dtype), None
+        return (segment_sum(dy.contiguous(), ctx.ids,
+                            ctx.n).to(dy.dtype), None)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -128,12 +137,20 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _MatMul.apply(a, b)
 
 
-def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """B4: f32[num_segments, d] sums of ``vals``' rows by ``ids``
-    (``segment_matmul.segment_sum``), twice differentiable in ``vals``: the
-    gradient is B4's gather, in ``vals``' dtype, whose gradient is this
-    function again."""
+def segment_plan(ids: torch.Tensor, num_segments: int) -> SegmentPlan:
+    """B4's plan of an id vector and ``num_segments`` segments
+    (``segment_matmul.segment_plan``): build it once per graph and pass it
+    to :func:`segment_sum` and :func:`gather_rows` wherever they take
+    those ids."""
+    return _sm.segment_plan(ids, num_segments)
+
+
+def segment_sum(vals: torch.Tensor, ids, num_segments: int) -> torch.Tensor:
+    """B4: f32[num_segments, d] sums of ``vals``' rows by ``ids``, an id
+    vector or its :class:`SegmentPlan` (``segment_matmul.segment_sum``),
+    twice differentiable in ``vals``: the gradient is B4's gather, in
+    ``vals``' dtype, whose gradient is this function again, with the same
+    ids or plan."""
     return _SegmentSum.apply(vals, ids, num_segments)
 
 
@@ -151,10 +168,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _FlashAttention.apply(q, k, v, causal, t_real, keep_lse)
 
 
-def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` (rows of ``x`` by an index vector), whose gradient is B4:
-    the rows' gradients summed into ``x``'s rows by ``idx``, in f32 and
-    rounded to the gradient's dtype."""
+def gather_rows(x: torch.Tensor, idx) -> torch.Tensor:
+    """``x[idx]`` (rows of ``x`` by an index vector, or by the ids of a
+    :class:`SegmentPlan` of ``x.shape[0]`` segments), whose gradient is
+    B4: the rows' gradients summed into ``x``'s rows by ``idx`` (with its
+    plan where one is given), in f32 and rounded to the gradient's
+    dtype."""
+    if isinstance(idx, SegmentPlan) and idx.num_segments != x.shape[0]:
+        raise ValueError(f"the plan has {idx.num_segments} segments, x "
+                         f"{x.shape[0]} rows")
     return _GatherRows.apply(x, idx)
 
 

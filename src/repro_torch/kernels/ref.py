@@ -191,12 +191,98 @@ def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
     ``vals`` (E, d) is cast to f32 first; ``ids`` need not be sorted, and a
     row whose id lies outside ``[0, num_segments)`` adds nothing (the Pallas
     kernel's one-hot never matches -1 or an id past its padded segments, and
-    cuts the padded segments off)."""
+    cuts the padded segments off). ``ids`` may be a segment plan
+    (``segment_matmul.SegmentPlan``): its ``ids`` are taken."""
+    ids = getattr(ids, "ids", ids)
     vals = vals.float()
     out = torch.zeros((num_segments, vals.shape[1]), dtype=torch.float32,
                       device=vals.device)
     ok = (ids >= 0) & (ids < num_segments)
     return out.index_add_(0, ids[ok].long(), vals[ok])
+
+
+def _tiled_level(vals, keys, group, span, key_at, out):
+    """One level of :func:`segment_sum_tiled`: the items (``vals`` rows,
+    ``keys``; -1 for none) in chunks of ``group``, chunk ``c`` covering the
+    sorted positions ``[c * span, (c + 1) * span)``; each chunk walked in
+    order with a running f32 sum (``acc + x``, from 0, a run at a time),
+    vectorised over the chunks. A run whose id differs from the ids just
+    outside the chunk's positions is a whole segment and goes to ``out``;
+    the first run goes to the chunk's head slot when the id before the
+    chunk is its own, else the last run to its tail slot when the id after
+    is (a run through the chunk leaves its tail slot at 0). Returns the
+    slots, ``(keys (2C,), rows (2C, d))``, head then tail per chunk."""
+    n, d = vals.shape
+    C = -(-n // group)
+    pad = C * group - n
+    kk = torch.cat([keys, keys.new_full((pad,), -1)]).view(C, group)
+    vv = torch.cat([vals, vals.new_zeros((pad, d))]).view(C, group, d)
+    q0 = torch.arange(C, device=vals.device, dtype=torch.int64) * span
+    lk, rk = key_at(q0 - 1), key_at(q0 + span)
+    cur = kk.new_full((C,), -1)
+    acc = vals.new_zeros((C, d))
+    hk, tk = kk.new_full((C,), -1), kk.new_full((C,), -1)
+    hv, tv = vals.new_zeros((C, d)), vals.new_zeros((C, d))
+
+    def flush(sel):
+        k = torch.where(sel, cur, -1)
+        whole = (k >= 0) & (k != lk) & (k != rk)
+        out[k[whole].long()] = acc[whole]
+        head = (k >= 0) & (k == lk)
+        tail = (k >= 0) & (k != lk) & (k == rk)
+        hk[head], hv[head] = k[head], acc[head]
+        both = head & (k == rk)
+        tk[both], tv[both] = k[both], 0.0
+        tk[tail], tv[tail] = k[tail], acc[tail]
+
+    for j in range(group):
+        k = kk[:, j]
+        change = k != cur
+        flush(change)
+        cur = torch.where(change, k, cur)
+        acc = torch.where(change[:, None], 0.0, acc)
+        acc = torch.where((k >= 0)[:, None], acc + vv[:, j], acc)
+    flush(cur >= 0)
+    return (torch.stack([hk, tk], 1).reshape(2 * C),
+            torch.stack([hv, tv], 1).reshape(2 * C, d))
+
+
+def segment_sum_tiled(vals: torch.Tensor, plan, tile: int,
+                      fans) -> torch.Tensor:
+    """:func:`segment_sum` by the card kernel's decomposition
+    (``csrc/segment_sum.cu``), in its order of f32 adds, so that the
+    kernel equals it bit for bit: the plan's sorted positions in chunks of
+    ``tile`` (level 0: the rows ``vals[perm[p]]`` under the sorted ids,
+    those outside ``[0, S)`` dropped), each chunk summed in order with
+    whole segments written out and its first and last partial runs left as
+    two slots; then level ``l`` walks the slots of ``fans[l - 1]`` chunks
+    of the level below the same way (the last fan repeated) until one
+    chunk is left. Segments with no row are 0. ``plan`` is a
+    ``segment_matmul.SegmentPlan`` of the rows of ``vals`` (E, d)."""
+    vals = vals.float()
+    E, d = vals.shape
+    S = plan.num_segments
+    out = vals.new_zeros((S, d))
+    if E == 0 or d == 0 or S == 0:
+        return out
+    sid = plan.sorted_ids.long()
+    keys = torch.where((sid >= 0) & (sid < S), sid, -1)
+
+    def key_at(p):
+        inside = (p >= 0) & (p < E)
+        return torch.where(inside, keys[p.clamp(0, E - 1)], -1)
+
+    rows = vals[plan.perm.long()]
+    span, fans = tile, list(fans)
+    keys_l, rows_l = _tiled_level(rows, keys, tile, span, key_at, out)
+    level = 0
+    while keys_l.shape[0] > 2:
+        fan = fans[min(level, len(fans) - 1)]
+        span *= fan
+        keys_l, rows_l = _tiled_level(rows_l, keys_l, 2 * fan, span, key_at,
+                                      out)
+        level += 1
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -281,7 +367,8 @@ def segment_gather(dout: torch.Tensor, ids: torch.Tensor,
     """The gradient of :func:`segment_sum` with respect to ``vals``: row
     ``e`` is ``dout[ids[e]]`` where ``0 <= ids[e] < S`` (S rows of
     ``dout``), else 0; computed in f32 (f64 for f64) and cast to
-    ``dtype``."""
+    ``dtype``. ``ids`` may be a segment plan: its ``ids`` are taken."""
+    ids = getattr(ids, "ids", ids)
     S = dout.shape[0]
     ok = (ids >= 0) & (ids < S)
     rows = dout.to(_grad_dtype(dtype))[ids.clamp(0, max(S - 1, 0)).long()] \

@@ -31,11 +31,15 @@ B4 :func:`segment_sum` replaces the TPU kernel ``segment_sum`` of
 unsorted segment ids, ids outside ``[0, S)`` dropped. In the reference
 GraphSAGE aggregates through ``jax.ops.segment_sum`` and only the tests
 call the Pallas kernel; in the port B4 is the aggregation itself (the
-neighbour sums and the degree counts of ``models/gnn.py``). Its source
-(``csrc/segment_sum.cu``) is a scatter-reduce with a run-merged atomic
-flush instead of the TPU's one-hot GEMM; its float atomics make the sums'
-order, and so their last bits, change from run to run.
-:func:`segment_sum_bound_ms` counts its bytes.
+neighbour sums and degree counts of ``models/gnn.py``, the gathers'
+gradients). Its source (``csrc/segment_sum.cu``) is a sorted,
+load-balanced reduction with no float atomics instead of the TPU's
+one-hot GEMM: it reads a :class:`SegmentPlan` (:func:`segment_plan`, the
+ids' stable sort, built once per graph and reused by every layer and
+backward pass), walks fixed tiles of sorted positions and adds the tiles'
+partial rows in a fixed order (:func:`segment_tiles`), so its sums are
+bitwise reproducible and equal, bit for bit, to the plain mirror
+``ref.segment_sum_tiled``. :func:`segment_sum_bound_ms` counts its bytes.
 
 The gradients (``kernels/ops.py`` wires them into autograd):
 :func:`matmul_grads` is B5 twice on transposed operands (``da = dc @
@@ -46,8 +50,9 @@ gather of the output gradient's rows by the same ids (its kernel sits in
 Dispatch is by the tensors' device: CUDA tensors launch the kernels (built
 with nvcc at first use, loaded with ctypes), CPU tensors take the plain
 versions ``ref.matmul``, ``ref.segment_sum``, ``ref.matmul_grads`` and
-``ref.segment_gather``. There is no fallback: a missing nvcc, a failed
-build, an operand a kernel does not take or a refused launch raises.
+``ref.segment_gather`` (a plan's ids where a plan is given). There is no
+fallback: a missing nvcc, a failed build, an operand a kernel does not
+take or a refused launch raises.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
@@ -317,17 +323,157 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _segsum_library() -> tuple[ctypes.CDLL, Path]:
     so = build_cuda("segment_sum", [_SEGSUM_SRC])
     lib = ctypes.CDLL(str(so))
-    for name in ("segment_sum_launch", "segment_gather_launch"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [
-            ctypes.c_void_p]
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.segment_gather_launch.restype = ctypes.c_int
+    lib.segment_gather_launch.argtypes = [ptr] * 3 + [i64] * 3 + [ptr]
+    lib.segment_sum_launch.restype = ctypes.c_int
+    lib.segment_sum_launch.argtypes = [ptr] * 8 + [i64] * 6 + [
+        ctypes.POINTER(ctypes.c_int64), i64, ptr]
     return lib, so
 
 
 def build_segment_sum() -> Path:
     """Build B4's library (if needed) and load it; returns its path."""
     return _segsum_library()[1]
+
+
+class SegmentPlan(NamedTuple):
+    """B4's bookkeeping for one id vector, built once per graph by
+    :func:`segment_plan` and read by every :func:`segment_sum` (and its
+    gradients) over those ids. All int32, on the ids' device:
+
+    * ``ids`` (E,): the ids as given;
+    * ``num_segments``: S;
+    * ``perm`` (E,): the stable argsort of ``ids`` (ties in row order);
+    * ``sorted_ids`` (E,): ``ids[perm]``; negative ids come first, ids of
+      S or above last;
+    * ``offsets`` (S + 1,): ``offsets[s]`` is the first sorted position of
+      segment s (``searchsorted`` on the left), so segment s is
+      ``[offsets[s], offsets[s + 1])``, empty where the two are equal, and
+      the in-range ids begin at ``offsets[0]`` and end at ``offsets[S]``.
+    """
+    ids: torch.Tensor
+    num_segments: int
+    perm: torch.Tensor
+    sorted_ids: torch.Tensor
+    offsets: torch.Tensor
+
+
+_COUNTERS: dict = {}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def _counters(n: int, device: torch.device, stream: int) -> torch.Tensor:
+    """B4's arrival counters for one stream: at least ``n`` int32 zeros,
+    made once and grown as needed. The kernel leaves them zero (the last
+    arrival at each resets it), and launches on one stream run in order,
+    so every launch on that stream finds them zero."""
+    key = (device, stream)
+    with _COUNTERS_LOCK:
+        buf = _COUNTERS.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+            _COUNTERS[key] = buf
+        return buf
+
+
+def _num_segments(num_segments) -> int:
+    S = int(num_segments)
+    if not 0 <= S < 2**31:
+        raise ValueError(f"num_segments must lie in [0, 2**31), got {S}")
+    return S
+
+
+def segment_plan(ids: torch.Tensor, num_segments: int) -> SegmentPlan:
+    """The :class:`SegmentPlan` of an integer id vector (cast to int32) and
+    S segments: a stable sort and a ``searchsorted``, integer bookkeeping
+    only (every float add of the sum is the kernel's). The same torch
+    calls build it on either device. ``segment_plan.builds`` counts plans
+    built on the card."""
+    ids = int32_vector("ids", ids)
+    S = _num_segments(num_segments)
+    if ids.shape[0] >= 2**31:
+        raise ValueError(f"a segment plan takes fewer than 2**31 ids, got "
+                         f"{ids.shape[0]}")
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    offsets = torch.searchsorted(
+        sorted_ids, torch.arange(S + 1, dtype=torch.int32, device=ids.device),
+        out_int32=True)
+    if ids.device.type == "cuda":
+        count_launch(segment_plan, attr="builds")
+    return SegmentPlan(ids, S, perm.to(torch.int32), sorted_ids, offsets)
+
+
+segment_plan.builds = 0
+
+
+def segment_plan_bytes(E: int, S: int) -> int:
+    """Bytes a plan holds beside its ids: ``perm`` and ``sorted_ids`` (4 *
+    E each) and ``offsets`` (4 * (S + 1)); the sort that makes them reads
+    and writes more."""
+    return 8 * E + 4 * (S + 1)
+
+
+def plan_ids(ids) -> torch.Tensor:
+    """The id vector of ``ids``: a plan's ``ids``, or ``ids`` itself."""
+    return ids.ids if isinstance(ids, SegmentPlan) else ids
+
+
+#: chunks of a level-1 block (its rows of threads); the chunks a row walks
+#: in a step above level 1, and at most in the last step
+#: (csrc/segment_sum.cu)
+SEGSUM_ROWS = 8
+SEGSUM_STEP = 8
+SEGSUM_LAST_STEP = 32
+
+
+def segment_tiles(E: int, d: int) -> tuple[int, tuple[int, ...]]:
+    """B4's schedule for ``E`` rows of width ``d``: ``(tile, fans)``, the
+    chunks of each level (``ref.segment_sum_tiled``'s arguments). Level 0
+    cuts the sorted positions into chunks of ``tile``: 16 where ``E * d``
+    is below 2**22 (latency-bound: the most chunks), 64 for rows of 256 or
+    more (cut into column slices, which multiply the blocks), else 256 (a
+    block's fixed work spread over the most rows). Level 1 takes
+    ``fans[0]`` = F = :data:`SEGSUM_ROWS` chunks a block (a row of at most
+    32 column lanes each). Above, each step takes groups of ``a * F``
+    chunks, which the group's last block to finish walks as two levels,
+    ``fans = (F, a1, F, a2, F, ...)``: a of them per row of the block, then
+    the F rows' slots; ``a`` is :data:`SEGSUM_STEP`, or in the last step
+    as few as cover what is left (at most :data:`SEGSUM_LAST_STEP`). A
+    function of ``(E, d)`` alone: the order of every add, and so the
+    output's bits, depend on nothing else."""
+    tile = 16 if E * d < 2**22 else 64 if d >= 256 else 256
+    return tile, _segment_fans(E, d, tile)
+
+
+def _segment_fans(E: int, d: int, tile: int) -> tuple[int, ...]:
+    """The fans of :func:`segment_tiles` for a level-0 ``tile``."""
+    F = SEGSUM_ROWS
+    fans = [F]
+    n = -(-(-(-E // tile)) // F)
+    while n > 1:
+        a = -(-n // F) if n <= F * SEGSUM_LAST_STEP else SEGSUM_STEP
+        fans += [a, F]
+        n = -(-n // (a * F))
+    return tuple(fans)
+
+
+def _segment_slots(E: int, tile: int, fans: tuple[int, ...],
+                   slices: int = 1) -> tuple[int, int]:
+    """``(slots, counters)`` the steps above level 1 use: two slots per
+    chunk of each level a step reads, rounded up to whole groups of ``a *
+    F`` chunks (the kernel lays a group's slots out by row), and per
+    column slice of each step one arrival counter per ``a`` chunks and one
+    per group."""
+    F = fans[0]
+    n = -(-(-(-E // tile)) // F)
+    slots = counters = 0
+    for a in fans[1::2]:
+        groups = -(-n // (a * F))
+        slots += 2 * groups * a * F
+        counters += (-(-n // a) + groups) * slices
+        n = groups
+    return slots, counters
 
 
 def segment_sum_bound_ms(E: int, d: int, S: int) -> float:
@@ -338,27 +484,30 @@ def segment_sum_bound_ms(E: int, d: int, S: int) -> float:
     return (4 * E * d + 4 * E + 4 * S * d) / HBM_BYTES_PER_S * 1e3
 
 
-def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+def segment_sum(vals: torch.Tensor, ids, num_segments: int) -> torch.Tensor:
     """B4: f32[num_segments, d], row ``s`` the sum of the rows ``vals[i]``
     with ``ids[i] == s`` (a new tensor); ids outside ``[0, num_segments)``
     add nothing. ``vals`` (E, d) of any float dtype is cast to f32, as the
-    reference casts it; ``ids`` is an integer vector of length E.
+    reference casts it; ``ids`` is an integer vector of length E, or its
+    :class:`SegmentPlan` (of ``num_segments`` segments).
 
-    On the card the f32 ``vals`` must be contiguous. The sums' order, and
-    so their last bits, change from run to run (float atomics).
-    ``segment_sum.launches`` counts kernel launches (one per call that
-    launches: a memset and the kernel; CPU calls and empty shapes launch
-    nothing)."""
+    On the card the f32 ``vals`` must be contiguous; an id vector gets a
+    plan built here (counted in ``segment_plan.builds``). The sums are
+    bitwise reproducible: their order is fixed by the ids, the values and
+    :func:`segment_tiles`. ``segment_sum.launches`` counts kernel launches
+    (one per call that launches: one kernel for every level; CPU calls and
+    empty shapes launch nothing)."""
     if vals.dim() != 2:
         raise ValueError(f"segment_sum takes (E, d) values, got shape "
                          f"{tuple(vals.shape)}")
     if not vals.is_floating_point():
         raise TypeError(f"segment_sum takes float values, got {vals.dtype}")
-    ids = int32_vector("ids", ids, vals.shape[0], vals.device)
-    S = int(num_segments)
-    if not 0 <= S < 2**31:
-        raise ValueError(f"num_segments must lie in [0, 2**31), got {S}")
+    S = _num_segments(num_segments)
+    plan = ids if isinstance(ids, SegmentPlan) else None
+    if plan is not None and plan.num_segments != S:
+        raise ValueError(f"the plan has {plan.num_segments} segments, the "
+                         f"call {S}")
+    ids = int32_vector("ids", plan_ids(ids), vals.shape[0], vals.device)
     if vals.device.type == "cpu":
         return ref.segment_sum(vals, ids, S)
     cuda_only(vals.device, "segment_sum")
@@ -371,13 +520,26 @@ def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
         return out
     if E == 0:
         return out.zero_()
-    if d > 65535 * 128:                    # column chunks on the grid's y
-        raise ValueError(f"the segment_sum kernel takes rows of at most "
-                         f"8,388,480 values, got {d}")
+    if plan is None:
+        plan = segment_plan(ids, S)
+    ptr = vals.data_ptr()
+    vec = (4 if d % 4 == 0 and ptr % 16 == 0 else
+           2 if d % 2 == 0 and ptr % 8 == 0 else 1)
+    lanes = min(32, 1 << (d // vec - 1).bit_length())
+    tile, fans = segment_tiles(E, d)
+    slots, counters = _segment_slots(E, tile, fans,
+                                     -(-(d // vec) // lanes))
+    slot_val = torch.empty((slots, d), dtype=torch.float32, device=vals.device)
+    slot_key = torch.empty(slots, dtype=torch.int32, device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _segsum_library()[0].segment_sum_launch(
-            vals.data_ptr(), ids.data_ptr(), out.data_ptr(), E, d, S, stream)
+            ptr, plan.perm.data_ptr(), plan.sorted_ids.data_ptr(),
+            plan.offsets.data_ptr(), out.data_ptr(), slot_val.data_ptr(),
+            slot_key.data_ptr(),
+            _counters(counters, vals.device, stream).data_ptr(), E, d, S,
+            vec, lanes, tile, (ctypes.c_int64 * len(fans))(*fans), len(fans),
+            stream)
     if rc:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {rc}")
     count_launch(segment_sum)

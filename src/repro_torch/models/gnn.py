@@ -13,6 +13,10 @@ reference aggregates with ``jax.ops.segment_sum``, gathers with
   ``ops.segment_sum`` (B4);
 * every row gather by an edge end is ``ops.gather_rows``, whose gradient
   is B4;
+* each forward builds B4's plan (``ops.segment_plan``) once per id vector
+  it sums by, and once for ``src`` where a gradient can flow (the
+  gathers' gradients sum by it), and hands the plans to every layer and,
+  through the kernels' Functions, to every backward pass;
 * every dense product (each MLP layer, the radial MLPs, NequIP's and
   MACE's channel mixes, MACE's product-basis projections) is
   ``ops.matmul`` (B5, its f32 route).
@@ -87,6 +91,17 @@ def _mlp(layers: nn.ModuleList, x: torch.Tensor,
     return x
 
 
+def _plans(src: torch.Tensor, dst: torch.Tensor, n: int):
+    """``(src, dst)`` for a forward over ``n`` nodes: ``dst`` as its B4 plan
+    (every aggregation sums by it), ``src`` as its plan where a gradient
+    can flow (the gradient of ``x[src]`` sums by it), else as it is (a
+    forward only gathers by it)."""
+    dst = ops.segment_plan(dst, n)
+    if torch.is_grad_enabled():
+        src = ops.segment_plan(src, n)
+    return src, dst
+
+
 def _layernorm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Layer norm over the last axis without scale or shift (the
     reference's ``_layernorm``)."""
@@ -142,9 +157,10 @@ def mgn_outputs(model: MeshGraphNet, batch: dict) -> torch.Tensor:
     Encoders, then per layer the edge update from ``[e, x[src], x[dst]]``
     (two gathers), masked edges zeroed, the B4 sum of the edges into their
     ``dst`` and the node update from ``[x, agg]``; every MLP output layer
-    normed; the decoder."""
+    normed; the decoder. One B4 plan for ``dst``, and one for ``src`` where
+    a gradient can flow."""
     n = batch["node_feat"].shape[0]
-    src, dst = batch["src"], batch["dst"]
+    src, dst = _plans(batch["src"], batch["dst"], n)
     mask = batch.get("edge_mask")
     mask = mask[:, None] if mask is not None else 1.0
     x = _layernorm(_mlp(model.enc_node, batch["node_feat"]))
@@ -213,20 +229,21 @@ class GraphSAGE(nn.Module):
         self.head = _param((cfg.d_hidden, cfg.n_classes), device)
 
 
-def segment_mean(vals: torch.Tensor, ids: torch.Tensor,
-                 num: int) -> torch.Tensor:
-    """Mean of the rows of ``vals`` (E, d) per segment id, 0 for a segment
-    with no row: two B4 calls, the sums and the counts."""
+def segment_mean(vals: torch.Tensor, ids, num: int) -> torch.Tensor:
+    """Mean of the rows of ``vals`` (E, d) per segment id (``ids``: a
+    vector or its B4 plan), 0 for a segment with no row: two B4 calls, the
+    sums and the counts."""
     s = ops.segment_sum(vals, ids, num)
     ones = torch.ones((vals.shape[0], 1), dtype=s.dtype, device=vals.device)
     return s / ops.segment_sum(ones, ids, num).clamp_min(1.0)
 
 
-def sage_layer(layer: SAGELayer, x: torch.Tensor, src: torch.Tensor,
-               dst: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+def sage_layer(layer: SAGELayer, x: torch.Tensor, src, dst,
+               mask: torch.Tensor | None) -> torch.Tensor:
     """One layer (``sage_forward``'s loop body): the mean of the in-edge
     neighbours' rows (masked edges counted out), both projections plus the
-    bias, relu, and each row scaled to norm 1 (floored at 1e-6)."""
+    bias, relu, and each row scaled to norm 1 (floored at 1e-6). ``src``
+    and ``dst`` are id vectors or their B4 plans."""
     n = x.shape[0]
     rows = ops.gather_rows(x, src)
     if mask is not None:
@@ -244,10 +261,11 @@ def sage_layer(layer: SAGELayer, x: torch.Tensor, src: torch.Tensor,
 def sage_logits(model: GraphSAGE, batch: dict) -> torch.Tensor:
     """Logits (n, n_classes) in f32 of every node of ``batch``, with
     autograd: ``2 * n_layers`` B4 calls and ``2 * n_layers + 1`` B5
-    calls."""
-    src, dst = batch["src"], batch["dst"]
-    mask = batch.get("edge_mask")
+    calls, over one B4 plan for ``dst`` (and one for ``src`` where a
+    gradient can flow) shared by the layers."""
     x = batch["node_feat"]
+    src, dst = _plans(batch["src"], batch["dst"], x.shape[0])
+    mask = batch.get("edge_mask")
     for layer in model.layers:
         x = sage_layer(layer, x, src, dst, mask)
     return ops.matmul(x, model.head)
@@ -358,7 +376,8 @@ def _interaction(lyr: Interaction, C: int, s, V, T, src, dst, rbf, rhat, Y2,
     from the radial MLP (masked edges send nothing), the senders' irreps
     gathered as (n, C), (n, 3C) and (n, 9C) rows, the three tensor-product
     messages, their B4 sums into ``dst`` as (E, C), (E, 3C) and (E, 9C)
-    rows, the channel mixes, and the gated nonlinearity."""
+    rows, the channel mixes, and the gated nonlinearity. ``src`` and
+    ``dst`` are id vectors or their B4 plans."""
     E = rbf.shape[0]
     rw = _mlp(lyr.radial, rbf).reshape(E, 3, C, eq.N_PATHS)
     if mask is not None:
@@ -405,13 +424,16 @@ def geo_outputs(model: GeoModel, batch: dict, n_graphs: int | None = None):
     pos[dst]`` (two gathers), their basis and radial features, the
     embedding, the layers (MACE's with its product basis; with
     ``bf16_state`` the features rounded to bf16 after each), the readout
-    per atom, and the B4 sum of the atoms' energies by ``graph_id``."""
+    per atom, and the B4 sum of the atoms' energies by ``graph_id``. One
+    B4 plan each for ``dst`` and ``graph_id``, and one for ``src`` where a
+    gradient can flow."""
     cfg = model.cfg
     feat = batch["node_feat"]
     n = feat.shape[0]
     ng = n_graphs if n_graphs is not None else batch["energy_target"].shape[0]
     C = cfg.d_hidden
-    src, dst = batch["src"], batch["dst"]
+    src, dst = _plans(batch["src"], batch["dst"], n)
+    graph_id = ops.segment_plan(batch["graph_id"], ng)
     rvec = ops.gather_rows(batch["pos"], src) - ops.gather_rows(batch["pos"],
                                                                 dst)
     d, rhat, Y2 = eq.edge_basis(rvec)
@@ -428,7 +450,7 @@ def geo_outputs(model: GeoModel, batch: dict, n_graphs: int | None = None):
         if cfg.bf16_state:
             s, V, T = (x.to(torch.bfloat16) for x in (s, V, T))
     atom_e = _mlp(model.readout, s.float())
-    energy = ops.segment_sum(atom_e, batch["graph_id"], ng)[:, 0]
+    energy = ops.segment_sum(atom_e, graph_id, ng)[:, 0]
     return energy, (s, V, T)
 
 

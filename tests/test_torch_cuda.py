@@ -8,8 +8,10 @@ neither JAX nor the reference package, so it runs on the card's machine:
 
 Integer and boolean outputs must match exactly. B5's f32 outputs sum the
 same exact products in another order (rtol 1e-4, atol 1e-6 * K); B4's
-add the same f32 rows in an order its atomics change from run to run
-(rtol = atol = 1e-4, tests/test_kernels.py's segment-sum tolerance); B6's
+add the same f32 rows in another order (rtol = atol = 1e-4,
+tests/test_kernels.py's segment-sum tolerance), an order fixed by the ids
+and the schedule: equal bit for bit from call to call and to the plain
+mirror of its decomposition, ``ref.segment_sum_tiled``; B6's
 bf16 outputs are held to ``flash_attention.error_bound``, as in
 chip_smoke.py: 2e-2 of |plain| for the outputs' bf16 roundings plus 1e-2
 of the largest |plain| in the element's row for the kernel's bf16 P."""
@@ -857,9 +859,22 @@ def segment_operands(E, d, S, kind, seed=0):
     model multiplies them by their zero edge mask); ``integer_runs``: the
     same ids, every row (the long run of padding rows too) holding small
     integers, whose f32 sums are exact in any order; ``random``: N(0, 1)
-    values on unsorted ids with 10% -1 and 5% >= S."""
+    values on unsorted ids with 10% -1 and 5% >= S; ``hubs``: unsorted
+    ids, 60% of them on one id and 5% on a second (meshgraphnet's
+    power-law hubs, a padded batch's node 0), the rest uniform, with small
+    integer values: a hub of 200,000 N(0, 1) rows sums to within f32's
+    rounding of a few hundred (~1e-2) in any order, so that the kernel and
+    the plain version would part by more than 1e-4 while both are right;
+    integer rows sum exactly in every order."""
     rng = np.random.default_rng(seed + E + d + S)
     vals = rng.normal(size=(E, d)).astype(np.float32)
+    if kind == "hubs":
+        ids = rng.integers(0, max(S, 1), E)
+        u = rng.random(E)
+        ids[u < 0.6] = S // 2
+        ids[(u >= 0.6) & (u < 0.65)] = max(S - 1, 0)
+        vals = rng.integers(-4, 5, (E, d)).astype(np.float32)
+        return vals, ids.astype(np.int32)
     if kind == "random":
         ids = rng.integers(0, max(S, 1), E)
         u = rng.random(E)
@@ -885,8 +900,10 @@ def segment_operands(E, d, S, kind, seed=0):
                                    (700, 32, 90), (1024, 128, 256),
                                    (513, 7, 1), (129, 131, 5), (0, 5, 3),
                                    (5, 3, 0), (1, 1, 1)])
-@pytest.mark.parametrize("kind", ["runs", "integer_runs", "random"])
+@pytest.mark.parametrize("kind", ["runs", "integer_runs", "random", "hubs"])
 def test_segment_sum_kernel_matches_plain_version(cuda, E, d, S, kind):
+    """Also: bit-equal to the plain mirror of its decomposition and to
+    itself with a plan built beforehand."""
     vals, ids = segment_operands(E, d, S, kind)
     vals, ids = torch.as_tensor(vals, device=cuda), torch.as_tensor(
         ids, device=cuda)
@@ -896,10 +913,61 @@ def test_segment_sum_kernel_matches_plain_version(cuda, E, d, S, kind):
     assert segment_matmul.segment_sum.launches == before + (E * d * S > 0)
     want = ref.segment_sum(vals, ids, S)
     assert got.dtype == torch.float32 and got.shape == (S, d)
-    if kind == "integer_runs":
+    if kind in ("integer_runs", "hubs"):
         assert torch.equal(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    plan = ops.segment_plan(ids, S)
+    assert torch.equal(ops.segment_sum(vals, plan, S), got)
+    assert torch.equal(got, ref.segment_sum_tiled(
+        vals, plan, *segment_matmul.segment_tiles(E, d)))
+
+
+@pytest.mark.parametrize("E,d", [(1_000_000, 128), (100_000, 1),
+                                 (200_000, 7), (120_000, 602)])
+def test_segment_sum_kernel_carries_across_many_tiles(cuda, E, d):
+    """One id on 60% of the rows: its carry chain spans hundreds of level-0
+    tiles and every level above. On integer rows the kernel equals the
+    plain version exactly; on N(0, 1) rows it equals its mirror and itself
+    bit for bit."""
+    S = 5_000
+    ints, ids = segment_operands(E, d, S, "hubs")
+    ints, ids = torch.as_tensor(ints, device=cuda), torch.as_tensor(
+        ids, device=cuda)
+    vals = torch.randn(E, d, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(E + d))
+    tile, fans = segment_matmul.segment_tiles(E, d)
+    assert int((ids == S // 2).sum()) >= 300 * tile and len(fans) >= 3
+    plan = ops.segment_plan(ids, S)
+    assert torch.equal(segment_matmul.segment_sum(ints, plan, S),
+                       ref.segment_sum(ints, ids, S))
+    got = segment_matmul.segment_sum(vals, plan, S)
+    again = segment_matmul.segment_sum(vals, plan, S)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, ref.segment_sum_tiled(vals, plan, tile, fans))
+
+
+def test_segment_plan_on_card_equals_cpu_and_is_counted(cuda):
+    rng = np.random.default_rng(3)
+    ids = rng.integers(-1, 60, 5_000).astype(np.int32)
+    ids[rng.random(5_000) < 0.05] = 70
+    before = segment_matmul.segment_plan.builds
+    plan = ops.segment_plan(torch.as_tensor(ids, device=cuda), 60)
+    cpu = ops.segment_plan(torch.as_tensor(ids), 60)
+    assert segment_matmul.segment_plan.builds == before + 1
+    for name in ("ids", "perm", "sorted_ids", "offsets"):
+        got, want = getattr(plan, name), getattr(cpu, name)
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    assert plan.num_segments == 60
+    # plan-free calls build one; calls with a plan build none
+    vals = torch.randn(5_000, 16, device=cuda)
+    segment_matmul.segment_sum(vals, plan, 60)
+    assert segment_matmul.segment_plan.builds == before + 1
+    segment_matmul.segment_sum(vals, plan.ids, 60)
+    assert segment_matmul.segment_plan.builds == before + 2
+    with pytest.raises(ValueError):
+        segment_matmul.segment_sum(vals, plan, 61)
 
 
 def test_segment_sum_kernel_takes_bf16_and_refuses_strided_values(cuda):
@@ -1367,7 +1435,8 @@ def _plain_ops():
             mock.patch.object(ops, "flash_attention", ref.flash_attention),
             mock.patch.object(ops, "segment_sum", ref.segment_sum),
             mock.patch.object(ops, "gather_rows",
-                              lambda x, idx: x[idx.long()]))
+                              lambda x, idx: x[segment_matmul.plan_ids(
+                                  idx).long()]))
 
 
 def _loss_and_grads(spec, cfg, model, batch, plain=False, relu=None):
@@ -1644,6 +1713,51 @@ def test_double_backward_through_b4_and_b5_on_card(cuda):
     # forward 1 + 1 + 0, first backward 2 + 1 + 1, second more of each
     assert all(a - b > n for a, b, n in zip(after, before, (3, 2, 1)))
     (px, pw), (qx, qw) = _hvp(f, (x, w), plain=True)
+    for got, want in ((gx, px), (gw, pw), (hx, qx), (hw, qw)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_plans_serve_every_gradient_on_card(cuda):
+    """A plan handed to segment_sum and gather_rows serves the forward, the
+    first backward (the sum's gather, the gather's sum) and the second: no
+    plan is built after it, the kernels launch as often as with the id
+    vector (whose every B4 call builds a plan), and every result is
+    bit-equal (the sums' order depends on the ids alone); both match the
+    plain versions (f32, 1e-4 of each result's largest |value|)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(50, 24, generator=g, device=cuda, requires_grad=True)
+    w = torch.randn(24, 16, generator=g, device=cuda, requires_grad=True)
+    idx = torch.randint(0, 50, (400,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    idx[:40] = 7                                    # a hub over 2 tiles
+
+    def f(ids):
+        def fn(x, w):
+            rows = ops.gather_rows(x, ids)
+            return ops.segment_sum(ops.matmul(rows, w).tanh(), ids,
+                                   50).pow(2).sum()
+        return fn
+
+    def counts():
+        return np.array([segment_matmul.matmul.launches,
+                         segment_matmul.segment_sum.launches,
+                         segment_matmul.segment_gather.launches,
+                         segment_matmul.segment_plan.builds])
+
+    plan = ops.segment_plan(idx, 50)
+    c0 = counts()
+    (gx, gw), (hx, hw) = _hvp(f(plan), (x, w), plain=False)
+    torch.cuda.synchronize()
+    c1 = counts()
+    (ax, aw), (bx, bw) = _hvp(f(idx), (x, w), plain=False)
+    torch.cuda.synchronize()
+    c2 = counts()
+    assert c1[3] == c0[3] and (c1 - c0)[:3].tolist() == (c2 - c1)[:3].tolist()
+    assert c2[3] - c1[3] == c2[1] - c1[1] > 2
+    for got, want in ((gx, ax), (gw, aw), (hx, bx), (hw, bw)):
+        assert torch.equal(got, want)
+    (px, pw), (qx, qw) = _hvp(f(plan), (x, w), plain=True)
     for got, want in ((gx, px), (gw, pw), (hx, qx), (hw, qw)):
         scale = float(want.abs().max())
         assert float((got - want).abs().max()) <= 1e-4 * scale
