@@ -4,8 +4,11 @@
     python3 bench_matmul.py [--src DIR] [--only NAME ...] [--iters N]
 
 For each shape of the glm4-9b prefill (1 x 4,096 tokens) and decode (16
-tokens), and of the graphsage-reddit minibatch_lg forward (169,984 rows,
-f32), the kernel is held against its plain version (``ref.matmul``;
+tokens), of the graphsage-reddit minibatch_lg forward (169,984 rows,
+f32), and of the f32 products whose output has fewer tiles than the card
+has SMs (the weight gradients ``a^T @ dc`` of graphsage-reddit,
+meshgraphnet and MIND, qwen2-moe's router; the f32 route splits K for
+them), the kernel is held against its plain version (``ref.matmul``;
 1e-4 relative + 1e-6 * K, as in chip_smoke.py) and timed beside
 ``torch.matmul`` on the same inputs (f32 with TF32 off): device time with
 the host ahead, time back to back and host time per call
@@ -29,7 +32,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 #: (name, M, K, N, dtype): glm4-9b (d_model 4,096, kv width 256, d_ff
-#: 13,696, vocab 151,552) and graphsage-reddit (602 -> 128 -> 128, 41)
+#: 13,696, vocab 151,552) and graphsage-reddit (602 -> 128 -> 128, 41);
+#: then f32 products of few output tiles: graphsage-reddit's weight
+#: gradients over minibatch_lg's 169,984 rows, meshgraphnet's edge MLP's
+#: first weight gradient (384 x 128) over full_graph_sm's 21,504 and
+#: ogb_products / 16's 7,732,736 edges, qwen2-moe's router (2,048 -> 60) at
+#: a 4,096-token prefill and a 4-token decode, and MIND's S gradient over
+#: 65,536 x 50 history rows
 SHAPES = [
     ("prefill wq", 4096, 4096, 4096, torch.bfloat16),
     ("prefill wk", 4096, 4096, 256, torch.bfloat16),
@@ -44,6 +53,14 @@ SHAPES = [
     ("gnn layer-1", 169984, 602, 128, torch.float32),
     ("gnn layer-2", 169984, 128, 128, torch.float32),
     ("gnn head", 169984, 128, 41, torch.float32),
+    ("gnn dW layer-1", 602, 169984, 128, torch.float32),
+    ("gnn dW layer-2", 128, 169984, 128, torch.float32),
+    ("gnn dW head", 128, 169984, 41, torch.float32),
+    ("mgn dW edge full_graph_sm", 384, 21504, 128, torch.float32),
+    ("mgn dW edge ogb/16", 384, 7732736, 128, torch.float32),
+    ("moe router prefill", 4096, 2048, 60, torch.float32),
+    ("moe router decode", 4, 2048, 60, torch.float32),
+    ("mind dS", 64, 3276800, 64, torch.float32),
 ]
 
 

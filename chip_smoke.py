@@ -269,6 +269,28 @@ result line each; any failure raises and exits non-zero:
            the first counted; the loss and every gradient, and the force
            loss's gradient alone, against the plain versions; molecules/s,
            step seconds, idle shares, peak memory
+  recsys   mind at the reference's full width (8,388,608 items x 64, 4
+           interests, 3 routing iterations, histories of 50; f32, drawn on
+           the card from a seed) on all four RECSYS_SHAPES cells, nothing
+           cut: serve_p99 (512 users x 100 candidates: p50 and p99 ms
+           over 60 calls, users/s, host ms, idle share), serve_bulk
+           (262,144 x 100: s per batch, users/s, peak memory) and
+           retrieval_cand (1 x 1,000,000: ms per query, peak memory)
+           through make_serve_step, each counted (B5 1 per serve call, 2
+           per retrieval, no B4) and its scores against the plain
+           versions; train_batch (65,536 users from launch.train's
+           InteractionStream) through make_train_step, the first step
+           counted (B5 6, 4 of them gradients; B4 1 for the item table's
+           gradient over the one lookup of history and targets; 1 plan):
+           step s, users/s, the model-FLOP share of 67 TFLOP/s, the step
+           taken apart (lookup, routing, loss, backward, AdamW), peak
+           memory, the host's data s; the loss and both gradients against
+           the plain versions and bit-equal in two evaluations; the
+           training CLI with --inject-failure replayed bit-equal; B4 at
+           the table gradient's shape (3,342,336 rows into 8,388,608) and
+           B5 at the S gradient's (64 x 3,276,800 @ 3,276,800 x 64, K
+           split) and the in-batch shapes against their plain versions,
+           timed beside their bounds, index_add_ and torch.matmul
 
 The card builds, ingests and trims of epoch, engine and store peel their
 k ranges on the card too; a ``[kcore]`` line sums kcore_fixpoint's
@@ -773,12 +795,17 @@ def kernel_checks(b5_cases: dict, b6_cases: dict, tag: str = "lm") -> dict:
         (M, K), N = a.shape, b.shape[1]
         got, want = sm.matmul(a, b), ref.matmul(a, b)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if not bool(((got - want).abs() <= B5_RTOL * want.abs()
-                     + B5_ATOL_PER_K * K).all()):
+        err, ok = 0.0, True
+        rows = max(1, 2**28 // max(N, 1))    # the check's temporaries
+        for r in range(0, M, rows):
+            diff = (got[r:r + rows] - want[r:r + rows]).abs()
+            err = max(err, float(diff.max()))
+            ok &= bool((diff <= B5_RTOL * want[r:r + rows].abs()
+                        + B5_ATOL_PER_K * K).all())
+        if not ok:
             raise AssertionError(f"B5 {name} disagrees with its plain version "
                                  f"(max abs err {err})")
-        del got, want
+        del got, want, diff
         heavy = M * N * K > 1e11
         t, kern = call_times(lambda: sm.matmul(a, b), 5 if heavy else 20)
         lib_ms, lib = call_times(lambda: torch.matmul(a, b),
@@ -4957,6 +4984,374 @@ def store_phase(g, dev, smi: str) -> tuple[int, int]:
     return b1, sweeps
 
 
+#: the [recsys] phase: mind at the reference's full width and depth
+#: (n_items 8,388,608 x 64, 4 interests, 3 routing iterations, histories
+#: of 50; f32, drawn on the card from MIND_SEED) on RECSYS_SHAPES, nothing
+#: cut: serve_p99 (512 users x 100 candidates, MIND_SERVES timed calls),
+#: serve_bulk (262,144 x 100), retrieval_cand (1 user x 1,000,000) and
+#: train_batch (65,536 users from launch.train's InteractionStream,
+#: MIND_STEPS steps). Serving histories and candidates are drawn by
+#: :func:`mind_requests`, a vectorised draw of the stream's form.
+MIND_ARCH = "mind"
+MIND_SEED = 37
+MIND_SERVES = 60
+MIND_STEPS = 3
+#: f32 throughout: scores within this share of max|score| of the plain
+#: versions', the loss and each gradient leaf within this share of its
+#: scale
+MIND_TOL = 1e-4
+#: (B5, of them B5's gradient products, B4, B4 plans) of one serve call,
+#: one retrieval call and one train step (tests/test_torch_cuda.py's
+#: MIND_CALLS holds the same at the smoke config): serving's one product
+#: is emb @ S, retrieval's second the candidates' scores; a train step's
+#: forward runs emb @ S and the in-batch logits, its backward their four
+#: gradient products and one B4 (the item table's gradient over the one
+#: lookup of the history and the targets), with one plan
+MIND_LAUNCHES = {"serve": (1, 0, 0, 0), "retrieval": (2, 0, 0, 0),
+                 "train": (6, 4, 1, 1)}
+
+
+def mind_requests(cfg, B: int, C: int, seed: int, dev) -> dict:
+    """A serving batch of ``B`` users: histories of ``cfg.hist_len`` items
+    (all real, mask 1) and ``C`` candidates each, in the form of
+    ``data.recsys_data.InteractionStream`` (its 32 cluster bases at seed
+    0; each user mixes 1-3 clusters; an item is its cluster's base plus a
+    Zipf(1.8) draw, mod n_items), drawn for all users at once with numpy
+    from ``seed``; on ``dev``. ``C`` candidates of one user (``B`` = 1)
+    are drawn uniformly over the table: a retrieval slab."""
+    from repro_torch.data.recsys_data import InteractionStream
+    base = InteractionStream(cfg.n_items, cfg.hist_len, seed=0).cluster_base
+    rng = np.random.default_rng(seed)
+    cs = rng.integers(0, len(base), (B, 3))
+    k = rng.integers(1, 4, (B, 1))
+
+    def items(n):
+        pick = np.take_along_axis(cs, rng.integers(0, 2**20, (B, n)) % k,
+                                  axis=1)
+        return ((base[pick] + rng.zipf(1.8, (B, n))) % cfg.n_items).astype(
+            np.int32)
+
+    hist = items(cfg.hist_len)
+    cand = (items(C) if B > 1 else
+            rng.integers(0, cfg.n_items, C, dtype=np.int32))
+    return {"hist_ids": torch.as_tensor(hist, device=dev),
+            "hist_mask": torch.ones(hist.shape, dtype=torch.float32,
+                                    device=dev),
+            "cand_ids": torch.as_tensor(cand, device=dev)}
+
+
+def mind_counted(want: tuple, what: str) -> tuple:
+    """The counts since :func:`reset_b4_b5`; raises unless they are
+    ``want`` (B5, B5's gradient products, B4, B4 plans), with no B4 gather
+    and every B5 launch on the f32 route."""
+    from repro_torch.kernels import segment_matmul as sm
+    got = (sm.matmul.launches, sm.matmul_grads.launches,
+           sm.segment_sum.launches, sm.segment_plan.builds)
+    if got != tuple(want) or sm.segment_gather.launches:
+        raise AssertionError(f"{what} launched (B5, B5 grad, B4, plans) "
+                             f"{got}, B4 gather {sm.segment_gather.launches}"
+                             f", not {tuple(want)}, 0")
+    b5_routes(sm, {"f32": got[0]}, what)
+    return got
+
+
+def mind_clause(n: tuple) -> str:
+    return (f"B5 {n[0]} (all on the f32 route; {n[1]} of them gradients), "
+            f"B4 {n[2]}, B4 plans built {n[3]}")
+
+
+def mind_scores_check(serve, model, batch, what: str) -> float:
+    """The serve step's scores with the kernels against the plain versions
+    on the card: NaN where the plain run has NaN, else within MIND_TOL of
+    max|score|; returns the error."""
+    got = serve(model, batch)
+    want = plain_outputs(lambda: serve(model, batch))
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"{what}: NaN scores differ from the plain "
+                             "run's")
+    ok = ~torch.isnan(want)
+    err = rel_err(got[ok], want[ok])
+    if not err <= MIND_TOL:
+        raise AssertionError(f"{what}: scores with the kernels differ from "
+                             f"the plain versions' by {err} of max|score|")
+    return err
+
+
+def mind_step_split(model, batch, opt_cfg, state) -> dict:
+    """One train step taken apart, the card synchronised between the
+    parts: the lookup (one ``take`` of the history and the targets), the
+    routing (``interests_of``: emb @ S on B5 and the capsule routing),
+    the loss (label-aware attention, the in-batch logits on B5 and the
+    softmax), the backward (B5's gradients, B4 for the table's) and
+    AdamW. Returns the seconds of each."""
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    hist, mask = batch["hist_ids"], batch["hist_mask"]
+    B, H = hist.shape
+    t = {}
+    ids = torch.cat([hist.reshape(-1), batch["target_id"]])
+    rows, t["lookup"] = wall(lambda: recsys.take(model.item_embed, ids))
+    interests, t["routing"] = wall(lambda: recsys.interests_of(
+        model, rows[:B * H].view(B, H, -1), mask))
+    loss, t["loss"] = wall(lambda: recsys.in_batch_softmax_loss(
+        recsys.label_aware_attention(model.cfg, interests, rows[B * H:]),
+        rows[B * H:]))
+    grads, t["backward"] = wall(lambda: dict(zip(params, torch.autograd.grad(
+        loss, list(params.values())))))
+    del interests, loss, rows
+    _, t["AdamW"] = wall(lambda: adamw.apply_updates(opt_cfg, params, grads,
+                                                     state))
+    return t
+
+
+def recsys_phase(dev, smi: str) -> dict:
+    """[recsys]: mind served and trained on the card at full width through
+    its entry points (``configs.make_serve_step``, ``make_train_step``,
+    ``launch.train``). Every entry point's launches are counted (set to 0
+    just before, read just after) and held to MIND_LAUNCHES; scores, the
+    loss and every gradient against the plain versions on the card (TF32
+    off); two identical gradient evaluations bit-equal; the training CLI
+    with an injected failure replayed bit-equal; B4 at the table
+    gradient's shape and B5 at the S gradient's and the in-batch shapes
+    against their plain versions, timed beside their bounds and library
+    calls. Returns the launches and the largest errors."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False    # the plain versions' f32
+    spec = configs.get(MIND_ARCH)
+    cfg = configs.cell_model_cfg(spec, "train_batch")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(MIND_SEED)
+    model, t_init = wall(lambda: configs.init_params(spec, cfg, gen,
+                                                     device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[recsys] {MIND_ARCH} at full width ({cfg.n_items:,} items x "
+          f"{cfg.embed_dim}, {cfg.n_interests} interests, "
+          f"{cfg.capsule_iters} routing iterations, histories of "
+          f"{cfg.hist_len}; {n_params:,} f32 parameters, "
+          f"{n_params * 4 / 2**30:.2f} GiB, drawn from seed {MIND_SEED} in "
+          f"{t_init:.2f}s) | {smi}")
+    errs = []
+    launched = collections.Counter()
+
+    def tally(n: tuple) -> None:
+        launched.update(dict(zip(("b5", "b5_grad", "b4", "plans"), n)))
+
+    # -- serve_p99 -----------------------------------------------------
+    dims = spec.shapes["serve_p99"]
+    serve = configs.make_serve_step(spec, "serve_p99")
+    batch = mind_requests(cfg, dims["batch"], dims["cands"], MIND_SEED, dev)
+    reset_b4_b5()
+    out, t_first = wall(lambda: serve(model, batch))
+    n = mind_counted(MIND_LAUNCHES["serve"], "a serve_p99 call")
+    tally(n)
+    if out.shape != (dims["batch"], dims["cands"]) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError("serve_p99 scores are not finite "
+                             f"({dims['batch']}, {dims['cands']})")
+    errs.append(mind_scores_check(serve, model, batch, "serve_p99"))
+    calls = sorted(wall(lambda: serve(model, batch))[1]
+                   for _ in range(MIND_SERVES))
+    p50, p99 = (float(np.percentile(calls, q)) for q in (50, 99))
+    host = host_ms(lambda: serve(model, batch))
+    print(f"[recsys] serve_p99 ({dims['batch']} users x {dims['cands']} "
+          f"candidates) through make_serve_step: launched "
+          f"{mind_clause(n)} (first call {t_first * 1e3:.3f} ms); scores "
+          f"within {errs[-1]:.3e} of max|score| of the plain versions' "
+          f"(tolerance {MIND_TOL}); over {MIND_SERVES} calls p50 "
+          f"{p50 * 1e3:.4f} ms, p99 {p99 * 1e3:.4f} ms per batch = "
+          f"{dims['batch'] / p50:,.0f} users/s at p50; host "
+          f"{host:.4f} ms per call (enqueued back to back) | {smi}")
+    print(f"[recsys] one serve_p99 call under torch.profiler: " + profiled(
+        lambda: serve(model, batch), {"B5": is_b5}) + f" | {smi}")
+    del out, batch
+
+    # -- serve_bulk ----------------------------------------------------
+    dims = spec.shapes["serve_bulk"]
+    bulk = configs.make_serve_step(spec, "serve_bulk")
+    batch, t_draw = wall(lambda: mind_requests(
+        cfg, dims["batch"], dims["cands"], MIND_SEED + 1, dev))
+    torch.cuda.reset_peak_memory_stats()
+    reset_b4_b5()
+    out, t_first = wall(lambda: bulk(model, batch))
+    n = mind_counted(MIND_LAUNCHES["serve"], "a serve_bulk call")
+    tally(n)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("serve_bulk scores are not finite")
+    del out
+    errs.append(mind_scores_check(bulk, model, batch, "serve_bulk"))
+    t_bulk = sorted(wall(lambda: bulk(model, batch))[1] for _ in range(3))[1]
+    print(f"[recsys] serve_bulk ({dims['batch']:,} users x {dims['cands']} "
+          f"candidates; drawn in {t_draw:.2f}s): launched {mind_clause(n)}; "
+          f"scores within {errs[-1]:.3e} of max|score| of the plain "
+          f"versions'; {t_bulk:.4f} s per batch (median of 3; first "
+          f"{t_first:.4f} s) = {dims['batch'] / t_bulk:,.0f} users/s; peak "
+          f"device memory {peak:.2f} GiB | {smi}")
+    del batch
+    torch.cuda.empty_cache()
+
+    # -- retrieval_cand --------------------------------------------------
+    dims = spec.shapes["retrieval_cand"]
+    retrieve = configs.make_serve_step(spec, "retrieval_cand")
+    batch = mind_requests(cfg, 1, dims["cands"], MIND_SEED + 2, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_b4_b5()
+    out, t_first = wall(lambda: retrieve(model, batch))
+    n = mind_counted(MIND_LAUNCHES["retrieval"], "a retrieval_cand call")
+    tally(n)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if out.shape != (dims["cands"],) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("retrieval scores are not finite "
+                             f"({dims['cands']},)")
+    del out
+    errs.append(mind_scores_check(retrieve, model, batch, "retrieval_cand"))
+    t_ret = sorted(wall(lambda: retrieve(model, batch))[1]
+                   for _ in range(20))[10]
+    print(f"[recsys] retrieval_cand (1 user x {dims['cands']:,} "
+          f"candidates): launched {mind_clause(n)}; scores within "
+          f"{errs[-1]:.3e} of max|score| of the plain versions'; "
+          f"{t_ret * 1e3:.4f} ms per query (median of 20; first "
+          f"{t_first * 1e3:.3f} ms); peak device memory {peak:.2f} GiB | "
+          f"{smi}")
+    del batch
+
+    # -- train_batch -----------------------------------------------------
+    dims = dict(spec.shapes["train_batch"])
+    B, H, d = dims["batch"], cfg.hist_len, cfg.embed_dim
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+    step = configs.make_train_step(spec, cfg, opt_cfg)
+    state = adamw.init_state(dict(model.named_parameters()))
+    batch_fn = train_cli.make_batch_fn(spec, cfg, dims, dev)
+    losses, step_s, data_s = [], [], []
+    for i in range(MIND_STEPS):
+        b, t_data = wall(lambda: batch_fn(i))
+        data_s.append(t_data)
+        if i == 0:
+            first = b
+            reset_b4_b5()
+        (_, state, m), t = wall(lambda: step(model, state, b))
+        if i == 0:
+            n = mind_counted(MIND_LAUNCHES["train"], "a train step")
+            tally(n)
+        losses.append(float(m["loss"]))
+        step_s.append(t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"mind losses are not finite: {losses}")
+    ts = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    flops = configs.model_flops(spec, "train_batch")
+    print(f"[recsys] train_batch ({B:,} users, launch.train's "
+          f"InteractionStream, nothing cut): {MIND_STEPS} make_train_step "
+          f"steps, the first launched {mind_clause(n)}; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)} (ln {B:,} = "
+          f"{np.log(B):.4f}); step {ts:.4f}s after the first "
+          f"({step_s[0]:.3f}s) = {B / ts:,.0f} users/s; model FLOPs "
+          f"{flops:.4e} = {flops / ts / 67e12:.4f} of the 67 TFLOP/s f32 "
+          f"peak; peak device memory {peak:.2f} GiB; host data "
+          f"{' '.join(f'{x:.2f}' for x in data_s)} s a batch outside the "
+          f"step | {smi}")
+    split = mind_step_split(model, first, opt_cfg, state)
+    print(f"[recsys] one train step taken apart (synchronised between the "
+          f"parts): " + ", ".join(f"{k} {v:.4f}s" for k, v in split.items())
+          + f" (sum {sum(split.values()):.4f}s) | {smi}")
+    print(f"[recsys] one train step under torch.profiler: " + profiled(
+        lambda: step(model, state, first), {"B4": is_b4, "B5": is_b5})
+        + f" | {smi}")
+    (l_k, g_k), t_k = wall(lambda: loss_and_grads(spec, cfg, model, first))
+    (_, g_2) = loss_and_grads(spec, cfg, model, first)
+    apart = sorted(k for k in g_k if not torch.equal(g_k[k], g_2[k]))
+    if apart:
+        raise AssertionError(f"two identical gradient evaluations differ in "
+                             f"{apart}")
+    del g_2
+    (l_p, g_p), t_p = wall(lambda: loss_and_grads(spec, cfg, model, first,
+                                                  plain=True))
+    gerr = grad_leaf_errs(g_k, g_p)
+    worst = max(gerr, key=gerr.get)
+    if not (abs(l_k - l_p) <= MIND_TOL * abs(l_p) and gerr[worst] <= MIND_TOL):
+        raise AssertionError(f"mind: loss {l_k} against {l_p}, gradient "
+                             f"{worst} off by {gerr[worst]} of its scale")
+    errs.append(gerr[worst])
+    print(f"[recsys] train step's loss and gradients (first batch): loss "
+          f"{l_k:.7f} with the kernels ({t_k:.3f}s), {l_p:.7f} with the "
+          f"plain versions ({t_p:.3f}s); "
+          + ", ".join(f"{k} within {v:.3e}" for k, v in gerr.items())
+          + f" of its largest |plain| (tolerance {MIND_TOL}); two "
+          f"evaluations bit-equal in all {len(g_k)} leaves | {smi}")
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    exact = restart_check(MIND_ARCH, dev, smi)
+
+    # -- the kernels at the path's shapes ---------------------------------
+    ids = torch.cat([first["hist_ids"].reshape(-1), first["target_id"]])
+    E = int(ids.shape[0])
+    rows = int(torch.unique(ids).numel())
+    hub = int(torch.bincount(ids).max())
+    ints = torch.randint(-4, 5, (E, d), generator=gen, device=dev).float()
+    b4 = b4_checks({f"item table gradient ({E:,} x {d} rows of small "
+                    f"integers at the step's ids, {rows:,} distinct, the "
+                    f"largest hub {hub:,} rows, into {cfg.n_items:,} "
+                    f"rows)": (ints, ids, cfg.n_items)}, tag="recsys")
+    del ints
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(MIND_SEED + 3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    cases = {"S gradient emb^T @ d(emb S)": ((d, B * H), (B * H, d)),
+             "emb @ S": ((B * H, d), (d, d)),
+             "in-batch logits user @ tgt^T": ((B, d), (d, B)),
+             "d user = dlogits @ tgt": ((B, B), (B, d)),
+             "d tgt^T = user^T @ dlogits": ((d, B), (B, B)),
+             "retrieval cand @ interests^T": ((
+                 spec.shapes["retrieval_cand"]["cands"], d),
+                 (d, cfg.n_interests))}
+    b5 = {}
+    for name, (sa, sb) in cases.items():
+        b5.update(kernel_checks({name: (randn(*sa), randn(*sb))}, {},
+                                tag="recsys"))
+        torch.cuda.empty_cache()
+    ds = b5["S gradient emb^T @ d(emb S)"]
+    from repro_torch.kernels import segment_matmul as sm
+    p = sm.plan(d, d, B * H, torch.float32)
+    if p.splits < 2:
+        raise AssertionError(f"the S gradient's product runs on one block "
+                             f"({p})")
+    a, bb = randn(d, B * H), randn(B * H, d)
+    if not torch.equal(sm.matmul(a, bb), sm.matmul(a, bb)):
+        raise AssertionError("B5's split S gradient differs between two "
+                             "calls")
+    del a, bb
+    print(f"[recsys] B5 at the S gradient's shape: {p.splits} K splits of "
+          f"{p.k_split:,} ({p.splits} blocks), bit-equal on a second call; "
+          f"{ds['ms']:.4f} ms = {ds['ms'] / ds['library_ms']:.3f}x "
+          f"torch.matmul's {ds['library_ms']:.4f} ms (TF32 off; the limit "
+          f"is 2x) and {ds['bound_ms'] / ds['ms']:.3f} of its bound | {smi}")
+    total = launched["b5"] + launched["b4"]
+    print(f"[recsys] phase {time.perf_counter() - t_phase:.1f}s; launches "
+          f"on the main path: B5 {launched['b5']} ({launched['b5_grad']} "
+          f"gradients), B4 {launched['b4']}, B4 plans {launched['plans']} "
+          f"({total} kernel launches); restart replay "
+          f"{'bit-equal' if exact else 'not bit-equal'}; largest error "
+          f"{max(errs):.3e} of scale | {smi}")
+    del model, state, first, b
+    torch.cuda.empty_cache()
+    return {"b5": launched["b5"] - launched["b5_grad"],
+            "b5_grad": launched["b5_grad"], "b4": launched["b4"],
+            "b4_err": max(r["max_abs_err"] for r in b4.values()),
+            "b5_err": max(r["max_abs_err"] for r in b5.values())}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5329,9 +5724,14 @@ def main() -> int:
         b4_record["launches"] += run["b4"]
         trained["records"][0]["launches"] += run["b5_grad"]
         trained["records"][2]["launches"] += run["gather"]
-    b5_record["max_abs_err"] = max(b5_record["max_abs_err"], mgn["b5_err"])
+    recs = recsys_phase(dev, smi)
+    b5_record["launches"] += recs["b5"]
+    trained["records"][0]["launches"] += recs["b5_grad"]
+    b4_record["launches"] += recs["b4"]
+    b5_record["max_abs_err"] = max(b5_record["max_abs_err"], mgn["b5_err"],
+                                   recs["b5_err"])
     b4_record["max_abs_err"] = max(b4_record["max_abs_err"], mgn["b4_err"],
-                                   geo["b4_err"])
+                                   geo["b4_err"], recs["b4_err"])
 
     csrc = "src/repro_torch/kernels/csrc/"
     records = [

@@ -1,18 +1,18 @@
-"""Architecture/shape registry of the port: the LM (dense and MoE) and
-GNN parts of ``repro.configs.base``.
+"""Architecture/shape registry of the port: ``repro.configs.base`` for
+the LMs (dense and MoE), the GNNs and recsys (MIND).
 
 Every (arch x shape) cell (:func:`all_cells`) resolves to a model config
 (:func:`cell_model_cfg`), its inputs and parameters as shapes and dtypes
 on the ``meta`` device (:func:`input_specs`, :func:`abstract_params`), a
 serve step (:func:`make_serve_step`: an LM's prefill and decode, a
-GNN's forward), a train step (:func:`make_train_step`: the loss of
-:func:`loss_for` differentiated through the kernels' gradients, then one
-AdamW update in place) and its analytic model FLOPs
-(:func:`model_flops`); :func:`init_params` draws a model and
-:func:`smoke_dims` gives a cell's reduced dims. The sharding specs
-(``param_specs``, ``batch_specs``, ``opt_specs``: they need a mesh) and
-recsys are not ported yet (ROADMAP A8) and raise, as does a GNN config
-type the port does not know.
+GNN's forward, MIND's scoring and retrieval), a train step
+(:func:`make_train_step`: the loss of :func:`loss_for` differentiated
+through the kernels' gradients, then one AdamW update in place) and its
+analytic model FLOPs (:func:`model_flops`); :func:`init_params` draws a
+model and :func:`smoke_dims` gives a cell's reduced dims. The sharding
+specs (``param_specs``, ``batch_specs``, ``opt_specs``: they need a mesh)
+are not ported yet (ROADMAP A8.3), and a GNN or recsys config type the
+port does not know raises.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from typing import Any, Callable
 import torch
 
 from ..models import gnn as gnn_mod
+from ..models import recsys as recsys_mod
 from ..models import transformer as tfm
 from ..optim import adamw
 
@@ -89,11 +90,24 @@ GNN_SHAPES = {
     "molecule":      dict(kind="train", n=30 * 128, e=64 * 128, d_feat=16, graphs=128),
 }
 
+RECSYS_SHAPES = {
+    "train_batch":    dict(kind="train", batch=65_536),
+    "serve_p99":      dict(kind="serve", batch=512, cands=100),
+    "serve_bulk":     dict(kind="serve", batch=262_144, cands=100),
+    "retrieval_cand": dict(kind="retrieval", batch=1, cands=1_000_000),
+}
+
 
 def _ported(spec: ArchSpec) -> None:
-    """Raise unless the arch is an LM (dense or MoE) or one of the four
-    GNNs (its config one of the port's GNN config types)."""
-    if spec.family == "gnn":
+    """Raise unless the arch is an LM (dense or MoE), one of the four GNNs
+    (its config one of the port's GNN config types) or MIND (recsys, with
+    the port's :class:`MINDConfig`)."""
+    if spec.family == "recsys":
+        if not isinstance(spec.model_cfg, recsys_mod.MINDConfig):
+            raise NotImplementedError(
+                f"{spec.id}: the port's recsys family is MIND and knows no "
+                f"{type(spec.model_cfg).__name__}")
+    elif spec.family == "gnn":
         if type(spec.model_cfg) not in gnn_mod.MODELS:
             raise NotImplementedError(
                 f"{spec.id}: the port's GNN family is MeshGraphNet, "
@@ -110,7 +124,7 @@ def cell_model_cfg(spec: ArchSpec, shape_name: str, smoke: bool = False):
     own (no per-shape change); a GNN's with its input width set to the
     shape's feature width, or to 8 for a smoke config: MeshGraphNet's
     ``d_node_in``, GraphSAGE's ``d_in``, NequIP's and MACE's
-    ``d_species``."""
+    ``d_species``; MIND's own for every shape."""
     _ported(spec)
     if shape_name not in spec.shapes:
         raise KeyError(f"{spec.id} has no shape {shape_name!r}")
@@ -138,7 +152,9 @@ def input_specs(spec: ArchSpec, shape_name: str, dims: dict | None = None,
     arrays doubled and padded to a multiple of 512, with MeshGraphNet's
     ``edge_feat`` and ``target``, GraphSAGE's ``labels`` and
     ``seed_mask``, or NequIP's and MACE's ``pos``, ``graph_id``,
-    ``energy_target`` and ``force_target``."""
+    ``energy_target`` and ``force_target``; MIND's int32 ``hist_ids`` (B,
+    H) and f32 ``hist_mask``, with ``target_id`` (B,) to train,
+    ``cand_ids`` (B, C) to serve, ``cand_ids`` (C,) for retrieval."""
     _ported(spec)
     dims = dims or spec.shapes[shape_name]
     cfg = model_cfg or cell_model_cfg(spec, shape_name)
@@ -153,6 +169,17 @@ def input_specs(spec: ArchSpec, shape_name: str, dims: dict | None = None,
         return {"tokens": _meta((B, 1), torch.int32),
                 "cache": tfm.abstract_cache(cfg, B, S),
                 "cache_len": _meta((), torch.int32)}
+    if spec.family == "recsys":
+        B, H = dims["batch"], cfg.hist_len
+        out = {"hist_ids": _meta((B, H), torch.int32),
+               "hist_mask": _meta((B, H), torch.float32)}
+        if kind == "train":
+            out["target_id"] = _meta((B,), torch.int32)
+        elif kind == "serve":
+            out["cand_ids"] = _meta((B, dims["cands"]), torch.int32)
+        else:                                         # retrieval
+            out["cand_ids"] = _meta((dims["cands"],), torch.int32)
+        return out
     n = dims["n"]
     e2 = math.ceil(2 * dims["e"] / 512) * 512
     out = {"node_feat": _meta((n, dims["d_feat"]), torch.float32),
@@ -180,6 +207,8 @@ def abstract_params(spec: ArchSpec, model_cfg) -> torch.nn.Module:
     _ported(spec)
     if spec.family == "gnn":
         return gnn_mod.model_of(model_cfg, device="meta")
+    if spec.family == "recsys":
+        return recsys_mod.MIND(model_cfg, device="meta")
     return tfm.abstract_params(model_cfg)
 
 
@@ -194,7 +223,9 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
     and returns the reference's outputs: MeshGraphNet's (n, d_out)
     (``models.gnn.mgn_forward``), GraphSAGE's f32 logits (n, n_classes)
     (``sage_forward``), NequIP's and MACE's ``(energy (graphs,), (s, V,
-    T))`` (``geo_forward``)."""
+    T))`` (``geo_forward``). MIND's, under inference mode: a serve cell's
+    scores (B, C) (``models.recsys.mind_serve``), a retrieval cell's (C,)
+    (``mind_retrieval``)."""
     cfg = model_cfg or cell_model_cfg(spec, shape_name)
     _ported(spec)
     kind = spec.shapes[shape_name]["kind"]
@@ -207,6 +238,13 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
 
     if spec.family == "gnn":
         fwd = gnn_mod.FORWARDS[type(cfg)]
+
+        def serve_step(model, batch):
+            return fwd(_model_of(model), batch)
+        return serve_step
+    if spec.family == "recsys" and kind in ("serve", "retrieval"):
+        fwd = (recsys_mod.mind_serve if kind == "serve"
+               else recsys_mod.mind_retrieval)
 
         def serve_step(model, batch):
             return fwd(_model_of(model), batch)
@@ -228,11 +266,16 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
 def smoke_dims(spec: ArchSpec, shape_name: str) -> dict:
     """Reduced dims of the same kind, for CPU smoke runs (the
     reference's): an LM's batch 2 x 32 tokens; a GNN's 24 nodes and 48
-    edges per graph (at most 4 graphs), 8 features, no seed count."""
+    edges per graph (at most 4 graphs), 8 features, no seed count; MIND's
+    4 users, 16 candidates each where the shape has candidates."""
     _ported(spec)
     dims = dict(spec.shapes[shape_name])
     if spec.family.startswith("lm"):
         dims.update(seq=32, batch=2)
+    elif spec.family == "recsys":
+        dims.update(batch=4)
+        if "cands" in dims:
+            dims.update(cands=16)
     else:
         graphs = min(dims.get("graphs", 1), 4)
         dims.update(n=24 * graphs, e=48 * graphs, d_feat=8, graphs=graphs)
@@ -248,6 +291,8 @@ def init_params(spec: ArchSpec, model_cfg, generator: torch.Generator,
     _ported(spec)
     if spec.family == "gnn":
         return gnn_mod.init_params(model_cfg, generator, device=device)
+    if spec.family == "recsys":
+        return recsys_mod.init_params(model_cfg, generator, device=device)
     return tfm.init_params(model_cfg, generator, device=device)
 
 
@@ -257,10 +302,13 @@ def loss_for(spec: ArchSpec, model_cfg) -> Callable:
     the graph batch: ``gnn.mgn_loss`` (``target``), ``gnn.sage_loss``
     (``labels``, ``seed_mask``) or ``gnn.geo_loss`` (energies and forces,
     the forces with their graph, so that the train step differentiates
-    them once more)."""
+    them once more); MIND's ``recsys.mind_loss`` over ``{"hist_ids",
+    "hist_mask", "target_id"}``."""
     _ported(spec)
     if spec.family == "gnn":
         return gnn_mod.LOSSES[type(model_cfg)]
+    if spec.family == "recsys":
+        return recsys_mod.mind_loss
     return lambda model, batch: tfm.loss_fn(model, batch["tokens"],
                                             batch["labels"])
 
@@ -308,14 +356,27 @@ def model_flops(spec: ArchSpec, shape_name: str, dims: dict | None = None,
     model; a MoE model's routed top-k and shared experts), the embedding
     included. A GNN: the reference's closed forms from the layer algebra,
     over all ``n`` nodes and ``2e`` directed edges of the shape (the
-    aggregation's adds are not counted), three times that to train.
-    ``model_cfg`` counts another config than the cell's (a smoke one)."""
+    aggregation's adds are not counted), three times that to train. MIND:
+    the bilinear map, the routing's einsums and, to train, the in-batch
+    logits (three times that), or to serve the candidates' scores (the
+    lookups are not counted). ``model_cfg`` counts another config than the
+    cell's (a smoke one)."""
     _ported(spec)
     dims = dims or spec.shapes[shape_name]
     cfg = model_cfg or cell_model_cfg(spec, shape_name)
     if spec.family == "gnn":
         fwd = _gnn_forward_flops(cfg, dims["n"], 2 * dims["e"])
         return 3.0 * fwd if dims["kind"] == "train" else fwd
+    if spec.family == "recsys":
+        B = dims["batch"]
+        H, d = cfg.hist_len, cfg.embed_dim
+        K, iters = cfg.n_interests, cfg.capsule_iters
+        fwd = 2.0 * B * H * d * d                 # bilinear S map
+        fwd += iters * (2 * 2.0 * B * K * H * d)  # routing einsums
+        if dims["kind"] == "train":
+            fwd += 2.0 * B * B * d                # in-batch softmax logits
+            return 3.0 * fwd
+        return fwd + 2.0 * B * K * dims.get("cands", 0) * d  # scoring
     B, S = dims["batch"], dims["seq"]
     N = cfg.active_param_count
     L, Hq, dh = cfg.n_layer, cfg.n_head, cfg.d_head

@@ -24,8 +24,9 @@ tab)``).
 :func:`lm_params_from_reference` carries a reference LM's weights (the
 JAX params pytree as numpy arrays) into the port's state dict,
 :func:`gnn_params_from_reference` a reference GNN's (MeshGraphNet,
-GraphSAGE, NequIP, MACE), and :func:`adamw_state_from_reference` the
-reference AdamW state of any of them.
+GraphSAGE, NequIP, MACE), :func:`mind_params_from_reference` MIND's, and
+:func:`adamw_state_from_reference` the reference AdamW state of any of
+them.
 """
 
 from __future__ import annotations
@@ -132,6 +133,13 @@ def gnn_params_from_reference(tree) -> dict[str, torch.Tensor]:
     return state
 
 
+def mind_params_from_reference(tree) -> dict[str, torch.Tensor]:
+    """The port's MIND state dict from the reference's ``mind_init`` dict
+    as numpy arrays: ``item_embed`` and ``S``, each tensor of its array's
+    dtype (f32), for ``MIND.load_state_dict``."""
+    return {name: _tensor(tree[name]) for name in ("item_embed", "S")}
+
+
 def adamw_state_from_reference(state) -> dict:
     """The port's AdamW state (``optim.adamw.init_state``'s form) from the
     reference's ``{"mu", "nu", "step"}`` (``repro.optim.adamw``'s state as
@@ -141,10 +149,13 @@ def adamw_state_from_reference(state) -> dict:
     an LM's ``layers`` is a dict of arrays stacked on a layer axis
     (:func:`lm_params_from_reference`), a GNN's a list of per-layer dicts
     (:func:`gnn_params_from_reference`; NequIP and MACE have an ``embed``
-    too, an MLP where an LM's is a table). CPU tensors; ``.to(device)``
-    them for the card."""
-    lm = isinstance(state["mu"].get("layers"), dict)
-    carry = lm_params_from_reference if lm else gnn_params_from_reference
+    too, an MLP where an LM's is a table), MIND's a flat dict with an
+    ``item_embed`` (:func:`mind_params_from_reference`). CPU tensors;
+    ``.to(device)`` them for the card."""
+    mu = state["mu"]
+    carry = (mind_params_from_reference if "item_embed" in mu else
+             lm_params_from_reference if isinstance(mu.get("layers"), dict)
+             else gnn_params_from_reference)
     return {"mu": carry(state["mu"]), "nu": carry(state["nu"]),
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32)}

@@ -46,7 +46,13 @@
 //   thread read as four float4s from shared memory per K step, A staged
 //   transposed, a double-buffered cp.async ring. A's rows need not be
 //   16-byte aligned (K = 602 rows are 2,408 bytes), so A moves in 4-byte
-//   copies; B in 16-byte copies where N allows.
+//   copies; B in 16-byte copies where N allows. When the output has fewer
+//   tiles than the card has SMs and K is long (the weight gradients, a^T
+//   @ dc over every row: MIND's S at 64 x 3,276,800 @ 3,276,800 x 64),
+//   K is split over the grid's z as on the TMA routes: split z's blocks
+//   walk K range [z * k_split, (z + 1) * k_split) into its own f32
+//   partial, and splitk_reduce adds the partials in the order z = 0, 1,
+//   ... (deterministic, no float atomics).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -459,10 +465,13 @@ constexpr int F_PAD = 4;  // shared rows padded by 16 bytes
 // contiguous bytes. K moves in tiles of 16 through two shared buffers: A
 // transposed (As[k][m]), B as it is (Bs[k][n]). B_VEC: N % 4 == 0 and B
 // 16-byte aligned, so B moves in 16-byte chunks; A always in 4 bytes.
+// blockIdx.z is the K split: its blocks take K range [z * k_split, z *
+// k_split + k_len) and write C[z] (M x N); one split (k_split >= K) writes
+// C itself.
 template <int BM, int BN, bool B_VEC>
 __global__ void __launch_bounds__((BM / 8) * (BN / 8), 384 / (BM / 8 * BN / 8))
     gemm_f32(const float* __restrict__ A, const float* __restrict__ B,
-             float* __restrict__ C, int M, int N, int K) {
+             float* __restrict__ C, int M, int N, int K, int k_split) {
   constexpr int THREADS = (BM / 8) * (BN / 8), TX = BN / 8;
   constexpr int A_ELEMS = F_BK * (BM + F_PAD), B_ELEMS = F_BK * (BN + F_PAD);
   // each thread's copies: A column a_kk of rows a_r0 + i * A_STEP; B
@@ -481,7 +490,13 @@ __global__ void __launch_bounds__((BM / 8) * (BN / 8), 384 / (BM / 8 * BN / 8))
   // row tiles on the grid's x (up to 2^31 - 1 of them), column tiles on y
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int n_k = (K + F_BK - 1) / F_BK;
+  // this split's K range: A's columns and B's rows from kb, k_len of them
+  const long long kb = (long long)blockIdx.z * k_split;
+  const int k_len = (int)min((long long)k_split, K - kb);
+  A += kb;
+  B += kb * N;
+  C += (size_t)blockIdx.z * M * N;
+  const int n_k = (k_len + F_BK - 1) / F_BK;
 
   // load coordinates, fixed over the K loop
   const int a_kk = threadIdx.x % F_BK, a_r0 = threadIdx.x / F_BK;
@@ -495,7 +510,7 @@ __global__ void __launch_bounds__((BM / 8) * (BN / 8), 384 / (BM / 8 * BN / 8))
     if (a_r0 + i * A_STEP < BM && m0 + a_r0 + i * A_STEP < M) a_rows |= 1u << i;
 
   auto load = [&](int buf, int k0) {
-    const bool a_k = k0 + a_kk < K;
+    const bool a_k = k0 + a_kk < k_len;
 #pragma unroll
     for (int i = 0; i < A_N; ++i) {
       // the last copy of a thread may fall past the tile (THREADS = 96)
@@ -508,7 +523,7 @@ __global__ void __launch_bounds__((BM / 8) * (BN / 8), 384 / (BM / 8 * BN / 8))
 #pragma unroll
     for (int i = 0; i < B_N; ++i) {
       int kr = b_k0 + i * B_STEP;
-      bool ok = b_col && k0 + kr < K;
+      bool ok = b_col && k0 + kr < k_len;
       const float* src = ok ? b_src + (size_t)(k0 + i * B_STEP) * N : B;
       float* dst = Bs[buf] + kr * (BN + F_PAD) + b_c;
       if constexpr (B_VEC)
@@ -573,10 +588,10 @@ __global__ void __launch_bounds__((BM / 8) * (BN / 8), 384 / (BM / 8 * BN / 8))
 
 template <int BM, int BN, bool B_VEC>
 static int launch_f32(const float* A, const float* B, float* C, int M, int N,
-                      int K, cudaStream_t stream) {
-  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+                      int K, int k_split, int splits, cudaStream_t stream) {
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
   gemm_f32<BM, BN, B_VEC><<<grid, (BM / 8) * (BN / 8), 0, stream>>>(
-      A, B, C, M, N, K);
+      A, B, C, M, N, K, k_split);
   return (int)cudaGetLastError();
 }
 
@@ -636,19 +651,29 @@ int splitk_reduce_launch(const void* ws, void* out, long long n, int splits,
 // f32 A (M x K) @ f32 B (K x N) -> f32 in full f32. bn: the tile's width,
 // 128 (64 x 128 tiles, 128 threads) or 48 (128 x 48 tiles, 96 threads,
 // which the wrapper takes for N <= 48); b_vec: N % 4 == 0 and B 16-byte
-// aligned
+// aligned. `out` is C when splits == 1, else a (splits, M, N) f32
+// workspace that the wrapper then reduces with splitk_reduce_launch;
+// k_split is a multiple of 16 and (splits - 1) * k_split < K.
 int matmul_f32_launch(const void* A, const void* B, void* out, int M, int N,
-                      int K, int bn, int b_vec, void* stream_ptr) {
+                      int K, int k_split, int splits, int bn, int b_vec,
+                      void* stream_ptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   const float* a = static_cast<const float*>(A);
   const float* b = static_cast<const float*>(B);
   float* c = static_cast<float*>(out);
+  if (splits < 1 || splits > 65535 || k_split < 1 ||
+      (long long)(splits - 1) * k_split >= K)
+    return (int)cudaErrorInvalidValue;
   if (bn == 128)
-    return b_vec ? launch_f32<64, 128, true>(a, b, c, M, N, K, s)
-                 : launch_f32<64, 128, false>(a, b, c, M, N, K, s);
+    return b_vec ? launch_f32<64, 128, true>(a, b, c, M, N, K, k_split,
+                                             splits, s)
+                 : launch_f32<64, 128, false>(a, b, c, M, N, K, k_split,
+                                              splits, s);
   if (bn == 48)
-    return b_vec ? launch_f32<128, 48, true>(a, b, c, M, N, K, s)
-                 : launch_f32<128, 48, false>(a, b, c, M, N, K, s);
+    return b_vec ? launch_f32<128, 48, true>(a, b, c, M, N, K, k_split,
+                                             splits, s)
+                 : launch_f32<128, 48, false>(a, b, c, M, N, K, k_split,
+                                              splits, s);
   return (int)cudaErrorInvalidValue;
 }
 

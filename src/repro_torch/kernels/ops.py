@@ -22,6 +22,12 @@ built for a forward serves every gradient of it, the second ones too. On
 the card B4's sums are bitwise reproducible (a fixed order of adds, no
 float atomics), with a plan or without.
 
+:func:`take` is ``jnp.take(table, ids, axis=0)`` with jnp's rules for
+ids out of range, on :func:`gather_rows`, so its gradient is B4 too, and
+:func:`embedding_bag` is a bag sum over it (``repro.kernels.ops
+.embedding_bag``: in the reference an XLA gather and a sum, no Pallas
+kernel, so none here either).
+
 B5 and B4 are twice differentiable, on either device: the backward of
 :func:`matmul` calls :func:`matmul` itself, that of :func:`segment_sum`
 the gather as a Function whose own gradient is :func:`segment_sum`, and
@@ -41,10 +47,10 @@ from .kcore_peel import degree_count, kcore_fixpoint, peel_round
 from .label_prop import label_prop_round
 from .segmented_select import kth_smallest, segmented_count_le
 
-__all__ = ["SegmentPlan", "degree_count", "flash_attention", "gather_rows",
-           "kcore_fixpoint", "kcore_peel_round", "kth_smallest",
-           "label_prop_round", "matmul", "segment_plan", "segment_sum",
-           "segmented_count_le"]
+__all__ = ["SegmentPlan", "degree_count", "embedding_bag", "flash_attention",
+           "gather_rows", "kcore_fixpoint", "kcore_peel_round",
+           "kth_smallest", "label_prop_round", "matmul", "segment_plan",
+           "segment_sum", "segmented_count_le", "take"]
 
 SegmentPlan = _sm.SegmentPlan
 
@@ -178,6 +184,33 @@ def gather_rows(x: torch.Tensor, idx) -> torch.Tensor:
         raise ValueError(f"the plan has {idx.num_segments} segments, x "
                          f"{x.shape[0]} rows")
     return _GatherRows.apply(x, idx)
+
+
+def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)``: rows of ``table`` (n, d) by an
+    integer id tensor of any shape, giving ``(*ids.shape, d)``, with jnp's
+    rules for ids out of range: an id in ``[-n, 0)`` wraps to ``id + n``;
+    any other id outside ``[0, n)`` gives a row of NaN and no gradient.
+    The rows come from :func:`gather_rows` over the flattened ids, those
+    out of range as -1, so the gradient is B4 (which drops -1)."""
+    n, d = table.shape
+    flat = ids.reshape(-1).to(torch.int32)
+    flat = torch.where(flat < 0, flat + n, flat)
+    bad = (flat < 0) | (flat >= n)
+    rows = gather_rows(table, torch.where(bad, -1, flat))
+    return rows.masked_fill_(bad[:, None], float("nan")).view(*ids.shape, d)
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """(bags, k) ids -> (bags, d): each bag's rows (:func:`take`, whose
+    gradient is B4), times ``weights`` (bags, k) where given, summed over
+    the bag (``repro.kernels.ops.embedding_bag``: torch's EmbeddingBag in
+    ``"sum"`` mode)."""
+    emb = take(table, ids)
+    if weights is not None:
+        emb = emb * weights[..., None]
+    return emb.sum(dim=1)
 
 
 def kcore_peel_round(src, dst, alive, n: int, k: int):

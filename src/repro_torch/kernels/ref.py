@@ -201,6 +201,53 @@ def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
     return out.index_add_(0, ids[ok].long(), vals[ok])
 
 
+def segment_sum_sorted(vals: torch.Tensor, ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """The reference's oracle of the same name
+    (``repro.kernels.ref.segment_sum_sorted``, ``jax.ops.segment_sum``):
+    :func:`segment_sum`, the ids sorted or not, those outside ``[0,
+    num_segments)`` dropped."""
+    return segment_sum(vals, ids, num_segments)
+
+
+def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)`` in plain PyTorch: ``(*ids.shape,
+    d)`` rows, an id in ``[-n, 0)`` wrapped to ``id + n``, any other id
+    outside ``[0, n)`` a row of NaN."""
+    n = table.shape[0]
+    ids = ids.long()
+    ids = torch.where(ids < 0, ids + n, ids)
+    ok = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, max(n - 1, 0))]
+    return torch.where(ok[..., None], rows, float("nan"))
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """(bags, k) ids -> (bags, d): :func:`take`, times ``weights`` where
+    given, summed over each bag (``repro.kernels.ref.embedding_bag``)."""
+    emb = take(table, ids)
+    if weights is not None:
+        emb = emb * weights[..., None]
+    return emb.sum(dim=1)
+
+
+def matmul_split_k(a: torch.Tensor, b: torch.Tensor,
+                   k_split: int) -> torch.Tensor:
+    """:func:`matmul` as B5's f32 route computes it when its plan splits K
+    (``segment_matmul.plan``): one f32 product per range ``[z * k_split,
+    (z + 1) * k_split)`` of K, the partials then added in the order z = 0,
+    1, ... (``splitk_reduce``). The same sum as :func:`matmul` in another
+    order: equal within f32 rounding, not bit for bit."""
+    _full_f32()
+    a, b = a.float(), b.float()
+    out = None
+    for k0 in range(0, max(a.shape[1], 1), k_split):
+        part = a[:, k0:k0 + k_split] @ b[k0:k0 + k_split]
+        out = part if out is None else out + part
+    return out
+
+
 def _tiled_level(vals, keys, group, span, key_at, out):
     """One level of :func:`segment_sum_tiled`: the items (``vals`` rows,
     ``keys``; -1 for none) in chunks of ``group``, chunk ``c`` covering the

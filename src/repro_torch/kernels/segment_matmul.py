@@ -19,11 +19,12 @@ product swapped so the weight's columns are wgmma's 64-row side),
 ``"masked"`` (bf16 operands TMA cannot take: K or N not a multiple of 8,
 or a base not 16-byte aligned; WMMA with masked loads) and ``"f32"``
 (register-blocked full-f32 FMA). Split-K with a fixed-order reduction
-fills the card when the output has too few tiles; ragged edges are
-masked in the kernel, nothing is padded. :func:`tensor_maps` gives the TMA
-layouts the wrapper hands to the library. :func:`bound_ms` is the least
-time on an H100: operations at the tensor-core (or f32) peak, or bytes at
-3.35 TB/s, whichever is larger.
+fills the card when the output has too few tiles (on the f32 route: the
+weight gradients, such as MIND's 64 x 64 over 3,276,800 rows); ragged
+edges are masked in the kernel, nothing is padded. :func:`tensor_maps`
+gives the TMA layouts the wrapper hands to the library. :func:`bound_ms`
+is the least time on an H100: operations at the tensor-core (or f32)
+peak, or bytes at 3.35 TB/s, whichever is larger.
 
 B4 :func:`segment_sum` replaces the TPU kernel ``segment_sum`` of
 ``src/repro/kernels/segment_matmul.py:104`` (Pallas body
@@ -85,6 +86,11 @@ SM_COUNT = 132
 ROUTE_TILES = {"wgmma": (128, 256, 64), "skinny": (16, 128, 64),
                "masked": (128, 128, 32), "f32": (64, 128, 16)}
 SKINNY_MAX_M = 64
+#: the f32 route's blocks in flight on the card (three blocks of 128
+#: threads an SM: its 384-thread launch bound) and the least K steps of a
+#: split (256 of K), for its split-K
+F32_FILL = 3 * SM_COUNT
+F32_SPLIT_STEPS = 16
 #: bf16 elements in 16 bytes: TMA needs 16-byte aligned bases and rows
 TMA_ALIGN = 8
 
@@ -116,7 +122,7 @@ def _library() -> tuple[ctypes.CDLL, Path]:
             ("matmul_tma_launch", [ptr] * 3 + [i32] * 7 + [longs] * 2 + [ptr]),
             ("matmul_masked_launch", [ptr] * 3 + [i32] * 5 + [ptr]),
             ("splitk_reduce_launch", [ptr, ptr, ctypes.c_longlong, i32, ptr]),
-            ("matmul_f32_launch", [ptr] * 3 + [i32] * 5 + [ptr]),
+            ("matmul_f32_launch", [ptr] * 3 + [i32] * 7 + [ptr]),
             ("wgmma_probe_launch", [ptr] * 4)):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = ctypes.c_int, args
@@ -137,10 +143,19 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype = torch.bfloat16,
     16-byte aligned (``aligned``), else ``"skinny"`` for M <= 64 and
     ``"wgmma"`` above. When a TMA route's output has fewer tiles than the
     card has SMs, K is split (each split at least 4 K steps) so that the
-    splits fill it; the masked route splits below two tiles per SM."""
+    splits fill it; the masked route splits below two tiles per SM; the
+    f32 route below one tile per SM, into at most :data:`F32_FILL` blocks
+    of at least :data:`F32_SPLIT_STEPS` K steps each."""
     if dtype == torch.float32:
         tile = (128, 48, 16) if N <= 48 else ROUTE_TILES["f32"]
-        return Plan("f32", tile, 1, math.ceil(K / 16) * 16)
+        tiles = math.ceil(M / tile[0]) * math.ceil(N / tile[1])
+        steps = math.ceil(K / 16)
+        splits = 1
+        if tiles < SM_COUNT:
+            splits = max(1, min(F32_FILL // tiles, steps // F32_SPLIT_STEPS))
+        k_split = math.ceil(steps / splits) * 16
+        return Plan("f32", tile, math.ceil(K / k_split) if K else 1,
+                    k_split)
     if not (aligned and K % TMA_ALIGN == 0 and N % TMA_ALIGN == 0):
         route = "masked"
     else:
@@ -261,13 +276,14 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = _library()[0]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
+        dst = out if p.splits == 1 else torch.empty(
+            (p.splits, M, N), dtype=torch.float32, device=a.device)
         if p.route == "f32":
             rc = lib.matmul_f32_launch(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-                p.tile[1], int(N % 4 == 0 and b.data_ptr() % 16 == 0), stream)
+                a.data_ptr(), b.data_ptr(), dst.data_ptr(), M, N, K,
+                p.k_split, p.splits, p.tile[1],
+                int(N % 4 == 0 and b.data_ptr() % 16 == 0), stream)
         else:
-            dst = out if p.splits == 1 else torch.empty(
-                (p.splits, M, N), dtype=torch.float32, device=a.device)
             if p.route == "masked":
                 rc = lib.matmul_masked_launch(
                     a.data_ptr(), b.data_ptr(), dst.data_ptr(), M, N, K,
@@ -279,9 +295,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                     p.k_split, p.splits,
                     p.tile[0] if p.route == "skinny" else 0, grid, map_a,
                     map_b, stream)
-            if not rc and p.splits > 1:
-                rc = lib.splitk_reduce_launch(dst.data_ptr(), out.data_ptr(),
-                                              M * N, p.splits, stream)
+        if not rc and p.splits > 1:
+            rc = lib.splitk_reduce_launch(dst.data_ptr(), out.data_ptr(),
+                                          M * N, p.splits, stream)
     if rc:
         raise RuntimeError(f"matmul launch failed ({p.route} route): CUDA "
                            f"error {rc}")
@@ -547,6 +563,18 @@ def segment_sum(vals: torch.Tensor, ids, num_segments: int) -> torch.Tensor:
 
 
 segment_sum.launches = 0
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """(bags, k) ids -> (bags, d): the rows of ``table`` by ``ids``
+    (``jnp.take``'s rules), times ``weights`` where given, summed over each
+    bag. The counterpart of the reference's ``embedding_bag`` of this
+    module (``src/repro/kernels/segment_matmul.py:126``), which is an XLA
+    gather and a sum, no Pallas kernel: so this is ``ref.embedding_bag``
+    on the tensors' device, and launches nothing. ``ops.embedding_bag``
+    is the differentiable one (its gradient is B4)."""
+    return ref.embedding_bag(table, ids, weights)
 
 
 def matmul_grads(a: torch.Tensor, b: torch.Tensor, dc: torch.Tensor,

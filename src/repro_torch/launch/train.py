@@ -8,8 +8,8 @@ The same arguments as the reference's CLI, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain versions). The LMs, dense and
 MoE, train on the synthetic token stream (``data.lm_data``), the GNNs
 (MeshGraphNet, GraphSAGE, NequIP, MACE) on neighbour samples of a
-synthetic power-law graph (``data.graph_sampler``); recsys is not ported
-yet (ROADMAP A8) and raises. Every step goes
+synthetic power-law graph (``data.graph_sampler``), MIND on synthetic
+user histories (``data.recsys_data``). Every step goes
 through ``configs.make_train_step`` (the kernels' forward and backward,
 then AdamW in place); the :class:`RestartingRunner` saves a checkpoint
 every ``--ckpt-every`` steps through the port's ``CheckpointManager``
@@ -32,6 +32,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.graph_sampler import (CSRGraph, random_powerlaw_graph,
                                             sample_subgraph_batch)
 from repro_torch.data.lm_data import TokenStream
+from repro_torch.data.recsys_data import InteractionStream
 from repro_torch.models import gnn
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import (FailureInjector,
@@ -50,7 +51,9 @@ def make_batch_fn(spec, cfg, dims, device="cuda"):
     the same generator, after the sample: MeshGraphNet's normal
     ``edge_feat`` and ``target`` in place of ``labels`` and
     ``seed_mask``; NequIP's and MACE's normal ``pos`` (times 2), one graph
-    (``graph_id`` 0) and zero targets."""
+    (``graph_id`` 0) and zero targets. MIND's from
+    ``InteractionStream(cfg.n_items, cfg.hist_len, seed=0).batch(step,
+    dims["batch"])``."""
     if spec.family.startswith("lm"):
         stream = TokenStream(cfg.vocab, seed=0)
 
@@ -59,9 +62,14 @@ def make_batch_fn(spec, cfg, dims, device="cuda"):
             return {"tokens": torch.as_tensor(toks, device=device),
                     "labels": torch.as_tensor(labels, device=device)}
         return fn
+    if spec.family == "recsys":
+        stream = InteractionStream(cfg.n_items, cfg.hist_len, seed=0)
+        return lambda step: {
+            k: torch.as_tensor(v, device=device)
+            for k, v in stream.batch(step, dims["batch"]).items()}
     if type(cfg) not in gnn.MODELS:
-        raise NotImplementedError(f"{spec.id}: only the LMs and the GNNs "
-                                  "train in the port (ROADMAP A8)")
+        raise NotImplementedError(f"{spec.id}: the port's GNN family knows "
+                                  f"no {type(cfg).__name__} (ROADMAP A8)")
     n = dims["n"]
     rng0 = np.random.default_rng(0)
     src, dst = random_powerlaw_graph(n, 6, seed=0)

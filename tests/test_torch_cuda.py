@@ -1893,3 +1893,127 @@ def test_route_breaks_ties_on_card(cuda):
         got = tfm.route(torch.as_tensor(p, device=cuda), k).cpu().numpy()
         want = np.argsort(-p, axis=-1, kind="stable")[:, :k]
         np.testing.assert_array_equal(got, want)
+
+
+def test_segment_sum_kernel_with_far_more_segments_than_rows(cuda):
+    """MIND's table gradient in small: many more segments than rows
+    (2,000,000 against 200,000, nearly all empty), one hub on 60% of the
+    rows spanning hundreds of level-0 tiles. Integer rows equal the plain
+    version exactly; N(0, 1) rows equal the kernel's mirror and a second
+    call bit for bit (the hub's 120,000 N(0, 1) rows sum to a few hundred,
+    within f32's rounding in any order but not within 1e-4 of the plain
+    version's order, as ``segment_operands`` says of its hubs)."""
+    E, d, S = 200_000, 64, 2_000_000
+    ints, ids = segment_operands(E, d, S, "hubs")
+    ints, ids = torch.as_tensor(ints, device=cuda), torch.as_tensor(
+        ids, device=cuda)
+    tile, fans = segment_matmul.segment_tiles(E, d)
+    assert int((ids == S // 2).sum()) >= 100 * tile
+    plan = ops.segment_plan(ids, S)
+    before = segment_matmul.segment_sum.launches
+    assert torch.equal(segment_matmul.segment_sum(ints, plan, S),
+                       ref.segment_sum(ints, ids, S))
+    vals = torch.randn(E, d, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(64))
+    got = segment_matmul.segment_sum(vals, plan, S)
+    again = segment_matmul.segment_sum(vals, plan, S)
+    torch.cuda.synchronize()
+    assert segment_matmul.segment_sum.launches == before + 3
+    assert torch.equal(got, again)
+    assert torch.equal(got, ref.segment_sum_tiled(vals, plan, tile, fans))
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 3_276_800, 64),      # MIND's dS
+                                   (602, 169_984, 128),      # SAGE's dW
+                                   (40, 100_003, 200), (7, 9_000, 30)])
+def test_matmul_f32_split_k_matches_plain_version(cuda, M, K, N):
+    """B5's f32 route with K split (an output of fewer tiles than SMs, a
+    long K): one counted launch on the f32 route against ``ref.matmul``,
+    and two calls bit-equal (the partials are added in a fixed order)."""
+    p = segment_matmul.plan(M, N, K, torch.float32)
+    assert p.route == "f32" and p.splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(M + N)
+    a = torch.randn(M, K, generator=gen, device=cuda)
+    b = torch.randn(K, N, generator=gen, device=cuda)
+    before = segment_matmul.matmul.routes["f32"]
+    got = ops.matmul(a, b)
+    again = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert segment_matmul.matmul.routes["f32"] == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref.matmul(a, b), rtol=1e-4,
+                               atol=1e-6 * K)
+
+
+#: (B5, of them B5's gradient products, B4, B4 plans) of one MIND serve
+#: call, retrieval call and train step (chip_smoke.py's MIND_LAUNCHES)
+MIND_CALLS = {"serve": (1, 0, 0, 0), "retrieval": (2, 0, 0, 0),
+              "train": (6, 4, 1, 1)}
+
+
+def _mind_counts():
+    return (segment_matmul.matmul.launches,
+            segment_matmul.matmul_grads.launches,
+            segment_matmul.segment_sum.launches,
+            segment_matmul.segment_plan.builds)
+
+
+def test_mind_serve_and_train_step_on_card_match_plain_versions(cuda):
+    """The smoke MIND on the card through make_serve_step and
+    make_train_step: launches exact per call, scores within 1e-5 and the
+    loss and both gradients within 1e-4 of their scale against the plain
+    versions, two identical train steps bit-equal."""
+    import contextlib
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    spec = configs.get("mind")
+    cfg = spec.smoke_cfg
+    model = configs.init_params(spec, cfg, torch.Generator(cuda).manual_seed(
+        5), device=cuda)
+    b = train.make_batch_fn(spec, cfg, dict(kind="train", batch=6),
+                            device=cuda)(0)
+    rng = np.random.default_rng(5)
+    cands = {"serve_p99": torch.as_tensor(rng.integers(
+        -2, cfg.n_items + 3, (6, 16)).astype(np.int32), device=cuda),
+        "retrieval_cand": torch.arange(-4, cfg.n_items + 9,
+                                       dtype=torch.int32, device=cuda)}
+    for shape, kind in (("serve_p99", "serve"),
+                        ("retrieval_cand", "retrieval")):
+        batch = {"hist_ids": b["hist_ids"], "hist_mask": b["hist_mask"],
+                 "cand_ids": cands[shape]}
+        if kind == "retrieval":
+            batch = dict(batch, hist_ids=b["hist_ids"][:1],
+                         hist_mask=b["hist_mask"][:1])
+        step = configs.make_serve_step(spec, shape, cfg)
+        before = _mind_counts()
+        got = step(model, batch)
+        torch.cuda.synchronize()
+        assert tuple(x - y for x, y in zip(_mind_counts(), before)) == \
+            MIND_CALLS[kind], kind
+        with contextlib.ExitStack() as stack:
+            for patch in _plain_ops():
+                stack.enter_context(patch)
+            want = step(model, batch)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        torch.testing.assert_close(got[ok], want[ok], rtol=1e-5, atol=1e-5)
+    before = _mind_counts()
+    loss, grads = _loss_and_grads(spec, cfg, model, b)
+    assert tuple(x - y for x, y in zip(_mind_counts(), before)) == \
+        MIND_CALLS["train"]
+    _, again = _loss_and_grads(spec, cfg, model, b)
+    want_loss, want = _loss_and_grads(spec, cfg, model, b, plain=True)
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    for name, g in grads.items():
+        assert torch.equal(g, again[name]), name
+        scale = float(want[name].abs().max())
+        assert float((g - want[name]).abs().max()) <= 1e-4 * scale, name
+    assert isinstance(model, recsys.MIND)
+    opt = adamw.init_state(dict(model.named_parameters()))
+    before = _mind_counts()
+    _, _, m = configs.make_train_step(spec, cfg)(model, opt, b)
+    assert tuple(x - y for x, y in zip(_mind_counts(), before)) == \
+        MIND_CALLS["train"]
+    assert bool(torch.isfinite(m["loss"]))

@@ -36,6 +36,7 @@ def test_no_jax_or_reference_import(path):
 #: the training path's modules (slice 13): each a file of the port, each
 #: importable without JAX or the reference package
 TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.data.lm_data",
+                 "repro_torch.data.recsys_data", "repro_torch.models.recsys",
                  "repro_torch.runtime.fault_tolerance",
                  "repro_torch.launch.train")
 

@@ -83,6 +83,13 @@ def test_wrapper_rejects_what_it_cannot_multiply(bad):
     (300, 20, 136, "bf16", "masked", 1),          # N not a multiple of 8
     (169984, 128, 602, "f32", "f32", 1),          # GNN layer-1
     (169984, 41, 128, "f32", "f32", 1),           # GNN head
+    (3276800, 64, 64, "f32", "f32", 1),           # MIND's emb @ S
+    (65536, 64, 65536, "f32", "f32", 1),          # MIND's d user: 1,024 tiles
+    (64, 64, 200, "f32", "f32", 1),               # K too short to split
+    (64, 64, 3276800, "f32", "f32", 396),         # MIND's S gradient: 1 tile
+    (602, 128, 169984, "f32", "f32", 39),         # GNN layer-1 weight grad
+    (128, 41, 169984, "f32", "f32", 394),         # GNN head weight grad
+    (4096, 60, 2048, "f32", "f32", 6),            # qwen2-moe's f32 router
 ])
 def test_plan_fills_the_card_and_covers_k(M, N, K, dtype, route, splits):
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
@@ -101,6 +108,11 @@ def test_plan_fills_the_card_and_covers_k(M, N, K, dtype, route, splits):
         bm, bn, _ = p.tile
         tiles = -(-M // bm) * -(-N // bn)
         assert tiles * splits <= sm.SM_COUNT      # one wave of work units
+    if route == "f32" and splits > 1:             # below a tile per SM
+        bm, bn, _ = p.tile
+        tiles = -(-M // bm) * -(-N // bn)
+        assert tiles < sm.SM_COUNT and tiles * splits <= sm.F32_FILL
+        assert p.k_split >= sm.F32_SPLIT_STEPS * bk
 
 
 @pytest.mark.parametrize("M,N,K", [(16, 4096, 4096), (4096, 13696, 4096),

@@ -271,19 +271,24 @@ def test_smoke_dims_match_the_reference(arch):
 
 
 def test_unported_families_raise_naming_a8():
-    """recsys (mind's family) and a gnn spec whose config type the port
-    does not know raise, naming A8."""
+    """A recsys spec whose config is not the port's MINDConfig (here an
+    LM's) raises, naming the family's one model, while mind's own spec
+    trains; a gnn spec whose config type the port does not know raises,
+    naming A8."""
     moe = tfm.MoEConfig(n_experts=4, top_k=2, d_ff_expert=16)
     cfg = tfm.LMConfig("m", n_layer=1, d_model=32, n_head=2, n_kv=2, d_ff=0,
                        vocab=64, d_head=16, moe=moe)
-    for family, shapes in (("recsys", configs.LM_SHAPES),):
+    for family, shapes in (("recsys", configs.RECSYS_SHAPES),):
         spec = configs.ArchSpec(id="x", family=family, model_cfg=cfg,
                                 smoke_cfg=cfg, shapes=shapes, skips={})
         for fn in (configs.make_train_step, configs.loss_for):
-            with pytest.raises(NotImplementedError, match="A8"):
+            with pytest.raises(NotImplementedError, match="is MIND"):
                 fn(spec, cfg)
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match="is MIND"):
             configs.init_params(spec, cfg, torch.Generator(), device="cpu")
+    mind = configs.get("mind")
+    assert configs.loss_for(mind, mind.smoke_cfg) is not None
+    assert callable(configs.make_train_step(mind, mind.smoke_cfg))
     mgn = configs.ArchSpec(id="mgn", family="gnn", model_cfg=object(),
                            smoke_cfg=object(), shapes=configs.GNN_SHAPES,
                            skips={})
@@ -583,10 +588,13 @@ def test_cli_replays_an_injected_failure_exactly(arch, tmp_path, capsys):
 
 
 def test_cli_raises_for_unported_architectures():
-    """mind (recsys) is the one architecture of the reference the port
-    does not register yet."""
+    """Every architecture of the reference is registered, mind (recsys)
+    too, so the CLI trains it; a name the reference does not have raises."""
+    losses = train.main(["--arch", "mind", "--smoke", "--steps", "2",
+                         "--device", "cpu"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
     with pytest.raises(KeyError):
-        train.main(["--arch", "mind", "--smoke", "--device", "cpu"])
+        train.main(["--arch", "no-such-arch", "--smoke", "--device", "cpu"])
 
 
 def test_out_of_vocabulary_ids_follow_the_reference():

@@ -301,7 +301,8 @@ def test_all_cells_are_the_references_of_the_ported_archs():
         assert list(configs.all_cells(include_skipped=skipped)) == want
     assert ported == {"dbrx-132b", "qwen2-moe-a2.7b", "glm4-9b",
                       "codeqwen1.5-7b", "qwen1.5-110b", "meshgraphnet",
-                      "nequip", "graphsage-reddit", "mace"}
+                      "nequip", "graphsage-reddit", "mace", "mind"}
+    assert ported == set(jax_configs.REGISTRY)
 
 
 @pytest.mark.parametrize(
@@ -353,20 +354,28 @@ def test_abstract_params_match_the_references_eval_shape(arch):
 
 
 def test_spec_surface_raises_for_unported_families():
-    """``input_specs`` and ``abstract_params`` of a recsys cell and of a
-    gnn spec whose config type the port does not know raise, naming A8."""
+    """``input_specs`` and ``abstract_params`` of a recsys spec whose config
+    is not the port's MINDConfig (here an LM's) raise, naming MIND, and of
+    a gnn spec whose config type the port does not know, naming A8; mind's
+    own spec gives its meta tensors."""
     cfg = configs.get("glm4-9b").model_cfg
-    for spec in (configs.ArchSpec(id="r", family="recsys", model_cfg=cfg,
-                                  smoke_cfg=cfg, shapes=configs.LM_SHAPES,
-                                  skips={}),
-                 configs.ArchSpec(id="mgn", family="gnn", model_cfg=object(),
-                                  smoke_cfg=object(),
-                                  shapes=configs.GNN_SHAPES, skips={})):
+    for spec, match in (
+            (configs.ArchSpec(id="r", family="recsys", model_cfg=cfg,
+                              smoke_cfg=cfg, shapes=configs.RECSYS_SHAPES,
+                              skips={}), "is MIND"),
+            (configs.ArchSpec(id="mgn", family="gnn", model_cfg=object(),
+                              smoke_cfg=object(), shapes=configs.GNN_SHAPES,
+                              skips={}), "A8")):
         shape = next(iter(spec.shapes))
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match=match):
             configs.input_specs(spec, shape, model_cfg=spec.model_cfg)
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match=match):
             configs.abstract_params(spec, spec.model_cfg)
+    mind = configs.get("mind")
+    model = configs.abstract_params(mind, mind.model_cfg)
+    assert model.item_embed.device.type == "meta"
+    assert configs.input_specs(mind, "serve_bulk")["cand_ids"].shape == (
+        262_144, 100)
 
 
 def test_decode_step_rejects_bad_positions():
