@@ -291,6 +291,19 @@ result line each; any failure raises and exits non-zero:
            B5 at the S gradient's (64 x 3,276,800 @ 3,276,800 x 64, K
            split) and the in-batch shapes against their plain versions,
            timed beside their bounds, index_add_ and torch.matmul
+  runtime  the runtime and launch modules on the card's one-rank NCCL
+           mesh: mind at full width through the vocab-parallel lookup
+           (serve_p99, the train batch's loss and both gradients,
+           retrieval_cand bit-equal to the default lookup, counted; zero
+           rows for ids out of range; one train step; B4 at the lookup's
+           table gradient); remesh of a restored mind checkpoint,
+           bit-equal; qwen2-moe-a2.7b at full width: layer 0's MoE through
+           the all-to-all dispatch against its plain versions (routes
+           replayed) and against moe_ffn at capacity 8.0, the full prefill
+           with the a2a and the sharding hooks set against today's; the
+           int8 compressed mean over a MoE train step's gradients; the dry
+           run on the card's mesh (a cell of each family, then more
+           while under 20 s) and the report's tables
 
 The card builds, ingests and trims of epoch, engine and store peel their
 k ranges on the card too; a ``[kcore]`` line sums kcore_fixpoint's
@@ -5092,13 +5105,13 @@ def mind_step_split(model, batch, opt_cfg, state) -> dict:
     hist, mask = batch["hist_ids"], batch["hist_mask"]
     B, H = hist.shape
     t = {}
-    ids = torch.cat([hist.reshape(-1), batch["target_id"]])
+    ids = torch.cat([hist, batch["target_id"][:, None]], dim=1)
     rows, t["lookup"] = wall(lambda: recsys.take(model.item_embed, ids))
     interests, t["routing"] = wall(lambda: recsys.interests_of(
-        model, rows[:B * H].view(B, H, -1), mask))
+        model, rows[:, :H], mask))
     loss, t["loss"] = wall(lambda: recsys.in_batch_softmax_loss(
-        recsys.label_aware_attention(model.cfg, interests, rows[B * H:]),
-        rows[B * H:]))
+        recsys.label_aware_attention(model.cfg, interests, rows[:, H]),
+        rows[:, H]))
     grads, t["backward"] = wall(lambda: dict(zip(params, torch.autograd.grad(
         loss, list(params.values())))))
     del interests, loss, rows
@@ -5292,7 +5305,8 @@ def recsys_phase(dev, smi: str) -> dict:
     exact = restart_check(MIND_ARCH, dev, smi)
 
     # -- the kernels at the path's shapes ---------------------------------
-    ids = torch.cat([first["hist_ids"].reshape(-1), first["target_id"]])
+    ids = torch.cat([first["hist_ids"], first["target_id"][:, None]],
+                    dim=1).reshape(-1)
     E = int(ids.shape[0])
     rows = int(torch.unique(ids).numel())
     hub = int(torch.bincount(ids).max())
@@ -5350,6 +5364,384 @@ def recsys_phase(dev, smi: str) -> dict:
             "b5_grad": launched["b5_grad"], "b4": launched["b4"],
             "b4_err": max(r["max_abs_err"] for r in b4.values()),
             "b5_err": max(r["max_abs_err"] for r in b5.values())}
+
+
+RUNTIME_MOE_SEQ = 4096
+#: the a2a MoE against its plain versions with the routes replayed, and
+#: the prefill with the hooks and the a2a against today's: bf16 logits
+#: within this share of max|logit| (LM_LOGIT_TOL)
+RUNTIME_MOE_TOL = 5e-2
+#: the MoE train step whose gradients the compressed mean takes: full
+#: width, this many layers, one sequence of this many tokens
+RUNTIME_GRAD_LAYERS = 2
+RUNTIME_GRAD_SEQ = 1024
+#: seconds after which the dry run starts no more cells (once it has traced
+#: a cell of each family; all 35 take ~140 s of host time)
+RUNTIME_DRYRUN_S = 20.0
+#: B4's time at the mind train step's table gradient in PR 28 (H100 80GB
+#: HBM3 at 700 W; PERF.md kernel table), printed beside this run's
+PR28_B4_MS = 1.0886
+
+
+def runtime_phase(dev, smi: str) -> dict:
+    """[runtime]: the runtime and launch modules on the card's one-rank
+    NCCL mesh (``launch.mesh.make_smoke_mesh("cuda")``).
+
+    mind at full width through the vocab-parallel lookup
+    (``runtime.sharding.make_vp_take``): serve_p99's scores, one train
+    batch's loss and both gradients and retrieval_cand's scores bit-equal
+    to the default ``ops.take`` path, each counted; rows for the ids n, -1
+    and -n-1 zero; one ``make_train_step`` step through it; B4 at the
+    lookup's table gradient timed. qwen2-moe-a2.7b at full width: layer
+    0's MoE on the prefill operands through ``make_a2a_moe`` against its
+    plain versions with the routes replayed (the cell's capacity) and
+    against ``moe_ffn`` at a capacity that does not bind; the full prefill
+    with ``set_moe_impl(a2a)`` and the LM hooks set against today's
+    prefill. The compressed mean (``optim.compression``) over a MoE train
+    step's gradients. ``remesh`` of a restored mind checkpoint. The dry run
+    (``launch.dryrun``) on the card's mesh, one cell of each family first,
+    then more within RUNTIME_DRYRUN_S, with the report's tables. Returns
+    the phase's B5 and B4 launches and the largest B5 error."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels import segment_matmul as sm
+    from repro_torch.launch import dryrun, report
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw, compression
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.moe_a2a import a2a_capacity, make_a2a_moe
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_smoke_mesh("cuda")
+    dp = shd.dp_axes(mesh)
+    print(f"[runtime] mesh {mesh} over a one-rank {torch.distributed.get_backend()} "
+          f"group | {smi}")
+    launched = collections.Counter()
+
+    def tally(n: tuple) -> None:
+        launched.update(dict(zip(("b5", "b5_grad", "b4", "plans"), n)))
+
+    # -- mind through the vp take -----------------------------------------
+    spec = configs.get(MIND_ARCH)
+    cfg = configs.cell_model_cfg(spec, "train_batch")
+    gen = torch.Generator(device=dev).manual_seed(MIND_SEED)
+    model = configs.init_params(spec, cfg, gen, device=dev)
+    vp = shd.make_vp_take(mesh, leading=dp)
+    n = cfg.n_items
+    bad = torch.tensor([n, -1, -n - 1], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        rows = vp(model.item_embed, bad)
+    if rows.shape != (3, cfg.embed_dim) or bool(rows.any()):
+        raise AssertionError("the vp take's rows for ids n, -1, -n-1 are "
+                             "not zero")
+    dims = spec.shapes["serve_p99"]
+    batch = mind_requests(cfg, dims["batch"], dims["cands"], MIND_SEED, dev)
+    want = configs.make_serve_step(spec, "serve_p99")(model, batch)
+    step = configs.make_serve_step(spec, "serve_p99", take_fn=vp,
+                                   cand_take_fn=vp)
+    shd.reset_collectives()
+    reset_b4_b5()
+    got = step(model, batch)
+    tally(mind_counted(MIND_LAUNCHES["serve"], "serve_p99 through the vp "
+                                               "take"))
+    coll_serve = shd.collective_counts()
+    if not torch.equal(got, want):
+        raise AssertionError("serve_p99 through the vp take differs from "
+                             "the default lookup")
+    t_serve = {"vp take": call_times(lambda: step(model, batch), iters=10),
+               "ops.take": call_times(lambda: configs.make_serve_step(
+                   spec, "serve_p99")(model, batch), iters=10)}
+    dims = spec.shapes["retrieval_cand"]
+    rb = mind_requests(cfg, 1, dims["cands"], MIND_SEED + 2, dev)
+    want = configs.make_serve_step(spec, "retrieval_cand")(model, rb)
+    reset_b4_b5()
+    got = configs.make_serve_step(
+        spec, "retrieval_cand", take_fn=shd.make_vp_take(mesh, leading=None),
+        cand_take_fn=vp)(model, rb)
+    tally(mind_counted(MIND_LAUNCHES["retrieval"], "retrieval_cand through "
+                                                   "the vp take"))
+    if not torch.equal(got, want):
+        raise AssertionError("retrieval_cand through the vp take differs "
+                             "from the default lookup")
+    del got, want, rb
+    tdims = dict(spec.shapes["train_batch"])
+    tb = train_cli.make_batch_fn(spec, cfg, tdims, dev)(0)
+
+    def loss_grads(take_fn):
+        return loss_and_grads(spec, cfg, model, tb,
+                              loss_fn=configs.loss_for(spec, cfg,
+                                                       take_fn=take_fn))
+
+    l_d, g_d = loss_grads(None)
+    shd.reset_collectives()
+    reset_b4_b5()
+    l_v, g_v = loss_grads(vp)
+    tally(mind_counted(MIND_LAUNCHES["train"], "the train batch's loss and "
+                                               "gradients through the vp "
+                                               "take"))
+    coll_train = shd.collective_counts()
+    apart = [k for k in g_d if not torch.equal(g_d[k], g_v[k])]
+    if l_d != l_v or apart:
+        raise AssertionError(f"the train batch through the vp take: loss "
+                             f"{l_v} against {l_d}, gradients differ in "
+                             f"{apart}")
+    del g_d, g_v
+    torch.cuda.empty_cache()
+    B, H = tb["hist_ids"].shape
+    ids = torch.cat([tb["hist_ids"], tb["target_id"][:, None]],
+                    dim=1).reshape(-1)
+    plan = sm.segment_plan(ids, n)
+    vals = torch.randn(ids.shape[0], cfg.embed_dim, generator=gen,
+                       device=dev)
+    b4_ms, b4_times = call_times(lambda: sm.segment_sum(vals, plan, n))
+    b4_bound = sm.segment_sum_bound_ms(ids.shape[0], cfg.embed_dim, n)
+    del vals, plan
+    opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+    state = adamw.init_state(dict(model.named_parameters()))
+    train_step = configs.make_train_step(spec, cfg, opt_cfg, take_fn=vp)
+    reset_b4_b5()
+    (_, state, m), t_step = wall(lambda: train_step(model, state, tb))
+    tally(mind_counted(MIND_LAUNCHES["train"], "a train step through the "
+                                               "vp take"))
+    if not bool(torch.isfinite(m["loss"])):
+        raise AssertionError("the train step through the vp take gave a "
+                             "non-finite loss")
+
+    def coll(c):
+        return ", ".join(f"{k} {v['calls']} ({v['bytes'] / 1e6:.1f} MB)"
+                         for k, v in c.items())
+    print(f"[runtime] mind at full width ({n:,} x {cfg.embed_dim}) through "
+          f"make_vp_take(mesh, leading={dp}): serve_p99 scores, the train "
+          f"batch's loss ({l_v:.7f}) and both gradients and "
+          f"retrieval_cand's scores bit-equal to the default ops.take path; "
+          f"rows for ids n, -1, -n-1 zero; launches as the default path's "
+          f"(serve {MIND_LAUNCHES['serve']}, retrieval "
+          f"{MIND_LAUNCHES['retrieval']}, loss and gradients "
+          f"{MIND_LAUNCHES['train']}: B5, its gradients, B4, plans); "
+          f"collectives of a serve call: {coll(coll_serve)}; of the loss and "
+          f"gradients: {coll(coll_train)}; serve_p99 {show(t_serve)}; one "
+          f"make_train_step step through the vp take {t_step:.4f}s, loss "
+          f"{float(m['loss']):.4f} | {smi}")
+    print(f"[runtime] B4 at the vp take's table gradient ({B * (H + 1):,} "
+          f"rows x {cfg.embed_dim} into {n:,}, one launch): {b4_times}; "
+          f"bound {b4_bound:.4f} ms (PR 28: {PR28_B4_MS} ms at the same ids "
+          f"concatenated in another order) | {smi}")
+    del state, m, tb
+
+    # -- remesh: a mind checkpoint restored onto the card's mesh ------------
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        host = {k: v.detach() for k, v in model.state_dict().items()}
+        _, t_save = wall(lambda: mgr.save(1, host))
+        (_, restored, _), t_restore = wall(lambda: mgr.restore(device="cpu"))
+        specs = configs.param_specs(spec, host, mesh)
+        placed, t_remesh = wall(lambda: elastic.remesh(restored, specs, mesh))
+        for k, v in host.items():
+            if not (placed[k].device_mesh == mesh and torch.equal(
+                    placed[k].full_tensor(), v)):
+                raise AssertionError(f"remesh of {k} differs from the saved "
+                                     "tensor")
+        print(f"[runtime] remesh: mind's {len(host)} tensors "
+              f"({sum(v.numel() * 4 for v in host.values()) / 2**30:.2f} "
+              f"GiB) saved ({t_save:.2f}s), restored on the host "
+              f"({t_restore:.2f}s) and remeshed onto the card's mesh under "
+              f"{ {k: tuple(s) for k, s in specs.items()} } "
+              f"({t_remesh:.2f}s): bit-equal | {smi}")
+    del model, host, restored, placed
+    torch.cuda.empty_cache()
+
+    # -- the a2a MoE on qwen2-moe's layer 0 ----------------------------------
+    spec = configs.get(MOE_ARCH)
+    cfg = spec.model_cfg
+    mc, L = cfg.moe, cfg.n_layer
+    E, K = mc.e_total, mc.top_k
+    seq = RUNTIME_MOE_SEQ
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    model, t_init = wall(lambda: tfm.init_params(cfg, gen, device=dev))
+    toks = torch.randint(0, cfg.vocab, (1, seq), generator=gen, device=dev)
+    p0 = model.layers[0]
+    pos = torch.arange(seq, dtype=torch.int32, device=dev)[None, :]
+    with torch.inference_mode():
+        x = model.embed[toks]
+        x = x + tfm.attention_block(p0, cfg, tfm.rms_norm(x, p0.ln1), pos)
+        h = tfm.rms_norm(x, p0.ln2)
+    a2a = make_a2a_moe(mesh, dp)
+    C8 = a2a_capacity(mc, seq)
+    kern = RoutePattern()
+    sm.reset_counts()
+    shd.reset_collectives()
+    with contextlib.ExitStack() as stack, torch.inference_mode():
+        for patch in kern.patches():
+            stack.enter_context(patch)
+        got, aux = a2a(p0.moe, cfg, h)
+    b5_layer = sm.matmul.launches
+    want_b5 = 1 + 3 * E + (2 * mc.n_shared + 1 if mc.n_shared else 0)
+    if b5_layer != want_b5:
+        raise AssertionError(f"the a2a layer launched B5 {b5_layer} times, "
+                             f"not {want_b5}")
+    launched["b5"] += b5_layer
+    coll_a2a = shd.collective_counts()
+    with contextlib.ExitStack() as stack, torch.inference_mode():
+        for patch in plain_ops() + kern.patches(replay=True):
+            stack.enter_context(patch)
+        want, want_aux = a2a(p0.moe, cfg, h)
+    err_plain = rel_err(got, want)
+    if not (err_plain <= RUNTIME_MOE_TOL and abs(float(aux) - float(
+            want_aux)) <= 1e-4 * abs(float(want_aux))):
+        raise AssertionError(f"the a2a layer against its plain versions: "
+                             f"{err_plain} of max|out|, aux {float(aux)} "
+                             f"against {float(want_aux)}")
+    dropped = [int(d) for d in kern.drops]
+    _, C32 = tfm.capacity(mc, seq)
+    t_a2a = {"a2a": call_times(lambda: a2a(p0.moe, cfg, h), iters=5),
+             "moe_ffn": call_times(lambda: tfm.moe_ffn(p0.moe, cfg, h),
+                                   iters=5)}
+    wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mc, capacity_factor=8.0))
+    sm.reset_counts()
+    with torch.inference_mode():
+        w_a2a, _ = a2a(p0.moe, wide, h)
+        w_ffn, _ = tfm.moe_ffn(p0.moe, wide, h)
+    launched["b5"] += sm.matmul.launches
+    err_wide = rel_err(w_a2a, w_ffn)
+    if not err_wide <= RUNTIME_MOE_TOL:
+        raise AssertionError(f"the a2a layer at capacity 8.0 against "
+                             f"moe_ffn: {err_wide} of max|out|")
+    print(f"[runtime] {MOE_ARCH} layer 0's MoE on the prefill operands "
+          f"(1 x {seq}) through make_a2a_moe on the card's mesh: B5 "
+          f"{b5_layer} launches (router 1, experts {3 * E}, shared "
+          f"{2 * mc.n_shared + 1}; moe_ffn's experts {3 * E}), collectives "
+          f"{coll(coll_a2a)}; capacity C = {C8} (multiple of 8; moe_ffn's "
+          f"{C32}, multiple of 32), {dropped[0]:,} of {seq * K:,} "
+          f"assignments dropped ({dropped[1]:,} in the replayed plain run); "
+          f"against its plain versions with the routes replayed "
+          f"{err_plain:.3e} of max|out| (tolerance {RUNTIME_MOE_TOL}), aux "
+          f"{float(aux):.6f} against {float(want_aux):.6f}; at "
+          f"capacity_factor 8.0 (nothing dropped) against moe_ffn "
+          f"{err_wide:.3e} of max|out|; one layer {show(t_a2a)} | {smi}")
+    del got, want, w_a2a, w_ffn, x, h
+
+    # -- the full prefill with the hooks and the a2a -------------------------
+    prefill = configs.make_serve_step(spec, "prefill_32k", wide)
+    model.cfg = wide
+    sm.reset_counts()
+    today, t_today = wall(lambda: prefill(model, {"tokens": toks}))
+    b5_today = sm.matmul.launches
+    tfm.set_moe_impl(a2a)
+    tfm.set_activation_sharding(shd.named(mesh, shd.P(dp, None, None)))
+    tfm.set_moe_sharding((shd.named(mesh, shd.P(None, dp, None)),
+                          shd.named(mesh, shd.P(None, dp, "model"))))
+    tfm.set_weight_use_sharding({
+        "attn.wq": shd.named(mesh, shd.P(None, "model")),
+        "moe.wi": shd.named(mesh, shd.P(None, None, "model"))})
+    try:
+        sm.reset_counts()
+        shd.reset_collectives()
+        hooked, t_hooked = wall(lambda: prefill(model, {"tokens": toks}))
+        b5_hooked = sm.matmul.launches
+        coll_pre = shd.collective_counts()
+    finally:
+        tfm.set_moe_impl(None)
+        tfm.set_activation_sharding(None)
+        tfm.set_moe_sharding(None)
+        tfm.set_weight_use_sharding(None)
+        model.cfg = cfg
+    launched["b5"] += b5_today + b5_hooked
+    err_pre = rel_err(hooked, today)
+    if not (err_pre <= RUNTIME_MOE_TOL and bool(torch.isfinite(hooked).all())):
+        raise AssertionError(f"the prefill with the a2a and the hooks: "
+                             f"{err_pre} of max|logit| from today's")
+    print(f"[runtime] prefill 1 x {seq} of {MOE_ARCH} ({L} layers, "
+          f"capacity_factor 8.0 in both: the a2a rounds C to 8 and moe_ffn "
+          f"to 32, so at 1.25 they would drop different assignments) with "
+          f"set_moe_impl(a2a) and the activation, MoE and weight hooks set "
+          f"on the card's mesh: logits within {err_pre:.3e} of max|logit| "
+          f"of today's prefill (tolerance {RUNTIME_MOE_TOL}), top-1 "
+          f"agreement {top1(hooked, today):.4f}; B5 {b5_hooked} launches "
+          f"({(b5_hooked - 1) // L} a layer) against today's {b5_today} "
+          f"({(b5_today - 1) // L} a layer; the experts' {3 * E} in both); "
+          f"collectives {coll(coll_pre)}; {t_hooked:.3f}s against "
+          f"{t_today:.3f}s | {smi}")
+    del today, hooked, model
+    torch.cuda.empty_cache()
+
+    # -- the compressed mean over a MoE train step's gradients ----------------
+    cut = dataclasses.replace(cfg, n_layer=RUNTIME_GRAD_LAYERS)
+    small = tfm.init_params(cut, gen, device=dev)
+    tt = torch.randint(0, cut.vocab, (1, RUNTIME_GRAD_SEQ + 1),
+                       generator=gen, device=dev)
+    sm.reset_counts()
+    _, grads = loss_and_grads(spec, cut, small, {
+        "tokens": tt[:, :-1].contiguous(), "labels": tt[:, 1:].contiguous()})
+    launched["b5"] += sm.matmul.launches
+    launched["b5_grad"] += sm.matmul_grads.launches
+    errors = compression.init_error_state(grads)
+    reduce = compression.make_compressed_grad_allreduce(mesh, axis="data")
+    shd.reset_collectives()
+    means, new_errors = reduce(grads, errors)
+    coll_comp = shd.collective_counts()
+    worst = 0.0
+    for k, g in grads.items():
+        q, s, e = compression.compress_update(g, errors[k])
+        if not (torch.equal(new_errors[k], e)
+                and torch.equal(means[k], compression.dequantize(q, s))):
+            raise AssertionError(f"the compressed mean of {k} differs from "
+                                 "compress_update's")
+        off = float((means[k] - g.float()).abs().max() / s)
+        if not off <= 0.51:
+            raise AssertionError(f"the compressed mean of {k} is {off} "
+                                 f"scales from its gradient")
+        worst = max(worst, off)
+    t_comp = call_times(lambda: reduce(grads, errors), iters=5)
+    n_el = sum(g.numel() for g in grads.values())
+    print(f"[runtime] compressed mean over the data axis of a {MOE_ARCH} "
+          f"train step's gradients ({RUNTIME_GRAD_LAYERS} layers at full "
+          f"width, 1 x {RUNTIME_GRAD_SEQ} tokens: {len(grads)} tensors, "
+          f"{n_el:,} values): q, scale and the new error equal "
+          f"compress_update's, every mean within {worst:.4f} scales of its "
+          f"gradient (bound 0.51); collectives {coll(coll_comp)}; "
+          f"{t_comp[1]} for all {len(grads)} tensors | {smi}")
+    del small, grads, means, new_errors, errors
+    torch.cuda.empty_cache()
+
+    # -- the dry run on the card's mesh ----------------------------------------
+    cells = list(configs.all_cells())
+    firsts = {}                    # a serving cell of each family, if any
+    for aid, shape in cells:
+        fam = configs.get(aid).family
+        serving = configs.get(aid).shapes[shape]["kind"] != "train"
+        if fam not in firsts or (serving and configs.get(
+                firsts[fam][0]).shapes[firsts[fam][1]]["kind"] == "train"):
+            firsts[fam] = (aid, shape)
+    firsts = list(firsts.values())
+    rest = [c for c in cells if c not in firsts]
+    order = firsts + sorted(rest, key=lambda c: configs.get(c[0]).shapes[
+        c[1]]["kind"] == "train")  # serving cells trace faster
+    reset_b4_b5()
+    recs, t0 = [], time.perf_counter()
+    for aid, shape in order:
+        if len(recs) >= len(firsts) and \
+                time.perf_counter() - t0 > RUNTIME_DRYRUN_S:
+            break
+        recs.append(dryrun.run_cell(aid, shape, mesh=mesh, verbose=False))
+    t_dry = time.perf_counter() - t0
+    if (sm.matmul.launches, sm.segment_sum.launches) != (0, 0):
+        raise AssertionError("the dry run's meta trace launched a kernel")
+    print(f"[runtime] dry run on the card's mesh (meta tensors, the NCCL "
+          f"group): {len(recs)} of {len(cells)} cells in {t_dry:.1f}s (a "
+          f"serving cell of each family first, then more while under "
+          f"{RUNTIME_DRYRUN_S:.0f}s; python -m repro_torch.launch.dryrun "
+          f"--all runs every cell) | {smi}")
+    print(report.dryrun_table(recs))
+    print(report.roofline_table(recs, "1x1"))
+    print(report.production_table(recs))
+    print(f"[runtime] phase {time.perf_counter() - t_phase:.1f}s | {smi}")
+    return {"b5": launched["b5"], "b5_grad": launched["b5_grad"],
+            "b4": launched["b4"], "b5_err": err_plain}
 
 
 def main() -> int:
@@ -5732,6 +6124,11 @@ def main() -> int:
                                    recs["b5_err"])
     b4_record["max_abs_err"] = max(b4_record["max_abs_err"], mgn["b4_err"],
                                    geo["b4_err"], recs["b4_err"])
+    rt = runtime_phase(dev, smi)
+    b5_record["launches"] += rt["b5"]
+    trained["records"][0]["launches"] += rt["b5_grad"]
+    b4_record["launches"] += rt["b4"]
+    b5_record["max_abs_err"] = max(b5_record["max_abs_err"], rt["b5_err"])
 
     csrc = "src/repro_torch/kernels/csrc/"
     records = [

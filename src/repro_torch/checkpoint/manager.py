@@ -17,8 +17,9 @@ counterpart of ``repro.checkpoint.manager`` on one device.
   serialization to a daemon worker; ``wait()`` joins it and raises what
   the worker raised.
 * **Restore** — ``restore(step=None, device="cuda")`` places every leaf
-  on ``device``. One card has no mesh, so there is no re-sharding
-  (the reference's ``shardings=``).
+  on ``device``. The reference's ``shardings=`` is a separate step here:
+  ``runtime.elastic.remesh`` of the restored tree (``device="cpu"``)
+  distributes it onto a mesh under its logical specs.
 * **Retention** — monotone step numbers; the ``keep`` newest survive.
 * **Integrity** — restore verifies every leaf's crc32.
 

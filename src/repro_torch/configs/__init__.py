@@ -3,15 +3,16 @@ reference, all ten (the five LMs, dense and MoE, the four GNNs and the
 recsys architecture, mind)."""
 
 from .base import (GNN_SHAPES, LM_SHAPES, LM_SKIPS, RECSYS_SHAPES, REGISTRY,
-                   ArchSpec, abstract_params, all_cells, cell_model_cfg, get,
-                   init_params, input_specs, loss_for, make_serve_step,
-                   make_train_step, model_flops, register, smoke_dims)
+                   ArchSpec, abstract_params, all_cells, batch_specs,
+                   cell_model_cfg, get, init_params, input_specs, loss_for,
+                   make_serve_step, make_train_step, model_flops, opt_specs,
+                   param_specs, register, smoke_dims)
 
 __all__ = ["GNN_SHAPES", "LM_SHAPES", "LM_SKIPS", "RECSYS_SHAPES", "REGISTRY",
-           "ArchSpec", "abstract_params", "all_cells", "cell_model_cfg",
-           "get", "init_params", "input_specs", "load_all", "loss_for",
-           "make_serve_step", "make_train_step", "model_flops", "register",
-           "smoke_dims"]
+           "ArchSpec", "abstract_params", "all_cells", "batch_specs",
+           "cell_model_cfg", "get", "init_params", "input_specs", "load_all",
+           "loss_for", "make_serve_step", "make_train_step", "model_flops",
+           "opt_specs", "param_specs", "register", "smoke_dims"]
 
 _ARCH_MODULES = ("dbrx_132b", "qwen2_moe_a2_7b", "glm4_9b", "codeqwen1_5_7b",
                  "qwen1_5_110b", "meshgraphnet", "nequip", "graphsage_reddit",

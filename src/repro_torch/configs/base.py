@@ -9,10 +9,13 @@ GNN's forward, MIND's scoring and retrieval), a train step
 (:func:`make_train_step`: the loss of :func:`loss_for` differentiated
 through the kernels' gradients, then one AdamW update in place) and its
 analytic model FLOPs (:func:`model_flops`); :func:`init_params` draws a
-model and :func:`smoke_dims` gives a cell's reduced dims. The sharding
-specs (``param_specs``, ``batch_specs``, ``opt_specs``: they need a mesh)
-are not ported yet (ROADMAP A8.3), and a GNN or recsys config type the
-port does not know raises.
+model and :func:`smoke_dims` gives a cell's reduced dims. The partition
+specs of a cell on a mesh (:func:`param_specs`, :func:`batch_specs`,
+:func:`opt_specs`) are ``runtime.sharding``'s family policies, keyed by
+the port's parameter and batch names; MIND's steps take the reference's
+``take_fn``/``cand_take_fn`` (the vocab-parallel lookup,
+``runtime.sharding.make_vp_take``). A GNN or recsys config type the port
+does not know raises.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ..models import gnn as gnn_mod
 from ..models import recsys as recsys_mod
 from ..models import transformer as tfm
 from ..optim import adamw
+from ..runtime import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,8 +216,8 @@ def abstract_params(spec: ArchSpec, model_cfg) -> torch.nn.Module:
     return tfm.abstract_params(model_cfg)
 
 
-def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
-                    ) -> Callable:
+def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None,
+                    take_fn=None, cand_take_fn=None) -> Callable:
     """``serve_step(model, batch)`` of an inference cell, as the
     reference's: prefill takes ``{"tokens": (B, S)}`` and returns the f32
     logits (B, S, vocab); decode takes ``{"tokens": (B, 1), "cache",
@@ -225,7 +229,8 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
     (``sage_forward``), NequIP's and MACE's ``(energy (graphs,), (s, V,
     T))`` (``geo_forward``). MIND's, under inference mode: a serve cell's
     scores (B, C) (``models.recsys.mind_serve``), a retrieval cell's (C,)
-    (``mind_retrieval``)."""
+    (``mind_retrieval``), their lookups through ``take_fn`` and
+    ``cand_take_fn`` where given."""
     cfg = model_cfg or cell_model_cfg(spec, shape_name)
     _ported(spec)
     kind = spec.shapes[shape_name]["kind"]
@@ -247,7 +252,8 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None
                else recsys_mod.mind_retrieval)
 
         def serve_step(model, batch):
-            return fwd(_model_of(model), batch)
+            return fwd(_model_of(model), batch, take_fn=take_fn,
+                       cand_take_fn=cand_take_fn)
         return serve_step
     if kind == "prefill":
         def serve_step(model, batch):
@@ -296,35 +302,39 @@ def init_params(spec: ArchSpec, model_cfg, generator: torch.Generator,
     return tfm.init_params(model_cfg, generator, device=device)
 
 
-def loss_for(spec: ArchSpec, model_cfg) -> Callable:
+def loss_for(spec: ArchSpec, model_cfg, take_fn=None) -> Callable:
     """``loss(model, batch)``, the reference's: an LM's
     ``transformer.loss_fn`` over ``{"tokens", "labels"}``; a GNN's over
     the graph batch: ``gnn.mgn_loss`` (``target``), ``gnn.sage_loss``
     (``labels``, ``seed_mask``) or ``gnn.geo_loss`` (energies and forces,
     the forces with their graph, so that the train step differentiates
     them once more); MIND's ``recsys.mind_loss`` over ``{"hist_ids",
-    "hist_mask", "target_id"}``."""
+    "hist_mask", "target_id"}``, its lookup through ``take_fn`` where
+    given."""
     _ported(spec)
     if spec.family == "gnn":
         return gnn_mod.LOSSES[type(model_cfg)]
     if spec.family == "recsys":
-        return recsys_mod.mind_loss
+        return lambda model, batch: recsys_mod.mind_loss(model, batch,
+                                                         take_fn=take_fn)
     return lambda model, batch: tfm.loss_fn(model, batch["tokens"],
                                             batch["labels"])
 
 
 def make_train_step(spec: ArchSpec, model_cfg,
-                    opt_cfg: adamw.AdamWConfig | None = None) -> Callable:
+                    opt_cfg: adamw.AdamWConfig | None = None,
+                    take_fn=None) -> Callable:
     """``train_step(model, opt_state, batch) -> (model, opt_state,
     {"loss", "grad_norm", "lr"})``, the reference's: the loss and the
     gradient of every parameter (autograd through the kernels' backward
     kernels), then ``adamw.apply_updates``. Unlike the reference's, which
     returns new arrays, the step updates ``model``'s parameters and the
     moments of ``opt_state`` IN PLACE and returns the same objects; the
-    metrics are 0-dim tensors on the model's device."""
+    metrics are 0-dim tensors on the model's device. ``take_fn`` is
+    MIND's lookup (:func:`loss_for`)."""
     _ported(spec)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
-    loss = loss_for(spec, model_cfg)
+    loss = loss_for(spec, model_cfg, take_fn=take_fn)
 
     def train_step(model, opt_state, batch):
         if model.cfg != model_cfg:
@@ -345,6 +355,45 @@ def make_train_step(spec: ArchSpec, model_cfg,
         return model, opt_state, {"loss": lval.detach(), **metrics}
 
     return train_step
+
+
+# ----------------------------------------------------------------------
+# partition specs per cell
+# ----------------------------------------------------------------------
+
+def param_specs(spec: ArchSpec, params, mesh) -> dict:
+    """``{parameter name: P}`` of a model (or a name -> tensor dict) on
+    ``mesh``: ``runtime.sharding``'s policy of the family."""
+    if spec.family.startswith("lm"):
+        return shd.lm_param_spec_tree(params, mesh)
+    if spec.family == "gnn":
+        return shd.gnn_param_specs(params)
+    return shd.mind_param_specs(params)
+
+
+def batch_specs(spec: ArchSpec, shape_name: str, batch: dict, mesh) -> dict:
+    """``{input name: P}`` of a cell's batch (:func:`input_specs`) on
+    ``mesh``; an LM's decode cache is ``{"k": P, "v": P}``."""
+    dims = spec.shapes[shape_name]
+    kind = dims["kind"]
+    dp = shd.dp_axes(mesh)
+    if spec.family.startswith("lm"):
+        if kind in ("train", "prefill"):
+            return {name: shd.P(dp, None) for name in batch}
+        cfg = cell_model_cfg(spec, shape_name)
+        return {"tokens": shd.P(dp, None),
+                "cache": shd.lm_cache_spec(mesh, cfg.n_kv),
+                "cache_len": shd.P()}
+    if spec.family == "gnn":
+        return shd.gnn_batch_specs(batch, mesh)
+    return shd.mind_batch_specs(batch, mesh,
+                                retrieval=(kind == "retrieval"))
+
+
+def opt_specs(param_spec_tree: dict) -> dict:
+    """AdamW's state: the moments under the parameters' specs, the step
+    replicated."""
+    return {"mu": param_spec_tree, "nu": param_spec_tree, "step": shd.P()}
 
 
 def model_flops(spec: ArchSpec, shape_name: str, dims: dict | None = None,

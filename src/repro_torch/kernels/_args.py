@@ -66,8 +66,16 @@ def flag(changed: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"changed must be an int32[1] tensor on {device}")
 
 
+def plain(device: torch.device) -> bool:
+    """Whether tensors on ``device`` take a kernel's plain version: CPU
+    tensors, where it computes, and ``meta`` tensors (shapes and dtypes
+    only: the dry run's trace, ``launch/dryrun.py``), where it computes
+    nothing and launches nothing. A CUDA tensor never does."""
+    return device.type in ("cpu", "meta")
+
+
 def cuda_only(device: torch.device, what: str) -> None:
-    """Raise unless ``device`` is a CUDA device (CPU tensors never get
-    here: the wrappers send them to the plain version first)."""
+    """Raise unless ``device`` is a CUDA device (CPU and meta tensors never
+    get here: the wrappers send them to the plain version first)."""
     if device.type != "cuda":
         raise ValueError(f"no {what} kernel for device {device}")

@@ -64,7 +64,7 @@ from typing import NamedTuple
 import torch
 
 from . import ref
-from ._args import count_launch, cuda_only
+from ._args import count_launch, plain, cuda_only
 from ._build import build_cuda
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -276,7 +276,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     route."""
     t_real = k.shape[1] if t_real is None else int(t_real)
     _check(q, k, v, t_real)
-    if q.device.type == "cpu":
+    if plain(q.device):
         return ref.flash_attention(q, k, v, causal=causal, t_real=t_real,
                                    return_lse=return_lse)
     cuda_only(q.device, "flash_attention")
@@ -517,7 +517,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be a float {(B, H, S)} tensor on "
                          f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on "
                          f"{lse.device}")
-    if q.device.type == "cpu":
+    if plain(q.device):
         return ref.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                        t_real=t_real, lse=lse)
     cuda_only(q.device, "flash_attention backward")

@@ -38,7 +38,7 @@ from pathlib import Path
 import torch
 
 from . import ref
-from ._args import count_launch, cuda_only, flag, int32_vector
+from ._args import count_launch, plain, cuda_only, flag, int32_vector
 from ._build import build_cuda
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -139,7 +139,7 @@ def degree_count(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
     ``[0, n)`` count nothing). ``degree_count.launches`` counts kernel
     launches (CPU calls and empty shapes launch nothing)."""
     src, dst, alive = _edges(src, dst, alive)
-    if src.device.type == "cpu":
+    if plain(src.device):
         return ref.degree_count(src, dst, alive, n)
     cuda_only(src.device, "degree_count")
     m = src.shape[0]
@@ -172,7 +172,7 @@ def peel_threshold(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
     deg = int32_vector("deg", deg, device=src.device)
     flag(changed, src.device)
     n, m = deg.shape[0], src.shape[0]
-    if src.device.type == "cpu":
+    if plain(src.device):
         out = ref.peel_threshold(src, dst, alive, deg, k)
         if bool((out != (alive > 0)).any()):
             changed.fill_(1)
@@ -235,7 +235,7 @@ def kcore_fixpoint(src: torch.Tensor, dst: torch.Tensor, n: int, k: int,
     if not 0 <= n < 2 ** 31 or m >= 2 ** 31:
         raise ValueError(f"the fixpoint takes 0 <= n < 2^31 and m < 2^31, "
                          f"got n = {n}, m = {m}")
-    if device.type == "cpu":
+    if plain(device):
         return ref.kcore_fixpoint(src, dst, n, k, alive0, rounds=rounds)
     cuda_only(device, "kcore_fixpoint")
     out = torch.empty(m, dtype=torch.bool, device=device)

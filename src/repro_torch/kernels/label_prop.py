@@ -33,7 +33,7 @@ from pathlib import Path
 import torch
 
 from . import ref
-from ._args import count_launch
+from ._args import count_launch, plain
 from ._build import build_cuda
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "label_prop.cu"
@@ -103,9 +103,9 @@ def label_prop_round(labels: torch.Tensor, link_l: torch.Tensor,
     ``label_prop_round.launches`` counts kernel launches (CPU calls
     launch nothing and count nothing)."""
     _check(labels, link_l, link_r, link_p, active, changed)
-    if labels.device.type == "cpu":
+    if plain(labels.device):
         out = ref.label_prop_round(labels, link_l, link_r, link_p, active)
-        if bool((out != labels).any()):
+        if labels.device.type == "cpu" and bool((out != labels).any()):
             changed.fill_(1)
         return out
     if labels.device.type != "cuda":

@@ -195,10 +195,13 @@ def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
     (``segment_matmul.SegmentPlan``): its ``ids`` are taken."""
     ids = getattr(ids, "ids", ids)
     vals = vals.float()
-    out = torch.zeros((num_segments, vals.shape[1]), dtype=torch.float32,
+    # the dropped rows go to a spare last row, cut off after: no mask
+    # selects them, so the shapes never depend on the ids (a meta trace)
+    out = torch.zeros((num_segments + 1, vals.shape[1]), dtype=torch.float32,
                       device=vals.device)
     ok = (ids >= 0) & (ids < num_segments)
-    return out.index_add_(0, ids[ok].long(), vals[ok])
+    dest = torch.where(ok, ids.long(), num_segments)
+    return out.index_add_(0, dest, vals)[:num_segments]
 
 
 def segment_sum_sorted(vals: torch.Tensor, ids: torch.Tensor,

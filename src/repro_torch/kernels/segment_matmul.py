@@ -68,7 +68,7 @@ from typing import NamedTuple
 import torch
 
 from . import ref
-from ._args import count_launch, cuda_only, int32_vector
+from ._args import count_launch, plain, cuda_only, int32_vector
 from ._build import build_cuda
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
@@ -255,7 +255,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     that launches; CPU calls and empty outputs launch nothing), and
     ``matmul.routes`` the same launches by :func:`plan`'s route."""
     _check(a, b)
-    if a.device.type == "cpu":
+    if plain(a.device):
         return ref.matmul(a, b)
     cuda_only(a.device, "matmul")
     dt = operand_dtype(a.dtype, b.dtype)
@@ -524,7 +524,7 @@ def segment_sum(vals: torch.Tensor, ids, num_segments: int) -> torch.Tensor:
         raise ValueError(f"the plan has {plan.num_segments} segments, the "
                          f"call {S}")
     ids = int32_vector("ids", plan_ids(ids), vals.shape[0], vals.device)
-    if vals.device.type == "cpu":
+    if plain(vals.device):
         return ref.segment_sum(vals, ids, S)
     cuda_only(vals.device, "segment_sum")
     vals = vals.float()
@@ -595,7 +595,7 @@ def matmul_grads(a: torch.Tensor, b: torch.Tensor, dc: torch.Tensor,
     ``matmul_grads.launches`` counts the B5 launches made here (also
     counted in ``matmul.launches``)."""
     if mm is None:
-        if a.device.type == "cpu":
+        if plain(a.device):
             return ref.matmul_grads(a, b, dc, need_a, need_b)
         mm = matmul
     if operand_dtype(a.dtype, b.dtype) == torch.bfloat16:
@@ -635,7 +635,7 @@ def segment_gather(dout: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"segment_gather takes (S, d) gradients, got shape "
                          f"{tuple(dout.shape)}")
     ids = int32_vector("ids", ids, device=dout.device)
-    if dout.device.type == "cpu":
+    if plain(dout.device):
         return ref.segment_gather(dout, ids, dtype)
     cuda_only(dout.device, "segment_gather")
     dout = dout.float().contiguous()

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from . import ref
-from ._args import count_launch, cuda_only, int32_array, int32_vector
+from ._args import count_launch, plain, cuda_only, int32_array, int32_vector
 from ._build import build_cuda
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -112,7 +112,7 @@ def segmented_count_le(w: torch.Tensor, seg: torch.Tensor, thr: torch.Tensor,
     w = int32_vector("w", w)
     seg = int32_vector("seg", seg, w.shape[0], w.device)
     thr = int32_vector("thr", thr, n, w.device)
-    if w.device.type == "cpu":
+    if plain(w.device):
         return ref.segmented_count_le(w, seg, thr, n)
     cuda_only(w.device, "segmented_count_le")
     E = w.shape[0]
@@ -270,7 +270,7 @@ def stratum_sweep(tuv: torch.Tensor, seg: torch.Tensor, vptr: torch.Tensor,
         raise ValueError(f"vptr must run from 0 to E = {E}")
     if K == 0 or R == 0 or n == 0:        # nothing to sweep: no probe
         return out, torch.zeros((K, 2), dtype=torch.int64, device=device)
-    if device.type == "cpu":
+    if plain(device):
         return out, ref.stratum_sweep(tuv, seg, vptr, dst, ks, carry,
                                       int(inf), out)
     cuda_only(device, "stratum_sweep")

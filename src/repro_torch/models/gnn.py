@@ -39,7 +39,11 @@ point at node 0); MeshGraphNet adds ``edge_feat`` (E, d_edge_in) and
 ``target`` (n, d_out), GraphSAGE ``labels`` and ``seed_mask``, NequIP and
 MACE ``pos`` (n, 3), ``graph_id`` (n,), ``energy_target`` (graphs,) and
 ``force_target`` (n, 3). The reference's node-sharding hook
-(``set_node_sharding``) is the identity on one device and is not ported.
+(:func:`set_node_sharding`) pins each aggregated node tensor to rows
+split over the mesh for XLA's partitioner; here, given a
+``runtime.sharding.NamedPlacement``, it checks the tensor's layout at the
+same sites (``models.transformer.check_layout``): the identity on one
+rank, ``NotImplementedError`` on more.
 """
 
 from __future__ import annotations
@@ -52,6 +56,22 @@ from torch import nn
 
 from ..kernels import ops
 from . import equivariant as eq
+from .transformer import check_layout
+
+#: the aggregated node tensors' placement (rows over the mesh), checked
+#: after every aggregation
+NODE_SHARDING = None
+
+
+def set_node_sharding(sharding):
+    global NODE_SHARDING
+    NODE_SHARDING = sharding
+
+
+def _constrain_nodes(x: torch.Tensor) -> torch.Tensor:
+    if NODE_SHARDING is not None:
+        return check_layout(x, NODE_SHARDING)
+    return x
 
 
 # ======================================================================
@@ -169,7 +189,7 @@ def mgn_outputs(model: MeshGraphNet, batch: dict) -> torch.Tensor:
         msg_in = torch.cat([e, ops.gather_rows(x, src),
                             ops.gather_rows(x, dst)], dim=-1)
         e = (e + _layernorm(_mlp(lyr.edge_mlp, msg_in))) * mask
-        agg = ops.segment_sum(e, dst, n)
+        agg = _constrain_nodes(ops.segment_sum(e, dst, n))
         x = x + _layernorm(_mlp(lyr.node_mlp, torch.cat([x, agg], dim=-1)))
     return _mlp(model.dec, x)
 
@@ -252,6 +272,7 @@ def sage_layer(layer: SAGELayer, x: torch.Tensor, src, dst,
         agg = msum / cnt.clamp_min(1.0)
     else:
         agg = segment_mean(rows, dst, n)
+    agg = _constrain_nodes(agg)
     x = ops.matmul(x, layer.w_self) + ops.matmul(agg, layer.w_neigh) + layer.b
     x = torch.relu(x)
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(
@@ -392,11 +413,11 @@ def _interaction(lyr: Interaction, C: int, s, V, T, src, dst, rbf, rhat, Y2,
                        eq.tp_to_vector(s_e, V_e, T_e, rhat, Y2), rw[:, 1])
     m_t = torch.einsum("ecijp,ecp->ecij",
                        eq.tp_to_tensor(s_e, V_e, T_e, rhat, Y2), rw[:, 2])
-    a_s = ops.segment_sum(m_s.contiguous(), dst, n)
-    a_v = ops.segment_sum(m_v.reshape(E, 3 * C).contiguous(), dst,
-                          n).reshape(n, C, 3)
-    a_t = ops.segment_sum(m_t.reshape(E, 9 * C).contiguous(), dst,
-                          n).reshape(n, C, 3, 3)
+    a_s = _constrain_nodes(ops.segment_sum(m_s.contiguous(), dst, n))
+    a_v = _constrain_nodes(ops.segment_sum(
+        m_v.reshape(E, 3 * C).contiguous(), dst, n).reshape(n, C, 3))
+    a_t = _constrain_nodes(ops.segment_sum(
+        m_t.reshape(E, 9 * C).contiguous(), dst, n).reshape(n, C, 3, 3))
     s2 = s + ops.matmul(a_s, lyr.mix_s)
     V2 = V + _mix(a_v, lyr.mix_v)
     T2 = T + _mix(a_t, lyr.mix_t)

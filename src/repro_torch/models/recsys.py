@@ -18,9 +18,10 @@ kernels:
 * every lookup is :func:`take`, ``jnp.take``'s rules for ids out of range
   on ``ops.gather_rows``, whose gradient (the item table's, dense, as the
   reference's scatter-add into zeros) is B4. The loss looks up the
-  history and the targets in ONE call over the concatenated ids, so a
-  train step builds one B4 plan and launches B4 once (the same sum as the
-  reference's two lookups, its adds in another order);
+  history and the targets in ONE call over the ids (B, H + 1), each
+  user's history then its target, so a train step builds one B4 plan and
+  launches B4 once (the same sum as the reference's two lookups, its adds
+  in another order);
 * every 2-D product is ``ops.matmul`` (B5, its f32 route): the bilinear
   map ``emb @ S``, the in-batch logits ``user @ tgt^T`` and retrieval's
   scores, and, through B5's gradient, their gradients.
@@ -40,9 +41,11 @@ tensors. Serving and retrieval run under ``torch.inference_mode()``.
 A batch is the reference's, as tensors on one device: ``hist_ids`` (B, H)
 int32, ``hist_mask`` (B, H) f32 and, to train, ``target_id`` (B,) int32;
 to serve, ``cand_ids`` (B, C) int32; for retrieval ``hist_ids`` (1, H) and
-``cand_ids`` (C,). The reference's ``take_fn``/``cand_take_fn`` hooks
-(the vocab-parallel lookup of ``runtime.sharding``) are the identity on
-one device and are not ported.
+``cand_ids`` (C,). ``take_fn`` (the history's and the targets' lookup)
+and ``cand_take_fn`` (the candidates', default ``take_fn``) replace
+:func:`take` as the reference's hooks do: ``runtime.sharding.make_vp_take``
+is the vocab-parallel lookup, the table's rows split over the ``model``
+axis.
 """
 
 from __future__ import annotations
@@ -148,10 +151,12 @@ def interests_of(model: MIND, emb: torch.Tensor,
 
 
 def user_interests(model: MIND, hist_ids: torch.Tensor,
-                   hist_mask: torch.Tensor) -> torch.Tensor:
+                   hist_mask: torch.Tensor, take_fn=None) -> torch.Tensor:
     """``hist_ids`` (B, H) int32, ``hist_mask`` (B, H) f32 -> the interests
-    (B, K, d): :func:`take` of the history, then :func:`interests_of`."""
-    return interests_of(model, take(model.item_embed, hist_ids), hist_mask)
+    (B, K, d): the history's lookup (``take_fn``, default :func:`take`),
+    then :func:`interests_of`."""
+    tf = take_fn or take
+    return interests_of(model, tf(model.item_embed, hist_ids), hist_mask)
 
 
 def label_aware_attention(cfg: MINDConfig, interests: torch.Tensor,
@@ -198,34 +203,42 @@ def in_batch_softmax_loss(user: torch.Tensor,
     return _InBatchSoftmax.apply(ops.matmul(user, tgt.t().contiguous()))
 
 
-def mind_loss(model: MIND, batch: dict) -> torch.Tensor:
+def mind_loss(model: MIND, batch: dict, take_fn=None) -> torch.Tensor:
     """The reference's ``mind_loss``: the users' interests, label-aware
     attention on each target, then :func:`in_batch_softmax_loss`. The
-    history and the targets are looked up in one :func:`take`."""
+    history and the targets are looked up in one call (``take_fn``,
+    default :func:`take`) over the ids (B, H + 1)."""
     hist_ids, hist_mask = batch["hist_ids"], batch["hist_mask"]
-    B, H = hist_ids.shape
-    rows = take(model.item_embed,
-                torch.cat([hist_ids.reshape(-1), batch["target_id"]]))
-    interests = interests_of(model, rows[:B * H].view(B, H, -1), hist_mask)
-    tgt = rows[B * H:]
+    H = hist_ids.shape[1]
+    tf = take_fn or take
+    rows = tf(model.item_embed,
+              torch.cat([hist_ids, batch["target_id"][:, None]], dim=1))
+    interests = interests_of(model, rows[:, :H], hist_mask)
+    tgt = rows[:, H]
     user = label_aware_attention(model.cfg, interests, tgt)
     return in_batch_softmax_loss(user, tgt)
 
 
 @torch.inference_mode()
-def mind_serve(model: MIND, batch: dict) -> torch.Tensor:
+def mind_serve(model: MIND, batch: dict, take_fn=None,
+               cand_take_fn=None) -> torch.Tensor:
     """Online scoring (B, C): each candidate's dot with the user's best
     interest (``hist_ids``, ``hist_mask``, ``cand_ids`` (B, C))."""
-    interests = user_interests(model, batch["hist_ids"], batch["hist_mask"])
-    cand = take(model.item_embed, batch["cand_ids"])            # (B, C, d)
+    ctf = cand_take_fn or take_fn or take
+    interests = user_interests(model, batch["hist_ids"], batch["hist_mask"],
+                               take_fn)
+    cand = ctf(model.item_embed, batch["cand_ids"])             # (B, C, d)
     return torch.einsum("bkd,bcd->bkc", interests, cand).amax(dim=1)
 
 
 @torch.inference_mode()
-def mind_retrieval(model: MIND, batch: dict) -> torch.Tensor:
+def mind_retrieval(model: MIND, batch: dict, take_fn=None,
+                   cand_take_fn=None) -> torch.Tensor:
     """One user against a slab of candidates (C,): ``hist_ids`` (1, H),
     ``hist_mask`` (1, H), ``cand_ids`` (C,); the scores ``cand @
     interests^T`` (C, K) are one B5 product, then the best interest's."""
-    interests = user_interests(model, batch["hist_ids"], batch["hist_mask"])
-    cand = take(model.item_embed, batch["cand_ids"])            # (C, d)
+    ctf = cand_take_fn or take_fn or take
+    interests = user_interests(model, batch["hist_ids"], batch["hist_mask"],
+                               take_fn)
+    cand = ctf(model.item_embed, batch["cand_ids"])             # (C, d)
     return ops.matmul(cand, interests[0].t().contiguous()).amax(dim=1)

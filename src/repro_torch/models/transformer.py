@@ -34,10 +34,17 @@ through :func:`train_forward` and :func:`loss_fn`, with autograd and, when
 the backward pass (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint``). Each kernel's gradient is a kernel too (B5 on
 transposed operands, B6's backward; ``kernels/ops.py``); the embedding's
-gradient is PyTorch's own scatter of the indexing backward. The
-reference's sharding hooks (``set_activation_sharding``,
-``set_moe_sharding``, ``set_weight_use_sharding``) and its MoE override
-(``set_moe_impl``) wait for the port's ``runtime/`` (ROADMAP A8).
+gradient is PyTorch's own scatter of the indexing backward.
+
+The reference's sharding hooks (:func:`set_activation_sharding`,
+:func:`set_moe_sharding`, :func:`set_weight_use_sharding`) pin layouts
+for XLA's partitioner at the same call sites. PyTorch has no partitioner
+and the kernels take plain tensors, so here each hook, given a
+``runtime.sharding.NamedPlacement``, checks the tensor's layout against
+it: the identity on a mesh of one rank, ``NotImplementedError`` on more.
+:func:`set_moe_impl` replaces the whole routed-expert path of
+:func:`moe_ffn` (``runtime.moe_a2a.make_a2a_moe``: the all-to-all
+dispatch over explicit collectives, which runs at any number of ranks).
 """
 
 from __future__ import annotations
@@ -137,7 +144,9 @@ class DenseFFN(nn.Module):
         self.wo = _param((f, d), dt, device)
 
     def forward(self, x):
-        return linear(silu(linear(x, self.wg)) * linear(x, self.wi), self.wo)
+        return linear(silu(linear(x, _use_w(self.wg, "ffn.wg")))
+                      * linear(x, _use_w(self.wi, "ffn.wi")),
+                      _use_w(self.wo, "ffn.wo"))
 
 
 class MoE(nn.Module):
@@ -233,6 +242,79 @@ def abstract_params(cfg: LMConfig) -> Transformer:
 
 
 # ----------------------------------------------------------------------
+# sharding hooks (read at every call)
+# ----------------------------------------------------------------------
+
+#: the residual stream's (B, S, d) placement, checked at every block
+#: boundary
+ACT_SHARDING = None
+#: placements of the (E, C, d) dispatch buffer and the (E, C, f) expert
+#: intermediate
+MOE_SHARDING = None
+#: call-site tag ("attn.wq", "moe.wi", ...) -> a weight's placement at use
+WEIGHT_USE_SHARDING = None
+#: an alternative routed-expert path for :func:`moe_ffn`
+MOE_IMPL = None
+
+
+def set_activation_sharding(sharding):
+    global ACT_SHARDING
+    ACT_SHARDING = sharding
+
+
+def set_moe_sharding(sharding_pair):
+    global MOE_SHARDING
+    MOE_SHARDING = sharding_pair
+
+
+def set_weight_use_sharding(table):
+    global WEIGHT_USE_SHARDING
+    WEIGHT_USE_SHARDING = table
+
+
+def set_moe_impl(fn):
+    global MOE_IMPL
+    MOE_IMPL = fn
+
+
+def check_layout(x: torch.Tensor, sharding) -> torch.Tensor:
+    """``x``, after checking it against ``sharding`` (a
+    ``runtime.sharding.NamedPlacement``): its spec must fit x's rank. On a
+    mesh of more than one rank it raises ``NotImplementedError``: the
+    reference's ``with_sharding_constraint`` asks XLA's partitioner to lay
+    x out, and the port has none (its kernels take whole local
+    tensors)."""
+    spec = sharding.spec
+    if sharding.size > 1:
+        raise NotImplementedError(
+            f"a sharding hook on a mesh of {sharding.size} ranks: the port "
+            f"has no GSPMD partitioner to lay out {spec}; only the explicit "
+            "bodies (vp take, a2a MoE, compressed mean) run on several ranks")
+    if len(spec) > x.dim():
+        raise ValueError(f"spec {spec} has more entries than the tensor's "
+                         f"{x.dim()} dims")
+    return x
+
+
+def _constrain(x):
+    if ACT_SHARDING is not None and x.dim() == 3:
+        return check_layout(x, ACT_SHARDING)
+    return x
+
+
+def _constrain_moe(x, which: int):
+    if MOE_SHARDING is not None:
+        return check_layout(x, MOE_SHARDING[which])
+    return x
+
+
+def _use_w(w, tag: str):
+    if WEIGHT_USE_SHARDING is not None and tag in WEIGHT_USE_SHARDING:
+        return check_layout(w, WEIGHT_USE_SHARDING[tag])
+    return w
+
+
+# ----------------------------------------------------------------------
 # building blocks
 # ----------------------------------------------------------------------
 
@@ -295,7 +377,9 @@ def qkv(p: Block, cfg: LMConfig, x, positions):
     """The attention's inputs of one layer: q (B, S, H, dh) and k, v
     (B, S, Hkv, dh) in x's dtype, q and k rotated."""
     B, S, _ = x.shape
-    q, k, v = linear(x, p.wq), linear(x, p.wk), linear(x, p.wv)
+    q = linear(x, _use_w(p.wq, "attn.wq"))
+    k = linear(x, _use_w(p.wk, "attn.wk"))
+    v = linear(x, _use_w(p.wv, "attn.wv"))
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = rope(q.reshape(B, S, cfg.n_head, cfg.d_head), positions,
@@ -327,7 +411,8 @@ def attention_block(p: Block, cfg: LMConfig, x, positions, *, cache=None,
         # never cast
         out = ops.flash_attention(q.to(ck.dtype), ck, cv, causal=False,
                                   t_real=cache_len + 1)
-    out = linear(out.reshape(B, S, cfg.n_head * cfg.d_head), p.wo)
+    out = linear(out.reshape(B, S, cfg.n_head * cfg.d_head),
+                 _use_w(p.wo, "attn.wo"))
     return out.to(x.dtype)
 
 
@@ -408,9 +493,14 @@ def experts(p: MoE, buf: torch.Tensor, C: int) -> torch.Tensor:
     of ``buf`` (contiguous, as its weights are): three B5 launches an
     expert. Returns the (E * C + 1, d) outputs, the last row 0 (where
     dropped assignments point)."""
-    wi, wg, wo = p.wi.unbind(0), p.wg.unbind(0), p.wo.unbind(0)
-    ho = [linear(silu(linear(h, wg[e])) * linear(h, wi[e]), wo[e])
-          for e, h in enumerate(buf.split(C))]
+    wi = _use_w(p.wi, "moe.wi").unbind(0)
+    wg = _use_w(p.wg, "moe.wg").unbind(0)
+    wo = _use_w(p.wo, "moe.wo").unbind(0)
+    ho = []
+    for e, h in enumerate(buf.split(C)):
+        hg = _constrain_moe(silu(linear(h, wg[e]))[None], 1)[0]
+        hi = _constrain_moe(linear(h, wi[e])[None], 1)[0]
+        ho.append(linear(hg * hi, wo[e]))
     return torch.cat(ho + [buf.new_zeros(1, buf.shape[1])])
 
 
@@ -446,8 +536,11 @@ def _moe_group(p: MoE, mcfg: MoEConfig, xt: torch.Tensor, C: int):
     gate = probs.gather(-1, eidx)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     order, se, _, _, _, dest = dispatch(eidx, E, C)
-    buf = dispatch_rows(xt, order, dest, K, E * C)
-    out = combine(experts(p, buf, C), eidx, gate, order, dest)
+    buf = _constrain_moe(dispatch_rows(xt, order, dest, K, E * C).view(
+        E, C, -1), 0).view(E * C, -1)
+    ho = experts(p, buf, C)
+    _constrain_moe(ho[:-1].view(E, C, -1), 0)
+    out = combine(ho, eidx, gate, order, dest)
     counts = torch.diff(starts_of(se, E), append=se.new_tensor([Tg * K]))
     aux = E * torch.sum(counts.float() / (Tg * K) * probs.mean(dim=0))
     return out, aux
@@ -461,10 +554,12 @@ def shared_experts(p: MoE, mcfg: MoEConfig, xt: torch.Tensor
     einsum)."""
     T, d = xt.shape
     s, f = mcfg.n_shared, mcfg.d_ff_expert
-    wg, wi = p.shared_wg.unbind(0), p.shared_wi.unbind(0)
+    wg = _use_w(p.shared_wg, "moe.shared_wg").unbind(0)
+    wi = _use_w(p.shared_wi, "moe.shared_wi").unbind(0)
     h = torch.stack([silu(linear(xt, wg[i])) * linear(xt, wi[i])
                      for i in range(s)], dim=1)             # (T, s, f)
-    return linear(h.reshape(T, s * f), p.shared_wo.reshape(s * f, d))
+    wo = _use_w(p.shared_wo, "moe.shared_wo")
+    return linear(h.reshape(T, s * f), wo.reshape(s * f, d))
 
 
 def moe_ffn(p: MoE, cfg: LMConfig, x: torch.Tensor):
@@ -472,7 +567,10 @@ def moe_ffn(p: MoE, cfg: LMConfig, x: torch.Tensor):
     x's dtype, aux)``, the reference's ``moe_ffn``. With G > 1 groups
     (:func:`capacity`) each group is routed on its own and ``aux`` is the
     groups' mean. The shared experts' output (:func:`shared_experts`) is
-    added to the routed one in x's dtype."""
+    added to the routed one in x's dtype. With :func:`set_moe_impl` set,
+    the whole layer is that function's."""
+    if MOE_IMPL is not None:
+        return MOE_IMPL(p, cfg, x)
     mcfg = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -493,13 +591,13 @@ def _layer(p: Block, cfg: LMConfig, x, positions, cache=None,
            cache_len=None):
     """One layer: ``(x, aux)``, aux the MoE loss (a 0-dim f32 tensor) or
     None for a dense layer."""
-    x = x + attention_block(p, cfg, rms_norm(x, p.ln1), positions,
-                            cache=cache, cache_len=cache_len)
+    x = _constrain(x + attention_block(p, cfg, rms_norm(x, p.ln1), positions,
+                                       cache=cache, cache_len=cache_len))
     h = rms_norm(x, p.ln2)
     if cfg.moe is None:
-        return x + p.ffn(h), None
+        return _constrain(x + p.ffn(h)), None
     f, aux = moe_ffn(p.moe, cfg, h)
-    return x + f, aux
+    return _constrain(x + f), aux
 
 
 def _sum_aux(auxes: list, device) -> torch.Tensor:
@@ -519,7 +617,7 @@ def forward(model: Transformer, tokens: torch.Tensor):
     model."""
     cfg = model.cfg
     S = tokens.shape[1]
-    x = model.embed[tokens]
+    x = _constrain(model.embed[tokens])
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     auxes = []
     for p in model.layers:
@@ -545,7 +643,7 @@ def train_forward(model: Transformer, tokens: torch.Tensor):
     ids = tokens.long()
     x = model.embed[ids.clamp(0, cfg.vocab - 1)]
     inside = ((ids >= 0) & (ids < cfg.vocab))[..., None]
-    x = torch.where(inside, x, x.detach())
+    x = _constrain(torch.where(inside, x, x.detach()))
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     auxes = []
     for p in model.layers:
@@ -613,7 +711,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict,
         raise ValueError(f"decode_step takes one token per sequence, got {S}")
     if not 0 <= cache_len < T:
         raise ValueError(f"cache_len must lie in [0, {T}), got {cache_len}")
-    x = model.embed[tokens]
+    x = _constrain(model.embed[tokens])
     positions = torch.full((B, 1), cache_len, dtype=torch.int32,
                            device=x.device)
     for i, p in enumerate(model.layers):

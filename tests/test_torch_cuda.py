@@ -2017,3 +2017,130 @@ def test_mind_serve_and_train_step_on_card_match_plain_versions(cuda):
     assert tuple(x - y for x, y in zip(_mind_counts(), before)) == \
         MIND_CALLS["train"]
     assert bool(torch.isfinite(m["loss"]))
+
+
+# ----------------------------------------------------------------------
+# the runtime on the card's one-rank NCCL mesh
+# ----------------------------------------------------------------------
+
+def test_vp_take_on_card_matches_plain_version(cuda):
+    """The vocab-parallel lookup over the card's (1, 1) NCCL mesh: rows
+    equal to the plain versions' and to ``ops.take`` for ids in range,
+    zero rows for ids n, -1 and -n-1; the table's gradient one B4 launch,
+    bit-equal to ``ops.take``'s and within 1e-4 of the plain versions';
+    the exchanges counted."""
+    import contextlib
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.runtime import sharding as shd
+    n, d = 1 << 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    table = torch.randn(n, d, generator=gen, device=cuda)
+    ids = torch.randint(0, n, (512, 51), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    w = torch.randn(512, 51, d, generator=gen, device=cuda)
+    take = shd.make_vp_take(make_smoke_mesh("cuda"), leading=("data",))
+
+    def rows_and_grad(fn, plain=False):
+        t = table.clone().requires_grad_(True)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                for patch in _plain_ops():
+                    stack.enter_context(patch)
+            rows = fn(t, ids)
+            (g,) = torch.autograd.grad((rows * w).sum(), t)
+        return rows.detach(), g
+
+    shd.reset_collectives()
+    before = segment_matmul.segment_sum.launches
+    rows, g = rows_and_grad(take)
+    torch.cuda.synchronize()
+    assert segment_matmul.segment_sum.launches - before == 1
+    assert shd.collective_counts()["all-reduce"]["calls"] == 3
+    rows_t, g_t = rows_and_grad(ops.take)
+    assert torch.equal(rows, rows_t) and torch.equal(g, g_t)
+    rows_p, g_p = rows_and_grad(take, plain=True)
+    assert torch.equal(rows, rows_p)
+    assert float((g - g_p).abs().max()) <= 1e-4 * float(g_p.abs().max())
+    bad = torch.tensor([n, -1, -n - 1, 5], dtype=torch.int32, device=cuda)
+    out = take(table, bad)
+    assert not out[:3].any() and torch.equal(out[3], table[5])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_a2a_moe_on_card_matches_plain_version(cuda, dtype):
+    """The a2a MoE over the card's (1, 1) NCCL mesh, qwen2-moe's smoke
+    layer over 2 x 96 tokens: against its plain versions with the routes
+    replayed (bf16 within 3e-2 of max|out|, f32 1e-4); B5 launched once
+    for the router and three times per expert, as ``moe_ffn``; with a
+    capacity that does not bind, equal to ``moe_ffn`` within the same
+    bound."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.moe_a2a import make_a2a_moe
+    cfg = dataclasses.replace(configs.get("qwen2-moe-a2.7b").smoke_cfg,
+                              dtype=dtype)
+    m = cfg.moe
+    x = torch.randn(2, 96, cfg.d_model,
+                    generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda).to(dtype)
+    share = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    tfm.set_moe_impl(make_a2a_moe(make_smoke_mesh("cuda"), ("data",)))
+    try:
+        shd.reset_collectives()
+        got, want, launches = _moe_on_card_and_plain(cfg, x)
+        assert shd.collective_counts()["all-to-all"]["calls"] == 4
+    finally:
+        tfm.set_moe_impl(None)
+    assert launches == 1 + 3 * m.e_total + 2 * m.n_shared + 1
+    assert float((got.float() - want.float()).abs().max()) <= \
+        share * float(want.float().abs().max())
+    wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=8.0))
+    tfm.set_moe_impl(make_a2a_moe(make_smoke_mesh("cuda"), ("data",)))
+    try:
+        a2a, _, _ = _moe_on_card_and_plain(wide, x)
+    finally:
+        tfm.set_moe_impl(None)
+    ffn, _, _ = _moe_on_card_and_plain(wide, x)
+    assert float((a2a.float() - ffn.float()).abs().max()) <= \
+        share * float(ffn.float().abs().max())
+
+
+def test_cuda_tensors_never_take_plain_versions(cuda):
+    """With every plain version made to raise, B5, B4, B4's gather and B6
+    still run on CUDA tensors (they launch); meta tensors take the plain
+    versions and launch nothing."""
+    from unittest import mock
+
+    def boom(*a, **k):
+        raise AssertionError("a CUDA tensor took a plain version")
+    patches = [mock.patch.object(ref, name, boom) for name in
+               ("matmul", "segment_sum", "segment_gather", "flash_attention")]
+    a = torch.randn(64, 32, device=cuda)
+    ids = torch.randint(0, 7, (64,), device=cuda, dtype=torch.int32)
+    q = torch.randn(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+    before = (segment_matmul.matmul.launches,
+              segment_matmul.segment_sum.launches,
+              segment_matmul.segment_gather.launches,
+              flash_attention.flash_attention.launches)
+    for p in patches:
+        p.start()
+    try:
+        segment_matmul.matmul(a, a.t().contiguous())
+        segment_matmul.segment_sum(a, ids, 7)
+        segment_matmul.segment_gather(a[:7].contiguous(), ids)
+        flash_attention.flash_attention(q, q, q, causal=True)
+        torch.cuda.synchronize()
+    finally:
+        for p in patches:
+            p.stop()
+    after = (segment_matmul.matmul.launches,
+             segment_matmul.segment_sum.launches,
+             segment_matmul.segment_gather.launches,
+             flash_attention.flash_attention.launches)
+    assert all(x - y == 1 for x, y in zip(after, before))
+    meta = segment_matmul.matmul(a.to("meta"), a.t().contiguous().to("meta"))
+    assert meta.device.type == "meta"
+    assert segment_matmul.matmul.launches == after[0]

@@ -41,7 +41,16 @@ TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.data.lm_data",
                  "repro_torch.launch.train")
 
 
-@pytest.mark.parametrize("module", TRAIN_MODULES)
+#: the runtime and launch modules (slice 19)
+RUNTIME_MODULES = ("repro_torch.launch.mesh", "repro_torch.launch.roofline",
+                   "repro_torch.launch.dryrun", "repro_torch.launch.report",
+                   "repro_torch.runtime.sharding",
+                   "repro_torch.runtime.moe_a2a",
+                   "repro_torch.runtime.elastic",
+                   "repro_torch.optim.compression")
+
+
+@pytest.mark.parametrize("module", TRAIN_MODULES + RUNTIME_MODULES)
 def test_training_modules_stand_alone(module):
     """Each module is among the files checked above, and imports in a fresh
     interpreter without loading ``jax`` or ``repro``."""
