@@ -304,6 +304,19 @@ result line each; any failure raises and exits non-zero:
            int8 compressed mean over a MoE train step's gradients; the dry
            run on the card's mesh (a cell of each family, then more
            while under 20 s) and the report's tables
+  contracts  the kernel-contract witness and the lock witness armed
+           (REPRO_KERNEL_WITNESS=1, REPRO_LOCK_WITNESS=1) over the TCCS
+           main path: the card build of the CollegeMsg graph (the sweep and
+           the fixpoints of its k range), to_device (the layout checked on
+           upload) and 256 mixed-k queries through serving/executor.py,
+           counted, every answer equal to Algorithm 1; then one call of
+           every other contract at the main paths' full-width operands (B5
+           wgmma, skinny and f32, B6 wgmma and split, B6's backward, B4 and
+           its gather, B2, its bisection, B3a, B3b, both probes): no
+           problem, every contract recorded; the calls and the largest
+           declared shared memory per contract; disarmed, the wrapper's
+           host us per call against its __wrapped__ at glm4's decode matmul
+           and at B1 (at most 2 us added)
 
 The card builds, ingests and trims of epoch, engine and store peel their
 k ranges on the card too; a ``[kcore]`` line sums kcore_fixpoint's
@@ -5743,6 +5756,275 @@ def runtime_phase(dev, smi: str) -> dict:
     return {"b5": launched["b5"], "b5_grad": launched["b5_grad"],
             "b4": launched["b4"], "b5_err": err_plain}
 
+#: [contracts]: the seed of the armed main path's queries, and the calls of
+#: each variant in the disarmed host-cost timing and how many calls run
+#: between two synchronisations
+CONTRACTS_SEED = 41
+CONTRACTS_CALLS = 1000
+CONTRACTS_BLOCK = 100
+#: the host time the disarmed wrapper (one environment read) may add to a
+#: call, in us
+CONTRACTS_HOST_US = 2.0
+#: the full-width operands: glm4-9b's d_model and decode cache slots,
+#: minibatch_lg's padded nodes and edges
+CONTRACTS_D_MODEL = 4096
+CONTRACTS_CACHE = 32_768
+CONTRACTS_GNN = (169_984, 337_920)
+
+
+def disarmed_host_us(decorated, wrapped) -> dict:
+    """Host us of one call of a decorated wrapper and of its undecorated
+    ``__wrapped__``, disarmed: CONTRACTS_CALLS calls of each, the two
+    alternating call by call, each call timed alone on the host clock; the
+    card synchronised (untimed) every CONTRACTS_BLOCK calls, so the launch
+    queue never fills and each time is the host's. The median of each and
+    their difference (the wrapper's cost), with the 10th and 90th
+    percentiles beside the medians."""
+    per = {"decorated": [], "wrapped": []}
+    clock = time.perf_counter_ns
+    decorated(), wrapped()
+    for i in range(CONTRACTS_CALLS):
+        if i % (CONTRACTS_BLOCK // 2) == 0:
+            torch.cuda.synchronize()
+        for name, fn in (("decorated", decorated), ("wrapped", wrapped)):
+            t0 = clock()
+            fn()
+            per[name].append((clock() - t0) / 1e3)
+    torch.cuda.synchronize()
+    out = {k: tuple(float(x) for x in np.percentile(v, (50, 10, 90)))
+           for k, v in per.items()}
+    out["added"] = out["decorated"][0] - out["wrapped"][0]
+    return out
+
+
+def contracts_phase(g, dev, smi: str) -> dict:
+    """[contracts]: the kernel-contract witness (and the lock witness)
+    armed over the TCCS main path and every kernel.
+
+    With ``REPRO_KERNEL_WITNESS=1`` and ``REPRO_LOCK_WITNESS=1`` set for
+    the phase: the card build of ``g`` (``stratified_core_times`` on the
+    device engine: the sweep and the fixpoints of the k range;
+    ``build_stratified_index``), ``to_device`` (the layout checked on
+    upload) and one batch of BUCKET mixed-k queries through
+    ``serving/executor.py`` (``launch.serve.answer_batch``: B1 rounds to
+    the fixpoint), counted, every answer equal to Algorithm 1; then every
+    other contract once at full-width operands the earlier phases use
+    (B2 and its bisection on the sweep's first operands, B3a/B3b on the
+    graph's edges, B5 at glm4's prefill, decode and GraphSAGE's head on
+    the wgmma, skinny and f32 routes, B6 at glm4's prefill and decode on
+    wgmma and split, B6's backward at the prefill, B4 and its gather at
+    minibatch_lg's dims, both probes). Requires no witness problem, a
+    clean layout, every contract recorded and no lock-hierarchy problem;
+    prints calls and the largest declared shared memory per contract.
+    Then, disarmed, the host us per call of ``matmul`` at glm4's decode
+    shape (skinny) and of ``label_prop_round`` at the batch's (B, N)
+    against their undecorated ``__wrapped__``: the wrapper may add at most
+    CONTRACTS_HOST_US."""
+    from repro_torch.core import batch_query as bq
+    from repro_torch.core import core_time as ct
+    from repro_torch.core.pecb_index import build_stratified_index
+    from repro_torch.core.query_api import ResultMode, TCCSQuery
+    from repro_torch.core.temporal_graph import random_queries
+    from repro_torch.kernels import (contracts, flash_attention, kcore_peel,
+                                     label_prop, segment_matmul,
+                                     segmented_select)
+    from repro_torch.launch import serve
+    from repro_torch.obs import locks
+
+    t_start = time.perf_counter()
+    flags = ("REPRO_KERNEL_WITNESS", "REPRO_LOCK_WITNESS")
+    saved = {k: os.environ.get(k) for k in flags}
+    os.environ.update(dict.fromkeys(flags, "1"))
+    contracts.WITNESS.reset()
+    locks.WITNESS.reset()
+    try:
+        # -- the main path, armed and counted ------------------------------
+        label_prop.label_prop_round.launches = 0
+        segmented_select.reset_sweep_counts()
+        kcore_peel.kcore_fixpoint.launches = 0
+        t0 = time.perf_counter()
+        strata = ct.stratified_core_times(g, engine="device", device=dev)
+        sx = build_stratified_index(g, strata=strata, device=dev)
+        dix = bq.to_device(sx, dev)
+        t_build = time.perf_counter() - t0
+        layout = contracts.check_layout(bq._host_layout(sx)[1])
+        rng = np.random.default_rng(CONTRACTS_SEED)
+        ks = rng.choice(np.asarray(sx.supported_ks), BUCKET).tolist()
+        specs = [TCCSQuery(u, ts, te, k, ResultMode.VERTICES)
+                 for (u, ts, te), k in zip(
+                     random_queries(g, BUCKET, seed=CONTRACTS_SEED), ks)]
+        stats: dict = {}
+        t0 = time.perf_counter()
+        results = serve.answer_batch(sx, dix, specs, max_batch=BUCKET,
+                                     stats=stats)
+        t_batch = time.perf_counter() - t0
+        launches = {"stratum_sweep": segmented_select.stratum_sweep.launches,
+                    "kcore_fixpoint": kcore_peel.kcore_fixpoint.launches,
+                    "label_prop_round": label_prop.label_prop_round.launches}
+        sweeps = -(-g.t_max // ct.TUV_BLOCK)
+        if launches["stratum_sweep"] != sweeps:
+            raise AssertionError(f"[contracts] the card build made "
+                                 f"{launches['stratum_sweep']} stratum_sweep "
+                                 f"launches, expected {sweeps}")
+        if launches["kcore_fixpoint"] <= 0:
+            raise AssertionError("[contracts] the card build peeled no k "
+                                 "range on the card")
+        rounds = stats.get("rounds", [])
+        if launches["label_prop_round"] <= 0 \
+                or launches["label_prop_round"] != sum(rounds):
+            raise AssertionError(f"[contracts] the batch made "
+                                 f"{launches['label_prop_round']} B1 "
+                                 f"launches for the rounds {rounds}")
+        bad = [i for i, (q, r) in enumerate(zip(specs, results))
+               if not serve._matches(sx, q, r)]
+        if bad:
+            raise AssertionError(f"[contracts] {len(bad)} of {BUCKET} "
+                                 f"answers differ from Algorithm 1 "
+                                 f"({bad[:5]})")
+        print(f"[contracts] main path armed: the card build ({t_build:.2f}s:"
+              f" stratum_sweep launches {launches['stratum_sweep']}, "
+              f"kcore_fixpoint launches {launches['kcore_fixpoint']}), "
+              f"to_device, {BUCKET} mixed-k queries (k in {min(ks)}.."
+              f"{max(ks)}) through serving/executor.py in {t_batch:.3f}s, "
+              f"B1 launches {launches['label_prop_round']} = rounds "
+              f"{rounds}; all {BUCKET} answers equal to Algorithm 1, 0 "
+              f"mismatches; layout check "
+              f"{'clean' if not layout else layout} "
+              f"({len(contracts.LAYOUT_CONTRACTS)} arrays)")
+
+        # -- every other contract, at the earlier phases' operands ----------
+        gen = torch.Generator(device=dev).manual_seed(CONTRACTS_SEED)
+
+        def randn(*shape, dtype=torch.bfloat16):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        csr = ct._pair_csr(g)
+        n = g.n
+        seg = torch.as_tensor(csr.src, device=dev)
+        tuv1 = torch.as_tensor(np.ascontiguousarray(
+            ct._tuv_rows(csr, 1, 2, g.t_max)[0]), device=dev)
+        c0 = torch.zeros(n, dtype=torch.int32, device=dev)
+        w1 = torch.maximum(tuv1, c0[torch.as_tensor(csr.dst, device=dev)
+                                    .long()])
+        segmented_select.segmented_count_le(w1, seg, c0, n)
+        segmented_select.kth_smallest(w1, seg, n, int(sx.ks[0]),
+                                      g.t_max + 1)
+        src_e = torch.as_tensor(g.src, device=dev)
+        dst_e = torch.as_tensor(g.dst, device=dev)
+        alive_e = torch.as_tensor(rng.random(g.m) < 0.7, device=dev)
+        deg = kcore_peel.degree_count(src_e, dst_e, alive_e, n)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        kcore_peel.peel_threshold(src_e, dst_e, alive_e, deg, int(sx.ks[0]),
+                                  changed=flag)
+        d_model = CONTRACTS_D_MODEL
+        w_q = randn(d_model, d_model)
+        x_decode = randn(LM_DECODE_BATCH, d_model)
+        for a, b in ((randn(256, d_model), w_q), (x_decode, w_q),
+                     (randn(1024, 128, dtype=torch.float32),
+                      randn(128, 41, dtype=torch.float32))):
+            segment_matmul.matmul(a, b)
+        q = randn(1, LM_SEQ, 32, 128)
+        kv = randn(1, LM_SEQ, 2, 128)
+        o, lse = flash_attention.flash_attention(q, kv, kv, causal=True,
+                                                 return_lse=True)
+        flash_attention.flash_attention_bwd(q, kv, kv, o, torch.ones_like(o),
+                                            causal=True, lse=lse)
+        cache = randn(LM_DECODE_BATCH, CONTRACTS_CACHE, 2, 128)
+        flash_attention.flash_attention(randn(LM_DECODE_BATCH, 1, 32, 128),
+                                        cache, cache, t_real=LM_SEQ + 8)
+        del q, kv, o, lse, cache
+        gnn_n, gnn_e = CONTRACTS_GNN
+        vals = randn(gnn_e, 128, dtype=torch.float32)
+        ids = torch.randint(-1, gnn_n + 8, (gnn_e,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        sums = segment_matmul.segment_sum(vals, ids, gnn_n)
+        segment_matmul.segment_gather(sums, ids)
+        segment_matmul.wgmma_probe(randn(64, 16), randn(16, 128))
+        flash_attention.rs_probe(randn(64, 128), randn(128, 128),
+                                 randn(128, 128))
+        torch.cuda.synchronize()
+        del vals, sums
+        rep = contracts.WITNESS.report()
+        lock_rep = locks.WITNESS.report()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rep["problems"]:
+        raise contracts.KernelContractViolation(
+            f"[contracts] the armed witness found {len(rep['problems'])} "
+            f"problem(s): {json.dumps(rep['problems'])[:2000]}")
+    missing = sorted(set(contracts.CONTRACTS) - set(rep["kernels"]))
+    if missing:
+        raise AssertionError(f"[contracts] contracts never called: "
+                             f"{missing}")
+    if layout:
+        raise AssertionError(f"[contracts] layout problems: {layout}")
+    if lock_rep["problems"]:
+        raise AssertionError(f"[contracts] lock hierarchy problems: "
+                             f"{lock_rep['problems']}")
+    for route, fn in (("wgmma", segment_matmul.matmul),
+                      ("skinny", segment_matmul.matmul),
+                      ("f32", segment_matmul.matmul),
+                      ("wgmma", flash_attention.flash_attention),
+                      ("split", flash_attention.flash_attention),
+                      ("wgmma", flash_attention.flash_attention_bwd)):
+        if fn.routes[route] <= 0:
+            raise AssertionError(f"[contracts] {fn.__name__} never took its "
+                                 f"{route} route")
+    calls = {k: v["calls"] for k, v in rep["kernels"].items()}
+    smem = {k: v["max_smem"] for k, v in rep["kernels"].items()}
+    print(f"[contracts] witness armed: {rep['calls']} calls, "
+          f"{len(rep['kernels'])} of {len(contracts.CONTRACTS)} contracts "
+          f"recorded, 0 problems; calls per contract {calls}")
+    print(f"[contracts] largest declared dynamic shared memory per block "
+          f"(bytes; None: not known to the wrapper), limit "
+          f"{contracts.SMEM_PER_BLOCK}: {smem}")
+    print(f"[contracts] lock witness armed: {len(lock_rep['edges'])} "
+          f"acquisition edges observed, 0 problems")
+
+    # -- disarmed: the wrapper's host cost ----------------------------------
+    mm = segment_matmul.matmul
+    b1 = label_prop.label_prop_round
+    ts_t = torch.as_tensor([q.ts for q in specs], dtype=torch.int32,
+                           device=dev)
+    te_t = torch.as_tensor([q.te for q in specs], dtype=torch.int32,
+                           device=dev)
+    ops = bq._resolve_links(dix, ts_t, te_t)
+    N = ops[3].shape[1]
+    lab0 = torch.where(ops[3], torch.arange(N, dtype=torch.int32,
+                                            device=dev)[None, :], N)
+    cost = {
+        f"matmul ({LM_DECODE_BATCH}, {d_model}) @ ({d_model}, {d_model}) "
+        f"bf16, {segment_matmul.plan(LM_DECODE_BATCH, d_model, d_model).route}":
+        disarmed_host_us(lambda: mm(x_decode, w_q),
+                         lambda: mm.__wrapped__(x_decode, w_q)),
+        f"label_prop_round ({BUCKET}, {N})": disarmed_host_us(
+            lambda: b1(lab0, *ops, changed=flag),
+            lambda: b1.__wrapped__(lab0, *ops, changed=flag)),
+    }
+    parts = []
+    for what, c in cost.items():
+        parts.append(f"{what}: decorated {c['decorated'][0]:.2f} us "
+                     f"(p10 {c['decorated'][1]:.2f}, p90 "
+                     f"{c['decorated'][2]:.2f}), __wrapped__ "
+                     f"{c['wrapped'][0]:.2f} us (p10 {c['wrapped'][1]:.2f}, "
+                     f"p90 {c['wrapped'][2]:.2f}), added {c['added']:.2f} us")
+    print(f"[contracts] disarmed host time per call, {CONTRACTS_CALLS} "
+          f"calls of each, alternating, the card synchronised every "
+          f"{CONTRACTS_BLOCK} calls (medians): " + "; ".join(parts)
+          + f" ({smi})")
+    worst = max(c["added"] for c in cost.values())
+    if worst > CONTRACTS_HOST_US:
+        raise AssertionError(f"[contracts] the disarmed wrapper adds "
+                             f"{worst:.2f} us a call, above "
+                             f"{CONTRACTS_HOST_US} us")
+    t_phase = time.perf_counter() - t_start
+    print(f"[contracts] phase {t_phase:.1f}s")
+    return {"seconds": t_phase, "cost": cost, "calls": calls, "smem": smem}
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -6129,6 +6411,7 @@ def main() -> int:
     trained["records"][0]["launches"] += rt["b5_grad"]
     b4_record["launches"] += rt["b4"]
     b5_record["max_abs_err"] = max(b5_record["max_abs_err"], rt["b5_err"])
+    contracts_phase(g, dev, smi)
 
     csrc = "src/repro_torch/kernels/csrc/"
     records = [

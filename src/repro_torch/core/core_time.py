@@ -107,8 +107,10 @@ def _pair_csr(g: TemporalGraph) -> _PairCSR:
     vptr = np.zeros(n + 1, np.int64)
     np.cumsum(np.bincount(src, minlength=n), out=vptr[1:])
     pidx = np.repeat(np.arange(ptr.shape[0] - 1), np.diff(ptr))
-    return _PairCSR(src, (pkey % n).astype(np.int32), ptr,
-                    t.astype(np.int32), vptr, pidx)
+    # repro: ignore[int32-narrowing] — g.t's int32 timestamps, sorted
+    tsorted = t.astype(np.int32)
+    return _PairCSR(src, (pkey % n).astype(np.int32), ptr, tsorted, vptr,
+                    pidx)
 
 
 #: ts rows materialized per t_uv block: bounds sweep scratch at O(BLOCK * E)
@@ -1065,7 +1067,7 @@ def shrink_core_times(g: TemporalGraph, k: int,
     block = np.full(vo.shape, inf_new, np.int64)
     block[fin] = vo[fin] - shift
     # values are core times bounded by inf_new = g.t_max + 1: int32
-    vct[1:] = block.astype(np.int32)
+    vct[1:] = block.astype(np.int32)  # repro: ignore[int32-narrowing]
 
     # -- records: drop dead, clip the cut straddlers, shift, renumber -----
     keep = prev.ts_to.astype(np.int64) >= t_cut

@@ -13,7 +13,9 @@ PyTorch port of ``repro.core.temporal_graph``: the class, the seeded
 generator and the named workloads are copied verbatim (same seed, same
 graph), and so are the streaming-epoch methods (``extend``,
 ``expire_before``, ``retain_last``, ``split_at``), ``aggregate_days``
-and the contact-tracing generator ``gen_contact_network``.
+and the contact-tracing generator ``gen_contact_network``. Where the
+reference narrows given edges to int32 silently, the port's
+:func:`_int32` raises ``OverflowError`` on an id or timestamp past int32.
 """
 
 from __future__ import annotations
@@ -22,6 +24,16 @@ import dataclasses
 from typing import Iterable
 
 import numpy as np
+
+
+def _int32(a: np.ndarray, what: str) -> np.ndarray:
+    """``a`` as int32; raises ``OverflowError`` where a value lies outside
+    int32 (a vertex id or timestamp that would wrap)."""
+    if a.size and (int(a.max()) > np.iinfo(np.int32).max
+                   or int(a.min()) < np.iinfo(np.int32).min):
+        raise OverflowError(f"{what}: values in [{int(a.min())}, "
+                            f"{int(a.max())}] do not fit int32")
+    return a.astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,9 +89,9 @@ class TemporalGraph:
         arr = arr[order]
         return TemporalGraph(
             n,
-            arr[:, 0].astype(np.int32),
-            arr[:, 1].astype(np.int32),
-            arr[:, 2].astype(np.int32),
+            _int32(arr[:, 0], "edge sources"),
+            _int32(arr[:, 1], "edge destinations"),
+            _int32(arr[:, 2], "edge timestamps"),
         )
 
     # -- streaming epochs ----------------------------------------------
@@ -117,9 +129,9 @@ class TemporalGraph:
         arr = arr[order]
         return TemporalGraph(
             self.n,
-            np.concatenate([self.src, arr[:, 0].astype(np.int32)]),
-            np.concatenate([self.dst, arr[:, 1].astype(np.int32)]),
-            np.concatenate([self.t, arr[:, 2].astype(np.int32)]),
+            np.concatenate([self.src, _int32(arr[:, 0], "edge sources")]),
+            np.concatenate([self.dst, _int32(arr[:, 1], "edge destinations")]),
+            np.concatenate([self.t, _int32(arr[:, 2], "edge timestamps")]),
         )
 
     def expire_before(self, t_cut: int) -> "TemporalGraph":

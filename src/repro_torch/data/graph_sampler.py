@@ -57,7 +57,9 @@ def sample_subgraph_batch(g: CSRGraph, feats: np.ndarray, labels: np.ndarray,
     all_nodes = np.unique(np.concatenate(nodes))
     remap = np.full(g.n, -1, np.int64)
     remap[all_nodes] = np.arange(all_nodes.shape[0])
+    # repro: ignore[int32-narrowing] — local ids < all_nodes.shape[0] <= n
     src = remap[np.concatenate(edges_src)].astype(np.int32)
+    # repro: ignore[int32-narrowing] — ditto
     dst = remap[np.concatenate(edges_dst)].astype(np.int32)
 
     n_sub = all_nodes.shape[0]

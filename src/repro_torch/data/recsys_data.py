@@ -46,5 +46,9 @@ class InteractionStream:
         mask = np.ones((batch, self.hist_len), np.float32)
         # the ids are taken % n_items, so int32 holds them; the int64 above
         # only absorbs the unbounded Zipf draws before the modulo
-        return {"hist_ids": hist.astype(np.int32), "hist_mask": mask,
-                "target_id": target.astype(np.int32)}
+        # repro: ignore[int32-narrowing] — ids % n_items fit int32
+        hist_ids = hist.astype(np.int32)
+        # repro: ignore[int32-narrowing] — ditto
+        target_id = target.astype(np.int32)
+        return {"hist_ids": hist_ids, "hist_mask": mask,
+                "target_id": target_id}

@@ -66,6 +66,8 @@ import torch
 from . import ref
 from ._args import count_launch, plain, cuda_only
 from ._build import build_cuda
+from .contracts import (ANY_FLOAT, BF16, F32, SMEM_PER_SM, ArraySpec,
+                        kernel_contract)
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _BWD_SRC = _SRC.with_name("flash_attention_bwd.cu")
@@ -75,8 +77,6 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 SM_COUNT = 132
-#: shared memory an SM gives its blocks (232,448 bytes a block at most)
-SMEM_PER_SM = 233_472
 
 #: csrc/flash_attention.cu's tiles: (rows, keys) of a block per route
 ROUTE_TILES = {"wgmma": (128, 128), "mma": (64, 64), "split": (16, 64),
@@ -171,6 +171,37 @@ def plan(B: int, S: int, H: int, Hkv: int, t_real: int, causal: bool,
     return Plan(route, dhp, q_tiles, splits, per)
 
 
+def smem_bytes(p: Plan) -> int:
+    """Dynamic shared memory of one block of a launch on ``p``'s route
+    (csrc/flash_attention.cu): the wgmma route's q tile and two stages of
+    k and v boxes (``WgCfg<dhp>``: 80 KB per 64 columns, 1 KB for
+    alignment), the mma and split routes' k/v ring (``MmaCfg<dhp>``:
+    ``MMA_STAGES`` tiles of 64 keys, rows padded by 8), nothing on the
+    SIMT routes (static tiles) or in the splits' merge."""
+    if p.route == "wgmma":
+        return (p.dhp // 64) * 5 * ROUTE_TILES["wgmma"][0] * 128 + 1024
+    if p.route in ("mma", "split"):
+        return MMA_STAGES * 2 * ROUTE_TILES["split"][1] * (p.dhp + 8) * 2
+    return 0
+
+
+#: the probe's shared memory: ``WgCfg<128>``'s q tile and one k and one v
+#: tile
+PROBE_SMEM = 3 * 2 * ROUTE_TILES["wgmma"][0] * 128 + 1024
+
+
+def _flash_smem(v: dict) -> int:
+    """The shared memory of :func:`flash_attention`'s launch on its
+    arguments."""
+    q, k = v["q"], v["k"]
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    t_real = T if v["t_real"] is None else int(v["t_real"])
+    dtype = torch.float32 if q.dtype == torch.float64 else q.dtype
+    return smem_bytes(plan(B, S, H, Hkv, t_real, v["causal"],
+                           kernel_width(dh), dtype))
+
+
 def attended_pairs(S: int, t_real: int, causal: bool) -> int:
     """(query position, key) pairs one head attends: ``S * t_real``, or
     under the causal mask ``sum over s of min(s + 1, t_real)``."""
@@ -260,6 +291,13 @@ def kernel_width(dh: int) -> int:
     return -(-dh // HEAD_STEP) * HEAD_STEP
 
 
+@kernel_contract(
+    in_specs={"q": ArraySpec(("B", "S", "H", "dh"), ANY_FLOAT),
+              "k": ArraySpec(("B", "T", "Hkv", "dh"), ANY_FLOAT),
+              "v": ArraySpec(("B", "T", "Hkv", "dh"), ANY_FLOAT)},
+    out_specs=(ArraySpec(("B", "S", "H", "dh"), ANY_FLOAT),
+               ArraySpec(("B", "H", "S"), F32)),
+    smem_bound=_flash_smem)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, t_real: int | None = None,
                     return_lse: bool = False):
@@ -343,6 +381,12 @@ def reset_counts() -> None:
 reset_counts()
 
 
+@kernel_contract(
+    in_specs={"q": ArraySpec((64, 128), BF16),
+              "k": ArraySpec((128, 128), BF16),
+              "v": ArraySpec((128, 128), BF16)},
+    out_specs=(ArraySpec((64, 128), F32), ArraySpec((64, 128), F32)),
+    smem_bound=lambda v: PROBE_SMEM)
 def rs_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The wgmma route's two products on one tile, on the card: bf16 ``q``
@@ -444,6 +488,37 @@ def bwd_plan(B: int, S: int, H: int, Hkv: int, t_real: int, causal: bool,
     return BwdPlan("mma", next(w for w in MMA_WIDTHS if w >= dh))
 
 
+#: csrc/flash_attention_bwd.cu's SIMT routes: the larger of the dq and
+#: dK/dV blocks' f32 tiles (``FCfg::KV_SMEM``)
+BWD_SIMT_SMEM = 49_664
+
+
+def bwd_smem_bytes(p: BwdPlan) -> int:
+    """Dynamic shared memory of the largest block of a backward on ``p``'s
+    route (csrc/flash_attention_bwd.cu): on the wgmma route the dK/dV
+    block's k and v, two stages of q and do, and their lse and D
+    (``DkvCfg<dhp>``, 64 KB per 64 columns + 2 KB; the dq block's
+    ``DqCfg`` is 1 KB less), on the mma route the dK/dV block's
+    (``BwdCfg<dhp>::KV_SMEM``), on the SIMT routes ``FCfg``'s."""
+    if p.route == "wgmma":
+        return (p.dhp // 64) * 65_536 + 2_048
+    if p.route == "mma":
+        return 512 * (p.dhp + 8) + 512
+    return BWD_SIMT_SMEM
+
+
+def _flash_bwd_smem(v: dict) -> int:
+    """The shared memory of :func:`flash_attention_bwd`'s launch on its
+    arguments (a forward it launches for a missing lse is counted as a
+    call of :func:`flash_attention`)."""
+    q, k = v["q"], v["k"]
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    t_real = T if v["t_real"] is None else int(v["t_real"])
+    return bwd_smem_bytes(bwd_plan(B, S, H, Hkv, t_real, v["causal"],
+                                   kernel_width(dh), q.dtype))
+
+
 def bwd_bound_ms(B: int, S: int, H: int, Hkv: int, T: int, t_real: int,
                  causal: bool, dh: int = 128, itemsize: int = 2,
                  products: int = 5) -> float:
@@ -485,6 +560,18 @@ def bwd_error_bound(want: torch.Tensor, rounded: torch.Tensor,
     return RTOL * w + BWD_ROUNDED * rounded + BWD_NOISE * noise
 
 
+@kernel_contract(
+    in_specs={"q": ArraySpec(("B", "S", "H", "dh"), ANY_FLOAT),
+              "k": ArraySpec(("B", "T", "Hkv", "dh"), ANY_FLOAT),
+              "v": ArraySpec(("B", "T", "Hkv", "dh"), ANY_FLOAT),
+              "o": ArraySpec(("B", "S", "H", "dh"), ANY_FLOAT),
+              "do": ArraySpec(("B", "S", "H", "dh"), ANY_FLOAT),
+              "lse": ArraySpec(("B", "H", "S"), ANY_FLOAT)},
+    out_specs=(ArraySpec(("B", "S", "H", "dh"), ANY_FLOAT),
+               ArraySpec(("B", "T", "Hkv", "dh"), ANY_FLOAT),
+               ArraySpec(("B", "T", "Hkv", "dh"), ANY_FLOAT),
+               ArraySpec(("B", "H", "S"), F32)),
+    smem_bound=_flash_bwd_smem)
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = False, t_real: int | None = None,

@@ -40,6 +40,11 @@ import torch
 from . import ref
 from ._args import count_launch, plain, cuda_only, flag, int32_vector
 from ._build import build_cuda
+from .contracts import ANY_INT, INT32, INT_OR_BOOL, ArraySpec, kernel_contract
+
+#: the edges every peel wrapper takes (cast to the kernels' int32) and
+#: their alive mask (bool) or integer weights (cast to int32)
+_EDGES = {"src": ArraySpec(("E",), ANY_INT), "dst": ArraySpec(("E",), ANY_INT)}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SRC = _CSRC / "kcore_peel.cu"
@@ -133,6 +138,10 @@ def _edges(src, dst, alive):
     return src, dst, _alive(alive, src.shape[0], src.device)
 
 
+@kernel_contract(
+    in_specs={**_EDGES, "alive": ArraySpec(("E",), INT_OR_BOOL)},
+    out_specs=ArraySpec(("n",), INT32),
+    smem_bound=lambda v: 0)
 def degree_count(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
                  n: int) -> torch.Tensor:
     """B3a: int32[n] alive-weighted degrees (both endpoints; ids outside
@@ -160,6 +169,12 @@ def degree_count(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
 degree_count.launches = 0
 
 
+@kernel_contract(
+    in_specs={**_EDGES, "alive": ArraySpec(("E",), INT_OR_BOOL),
+              "deg": ArraySpec(("n",), ANY_INT),
+              "changed": ArraySpec((1,), INT32)},
+    out_specs=ArraySpec(("E",), ("bool",)),
+    smem_bound=lambda v: 0)
 def peel_threshold(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
                    deg: torch.Tensor, k: int, *,
                    changed: torch.Tensor) -> torch.Tensor:
@@ -209,6 +224,11 @@ def peel_round(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
     return peel_threshold(src, dst, alive, deg, k, changed=changed)
 
 
+@kernel_contract(
+    in_specs={**_EDGES, "alive0": ArraySpec(("E",), INT_OR_BOOL),
+              "rounds": ArraySpec((1,), INT32)},
+    out_specs=ArraySpec(("E",), ("bool",)),
+    smem_bound=lambda v: 0)
 def kcore_fixpoint(src: torch.Tensor, dst: torch.Tensor, n: int, k: int,
                    alive0: torch.Tensor | None = None, *,
                    rounds: torch.Tensor | None = None) -> torch.Tensor:

@@ -35,6 +35,7 @@ import torch
 from . import ref
 from ._args import count_launch, plain
 from ._build import build_cuda
+from .contracts import INT32, ArraySpec, kernel_contract
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "label_prop.cu"
 
@@ -92,6 +93,15 @@ def _check(labels, link_l, link_r, link_p, active, changed):
                          "device")
 
 
+@kernel_contract(
+    in_specs={"labels": ArraySpec(("B", "N"), INT32),
+              "link_l": ArraySpec(("B", "N"), INT32),
+              "link_r": ArraySpec(("B", "N"), INT32),
+              "link_p": ArraySpec(("B", "N"), INT32),
+              "active": ArraySpec(("B", "N"), ("bool",)),
+              "changed": ArraySpec((1,), INT32)},
+    out_specs=ArraySpec(("B", "N"), INT32),
+    smem_bound=lambda v: 0)
 def label_prop_round(labels: torch.Tensor, link_l: torch.Tensor,
                      link_r: torch.Tensor, link_p: torch.Tensor,
                      active: torch.Tensor, *,

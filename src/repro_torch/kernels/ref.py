@@ -117,7 +117,9 @@ def degree_count(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,
     for ends in (src, dst):
         ok = (ends >= 0) & (ends < n)
         deg.index_add_(0, ends[ok].long(), wgt[ok])
-    return deg.to(torch.int32)
+    # a degree counts at most the 2m edge ends (m < 2**31, as the kernel's
+    # int32 counters take it)
+    return deg.to(torch.int32)  # repro: ignore[int32-narrowing]
 
 
 def peel_threshold(src: torch.Tensor, dst: torch.Tensor, alive: torch.Tensor,

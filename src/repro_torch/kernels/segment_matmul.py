@@ -70,6 +70,8 @@ import torch
 from . import ref
 from ._args import count_launch, plain, cuda_only, int32_vector
 from ._build import build_cuda
+from .contracts import (ANY_FLOAT, ANY_INT, BF16, F32, ArraySpec,
+                        kernel_contract)
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "matmul.cu"
 _SEGSUM_SRC = Path(__file__).resolve().parent / "csrc" / "segment_sum.cu"
@@ -93,6 +95,13 @@ F32_FILL = 3 * SM_COUNT
 F32_SPLIT_STEPS = 16
 #: bf16 elements in 16 bytes: TMA needs 16-byte aligned bases and rows
 TMA_ALIGN = 8
+#: csrc/matmul.cu's shared memory: the TMA routes' K tile and B box, the
+#: stages of each TMA route's ring (``launch_tma``), the masked route's
+#: block (``MK_SMEM``) and the wgmma probe's (three boxes)
+TMA_BK, TMA_BOX_BYTES = 64, 64 * 64 * 2
+TMA_STAGES = {"wgmma": 4, "skinny": 8}
+MASKED_SMEM = 27_136
+PROBE_SMEM = 3 * TMA_BOX_BYTES + 1024
 
 
 class Plan(NamedTuple):
@@ -173,6 +182,30 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype = torch.bfloat16,
     return Plan(route, (bm, bn, bk), math.ceil(K / k_split), k_split)
 
 
+def smem_bytes(p: Plan) -> int:
+    """Dynamic shared memory of one block of a launch on ``p``'s route:
+    on the TMA routes the ring of ``TmaCfg<BM, BN>`` (stages of one A tile
+    of BM x 64 and BN / 64 B boxes, 1 KB for alignment), the masked
+    route's WMMA tiles and scratch, nothing on the f32 route (its tiles
+    are static) or in the split-K reduction."""
+    bm, bn, _ = p.tile
+    if p.route in TMA_STAGES:
+        stage = bm * TMA_BK * 2 + (bn // 64) * TMA_BOX_BYTES
+        return TMA_STAGES[p.route] * stage + 1024
+    return MASKED_SMEM if p.route == "masked" else 0
+
+
+def _matmul_smem(v: dict) -> int:
+    """The shared memory of :func:`matmul`'s launch on its arguments."""
+    a, b = v["a"], v["b"]
+    (M, K), N = a.shape, b.shape[1]
+    if not (M and N and K):
+        return 0
+    dt = operand_dtype(a.dtype, b.dtype)
+    aligned = all(t.dtype != dt or t.data_ptr() % 16 == 0 for t in (a, b))
+    return smem_bytes(plan(M, N, K, dt, aligned))
+
+
 def tensor_maps(M: int, N: int, K: int, tile: tuple[int, int, int]
                 ) -> tuple[TensorMap, TensorMap]:
     """TMA layouts of a bf16 product on a TMA route with ``tile``: A
@@ -243,6 +276,11 @@ def operand_dtype(a: torch.dtype, b: torch.dtype) -> torch.dtype:
     return dt
 
 
+@kernel_contract(
+    in_specs={"a": ArraySpec(("M", "K"), ANY_FLOAT),
+              "b": ArraySpec(("K", "N"), ANY_FLOAT)},
+    out_specs=ArraySpec(("M", "N"), F32),
+    smem_bound=_matmul_smem)
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """f32[M, N] = a @ b with f32 accumulation (a new tensor).
 
@@ -313,6 +351,11 @@ def reset_counts() -> None:
     matmul_grads.launches = 0
 
 
+@kernel_contract(
+    in_specs={"a": ArraySpec((64, 16), BF16),
+              "b": ArraySpec((16, 128), BF16)},
+    out_specs=ArraySpec((64, 128), F32),
+    smem_bound=lambda v: PROBE_SMEM)
 def wgmma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One m64n128k16 wgmma on the card: f32[64, 128] = a @ b for bf16
     ``a`` (64 x 16) and ``b`` (16 x 128), loaded by TMA with the 128-byte
@@ -500,6 +543,12 @@ def segment_sum_bound_ms(E: int, d: int, S: int) -> float:
     return (4 * E * d + 4 * E + 4 * S * d) / HBM_BYTES_PER_S * 1e3
 
 
+@kernel_contract(
+    in_specs={"vals": ArraySpec(("E", "D"), ANY_FLOAT),
+              "ids": ArraySpec(("E",), ANY_INT)},
+    out_specs=ArraySpec(("num_segments", "D"), F32),
+    smem_bound=lambda v: 0,
+    views={"ids": plan_ids})
 def segment_sum(vals: torch.Tensor, ids, num_segments: int) -> torch.Tensor:
     """B4: f32[num_segments, d], row ``s`` the sum of the rows ``vals[i]``
     with ``ids[i] == s`` (a new tensor); ids outside ``[0, num_segments)``
@@ -622,6 +671,11 @@ def segment_gather_bound_ms(E: int, d: int, rows: int) -> float:
     return (4 * rows * d + 4 * E + 4 * E * d) / HBM_BYTES_PER_S * 1e3
 
 
+@kernel_contract(
+    in_specs={"dout": ArraySpec(("S", "D"), ANY_FLOAT),
+              "ids": ArraySpec(("E",), ANY_INT)},
+    out_specs=ArraySpec(("E", "D"), ANY_FLOAT),
+    smem_bound=lambda v: 0)
 def segment_gather(dout: torch.Tensor, ids: torch.Tensor,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """B4's gradient (a new tensor): row ``e`` of the (E, d) result is

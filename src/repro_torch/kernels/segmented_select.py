@@ -47,6 +47,8 @@ import torch
 from . import ref
 from ._args import count_launch, plain, cuda_only, int32_array, int32_vector
 from ._build import build_cuda
+from .contracts import (ANY_INT, INT32, SMEM_PER_BLOCK, ArraySpec,
+                        kernel_contract)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SRC = _CSRC / "segmented_count_le.cu"
@@ -54,9 +56,6 @@ _SWEEP_SRC = _CSRC / "stratum_sweep.cu"
 
 #: H100 SXM device-memory rate, bytes/s (the bound's denominator)
 HBM_BYTES_PER_S = 3.35e12
-#: shared memory one block may use on an H100 (227 KB): the sweep keeps its
-#: two int32 buffers of c there while 8 * n bytes fit
-SMEM_PER_BLOCK = 232_448
 #: the sweep's two routes for c, by size
 SWEEP_ROUTES = ("shared", "global")
 
@@ -102,6 +101,12 @@ def bound_ms(E: int, n: int) -> float:
     return (8 * E + 8 * n) / HBM_BYTES_PER_S * 1e3
 
 
+@kernel_contract(
+    in_specs={"w": ArraySpec(("E",), ANY_INT),
+              "seg": ArraySpec(("E",), ANY_INT),
+              "thr": ArraySpec(("n",), ANY_INT)},
+    out_specs=ArraySpec(("n",), INT32),
+    smem_bound=lambda v: 0)
 def segmented_count_le(w: torch.Tensor, seg: torch.Tensor, thr: torch.Tensor,
                        n: int) -> torch.Tensor:
     """int32[n]: per segment ``v``, the count of slots with ``seg == v``
@@ -175,6 +180,11 @@ def bisection_steps(inf_value: int) -> int:
     return int(np.ceil(np.log2(inf_value + 1))) + 1 if inf_value > 0 else 1
 
 
+@kernel_contract(
+    in_specs={"w": ArraySpec(("E",), ANY_INT),
+              "seg": ArraySpec(("E",), ANY_INT),
+              "lo": ArraySpec(("n",), ANY_INT)},
+    out_specs=ArraySpec(("n",), INT32))
 def kth_smallest(w: torch.Tensor, seg: torch.Tensor, n: int, k: int,
                  inf_value: int, *, lo: torch.Tensor | None = None
                  ) -> torch.Tensor:
@@ -205,9 +215,17 @@ def segmented_kth_smallest_np(w: np.ndarray, vptr: np.ndarray, k: int,
 
 def sweep_route(n: int) -> str:
     """Where the sweep keeps c: ``"shared"`` while its two int32 buffers
-    (8 * n bytes) fit one block's shared memory, else ``"global"`` (a
-    scratch of 8 * n bytes per stratum in device memory)."""
+    (8 * n bytes) fit one block's shared memory (``SMEM_PER_BLOCK``), else
+    ``"global"`` (a scratch of 8 * n bytes per stratum in device
+    memory)."""
     return "shared" if 8 * n <= SMEM_PER_BLOCK else "global"
+
+
+def sweep_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of one block of the sweep over ``n``
+    vertices: c's two buffers on the ``"shared"`` route, none on
+    ``"global"``."""
+    return 8 * n if sweep_route(n) == "shared" else 0
 
 
 def sweep_bound_ms(K: int, R: int, E: int, n: int) -> float:
@@ -222,6 +240,17 @@ def sweep_bound_ms(K: int, R: int, E: int, n: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+@kernel_contract(
+    in_specs={"tuv": ArraySpec(("R", "E"), INT32),
+              "seg": ArraySpec(("E",), ANY_INT),
+              "vptr": ArraySpec(("n1",), ANY_INT),
+              "dst": ArraySpec(("E",), ANY_INT),
+              "ks": ArraySpec(("K",), ANY_INT),
+              "carry": ArraySpec(("K", "n"), INT32),
+              "out": ArraySpec(("K", "R", "n"), INT32)},
+    out_specs=(ArraySpec(("K", "R", "n"), INT32),
+               ArraySpec(("K", 2), ("int64",))),
+    smem_bound=lambda v: sweep_smem_bytes(v["carry"].shape[-1]))
 def stratum_sweep(tuv: torch.Tensor, seg: torch.Tensor, vptr: torch.Tensor,
                   dst: torch.Tensor, ks: torch.Tensor, carry: torch.Tensor,
                   inf: int, *, out: torch.Tensor | None = None

@@ -144,6 +144,7 @@ class ShardedExecutor:
         qu, qts, qte = self._upload(dix, *pad_queries(u, ts, te, bucket))
         mask = self._dispatch(batch_query, "batch_query", bucket, dix,
                               (qu, qts, qte), stats)
+        # repro: ignore[hot-path-transfer] — the batch's result download
         return mask[:b].cpu().numpy()
 
     def run_full(self, dix: DeviceIndex, u, ts, te, bucket: int, *,
@@ -155,7 +156,9 @@ class ShardedExecutor:
         ops = self._upload(dix, *pad_queries(u, ts, te, bucket))
         vmask, vermask = self._dispatch(batch_query_full, "batch_query_full",
                                         bucket, dix, ops, stats)
+        # repro: ignore[hot-path-transfer] — the batch's result downloads
         return (vmask[:b].cpu().numpy(),
+                # repro: ignore[hot-path-transfer] — ditto
                 vermask[:b, :dix.num_versions].cpu().numpy())
 
     def run_full_mixed(self, dix: DeviceIndex, slot, ts, te, kq,
@@ -174,7 +177,9 @@ class ShardedExecutor:
         vmask, vermask = self._dispatch(
             batch_query_full_mixed, "batch_query_full_mixed", bucket, dix,
             self._upload(dix, qs, qts, qte, qkq), stats)
+        # repro: ignore[hot-path-transfer] — the batch's result downloads
         return (vmask[:b].cpu().numpy(),
+                # repro: ignore[hot-path-transfer] — ditto
                 vermask[:b, :dix.num_versions].cpu().numpy())
 
     def run_sweep(self, dix: DeviceIndex, u: int, ts, te, bucket: int, *,
@@ -185,6 +190,7 @@ class ShardedExecutor:
         _, tsp, tep = pad_queries([u] * w, ts, te, bucket)
         mask = self._dispatch(window_sweep, "window_sweep", bucket, dix,
                               (int(u), *self._upload(dix, tsp, tep)), stats)
+        # repro: ignore[hot-path-transfer] — the sweep's result download
         return mask[:w].cpu().numpy()
 
     @staticmethod

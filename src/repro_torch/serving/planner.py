@@ -51,6 +51,7 @@ def assemble_device_results(store, specs, vmask, vermask,
     derive their payload host-side from the version store."""
     results = []
     for i, s in enumerate(specs):
+        # repro: ignore[hot-path-transfer] — vmask is host numpy already
         vertices = frozenset(np.nonzero(vmask[i])[0].tolist())
         edge_set = (store.select(np.nonzero(vermask[i])[0])
                     if vermask is not None and s.mode in _EDGE_MODES

@@ -2144,3 +2144,136 @@ def test_cuda_tensors_never_take_plain_versions(cuda):
     meta = segment_matmul.matmul(a.to("meta"), a.t().contiguous().to("meta"))
     assert meta.device.type == "meta"
     assert segment_matmul.matmul.launches == after[0]
+
+
+# ---------------------------------------------------------------------------
+# the kernel contracts, armed on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def armed(monkeypatch):
+    """A kernel witness of the test's own, armed."""
+    from repro_torch.kernels import contracts
+    w = contracts.KernelWitness()
+    monkeypatch.setenv("REPRO_KERNEL_WITNESS", "1")
+    monkeypatch.setattr(contracts, "WITNESS", w)
+    return w
+
+
+def card_contract_calls(dev) -> dict:
+    """name -> (route, a call of that contract on the card) at small
+    shapes: every contract, B5 on its wgmma, skinny and f32 routes, B6
+    on wgmma and split, B6's backward on wgmma."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def i32(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    B, N = 4, 300
+    lab = torch.arange(B * N, dtype=torch.int32, device=dev).reshape(B, N) % N
+    link = torch.randint(-1, N, (B, N), generator=gen, device=dev,
+                         dtype=torch.int32)
+    act = torch.ones((B, N), dtype=torch.bool, device=dev)
+    g = gen_temporal_graph(n=60, m=400, t_max=16, seed=3)
+    src, dst = (torch.as_tensor(a, device=dev) for a in (g.src, g.dst))
+    alive = torch.ones(g.m, dtype=torch.bool, device=dev)
+    deg = kcore_peel.degree_count(src, dst, alive, g.n)
+    q, kv = randn(1, 256, 4, 128), randn(1, 256, 2, 128)
+    o, lse = flash_attention.flash_attention(q, kv, kv, causal=True,
+                                             return_lse=True)
+    vals = torch.randn((500, 128), generator=gen, device=dev)
+    ids = torch.randint(-1, 70, (500,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return {
+        "label_prop_round": lambda: label_prop.label_prop_round(
+            lab, link, link, link, act, changed=flag),
+        "segmented_count_le": lambda: segmented_select.segmented_count_le(
+            i32(1, 2, 3), i32(0, 0, 1), i32(2, 2), 2),
+        "kth_smallest": lambda: segmented_select.kth_smallest(
+            i32(1, 2, 3), i32(0, 0, 1), 2, 1, 9),
+        "stratum_sweep": lambda: segmented_select.stratum_sweep(
+            i32(1, 1, 1, 1).reshape(1, 4), i32(0, 0, 1, 1), i32(0, 2, 4),
+            i32(1, 1, 0, 0), i32(1),
+            torch.zeros((1, 2), dtype=torch.int32, device=dev), 5),
+        "degree_count": lambda: kcore_peel.degree_count(src, dst, alive,
+                                                        g.n),
+        "peel_threshold": lambda: kcore_peel.peel_threshold(
+            src, dst, alive, deg, 3, changed=flag),
+        "kcore_fixpoint": lambda: kcore_peel.kcore_fixpoint(src, dst, g.n, 3),
+        "matmul wgmma": lambda: segment_matmul.matmul(randn(256, 128),
+                                                      randn(128, 256)),
+        "matmul skinny": lambda: segment_matmul.matmul(randn(16, 128),
+                                                       randn(128, 256)),
+        "matmul f32": lambda: segment_matmul.matmul(
+            randn(300, 64, dtype=torch.float32),
+            randn(64, 96, dtype=torch.float32)),
+        "wgmma_probe": lambda: segment_matmul.wgmma_probe(
+            randn(64, 16), randn(16, 128)),
+        "segment_sum": lambda: segment_matmul.segment_sum(vals, ids, 70),
+        "segment_gather": lambda: segment_matmul.segment_gather(
+            vals[:70].contiguous(), ids),
+        "flash_attention wgmma": lambda: flash_attention.flash_attention(
+            q, kv, kv, causal=True),
+        "flash_attention split": lambda: flash_attention.flash_attention(
+            randn(2, 1, 8, 128), randn(2, 512, 2, 128),
+            randn(2, 512, 2, 128), t_real=500),
+        "flash_attention_bwd": lambda: flash_attention.flash_attention_bwd(
+            q, kv, kv, o, torch.ones_like(o), causal=True, lse=lse),
+        "rs_probe": lambda: flash_attention.rs_probe(
+            randn(64, 128), randn(128, 128), randn(128, 128)),
+    }
+
+
+CARD_CONTRACT_CALLS = (
+    "label_prop_round", "segmented_count_le", "kth_smallest",
+    "stratum_sweep", "degree_count", "peel_threshold", "kcore_fixpoint",
+    "matmul wgmma", "matmul skinny", "matmul f32", "wgmma_probe",
+    "segment_sum", "segment_gather", "flash_attention wgmma",
+    "flash_attention split", "flash_attention_bwd", "rs_probe")
+
+
+@pytest.mark.parametrize("call", CARD_CONTRACT_CALLS)
+def test_armed_contract_call_on_card(cuda, armed, call):
+    """Each contract armed on the card: one call recorded, no problem, its
+    declared shared memory within the card's 232,448 bytes a block (and
+    the route's, where a route is named)."""
+    from repro_torch.kernels import contracts
+    calls = card_contract_calls(cuda)
+    armed.reset()
+    out = calls[call]()
+    torch.cuda.synchronize()
+    name = call.split()[0]
+    rep = armed.report()
+    assert rep["problems"] == []
+    assert rep["kernels"][name]["calls"] >= 1
+    smem = rep["kernels"][name]["max_smem"]
+    assert smem is None or smem <= contracts.SMEM_PER_BLOCK
+    if " " in call:
+        route = call.split()[1]
+        fn = getattr(segment_matmul if name == "matmul" else flash_attention,
+                     name)
+        assert fn.routes[route] >= 1
+    assert out is not None
+
+
+def test_witness_records_a_wrong_operand_on_card(cuda, armed):
+    """A (B, N + 1) ``active`` on the card: the armed witness records the
+    conflict, then B1's own check raises, and nothing launches."""
+    B, N = 4, 100
+    labels = torch.zeros((B, N), dtype=torch.int32, device=cuda)
+    links = [torch.full((B, N), -1, dtype=torch.int32, device=cuda)
+             for _ in range(3)]
+    active = torch.ones((B, N + 1), dtype=torch.bool, device=cuda)
+    before = label_prop.label_prop_round.launches
+    with pytest.raises(ValueError):
+        label_prop.label_prop_round(
+            labels, *links, active,
+            changed=torch.zeros(1, dtype=torch.int32, device=cuda))
+    (p,) = armed.problems()
+    assert p["kind"] == "shape-contract" and "active" in p["message"]
+    assert label_prop.label_prop_round.launches == before

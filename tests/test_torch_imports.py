@@ -50,7 +50,19 @@ RUNTIME_MODULES = ("repro_torch.launch.mesh", "repro_torch.launch.roofline",
                    "repro_torch.optim.compression")
 
 
-@pytest.mark.parametrize("module", TRAIN_MODULES + RUNTIME_MODULES)
+#: the tooling (slice 20): the static-analysis suite and the contracts
+TOOLING_MODULES = ("repro_torch.analysis", "repro_torch.analysis.__main__",
+                   "repro_torch.analysis.core",
+                   "repro_torch.analysis.passes_locks",
+                   "repro_torch.analysis.passes_api",
+                   "repro_torch.analysis.passes_torch",
+                   "repro_torch.analysis.passes_kernels",
+                   "repro_torch.analysis.shapeflow",
+                   "repro_torch.kernels.contracts")
+
+
+@pytest.mark.parametrize("module",
+                         TRAIN_MODULES + RUNTIME_MODULES + TOOLING_MODULES)
 def test_training_modules_stand_alone(module):
     """Each module is among the files checked above, and imports in a fresh
     interpreter without loading ``jax`` or ``repro``."""
@@ -58,10 +70,27 @@ def test_training_modules_stand_alone(module):
     import subprocess
     import sys
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    if not path.exists():                   # a package
+        path = path.with_suffix("") / "__init__.py"
     assert path in PORT_FILES
     code = (f"import sys; import {module}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                   timeout=120)
+
+
+def test_analysis_loads_no_torch():
+    """A lint run stays light: the suite and the contracts table it reads
+    import the standard library only."""
+    import os
+    import subprocess
+    import sys
+    code = ("import sys; import repro_torch.analysis; "
+            "import repro_torch.kernels.contracts; "
+            "assert 'torch' not in sys.modules and 'numpy' not in "
+            "sys.modules, sorted(sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True,
                    env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                    timeout=120)
