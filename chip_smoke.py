@@ -124,6 +124,19 @@ result line each; any failure raises and exits non-zero:
            B1 launches equal to the rounds the engines ran, stratum_sweep
            launches to the builds and extends; each line carries the
            card's name and power limit
+  multi    the sharded query plane: ServingEngine(devices=...) over every
+           visible card (cuda:0 twice, two shards on one card, where one is
+           visible, which the phase says), [engine]'s epoch 0 and settings:
+           a one-shard engine and the sharded one each build cold through
+           warmup, the sharded handle's replicas each equal to to_device on
+           their card; [serve]'s stream (1,024 mixed-k specs in batches of
+           256) through both, q/s, batch latency and rounds by shard each,
+           every sharded answer bit-equal to the one-shard one, 64 to
+           Algorithm 1; one day ingested and one trim, every new replica
+           equal to to_device; B1 launches equal to the rounds of every
+           shard. On two cards or more, B5, B6 and B6's backward on their
+           wgmma routes launched on cuda:0 then cuda:1 against their plain
+           versions (the per-device shared-memory opt-in)
   store    the disk tier at CollegeMsg scale: an engine with store_dir
            (max_batch 256, flush 2 ms, no cache) builds epoch 0 =
            g.split_at(189) cold on the card and writes it through (a full
@@ -318,11 +331,15 @@ result line each; any failure raises and exits non-zero:
            host us per call against its __wrapped__ at glm4's decode matmul
            and at B1 (at most 2 us added)
 
-The card builds, ingests and trims of epoch, engine and store peel their
-k ranges on the card too; a ``[kcore]`` line sums kcore_fixpoint's
-launches. Then a line of kernel records (JSON), the nvidia-smi line, and
-last
+The card builds, ingests and trims of epoch, engine, multi and store
+peel their k ranges on the card too; a ``[kcore]`` line sums
+kcore_fixpoint's launches. Then a line of kernel records (JSON), the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --multi`` runs gpu, build and multi alone (on a
+machine with several cards: the card-to-card path and the second card's
+B5/B6), then the same last two lines.
 """
 
 from __future__ import annotations
@@ -4378,6 +4395,18 @@ def serve_during_ingest(eng, name, ks, t_last: int, seed: int):
     return th, stop, records
 
 
+def engine_setup(g):
+    """``[engine]``'s workload and settings, shared by ``[multi]``: the
+    name, epoch 0's last day ``t_old``, ``g.split_at(t_old)`` (epoch 0 and
+    the later days' edges) and the engine's config."""
+    from repro_torch.serving import EngineConfig
+
+    t_old = max(1, int(g.t_max * EPOCH_FRAC))
+    g0, suffix = g.split_at(t_old)
+    cfg = EngineConfig(max_batch=256, flush_ms=2.0, cache_capacity=0)
+    return "collegemsg", t_old, g0, suffix, cfg
+
+
 def engine_phase(g, sx, dev, smi: str) -> tuple[int, int]:
     """``[engine]``: the port's serving engine on the card at CollegeMsg
     scale, through the entry points a user calls. Epoch 0 =
@@ -4405,10 +4434,7 @@ def engine_phase(g, sx, dev, smi: str) -> tuple[int, int]:
     label_prop.label_prop_round.launches = 0
     fix0 = kcore_peel.kcore_fixpoint.launches
     rounds: list = []
-    name = "collegemsg"
-    t_old = max(1, int(g.t_max * EPOCH_FRAC))
-    g0, suffix = g.split_at(t_old)
-    cfg = EngineConfig(max_batch=256, flush_ms=2.0, cache_capacity=0)
+    name, t_old, g0, suffix, cfg = engine_setup(g)
     with ServingEngine(cfg, device=dev) as eng:
         eng.register_graph(name, g0)
         h, t_warm = wall(lambda: eng.warmup(name))
@@ -4643,6 +4669,233 @@ def engine_phase(g, sx, dev, smi: str) -> tuple[int, int]:
           f"trimmed graph's cold build), kcore_fixpoint launches "
           f"{kcore_peel.kcore_fixpoint.launches - fix0}; "
           f"{time.perf_counter() - t_phase:.2f}s")
+    return b1, sweeps
+
+
+#: the [multi] phase: the [serve] phase's stream (four batches of 256
+#: mixed-k vertex specs), the answers checked against Algorithm 1, the
+#: trim's cut, and the seed of the second card's B5/B6 inputs
+MULTI_SPECS = 4 * BUCKET
+MULTI_VERIFY = 64
+MULTI_SEED = 43
+
+
+def multi_devices() -> list:
+    """Every visible card once, or ``cuda:0`` twice on a one-card machine:
+    two shards, each with its own replica, on one card."""
+    count = torch.cuda.device_count()
+    if count > 1:
+        return [torch.device("cuda", i) for i in range(count)]
+    return [torch.device("cuda", 0)] * 2
+
+
+def shard_line(eng, results, t: float, rounds: list) -> str:
+    """:func:`traffic_line` with the batch latency (``device_exec``) and
+    the rounds of each shard, which must add up to the engine's
+    ``propagation_rounds``."""
+    snap = eng.metrics.snapshot(include_sources=False)
+    c, ex = snap["counters"], snap["latency"].get("device_exec", {})
+    d = eng.executor.num_devices
+    per = ([c.get(f"propagation_rounds_shard{i}", 0) for i in range(d)]
+           if d > 1 else [c.get("propagation_rounds", 0)])
+    if sum(per) != c.get("propagation_rounds", 0):
+        raise AssertionError(f"[multi] rounds by shard {per} do not add up "
+                             f"to {c.get('propagation_rounds', 0)}")
+    return (f"batch latency (device_exec) p50 {ex.get('p50_ms', 0):.3f} "
+            f"p99 {ex.get('p99_ms', 0):.3f} ms over {ex.get('count', 0)} "
+            f"batches; rounds by shard {per}; "
+            + traffic_line(eng, results, t, rounds))
+
+
+def assert_replicas(h, what: str) -> int:
+    """Every replica of ``h`` equal, array for array, to ``to_device`` of
+    its index on the replica's card; returns the arrays checked."""
+    from repro_torch.core import batch_query as bq
+
+    n = 0
+    for i, r in enumerate(h.replicas):
+        n += assert_mirror_equal(r, bq.to_device(h.pecb, r.device),
+                                 f"{what}, replica {i} on {r.device}")
+    return n
+
+
+def second_card_check(smi: str) -> str:
+    """B5 on its ``wgmma`` route, B6 on its ``wgmma`` route and B6's
+    backward on its ``wgmma`` route, launched on ``cuda:0`` and then on
+    ``cuda:1`` in this process, each held against its plain version: the
+    shared-memory opt-in is made per device. Returns the line's clause.
+    These launches compare kernels and count on no path."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_matmul as sm
+
+    M = N = K = 1024
+    B, S, H, dh = 1, 1024, 4, 128
+    routes = (sm.plan(M, N, K, torch.bfloat16).route,
+              fa.plan(B, S, H, H, S, True, dh, torch.bfloat16).route,
+              fa.bwd_plan(B, S, H, H, S, True, dh, torch.bfloat16).route)
+    if routes != ("wgmma",) * 3:
+        raise AssertionError(f"[multi] the second card's shapes take the "
+                             f"routes {routes}, not wgmma")
+    worst = {"B5": 0.0, "B6": 0.0, "B6 backward": 0.0}
+    for i in (0, 1):
+        dev = torch.device("cuda", i)
+        gen = torch.Generator(device=dev).manual_seed(MULTI_SEED)
+        a, b = (torch.randn(M, K, generator=gen, device=dev).bfloat16(),
+                torch.randn(K, N, generator=gen, device=dev).bfloat16())
+        got, want = sm.matmul(a, b), ref.matmul(a, b)
+        tol = B5_RTOL * want.abs() + B5_ATOL_PER_K * K
+        worst["B5"] = max(worst["B5"], float(((got - want).abs() / tol)
+                                             .max()))
+        q, k, v, do = (torch.randn(B, S, H, dh, generator=gen, device=dev)
+                       .bfloat16() for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        want = ref.flash_attention(q, k, v, causal=True)
+        worst["B6"] = max(worst["B6"], float(
+            ((o.float() - want.float()).abs() / fa.error_bound(want)).max()))
+        got = fa.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
+        want = ref.flash_attention_bwd(q, k, v, o, do, causal=True)
+        scales = ref.flash_attention_bwd_scales(q, k, v, o, do, causal=True)
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            bound = fa.bwd_error_bound(w, *scales[name])
+            worst["B6 backward"] = max(worst["B6 backward"], float(
+                ((x.float() - w.float()).abs() / bound).max()))
+        torch.cuda.synchronize(dev)
+    sm.reset_counts()
+    fa.reset_counts()
+    fa.reset_bwd_counts()
+    if not max(worst.values()) <= 1:
+        raise AssertionError(f"[multi] a kernel on the second card disagrees "
+                             f"with its plain version: {worst} of the bounds")
+    return ("B5 (1024 x 1024) @ (1024 x 1024) bf16, B6 causal (1, 1024, 4, "
+            "128) bf16 and its backward, all on their wgmma routes, on "
+            "cuda:0 then cuda:1 in this process: " + ", ".join(
+                f"{k} at {v:.3f}" for k, v in worst.items())
+            + " of their bounds at most (B5 "
+            f"{B5_RTOL} relative + {B5_ATOL_PER_K} x K, B6 error_bound, "
+            f"the backward bwd_error_bound) | {smi}")
+
+
+def multi_phase(g, smi: str) -> tuple[int, int]:
+    """``[multi]``: ``ServingEngine(devices=...)`` over every visible card
+    (``cuda:0`` twice on a one-card machine), on ``[engine]``'s epoch 0
+    and settings. A one-shard engine and the sharded engine each build the
+    index cold through ``warmup``; the sharded handle's every replica must
+    equal ``to_device`` on its card. Both serve ``[serve]``'s stream in
+    batches of 256; every sharded answer must equal the one-shard
+    engine's and a sample Algorithm 1. The sharded engine then ingests one
+    day and runs one trim, each new handle's replicas equal to
+    ``to_device`` of its index, and serves once more. B1's launches must
+    equal the rounds of every shard of both engines. On two cards or more,
+    :func:`second_card_check` runs too. Returns the phase's B1 and
+    stratum_sweep launches."""
+    from repro_torch.core import core_time as ct
+    from repro_torch.core.query_api import TCCSQuery
+    from repro_torch.core.temporal_graph import random_queries
+    from repro_torch.kernels import label_prop
+    from repro_torch.kernels import segmented_select as ss
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+
+    tag = f"({smi})"
+    t_phase = time.perf_counter()
+    devices = multi_devices()
+    d = len(devices)
+    if torch.cuda.device_count() == 1:
+        print(f"[multi] {tag} one card is visible: cuda:0 stood in for two "
+              f"shards, each with its own replica, so no card-to-card copy "
+              f"was exercised")
+    ss.reset_sweep_counts()
+    label_prop.label_prop_round.launches = 0
+    rounds: list = []
+    name, t_old, g0, suffix, cfg = engine_setup(g)
+    with ServingEngine(cfg, devices=devices[:1]) as one:
+        one.register_graph(name, g0)
+        h1, t_cold1 = wall(lambda: one.warmup(name))
+        rounds.append(one.metrics.counter("propagation_rounds"))
+        one.metrics.reset()
+        specs = serve.mixed_specs(g0, h1.supported_ks, MULTI_SPECS, seed=0)
+        want, t = submit_all(one, name, specs)
+        print(f"[multi] {tag} 1 shard ({devices[0]}): cold build through "
+              f"warmup {t_cold1:.4f}s; [serve]'s stream, {len(specs)} "
+              f"mixed-k specs in batches of {ENGINE_CHUNK}: "
+              + shard_line(one, want, t, rounds))
+    with ServingEngine(cfg, devices=devices) as eng:
+        if eng.executor.num_devices != d or eng.stats()["devices"] != d:
+            raise AssertionError(f"[multi] the engine has "
+                                 f"{eng.executor.num_devices} shards, not {d}")
+        eng.register_graph(name, g0)
+        h, t_cold = wall(lambda: eng.warmup(name))
+        n_arr = assert_replicas(h, "the cold build")
+        rounds.append(eng.metrics.counter("propagation_rounds"))
+        eng.metrics.reset()
+        got, t = submit_all(eng, name, specs)
+        line = shard_line(eng, got, t, rounds)
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if a.vertices != b.vertices or a.num_vertices != b.num_vertices]
+        if bad:
+            raise AssertionError(f"[multi] {len(bad)} sharded answers differ "
+                                 f"from the one-shard engine's ({bad[:5]})")
+        n_ok = check_alg1(h.pecb, specs, got, "multi", n=MULTI_VERIFY)
+        print(f"[multi] {tag} {d} shards ({', '.join(map(str, devices))}): "
+              f"cold build through warmup {t_cold:.4f}s (stages "
+              + ", ".join(f"{s} {v:.4f}s" for s, v in h.build_stages.items())
+              + f"), {d} replicas of {h.device.nbytes() / 1e6:.1f} MB, each "
+              f"equal to to_device on its card ({n_arr} arrays); the same "
+              f"stream: " + line + f"; all {len(got)} answers bit-equal to "
+              f"the one-shard engine's, {n_ok} equal to Algorithm 1")
+
+        day = t_old + 1
+        edges = [tuple(e) for e in suffix[suffix[:, 2] == day].tolist()]
+        (futs, t_ing) = wall(lambda: eng.ingest(name, edges, wait=True,
+                                                timeout=300))
+        hd = futs[name].result()
+        n_ing = assert_replicas(hd, f"the day-{day} handle")
+        c = eng.metrics.snapshot(include_sources=False)["counters"]
+        moved = (f"uploaded {c.get('refresh_upload_bytes', 0) / 1e6:.1f} MB, "
+                 f"copied from the first replica "
+                 f"{c.get('refresh_replicated_bytes', 0) / 1e6:.1f} MB")
+        t_cut = max(2, int(g.t_max * TRIM_FRAC))
+        (futs, t_trim) = wall(lambda: eng.retain(name, t_cut, wait=True,
+                                                 timeout=300))
+        ht = futs[name].result()
+        n_trim = assert_replicas(ht, "the trimmed handle")
+        freed = eng.metrics.counter("retention_freed_bytes")
+        rounds.append(eng.metrics.counter("propagation_rounds"))
+        eng.metrics.reset()
+        rng = np.random.default_rng(16)
+        tspecs = [TCCSQuery(u, ts, te, int(rng.choice(ht.supported_ks)))
+                  for (u, ts, te) in random_queries(ht.graph, BUCKET,
+                                                    seed=17)]
+        res, t = submit_all(eng, name, tspecs)
+        check_alg1(ht.pecb, tspecs, res, "multi, after the trim",
+                   n=MULTI_VERIFY)
+        print(f"[multi] {tag} ingest of day {day} ({len(edges)} edges): "
+              f"{t_ing:.4f}s to the swap ({moved}), every replica of epoch 1 "
+              f"equal to to_device ({n_ing} arrays); trim retain({t_cut}): "
+              f"{t_trim:.4f}s, {freed / 1e6:.1f} MB freed over the "
+              f"replicas, every replica equal to to_device ({n_trim} "
+              f"arrays); {len(tspecs)} queries after the trim: "
+              + shard_line(eng, res, t, rounds)
+              + f", {MULTI_VERIFY} checked against Algorithm 1, 0 "
+              "mismatches")
+    b1 = label_prop.label_prop_round.launches
+    if b1 <= 0 or b1 != sum(rounds):
+        raise AssertionError(f"[multi] B1 launches {b1} != the rounds of "
+                             f"every shard {sum(rounds)}")
+    sweeps = ss.stratum_sweep.launches
+    want_sweeps = sum(-(-t // ct.TUV_BLOCK) for t in (t_old, t_old, day))
+    if sweeps != want_sweeps:
+        raise AssertionError(f"[multi] stratum_sweep launches {sweeps}, "
+                             f"expected {want_sweeps}")
+    if torch.cuda.device_count() > 1:
+        print(f"[multi] {tag} opt-in per device: " + second_card_check(smi))
+    else:
+        print(f"[multi] {tag} B5 and B6 on a second card: not checked, this "
+              f"check needs two cards and one is visible")
+    print(f"[multi] {tag} phase: B1 launches {b1} (= the rounds of every "
+          f"shard of both engines), stratum_sweep launches {sweeps} (two "
+          f"cold builds, one ingest); {time.perf_counter() - t_phase:.2f}s")
     return b1, sweeps
 
 
@@ -6077,6 +6330,16 @@ def main() -> int:
           f"forest engine "
           f"({'native C' if native else 'Python: no C compiler'}) in "
           f"{time.perf_counter() - t0:.2f}s")
+    if sys.argv[1:] == ["--multi"]:
+        from repro_torch.core.temporal_graph import gen_temporal_graph
+        multi_phase(gen_temporal_graph(**COLLEGEMSG), smi)
+        print(f"[done] gpu, build and multi passed in "
+              f"{time.perf_counter() - t_start:.1f}s ({smi})")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     kcore_peel.kcore_fixpoint.launches = 0
     g, ks, strata, t_dev, t_host, b2_launches, sweep_record = \
@@ -6357,20 +6620,23 @@ def main() -> int:
     sweep_record["launches"] += epoch_sweeps
     engine_b1, engine_sweeps = engine_phase(g, sx, dev, smi)
     sweep_record["launches"] += engine_sweeps
+    multi_b1, multi_sweeps = multi_phase(g, smi)
+    sweep_record["launches"] += multi_sweeps
     store_b1, store_sweeps = store_phase(g, dev, smi)
     sweep_record["launches"] += store_sweeps
     fix_epochs = kcore_peel.kcore_fixpoint.launches - f0
     if fix_epochs <= 0:
         raise AssertionError("the card builds, ingests and trims of [epoch], "
-                             "[engine] and [store] peeled no k range on the "
-                             "card")
+                             "[engine], [multi] and [store] peeled no k "
+                             "range on the card")
     peel_fix = fix_record["launches"]
     fix_record["launches"] = peel_fix + base_fix + fix_builds + fix_epochs
     print(f"[kcore] kcore_fixpoint launches {fix_record['launches']}: [peel] "
           f"{peel_fix}, [baselines] {base_fix}, the k ranges of the card "
           f"builds "
           f"{fix_builds} ([construct] and [index]) + {fix_epochs} (the "
-          f"builds, ingests and trims of [epoch], [engine] and [store])")
+          f"builds, ingests and trims of [epoch], [engine], [multi] and "
+          f"[store])")
 
     lm_records = lm_phase(dev)
     smoke_b5, smoke_b6 = lm_smoke_phase(dev)
@@ -6418,7 +6684,8 @@ def main() -> int:
         {"name": "label_prop_round", "route": "cuda",
          "source": csrc + "label_prop.cu",
          "replaces": "src/repro/kernels/label_prop.py:70",
-         "launches": launches + base_b1 + epoch_b1 + engine_b1 + store_b1,
+         "launches": launches + base_b1 + epoch_b1 + engine_b1 + multi_b1
+         + store_b1,
          "max_abs_err": max_err, "ms": ms,
          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
          "library_ms": None},

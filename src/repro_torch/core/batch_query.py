@@ -15,7 +15,9 @@ by chasing pointers on the host; the device plane answers a whole batch
    Each round is one launch of the hand-written CUDA kernel
    ``kernels.label_prop.label_prop_round`` (its plain version on CPU
    tensors); the kernel raises a device "changed" flag that the host loop
-   reads once per round.
+   reads once per round. :func:`run_sharded` runs one batch per shard
+   (each on its own replica of the index, :func:`replicas_of`) in
+   lockstep from one thread, each shard to its own fixpoint.
 
 A node participates for query b iff ``live_from <= ts_b <= live_to`` and
 ``ct <= te_b``: the stale entries of expired nodes are masked explicitly.
@@ -306,6 +308,12 @@ def refresh_device(prev_host, prev_dev: DeviceIndex,
     _, old_arrays = _host_layout(prev_host)
     meta, new_arrays = _host_layout(new_host)
     _witness_layout(new_arrays)
+    return _refresh(meta, old_arrays, new_arrays, prev_dev)
+
+
+def _refresh(meta: dict, old_arrays: dict, new_arrays: dict,
+             prev_dev: DeviceIndex) -> tuple[DeviceIndex, dict]:
+    """:func:`refresh_device` on host layouts already taken."""
     device = prev_dev.device
     stats = {"reused": 0, "suffix": 0, "full": 0,
              "reused_bytes": 0, "uploaded_bytes": 0, "freed_bytes": 0}
@@ -337,6 +345,61 @@ def refresh_device(prev_host, prev_dev: DeviceIndex,
             stats["uploaded_bytes"] += int(new_np.nbytes)
     return DeviceIndex(**{f: int(meta[f]) for f in _META_FIELDS},
                        **arrays), stats
+
+
+def replicate(dix: DeviceIndex, device) -> DeviceIndex:
+    """A copy of ``dix`` with its own storage on ``device`` (``dix``'s own
+    device included): array for array equal to ``to_device`` there of the
+    index ``dix`` mirrors. Card to card where both are cards, with no
+    host round trip."""
+    device = torch.device(device)
+    return dataclasses.replace(
+        dix, **{f: getattr(dix, f).to(device, copy=True)
+                for f in _ARRAY_FIELDS})
+
+
+def replicas_of(dix: DeviceIndex, devices) -> tuple[DeviceIndex, ...]:
+    """One replica per shard of a sharded mirror: ``dix`` itself for the
+    first device (which must be ``dix``'s) and a :func:`replicate` for
+    each further entry of ``devices``, repeated devices included."""
+    devices = [torch.device(d) for d in devices]
+    if devices[0] != dix.device:
+        raise ValueError(f"the first replica lives on {dix.device}, the "
+                         f"first shard on {devices[0]}")
+    return (dix, *(replicate(dix, d) for d in devices[1:]))
+
+
+def refresh_replicas(prev_host, prev_replicas, new_host
+                     ) -> tuple[tuple[DeviceIndex, ...], dict]:
+    """:func:`refresh_device` for every replica of a sharded mirror, all
+    made before any is returned, so that a caller swaps one epoch onto
+    every shard at once.
+
+    The first replica is refreshed. Each further one either gets the same
+    refresh (it uploads only what changed and hands over its own
+    unchanged tensors) or a :func:`replicate` of the new first replica,
+    whichever moves fewer bytes: the refresh while it uploads less than
+    the whole mirror, else the card-to-card copy. The byte counts sum over
+    the replicas (``replicated_bytes``: the copies'); the counts of
+    ``reused``/``suffix``/``full`` arrays are the first replica's."""
+    _, old_arrays = _host_layout(prev_host)
+    meta, new_arrays = _host_layout(new_host)
+    _witness_layout(new_arrays)
+    first, stats = _refresh(meta, old_arrays, new_arrays, prev_replicas[0])
+    stats["replicated_bytes"] = 0
+    out = [first]
+    by_refresh = stats["uploaded_bytes"] < first.nbytes()
+    for prev in prev_replicas[1:]:
+        if by_refresh:
+            rep, more = _refresh(meta, old_arrays, new_arrays, prev)
+            for key in ("reused_bytes", "uploaded_bytes", "freed_bytes"):
+                stats[key] += more[key]
+        else:
+            rep = replicate(first, prev.device)
+            stats["replicated_bytes"] += rep.nbytes()
+            stats["freed_bytes"] += max(0, prev.nbytes() - rep.nbytes())
+        out.append(rep)
+    return tuple(out), stats
 
 
 def stratum_device(dix: DeviceIndex, sx: StratifiedPECB,
@@ -451,9 +514,11 @@ def _resolve_links(dix: DeviceIndex, ts, te):
     return (*links, active)
 
 
-def _propagate(link_l, link_r, link_p, active) -> tuple[torch.Tensor, int]:
-    """Step 4: min-label propagation to a fixpoint, one B1 kernel launch
-    per round. Returns the converged int32 labels and the round count."""
+def _rounds(link_l, link_r, link_p, active):
+    """Step 4 as a generator: min-label propagation to a fixpoint, one B1
+    kernel launch per step. Each step yields the round's int32[1] change
+    flag and is sent whether the flag was raised; once a round changed
+    nothing, the generator returns the converged int32 labels."""
     N = active.shape[1]
     labels = torch.where(
         active,
@@ -461,15 +526,52 @@ def _propagate(link_l, link_r, link_p, active) -> tuple[torch.Tensor, int]:
     changed = torch.zeros(1, dtype=torch.int32, device=active.device)
     # labels only fall, and each changing round brings every node's label
     # one hop closer to its component's least id: N + 1 rounds suffice
-    for rounds in range(1, N + 2):
+    for _ in range(N + 1):
         changed.zero_()
         labels = label_prop_round(labels, link_l, link_r, link_p, active,
                                   changed=changed)
-        # repro: ignore[hot-path-transfer] — the one flag read per round
-        if not changed.item():
-            return labels, rounds
+        if not (yield changed):
+            return labels
     raise RuntimeError(f"label propagation did not converge in {N + 1} "
                        "rounds: the round kernel is wrong")
+
+
+def _drive(steps: list) -> tuple[list, list[int]]:
+    """Run one step generator per shard in lockstep: round r is launched
+    on every shard still changing before any of their flags is read, and
+    each flag read is followed at once by that shard's next launch, so
+    shards on different cards propagate concurrently. A shard whose flag
+    stayed clear gets no further launch and finishes (members, version
+    masks) while the others run on. Returns each shard's result and its
+    rounds (= its B1 launches; 0 for a shard that did not propagate)."""
+    results: list = [None] * len(steps)
+    rounds = [0] * len(steps)
+    flags: dict = {}
+    for i, step in enumerate(steps):
+        try:
+            flags[i] = next(step)
+            rounds[i] = 1
+        except StopIteration as done:
+            results[i] = done.value
+    while flags:
+        for i in list(flags):
+            # repro: ignore[hot-path-transfer] — the one flag read per round and shard
+            changed = bool(flags[i].item())
+            try:
+                flags[i] = steps[i].send(changed)
+                rounds[i] += 1
+            except StopIteration as done:
+                results[i] = done.value
+                del flags[i]
+    return results, rounds
+
+
+def _propagate(link_l, link_r, link_p, active) -> tuple[torch.Tensor, int]:
+    """Step 4 on one batch: the converged int32 labels and the round
+    count."""
+    (labels,), (rounds,) = _drive([_rounds(link_l, link_r, link_p,
+                                           active)])
+    return labels, rounds
 
 
 def _members(dix: DeviceIndex, labels, active, e0_ok, e0c) -> torch.Tensor:
@@ -486,15 +588,13 @@ def _members(dix: DeviceIndex, labels, active, e0_ok, e0c) -> torch.Tensor:
     return out
 
 
-def _component_masks(dix: DeviceIndex, e0_ok, e0c, ts, te,
-                     stats: dict | None = None) -> torch.Tensor:
-    """Steps 2-5 for a batch whose entry nodes are resolved: the
-    ``bool[B, n]`` vertex mask. ``stats["rounds"]`` (when given) gets the
-    batch's propagation round count appended."""
+def _component_steps(dix: DeviceIndex, vlo, vhi, ts, te):
+    """Steps 1-5 as a generator (see :func:`_rounds`): entry nodes from
+    the per-query vertex CSR bounds, links, the rounds; returns the
+    ``bool[B, n]`` vertex mask."""
+    e0_ok, e0c = _entry_nodes(dix, vlo, vhi, ts, te)
     link_l, link_r, link_p, active = _resolve_links(dix, ts, te)
-    labels, rounds = _propagate(link_l, link_r, link_p, active)
-    if stats is not None:
-        stats.setdefault("rounds", []).append(rounds)
+    labels = yield from _rounds(link_l, link_r, link_p, active)
     return _members(dix, labels, active, e0_ok, e0c)
 
 
@@ -516,15 +616,72 @@ def _empty_masks(dix: DeviceIndex, B: int, full: bool):
                               device=dix.device)
 
 
+def _query_steps(dix: DeviceIndex, u, ts, te):
+    if dix.num_nodes == 0:
+        return _empty_masks(dix, u.shape[0], full=False)
+    return (yield from _component_steps(dix, dix.vrow_ptr[u],
+                                        dix.vrow_ptr[u + 1], ts, te))
+
+
+def _full_steps(dix: DeviceIndex, u, ts, te):
+    if dix.num_nodes == 0:
+        return _empty_masks(dix, u.shape[0], full=True)
+    vmask = yield from _component_steps(dix, dix.vrow_ptr[u],
+                                        dix.vrow_ptr[u + 1], ts, te)
+    return vmask, _version_member(dix, vmask, ts, te)
+
+
+def _full_mixed_steps(dix: DeviceIndex, slot, ts, te, kq):
+    if dix.num_nodes == 0:
+        return _empty_masks(dix, slot.shape[0], full=True)
+    vmask = yield from _component_steps(dix, dix.vrow_ptr[slot],
+                                        dix.vrow_ptr[slot + 1], ts, te)
+    return vmask, (_version_member(dix, vmask, ts, te)
+                   & (dix.ver_k[None, :] == kq[:, None]))
+
+
+def _sweep_steps(dix: DeviceIndex, u, ts, te):
+    W = ts.shape[0]
+    if dix.num_nodes == 0:
+        return _empty_masks(dix, W, full=False)
+    return (yield from _component_steps(dix, dix.vrow_ptr[u].expand(W),
+                                        dix.vrow_ptr[u + 1].expand(W),
+                                        ts, te))
+
+
+#: the batch functions by name, each as its step generator
+_STEPS = {"batch_query": _query_steps, "batch_query_full": _full_steps,
+          "batch_query_full_mixed": _full_mixed_steps,
+          "window_sweep": _sweep_steps}
+
+
+def run_sharded(fn: str, calls) -> tuple[list, list[int]]:
+    """The batch function named ``fn`` (``"batch_query"``,
+    ``"batch_query_full"``, ``"batch_query_full_mixed"`` or
+    ``"window_sweep"``) on every shard at once: ``calls`` holds one
+    ``(dix, *operands)`` per shard, each shard's operands on its replica's
+    device. The shards propagate in lockstep (:func:`_drive`), each to
+    its own fixpoint. Returns the shards' outputs, in order, and their
+    rounds (0 for a shard whose index has no nodes)."""
+    return _drive([_STEPS[fn](*call) for call in calls])
+
+
+def _one(fn: str, call: tuple, stats: dict | None):
+    """One shard of :func:`run_sharded`; ``stats["rounds"]`` (when given)
+    gets the batch's round count appended if it propagated."""
+    (out,), (rounds,) = run_sharded(fn, [call])
+    if stats is not None and rounds:
+        stats.setdefault("rounds", []).append(rounds)
+    return out
+
+
 def batch_query(dix: DeviceIndex, u: torch.Tensor, ts: torch.Tensor,
                 te: torch.Tensor, *, stats: dict | None = None) -> torch.Tensor:
     """bool[B, n] vertex-membership of each query's k-core component.
-    On a stratified index ``u`` is the entry slot (:func:`mixed_slots`)."""
-    if dix.num_nodes == 0:
-        return _empty_masks(dix, u.shape[0], full=False)
-    e0_ok, e0c = _entry_nodes(dix, dix.vrow_ptr[u], dix.vrow_ptr[u + 1],
-                              ts, te)
-    return _component_masks(dix, e0_ok, e0c, ts, te, stats)
+    On a stratified index ``u`` is the entry slot (:func:`mixed_slots`).
+    ``stats["rounds"]`` (when given) gets the batch's propagation round
+    count appended."""
+    return _one("batch_query", (dix, u, ts, te), stats)
 
 
 def batch_query_full(dix: DeviceIndex, u: torch.Tensor, ts: torch.Tensor,
@@ -532,12 +689,7 @@ def batch_query_full(dix: DeviceIndex, u: torch.Tensor, ts: torch.Tensor,
     """(bool[B, n] vertex mask, bool[B, V] version-membership mask) on a
     per-k index: the version mask is exactly the member edges of each
     query's component, the EDGES/SUBGRAPH payload."""
-    if dix.num_nodes == 0:
-        return _empty_masks(dix, u.shape[0], full=True)
-    e0_ok, e0c = _entry_nodes(dix, dix.vrow_ptr[u], dix.vrow_ptr[u + 1],
-                              ts, te)
-    vmask = _component_masks(dix, e0_ok, e0c, ts, te, stats)
-    return vmask, _version_member(dix, vmask, ts, te)
+    return _one("batch_query_full", (dix, u, ts, te), stats)
 
 
 def batch_query_full_mixed(dix: DeviceIndex, slot: torch.Tensor,
@@ -550,14 +702,7 @@ def batch_query_full_mixed(dix: DeviceIndex, slot: torch.Tensor,
     no k mask) and ``kq`` the per-query k filtering the shared version
     arrays. Returns ``(bool[B, n] vertex mask, bool[B, V] version mask)``.
     """
-    if dix.num_nodes == 0:
-        return _empty_masks(dix, slot.shape[0], full=True)
-    e0_ok, e0c = _entry_nodes(dix, dix.vrow_ptr[slot],
-                              dix.vrow_ptr[slot + 1], ts, te)
-    vmask = _component_masks(dix, e0_ok, e0c, ts, te, stats)
-    vermask = (_version_member(dix, vmask, ts, te)
-               & (dix.ver_k[None, :] == kq[:, None]))
-    return vmask, vermask
+    return _one("batch_query_full_mixed", (dix, slot, ts, te, kq), stats)
 
 
 def mixed_slots(sx: StratifiedPECB,
@@ -578,13 +723,7 @@ def window_sweep(dix: DeviceIndex, u, ts: torch.Tensor, te: torch.Tensor,
     ``u`` (an int, a 0-d tensor, or a (W,) tensor of one repeated slot)
     picks the entry segment ``[vrow_ptr[u], vrow_ptr[u+1])``, resolved
     once and shared by every window."""
-    W = ts.shape[0]
-    if dix.num_nodes == 0:
-        return _empty_masks(dix, W, full=False)
-    vlo = dix.vrow_ptr[u].expand(W)
-    vhi = dix.vrow_ptr[u + 1].expand(W)
-    e0_ok, e0c = _entry_nodes(dix, vlo, vhi, ts, te)
-    return _component_masks(dix, e0_ok, e0c, ts, te, stats)
+    return _one("window_sweep", (dix, u, ts, te), stats)
 
 
 def _query_columns(queries, cols, device) -> list[torch.Tensor]:

@@ -500,23 +500,17 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                int splits, int tiles_per_split, float scale_log2,
                cudaStream_t stream) {
   auto kern = flash_mma<T, DHP, NWQ>;
-  static bool configured = false;  // above 48 KB only after opting in
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MmaCfg<DHP>::SMEM);
-    // all of L1 as shared memory: two 102 KB rings per SM at DHP = 128
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  // above 48 KB only after opting in, per device; all of L1 as shared
+  // memory: two 102 KB rings per SM at DHP = 128
+  static sm90::OptIn opted;
+  int err = sm90::smem_opt_in(kern, MmaCfg<DHP>::SMEM, true, opted);
+  if (err) return err;
   dim3 grid(q_tiles, B * Hkv, splits);
   kern<<<grid, MMA_THREADS, MmaCfg<DHP>::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, part_acc, part_ml,
       S, H, Hkv, T_, dh, t_real, causal, scale_log2, tiles_per_split);
-  int err = (int)cudaGetLastError();
+  err = (int)cudaGetLastError();
   if (err || splits == 1) return err;
   long long n = (long long)B * Hkv * S * (H / Hkv) * dh;
   flash_combine<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
@@ -979,13 +973,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                           t_real);
   if (err) return err;
   auto kern = flash_wgmma<T, DH>;
-  static bool configured = false;  // above 48 KB only after opting in
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, WgCfg<DH>::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  static sm90::OptIn opted;  // above 48 KB only after opting in, per device
+  err = sm90::smem_opt_in(kern, WgCfg<DH>::SMEM, false, opted);
+  if (err) return err;
   const long long blocks = (long long)q_tiles * B * Hkv;
   kern<<<(unsigned)blocks, W_THREADS, WgCfg<DH>::SMEM, stream>>>(
       tq, tk, tv, static_cast<T*>(o), lse, S, H, Hkv, t_real, causal,

@@ -1334,18 +1334,11 @@ int launch_reduce(const float* dk_part, const float* dv_part, void* dk,
   return (int)cudaGetLastError();
 }
 
-// opt a kernel into `bytes` of dynamic shared memory, once
+// opt a kernel into `bytes` of dynamic shared memory and all of L1 as
+// shared memory, once per device
 template <typename K>
-int smem_opt_in(K kern, int bytes, bool& done) {
-  if (done) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess)  // all of L1 as shared memory
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-  if (err != cudaSuccess) return (int)err;
-  done = true;
-  return 0;
+int smem_opt_in(K kern, int bytes, sm90::OptIn& rec) {
+  return sm90::smem_opt_in(kern, bytes, true, rec);
 }
 
 template <typename T, int DHP>
@@ -1357,7 +1350,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* dout,
   typedef BwdCfg<DHP> C;
   auto kdq = flash_bwd_dq<T, DHP>;
   auto kkv = flash_bwd_dkdv<T, DHP>;
-  static bool dq_done = false, kv_done = false;
+  static sm90::OptIn dq_done, kv_done;
   int err = smem_opt_in(kdq, C::DQ_SMEM, dq_done);
   if (!err) err = smem_opt_in(kkv, C::KV_SMEM, kv_done);
   if (err) return err;
@@ -1414,7 +1407,7 @@ int launch_simt(const void* q, const void* k, const void* v,
                 float* dv_part, int B, int S, int H, int Hkv, int T_, int dh,
                 int t_real, int causal, float scale_log2, float scale,
                 cudaStream_t st) {
-  static bool dq_done = false, kv_done = false;
+  static sm90::OptIn dq_done, kv_done;
   int err = smem_opt_in(flash_bwd_dq_simt<T>, FCfg::DQ_SMEM, dq_done);
   if (!err) err = smem_opt_in(flash_bwd_dkdv_simt<T>, FCfg::KV_SMEM, kv_done);
   if (err) return err;
@@ -1471,7 +1464,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   if (!err) err = map4<T>(&mv, v, DH, Hkv, t_real, T_, B, 1, W_BK);
   if (err) return err;
   auto kdq = flash_bwd_dq_wgmma<T, DH>;
-  static bool dq_done = false;
+  static sm90::OptIn dq_done;
   err = smem_opt_in(kdq, DqCfg<DH>::SMEM, dq_done);
   if (err) return err;
   const int q_tiles = (S * G + W_BQ - 1) / W_BQ;
@@ -1489,7 +1482,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
   if (err) return err;
   typedef DkvCfg<DH> KC;
   auto kkv = flash_bwd_dkdv_wgmma<T, DH>;
-  static bool kv_done = false;
+  static sm90::OptIn kv_done;
   err = smem_opt_in(kkv, KC::SMEM, kv_done);
   if (err) return err;
   const int k_tiles = (T_ + 2 * W_BK - 1) / (2 * W_BK);

@@ -261,13 +261,9 @@ static int launch_tma(const void* A, const void* B, float* C, int M, int N,
                           map_b[4]);
   if (err) return err;
   auto kern = gemm_tma<BM, BN, SWAP, STAGES>;
-  static bool configured = false;  // above 48 KB only after opting in
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
+  static sm90::OptIn opted;  // above 48 KB only after opting in, per device
+  err = sm90::smem_opt_in(kern, S::SMEM, false, opted);
+  if (err) return err;
   kern<<<grid, TMA_THREADS, S::SMEM, stream>>>(ta, tb, C, M, N, K, k_split,
                                                splits);
   return (int)cudaGetLastError();

@@ -29,6 +29,37 @@
 
 namespace sm90 {
 
+// ---- host: the dynamic shared-memory opt-in -------------------------------
+
+// A kernel launched with more than 48 KB of dynamic shared memory must be
+// opted in first, and cudaFuncSetAttribute acts on the current device
+// only. The record of the opt-in is therefore kept per device, so that a
+// process launching on one card and then on another opts in on each.
+constexpr int MAX_DEVICES = 64;
+struct OptIn {
+  bool done[MAX_DEVICES] = {};
+};
+
+// Opt `kern` in to `bytes` of dynamic shared memory on the current device,
+// and to all of L1 as shared memory where `carveout`, once per device.
+// Returns a cudaError_t value.
+template <typename K>
+inline int smem_opt_in(K kern, int bytes, bool carveout, OptIn& rec) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const bool known = dev >= 0 && dev < MAX_DEVICES;
+  if (known && rec.done[dev]) return 0;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && carveout)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err != cudaSuccess) return (int)err;
+  if (known) rec.done[dev] = true;
+  return 0;
+}
+
 // ---- host: tensor maps ----------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,

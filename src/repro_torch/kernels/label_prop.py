@@ -3,7 +3,7 @@
 Replaces the TPU kernel ``label_prop_round`` of
 ``src/repro/kernels/label_prop.py:70`` (Pallas body
 ``_label_prop_kernel``). The round is the loop body of the device query
-plane's fixpoint (``core/batch_query._component_masks``):
+plane's fixpoint (``core/batch_query._rounds``):
 
     label[b, x] <- min(label[b, x], label[b, l(x)], label[b, r(x)],
                        label[b, p(x)])          (links masked per query)

@@ -108,6 +108,22 @@ def _matches(sx: StratifiedPECB, q: TCCSQuery, res) -> bool:
     return True
 
 
+def mixed_specs(g: TemporalGraph, ks, n_queries: int, *, seed: int = 0,
+                k: int | None = None, mode: str = "vertices") -> list:
+    """``n_queries`` specs of :func:`serve_graph`'s stream over ``g``:
+    ``random_queries(g, n_queries, seed)``, each query's k drawn from
+    ``ks`` (the supported strata) with ``default_rng(seed + 1)``, or ``k``
+    for all of them."""
+    queries = random_queries(g, n_queries, seed=seed)
+    if k is None:
+        rng = np.random.default_rng(seed + 1)
+        kk = rng.choice(np.asarray(ks), n_queries).tolist()
+    else:
+        kk = [k] * n_queries
+    return [TCCSQuery(u, ts, te, q_k, ResultMode(mode))
+            for (u, ts, te), q_k in zip(queries, kk)]
+
+
 def serve_graph(g: TemporalGraph, *, k: int | None = None,
                 n_queries: int = 2048, batch: int = 256,
                 mode: str = "vertices", verify: int = 32, device="cuda",
@@ -132,14 +148,9 @@ def serve_graph(g: TemporalGraph, *, k: int | None = None,
         dix = to_device(sx, device)
         print(f"[upload] {dix.nbytes() / 1e6:.1f} MB to {dix.device} in "
               f"{time.perf_counter() - t0:.3f}s")
-    queries = random_queries(g, n_queries, seed=seed)
-    if k is None:
-        rng = np.random.default_rng(seed + 1)
-        ks = rng.choice(np.asarray(sx.supported_ks), n_queries).tolist()
-    else:
-        ks = [k] * n_queries
-    specs = [TCCSQuery(u, ts, te, kk, ResultMode(mode))
-             for (u, ts, te), kk in zip(queries, ks)]
+    specs = mixed_specs(g, sx.supported_ks, n_queries, seed=seed, k=k,
+                        mode=mode)
+    ks = [q.k for q in specs]
 
     stats: dict = {}
     results, batch_s = [], []

@@ -1,6 +1,9 @@
 """TCCS serving engine: the user-facing facade (DESIGN.md §7, §8). PyTorch
-port of ``repro.serving.engine``, on one device (``device=``, default
-``"cuda"``; the tests pass ``"cpu"``).
+port of ``repro.serving.engine``, sharded over a list of devices
+(``devices=``, as the reference's; by default every visible card, each
+once, or ``"cuda"`` when none is visible; ``device=`` is the one-device
+spelling, and the tests pass ``"cpu"``). Each device batch is split over
+the shards, each holding its own replica of the index (DESIGN.md §7.6).
 
 Wires the subsystem together::
 
@@ -38,7 +41,7 @@ query's future.
 many sliding windows in a single device batch (the contact-tracing
 trajectory query); cache-hot windows are skipped, misses share one
 ``window_sweep`` batch run against the k stratum's own device block
-(``IndexHandle.stratum_device``) so a single-k sweep never pays
+(``IndexHandle.stratum_replicas``) so a single-k sweep never pays
 propagation over the other |K|-1 strata.
 
 ``ingest(workload, edges)`` is the streaming entry point (DESIGN.md §9):
@@ -80,8 +83,6 @@ import warnings
 from concurrent.futures import Future
 from typing import Iterable, Sequence
 
-import torch
-
 from repro_torch.core.query_api import (Provenance, TCCSQuery, TCCSResult,
                                         WindowSweep, empty_result)
 from repro_torch.obs.export import write_chrome_trace
@@ -91,10 +92,14 @@ from repro_torch.store import IndexStore
 
 from .batcher import MicroBatcher, Request
 from .cache import ResultCache
-from .executor import ShardedExecutor
+from .executor import ShardedExecutor, shard_devices
 from .metrics import EngineMetrics
 from .planner import QueryPlanner, assemble_device_results
 from .registry import IndexHandle, IndexRegistry
+
+
+def _names(devices) -> str:
+    return ", ".join(str(d) for d in devices)
 
 
 def _vertices_future(inner: Future) -> Future:
@@ -153,17 +158,20 @@ class EngineConfig:
 
 class ServingEngine:
     def __init__(self, config: EngineConfig | None = None, *,
-                 registry: IndexRegistry | None = None, device="cuda"):
+                 registry: IndexRegistry | None = None, devices=None,
+                 device=None):
         self.config = config or EngineConfig()
         cfg = self.config
         if not 1 <= cfg.min_bucket <= cfg.max_batch:
             raise ValueError(
                 f"need 1 <= min_bucket <= max_batch, got min_bucket="
                 f"{cfg.min_bucket} max_batch={cfg.max_batch}")
-        device = torch.device(device)
-        if registry is not None and registry.device != device:
-            raise ValueError(f"the registry builds on {registry.device}, "
-                             f"the engine serves on {device}")
+        devices = shard_devices(devices, device)
+        if registry is not None and registry.devices != devices:
+            raise ValueError(
+                f"the registry builds on {registry.device} and holds "
+                f"replicas on [{_names(registry.devices)}], the engine "
+                f"shards over [{_names(devices)}]")
         self.metrics = EngineMetrics()
         # one tracer per engine (DESIGN.md §11.1): queries, background
         # builds/refreshes and kernel builds all record into this ring
@@ -181,8 +189,8 @@ class ServingEngine:
                                     tracer=self.tracer)
         self.registry = registry if registry is not None else IndexRegistry(
             cfg.registry_capacity, metrics=self.metrics,
-            tracer=self.tracer, store=self.store, device=device)
-        self.executor = ShardedExecutor(device, metrics=self.metrics,
+            tracer=self.tracer, store=self.store, devices=devices)
+        self.executor = ShardedExecutor(devices, metrics=self.metrics,
                                         tracer=self.tracer)
         self.planner = QueryPlanner(
             self.executor, self.cache, self.metrics,
@@ -224,7 +232,8 @@ class ServingEngine:
         build or the first use of B1 (its library's build and load, counted
         as ``kernel_builds``; an inert batch still runs one propagation
         round) — for *any* k the handle supports (k rides as the entry
-        slot, so one warmup covers every k mix). ``sweep=True`` /
+        slot, so one warmup covers every k mix). Each bucket is filled
+        with the inert query, so that every shard runs it. ``sweep=True`` /
         ``full=True`` additionally run the window-sweep / mixed-k full-mode
         (EDGES) batches for callers that will use those paths; the sweep
         runs against per-stratum mirrors, so with ``sweep=True`` pass
@@ -244,15 +253,16 @@ class ServingEngine:
         while True:
             bucket = self.executor.final_bucket(
                 min(b, cfg.max_batch), cfg.min_bucket, cfg.max_batch)
-            self.executor.run(handle.device, [0], [1], [0], bucket)
+            inert = ([0] * bucket, [1] * bucket, [0] * bucket)
+            self.executor.run(handle.replicas, *inert, bucket)
             if sweep:
                 for sk in (handle.supported_ks if sweep_ks is None
                            else sweep_ks):
-                    self.executor.run_sweep(handle.stratum_device(sk), 0,
-                                            [1], [0], bucket)
+                    self.executor.run_sweep(handle.stratum_replicas(sk), 0,
+                                            *inert[1:], bucket)
             if full:
-                self.executor.run_full_mixed(handle.device, [0], [1], [0],
-                                             [0], bucket)
+                self.executor.run_full_mixed(handle.replicas, *inert,
+                                             [0] * bucket, bucket)
             if b >= cfg.max_batch:
                 break
             b *= 2
@@ -707,10 +717,10 @@ class ServingEngine:
         elif misses:
             store = handle.pecb.versions
             # single-k launch: carve the stratum's block out of the fused
-            # mixed-k mirror (lazy per-handle memo) so sweep propagation
+            # mixed-k mirrors (lazy per-handle memo) so sweep propagation
             # pays for one stratum's nodes, not all |K|; ``u`` is a plain
             # row of the sliced per-vertex CSR
-            sdix = handle.stratum_device(int(ws.k))
+            sreps = handle.stratum_replicas(int(ws.k))
             for c0 in range(0, len(misses), cfg.max_batch):
                 chunk = misses[c0:c0 + cfg.max_batch]
                 bucket = self.executor.final_bucket(
@@ -718,7 +728,7 @@ class ServingEngine:
                 ts = [cq.ts for _, cq in chunk]
                 te = [cq.te for _, cq in chunk]
                 t1 = time.perf_counter()
-                vmask = self.executor.run_sweep(sdix, int(ws.u), ts, te,
+                vmask = self.executor.run_sweep(sreps, int(ws.u), ts, te,
                                                 bucket)
                 dt = time.perf_counter() - t1
                 span.child("execute", route="sweep", bucket=bucket,

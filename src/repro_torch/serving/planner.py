@@ -10,8 +10,9 @@ amortizes to microseconds per query at depth. The planner
 picks per flushed batch:
 
 * ``B < host_threshold``  -> host loop over the backend's typed ``answer``;
-* otherwise               -> pad to the power-of-two bucket and launch the
-  device engine on the handle's device — the vertex-mask batch for
+* otherwise               -> pad to the power-of-two bucket (aligned to
+  the shard count) and run the device engine on the handle's replicas,
+  the bucket split over the executor's shards — the vertex-mask batch for
   VERTICES/COUNT-only batches, the full-mode batch (vertex + version-
   membership masks) when any request in the batch wants EDGES/SUBGRAPH.
 
@@ -168,12 +169,14 @@ class QueryPlanner:
                 # the version arrays are the one index space shared across
                 # strata — the kq operand scopes the edge payload per query
                 vmask, vermask = self.executor.run_full_mixed(
-                    handle.device, u, ts, te, [s.k for s in specs], bucket)
+                    handle.replicas, u, ts, te, [s.k for s in specs],
+                    bucket)
             elif need_edges:
                 vmask, vermask = self.executor.run_full(
-                    handle.device, u, ts, te, bucket)
+                    handle.replicas, u, ts, te, bucket)
             else:
-                vmask = self.executor.run(handle.device, u, ts, te, bucket)
+                vmask = self.executor.run(handle.replicas, u, ts, te,
+                                          bucket)
                 vermask = None
             dt = time.perf_counter() - t0
             t_end = time.perf_counter()

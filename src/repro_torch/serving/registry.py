@@ -57,16 +57,23 @@ index and device mirror describe one snapshot). Refresh listeners
 (``add_refresh_listener``) let the engine retire the old handle's
 batcher and run the *targeted* result-cache purge.
 
-Device: every build, refresh and trim runs on the registry's ``device``
-(default ``"cuda"``): the core times through the port's stratified sweep
-on that device (one ``stratum_sweep`` kernel launch per t_uv block on
-CUDA, the host sweep on the CPU), the forests on the host, the mirror
-uploaded to it. With no card the default registry raises on its first
+Devices: the registry serves a list of shards (``devices=``, the
+executor's list: by default every visible card, each once, or ``"cuda"``
+when none is visible; ``device=`` is the one-device spelling). Every
+build, refresh and trim runs on the first, ``device``: the core times
+through the port's stratified sweep on that device (one ``stratum_sweep``
+kernel launch per t_uv block on CUDA, the host sweep on the CPU), the
+forests on the host, the mirror uploaded to it. Each further shard gets
+its own replica of the mirror (``IndexHandle.replicas``), a card-to-card
+copy, or for a refresh or trim the same upload of what changed where
+that moves fewer bytes (``batch_query.refresh_replicas``). Every replica
+is made before the handle is swapped in, so no batch mixes two epochs
+across shards. With no card the default registry raises on its first
 build; it never carries on on the CPU.
 
 Disk tier (DESIGN.md §13): with a :class:`~repro_torch.store.IndexStore`
 attached, the registry is durable — cold builds first try *promotion*
-(mmap the stored epoch + upload to the registry's device, no rebuild),
+(mmap the stored epoch + upload to the registry's devices, no rebuild),
 landed builds and epoch swaps are written through (suffix epochs as
 per-stratum deltas), LRU eviction *demotes* instead of discarding, and
 unregistered workload names resolve from the store's persisted graphs, so
@@ -98,7 +105,6 @@ from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from repro_torch.obs.locks import named_lock
 from repro_torch.obs.trace import NULL_SPAN
@@ -113,8 +119,11 @@ from repro_torch.core.core_time import (StratifiedCoreTable, _validate_ks,
 from repro_torch.core.pecb_index import StratifiedPECB, build_stratified_index
 from repro_torch.core.streaming import (extend_stratified_index,
                                         shrink_stratified_index)
-from repro_torch.core.batch_query import (DeviceIndex, refresh_device,
-                                          stratum_device, to_device)
+from repro_torch.core.batch_query import (DeviceIndex, refresh_replicas,
+                                          replicas_of, stratum_device,
+                                          to_device)
+
+from .executor import shard_devices
 
 _K_KEY_DEPRECATION = (
     "per-k registry keys are deprecated: one k-stratified index serves "
@@ -138,7 +147,9 @@ class IndexHandle:
 
     ``pecb`` answers every k in :attr:`supported_ks` (and every
     ``k > k_max(graph)`` exactly empty); ``device`` is the fused mixed-k
-    mirror on the registry's device, every k in one device batch.
+    mirror on the registry's first device, every k in one device batch,
+    and ``replicas`` holds one such mirror per shard of the registry
+    (``replicas[0] is device``; one epoch on all of them).
     ``epoch`` counts epoch mutations of the workload's graph; ``tab`` is the
     epoch's stratified core-time table, retained so the next refresh can
     extend every stratum in place."""
@@ -156,33 +167,54 @@ class IndexHandle:
     # refresh) vs "disk" (promoted from the persistent store — mmap + device
     # upload, no rebuild). The planner stamps this onto result provenance.
     source: str = dataclasses.field(default="build", compare=False)
-    # lazy per-k slices of the fused mirror for single-k launches (the
+    # one mirror per shard, ``device`` first; empty means ``(device,)``
+    replicas: tuple = dataclasses.field(default=(), compare=False,
+                                        repr=False)
+    # lazy per-k slices of the fused mirrors for single-k launches (the
     # window sweep) — see :meth:`stratum_device`
     _stratum_dev: dict = dataclasses.field(default_factory=dict,
                                            compare=False, repr=False)
+
+    def __post_init__(self):
+        if not self.replicas:
+            object.__setattr__(self, "replicas", (self.device,))
+        elif self.replicas[0] is not self.device:
+            raise ValueError("replicas[0] must be the handle's device "
+                             "mirror")
 
     @property
     def supported_ks(self) -> tuple:
         return self.pecb.supported_ks
 
-    def stratum_device(self, k: int) -> DeviceIndex:
-        """Stratum ``k``'s block of :attr:`device` as a standalone per-k
+    def stratum_device(self, k: int, shard: int = 0) -> DeviceIndex:
+        """Stratum ``k``'s block of replica ``shard`` as a standalone per-k
         mirror (``batch_query.stratum_device``), so single-k launches pay
         propagation on one stratum's nodes instead of all |K|. Memoized
-        for the handle's lifetime — handles are immutable and swapped
-        whole per epoch, so the memo can never go stale; the unlocked
-        dict is a benign race (two threads may slice the same block, one
-        result wins). Raises ``KeyError`` for an unsupported k."""
-        k = int(k)
-        dev = self._stratum_dev.get(k)
+        per (k, shard) for the handle's lifetime — handles are immutable
+        and swapped whole per epoch, so the memo can never go stale; the
+        unlocked dict is a benign race (two threads may slice the same
+        block, one result wins). Raises ``KeyError`` for an unsupported
+        k."""
+        key = (int(k), int(shard))
+        dev = self._stratum_dev.get(key)
         if dev is None:
-            dev = stratum_device(self.device, self.pecb, k)
-            self._stratum_dev[k] = dev
+            dev = stratum_device(self.replicas[shard], self.pecb, key[0])
+            self._stratum_dev[key] = dev
         return dev
+
+    def stratum_replicas(self, k: int) -> tuple[DeviceIndex, ...]:
+        """:meth:`stratum_device` of every shard, in shard order."""
+        return tuple(self.stratum_device(k, i)
+                     for i in range(len(self.replicas)))
 
     @property
     def nbytes(self) -> int:
         return self.pecb.nbytes()
+
+    @property
+    def device_nbytes(self) -> int:
+        """Device bytes of the mirrors, summed over the replicas."""
+        return sum(r.nbytes() for r in self.replicas)
 
     @property
     def tab_nbytes(self) -> int:
@@ -203,11 +235,13 @@ class IndexHandle:
 class IndexRegistry:
     def __init__(self, capacity: int = 8, metrics=None, on_evict=None,
                  build_workers: int = 2, tracer=None, store=None, *,
-                 ks=None, device="cuda"):
+                 ks=None, devices=None, device=None):
         if capacity < 1:
             raise ValueError(f"registry capacity must be >= 1, got {capacity}")
         self.capacity = capacity
-        self.device = torch.device(device)
+        # the shards a handle holds a replica for; builds run on the first
+        self.devices = shard_devices(devices, device)
+        self.device = self.devices[0]
         self._metrics = metrics
         # optional repro_torch.store.IndexStore: the disk tier (DESIGN.md
         # §13.4). All store I/O runs on the background build/refresh
@@ -444,12 +478,12 @@ class IndexRegistry:
             stages["forest"] = time.perf_counter() - t1
             span.child("forest", t0=t1).end()
             t1 = time.perf_counter()
-            dev2, upload = refresh_device(old.pecb, old.device, idx2)
+            reps, upload = refresh_replicas(old.pecb, old.replicas, idx2)
             stages["device"] = time.perf_counter() - t1
             span.child("device", t0=t1).end()
             total = time.perf_counter() - t0
-            handle = IndexHandle(key, g2, idx2, dev2, total, stages,
-                                 epoch=epoch, tab=tab2)
+            handle = IndexHandle(key, g2, idx2, reps[0], total, stages,
+                                 epoch=epoch, tab=tab2, replicas=reps)
         except BaseException as exc:
             # failures must be observable even when nobody holds the future
             # (the build-race catch-up path): a failed refresh otherwise
@@ -470,6 +504,9 @@ class IndexRegistry:
                                 upload["uploaded_bytes"])
             self._metrics.count("refresh_reused_bytes",
                                 upload["reused_bytes"])
+            if upload["replicated_bytes"]:
+                self._metrics.count("refresh_replicated_bytes",
+                                    upload["replicated_bytes"])
         span.set("swapped", swapped).end()
         if swapped:
             # delta commit against the epoch the store already holds (the
@@ -607,12 +644,12 @@ class IndexRegistry:
                 stages["forest"] = time.perf_counter() - t1
                 span.child("forest", t0=t1, cold=True).end()
             t1 = time.perf_counter()
-            dev2, upload = refresh_device(cur.pecb, cur.device, idx2)
+            reps, upload = refresh_replicas(cur.pecb, cur.replicas, idx2)
             stages["device"] = time.perf_counter() - t1
             span.child("device", t0=t1).end()
             total = time.perf_counter() - t0
-            handle = IndexHandle(key, g2, idx2, dev2, total, stages,
-                                 epoch=epoch, tab=tab2)
+            handle = IndexHandle(key, g2, idx2, reps[0], total, stages,
+                                 epoch=epoch, tab=tab2, replicas=reps)
         except BaseException as exc:
             if self._metrics is not None:
                 self._metrics.count("index_retention_failures")
@@ -778,7 +815,7 @@ class IndexRegistry:
             stages["forest"] = time.perf_counter() - t1
             span.child("forest", t0=t1).end()
             t1 = time.perf_counter()
-            dev = to_device(idx, self.device)
+            reps = replicas_of(to_device(idx, self.device), self.devices)
             stages["device"] = time.perf_counter() - t1
             span.child("device", t0=t1).end()
             total = time.perf_counter() - t0
@@ -786,8 +823,8 @@ class IndexRegistry:
             span.set("error", repr(exc)).end()
             raise
         span.end()
-        handle = IndexHandle(key, g, idx, dev, total, stages,
-                             epoch=epoch, tab=tab)
+        handle = IndexHandle(key, g, idx, reps[0], total, stages,
+                             epoch=epoch, tab=tab, replicas=reps)
         with self._lock:
             # under the lock: concurrent builds of *different* workloads
             # would otherwise lose increments (read-modify-write race)
@@ -812,8 +849,8 @@ class IndexRegistry:
         epoch, check it describes exactly the graph the build would target
         (same edge arrays — epoch counters reset across processes, so the
         arrays are authoritative) AND the strata the current policy asks
-        for, upload it to the registry's device, and mint a
-        ``source="disk"`` handle. ``None`` on a miss, a mismatch or a
+        for, upload it to the registry's first device and replicate it to
+        the others, and mint a ``source="disk"`` handle. ``None`` on a miss, a mismatch or a
         failed load (counted as ``store_load_failures``) — the caller falls
         through to the cold build. A failed upload raises: it is the
         device failing, not the store, and a rebuild would upload again.
@@ -845,7 +882,8 @@ class IndexRegistry:
         stages = dict(stored.load_stages)
         t0 = time.perf_counter()
         try:
-            dev = to_device(stored.pecb, self.device)
+            reps = replicas_of(to_device(stored.pecb, self.device),
+                               self.devices)
         except BaseException as exc:
             span.set("error", repr(exc)).end()
             raise
@@ -863,8 +901,9 @@ class IndexRegistry:
         # the handle binds the *registry's* graph object (identity matters
         # to the epoch lifecycle), the store's mmap-backed index arrays,
         # and the fresh device mirror
-        return IndexHandle(key, g, stored.pecb, dev, total, stages,
-                           epoch=epoch, tab=stored.tab, source="disk")
+        return IndexHandle(key, g, stored.pecb, reps[0], total, stages,
+                           epoch=epoch, tab=stored.tab, source="disk",
+                           replicas=reps)
 
     def _persist(self, key: str, handle: IndexHandle,
                  prev: IndexHandle | None = None) -> dict | None:
@@ -937,4 +976,7 @@ class IndexRegistry:
                 "resident_bytes": sum(h.nbytes for h in self._entries.values()),
                 "resident_tab_bytes": sum(h.tab_nbytes
                                           for h in self._entries.values()),
+                "resident_device_bytes": sum(
+                    h.device_nbytes for h in self._entries.values()),
+                "devices": len(self.devices),
             }

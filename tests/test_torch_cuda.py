@@ -2277,3 +2277,125 @@ def test_witness_records_a_wrong_operand_on_card(cuda, armed):
     (p,) = armed.problems()
     assert p["kind"] == "shape-contract" and "active" in p["message"]
     assert label_prop.label_prop_round.launches == before
+
+
+def card_shards(cuda) -> list:
+    """Every visible card once, or ``cuda:0`` twice on a one-card
+    machine."""
+    n = torch.cuda.device_count()
+    return ([torch.device("cuda", i) for i in range(n)] if n > 1
+            else [torch.device("cuda", 0)] * 2)
+
+
+def test_sharded_executor_over_cards_equals_one_card(cuda):
+    """The executor over every visible card (or two shards on cuda:0):
+    every run's masks bit-equal to one card's, B1's launches equal to the
+    rounds of every shard, each replica equal to ``to_device`` there."""
+    from repro_torch.serving import executor
+    g = gen_temporal_graph(n=40, m=420, t_max=18, seed=31)
+    sx = build_stratified_index(g, device=cuda)
+    shards = card_shards(cuda)
+    one = executor.ShardedExecutor(devices=shards[:1])
+    ex = executor.ShardedExecutor(devices=shards)
+    dix = bq.to_device(sx, shards[0])
+    reps = bq.replicas_of(dix, shards)
+    for r in reps:
+        fresh = bq.to_device(sx, r.device)
+        for f in bq._ARRAY_FIELDS:
+            assert torch.equal(getattr(r, f), getattr(fresh, f)), f
+    qs = random_queries(g, 64, seed=4)
+    ks = [sx.supported_ks[i % len(sx.supported_ks)] for i in range(64)]
+    slot = bq.mixed_slots(sx, [(q[0], k) for q, k in zip(qs, ks)])
+    ts, te = [q[1] for q in qs], [q[2] for q in qs]
+    bucket = ex.final_bucket(64, 8, 256)
+    b1 = label_prop.label_prop_round.launches
+    stats = {}
+    got = ex.run(reps, slot, ts, te, bucket, stats=stats)
+    assert label_prop.label_prop_round.launches - b1 == sum(stats["rounds"])
+    assert np.array_equal(got, one.run(dix, slot, ts, te,
+                                       one.final_bucket(64, 8, 256)))
+    v, m = ex.run_full_mixed(reps, slot, ts, te, ks, bucket)
+    v1, m1 = one.run_full_mixed(dix, slot, ts, te, ks,
+                                one.final_bucket(64, 8, 256))
+    assert np.array_equal(v, v1) and np.array_equal(m, m1)
+    k = sx.ks[0]
+    sreps = tuple(bq.stratum_device(r, sx, k) for r in reps)
+    sw = ex.run_sweep(sreps, 3, ts, te, bucket)
+    assert np.array_equal(sw, one.run_sweep(sreps[0], 3, ts, te,
+                                            one.final_bucket(64, 8, 256)))
+    for i, (q, kk) in enumerate(zip(qs, ks)):
+        assert set(np.flatnonzero(got[i]).tolist()) == kcore.tccs_oracle(
+            g, kk, *q)
+
+
+def test_sharded_engine_over_cards_equals_algorithm_1(cuda):
+    """``ServingEngine(devices=...)`` over every visible card: cold build,
+    an ingest and a trim, each handle's replicas equal to ``to_device``,
+    every answer equal to Algorithm 1, ``stats()["devices"]`` the shard
+    count."""
+    g = gen_temporal_graph(n=40, m=420, t_max=18, seed=31)
+    g0, suffix = g.split_at(15)
+    shards = card_shards(cuda)
+    cfg = EngineConfig(max_batch=64, flush_ms=500.0, host_threshold=0,
+                       cache_capacity=0)
+    with ServingEngine(cfg, devices=shards) as eng:
+        assert eng.stats()["devices"] == len(shards)
+        eng.register_graph("g", g0)
+        h = eng.warmup("g", full=True)
+        for step in ("build", "ingest", "trim"):
+            if step == "ingest":
+                h = eng.ingest("g", [tuple(e) for e in suffix.tolist()],
+                               wait=True, timeout=120)["g"].result()
+            elif step == "trim":
+                h = eng.retain("g", 5, wait=True, timeout=120)["g"].result()
+            assert len(h.replicas) == len(shards)
+            for r, d in zip(h.replicas, shards):
+                fresh = bq.to_device(h.pecb, d)
+                for f in bq._ARRAY_FIELDS:
+                    got = getattr(r, f)
+                    assert got.device == d and torch.equal(got,
+                                                           getattr(fresh, f))
+            rng = np.random.default_rng(len(step))
+            specs = [TCCSQuery(u, ts, te, int(rng.choice(h.supported_ks)))
+                     for (u, ts, te) in random_queries(h.graph, 48, seed=5)]
+            futs = eng.submit_specs("g", specs)
+            eng.flush()
+            for q, f in zip(specs, futs):
+                assert set(f.result(timeout=120).vertices) == \
+                    kcore.tccs_oracle(h.graph, q.k, q.u, q.ts, q.te)
+
+
+def test_wgmma_routes_on_a_second_card(cuda):
+    """B5, B6 and B6's backward on their wgmma routes, launched on cuda:0
+    and then on cuda:1 in one process: the dynamic shared-memory opt-in is
+    made per device, so the second card's launches succeed and agree with
+    the plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the opt-in is per device")
+    M = N = K = 1024
+    B, S, H, dh = 1, 1024, 4, 128
+    assert segment_matmul.plan(M, N, K).route == "wgmma"
+    assert flash_attention.plan(B, S, H, H, S, True, dh).route == "wgmma"
+    assert flash_attention.bwd_plan(B, S, H, H, S, True, dh).route == "wgmma"
+    for i in (0, 1):
+        dev = torch.device("cuda", i)
+        gen = torch.Generator(device=dev).manual_seed(43)
+        a, b = (torch.randn(M, K, generator=gen, device=dev).bfloat16(),
+                torch.randn(K, N, generator=gen, device=dev).bfloat16())
+        got, want = segment_matmul.matmul(a, b), ref.matmul(a, b)
+        assert bool(((got - want).abs()
+                     <= 1e-4 * want.abs() + 1e-6 * K).all())
+        q, k, v, do = (torch.randn(B, S, H, dh, generator=gen, device=dev)
+                       .bfloat16() for _ in range(4))
+        o, lse = flash_attention.flash_attention(q, k, v, causal=True,
+                                                 return_lse=True)
+        want = ref.flash_attention(q, k, v, causal=True)
+        assert bool(((o.float() - want.float()).abs()
+                     <= flash_attention.error_bound(want)).all())
+        got = flash_attention.flash_attention_bwd(q, k, v, o, do,
+                                                  causal=True, lse=lse)
+        want = ref.flash_attention_bwd(q, k, v, o, do, causal=True)
+        scales = ref.flash_attention_bwd_scales(q, k, v, o, do, causal=True)
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            bound = flash_attention.bwd_error_bound(w, *scales[name])
+            assert bool(((x.float() - w.float()).abs() <= bound).all()), name

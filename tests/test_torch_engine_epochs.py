@@ -264,11 +264,11 @@ def test_inflight_batch_on_old_handle_stays_exact(graphs):
                   for f in bq._ARRAY_FIELDS}
         run = eng.executor.run
 
-        def held(dix, *args, **kw):
-            if dix is h0.device and not release.is_set():
+        def held(replicas, *args, **kw):
+            if replicas is h0.replicas and not release.is_set():
                 entered.set()
                 assert release.wait(TIMEOUT)
-            return run(dix, *args, **kw)
+            return run(replicas, *args, **kw)
 
         eng.executor.run = held
         specs = [TCCSQuery(u, 1, g0.t_max, 2) for u in range(12)]
