@@ -330,6 +330,18 @@ result line each; any failure raises and exits non-zero:
            declared shared memory per contract; disarmed, the wrapper's
            host us per call against its __wrapped__ at glm4's decode matmul
            and at B1 (at most 2 us added)
+  mesh     the dense LM step under the (data, model) mesh: glm4-9b at
+           full width cut to 8 layers through the partitioner on the
+           card's one-rank NCCL mesh (make_serve_step / make_train_step
+           with mesh, init_params(mesh=) placing each leaf as it is
+           drawn): one prefill of 1 x 4,096 and one train step, counted,
+           each bit-equal to the unsharded one (logits; loss, norm, lr,
+           every parameter and both moments); the collectives per step
+           (none: an exchange over one rank would be a copy); B5 at the
+           local shapes of 2 and 4 model ranks (ffn.wi's ragged N among
+           them, the row-parallel K, wq, the gathered wk, the head's
+           vocab shard) and B6 over one kv head against their plain
+           versions, timed beside their bounds and library calls
 
 The card builds, ingests and trims of epoch, engine, multi and store
 peel their k ranges on the card too; a ``[kcore]`` line sums
@@ -339,7 +351,18 @@ nvidia-smi line, and last
 
 ``python3 chip_smoke.py --multi`` runs gpu, build and multi alone (on a
 machine with several cards: the card-to-card path and the second card's
-B5/B6), then the same last two lines.
+B5/B6), then [mesh] across the cards: one rank process per card (four
+at most, two on two or three cards; ``chip_smoke.py --mesh-rank r world
+dir``), NCCL over a FileStore, every rank under one hard timeout and all
+killed if one fails. glm4-9b at 8 layers on every (data, model) mesh of
+the world, each step's loss, norm, gathered gradients and updated
+parameters within 5e-2 of one card's step on the same batch; on four
+cards glm4-9b at all 40 layers trained two steps on (2, 2) (step s,
+tokens/s, model-FLOP share, peak GiB per card, collectives) and served
+on (1, 4) (prefill and decode at the head of the cache within 5e-2 of
+max|logit| of one card's; decode at the end of the cache timed, its
+distance from one card's beside one card's own kernels-vs-plain
+spread). Then the same last two lines.
 """
 
 from __future__ import annotations
@@ -704,7 +727,7 @@ def lm_phase(dev) -> list[dict]:
     pos = torch.arange(seq, dtype=torch.int32, device=dev)[None, :]
     with torch.inference_mode():
         h = tfm.rms_norm(model.embed[toks], p0.ln1)
-        q, k, v = tfm.qkv(p0, cfg, h, pos)
+        q, k, v = tfm.qkv(p0, cfg, h, pos, tfm.partition_of(model))
         act = tfm.silu(tfm.linear(h, p0.ffn.wg)) * tfm.linear(h, p0.ffn.wi)
         h = h[0]
     b5_cases = {"prefill wq": (h, p0.wq), "prefill wk": (h, p0.wk),
@@ -791,7 +814,7 @@ def lm_phase(dev) -> list[dict]:
     pos = torch.full((batch, 1), slots - 1, dtype=torch.int32, device=dev)
     with torch.inference_mode():
         h = tfm.rms_norm(model.embed[tok], p0.ln1)
-        q, _, _ = tfm.qkv(p0, cfg, h, pos)
+        q, _, _ = tfm.qkv(p0, cfg, h, pos, tfm.partition_of(model))
         act = tfm.silu(tfm.linear(h, p0.ffn.wg)) * tfm.linear(h, p0.ffn.wi)
         h, act = h[:, 0], act[:, 0]
     ck, cv = cache["k"][0], cache["v"][0]
@@ -1799,7 +1822,7 @@ def train_phase(dev, smi: str) -> dict:
         # last row, as in transformer.train_forward
         ids = b1["tokens"].long().clamp(0, one.vocab - 1)
         h = tfm.rms_norm(m1.embed[ids], p0.ln1)
-        q, k, v = tfm.qkv(p0, one, h, pos)
+        q, k, v = tfm.qkv(p0, one, h, pos, tfm.partition_of(m1))
         q, k, v = (x.contiguous() for x in (q, k, v))
     b6_rec = b6_bwd_check(q, k, v, True, smi)
     del q, k, v
@@ -2893,7 +2916,8 @@ def moe_phase(dev, smi: str) -> dict:
     pos = torch.arange(seq, dtype=torch.int32, device=dev)[None, :]
     with torch.inference_mode():
         x = model.embed[toks]
-        x = x + tfm.attention_block(p0, cfg, tfm.rms_norm(x, p0.ln1), pos)
+        x = x + tfm.attention_block(p0, cfg, tfm.rms_norm(x, p0.ln1), pos,
+                                    tfm.partition_of(model))
         h = tfm.rms_norm(x, p0.ln2)[0]
         probs = tfm.router_probs(p0.moe, m, h)
         eidx = tfm.route(probs, K)
@@ -5833,7 +5857,8 @@ def runtime_phase(dev, smi: str) -> dict:
     pos = torch.arange(seq, dtype=torch.int32, device=dev)[None, :]
     with torch.inference_mode():
         x = model.embed[toks]
-        x = x + tfm.attention_block(p0, cfg, tfm.rms_norm(x, p0.ln1), pos)
+        x = x + tfm.attention_block(p0, cfg, tfm.rms_norm(x, p0.ln1), pos,
+                                    tfm.partition_of(model))
         h = tfm.rms_norm(x, p0.ln2)
     a2a = make_a2a_moe(mesh, dp)
     C8 = a2a_capacity(mc, seq)
@@ -6279,12 +6304,603 @@ def contracts_phase(g, dev, smi: str) -> dict:
     return {"seconds": t_phase, "cost": cost, "calls": calls, "smem": smem}
 
 
+# ======================================================================
+# [mesh]: the dense LM step under the (data, model) mesh
+# ======================================================================
+
+MESH_ARCH = "glm4-9b"
+MESH_SEED = 47
+MESH_SEQ = 4096
+#: the sharded-against-one-card checks on several cards: bf16 losses,
+#: gradients and parameters, each leaf within this share of its largest
+#: |one-card value| (PERF.md section 2's bf16 bound; the key bias takes its
+#: wk's scale, as grad_leaf_errs does)
+MESH_TOL = TRAIN_GRAD_TOL
+#: (data, model) meshes by world size: the 8-layer steps' (the world is
+#: every card, 4 at most; two or three cards run a 2-rank world)
+MESH_SHAPES = {4: [(2, 2), (1, 4), (4, 1)], 2: [(1, 2), (2, 1)]}
+#: the full-depth train step's mesh and the serving mesh (four cards)
+MESH_FULL_TRAIN, MESH_FULL_SERVE = (2, 2), (1, 4)
+MESH_TRAIN_STEPS = 2
+#: the standard deviation of the keys and values in the cache slots past
+#: those written at the end-of-cache decode: a read past t_real meets a key
+#: whose score dwarfs the written ones'
+MESH_SENTINEL = 16.0
+#: seconds the rank processes of --multi may take, the build excluded
+MESH_RANKS_TIMEOUT_S = 900
+#: the ranks' device type: "cuda" (NCCL, rank r on cuda:r); "cpu" (gloo)
+#: rehearses them
+MESH_DEVICE = "cuda"
+
+
+def mesh_tokens(vocab: int, rows: int, seq: int, seed: int, dev) -> dict:
+    """A global batch of ``rows`` sequences from a numpy seed, the same in
+    every process (TokenStream's seeds follow PYTHONHASHSEED)."""
+    toks = np.random.default_rng(seed).integers(0, vocab, (rows, seq + 1))
+    toks = torch.as_tensor(toks.astype(np.int32), device=dev)
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}
+
+
+def mesh_counts_line(counts: dict) -> str:
+    return ", ".join(f"{kind} {c['calls']} calls {c['bytes'] / 2**30:.3f} GiB"
+                     for kind, c in sorted(counts.items())) or "none"
+
+
+def mesh_phase(dev, smi: str) -> dict:
+    """[mesh]: glm4-9b at full width, MESH_LAYERS layers, through the
+    partitioner on the card's one-rank NCCL mesh: one prefill of 1 x
+    MESH_SEQ and one train step (make_serve_step / make_train_step with
+    ``mesh``), counted, each bit-equal to the unsharded one's (logits,
+    loss, norm, lr, every parameter and both moments); the collectives per
+    step; B5 and B6 at the local shapes the partitioned path gives them on
+    2 and 4 model ranks (the ragged N of ffn.wi among them) against their
+    plain versions, timed. Returns the launches and the kernel results."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segment_matmul as sm
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+
+    t_phase = time.perf_counter()
+    spec = configs.get(MESH_ARCH)
+    cfg = dataclasses.replace(spec.model_cfg, n_layer=TRAIN_LAYERS)
+    L = cfg.n_layer
+    batch = mesh_tokens(cfg.vocab, 1, MESH_SEQ, MESH_SEED, dev)
+    opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the unsharded step and prefill ------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    model = configs.init_params(spec, cfg, gen, device=dev)
+    want_logits = configs.make_serve_step(spec, "prefill_32k", cfg)(
+        model, {"tokens": batch["tokens"]})
+    state = adamw.init_state(dict(model.named_parameters()))
+    _, state, want = configs.make_train_step(spec, cfg, opt_cfg)(
+        model, state, batch)
+    want_moments = {k: {n: t.cpu() for n, t in state[k].items()}
+                    for k in ("mu", "nu")}
+    del state
+    torch.cuda.empty_cache()
+
+    # -- the same through the partitioner, counted ---------------------------
+    mesh = make_smoke_mesh("cuda")
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    placed = configs.init_params(spec, cfg, gen, device=dev, mesh=mesh)
+    prefill = configs.make_serve_step(spec, "prefill_32k", cfg, mesh=mesh)
+    step = configs.make_train_step(spec, cfg, opt_cfg, mesh=mesh)
+    state = adamw.init_state(dict(placed.named_parameters()))
+    sm.reset_counts()
+    fa.reset_counts()
+    fa.reset_bwd_counts()
+    shd.reset_collectives()
+    t0 = time.perf_counter()
+    logits = prefill(placed, {"tokens": batch["tokens"]})
+    pre_counts = shd.collective_counts()
+    shd.reset_collectives()
+    _, state, got = step(placed, state, batch)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    step_counts = shd.collective_counts()
+    b5, b5_grad = sm.matmul.launches, sm.matmul_grads.launches
+    b6, b6_bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    want_b5 = (7 * L + 1) + (28 * L + 3)
+    if (b5, b5_grad, b6, b6_bwd) != (want_b5, 14 * L + 2, 3 * L, L):
+        raise AssertionError(
+            f"[mesh] the partitioned prefill and step launched B5 {b5} "
+            f"(gradients {b5_grad}), B6 {b6} and its backward {b6_bwd} "
+            f"times, not {(want_b5, 14 * L + 2, 3 * L, L)}")
+    if not torch.equal(logits, want_logits):
+        raise AssertionError("[mesh] the one-rank partitioned prefill is "
+                             "not bit-equal to the unsharded one")
+    for k in ("loss", "grad_norm", "lr"):
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"[mesh] the one-rank step's {k} "
+                                 f"{float(got[k])} != {float(want[k])}")
+    whole = dict(model.named_parameters())
+    for n, p in placed.named_parameters():
+        if not torch.equal(p, whole[n]):
+            raise AssertionError(f"[mesh] parameter {n} after the one-rank "
+                                 "step is not bit-equal to the unsharded")
+    for k, moments in want_moments.items():
+        for n, t in moments.items():
+            if not torch.equal(state[k][n], t.to(dev)):
+                raise AssertionError(f"[mesh] moment {k} {n} after the "
+                                     "one-rank step is not bit-equal")
+    n_params = sum(p.numel() for p in placed.parameters())
+    print(f"[mesh] {MESH_ARCH} at full width cut to {L} layers "
+          f"({n_params:,} parameters, bf16, drawn leaf by leaf from seed "
+          f"{MESH_SEED} and placed as drawn) on the card's one-rank NCCL "
+          f"mesh {shd.axis_sizes(mesh)} through the partitioner: prefill 1 x "
+          f"{MESH_SEQ} (make_serve_step(mesh=)) bit-equal to the unsharded "
+          f"prefill's logits; one train step (make_train_step(mesh=)) "
+          f"bit-equal in loss {float(got['loss']):.6f}, grad_norm "
+          f"{float(got['grad_norm']):.6f}, lr {float(got['lr']):.3e}, every "
+          f"parameter and both moments; launches B5 {b5} ({7 * L + 1} "
+          f"prefill + {28 * L + 3} step), its gradient {b5_grad}, B6 {b6}, "
+          f"its backward {b6_bwd}; {t_run:.2f}s for both | {smi}")
+    print(f"[mesh] collectives on the one-rank mesh (calls, result bytes; "
+          f"the partitioner makes none over an axis of one rank): prefill "
+          f"{mesh_counts_line(pre_counts)}; train step "
+          f"{mesh_counts_line(step_counts)}. One card is visible: no exchange "
+          f"between ranks was exercised (python3 chip_smoke.py --multi on "
+          f"four cards runs it) | {smi}")
+    del model, placed, state, logits, want_logits, want_moments, whole
+    torch.cuda.empty_cache()
+
+    # -- B5 and B6 at the partitioned path's local shapes --------------------
+    g = torch.Generator(device=dev).manual_seed(MESH_SEED + 1)
+    d, f, dh = cfg.d_model, cfg.d_ff, cfg.d_head
+
+    def rand(*shape):
+        return (torch.randn(shape, generator=g, device=dev) *
+                shape[0] ** -0.5).to(torch.bfloat16)
+
+    h = rand(MESH_SEQ, d)
+    b5_cases = {}
+    for m in (2, 4):
+        b5_cases[f"mesh wq N = {cfg.n_head * dh // m} (model {m})"] = (
+            h, rand(d, cfg.n_head * dh // m))
+        b5_cases[f"mesh ffn.wi ragged N = {f // m} (model {m})"] = (
+            h, rand(d, f // m))
+        b5_cases[f"mesh ffn.wo ragged K = {f // m} (model {m})"] = (
+            rand(MESH_SEQ, f // m), rand(f // m, d))
+    b5_cases["mesh wk N = 256 gathered (model 4)"] = (h, rand(d, 256))
+    b5_cases[f"mesh head N = {cfg.vocab // 4} (model 4)"] = (
+        h, rand(d, cfg.vocab // 4))
+    q = torch.randn(1, MESH_SEQ, cfg.n_head // 2, dh, generator=g,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(1, MESH_SEQ, 1, dh, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    b6_cases = {f"mesh causal {cfg.n_head // 2} heads over 1 (model 2)":
+                (q, k, v, True, MESH_SEQ),
+                f"mesh causal {cfg.n_head // 4} heads over 1 (model 4)":
+                (q[:, :, :cfg.n_head // 4].contiguous(), k, v, True,
+                 MESH_SEQ)}
+    results = kernel_checks(b5_cases, b6_cases, tag="mesh")
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f}s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
+          f"{smi}")
+    return {"b5": b5 - b5_grad, "b5_grad": b5_grad, "b6": b6,
+            "b6_bwd": b6_bwd,
+            "b5_err": max(r["max_abs_err"] for r in results.values()
+                          if r["b5"])}
+
+
+def mesh_multi_phase(smi: str) -> None:
+    """[mesh] across cards (``--multi``): one rank process per card (four
+    at most; two where two or three are visible), NCCL over a FileStore in
+    a temporary directory, rank r on cuda:r. Each rank runs under one hard
+    timeout; if one fails or the time runs out every rank is killed and
+    the phase raises. Rank 0 prints the lines (:func:`mesh_rank`)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[mesh] --multi: one card is visible, no mesh of several "
+              f"ranks to run | {smi}")
+        return
+    world = 4 if cards >= 4 else 2
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    env = {**os.environ, "MESH_SMI": smi,
+           "PYTHONHASHSEED": os.environ.get("PYTHONHASHSEED", "0")}
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--mesh-rank", str(r), str(world), tmp],
+                              env=env) for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes):
+                break
+            bad = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                raise AssertionError(f"[mesh] ranks failed {bad}")
+            if time.perf_counter() - t0 > MESH_RANKS_TIMEOUT_S:
+                raise AssertionError(f"[mesh] the ranks outlived "
+                                     f"{MESH_RANKS_TIMEOUT_S}s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[mesh] --multi: {world} ranks passed in "
+          f"{time.perf_counter() - t0:.1f}s | {smi}")
+
+
+def mesh_leaf_errs(got_of, want: dict, mesh, specs: dict) -> dict:
+    """Each leaf's largest |gathered - want| over the largest |want| of
+    its scale leaf (grad_leaf_errs's rule), gathering one leaf at a
+    time."""
+    from repro_torch.runtime import sharding as shd
+    out = {}
+    for name, local in got_of.items():
+        full = shd.unshard_params({name: local}, {name: specs[name]},
+                                  mesh)[name]
+        scale_of = name.replace(".bk", ".wk") if name.endswith(".bk") \
+            else name
+        scale = float(want[scale_of].float().abs().max())
+        out[name] = float((full.float() - want[name].float()).abs().max()) \
+            / max(scale, 1e-30)
+        del full
+    return out
+
+
+def mesh_one_card(spec, cfg, batch, opt_cfg, dev) -> dict:
+    """One card's step on ``batch`` from MESH_SEED's model: loss, norm, the
+    gradients and the updated parameters (the loss and gradients, then
+    AdamW on them: make_train_step's arithmetic without a second forward,
+    to keep the peak under the card's memory at 4 sequences)."""
+    from repro_torch import configs
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    model = configs.init_params(spec, cfg, gen, device=dev)
+    loss, grads = loss_and_grads(spec, cfg, model, batch)
+    params = dict(model.named_parameters())
+    state = adamw.init_state(params)
+    with torch.no_grad():
+        _, state, m = adamw.apply_updates(opt_cfg, params, grads, state)
+    m["loss"] = torch.tensor(loss)
+    del state
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    torch.cuda.empty_cache()
+    return {"loss": loss, "m": {k: float(v) for k, v in m.items()},
+            "grads": grads, "params": params}
+
+
+def mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of ``--multi``'s [mesh]: the 8-layer steps on each mesh of
+    MESH_SHAPES[world] against one card's (computed on every rank, the
+    same bits everywhere), then on four ranks glm4-9b at full depth: two
+    train steps on MESH_FULL_TRAIN and serving on MESH_FULL_SERVE against
+    one card's prefill and decode."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import segment_matmul as sm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+
+    smi = os.environ.get("MESH_SMI", "")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    dev = (torch.device("cuda", rank) if MESH_DEVICE == "cuda"
+           else torch.device(MESH_DEVICE))
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    spec = configs.get(MESH_ARCH)
+    opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+
+    def worst(x: float, mesh) -> float:
+        return float(shd.all_reduce(torch.tensor([x], device=dev), mesh,
+                                    shd.axis_names(mesh), op="max"))
+
+    # -- 8 layers on every mesh of the world, against one card -------------
+    cfg = dataclasses.replace(spec.model_cfg, n_layer=TRAIN_LAYERS)
+    refs = {}
+    for shape in MESH_SHAPES[world]:
+        rows = max(shape[0], 2)                 # at most 2 per data rank
+        if rows not in refs:
+            refs.clear()
+            torch.cuda.empty_cache()
+            batch = mesh_tokens(cfg.vocab, rows, MESH_SEQ, MESH_SEED, dev)
+            refs[rows] = (batch, mesh_one_card(spec, cfg, batch, opt_cfg,
+                                               dev))
+        batch, ref_run = refs[rows]
+        mesh = make_mesh(shape, ("data", "model"), device=MESH_DEVICE,
+                         store=store, rank=rank)
+        specs = shd.lm_param_spec_tree(tfm.abstract_params(cfg), mesh)
+        gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+        model = configs.init_params(spec, cfg, gen, device=dev, mesh=mesh)
+        local = {k: shd.local_shard(v, mesh, shd.P("data", None)).contiguous()
+                 for k, v in batch.items()}
+        loss, grads = loss_and_grads(spec, cfg, model, local)
+        g_err = mesh_leaf_errs(grads, ref_run["grads"], mesh, specs)
+        del grads
+        state = adamw.init_state(dict(model.named_parameters()))
+        step = configs.make_train_step(spec, cfg, opt_cfg, mesh=mesh)
+        sm.reset_counts()
+        fa.reset_counts()
+        fa.reset_bwd_counts()
+        shd.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, m = step(model, state, batch)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t0
+        counts = shd.collective_counts()
+        launches = (sm.matmul.launches, sm.matmul_grads.launches,
+                    fa.flash_attention.launches,
+                    fa.flash_attention_bwd.launches)
+        del state
+        # the q/k/v biases are zero before the step, and AdamW's first step
+        # moves each entry by lr with its gradient's sign, which for entries
+        # whose bf16 gradient is mostly rounding goes either way: they are
+        # held by their gradients above, every other leaf by its value too
+        biases = ("bq", "bk", "bv")
+        p_err = mesh_leaf_errs(
+            {n: p for n, p in model.named_parameters()
+             if n.rsplit(".", 1)[-1] not in biases},
+            ref_run["params"], mesh, specs)
+        g_worst, p_worst = (worst(max(e.values()), mesh)
+                            for e in (g_err, p_err))
+        loss_err = abs(loss - ref_run["loss"]) / abs(ref_run["loss"])
+        m_err = {k: abs(float(m[k]) - ref_run["m"][k]) / abs(ref_run["m"][k])
+                 for k in ("loss", "grad_norm", "lr")}
+        if not (max(m_err.values()) <= MESH_TOL and loss_err <= MESH_TOL
+                and g_worst <= MESH_TOL and p_worst <= MESH_TOL):
+            raise AssertionError(
+                f"[mesh] {shape}: against one card's step, metrics {m_err}, "
+                f"gradients {g_worst} (largest: "
+                f"{max(g_err, key=g_err.get)}), parameters {p_worst} "
+                f"(largest: {max(p_err, key=p_err.get)})")
+        say(f"[mesh] {MESH_ARCH} {TRAIN_LAYERS} layers on {shape} "
+            f"(data, model), {rows} x {MESH_SEQ} global batch, one train step "
+            f"(make_train_step(mesh=)) against one card's on the same seed "
+            f"and batch: loss {float(m['loss']):.6f} (one card "
+            f"{ref_run['m']['loss']:.6f}), grad_norm "
+            f"{float(m['grad_norm']):.6f} ({ref_run['m']['grad_norm']:.6f}), "
+            f"lr equal; every gathered gradient within {g_worst:.3e} of its "
+            f"leaf's scale, every updated parameter but the q/k/v biases "
+            f"(zero before the step, then +-lr by their gradients' signs) "
+            f"within {p_worst:.3e} (tolerance {MESH_TOL}); step "
+            f"{t_step:.4f}s; launches B5 "
+            f"{launches[0]}, its gradient {launches[1]}, B6 {launches[2]}, "
+            f"its backward {launches[3]} per rank; collectives per step "
+            f"(rank 0): {mesh_counts_line(counts)} | {smi}")
+        del model
+        torch.cuda.empty_cache()
+    del refs
+    torch.cuda.empty_cache()
+    if world < 4:
+        say(f"[mesh] {world} ranks (fewer than four cards): glm4-9b at 40 "
+            f"layers on (2, 2) and serving on (1, 4) need four | {smi}")
+        dist.destroy_process_group()
+        return
+
+    # -- glm4-9b at full depth: two train steps on (2, 2) ---------------------
+    full = spec.model_cfg
+    mesh = make_mesh(MESH_FULL_TRAIN, ("data", "model"), device=MESH_DEVICE,
+                     store=store, rank=rank)
+    rows = MESH_FULL_TRAIN[0]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    model, t_init = wall(lambda: (configs.init_params(
+        spec, full, gen, device=dev, mesh=mesh), torch.cuda.synchronize())[0])
+    local_params = sum(p.numel() for p in model.parameters())
+    state = adamw.init_state(dict(model.named_parameters()))
+    step = configs.make_train_step(spec, full, opt_cfg, mesh=mesh)
+    losses, times, counts = [], [], {}
+    for i in range(MESH_TRAIN_STEPS):
+        batch = mesh_tokens(full.vocab, rows, MESH_SEQ, MESH_SEED + 1 + i,
+                            dev)
+        shd.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, m = step(model, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = shd.collective_counts()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[mesh] 40-layer losses {losses}")
+    peak = worst(torch.cuda.max_memory_allocated() / 2**30, mesh)
+    hbm = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    if not peak < hbm:
+        raise AssertionError(f"[mesh] peak {peak} GiB of {hbm}")
+    dims = dict(spec.shapes["train_4k"], batch=rows, seq=MESH_SEQ)
+    flops = configs.model_flops(spec, "train_4k", dims=dims, model_cfg=full)
+    t = times[-1]
+    say(f"[mesh] {MESH_ARCH} at full width and depth ({full.n_layer} layers, "
+        f"{full.param_count:,} parameters, {local_params:,} on each rank) "
+        f"trained on {MESH_FULL_TRAIN} (data, model), {rows} x {MESH_SEQ} "
+        f"global batch (one sequence per data rank), remat, AdamW f32 "
+        f"moments; drawn and placed in {t_init:.2f}s; {MESH_TRAIN_STEPS} "
+        f"steps, losses {' '.join(f'{x:.4f}' for x in losses)}; step "
+        f"{t:.4f}s (first {times[0]:.4f}s) = {rows * MESH_SEQ / t:.1f} "
+        f"tokens/s; model FLOPs {flops:.4e} per step = "
+        f"{flops / t / (4 * 989e12):.4f} of 4 x 989 TFLOP/s; peak device "
+        f"memory {peak:.2f} GiB per card (the largest rank; {hbm:.1f} GiB "
+        f"each); collectives per step (rank 0): {mesh_counts_line(counts)} "
+        f"| {smi}")
+    del model, state
+    torch.cuda.empty_cache()
+
+    # -- serving at full depth on (1, 4) against one card ---------------------
+    slots = spec.shapes["decode_32k"]["seq"]
+    B, steps = LM_DECODE_BATCH, LM_STEPS
+    toks = mesh_tokens(full.vocab, 1, MESH_SEQ, MESH_SEED + 9, dev)["tokens"]
+    head_at, tail_at = 0, slots - steps
+    kinds = {"B5": is_b5, "B6": is_b6, "NCCL": lambda k: "nccl" in k.lower()}
+
+    def decode(model, mesh, at: int):
+        """``steps`` decode steps from slot ``at``, each timed."""
+        dec = configs.make_serve_step(spec, "decode_32k", full, mesh=mesh)
+        outs, t = [], 0.0
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = dec(model, {"tokens": dec_toks[i], "cache": cache,
+                                 "cache_len": at + i})
+            torch.cuda.synchronize()
+            t += time.perf_counter() - t0
+            outs.append(out)
+        return outs, t / steps
+
+    def prefill(model, mesh):
+        """The prefill's logits and its second call's seconds."""
+        pre = configs.make_serve_step(spec, "prefill_32k", full, mesh=mesh)
+        logits = pre(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        _, t_pre = wall(lambda: (pre(model, {"tokens": toks}),
+                                 torch.cuda.synchronize()))
+        return logits, t_pre
+
+    def restore():
+        """The cache as one card's head decode left it: its first ``steps``
+        slots (the keys and values the model wrote) repeated up to the
+        last ``steps``, which hold the unwritten slots' sentinels."""
+        for name, t in cache.items():
+            t[:, :, :steps] = head_kv[name]
+            t[:, :, tail_at:] = sentinel[name]
+
+    def profile_step(model, mesh) -> str:
+        restore()
+        dec = configs.make_serve_step(spec, "decode_32k", full, mesh=mesh)
+        return profiled(lambda: (dec(model, {
+            "tokens": dec_toks[0], "cache": cache, "cache_len": tail_at}),
+            torch.cuda.synchronize()), kinds)
+
+    # one card: the head of the cache, then its end over 32,760 slots of the
+    # keys and values the head decode wrote; the unwritten slots past each
+    # step hold sentinels that would swamp attention if read
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 2)
+    one = configs.init_params(spec, full, gen, device=dev)
+    cache = tfm.init_cache(full, B, slots, device=dev)
+    sentinel = {name: torch.randn(t[:, :, tail_at:].shape, generator=gen,
+                                  device=dev).mul_(MESH_SENTINEL).to(t.dtype)
+                for name, t in cache.items()}
+    for name, t in cache.items():
+        t[:, :, tail_at:] = sentinel[name]
+    dec_toks = [torch.randint(0, full.vocab, (B, 1), generator=gen,
+                              device=dev) for _ in range(steps)]
+    want_pre, t_pre1 = prefill(one, None)
+    want_head, _ = decode(one, None, head_at)
+    head_kv = {name: t[:, :, :steps].clone() for name, t in cache.items()}
+    for t in cache.values():
+        w = steps
+        while w < tail_at:                  # the written slots, doubled
+            n = min(w, tail_at - w)
+            t[:, :, w:w + n] = t[:, :, :n]
+            w += n
+    restore()
+    want_tail, t_dec1 = decode(one, None, tail_at)
+    # one card's own spread there: its kernels against its plain versions,
+    # the two valid evaluations of the same bf16 model
+    restore()
+    with contextlib.ExitStack() as stack:
+        for patch in plain_ops():
+            stack.enter_context(patch)
+        plain_tail, _ = decode(one, None, tail_at)
+    floor = [rel_err(k, p) for k, p in zip(want_tail, plain_tail)]
+    prof1 = profile_step(one, None)
+    del one, plain_tail
+    torch.cuda.empty_cache()
+
+    # (1, 4): the same cache (the batch over one data rank, the 2 kv heads
+    # replicated over the 4 model ranks: this rank's shard is all of it)
+    mesh = make_mesh(MESH_FULL_SERVE, ("data", "model"), device=MESH_DEVICE,
+                     store=store, rank=rank)
+    local = shd.shard_shape(tuple(cache["k"].shape),
+                            shd.lm_cache_spec(mesh, full.n_kv)["k"], mesh)
+    if local != tuple(cache["k"].shape):
+        raise AssertionError(f"[mesh] a cache shard of {local} on "
+                             f"{MESH_FULL_SERVE}")
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED + 2)
+    placed = configs.init_params(spec, full, gen, device=dev, mesh=mesh)
+    sm.reset_counts()
+    fa.reset_counts()
+    shd.reset_collectives()
+    got_pre, t_pre = prefill(placed, mesh)
+    got_head, _ = decode(placed, mesh, head_at)
+    restore()
+    got_tail, t_dec = decode(placed, mesh, tail_at)
+    counts = shd.collective_counts()
+    launches = (sm.matmul.launches, fa.flash_attention.launches)
+    # planted faults the end-of-cache check must see: every rank attending
+    # with the other kv head, or reading one slot past the written ones
+    attend = tfm._attend_one_kv
+    planted = {
+        "the other kv head": lambda q, ck, cv, lo, t_real: attend(
+            q, ck, cv, (lo + 1) % ck.shape[2], t_real),
+        "one slot past t_real": lambda q, ck, cv, lo, t_real: attend(
+            q, ck, cv, lo, min(t_real + 1, ck.shape[1]))}
+    wrong = {}
+    for what, fn in planted.items():
+        restore()
+        with mock.patch.object(tfm, "_attend_one_kv", fn):
+            wrong[what], _ = decode(placed, mesh, tail_at)
+    prof4 = profile_step(placed, mesh)
+    vl = full.vocab // MESH_FULL_SERVE[1]
+    lo = shd.axis_index(mesh, "model") * vl
+
+    def err(got, want):
+        return worst(float((got - want[..., lo:lo + vl]).abs().max()),
+                     mesh) / float(want.abs().max())
+
+    e_pre = err(got_pre, want_pre)
+    e_head = [err(g, w) for g, w in zip(got_head, want_head)]
+    e_tail = [err(g, w) for g, w in zip(got_tail, want_tail)]
+    e_wrong = {what: [err(g, w) for g, w in zip(outs, want_tail)]
+               for what, outs in wrong.items()}
+    if not (e_pre <= MESH_TOL and max(e_head) <= MESH_TOL
+            and max(e_tail) <= MESH_TOL):
+        raise AssertionError(f"[mesh] serving on {MESH_FULL_SERVE}: prefill "
+                             f"{e_pre}, decode at the head {e_head} and at "
+                             f"the end {e_tail} of max|logit|")
+    blind = {what: e for what, e in e_wrong.items() if max(e) <= MESH_TOL}
+    if blind:
+        raise AssertionError(f"[mesh] the end-of-cache check cannot see "
+                             f"{blind} (tolerance {MESH_TOL})")
+    say(f"[mesh] {MESH_ARCH} serving at full width and depth on "
+        f"{MESH_FULL_SERVE} (data, model; the 2 kv heads replicated over the "
+        f"4 model ranks, each attending with its query heads' one): prefill "
+        f"1 x {MESH_SEQ} {t_pre:.4f}s (one card {t_pre1:.4f}s), logits within "
+        f"{e_pre:.3e} of max|logit| of one card's; decode, batch {B} over "
+        f"{slots} slots, {steps} steps at the head of the cache, each step's "
+        f"logits within {max(e_head):.3e} of one card's (tolerance "
+        f"{MESH_TOL}; per step {' '.join(f'{e:.2e}' for e in e_head)}); "
+        f"{steps} steps at its end, over one card's head keys and values "
+        f"repeated to slot {tail_at} (the unwritten slots past each step "
+        f"hold N(0, {MESH_SENTINEL:g}^2) sentinels), "
+        f"{t_dec * 1e3:.3f} ms per step (one card {t_dec1 * 1e3:.3f} ms), "
+        f"logits within {max(e_tail):.3e} of one card's (per step "
+        f"{' '.join(f'{e:.2e}' for e in e_tail)}), where one card's own "
+        f"kernels and plain versions differ by "
+        f"{' '.join(f'{e:.2e}' for e in floor)}; planted faults seen: "
+        + "; ".join(f"{what} {min(e):.3e}..{max(e):.3e}"
+                    for what, e in e_wrong.items())
+        + f"; launches B5 {launches[0]}, B6 {launches[1]} per rank for the "
+        f"two prefills and {2 * steps} steps; collectives (rank 0): "
+        f"{mesh_counts_line(counts)} | {smi}")
+    say(f"[mesh] one decode step at slot {tail_at} under torch.profiler, "
+        f"one card: {prof1} | {smi}")
+    say(f"[mesh] one decode step at slot {tail_at} under torch.profiler, "
+        f"{MESH_FULL_SERVE} rank 0: {prof4} | {smi}")
+    dist.destroy_process_group()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
               "runs on an NVIDIA card", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
 
     from repro_torch.core import batch_query as bq
     from repro_torch.core import core_time as ct
@@ -6333,7 +6949,8 @@ def main() -> int:
     if sys.argv[1:] == ["--multi"]:
         from repro_torch.core.temporal_graph import gen_temporal_graph
         multi_phase(gen_temporal_graph(**COLLEGEMSG), smi)
-        print(f"[done] gpu, build and multi passed in "
+        mesh_multi_phase(smi)
+        print(f"[done] gpu, build, multi and mesh passed in "
               f"{time.perf_counter() - t_start:.1f}s ({smi})")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -6678,6 +7295,13 @@ def main() -> int:
     b4_record["launches"] += rt["b4"]
     b5_record["max_abs_err"] = max(b5_record["max_abs_err"], rt["b5_err"])
     contracts_phase(g, dev, smi)
+    meshed = mesh_phase(dev, smi)
+    b5_record["launches"] += meshed["b5"]
+    b5_record["max_abs_err"] = max(b5_record["max_abs_err"],
+                                   meshed["b5_err"])
+    lm_records[1]["launches"] += meshed["b6"]
+    trained["records"][0]["launches"] += meshed["b5_grad"]
+    trained["records"][1]["launches"] += meshed["b6_bwd"]
 
     csrc = "src/repro_torch/kernels/csrc/"
     records = [

@@ -216,8 +216,31 @@ def abstract_params(spec: ArchSpec, model_cfg) -> torch.nn.Module:
     return tfm.abstract_params(model_cfg)
 
 
+def _mesh_family(spec: ArchSpec, mesh) -> None:
+    """Raise unless the family runs under the port's partitioner: the
+    dense LMs do (a MoE model on more than one rank raises in
+    ``models.transformer.Partition``)."""
+    if mesh is None or spec.family.startswith("lm"):
+        return
+    item = "A1.2" if spec.family == "gnn" else "A1.3"
+    raise NotImplementedError(
+        f"{spec.id}: the {spec.family} step on a mesh (the reference's "
+        f"GSPMD policy for the family) is not ported; ROADMAP {item}")
+
+
+def _local_batch(model, batch: dict, specs: dict, mesh) -> dict:
+    """This rank's rows of a global batch (``runtime.sharding.local_shard``
+    under each input's spec), after checking that ``model`` is placed on
+    ``mesh``."""
+    if getattr(model, "mesh", None) is not mesh:
+        raise ValueError("the model is not placed on the step's mesh "
+                         "(runtime.sharding.shard_params / init_params(mesh=))")
+    return {k: shd.local_shard(v, mesh, specs[k]).contiguous()
+            for k, v in batch.items()}
+
+
 def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None,
-                    take_fn=None, cand_take_fn=None) -> Callable:
+                    take_fn=None, cand_take_fn=None, mesh=None) -> Callable:
     """``serve_step(model, batch)`` of an inference cell, as the
     reference's: prefill takes ``{"tokens": (B, S)}`` and returns the f32
     logits (B, S, vocab); decode takes ``{"tokens": (B, 1), "cache",
@@ -230,10 +253,25 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None,
     T))`` (``geo_forward``). MIND's, under inference mode: a serve cell's
     scores (B, C) (``models.recsys.mind_serve``), a retrieval cell's (C,)
     (``mind_retrieval``), their lookups through ``take_fn`` and
-    ``cand_take_fn`` where given."""
+    ``cand_take_fn`` where given.
+
+    With ``mesh`` an LM's step runs on a model placed on it
+    (``runtime.sharding.shard_params``): each rank takes its rows of the global
+    ``tokens`` (``lm_batch_specs``) and returns its shard of the logits,
+    (B / data, S, vocab / model) at prefill and (B / data, vocab / model)
+    at decode, whose cache is this rank's shard under ``lm_cache_spec``
+    (``models.transformer.init_cache(mesh=)``). Without it the step is as
+    it always was."""
     cfg = model_cfg or cell_model_cfg(spec, shape_name)
     _ported(spec)
+    _mesh_family(spec, mesh)
     kind = spec.shapes[shape_name]["kind"]
+
+    def _tokens(model, batch):
+        if mesh is None:
+            return batch["tokens"]
+        return _local_batch(model, {"tokens": batch["tokens"]},
+                            shd.lm_batch_specs(mesh), mesh)["tokens"]
 
     def _model_of(model):
         if model.cfg != cfg:
@@ -257,12 +295,12 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None,
         return serve_step
     if kind == "prefill":
         def serve_step(model, batch):
-            logits, _ = tfm.forward(_model_of(model), batch["tokens"])
+            logits, _ = tfm.forward(_model_of(model), _tokens(model, batch))
             return logits
         return serve_step
     if kind == "decode":
         def serve_step(model, batch):
-            return tfm.decode_step(_model_of(model), batch["tokens"],
+            return tfm.decode_step(_model_of(model), _tokens(model, batch),
                                    batch["cache"], batch["cache_len"])
         return serve_step
     raise NotImplementedError(f"{spec.id} x {shape_name}: a {kind} cell has "
@@ -290,11 +328,17 @@ def smoke_dims(spec: ArchSpec, shape_name: str) -> dict:
 
 
 def init_params(spec: ArchSpec, model_cfg, generator: torch.Generator,
-                device="cuda"):
+                device="cuda", mesh=None):
     """A model of ``model_cfg`` drawn from ``generator`` (which lives on
     ``device``) with the reference's initial distributions: the port's
-    ``init_params`` of the family."""
+    ``init_params`` of the family. With ``mesh`` (an LM's) it is placed on
+    the mesh as it is drawn, each rank keeping its shards of the same bits
+    (``models.transformer.init_params``)."""
     _ported(spec)
+    _mesh_family(spec, mesh)
+    if mesh is not None:
+        return tfm.init_params(model_cfg, generator, device=device,
+                               mesh=mesh)
     if spec.family == "gnn":
         return gnn_mod.init_params(model_cfg, generator, device=device)
     if spec.family == "recsys":
@@ -323,7 +367,7 @@ def loss_for(spec: ArchSpec, model_cfg, take_fn=None) -> Callable:
 
 def make_train_step(spec: ArchSpec, model_cfg,
                     opt_cfg: adamw.AdamWConfig | None = None,
-                    take_fn=None) -> Callable:
+                    take_fn=None, mesh=None) -> Callable:
     """``train_step(model, opt_state, batch) -> (model, opt_state,
     {"loss", "grad_norm", "lr"})``, the reference's: the loss and the
     gradient of every parameter (autograd through the kernels' backward
@@ -331,15 +375,30 @@ def make_train_step(spec: ArchSpec, model_cfg,
     returns new arrays, the step updates ``model``'s parameters and the
     moments of ``opt_state`` IN PLACE and returns the same objects; the
     metrics are 0-dim tensors on the model's device. ``take_fn`` is
-    MIND's lookup (:func:`loss_for`)."""
+    MIND's lookup (:func:`loss_for`).
+
+    With ``mesh`` an LM's step runs on a model placed on it
+    (``runtime.sharding.shard_params`` or ``init_params(mesh=)``) and on the
+    moments of its shards: each rank takes its rows of the global batch
+    (:func:`batch_specs`), the layers run under the partitioner, AdamW's
+    norm spans the mesh (``adamw.global_norm``), and ``loss``,
+    ``grad_norm`` and ``lr`` are the global values, the same on every
+    rank. Without it the step is as it always was."""
     _ported(spec)
+    _mesh_family(spec, mesh)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     loss = loss_for(spec, model_cfg, take_fn=take_fn)
+    p_specs = b_specs = None
+    if mesh is not None:
+        p_specs = param_specs(spec, tfm.abstract_params(model_cfg), mesh)
+        b_specs = shd.lm_batch_specs(mesh)
 
     def train_step(model, opt_state, batch):
         if model.cfg != model_cfg:
             raise ValueError(f"the model is {model.cfg.name}, the step was "
                              f"made for {model_cfg.name}")
+        if mesh is not None:
+            batch = _local_batch(model, batch, b_specs, mesh)
         params = dict(model.named_parameters())
         for p in params.values():
             p.requires_grad_(True)
@@ -351,7 +410,7 @@ def make_train_step(spec: ArchSpec, model_cfg,
             lval, list(params.values()), allow_unused=True,
             materialize_grads=True)))
         _, opt_state, metrics = adamw.apply_updates(opt_cfg, params, grads,
-                                                    opt_state)
+                                                    opt_state, p_specs, mesh)
         return model, opt_state, {"loss": lval.detach(), **metrics}
 
     return train_step

@@ -31,9 +31,12 @@ them.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from ..runtime import sharding as shd
 from .batch_query import DeviceIndex, device_index, to_device
 from .core_time import CoreTimeTable, StratifiedCoreTable
 from .pecb_index import PECBIndex, StratifiedPECB
@@ -84,7 +87,7 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def lm_params_from_reference(tree) -> dict[str, torch.Tensor]:
+def lm_params_from_reference(tree, mesh=None) -> dict[str, torch.Tensor]:
     """The port's LM state dict from a reference LM params pytree.
 
     ``tree`` is ``repro.models.transformer.init_params``'s dict as numpy
@@ -93,7 +96,9 @@ def lm_params_from_reference(tree) -> dict[str, torch.Tensor]:
     as ml_dtypes' bfloat16 or as float32. Returns ``{name: tensor}`` under
     the names of ``models.transformer.Transformer`` (``layers.<i>.wq``,
     ``layers.<i>.ffn.wi``, ...), each tensor of its array's dtype exactly,
-    for ``Transformer.load_state_dict``."""
+    for ``Transformer.load_state_dict``. With ``mesh``, this rank's shard
+    of each (``runtime.sharding.shard_params`` under
+    ``lm_param_spec_tree``), for ``models.transformer.placed``."""
     state = {name: _tensor(tree[name]) for name in ("embed", "head", "ln_f")}
 
     def split(prefix: str, node: dict) -> None:
@@ -106,7 +111,9 @@ def lm_params_from_reference(tree) -> dict[str, torch.Tensor]:
                 state[f"layers.{i}.{prefix}{name}"] = stacked[i]
 
     split("", tree["layers"])
-    return state
+    if mesh is None:
+        return state
+    return shd.shard_params(state, shd.lm_param_spec_tree(state, mesh), mesh)
 
 
 def gnn_params_from_reference(tree) -> dict[str, torch.Tensor]:
@@ -140,7 +147,7 @@ def mind_params_from_reference(tree) -> dict[str, torch.Tensor]:
     return {name: _tensor(tree[name]) for name in ("item_embed", "S")}
 
 
-def adamw_state_from_reference(state) -> dict:
+def adamw_state_from_reference(state, mesh=None) -> dict:
     """The port's AdamW state (``optim.adamw.init_state``'s form) from the
     reference's ``{"mu", "nu", "step"}`` (``repro.optim.adamw``'s state as
     numpy arrays): ``mu`` and ``nu``, pytrees of the params' structure,
@@ -151,11 +158,21 @@ def adamw_state_from_reference(state) -> dict:
     (:func:`gnn_params_from_reference`; NequIP and MACE have an ``embed``
     too, an MLP where an LM's is a table), MIND's a flat dict with an
     ``item_embed`` (:func:`mind_params_from_reference`). CPU tensors;
-    ``.to(device)`` them for the card."""
+    ``.to(device)`` them for the card. With ``mesh`` (an LM's), the
+    moments are this rank's shards under the parameters' specs
+    (``lm_opt_spec_tree``), as :func:`lm_params_from_reference` places
+    the parameters."""
     mu = state["mu"]
-    carry = (mind_params_from_reference if "item_embed" in mu else
-             lm_params_from_reference if isinstance(mu.get("layers"), dict)
-             else gnn_params_from_reference)
+    if mesh is not None:
+        if not isinstance(mu.get("layers"), dict):
+            raise NotImplementedError("moments placed on a mesh: the LM "
+                                      "family's only (ROADMAP A1.2, A1.3)")
+        carry = functools.partial(lm_params_from_reference, mesh=mesh)
+    else:
+        carry = (mind_params_from_reference if "item_embed" in mu else
+                 lm_params_from_reference if isinstance(mu.get("layers"),
+                                                        dict)
+                 else gnn_params_from_reference)
     return {"mu": carry(state["mu"]), "nu": carry(state["nu"]),
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32)}

@@ -11,7 +11,9 @@
   (NCCL on ``"cuda"``, gloo on ``"cpu"``, its rendezvous an in-memory
   ``HashStore``), made at the first call, never at import.
 * :func:`make_mesh` joins ``world_size`` processes through a store (a
-  ``FileStore`` in the tests) and gives their ``DeviceMesh``.
+  ``FileStore`` in the tests) and gives their ``DeviceMesh``. On
+  ``"cuda"`` rank r runs on ``cuda:r`` (set before the process group is
+  made), one rank per card: more ranks than visible cards raises.
 
 The backend follows the device, with no fallback between them: a CUDA
 mesh without a card or without NCCL raises. Every process group gets a
@@ -97,6 +99,11 @@ def init_process_group(device: str, store, rank: int,
     already made is kept if it has this backend and size, and raises
     otherwise."""
     backend = backend_for(device)
+    if device == "cuda" and world_size > torch.cuda.device_count():
+        raise RuntimeError(
+            f"a CUDA mesh of {world_size} ranks puts one rank on each card "
+            f"and {torch.cuda.device_count()} are visible: two ranks on one "
+            "card would share it, which NCCL refuses (no fallback to gloo)")
     if dist.is_initialized():
         have = (dist.get_backend(), dist.get_world_size())
         if have != (backend, world_size):
@@ -105,7 +112,7 @@ def init_process_group(device: str, store, rank: int,
                                f"over {world_size}")
         return
     if device == "cuda":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.cuda.set_device(rank)
     dist.init_process_group(
         backend, store=store, rank=rank, world_size=world_size,
         timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))

@@ -36,12 +36,24 @@ the backward pass (``torch.utils.checkpoint``, the reference's
 transposed operands, B6's backward; ``kernels/ops.py``); the embedding's
 gradient is PyTorch's own scatter of the indexing backward.
 
+Every layer function runs under the model's :class:`Partition`
+(:func:`partition_of`). A model placed on a ``(data, model)`` mesh
+(``runtime.sharding.shard_params``, :func:`init_params` with ``mesh``)
+computes on this rank's shards, the reference's GSPMD step written out
+over ``torch.distributed``: FSDP over ``data``, Megatron TP over
+``model``, the logits split over the vocabulary and the loss
+vocab-parallel. A dense model only: a MoE model on more than one rank
+raises. A model holding whole tensors runs under :class:`Whole`, the
+partition of no mesh, which uses each weight as held and exchanges
+nothing.
+
 The reference's sharding hooks (:func:`set_activation_sharding`,
 :func:`set_moe_sharding`, :func:`set_weight_use_sharding`) pin layouts
-for XLA's partitioner at the same call sites. PyTorch has no partitioner
-and the kernels take plain tensors, so here each hook, given a
-``runtime.sharding.NamedPlacement``, checks the tensor's layout against
-it: the identity on a mesh of one rank, ``NotImplementedError`` on more.
+for XLA's partitioner at the same call sites. Here each hook, given a
+``runtime.sharding.NamedPlacement``, checks the tensor's layout
+(:func:`check_layout`): the identity on a mesh of one rank; on more, the
+local shard of the layout :class:`Partition` produces at that site, and
+``NotImplementedError`` for any other layout or site.
 :func:`set_moe_impl` replaces the whole routed-expert path of
 :func:`moe_ffn` (``runtime.moe_a2a.make_a2a_moe``: the all-to-all
 dispatch over explicit collectives, which runs at any number of ranks).
@@ -143,10 +155,11 @@ class DenseFFN(nn.Module):
         self.wg = _param((d, f), dt, device)
         self.wo = _param((f, d), dt, device)
 
-    def forward(self, x):
-        return linear(silu(linear(x, _use_w(self.wg, "ffn.wg")))
-                      * linear(x, _use_w(self.wi, "ffn.wi")),
-                      _use_w(self.wo, "ffn.wo"))
+    def forward(self, x, part: "Partition"):
+        return part.row_parallel(
+            silu(linear(x, _w(self.wg, "ffn.wg", "ffn.wg", part)))
+            * linear(x, _w(self.wi, "ffn.wi", "ffn.wi", part)),
+            _w(self.wo, "ffn.wo", "ffn.wo", part))
 
 
 class MoE(nn.Module):
@@ -211,16 +224,30 @@ class Transformer(nn.Module):
 
 @torch.no_grad()
 def init_params(cfg: LMConfig, generator: torch.Generator,
-                device="cuda") -> Transformer:
+                device="cuda", mesh=None) -> Transformer:
     """A model with the reference's initial distributions
     (``transformer.py:110-162``): dense weights N(0, 1/d_in) in
     ``cfg.dtype``, the router N(0, 1/d) in f32, the embedding
     N(0, 0.02^2), RMSNorm gains 1, QKV biases 0. The (E, d, f) and
     (s, d, f) expert weights take the reference's scale 1/sqrt(shape[0]),
     i.e. 1/sqrt(E) and 1/sqrt(s). Drawn from ``generator``, which lives on
-    ``device``; the bits are not the reference's."""
-    model = Transformer(cfg, device)
-    for name, p in model.named_parameters():
+    ``device``; the bits are not the reference's.
+
+    With ``mesh`` the model is placed (``runtime.sharding.shard_params``
+    under ``lm_param_spec_tree``) as it is drawn: each
+    leaf drawn whole, in the same order from the same generator, and only
+    this rank's shard kept, so the shards' bits are those of the unplaced
+    model's and the peak is one whole leaf, never the model."""
+    if mesh is None:
+        model = Transformer(cfg, device)
+    else:
+        from ..runtime import sharding as shd
+        Partition(cfg, mesh)
+        model = Transformer(cfg, device="meta")
+        specs = shd.lm_param_spec_tree(model, mesh)
+    for name, p in list(model.named_parameters()):
+        if mesh is not None:
+            p = torch.empty(p.shape, dtype=p.dtype, device=device)
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("ln1", "ln2", "ln_f"):
             p.fill_(1.0)
@@ -231,6 +258,10 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
             p.copy_(torch.randn(p.shape, generator=generator,
                                 device=p.device, dtype=torch.float32)
                     .mul_(scale))
+        if mesh is not None:
+            shd.set_param(model, name, shd.shard_of(p, mesh, specs[name]))
+    if mesh is not None:
+        model.mesh = mesh
     return model
 
 
@@ -277,28 +308,61 @@ def set_moe_impl(fn):
     MOE_IMPL = fn
 
 
-def check_layout(x: torch.Tensor, sharding) -> torch.Tensor:
+def _norm_spec(spec) -> tuple:
+    """A spec's entries as tuples of axis names, trailing ``()`` dropped,
+    so that ``P("data", None)`` and ``P(("data",))`` compare equal."""
+    out = [() if part is None else (part,) if isinstance(part, str)
+           else tuple(part) for part in spec]
+    while out and out[-1] == ():
+        out.pop()
+    return tuple(out)
+
+
+def check_layout(x: torch.Tensor, sharding, produced=None) -> torch.Tensor:
     """``x``, after checking it against ``sharding`` (a
     ``runtime.sharding.NamedPlacement``): its spec must fit x's rank. On a
-    mesh of more than one rank it raises ``NotImplementedError``: the
-    reference's ``with_sharding_constraint`` asks XLA's partitioner to lay
-    x out, and the port has none (its kernels take whole local
-    tensors)."""
+    mesh of one rank that is all. On more, the reference's
+    ``with_sharding_constraint`` asks XLA's partitioner to lay x out; the
+    port's partitioner (:class:`Partition`, a dense LM placed by
+    ``runtime.sharding.shard_params``) lays out what it lays out, and
+    ``produced`` is that: ``(spec, global shape)`` of the tensor at this
+    site on the partitioner's mesh. x must then be the local shard of that
+    layout, and ``sharding`` must name it. Any other spec, or a site the
+    partitioner does not run (``produced`` None: an unplaced model, a MoE
+    buffer, a GNN's nodes), raises ``NotImplementedError`` naming the
+    spec: nothing is silently replicated."""
     spec = sharding.spec
     if sharding.size > 1:
-        raise NotImplementedError(
-            f"a sharding hook on a mesh of {sharding.size} ranks: the port "
-            f"has no GSPMD partitioner to lay out {spec}; only the explicit "
-            "bodies (vp take, a2a MoE, compressed mean) run on several ranks")
+        if produced is None:
+            raise NotImplementedError(
+                f"a sharding hook asks for {spec} on a mesh of "
+                f"{sharding.size} ranks at a site the port's partitioner "
+                "does not run: it partitions the dense LM step of a model "
+                "placed by runtime.sharding.shard_params; beside it only "
+                "the explicit bodies (vp take, a2a MoE, compressed mean) "
+                "run on several ranks")
+        want, global_shape, mesh = produced
+        from ..runtime import sharding as shd
+        if _norm_spec(spec) != _norm_spec(want) or \
+                shd.axis_sizes(sharding.mesh) != shd.axis_sizes(mesh):
+            raise NotImplementedError(
+                f"the port's partitioner does not produce the layout {spec} "
+                f"on {shd.axis_sizes(sharding.mesh)}: at this site it lays "
+                f"the tensor out as {want} on {shd.axis_sizes(mesh)}")
+        local = shd.shard_shape(global_shape, want, mesh)
+        if tuple(x.shape) != local:
+            raise ValueError(f"a local tensor of shape {tuple(x.shape)}, the "
+                             f"layout {want} of {tuple(global_shape)} gives "
+                             f"{local}")
     if len(spec) > x.dim():
         raise ValueError(f"spec {spec} has more entries than the tensor's "
                          f"{x.dim()} dims")
     return x
 
 
-def _constrain(x):
+def _constrain(x, part: "Partition"):
     if ACT_SHARDING is not None and x.dim() == 3:
-        return check_layout(x, ACT_SHARDING)
+        return check_layout(x, ACT_SHARDING, part.act_layout(x))
     return x
 
 
@@ -308,10 +372,212 @@ def _constrain_moe(x, which: int):
     return x
 
 
-def _use_w(w, tag: str):
+def _use_w(w, tag: str, part=None):
     if WEIGHT_USE_SHARDING is not None and tag in WEIGHT_USE_SHARDING:
-        return check_layout(w, WEIGHT_USE_SHARDING[tag])
+        produced = None if part is None else part.use_layout(tag)
+        return check_layout(w, WEIGHT_USE_SHARDING[tag], produced)
     return w
+
+
+# ----------------------------------------------------------------------
+# the partitioner: the dense LM step on this rank's shards
+# ----------------------------------------------------------------------
+
+def kv_heads(n_head: int, n_kv: int, model_size: int, m: int
+             ) -> tuple[int, int]:
+    """``(lo, hi)``: the kv heads rank ``m`` of ``model_size`` attends
+    with, its query heads being ``m * n_head / model_size`` on (contiguous
+    column blocks of ``wq``). Where the kv heads divide the axis they are
+    split like the query heads; where the axis is a multiple of them (glm4's
+    2 kv heads on 4 ranks) every rank's query heads share one kv head,
+    ``m * n_kv // model_size``. Any other ratio raises."""
+    if n_head % model_size:
+        raise NotImplementedError(f"{n_head} query heads do not split over "
+                                  f"{model_size} ranks of 'model'")
+    if n_kv % model_size == 0:
+        per = n_kv // model_size
+        return m * per, (m + 1) * per
+    if model_size % n_kv:
+        raise NotImplementedError(f"{n_kv} kv heads neither divide nor are "
+                                  f"divided by {model_size} ranks of 'model'")
+    lo = m * n_kv // model_size
+    return lo, lo + 1
+
+
+class Partition:
+    """How a model placed on ``mesh`` (``runtime.sharding.shard_params``
+    under ``lm_param_spec_tree``) runs its layers on this rank's shards:
+    the reference's GSPMD step written out.
+
+    * FSDP over the data axes: a weight's d_model side is gathered at use
+      (``sharding.gather_at_use``, whose backward reduce-scatters the
+      gradient); a leaf replicated over a data axis has its gradient summed
+      over it (``grad_sum``).
+    * Megatron TP over ``model``: ``wq``/``wk``/``wv``, ``ffn.wi``/``wg``
+      column-parallel, ``attn.wo``/``ffn.wo`` row-parallel with their f32
+      partial products summed (``psum``); the replicated activation
+      entering a column-parallel product takes ``grad_sum`` over ``model``.
+      Query heads split over ``model``; kv heads too where they divide it,
+      else ``wk``/``wv``/``bk``/``bv`` are gathered over ``model`` as well
+      (their gradients reduce-scattered back) and each rank attends with
+      the kv head of its query heads (:func:`kv_heads`).
+    * The embedding and the head are split over ``model`` along d_model and
+      the vocabulary: the lookup's columns are gathered, the logits stay
+      split and the loss is vocab-parallel (:func:`loss_fn`).
+
+    Exchanges over an axis of one rank are left out (they would be
+    copies): on a one-rank mesh the step makes none and is the unsharded
+    one bit for bit. A MoE model on more than one rank raises."""
+
+    def __init__(self, cfg: LMConfig, mesh):
+        from ..runtime import sharding as shd
+        self.shd, self.cfg, self.mesh = shd, cfg, mesh
+        sizes = shd.axis_sizes(mesh)
+        self.size = math.prod(sizes.values())
+        if cfg.moe is not None and self.size > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the MoE layer on a mesh of {self.size} ranks "
+                "(experts over 'model' where they divide it, TP inside "
+                "each expert where not) is not ported; ROADMAP A1.1")
+        self.sizes = sizes
+        self.dp = shd.dp_axes(mesh)
+        self.D = math.prod(sizes[a] for a in self.dp)
+        self.M, self.m = sizes["model"], shd.axis_index(mesh, "model")
+        self.kv_lo, kv_hi = kv_heads(cfg.n_head, cfg.n_kv, self.M, self.m)
+        self.kv_split = cfg.n_kv % self.M == 0
+        self.hq = cfg.n_head // self.M
+        #: kv heads this rank computes: its own, or all where replicated
+        self.hk = kv_hi - self.kv_lo if self.kv_split else cfg.n_kv
+        one = abstract_params(dataclasses.replace(cfg, n_layer=1))
+        self.specs = {n.removeprefix("layers.0."): sp for n, sp in
+                      shd.lm_param_spec_tree(one, mesh).items()}
+        self.shapes = {n.removeprefix("layers.0."): tuple(t.shape)
+                       for n, t in one.named_parameters()}
+
+    def live(self, axes) -> tuple:
+        """The axes of ``axes`` with more than one rank: an exchange over
+        one rank is a copy, and the partitioner makes none."""
+        return tuple(a for a in self.shd._axes(axes) if self.sizes[a] > 1)
+
+    def at_use(self, w: torch.Tensor, leaf: str,
+               gather_model: bool = False) -> torch.Tensor:
+        """The leaf's shard as the layer uses it: gathered over the data
+        axes it is split on (and over ``model`` with ``gather_model``),
+        its gradient summed over the data axes it is replicated on."""
+        shd, spec = self.shd, self.specs[leaf]
+        split = set()
+        for d, part in enumerate(spec):
+            for a in reversed(self.live(part)):
+                if a in self.dp or (gather_model and a == "model"):
+                    w = shd.gather_at_use(w, self.mesh, a, d)
+            split.update(shd._axes(part))
+        return shd.grad_sum(w, self.mesh,
+                            self.live(tuple(a for a in self.dp
+                                            if a not in split)))
+
+    def replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f: the identity, the gradient summed over ``model``
+        (x, the same on every model rank, enters a column-parallel
+        product, each of whose shards sees only its columns)."""
+        return self.shd.grad_sum(x, self.mesh, self.live("model"))
+
+    def row_parallel(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ w`` of a row-parallel weight: each rank's f32 partial
+        product (B5) summed over ``model``, then rounded to x's dtype as
+        :func:`linear` rounds."""
+        lead = x.shape[:-1]
+        y = self.shd.psum(ops.matmul(x.reshape(-1, x.shape[-1]), w),
+                          self.mesh, self.live("model"))
+        return y.to(x.dtype).reshape(*lead, w.shape[1])
+
+    def gather_model(self, x: torch.Tensor) -> torch.Tensor:
+        """x's last dimension gathered over ``model`` (the embedding's
+        columns); the backward keeps this rank's columns, since every model
+        rank holds the same cotangent."""
+        if self.M == 1:
+            return x
+        return self.shd.all_gather_tiled(x, self.mesh, "model", dim=-1)
+
+    # -- the layouts the hooks check against --------------------------
+    def act_layout(self, x):
+        return (self.shd.P(self.dp, None, None),
+                (x.shape[0] * self.D, *x.shape[1:-1], self.cfg.d_model),
+                self.mesh)
+
+    def use_layout(self, tag: str):
+        leaf = tag.removeprefix("attn.")
+        P = self.shd.P
+        if leaf in ("wo", "ffn.wo"):
+            spec = P("model", None)
+        elif leaf in ("wk", "wv") and not self.kv_split:
+            spec = P(None, None)
+        elif leaf in ("wq", "wk", "wv", "ffn.wi", "ffn.wg"):
+            spec = P(None, "model")
+        else:
+            return None
+        return spec, self.shapes[leaf], self.mesh
+
+
+class Whole(Partition):
+    """The partition of a model holding whole tensors: no mesh, every axis
+    of one rank, no process group. Each weight is used as it is held, no
+    exchange is made and the query and kv heads are all this model's, so
+    the layer functions' one body is the unsharded model; no site has a
+    partitioned layout for the hooks to check against
+    (:func:`check_layout`)."""
+
+    def __init__(self, cfg: LMConfig):
+        from ..runtime import sharding as shd
+        self.shd, self.cfg, self.mesh = shd, cfg, None
+        self.sizes, self.size, self.dp, self.D = {}, 1, (), 1
+        self.M = 1
+        self.m = self.kv_lo = 0
+        self.kv_split = True
+        self.hq, self.hk = cfg.n_head, cfg.n_kv
+
+    def live(self, axes) -> tuple:
+        return ()
+
+    def at_use(self, w, leaf, gather_model=False):
+        return w
+
+    def act_layout(self, x):
+        return None
+
+    def use_layout(self, tag):
+        return None
+
+
+def partition_of(model: "Transformer") -> Partition:
+    """The model's :class:`Partition`, made once: a placed model's (one
+    with a ``mesh``, set by ``runtime.sharding.shard_params``), or
+    :class:`Whole` for a model holding whole tensors."""
+    mesh = getattr(model, "mesh", None)
+    part = model.__dict__.get("_partition")
+    if part is None or part.mesh is not mesh or part.cfg is not model.cfg:
+        part = Whole(model.cfg) if mesh is None else Partition(model.cfg,
+                                                               mesh)
+        model.__dict__["_partition"] = part
+    return part
+
+
+def placed(cfg: LMConfig, shards: dict, mesh) -> "Transformer":
+    """A model of ``cfg`` on ``mesh`` from this rank's shards (``{name:
+    tensor}``, e.g. ``core.carry.lm_params_from_reference(tree, mesh)``),
+    each checked against its spec's shard shape."""
+    from ..runtime import sharding as shd
+    Partition(cfg, mesh)
+    model = Transformer(cfg, device="meta")
+    specs = shd.lm_param_spec_tree(model, mesh)
+    for name, p in list(model.named_parameters()):
+        want = shd.shard_shape(p.shape, specs[name], mesh)
+        if tuple(shards[name].shape) != want:
+            raise ValueError(f"{name}: a shard of {tuple(shards[name].shape)}"
+                             f", {specs[name]} of {tuple(p.shape)} gives "
+                             f"{want}")
+        shd.set_param(model, name, shards[name])
+    model.mesh = mesh
+    return model
 
 
 # ----------------------------------------------------------------------
@@ -373,34 +639,62 @@ def rope(x, positions, theta):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def qkv(p: Block, cfg: LMConfig, x, positions):
+def _w(w, leaf: str, tag: str, part: Partition, gather_model: bool = False):
+    """A weight at its use: the partition's gathered shard (the weight
+    itself under :class:`Whole`), checked against the hook's layout."""
+    return _use_w(part.at_use(w, leaf, gather_model), tag, part)
+
+
+def qkv(p: Block, cfg: LMConfig, x, positions, part: Partition):
     """The attention's inputs of one layer: q (B, S, H, dh) and k, v
-    (B, S, Hkv, dh) in x's dtype, q and k rotated."""
+    (B, S, Hkv, dh) in x's dtype, q and k rotated. H is the partition's
+    query heads and Hkv its kv heads, or all of them where they are
+    replicated over ``model``."""
     B, S, _ = x.shape
-    q = linear(x, _use_w(p.wq, "attn.wq"))
-    k = linear(x, _use_w(p.wk, "attn.wk"))
-    v = linear(x, _use_w(p.wv, "attn.wv"))
+    kv_model = not part.kv_split
+    q = linear(x, _w(p.wq, "wq", "attn.wq", part))
+    k = linear(x, _w(p.wk, "wk", "attn.wk", part, kv_model))
+    v = linear(x, _w(p.wv, "wv", "attn.wv", part, kv_model))
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = rope(q.reshape(B, S, cfg.n_head, cfg.d_head), positions,
-             cfg.rope_theta)
-    k = rope(k.reshape(B, S, cfg.n_kv, cfg.d_head), positions,
-             cfg.rope_theta)
-    return q, k, v.reshape(B, S, cfg.n_kv, cfg.d_head)
+        q = q + part.at_use(p.bq, "bq")
+        k = k + part.at_use(p.bk, "bk", kv_model)
+        v = v + part.at_use(p.bv, "bv", kv_model)
+    q = rope(q.reshape(B, S, part.hq, cfg.d_head), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, S, part.hk, cfg.d_head), positions, cfg.rope_theta)
+    return q, k, v.reshape(B, S, part.hk, cfg.d_head)
 
 
-def attention_block(p: Block, cfg: LMConfig, x, positions, *, cache=None,
-                    cache_len=None):
+def _attend_one_kv(q, ck, cv, lo: int, t_real: int):
+    """Decode attention of this rank's query heads over one kv head
+    ``lo`` of a cache holding all of them (kv heads replicated over
+    ``model``): the query heads put in that head's group of a query
+    tensor zero elsewhere, so B6's GQA pairs them with head ``lo``."""
+    B, S, hq, dh = q.shape
+    qp = q.new_zeros(B, S, ck.shape[2] * hq, dh)
+    qp[:, :, lo * hq:(lo + 1) * hq] = q
+    out = ops.flash_attention(qp, ck, cv, causal=False, t_real=t_real)
+    return out[:, :, lo * hq:(lo + 1) * hq].contiguous()
+
+
+def attention_block(p: Block, cfg: LMConfig, x, positions, part: Partition,
+                    *, cache=None, cache_len=None):
     """Attention of one layer: (B, S, d) -> (B, S, d) in x's dtype.
 
     ``cache`` is this layer's ``(k, v)``, each (B, T, Hkv, dh): the new
     token's k/v are written into it IN PLACE at ``cache_len`` (the
     reference returns an updated copy) and attention reads its first
     ``cache_len + 1`` slots, in the cache's dtype; the attention's output
-    goes into ``wo`` in that dtype, and the result is rounded to x's."""
+    goes into ``wo`` in that dtype, and the result is rounded to x's.
+    The heads are the partition's, the cache holds its kv heads (all of
+    them where they are replicated: every model rank writes them all) and
+    ``wo`` is row-parallel."""
     B, S, _ = x.shape
-    q, k, v = qkv(p, cfg, x, positions)
+    q, k, v = qkv(p, cfg, x, positions, part)
+    one_kv = not part.kv_split
     if cache is None:
+        if one_kv:
+            lo = part.kv_lo
+            k, v = (t[:, :, lo:lo + 1].contiguous() for t in (k, v))
         out = ops.flash_attention(q, k, v, causal=True)
     else:
         ck, cv = cache
@@ -409,10 +703,14 @@ def attention_block(p: Block, cfg: LMConfig, x, positions, *, cache=None,
         # a cache of another dtype: q takes the cache's (the reference's
         # einsum promotes bf16 q over an f32 cache to f32), the cache is
         # never cast
-        out = ops.flash_attention(q.to(ck.dtype), ck, cv, causal=False,
-                                  t_real=cache_len + 1)
-    out = linear(out.reshape(B, S, cfg.n_head * cfg.d_head),
-                 _use_w(p.wo, "attn.wo"))
+        if one_kv:
+            out = _attend_one_kv(q.to(ck.dtype), ck, cv, part.kv_lo,
+                                 cache_len + 1)
+        else:
+            out = ops.flash_attention(q.to(ck.dtype), ck, cv, causal=False,
+                                      t_real=cache_len + 1)
+    flat = out.reshape(B, S, q.shape[2] * cfg.d_head)
+    out = part.row_parallel(flat, _w(p.wo, "wo", "attn.wo", part))
     return out.to(x.dtype)
 
 
@@ -587,17 +885,19 @@ def moe_ffn(p: MoE, cfg: LMConfig, x: torch.Tensor):
     return out.reshape(B, S, d), aux
 
 
-def _layer(p: Block, cfg: LMConfig, x, positions, cache=None,
-           cache_len=None):
+def _layer(p: Block, cfg: LMConfig, x, positions, part: Partition,
+           cache=None, cache_len=None):
     """One layer: ``(x, aux)``, aux the MoE loss (a 0-dim f32 tensor) or
-    None for a dense layer."""
-    x = _constrain(x + attention_block(p, cfg, rms_norm(x, p.ln1), positions,
-                                       cache=cache, cache_len=cache_len))
-    h = rms_norm(x, p.ln2)
+    None for a dense layer; on this rank's shards under ``part``."""
+    h = part.replicated(rms_norm(x, part.at_use(p.ln1, "ln1")))
+    x = _constrain(x + attention_block(p, cfg, h, positions, part,
+                                       cache=cache, cache_len=cache_len),
+                   part)
+    h = part.replicated(rms_norm(x, part.at_use(p.ln2, "ln2")))
     if cfg.moe is None:
-        return _constrain(x + p.ffn(h)), None
-    f, aux = moe_ffn(p.moe, cfg, h)
-    return _constrain(x + f), aux
+        return _constrain(x + p.ffn(h, part), part), None
+    f, aux = moe_ffn(p.moe, cfg, h)         # one rank: the whole layer
+    return _constrain(x + f, part), aux
 
 
 def _sum_aux(auxes: list, device) -> torch.Tensor:
@@ -610,21 +910,37 @@ def _sum_aux(auxes: list, device) -> torch.Tensor:
 # full model
 # ----------------------------------------------------------------------
 
+def _embed(model: Transformer, part: Partition,
+           ids: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``ids`` (in range): on a placed model this
+    rank's d / model columns of them, gathered over ``model``."""
+    return part.gather_model(part.at_use(model.embed, "embed")[ids])
+
+
+def _head(model: Transformer, part: Partition,
+          x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head: f32 logits, on a placed model this
+    rank's vocab / model columns of them (never gathered)."""
+    x = part.replicated(rms_norm(x, part.at_use(model.ln_f, "ln_f")))
+    return linear(x, part.at_use(model.head, "head")).float()
+
+
 @torch.inference_mode()
 def forward(model: Transformer, tokens: torch.Tensor):
     """tokens (B, S) -> (logits (B, S, vocab) in f32, aux). ``aux`` is the
     reference's MoE auxiliary loss summed over the layers: 0 for a dense
-    model."""
+    model. A placed model (:class:`Partition`) takes this rank's rows of
+    the batch and gives its (B / data, S, vocab / model) logits."""
     cfg = model.cfg
+    part = partition_of(model)
     S = tokens.shape[1]
-    x = _constrain(model.embed[tokens])
+    x = _constrain(_embed(model, part, tokens), part)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     auxes = []
     for p in model.layers:
-        x, aux = _layer(p, cfg, x, positions)
+        x, aux = _layer(p, cfg, x, positions, part)
         auxes.append(aux)
-    x = rms_norm(x, model.ln_f)
-    return linear(x, model.head).float(), _sum_aux(auxes, x.device)
+    return _head(model, part, x), _sum_aux(auxes, x.device)
 
 
 def train_forward(model: Transformer, tokens: torch.Tensor):
@@ -639,22 +955,23 @@ def train_forward(model: Transformer, tokens: torch.Tensor):
     emits the id ``vocab`` now and then: its f32 CDF ends a little below
     1)."""
     cfg = model.cfg
+    part = partition_of(model)
     S = tokens.shape[1]
     ids = tokens.long()
-    x = model.embed[ids.clamp(0, cfg.vocab - 1)]
     inside = ((ids >= 0) & (ids < cfg.vocab))[..., None]
-    x = _constrain(torch.where(inside, x, x.detach()))
+    x = part.at_use(model.embed, "embed")[ids.clamp(0, cfg.vocab - 1)]
+    x = _constrain(part.gather_model(torch.where(inside, x, x.detach())),
+                   part)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     auxes = []
     for p in model.layers:
         if cfg.remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                _layer, p, cfg, x, positions, use_reentrant=False)
+                _layer, p, cfg, x, positions, part, use_reentrant=False)
         else:
-            x, aux = _layer(p, cfg, x, positions)
+            x, aux = _layer(p, cfg, x, positions, part)
         auxes.append(aux)
-    x = rms_norm(x, model.ln_f)
-    return linear(x, model.head).float(), _sum_aux(auxes, x.device)
+    return _head(model, part, x), _sum_aux(auxes, x.device)
 
 
 def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
@@ -667,21 +984,55 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
     GB in f32 at glm4's vocab and 4,096 tokens). A label outside the
     vocabulary matches no column of the one-hot: its label logit is 0."""
     logits, aux = train_forward(model, tokens)
-    logz = torch.logsumexp(logits, dim=-1)
+    part = partition_of(model)
     lab = labels.long()
-    vocab = logits.shape[-1]
-    picked = logits.gather(-1, lab.clamp(0, vocab - 1)[..., None])[..., 0]
-    label_logit = torch.where((lab >= 0) & (lab < vocab), picked, 0.0)
-    return (logz - label_logit).mean() + aux_weight * aux
+    if part.M == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        vocab = logits.shape[-1]
+        picked = logits.gather(-1, lab.clamp(0, vocab - 1)[..., None])[..., 0]
+        label_logit = torch.where((lab >= 0) & (lab < vocab), picked, 0.0)
+    else:
+        logz, label_logit = _vocab_parallel_terms(part, logits, lab)
+    loss = part.shd.pmean((logz - label_logit).mean(), part.mesh,
+                          part.live(part.dp))
+    return loss + aux_weight * aux
+
+
+def _vocab_parallel_terms(part: Partition, logits: torch.Tensor,
+                          lab: torch.Tensor):
+    """``(logz, label_logit)`` per position from this rank's vocab / model
+    logit columns: the max and the sum of exponentials all-reduced over
+    ``model``, the label's logit taken on the rank owning its column (0
+    elsewhere, and 0 everywhere for a label outside the vocabulary) and
+    summed. The (B, S, vocab) logits are never gathered."""
+    shd, mesh = part.shd, part.mesh
+    vl = logits.shape[-1]
+    lo = part.m * vl
+    top = shd.all_reduce(logits.detach().amax(dim=-1), mesh, "model",
+                         op="max")
+    sumexp = shd.psum(torch.exp(logits - top[..., None]).sum(dim=-1), mesh,
+                      "model")
+    logz = top + torch.log(sumexp)
+    loc = lab - lo
+    own = (loc >= 0) & (loc < vl) & (lab < part.cfg.vocab)
+    picked = logits.gather(-1, loc.clamp(0, vl - 1)[..., None])[..., 0]
+    return logz, shd.psum(torch.where(own, picked, 0.0), mesh, "model")
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
-               device="cuda") -> dict:
+               device="cuda", mesh=None) -> dict:
     """Zeroed KV cache ``{"k", "v"}`` in ``dtype`` (default ``cfg.dtype``),
     each (L, B, T, Hkv, dh). A cache of another dtype than the model's is
-    attended in the cache's dtype (:func:`attention_block`)."""
+    attended in the cache's dtype (:func:`attention_block`). With ``mesh``,
+    this rank's shard under ``runtime.sharding.lm_cache_spec``: the batch
+    over the data axes, kv heads over ``model`` where they divide it."""
     dtype = dtype or cfg.dtype
     shape = (cfg.n_layer, batch, max_len, cfg.n_kv, cfg.d_head)
+    if mesh is not None:
+        from ..runtime import sharding as shd
+        spec = shd.lm_cache_spec(mesh, cfg.n_kv)["k"]
+        shd.check_divides(shape, spec, mesh, "the KV cache")
+        shape = shd.shard_shape(shape, spec, mesh)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -702,21 +1053,28 @@ def decode_step(model: Transformer, tokens: torch.Tensor, cache: dict,
 
     Unlike the reference, which returns an updated copy of the cache, the
     new token's k/v are written into ``cache`` IN PLACE (slot
-    ``cache_len`` of every layer), and the same dict is returned."""
+    ``cache_len`` of every layer), and the same dict is returned. A placed
+    model takes this rank's rows of the batch and its shard of the cache
+    (:func:`init_cache` with the mesh) and gives (B / data, vocab / model)
+    logits."""
     cfg = model.cfg
+    part = partition_of(model)
     B, S = tokens.shape
     T = cache["k"].shape[2]
+    if cache["k"].shape[1] != B or cache["k"].shape[3] != part.hk:
+        raise ValueError(f"a cache of {cache['k'].shape[1]} sequences and "
+                         f"{cache['k'].shape[3]} kv heads for {B} sequences "
+                         f"and {part.hk} kv heads on this rank")
     cache_len = int(cache_len)
     if S != 1:
         raise ValueError(f"decode_step takes one token per sequence, got {S}")
     if not 0 <= cache_len < T:
         raise ValueError(f"cache_len must lie in [0, {T}), got {cache_len}")
-    x = _constrain(model.embed[tokens])
+    x = _constrain(_embed(model, part, tokens), part)
     positions = torch.full((B, 1), cache_len, dtype=torch.int32,
                            device=x.device)
     for i, p in enumerate(model.layers):
-        x, _ = _layer(p, cfg, x, positions,
+        x, _ = _layer(p, cfg, x, positions, part,
                       cache=(cache["k"][i], cache["v"][i]),
                       cache_len=cache_len)
-    x = rms_norm(x, model.ln_f)
-    return linear(x[:, 0], model.head).float(), cache
+    return _head(model, part, x)[:, 0], cache

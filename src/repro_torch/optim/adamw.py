@@ -63,28 +63,54 @@ def init_state(params: dict[str, torch.Tensor]) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: dict[str, torch.Tensor], specs: dict | None = None,
+                mesh=None) -> torch.Tensor:
     """sqrt of the sum over the leaves of the sum of their squares, in
-    f32."""
-    total = None
-    for g in tree.values():
-        gf = g.to(torch.float32)
-        s = (gf * gf).sum()
-        total = s if total is None else total + s
-    if total is None:
+    f32, the leaves added in order. With ``mesh``, each leaf is this
+    rank's shard under ``specs[name]`` (a ``runtime.sharding.P``): its sum
+    of squares is summed over the axes the leaf is split on and counted
+    once over those it is replicated on, so the norm is the whole tree's
+    on every rank (the unsharded one bit for bit on a one-rank mesh). One
+    all-reduce per distinct set of split axes of more than one rank."""
+    if not tree:
         return torch.zeros((), dtype=torch.float32)
+    def squares(g):
+        gf = g.to(torch.float32)
+        return (gf * gf).sum()
+
+    sums = torch.stack([squares(g) for g in tree.values()])
+    if mesh is not None:
+        from ..runtime import sharding as shd
+        sizes = shd.axis_sizes(mesh)
+        split = [tuple(a for a in shd.axis_names(mesh) if sizes[a] > 1
+                       and any(a in shd._axes(part) for part in specs[n]))
+                 for n in tree]
+        for axes in dict.fromkeys(split):
+            if not axes:
+                continue
+            idx = torch.tensor([i for i, s in enumerate(split) if s == axes],
+                               device=sums.device)
+            sums[idx] = shd.all_reduce(sums[idx], mesh, axes)
+    total = sums[0]
+    for i in range(1, len(sums)):
+        total = total + sums[i]
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: dict[str, torch.Tensor],
-                  grads: dict[str, torch.Tensor], state: dict):
+                  grads: dict[str, torch.Tensor], state: dict,
+                  specs: dict | None = None, mesh=None):
     """One AdamW step IN PLACE: every parameter and moment is overwritten,
     ``state["step"]`` advanced. Returns ``(params, state, {"grad_norm",
     "lr"})`` like the reference (the same ``params`` and ``state``
-    dicts)."""
+    dicts). On a ``mesh`` the parameters, gradients and moments are this
+    rank's shards under ``specs`` (the moments share the parameters'
+    specs, ``runtime.sharding.lm_opt_spec_tree``): the update is
+    elementwise and stays local; only the norm spans the mesh
+    (:func:`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, step).to(gnorm.device)
     b1, b2 = cfg.b1, cfg.b2

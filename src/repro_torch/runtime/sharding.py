@@ -22,17 +22,21 @@ A spec (:class:`P`) is a tuple of axis names (or tuples of them, or
 the DTensor placements of a ``DeviceMesh``. In the reference the specs are
 hints to XLA's partitioner. PyTorch has no such partitioner, and the
 port's kernels take plain tensors through ctypes, where no ``DTensor``
-can enter. So the model-wide specs place parameters and batches (the
-dry run's per-device bytes, ``runtime.elastic.remesh``), and the models'
-hooks check layouts (identity on one rank, ``NotImplementedError`` on
-more; ``models/transformer.py``).
+can enter. So the model-wide specs place parameters and batches
+(:func:`shard_params`, each rank keeping its shards as tensors of their
+own; :func:`unshard_params` gathers them back; the dry run's per-device
+bytes, ``runtime.elastic.remesh``), and the dense LM's step is
+partitioned by hand on those shards (``models.transformer.Partition``:
+FSDP over ``data`` through :func:`gather_at_use`, Megatron TP over
+``model``); the models' hooks check layouts against it.
 
-What runs at any number of ranks is what the reference writes as
-explicit ``shard_map`` bodies: :func:`make_vp_take`, the all-to-all MoE
-(``runtime.moe_a2a``) and the compressed gradient mean
+Besides it, what runs at any number of ranks is what the reference
+writes as explicit ``shard_map`` bodies: :func:`make_vp_take`, the
+all-to-all MoE (``runtime.moe_a2a``) and the compressed gradient mean
 (``optim.compression``). :func:`shard_map` runs such a body on each
 rank's shard. Every collective of the runtime goes through this module
-(:func:`all_reduce`, :func:`all_gather`, :func:`all_to_all`), which counts
+(:func:`all_reduce`, :func:`all_gather`, :func:`gather`,
+:func:`reduce_scatter`, :func:`all_to_all`), which counts
 calls and result bytes per kind under the reference's kind names
 (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
 ``collective-permute``): the dry run's collective bytes and
@@ -49,6 +53,8 @@ alike on each (so each rank holds the full cotangent):
 * :func:`pmean` means; its backward divides by the group's size;
 * :func:`all_gather_tiled` gathers; its backward takes this rank's
   chunk of the cotangent;
+* :func:`gather_at_use` gathers a weight whose users differ by rank (each
+  data rank's rows of the batch); its backward reduce-scatters;
 * :func:`all_to_all_tiled` exchanges; its backward is the inverse
   exchange;
 * :func:`grad_sum` is the identity forward and sums the gradient over
@@ -221,14 +227,17 @@ def _group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
-def all_reduce(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """Sum of ``x`` over the ranks of ``axes`` (a name or a tuple of
-    them), as a new tensor: one all-reduce per axis."""
+def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
+               ) -> torch.Tensor:
+    """Sum (``op="max"``: the largest) of ``x`` over the ranks of ``axes``
+    (a name or a tuple of them), as a new tensor: one all-reduce per
+    axis."""
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     out = x.clone()
     for a in _axes(axes):
         _count("all-reduce", out)
         if out.device.type != "meta":
-            dist.all_reduce(out, group=_group(mesh, a))
+            dist.all_reduce(out, op=red, group=_group(mesh, a))
     return out
 
 
@@ -244,6 +253,41 @@ def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
             dist.all_gather_into_tensor
         gather(out, x.contiguous(), group=_group(mesh, axis))
     return out
+
+
+def gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` of ``axis`` concatenated along ``dim``, in rank
+    order, as a new contiguous tensor. Along a dimension other than 0 the
+    gathered chunks are put back in order along it (rows of an ``attn.wo``
+    shard gathered over ``data`` are column blocks, not stacked rows)."""
+    dim = dim % x.dim()
+    n = axis_sizes(mesh)[axis]
+    if dim == 0:
+        return all_gather(x, mesh, axis)
+    flat = all_gather(x, mesh, axis)                      # (n * x0, ...)
+    shape = list(x.shape)
+    shape[dim] *= n
+    return flat.view(n, *x.shape).movedim(0, dim).reshape(shape)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                   ) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis``, of which this rank
+    keeps its chunk along ``dim`` (``n`` equal chunks, in rank order), as
+    a new contiguous tensor: the transpose of :func:`gather`."""
+    dim = dim % x.dim()
+    n = axis_sizes(mesh)[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter splits dim {dim} ({x.shape[dim]}) "
+                         f"into {n} equal chunks")
+    rows = x.movedim(dim, 0).contiguous()
+    out = rows.new_empty((rows.shape[0] // n, *rows.shape[1:]))
+    _count("reduce-scatter", out)
+    if out.device.type != "meta":
+        scatter = getattr(dist, "reduce_scatter_single", None) or \
+            dist.reduce_scatter_tensor
+        scatter(out, rows, group=_group(mesh, axis))
+    return out.movedim(0, dim).contiguous()
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -294,14 +338,27 @@ class _GradSum(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.rows, ctx.index = x.shape[0], axis_index(mesh, axis)
-        return all_gather(x, mesh, axis)
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.dim = dim % x.dim()
+        ctx.size, ctx.index = x.shape[ctx.dim], axis_index(mesh, axis)
+        return gather(x, mesh, axis, ctx.dim)
 
     @staticmethod
     def backward(ctx, g):
-        lo = ctx.index * ctx.rows
-        return g[lo:lo + ctx.rows], None, None
+        return (g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None,
+                None, None)
+
+
+class _GatherAtUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None,
+                None)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -330,9 +387,21 @@ def grad_sum(x, mesh, axes):
     return _GradSum.apply(x, mesh, axes) if _axes(axes) else x
 
 
-def all_gather_tiled(x, mesh, axis: str):
-    """All-gather along dim 0; the backward keeps this rank's chunk."""
-    return _AllGather.apply(x, mesh, axis)
+def all_gather_tiled(x, mesh, axis: str, dim: int = 0):
+    """All-gather along ``dim``; the backward keeps this rank's chunk."""
+    return _AllGather.apply(x, mesh, axis, dim)
+
+
+def gather_at_use(x, mesh, axis: str, dim: int = 0):
+    """All-gather along ``dim`` (:func:`gather`) whose backward is a
+    reduce-scatter (:func:`reduce_scatter`): the cotangent summed over the
+    group, this rank's chunk kept. This is FSDP's gather of a weight at
+    use, where each rank's cotangent comes from other rows of the batch
+    (or, for kv weights gathered over ``model``, from other query heads),
+    so every rank's contribution must be added; :func:`all_gather_tiled`,
+    which keeps the chunk alone, is right only where every rank holds the
+    same cotangent."""
+    return _GatherAtUse.apply(x, mesh, axis, dim)
 
 
 def all_to_all_tiled(x, mesh, axis: str):
@@ -374,6 +443,74 @@ def to_local(x: torch.Tensor, mesh, spec: P) -> torch.Tensor:
         return x.to_local()
     split = tuple(a for part in spec for a in _axes(part))
     return local_shard(grad_sum(x, mesh, split), mesh, spec)
+
+
+def check_divides(shape, spec: P, mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` unless every split dimension of
+    ``shape`` divides evenly over its axes: the partitioner places even
+    shards only (XLA pads uneven ones)."""
+    sizes = axis_sizes(mesh)
+    for d, part in enumerate(spec):
+        count = math.prod(sizes[a] for a in _axes(part))
+        if shape[d] % count:
+            raise NotImplementedError(
+                f"{what}: dim {d} of {tuple(shape)} does not split evenly "
+                f"over {count} ranks of {_axes(part)} ({spec})")
+
+
+def shard_of(x: torch.Tensor, mesh, spec: P, what: str = "a tensor"
+             ) -> torch.Tensor:
+    """This rank's shard of the global ``x`` under ``spec`` as a tensor of
+    its own: contiguous (B5's and B6's operands are read with their
+    shapes' strides, never a view's) and owning its storage, so the
+    whole tensor can be freed. ``x`` itself where the spec keeps it
+    whole."""
+    check_divides(x.shape, spec, mesh, what)
+    local = local_shard(x, mesh, spec)
+    if local.shape == x.shape and x.is_contiguous():
+        return x
+    return local.clone(memory_format=torch.contiguous_format)
+
+
+def set_param(module: torch.nn.Module, name: str, t: torch.Tensor) -> None:
+    """Replace the parameter ``name`` (dotted) of ``module`` by ``t``,
+    keeping its ``requires_grad``."""
+    owner, _, leaf = name.rpartition(".")
+    mod = module.get_submodule(owner) if owner else module
+    old = mod._parameters[leaf]
+    mod._parameters[leaf] = torch.nn.Parameter(
+        t.detach(), requires_grad=old.requires_grad)
+
+
+@torch.no_grad()
+def shard_params(params, specs: dict, mesh):
+    """The counterpart of ``jax.device_put(params, NamedSharding)``: this
+    rank's shard of every leaf (:func:`shard_of`), ``specs`` giving each
+    name its spec. A module is placed IN PLACE (each parameter replaced by
+    its shard, ``module.mesh`` set) and returned; a name -> tensor dict
+    gives a new dict."""
+    if isinstance(params, torch.nn.Module):
+        for name, p in list(params.named_parameters()):
+            set_param(params, name, shard_of(p, mesh, specs[name], name))
+        params.mesh = mesh
+        return params
+    return {n: shard_of(t, mesh, specs[n], n) for n, t in params.items()}
+
+
+@torch.no_grad()
+def unshard_params(params, specs: dict, mesh) -> dict:
+    """The inverse of :func:`shard_params`: ``{name: the whole tensor}``
+    on every rank, each leaf's shards gathered over the axes of its spec
+    (a dimension split over several axes gathered minor axis first)."""
+    tree = _named_shapes(params)
+    out = {}
+    for name, t in tree.items():
+        full = t.detach()
+        for d, part in enumerate(specs[name]):
+            for a in reversed(_axes(part)):
+                full = gather(full, mesh, a, d)
+        out[name] = full
+    return out
 
 
 def shard_map(f, *, mesh, in_specs, out_specs):

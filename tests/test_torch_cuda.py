@@ -2399,3 +2399,40 @@ def test_wgmma_routes_on_a_second_card(cuda):
         for name, x, w in zip(("dq", "dk", "dv"), got, want):
             bound = flash_attention.bwd_error_bound(w, *scales[name])
             assert bool(((x.float() - w.float()).abs() <= bound).all()), name
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "codeqwen1.5-7b"])
+def test_mesh_one_rank_step_and_prefill_bit_equal_on_card(cuda, arch):
+    """The partitioner on the card's one-rank NCCL mesh: the smoke model
+    placed as drawn, its prefill and one train step (remat on) bit-equal
+    to the unsharded ones, through B5, B6 and their gradients."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import adamw
+    spec = configs.get(arch)
+    cfg = dataclasses.replace(spec.smoke_cfg, remat=True)
+    mesh = make_smoke_mesh("cuda")
+    a = tfm.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                        device=cuda)
+    b = tfm.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                        device=cuda, mesh=mesh)
+    toks = torch.randint(0, cfg.vocab, (2, 65), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    assert torch.equal(
+        configs.make_serve_step(spec, "prefill_32k", cfg)(a, batch),
+        configs.make_serve_step(spec, "prefill_32k", cfg, mesh=mesh)(
+            b, batch))
+    sa = adamw.init_state(dict(a.named_parameters()))
+    sb = adamw.init_state(dict(b.named_parameters()))
+    before = segment_matmul.matmul.launches
+    _, sa, ma = configs.make_train_step(spec, cfg)(a, sa, batch)
+    _, sb, mb = configs.make_train_step(spec, cfg, mesh=mesh)(b, sb, batch)
+    assert segment_matmul.matmul.launches > before
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    for x, y in zip(a.parameters(), b.parameters()):
+        assert torch.equal(x, y)
+    for n in sa["mu"]:
+        assert torch.equal(sa["mu"][n], sb["mu"][n])
+        assert torch.equal(sa["nu"][n], sb["nu"][n])

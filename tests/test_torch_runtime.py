@@ -8,19 +8,19 @@ answers. Inputs are drawn with numpy from a seed.
   reference's without the stacked L axis's leading ``None``.
 * The vp take on one rank equals the reference's on a (1, 1) mesh, ids
   ``n``, ``-1`` and ``-n-1`` included (zero rows, no gradient), forward
-  exactly and the gradient within 1e-6; on 2 and 4 gloo ranks the forward
+  exactly and the gradient within 1e-6; on 2, 4 and 8 gloo ranks the forward
   equals and the table's gradient equals the single-device one (1e-6:
   the ranks' partial sums are added in another order).
 * The a2a MoE at ``capacity_factor=8.0`` within 1e-4 of max|out| of the
   reference's ``moe_ffn`` (f32), the bound the reference's own test sets
   its a2a (there absolute, at outputs near 1; this layer's reach 1e3, so
-  relative, as tests/test_torch_moe.py holds the MoE layer), at 1, 2 and
-  4 ranks; its gradients finite, and equal to the reference's a2a
-  gradients at one rank and to the single-device ones at 2 and 4 ranks
+  relative, as tests/test_torch_moe.py holds the MoE layer), at 1, 2, 4
+  and 8 ranks; its gradients finite, and equal to the reference's a2a
+  gradients at one rank and to the single-device ones at 2, 4 and 8 ranks
   (1e-4 of each leaf's largest |value|). At a binding capacity it drops
   what the reference's a2a drops.
 * Compression: ``quantize``, ``compress_update``, the error bit-equal to
-  the reference's; the compressed mean at 2 and 4 ranks on distinct
+  the reference's; the compressed mean at 2, 4 and 8 ranks on distinct
   per-rank gradients equal to the reference's formula; the reference's
   convergence check.
 * ``remesh`` degrades axes the mesh lacks, as ``tests/test_fault.py``.
@@ -402,8 +402,12 @@ def test_moe_impl_hook_routes_moe_ffn():
 
 def test_sharding_hooks_identity_on_one_rank_raise_on_more():
     """The LM and GNN hooks check layouts: a forward with every hook set on
-    the (1, 1) mesh equals the forward without; a mesh of more ranks
-    raises ``NotImplementedError``."""
+    the (1, 1) mesh equals the forward without. On a mesh of more ranks
+    (16 x 16) a layout the LM partitioner produces checks clean against
+    its local shard, and one it does not produce raises
+    ``NotImplementedError`` naming the spec: the dry run's ``seqshard``
+    residual, and a MoE placement (the partitioner runs no MoE layer on
+    several ranks). The GNN hook raises on more than one rank."""
     from repro_torch.models import gnn
     spec = configs.get("qwen2-moe-a2.7b")
     cfg = dataclasses.replace(spec.smoke_cfg, dtype=torch.float32)
@@ -422,9 +426,21 @@ def test_sharding_hooks_identity_on_one_rank_raise_on_more():
                                                      P(None, None, "model"))})
     try:
         got, _ = tfm.forward(model, tokens)
-        big = shd.NamedPlacement(MESHES["16x16"], P("data", None, None))
-        tfm.set_activation_sharding(big)
-        with pytest.raises(NotImplementedError, match="partitioner"):
+        m16 = MESHES["16x16"]
+        big = shd.NamedPlacement(m16, P("data", None, None))
+        produced = (P("data", None, None), (32, 16, 64), m16)
+        x = torch.zeros(2, 16, 64)
+        assert tfm.check_layout(x, big, produced) is x
+        seq = shd.NamedPlacement(m16, P("data", "model", None))
+        with pytest.raises(NotImplementedError,
+                           match=r"P\('data', 'model', None\)"):
+            tfm.check_layout(x, seq, produced)
+        tfm.set_activation_sharding(None)
+        tfm.set_moe_sharding((shd.NamedPlacement(m16, P(None, "data", None)),
+                              shd.NamedPlacement(m16, P(None, "data",
+                                                        "model"))))
+        with pytest.raises(NotImplementedError,
+                           match=r"P\(None, 'data', None\).*partitioner"):
             tfm.forward(model, tokens)
         gnn.set_node_sharding(big)
         with pytest.raises(NotImplementedError, match="partitioner"):
@@ -525,13 +541,13 @@ def test_checkpoint_restore_then_remesh_bit_equal(tmp_path):
 
 
 # ----------------------------------------------------------------------
-# 2 and 4 gloo ranks
+# 2, 4 and 8 gloo ranks
 # ----------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """Inputs, single-device answers and every rank's results at 2 and 4
-    ranks (one run of ``torch_rank_bodies`` per world size)."""
+    """Inputs, single-device answers and every rank's results at 2, 4 and
+    8 ranks (one run of ``torch_rank_bodies`` per world size)."""
     tmp = tmp_path_factory.mktemp("ranks")
     table, ids, w = vp_inputs()
     lp, x, w_moe = moe_inputs()
@@ -553,8 +569,8 @@ def worlds(tmp_path_factory):
         {k: jnp.asarray(v) for k, v in lp.items()}, jcfg, jnp.asarray(x))
     single["ref_moe"] = np.asarray(ref_out)
     return {"inp": inp, "single": single,
-            2: bodies.run_world(2, inputs, tmp),
-            4: bodies.run_world(4, inputs, tmp)}
+            **{world: bodies.run_world(world, inputs, tmp)
+               for world in bodies.MESHES}}
 
 
 def cases():

@@ -206,7 +206,8 @@ def test_bf16_layer_rounds_as_the_reference_outside_attention():
     same(jax_tfm.rope(q, jnp.asarray(pos), jcfg.rope_theta),
          tfm.rope(tfm.linear(ht, p.wq).reshape(q.shape), torch.as_tensor(pos),
                   jcfg.rope_theta))
-    same(jax_tfm.dense_ffn(lp["ffn"], h), p.ffn(ht))
+    same(jax_tfm.dense_ffn(lp["ffn"], h),
+         p.ffn(ht, tfm.partition_of(model)))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
