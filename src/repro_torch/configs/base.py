@@ -218,8 +218,8 @@ def abstract_params(spec: ArchSpec, model_cfg) -> torch.nn.Module:
 
 def _mesh_family(spec: ArchSpec, mesh) -> None:
     """Raise unless the family runs under the port's partitioner: the
-    dense LMs do (a MoE model on more than one rank raises in
-    ``models.transformer.Partition``)."""
+    LMs do, dense and MoE (``models.transformer.Partition``); the GNNs
+    and MIND raise."""
     if mesh is None or spec.family.startswith("lm"):
         return
     item = "A1.2" if spec.family == "gnn" else "A1.3"

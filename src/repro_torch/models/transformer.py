@@ -42,10 +42,11 @@ Every layer function runs under the model's :class:`Partition`
 computes on this rank's shards, the reference's GSPMD step written out
 over ``torch.distributed``: FSDP over ``data``, Megatron TP over
 ``model``, the logits split over the vocabulary and the loss
-vocab-parallel. A dense model only: a MoE model on more than one rank
-raises. A model holding whole tensors runs under :class:`Whole`, the
-partition of no mesh, which uses each weight as held and exchanges
-nothing.
+vocab-parallel; a MoE layer's experts over ``model`` (EP) where they
+divide it, TP inside each expert where not, its dispatch buffer's
+capacity rows over ``data`` (:func:`moe_ffn`). A model holding whole
+tensors runs under :class:`Whole`, the partition of no mesh, which uses
+each weight as held and exchanges nothing.
 
 The reference's sharding hooks (:func:`set_activation_sharding`,
 :func:`set_moe_sharding`, :func:`set_weight_use_sharding`) pin layouts
@@ -56,7 +57,8 @@ local shard of the layout :class:`Partition` produces at that site, and
 ``NotImplementedError`` for any other layout or site.
 :func:`set_moe_impl` replaces the whole routed-expert path of
 :func:`moe_ffn` (``runtime.moe_a2a.make_a2a_moe``: the all-to-all
-dispatch over explicit collectives, which runs at any number of ranks).
+dispatch over explicit collectives, which runs at any number of ranks on
+global tensors; on a model placed on more than one rank it raises).
 """
 
 from __future__ import annotations
@@ -236,8 +238,9 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     With ``mesh`` the model is placed (``runtime.sharding.shard_params``
     under ``lm_param_spec_tree``) as it is drawn: each
     leaf drawn whole, in the same order from the same generator, and only
-    this rank's shard kept, so the shards' bits are those of the unplaced
-    model's and the peak is one whole leaf, never the model."""
+    this rank's shard kept, rounded to the leaf's dtype, so the shards'
+    bits are those of the unplaced model's and the peak is one whole leaf
+    in f32, never the model."""
     if mesh is None:
         model = Transformer(cfg, device)
     else:
@@ -246,20 +249,22 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
         model = Transformer(cfg, device="meta")
         specs = shd.lm_param_spec_tree(model, mesh)
     for name, p in list(model.named_parameters()):
-        if mesh is not None:
-            p = torch.empty(p.shape, dtype=p.dtype, device=device)
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("ln1", "ln2", "ln_f"):
-            p.fill_(1.0)
-        elif leaf in ("bq", "bk", "bv"):
-            p.zero_()
+        if leaf in ("ln1", "ln2", "ln_f", "bq", "bk", "bv"):
+            full = torch.full(p.shape, float(leaf.startswith("ln")),
+                              dtype=p.dtype, device=device)
         else:
             scale = 0.02 if name == "embed" else p.shape[0] ** -0.5
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=p.device, dtype=torch.float32)
-                    .mul_(scale))
-        if mesh is not None:
-            shd.set_param(model, name, shd.shard_of(p, mesh, specs[name]))
+            full = torch.randn(p.shape, generator=generator, device=device,
+                               dtype=torch.float32).mul_(scale)
+        if mesh is None:
+            p.copy_(full)
+        else:
+            shd.check_divides(p.shape, specs[name], mesh, name)
+            local = shd.local_shard(full, mesh, specs[name])
+            shd.set_param(model, name, torch.empty(
+                local.shape, dtype=p.dtype, device=device).copy_(local))
+        del full
     if mesh is not None:
         model.mesh = mesh
     return model
@@ -366,9 +371,14 @@ def _constrain(x, part: "Partition"):
     return x
 
 
-def _constrain_moe(x, which: int):
+def _constrain_moe(x, which: int, part=None, shape=None):
+    """x, an (E, C, .) expert tensor (``which`` 0: the dispatch buffer or
+    the experts' output, 1: their (E, C, f) intermediate), checked against
+    the MoE hook; ``part`` and the global ``shape`` give the layout the
+    partitioner produces there."""
     if MOE_SHARDING is not None:
-        return check_layout(x, MOE_SHARDING[which])
+        produced = None if part is None else part.moe_layout(which, shape)
+        return check_layout(x, MOE_SHARDING[which], produced)
     return x
 
 
@@ -425,23 +435,28 @@ class Partition:
       the vocabulary: the lookup's columns are gathered, the logits stay
       split and the loss is vocab-parallel (:func:`loss_fn`).
 
+    * A MoE layer (:func:`moe_ffn`): the experts over ``model`` (EP) where
+      ``model`` divides their count, else TP inside each expert (``wi``,
+      ``wg`` column-parallel, ``wo`` row-parallel), as
+      ``lm_param_spec_tree`` places them; the dispatch buffer's C rows of
+      each expert over the data axes (``c_rows``); the router and the
+      shared experts as the dense weights.
+
     Exchanges over an axis of one rank are left out (they would be
     copies): on a one-rank mesh the step makes none and is the unsharded
-    one bit for bit. A MoE model on more than one rank raises."""
+    one bit for bit."""
 
     def __init__(self, cfg: LMConfig, mesh):
         from ..runtime import sharding as shd
         self.shd, self.cfg, self.mesh = shd, cfg, mesh
         sizes = shd.axis_sizes(mesh)
         self.size = math.prod(sizes.values())
-        if cfg.moe is not None and self.size > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE layer on a mesh of {self.size} ranks "
-                "(experts over 'model' where they divide it, TP inside "
-                "each expert where not) is not ported; ROADMAP A1.1")
         self.sizes = sizes
         self.dp = shd.dp_axes(mesh)
         self.D = math.prod(sizes[a] for a in self.dp)
+        #: this rank's index over the data axes, the first major: its
+        #: rows of the batch are the d_index-th block
+        self.d_index = shd._combined_index(mesh, self.dp)[0]
         self.M, self.m = sizes["model"], shd.axis_index(mesh, "model")
         self.kv_lo, kv_hi = kv_heads(cfg.n_head, cfg.n_kv, self.M, self.m)
         self.kv_split = cfg.n_kv % self.M == 0
@@ -453,6 +468,8 @@ class Partition:
                       shd.lm_param_spec_tree(one, mesh).items()}
         self.shapes = {n.removeprefix("layers.0."): tuple(t.shape)
                        for n, t in one.named_parameters()}
+        #: EP: the experts split over ``model`` (the spec tree's choice)
+        self.ep = cfg.moe is not None and self.specs["moe.wi"][0] == "model"
 
     def live(self, axes) -> tuple:
         """The axes of ``axes`` with more than one rank: an exchange over
@@ -498,11 +515,59 @@ class Partition:
             return x
         return self.shd.all_gather_tiled(x, self.mesh, "model", dim=-1)
 
+    # -- the MoE layer's exchanges and shares ----------------------------
+    def gather_dp(self, x: torch.Tensor, dim: int = 0,
+                  same_cotangent: bool = False) -> torch.Tensor:
+        """x gathered over the data axes along ``dim`` (in the order of
+        ``d_index``). Its backward reduce-scatters (``gather_at_use``: the
+        data ranks' cotangents differ, each from its own tokens), or with
+        ``same_cotangent`` keeps this rank's chunk (``all_gather_tiled``:
+        what follows is computed alike on every data rank)."""
+        gather = (self.shd.all_gather_tiled if same_cotangent
+                  else self.shd.gather_at_use)
+        for a in reversed(self.live(self.dp)):
+            x = gather(x, self.mesh, a, dim)
+        return x
+
+    def gather_ids(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of an integer tensor, in token order (no
+        gradient)."""
+        return self.shd.gather_over(x, self.mesh, self.live(self.dp))
+
+    def expert_range(self, E: int) -> tuple[int, int]:
+        """``(lo, hi)``: the experts this rank computes (EP: its block of
+        E / model; expert TP: all, each on its f / model columns)."""
+        if not self.ep:
+            return 0, E
+        per = E // self.M
+        return self.m * per, (self.m + 1) * per
+
+    def c_rows(self, C: int) -> tuple[int, int]:
+        """``(lo, hi)``: the rows of each expert's capacity C this rank
+        computes, C split over the data axes (the reference rounds C to a
+        multiple of 32 so that it splits)."""
+        if C % self.D:
+            raise NotImplementedError(f"a capacity of {C} rows does not "
+                                      f"split over {self.D} data ranks")
+        per = C // self.D
+        return self.d_index * per, (self.d_index + 1) * per
+
     # -- the layouts the hooks check against --------------------------
     def act_layout(self, x):
         return (self.shd.P(self.dp, None, None),
                 (x.shape[0] * self.D, *x.shape[1:-1], self.cfg.d_model),
                 self.mesh)
+
+    def moe_layout(self, which: int, shape):
+        """The (E, C, .) expert tensors: EP splits the experts over
+        ``model``, expert TP the intermediate's f (``which`` 1); C over the
+        data axes."""
+        P = self.shd.P
+        if self.ep:
+            spec = P("model", self.dp, None)
+        else:
+            spec = P(None, self.dp, "model" if which == 1 else None)
+        return spec, tuple(shape), self.mesh
 
     def use_layout(self, tag: str):
         leaf = tag.removeprefix("attn.")
@@ -513,6 +578,12 @@ class Partition:
             spec = P(None, None)
         elif leaf in ("wq", "wk", "wv", "ffn.wi", "ffn.wg"):
             spec = P(None, "model")
+        elif leaf in ("moe.wi", "moe.wg", "moe.wo") and self.ep:
+            spec = P("model", None, None)
+        elif leaf in ("moe.wi", "moe.wg", "moe.shared_wi", "moe.shared_wg"):
+            spec = P(None, None, "model")
+        elif leaf in ("moe.wo", "moe.shared_wo"):
+            spec = P(None, "model", None)
         else:
             return None
         return spec, self.shapes[leaf], self.mesh
@@ -526,14 +597,15 @@ class Whole(Partition):
     partitioned layout for the hooks to check against
     (:func:`check_layout`)."""
 
-    def __init__(self, cfg: LMConfig):
+    def __init__(self, cfg: LMConfig | None):
         from ..runtime import sharding as shd
         self.shd, self.cfg, self.mesh = shd, cfg, None
         self.sizes, self.size, self.dp, self.D = {}, 1, (), 1
         self.M = 1
-        self.m = self.kv_lo = 0
-        self.kv_split = True
-        self.hq, self.hk = cfg.n_head, cfg.n_kv
+        self.m = self.kv_lo = self.d_index = 0
+        self.kv_split = self.ep = True
+        self.hq, self.hk = (None, None) if cfg is None else (cfg.n_head,
+                                                             cfg.n_kv)
 
     def live(self, axes) -> tuple:
         return ()
@@ -544,8 +616,16 @@ class Whole(Partition):
     def act_layout(self, x):
         return None
 
+    def moe_layout(self, which, shape):
+        return None
+
     def use_layout(self, tag):
         return None
+
+
+#: the partition of a MoE layer's functions called on whole tensors alone
+#: (:func:`_moe_group`, :func:`shared_experts`)
+WHOLE = Whole(None)
 
 
 def partition_of(model: "Transformer") -> Partition:
@@ -760,59 +840,56 @@ def dispatch(eidx: torch.Tensor, E: int, C: int):
     return order, se, st, pos, keep, dest
 
 
-def router_probs(p: MoE, mcfg: MoEConfig, xt: torch.Tensor
-                 ) -> torch.Tensor:
+def router_probs(p: MoE, mcfg: MoEConfig, xt: torch.Tensor,
+                 router: torch.Tensor | None = None) -> torch.Tensor:
     """(Tg, E) f32 router probabilities: the logits as one f32 B5 product
-    ``xt @ router``, pad experts' set to -1e30, then a softmax."""
-    logits = ops.matmul(xt.float(), p.router)
+    ``xt @ router`` (``p.router`` unless the weight as used is given),
+    pad experts' set to -1e30, then a softmax."""
+    logits = ops.matmul(xt.float(), p.router if router is None else router)
     if mcfg.pad_experts:
         pad = torch.arange(mcfg.e_total, device=xt.device) >= mcfg.n_experts
         logits = logits.masked_fill(pad, -1e30)
     return torch.softmax(logits, dim=-1)
 
 
-def dispatch_rows(xt: torch.Tensor, order: torch.Tensor,
-                  dest: torch.Tensor, K: int, rows: int) -> torch.Tensor:
-    """The dispatch buffer (rows, d): row ``dest[j]`` holds the token of
-    sorted assignment j where kept, zeros elsewhere. It is gathered from
-    the tokens' rows repeated K times, one row per assignment, so each row
-    is read at most once: the gather's gradient needs no atomics, and the
-    repeat's is a sum over K."""
-    Tg, d = xt.shape
-    src = torch.full((rows + 1,), Tg * K, dtype=torch.long, device=xt.device)
+def source_rows(order: torch.Tensor, dest: torch.Tensor, rows: int,
+                none: int) -> torch.Tensor:
+    """(rows,): for each row of the dispatch buffer, the row of the
+    tokens repeated K times (:func:`repeated`) it is gathered from: sorted
+    assignment j's ``order[j]`` at ``dest[j]`` where kept, ``none`` (a zero
+    row) where no assignment lands. Each repeated row is read at most
+    once, so the gather's gradient needs no atomics, and the repeat's is a
+    sum over K."""
+    src = torch.full((rows + 1,), none, dtype=torch.long, device=order.device)
     src[dest] = order                  # the overflow row is never read
-    repeated = torch.cat([xt[:, None].expand(Tg, K, d).reshape(Tg * K, d),
-                          xt.new_zeros(1, d)])
-    return repeated[src[:rows]]
+    return src[:rows]
 
 
-def experts(p: MoE, buf: torch.Tensor, C: int) -> torch.Tensor:
-    """Each expert's ``silu(h wg) * (h wi)`` then ``wo`` over its C rows
-    of ``buf`` (contiguous, as its weights are): three B5 launches an
-    expert. Returns the (E * C + 1, d) outputs, the last row 0 (where
-    dropped assignments point)."""
-    wi = _use_w(p.wi, "moe.wi").unbind(0)
-    wg = _use_w(p.wg, "moe.wg").unbind(0)
-    wo = _use_w(p.wo, "moe.wo").unbind(0)
-    ho = []
-    for e, h in enumerate(buf.split(C)):
-        hg = _constrain_moe(silu(linear(h, wg[e]))[None], 1)[0]
-        hi = _constrain_moe(linear(h, wi[e])[None], 1)[0]
-        ho.append(linear(hg * hi, wo[e]))
-    return torch.cat(ho + [buf.new_zeros(1, buf.shape[1])])
+def repeated(xt: torch.Tensor, K: int) -> torch.Tensor:
+    """(T * K + 1, d): each token's row K times, then a zero row."""
+    T, d = xt.shape
+    return torch.cat([xt[:, None].expand(T, K, d).reshape(T * K, d),
+                      xt.new_zeros(1, d)])
+
+
+def token_slots(order: torch.Tensor, dest: torch.Tensor, Tg: int,
+                K: int) -> torch.Tensor:
+    """(Tg, K): each token's assignments' buffer rows, token-major."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(Tg * K, device=order.device)
+    return dest[inv].view(Tg, K)
 
 
 def combine(ho: torch.Tensor, eidx: torch.Tensor, gate: torch.Tensor,
-            order: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
-    """(Tg, d): each token's K contributions (gate times its expert's
-    output row, in ho's dtype; 0 where dropped) added one after another in
-    ascending expert order, the order in which the reference's scatter-add
-    meets them (its assignments sorted by expert)."""
-    Tg, K = eidx.shape
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(Tg * K, device=order.device)
+            slot: torch.Tensor) -> torch.Tensor:
+    """(T, d): each token's K contributions (gate times its expert's
+    output row ``ho[slot]``, in ho's dtype; ``slot`` (T, K) in the order of
+    its experts ``eidx``, the zero row where dropped) added one after
+    another in ascending expert order, the order in which the reference's
+    scatter-add meets them (its assignments sorted by expert)."""
+    K = eidx.shape[1]
     by_expert = eidx.argsort(dim=1)
-    slot = dest[inv].view(Tg, K).gather(1, by_expert)
+    slot = slot.gather(1, by_expert)
     g = gate.gather(1, by_expert).to(ho.dtype)
     out = ho[slot[:, 0]] * g[:, :1]
     for j in range(1, K):
@@ -822,66 +899,187 @@ def combine(ho: torch.Tensor, eidx: torch.Tensor, gate: torch.Tensor,
 
 def _moe_group(p: MoE, mcfg: MoEConfig, xt: torch.Tensor, C: int):
     """One token group (Tg, d) through the routed experts: ``(out (Tg, d)
-    in xt's dtype, aux)``, the reference's ``_moe_group``: router
-    probabilities, top-k routing with the gates renormalised, the sorted
-    dispatch into an (E * C, d) buffer, the experts' products and the
-    combine; aux is the Switch-style load-balance loss, whose expert shares
-    count dropped assignments too."""
-    Tg, _ = xt.shape
+    in xt's dtype, aux)``, the reference's ``_moe_group``
+    (:func:`_routed` with one group on whole tensors)."""
+    return _routed(p, mcfg, xt, xt, 1, C, WHOLE)
+
+
+def _segments(lo: int, n: int, Tg: int) -> list[tuple[int, int, int]]:
+    """``(group, a, b)``: the local tokens [a, b) of n whose global
+    indices start at ``lo``, cut where a group of Tg tokens ends."""
+    out, t = [], lo
+    while t < lo + n:
+        g = t // Tg
+        end = min((g + 1) * Tg, lo + n)
+        out.append((g, t - lo, end - lo))
+        t = end
+    return out
+
+
+def _routed(p: MoE, mcfg: MoEConfig, xt: torch.Tensor, xr: torch.Tensor,
+            G: int, C: int, part: Partition):
+    """The routed experts of this rank's tokens xt (Tl, d), the reference's
+    ``_moe_group`` over each of G groups of the GLOBAL tokens (the data
+    ranks' blocks in order): ``(out (Tl, d) in xt's dtype, aux)``.
+
+    Each rank routes its own tokens: the router (gathered over the data
+    axes at use) in f32 on B5, a softmax, :func:`route` (top-k, ties to the
+    lower index) and the gates renormalised. The ids of every rank's
+    tokens are then gathered, so every rank sorts each group's assignments
+    as one device does (:func:`dispatch`): ``pos``, ``keep`` and ``dest``
+    are one device's bits, and a token's drop may depend on other ranks'
+    tokens. Each rank computes the rows ``c_rows`` of every expert it holds
+    (``expert_range``) from the tokens gathered over the data axes (xr,
+    whose backward reduce-scatters), three B5 launches per expert and
+    group (``wo`` row-parallel under expert TP: its f32 partials summed
+    over ``model``, then rounded). The rows are gathered back whole before
+    the combine, which adds each token's terms in ascending expert order
+    in the activation's dtype (:func:`combine`). ``aux`` is the
+    Switch-style load-balance loss over each group's tokens (their
+    probabilities gathered), meaned over the groups; its expert shares
+    count dropped assignments too. Under :class:`Whole` every exchange is
+    the identity and this is the single-device layer."""
     E, K = mcfg.e_total, mcfg.top_k
-    probs = router_probs(p, mcfg, xt)
-    eidx = route(probs, K)
-    gate = probs.gather(-1, eidx)
-    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    order, se, _, _, _, dest = dispatch(eidx, E, C)
-    buf = _constrain_moe(dispatch_rows(xt, order, dest, K, E * C).view(
-        E, C, -1), 0).view(E * C, -1)
-    ho = experts(p, buf, C)
-    _constrain_moe(ho[:-1].view(E, C, -1), 0)
-    out = combine(ho, eidx, gate, order, dest)
-    counts = torch.diff(starts_of(se, E), append=se.new_tensor([Tg * K]))
-    aux = E * torch.sum(counts.float() / (Tg * K) * probs.mean(dim=0))
+    Tl, d = xt.shape
+    T = Tl * part.D
+    Tg = T // G
+    router = part.at_use(p.router, "moe.router")
+    segs = _segments(part.d_index * Tl, Tl, Tg)
+    probs, eidx, gate = [], [], []
+    for _, a, b in segs:
+        pr = router_probs(p, mcfg, xt if b - a == Tl else xt[a:b], router)
+        ei = route(pr, K)
+        gt = pr.gather(-1, ei)
+        probs.append(pr)
+        eidx.append(ei)
+        gate.append(gt / gt.sum(-1, keepdim=True).clamp_min(1e-9))
+    probs, eidx, gate = (t[0] if len(t) == 1 else torch.cat(t)
+                         for t in (probs, eidx, gate))
+    every = part.gather_ids(eidx)                               # (T, K)
+    probs = part.gather_dp(probs, same_cotangent=True)          # (T, E)
+    e_lo, e_hi = part.expert_range(E)
+    c_lo, c_hi = part.c_rows(C)
+    el, cl = e_hi - e_lo, c_hi - c_lo
+    src, slots, auxes = [], [], []
+    for g in range(G):
+        order, se, _, _, _, dest = dispatch(every[g * Tg:(g + 1) * Tg], E, C)
+        # group g's rows of the repeated global tokens; an empty row reads
+        # the zero row T * K
+        rows = source_rows(order, dest, E * C, T * K - g * Tg * K).view(
+            E, C)[e_lo:e_hi, c_lo:c_hi]
+        src.append(rows + g * Tg * K if g else rows)
+        slot = token_slots(order, dest, Tg, K)
+        # group g's rows of the (G * E * C + 1) outputs, the last row zero
+        slots.append(slot if G == 1 else
+                     torch.where(slot == E * C, G * E * C, slot + g * E * C))
+        counts = torch.diff(starts_of(se, E), append=se.new_tensor([Tg * K]))
+        auxes.append(E * torch.sum(counts.float() / (Tg * K)
+                                   * probs[g * Tg:(g + 1) * Tg].mean(dim=0)))
+    xg = part.gather_dp(xr)                                     # (T, d)
+    buf = repeated(xg, K)[src[0] if G == 1 else torch.stack(src)]
+    ho = expert_rows(p, buf.view(G, el, cl, d), part, (E, C))
+    lo = part.d_index * Tl
+    mine = [slots[g][lo + a - g * Tg:lo + b - g * Tg] for g, a, b in segs]
+    out = combine(ho, eidx, gate, mine[0] if len(mine) == 1
+                  else torch.cat(mine))
+    aux = auxes[0] if G == 1 else torch.stack(auxes).mean()
     return out, aux
 
 
-def shared_experts(p: MoE, mcfg: MoEConfig, xt: torch.Tensor
-                   ) -> torch.Tensor:
+def expert_rows(p: MoE, buf: torch.Tensor, part: Partition,
+                EC: tuple[int, int]) -> torch.Tensor:
+    """The experts' outputs over this rank's (G, E_l, C_l, d) rows of the
+    dispatch buffer, gathered over the mesh into (G * E * C + 1, d), the
+    last row 0 (where dropped assignments point)."""
+    G, el, cl, d = buf.shape
+    (E, C), mesh = EC, part.mesh
+    wi = _w(p.wi, "moe.wi", "moe.wi", part).unbind(0)
+    wg = _w(p.wg, "moe.wg", "moe.wg", part).unbind(0)
+    wo = _w(p.wo, "moe.wo", "moe.wo", part).unbind(0)
+    f, fl = p.wi.shape[2] * (1 if part.ep else part.M), wi[0].shape[1]
+    ho = []
+    for g in range(G):
+        _constrain_moe(buf[g], 0, part, (E, C, d))
+        if MOE_SHARDING is not None:
+            _constrain_moe(torch.empty(el, cl, fl, device="meta"), 1, part,
+                           (E, C, f))
+        for e, h in enumerate(buf[g]):
+            hg, hi = silu(linear(h, wg[e])), linear(h, wi[e])
+            ho.append(linear(hg * hi, wo[e]) if part.ep
+                      else ops.matmul(hg * hi, wo[e]))
+    zero = buf.new_zeros(1, d)
+    if not part.ep:
+        # expert TP: every expert's f32 partial product of wo summed over
+        # ``model`` in one exchange, then rounded (row_parallel's rule)
+        out = part.shd.psum(torch.stack(ho), mesh,
+                            part.live("model")).to(buf.dtype)
+    elif not part.live(part.dp + ("model",)):
+        return torch.cat(ho + [zero])
+    else:
+        out = torch.stack(ho)
+    # the outputs lie as the buffer (checked above); every rank gets them
+    # all, so the combine adds each token's terms as one device does
+    out = part.gather_dp(out.view(G, el, cl, d), dim=2)
+    if part.ep and part.live("model"):
+        out = part.shd.all_gather_tiled(out, mesh, "model", dim=1)
+    return torch.cat([out.reshape(G * E * C, d), zero])
+
+
+def shared_experts(p: MoE, mcfg: MoEConfig, xt: torch.Tensor,
+                   part: Partition = WHOLE) -> torch.Tensor:
     """(T, d): ``silu(x wg_s) * (x wi_s)`` of every shared expert s (one
     B5 launch per expert and weight), contracted with ``shared_wo`` over
     (s, f) as one B5 product of K = s * f (the reference's ``tsf,sfd->td``
-    einsum)."""
+    einsum). On a placed model each rank computes its f / model columns of
+    every shared expert and the contraction is row-parallel, as a dense
+    FFN's."""
     T, d = xt.shape
-    s, f = mcfg.n_shared, mcfg.d_ff_expert
-    wg = _use_w(p.shared_wg, "moe.shared_wg").unbind(0)
-    wi = _use_w(p.shared_wi, "moe.shared_wi").unbind(0)
+    s = mcfg.n_shared
+    wg = _w(p.shared_wg, "moe.shared_wg", "moe.shared_wg", part).unbind(0)
+    wi = _w(p.shared_wi, "moe.shared_wi", "moe.shared_wi", part).unbind(0)
     h = torch.stack([silu(linear(xt, wg[i])) * linear(xt, wi[i])
                      for i in range(s)], dim=1)             # (T, s, f)
-    wo = _use_w(p.shared_wo, "moe.shared_wo")
-    return linear(h.reshape(T, s * f), wo.reshape(s * f, d))
+    wo = _w(p.shared_wo, "moe.shared_wo", "moe.shared_wo", part)
+    fl = wo.shape[1]
+    return part.row_parallel(h.reshape(T, s * fl), wo.reshape(s * fl, d))
 
 
-def moe_ffn(p: MoE, cfg: LMConfig, x: torch.Tensor):
+def moe_ffn(p: MoE, cfg: LMConfig, x: torch.Tensor,
+            part: Partition | None = None):
     """The capacity-bounded MoE layer: x (B, S, d) -> ``(out (B, S, d) in
     x's dtype, aux)``, the reference's ``moe_ffn``. With G > 1 groups
     (:func:`capacity`) each group is routed on its own and ``aux`` is the
     groups' mean. The shared experts' output (:func:`shared_experts`) is
-    added to the routed one in x's dtype. With :func:`set_moe_impl` set,
-    the whole layer is that function's."""
+    added to the routed one in x's dtype.
+
+    Under a placed model's :class:`Partition`, x is this rank's rows of the
+    batch, and G and C are those of the GLOBAL token count (B * S times the
+    data ranks): the routed experts are :func:`_routed`'s, the result this
+    rank's rows of one device's layer over the global batch. With
+    :func:`set_moe_impl` set, the whole layer is that function's; it reads
+    plain tensors as global values, so on a model placed on more than one
+    rank it raises."""
+    part = WHOLE if part is None else part
     if MOE_IMPL is not None:
+        if part.size > 1:
+            raise NotImplementedError(
+                f"set_moe_impl's MoE layer (runtime.moe_a2a.make_a2a_moe) "
+                f"reads plain tensors as the global values, and a model "
+                f"placed on a mesh of {part.size} ranks holds this rank's "
+                "shards: run the partitioner's MoE layer "
+                "(set_moe_impl(None)), or the a2a on a model of whole "
+                "tensors")
         return MOE_IMPL(p, cfg, x)
     mcfg = cfg.moe
     B, S, d = x.shape
-    T = B * S
-    G, C = capacity(mcfg, T)
-    xt = x.reshape(T, d)
-    if G == 1:
-        out, aux = _moe_group(p, mcfg, xt, C)
-    else:
-        parts = [_moe_group(p, mcfg, xg, C) for xg in xt.chunk(G)]
-        out = torch.cat([o for o, _ in parts])
-        aux = torch.stack([a for _, a in parts]).mean()
+    xt = x.reshape(B * S, d)
+    G, C = capacity(mcfg, B * S * part.D)
+    # the experts see only their share of xt on each model rank (an
+    # expert block, or f columns), the router all of it alike
+    xr = part.replicated(xt)
+    out, aux = _routed(p, mcfg, xt, xr, G, C, part)
     if mcfg.n_shared:
-        out = out + shared_experts(p, mcfg, xt)
+        out = out + shared_experts(p, mcfg, xr, part)
     return out.reshape(B, S, d), aux
 
 
@@ -893,10 +1091,10 @@ def _layer(p: Block, cfg: LMConfig, x, positions, part: Partition,
     x = _constrain(x + attention_block(p, cfg, h, positions, part,
                                        cache=cache, cache_len=cache_len),
                    part)
-    h = part.replicated(rms_norm(x, part.at_use(p.ln2, "ln2")))
+    h = rms_norm(x, part.at_use(p.ln2, "ln2"))
     if cfg.moe is None:
-        return _constrain(x + p.ffn(h, part), part), None
-    f, aux = moe_ffn(p.moe, cfg, h)         # one rank: the whole layer
+        return _constrain(x + p.ffn(part.replicated(h), part), part), None
+    f, aux = moe_ffn(p.moe, cfg, h, part)
     return _constrain(x + f, part), aux
 
 

@@ -7,14 +7,16 @@ Per rank, on its data-parallel shard of the tokens:
      and each rank routes its chunk (the router product on B5 in f32,
      pad experts' logits masked, ``transformer.route``'s stable top-k);
   2. a local capacity dispatch into an (E, C, d) buffer
-     (``transformer.dispatch`` and ``dispatch_rows``: sorted, no atomics);
+     (``transformer.dispatch``, ``source_rows`` and ``repeated``: sorted,
+     no atomics);
   3. one all-to-all over the TP group regroups the expert dimension: every
      rank receives the (E/tp, tp * C, d) slab of the experts it owns;
-  4. the local experts' products: three B5 launches per local expert, as
-     ``transformer.experts`` launches them;
+  4. the local experts' products: three B5 launches per local expert
+     (``transformer.expert_rows`` on whole tensors);
   5. the all-to-all back, the combine in ascending expert order
-     (``transformer.combine``, no float atomics), the load-balance loss
-     meaned over the DP and TP groups, and an all-gather of the TP chunks.
+     (``transformer.combine`` of ``token_slots``, no float atomics), the
+     load-balance loss meaned over the DP and TP groups, and an
+     all-gather of the TP chunks.
 
 The capacity is the reference's for this path: ``C = max(1,
 ceil(t_tp * K / E * capacity_factor))`` rounded up to a multiple of 8,
@@ -25,7 +27,9 @@ outputs.
 
 Requires E % tp == 0 (compose with ``MoEConfig.pad_experts``) and (B * S)
 % (dp * tp) == 0. The arguments follow ``runtime.sharding.shard_map``: a
-plain tensor is the global value, a DTensor its placed shards; the result
+plain tensor is the global value, a DTensor its placed shards (so on a
+model placed by ``sharding.shard_params`` on more than one rank, whose
+parameters are local shards, ``transformer.moe_ffn`` refuses it); the result
 is this rank's data-parallel shard of the output, ``(-1, S, d)``, the
 whole output on a one-rank mesh. Gradients flow through the exchanges
 (``sharding.all_to_all_tiled``, ``all_gather_tiled``, ``pmean``), and
@@ -88,7 +92,8 @@ def make_a2a_moe(mesh, dp, tp_axis: str = "model"):
         # 2. local capacity dispatch
         C = a2a_capacity(mcfg, t_tp)
         order, se, _, _, _, dest = tfm.dispatch(eidx, E, C)
-        buf = tfm.dispatch_rows(xtl, order, dest, K, E * C)   # (E * C, d)
+        buf = tfm.repeated(xtl, K)[tfm.source_rows(order, dest, E * C,
+                                                   t_tp * K)]  # (E * C, d)
         # 3. each rank its experts' slab: [sender][expert][row] ->
         # [expert][sender][row]
         slab = shd.all_to_all_tiled(buf, mesh, tp_axis)
@@ -98,12 +103,14 @@ def make_a2a_moe(mesh, dp, tp_axis: str = "model"):
         w = types.SimpleNamespace(
             **{k: shd.grad_sum(v, mesh, dp) for k, v in
                (("wi", wi), ("wg", wg), ("wo", wo))})
-        ho = tfm.experts(w, slab, tp * C)[:-1]
+        ho = tfm.expert_rows(w, slab.view(1, e_loc, tp * C, d), tfm.WHOLE,
+                             (e_loc, tp * C))[:-1]
         # 5. back to the senders, then the combine
         ho = ho.view(e_loc, tp, C, d).transpose(0, 1).reshape(E * C, d)
         back = shd.all_to_all_tiled(ho, mesh, tp_axis)
         back = torch.cat([back, back.new_zeros(1, d)])
-        outl = tfm.combine(back, eidx, gate, order, dest)
+        outl = tfm.combine(back, eidx, gate,
+                           tfm.token_slots(order, dest, t_tp, K))
         counts = torch.diff(tfm.starts_of(se, E),
                             append=se.new_tensor([t_tp * K]))
         aux = E * torch.sum(counts.float() / (t_tp * K) * probs.mean(dim=0))

@@ -25,10 +25,11 @@ port's kernels take plain tensors through ctypes, where no ``DTensor``
 can enter. So the model-wide specs place parameters and batches
 (:func:`shard_params`, each rank keeping its shards as tensors of their
 own; :func:`unshard_params` gathers them back; the dry run's per-device
-bytes, ``runtime.elastic.remesh``), and the dense LM's step is
-partitioned by hand on those shards (``models.transformer.Partition``:
+bytes, ``runtime.elastic.remesh``), and the LM's step, dense or MoE,
+is partitioned by hand on those shards (``models.transformer.Partition``:
 FSDP over ``data`` through :func:`gather_at_use`, Megatron TP over
-``model``); the models' hooks check layouts against it.
+``model``, experts over ``model`` or TP inside them); the models' hooks
+check layouts against it.
 
 Besides it, what runs at any number of ranks is what the reference
 writes as explicit ``shard_map`` bodies: :func:`make_vp_take`, the
@@ -268,6 +269,16 @@ def gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     shape = list(x.shape)
     shape[dim] *= n
     return flat.view(n, *x.shape).movedim(0, dim).reshape(shape)
+
+
+def gather_over(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """``x`` gathered over several axes along ``dim``, in the order of
+    their combined index (the first axis major): one :func:`gather` per
+    axis, the minor first. No gradient: for integers (a MoE layer's expert
+    ids over the data axes)."""
+    for a in reversed(_axes(axes)):
+        x = gather(x, mesh, a, dim)
+    return x
 
 
 def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0

@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-rank CPU tests
-(``tests/test_torch_runtime.py``, ``tests/test_torch_mesh.py``).
+(``tests/test_torch_runtime.py``, ``tests/test_torch_mesh.py``,
+``tests/test_torch_mesh_moe.py``).
 
 Each of ``world`` processes runs::
 
@@ -7,7 +8,7 @@ Each of ``world`` processes runs::
 
 joins a gloo group of ``world`` ranks through a ``FileStore``, builds every
 mesh of :data:`MESHES` for its world size, runs each body of the suite
-(:data:`SUITES`: ``runtime`` or ``mesh``) on each mesh and writes its
+(:data:`SUITES`: ``runtime``, ``mesh`` or ``moe``) on each mesh and writes its
 results to ``<out prefix>.<rank>.npz``, keyed ``<body>|<mesh>|<name>``.
 Only ``torch`` and the port are imported here; the test compares the
 results with the reference and with single-device answers.
@@ -20,6 +21,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -130,43 +132,65 @@ def tree_of(inp: dict, prefix: str) -> dict:
     return tree
 
 
-def lm_cfg(arch: str, dtype: str):
+def lm_cfg(arch: str, dtype: str, over: dict | None = None,
+           moe_over: dict | None = None):
     """The arch's smoke config in ``dtype`` (glm4's: n_head 4 over n_kv 2,
     d_model 64, the reference's sharded test's shapes; codeqwen's: 4 over
-    4)."""
+    4), with ``over`` replacing LMConfig fields and ``moe_over`` MoEConfig
+    fields."""
     import dataclasses
     import torch
     from repro_torch import configs
-    return dataclasses.replace(configs.get(arch).smoke_cfg,
-                               dtype=getattr(torch, dtype))
+    cfg = dataclasses.replace(configs.get(arch).smoke_cfg,
+                              dtype=getattr(torch, dtype), **(over or {}))
+    if moe_over:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe_over))
+    return cfg
 
 
-def placed_model(mesh, inp: dict, arch: str, dtype: str):
-    """The carried reference parameters (``<arch>.<dtype>.p``), this
-    rank's shards of them (``lm_params_from_reference(tree, mesh)``), as a
-    placed model."""
+def placed_model(mesh, inp: dict, arch: str, dtype: str, cfg=None,
+                 key: str | None = None):
+    """The carried reference parameters (``<key>.p``, key
+    ``<arch>.<dtype>`` by default), this rank's shards of them
+    (``lm_params_from_reference(tree, mesh)``), as a placed model of
+    ``cfg`` (the arch's smoke config in ``dtype`` by default)."""
     from repro_torch.core.carry import lm_params_from_reference
     from repro_torch.models import transformer as tfm
-    cfg = lm_cfg(arch, dtype)
-    shards = lm_params_from_reference(tree_of(inp, f"{arch}.{dtype}.p"),
-                                      mesh)
+    cfg = cfg or lm_cfg(arch, dtype)
+    shards = lm_params_from_reference(
+        tree_of(inp, f"{key or f'{arch}.{dtype}'}.p"), mesh)
     meta = dict(tfm.Transformer(cfg, device="meta").named_parameters())
-    return cfg, tfm.placed(cfg, {n: t.to(meta[n].dtype)
-                                 for n, t in shards.items()}, mesh)
+    shards = {n: t.to(meta[n].dtype) for n, t in shards.items()}
+    if mesh is None:                          # whole tensors, no mesh
+        model = tfm.Transformer(cfg, device="cpu")
+        model.load_state_dict(shards)
+        return cfg, model
+    return cfg, tfm.placed(cfg, shards, mesh)
 
 
 def gathered_logits(x, mesh):
     """Logits split (data rows, model columns) gathered whole."""
     from repro_torch.runtime import sharding as shd
+    if mesh is None:
+        return x
     return shd.gather(shd.gather(x, mesh, "model", dim=-1), mesh, "data")
 
 
 def lm_body(mesh, inp: dict, arch: str = "glm4-9b",
-            dtype: str = "float32") -> dict:
+            dtype: str = "float32", cfg=None, key: str | None = None,
+            tok: str = "", routes=None, local: bool = False) -> dict:
     """The carried model (the reference's after one step, with its AdamW
-    state): the prefill's logits and four decode steps from an empty
-    cache of ``lm_cache_spec``'s layout, gathered; then one train step:
-    its metrics, every updated parameter and both moments, gathered."""
+    state; ``key`` and ``cfg`` as :func:`placed_model` takes them): the
+    prefill's logits and four decode steps from an empty cache of
+    ``lm_cache_spec``'s layout, gathered; then one train step: its
+    metrics, every updated parameter and both moments, gathered. The
+    tokens are the inputs' ``<tok>fwd``, ``<tok>dec``, ``<tok>tokens`` and
+    ``<tok>labels``; ``routes`` (a :class:`Routes`, for a MoE model) runs
+    each of the three as its phase. With ``local`` the parameters and
+    moments are this rank's shards, left for the test to assemble
+    (:func:`assemble`): no exchange."""
+    import contextlib
     import torch
     from repro_torch import configs
     from repro_torch.core.carry import adamw_state_from_reference
@@ -174,38 +198,114 @@ def lm_body(mesh, inp: dict, arch: str = "glm4-9b",
     from repro_torch.optim import adamw
     from repro_torch.runtime import sharding as shd
     spec = configs.get(arch)
-    cfg, model = placed_model(mesh, inp, arch, dtype)
-    pre = f"{arch}.{dtype}"
+    cfg, model = placed_model(mesh, inp, arch, dtype, cfg, key)
+    pre = key or f"{arch}.{dtype}"
+    phase = routes.phase if routes else (lambda name: contextlib.nullcontext())
     res = {}
     prefill = configs.make_serve_step(spec, "prefill_32k", cfg, mesh=mesh)
-    logits = prefill(model, {"tokens": torch.from_numpy(inp["fwd"])})
+    with phase("prefill"):
+        logits = prefill(model, {"tokens": torch.from_numpy(inp[tok + "fwd"])})
     res["logits"] = gathered_logits(logits, mesh).numpy()
     decode = configs.make_serve_step(spec, "decode_32k", cfg, mesh=mesh)
-    dec = torch.from_numpy(inp["dec"])
+    dec = torch.from_numpy(inp[tok + "dec"])
     cache = tfm.init_cache(cfg, dec.shape[1], dec.shape[0] + 2,
                            device="cpu", mesh=mesh)
-    for i in range(dec.shape[0]):
-        out, cache = decode(model, {"tokens": dec[i], "cache": cache,
-                                    "cache_len": i})
-        res[f"decode.{i}"] = gathered_logits(out, mesh).numpy()
+    with phase("decode"):
+        for i in range(dec.shape[0]):
+            out, cache = decode(model, {"tokens": dec[i], "cache": cache,
+                                        "cache_len": i})
+            res[f"decode.{i}"] = gathered_logits(out, mesh).numpy()
     state = adamw_state_from_reference(
         {"mu": tree_of(inp, f"{pre}.mu"), "nu": tree_of(inp, f"{pre}.nu"),
          "step": inp[f"{pre}.step"]}, mesh)
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
     step = configs.make_train_step(spec, cfg, opt_cfg, mesh=mesh)
-    batch = {k: torch.from_numpy(inp[k]) for k in ("tokens", "labels")}
+    batch = {k: torch.from_numpy(inp[tok + k]) for k in ("tokens", "labels")}
     shd.reset_collectives()
-    _, state, m = step(model, state, batch)
+    with phase("step"):
+        _, state, m = step(model, state, batch)
     counts = shd.collective_counts()
     res.update({k: v.numpy() for k, v in m.items()})
     res["calls"] = np.array([counts.get(k, {}).get("calls", 0) for k in
                              ("all-gather", "reduce-scatter", "all-reduce")])
-    specs = shd.lm_param_spec_tree(tfm.abstract_params(cfg), mesh)
     for what, tree in (("param", dict(model.named_parameters())),
                        ("mu", state["mu"]), ("nu", state["nu"])):
-        for n, t in shd.unshard_params(tree, specs, mesh).items():
-            res[f"{what}.{n}"] = t.float().numpy()
+        if mesh is not None and not local:
+            specs = shd.lm_param_spec_tree(tfm.abstract_params(cfg), mesh)
+            tree = shd.unshard_params(tree, specs, mesh)
+        for n, t in tree.items():
+            res[f"{what}.{n}"] = t.detach().float().numpy()
+    if routes is not None:
+        res.update(routes.results(tfm.partition_of(model), cfg.n_layer))
     return res
+
+
+class Routes:
+    """A MoE model's routing on this rank, by phase (:meth:`phase`): each
+    call of ``transformer.route`` (this rank's (T_local, K) expert ids) and
+    of ``transformer.dispatch`` (a group's global ``dest``, the same on
+    every rank) kept. With ``replay`` (another run's kept ids by phase, of
+    the GLOBAL rows), each route call instead returns this rank's rows of
+    the next kept ids, counting in ``flips`` the assignments its own
+    routing would have sent to another expert."""
+
+    def __init__(self, replay: dict | None = None):
+        from repro_torch.models import transformer as tfm
+        self.tfm, self.route, self.dispatch = tfm, tfm.route, tfm.dispatch
+        self.sum_aux = tfm._sum_aux
+        self.replay, self.d_index = replay, 0
+        self.kept, self.dests, self.aux, self.flips = {}, {}, {}, 0
+        self.name, self.i = None, 0
+
+    def phase(self, name: str):
+        import contextlib
+        from unittest import mock
+        self.name, self.i = name, 0
+        self.kept[name], self.dests[name] = [], []
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(self.tfm, "route", self._route))
+        stack.enter_context(mock.patch.object(self.tfm, "dispatch",
+                                              self._dispatch))
+        stack.enter_context(mock.patch.object(self.tfm, "_sum_aux",
+                                              self._sum_aux))
+        return stack
+
+    def _sum_aux(self, auxes, device):
+        self.aux[self.name] = out = self.sum_aux(auxes, device)
+        return out
+
+    def _route(self, probs, k):
+        own = self.route(probs, k)
+        if self.replay is None:
+            self.kept[self.name].append(own)
+            return own
+        n = probs.shape[0]
+        ids = self.replay[self.name][self.i][self.d_index * n:
+                                             (self.d_index + 1) * n]
+        self.i += 1
+        self.flips += int((ids[:, :, None] != own[:, None, :]).all(-1).sum())
+        self.kept[self.name].append(ids)
+        return ids
+
+    def _dispatch(self, eidx, E, C):
+        out = self.dispatch(eidx, E, C)
+        self.dests[self.name].append(out[5])
+        return out
+
+    def results(self, part, L: int) -> dict:
+        """Per layer, the prefill's expert ids of every rank's tokens
+        (``route.<l>``, gathered over the data axes), every group's
+        ``dest`` (``dest``, (L * G, Tg * K)) and its aux loss (``aux``, the
+        layers' sum, global); ``flips``."""
+        import torch
+        calls = self.kept["prefill"]
+        per = len(calls) // L
+        res = {f"route.{l}": part.gather_ids(torch.cat(
+            calls[l * per:(l + 1) * per])).numpy() for l in range(L)}
+        res["dest"] = torch.stack(self.dests["prefill"]).numpy()
+        res["aux"] = self.aux["prefill"].numpy()
+        res["flips"] = np.array(self.flips)
+        return res
 
 
 def bf16_body(mesh, inp: dict) -> dict:
@@ -217,15 +317,15 @@ def codeqwen_body(mesh, inp: dict) -> dict:
 
 
 def hooks_body(mesh, inp: dict) -> dict:
-    """The hooks on a placed model: the residual's ``P(dp, None, None)``
+    """The hooks on placed models: glm4's residual ``P(dp, None, None)``
     and the gathered-at-use weights the partitioner produces check clean
-    (logits equal to the run without hooks); the dry run's ``seqshard``
-    ``P(dp, "model", None)`` and a MoE placement raise
-    ``NotImplementedError`` naming the spec, as a MoE model placed on more
-    than one rank does."""
-    import dataclasses
+    (logits equal to the run without hooks), as do qwen2-moe's: its
+    experts' buffers and intermediates (EP or expert TP, C over ``data``)
+    and the weights at use, ``moe.*`` among them; the dry run's
+    ``seqshard`` ``P(dp, "model", None)`` and a MoE placement the
+    partitioner does not produce, ``P("data", None, None)`` (experts over
+    the data axis), raise ``NotImplementedError`` naming the spec."""
     import torch
-    from repro_torch import configs
     from repro_torch.models import transformer as tfm
     from repro_torch.runtime import sharding as shd
     P = shd.P
@@ -233,32 +333,57 @@ def hooks_body(mesh, inp: dict) -> dict:
     toks = shd.local_shard(torch.from_numpy(inp["fwd"]), mesh,
                            P("data", None)).contiguous()
     want, _ = tfm.forward(model, toks)
+    mcfg = lm_cfg("qwen2-moe-a2.7b", "float32")
+    moe = tfm.init_params(mcfg, torch.Generator().manual_seed(0),
+                          device="cpu", mesh=mesh)
+    want_moe, _ = tfm.forward(moe, toks % mcfg.vocab)
     res = {}
-    kv = P(None, "model") if cfg.n_kv % shd.axis_sizes(mesh)["model"] == 0         else P(None, None)
-    table = {"attn.wq": P(None, "model"), "attn.wk": kv, "attn.wv": kv,
+    ms = shd.axis_sizes(mesh)["model"]
+    ep = mcfg.moe.e_total % ms == 0
+
+    def table(c) -> dict:
+        """The weights at use of a model of config c."""
+        kv = P(None, "model") if c.n_kv % ms == 0 else P(None, None)
+        t = {"attn.wq": P(None, "model"), "attn.wk": kv, "attn.wv": kv,
              "attn.wo": P("model", None), "ffn.wi": P(None, "model"),
-             "ffn.wg": P(None, "model"), "ffn.wo": P("model", None)}
+             "ffn.wg": P(None, "model"), "ffn.wo": P("model", None),
+             "moe.wi": P("model", None, None) if ep else P(None, None,
+                                                           "model"),
+             "moe.wg": P("model", None, None) if ep else P(None, None,
+                                                           "model"),
+             "moe.wo": P("model", None, None) if ep else P(None, "model",
+                                                           None),
+             "moe.shared_wi": P(None, None, "model"),
+             "moe.shared_wg": P(None, None, "model"),
+             "moe.shared_wo": P(None, "model", None)}
+        tfm.set_weight_use_sharding({k: shd.named(mesh, v)
+                                     for k, v in t.items()})
+    moe_layouts = ((P("model", "data", None), P("model", "data", None))
+                   if ep else (P(None, "data", None), P(None, "data",
+                                                        "model")))
+    raised = []
     try:
         tfm.set_activation_sharding(shd.named(mesh, P("data", None, None)))
-        tfm.set_weight_use_sharding({k: shd.named(mesh, v)
-                                     for k, v in table.items()})
+        tfm.set_moe_sharding(tuple(shd.named(mesh, v) for v in moe_layouts))
+        table(cfg)
         got, _ = tfm.forward(model, toks)
         res["hooked_equal"] = np.array(torch.equal(got, want))
-        raised = []
+        table(mcfg)
+        got_moe, _ = tfm.forward(moe, toks % mcfg.vocab)
+        res["hooked_moe_equal"] = np.array(torch.equal(got_moe, want_moe))
         for what, setup in (
                 ("seqshard", lambda: tfm.set_activation_sharding(
                     shd.named(mesh, P("data", "model", None)))),
                 ("moe", lambda: tfm.set_moe_sharding(
-                    (shd.named(mesh, P(None, "data", None)),
-                     shd.named(mesh, P(None, "data", "model")))))):
+                    (shd.named(mesh, P("data", None, None)),
+                     shd.named(mesh, moe_layouts[1]))))):
             tfm.set_activation_sharding(None)
+            tfm.set_moe_sharding(None)
+            table(mcfg if what == "moe" else cfg)
             setup()
             try:
-                if what == "moe":
-                    tfm.check_layout(torch.zeros(4, 8, 64),
-                                     tfm.MOE_SHARDING[0])
-                else:
-                    tfm.forward(model, toks)
+                tfm.forward(moe if what == "moe" else model,
+                            toks % mcfg.vocab if what == "moe" else toks)
                 raised.append(f"{what}: nothing raised")
             except NotImplementedError as e:
                 raised.append(f"{what}: {e}")
@@ -266,14 +391,6 @@ def hooks_body(mesh, inp: dict) -> dict:
         tfm.set_activation_sharding(None)
         tfm.set_weight_use_sharding(None)
         tfm.set_moe_sharding(None)
-    moe = dataclasses.replace(configs.get("qwen2-moe-a2.7b").smoke_cfg,
-                              dtype=torch.float32)
-    try:
-        tfm.init_params(moe, torch.Generator().manual_seed(0), device="cpu",
-                        mesh=mesh)
-        raised.append("moe model: nothing raised")
-    except NotImplementedError as e:
-        raised.append(f"moe model: {e}")
     res["raised"] = np.array(raised)
     return res
 
@@ -311,6 +428,81 @@ def collectives_body(mesh, inp: dict) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# the MoE layer under the partitioner (tests/test_torch_mesh_moe.py)
+# ----------------------------------------------------------------------
+
+#: the moe suite's f32 cases, each held to the reference's single-device
+#: step: (arch, LMConfig overrides, MoEConfig overrides). qwen2-moe's smoke
+#: layer (6 experts, top-2, one shared expert) is EP on 2 model ranks and
+#: expert TP on 4; dbrx's (4 experts) EP on both, its 2 kv heads gathered
+#: on 4. At the test's 76 tokens capacity 1.25 binds (C = 32: one group
+#: of 76, or two of 38, each spanning two of 4 data ranks), 8.0 does not
+#: (C = 64 over one group).
+MOE_CASES = {
+    "qwen": ("qwen2-moe-a2.7b", {"remat": True}, {}),
+    "qwen_g2": ("qwen2-moe-a2.7b", {}, {"groups": 2}),
+    "dbrx_cf8": ("dbrx-132b", {}, {"capacity_factor": 8.0}),
+}
+
+
+def moe_case_cfg(case: str, dtype: str = "float32"):
+    arch, over, moe_over = MOE_CASES[case]
+    return lm_cfg(arch, dtype, over, moe_over)
+
+
+def moe_body(mesh, inp: dict, case: str) -> dict:
+    """:func:`lm_body` of a MoE case on the carried reference state
+    (``moe.<case>``), with the prefill's routes, every group's ``dest``
+    and its aux loss."""
+    return lm_body(mesh, inp, MOE_CASES[case][0], "float32",
+                   cfg=moe_case_cfg(case), key=f"moe.{case}", tok="moe.",
+                   routes=Routes(), local=True)
+
+
+def moe_bf16_body(mesh, inp: dict) -> dict:
+    """qwen2-moe in bf16: the port's own step on whole tensors (``want.*``,
+    its routes kept), then the placed one replaying those routes
+    (``got.*``), from the same carried reference state."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import sharding as shd
+    args = dict(arch="qwen2-moe-a2.7b", dtype="bfloat16",
+                cfg=lm_cfg("qwen2-moe-a2.7b", "bfloat16"), key="moe.qwen",
+                tok="moe.")
+    whole = Routes()
+    want = lm_body(None, inp, routes=whole, **args)
+    replay = Routes({k: [t for t in v] for k, v in whole.kept.items()})
+    replay.d_index = shd._combined_index(mesh, shd.dp_axes(mesh))[0]
+    got = lm_body(mesh, inp, routes=replay, local=True, **args)
+    out = {f"want.{k}": v for k, v in want.items()}
+    out.update({f"got.{k}": v for k, v in got.items()})
+    return out
+
+
+def moe_a2a_body(mesh, inp: dict) -> dict:
+    """``set_moe_impl(make_a2a_moe(...))`` on a model placed on the mesh:
+    the a2a reads plain tensors as global values, the placed model holds
+    shards, so the layer raises ``NotImplementedError`` naming both."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.moe_a2a import make_a2a_moe
+    cfg = lm_cfg("qwen2-moe-a2.7b", "float32")
+    model = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", mesh=mesh)
+    toks = shd.local_shard(torch.from_numpy(inp["moe.fwd"]), mesh,
+                           shd.P("data", None)).contiguous()
+    try:
+        tfm.set_moe_impl(make_a2a_moe(mesh, ("data",)))
+        tfm.forward(model, toks)
+        msg = "nothing raised"
+    except NotImplementedError as e:
+        msg = str(e)
+    finally:
+        tfm.set_moe_impl(None)
+    return {"raised": np.array(msg)}
+
+
 def card_operands() -> None:
     """Make B5's and B6's CPU paths refuse what their card wrappers refuse:
     operands that are not contiguous (the kernels read them with their
@@ -336,9 +528,14 @@ def card_operands() -> None:
 SUITES = {"runtime": BODIES,
           "mesh": {"lm": lm_body, "bf16": bf16_body,
                    "codeqwen": codeqwen_body, "hooks": hooks_body,
-                   "collectives": collectives_body}}
+                   "collectives": collectives_body},
+          "moe": {**{case: (lambda mesh, inp, case=case:
+                            moe_body(mesh, inp, case))
+                     for case in MOE_CASES},
+                  "moe_bf16": moe_bf16_body, "a2a_placed": moe_a2a_body}}
 #: bodies of a suite run on only some meshes (the rest run on every one)
-ONLY = {"bf16": ("2x2",), "codeqwen": ("2x2", "1x4")}
+ONLY = {"bf16": ("2x2",), "codeqwen": ("2x2", "1x4"), "moe_bf16": ("2x2",),
+        "a2a_placed": ("2x2",)}
 
 
 def main(rank: int, world: int, store_path: str, inputs: str,
@@ -346,7 +543,7 @@ def main(rank: int, world: int, store_path: str, inputs: str,
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     inp = dict(np.load(inputs))
-    if suite == "mesh":
+    if suite in ("mesh", "moe"):
         card_operands()
     store = dist.FileStore(store_path, world)
     res = {}
@@ -362,24 +559,58 @@ def main(rank: int, world: int, store_path: str, inputs: str,
     dist.destroy_process_group()
 
 
-def run_world(world: int, inputs: str, tmp: Path, timeout: float = 240.0,
-              suite: str = "runtime") -> list[dict]:
-    """Run :func:`main` on ``world`` processes; each rank's results. Raises
-    if a rank fails or the world outlives ``timeout`` seconds."""
-    env = {**os.environ,
+def assemble(parts: list, spec, shape) -> np.ndarray:
+    """The whole tensor from every rank's shard (rank r at ``divmod(r,
+    model)`` of a ``(data, model)`` mesh of ``shape``) under ``spec``:
+    each split dimension's chunks in the order of their axes' combined
+    index, the first axis major."""
+    coords = [dict(zip(("data", "model"), divmod(r, shape[1])))
+              for r in range(len(parts))]
+    sizes = dict(zip(("data", "model"), shape))
+    spec = tuple(spec) + (None,) * (parts[0].ndim - len(spec))
+    axes = [() if e is None else (e,) if isinstance(e, str) else tuple(e)
+            for e in spec]
+    local = parts[0].shape
+    out = np.empty([n * int(np.prod([sizes[a] for a in ax]))
+                    for n, ax in zip(local, axes)], parts[0].dtype)
+    for part, c in zip(parts, coords):
+        where = []
+        for n, ax in zip(local, axes):
+            i = 0
+            for a in ax:
+                i = i * sizes[a] + c[a]
+            where.append(slice(i * n, (i + 1) * n))
+        out[tuple(where)] = part
+    return out
+
+
+def start_world(world: int, inputs: str, tmp: Path, suite: str = "runtime"):
+    """:func:`main`'s ``world`` processes, started."""
+    # one intra-op thread a rank: the ranks of a world share the cores,
+    # and PyTorch's default pool, one thread a core in every rank, makes
+    # each small op wait on the others' threads
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": os.pathsep.join([str(ROOT / "src"),
                                           str(ROOT / "tests")])}
     store = tmp / f"store_{suite}_{world}"
     prefix = tmp / f"out_{suite}_{world}"
-    procs = [subprocess.Popen(
+    return prefix, [subprocess.Popen(
         [sys.executable, "-m", "torch_rank_bodies", str(r), str(world),
          str(store), str(inputs), str(prefix), suite],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
+
+
+def wait_world(started, timeout: float = 240.0) -> list[dict]:
+    """Each rank's results of a :func:`start_world`. Raises if a rank
+    fails or the world outlives ``timeout`` seconds (counted from now)."""
+    prefix, procs = started
+    deadline = time.monotonic() + timeout
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
+            logs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 0.1))[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -388,7 +619,14 @@ def run_world(world: int, inputs: str, tmp: Path, timeout: float = 240.0,
     bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
     if bad:
         raise RuntimeError(f"ranks failed {bad}:\n" + "\n".join(logs))
-    return [dict(np.load(f"{prefix}.{r}.npz")) for r in range(world)]
+    return [dict(np.load(f"{prefix}.{r}.npz")) for r in range(len(procs))]
+
+
+def run_world(world: int, inputs: str, tmp: Path, timeout: float = 240.0,
+              suite: str = "runtime") -> list[dict]:
+    """Run :func:`main` on ``world`` processes; each rank's results. Raises
+    if a rank fails or the world outlives ``timeout`` seconds."""
+    return wait_world(start_world(world, inputs, tmp, suite), timeout)
 
 
 if __name__ == "__main__":
