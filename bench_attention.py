@@ -6,9 +6,9 @@ the LM's shapes:
 
 For each forward case (glm4-9b's causal prefill at 4,096 and a ragged 4,000
 positions, its decode over a 32,768-slot cache at batch 16, codeqwen1.5-7b's
-prefill and decode, and f16 twins) the kernel is held against its plain
-version (``ref.flash_attention``, within ``error_bound`` as in
-chip_smoke.py) and timed beside ``scaled_dot_product_attention``
+prefill and decode, dbrx-132b's prefill at G = 6, and f16 twins) the
+kernel is held against its plain version (``ref.flash_attention``, within
+``error_bound`` as in chip_smoke.py) and timed beside ``scaled_dot_product_attention``
 (``enable_gqa``) on the same inputs: device time with the host ahead, time
 back to back and host time per call (``chip_smoke.call_times``), and the
 bound (``bound_ms``); where the version keeps lse (``return_lse``), the
@@ -38,7 +38,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 #: (name, B, S, T, H, Hkv, t_real, causal, dtype): glm4-9b (32 query heads
-#: over 2 kv heads of 128) and codeqwen1.5-7b (32 over 32)
+#: over 2 kv heads of 128), codeqwen1.5-7b (32 over 32) and dbrx-132b (48
+#: over 8, G = 6: the mma route)
 CASES = [
     ("glm4 prefill S = T = 4096", 1, 4096, 4096, 32, 2, 4096, True,
      torch.bfloat16),
@@ -52,6 +53,8 @@ CASES = [
     ("glm4 decode t_real = 1000", 16, 1, 32768, 32, 2, 1000, False,
      torch.bfloat16),
     ("codeqwen decode t_real = 32768", 16, 1, 32768, 32, 32, 32768, False,
+     torch.bfloat16),
+    ("dbrx prefill S = T = 4096", 1, 4096, 4096, 48, 8, 4096, True,
      torch.bfloat16),
 ]
 #: (name, B, S, H, Hkv, dtype): causal backward cases at S = T

@@ -218,14 +218,13 @@ def abstract_params(spec: ArchSpec, model_cfg) -> torch.nn.Module:
 
 def _mesh_family(spec: ArchSpec, mesh) -> None:
     """Raise unless the family runs under the port's partitioner: the
-    LMs do, dense and MoE (``models.transformer.Partition``); the GNNs
-    and MIND raise."""
-    if mesh is None or spec.family.startswith("lm"):
+    LMs do, dense and MoE (``models.transformer.Partition``), and the
+    GNNs, edge-parallel (``models.gnn.EdgeShard``); MIND raises."""
+    if mesh is None or spec.family.startswith("lm") or spec.family == "gnn":
         return
-    item = "A1.2" if spec.family == "gnn" else "A1.3"
     raise NotImplementedError(
         f"{spec.id}: the {spec.family} step on a mesh (the reference's "
-        f"GSPMD policy for the family) is not ported; ROADMAP {item}")
+        "GSPMD policy for the family) is not ported; ROADMAP A1.3")
 
 
 def _local_batch(model, batch: dict, specs: dict, mesh) -> dict:
@@ -237,6 +236,17 @@ def _local_batch(model, batch: dict, specs: dict, mesh) -> dict:
                          "(runtime.sharding.shard_params / init_params(mesh=))")
     return {k: shd.local_shard(v, mesh, specs[k]).contiguous()
             for k, v in batch.items()}
+
+
+def _local_edges(model, batch: dict, mesh) -> dict:
+    """This rank's edges of a global graph batch (``gnn_batch_specs``),
+    the node arrays whole; the edge count must divide over the mesh
+    (``runtime.sharding.check_divides``): padding edges point at node 0
+    with mask 0."""
+    specs = shd.gnn_batch_specs(batch, mesh)
+    for k, v in batch.items():
+        shd.check_divides(v.shape, specs[k], mesh, k)
+    return _local_batch(model, batch, specs, mesh)
 
 
 def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None,
@@ -260,8 +270,10 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None,
     ``tokens`` (``lm_batch_specs``) and returns its shard of the logits,
     (B / data, S, vocab / model) at prefill and (B / data, vocab / model)
     at decode, whose cache is this rank's shard under ``lm_cache_spec``
-    (``models.transformer.init_cache(mesh=)``). Without it the step is as
-    it always was."""
+    (``models.transformer.init_cache(mesh=)``). A GNN's takes its edges of
+    the global graph batch (``gnn_batch_specs``: the edge count must
+    divide over the mesh) and returns the whole graph's outputs, the same
+    on every rank. Without it the step is as it always was."""
     cfg = model_cfg or cell_model_cfg(spec, shape_name)
     _ported(spec)
     _mesh_family(spec, mesh)
@@ -283,6 +295,8 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None,
         fwd = gnn_mod.FORWARDS[type(cfg)]
 
         def serve_step(model, batch):
+            if mesh is not None:
+                batch = _local_edges(model, batch, mesh)
             return fwd(_model_of(model), batch)
         return serve_step
     if spec.family == "recsys" and kind in ("serve", "retrieval"):
@@ -331,16 +345,19 @@ def init_params(spec: ArchSpec, model_cfg, generator: torch.Generator,
                 device="cuda", mesh=None):
     """A model of ``model_cfg`` drawn from ``generator`` (which lives on
     ``device``) with the reference's initial distributions: the port's
-    ``init_params`` of the family. With ``mesh`` (an LM's) it is placed on
-    the mesh as it is drawn, each rank keeping its shards of the same bits
-    (``models.transformer.init_params``)."""
+    ``init_params`` of the family. With ``mesh`` it is placed on the mesh:
+    an LM's as it is drawn, each rank keeping its shards of the same bits
+    (``models.transformer.init_params``); a GNN's replicated, every rank
+    holding the same bits from a generator seeded alike
+    (``models.gnn.init_params``)."""
     _ported(spec)
     _mesh_family(spec, mesh)
+    if spec.family == "gnn":
+        return gnn_mod.init_params(model_cfg, generator, device=device,
+                                   mesh=mesh)
     if mesh is not None:
         return tfm.init_params(model_cfg, generator, device=device,
                                mesh=mesh)
-    if spec.family == "gnn":
-        return gnn_mod.init_params(model_cfg, generator, device=device)
     if spec.family == "recsys":
         return recsys_mod.init_params(model_cfg, generator, device=device)
     return tfm.init_params(model_cfg, generator, device=device)
@@ -383,22 +400,26 @@ def make_train_step(spec: ArchSpec, model_cfg,
     (:func:`batch_specs`), the layers run under the partitioner, AdamW's
     norm spans the mesh (``adamw.global_norm``), and ``loss``,
     ``grad_norm`` and ``lr`` are the global values, the same on every
-    rank. Without it the step is as it always was."""
+    rank. A GNN's takes its edges of the global graph batch
+    (``gnn_batch_specs``), its parameters, gradients and moments whole and
+    the same on every rank (the norm counts each once, with no
+    exchange). Without it the step is as it always was."""
     _ported(spec)
     _mesh_family(spec, mesh)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     loss = loss_for(spec, model_cfg, take_fn=take_fn)
     p_specs = b_specs = None
     if mesh is not None:
-        p_specs = param_specs(spec, tfm.abstract_params(model_cfg), mesh)
-        b_specs = shd.lm_batch_specs(mesh)
+        p_specs = param_specs(spec, abstract_params(spec, model_cfg), mesh)
+        b_specs = None if spec.family == "gnn" else shd.lm_batch_specs(mesh)
 
     def train_step(model, opt_state, batch):
         if model.cfg != model_cfg:
             raise ValueError(f"the model is {model.cfg.name}, the step was "
                              f"made for {model_cfg.name}")
         if mesh is not None:
-            batch = _local_batch(model, batch, b_specs, mesh)
+            batch = (_local_edges(model, batch, mesh) if b_specs is None
+                     else _local_batch(model, batch, b_specs, mesh))
         params = dict(model.named_parameters())
         for p in params.values():
             p.requires_grad_(True)

@@ -165,8 +165,10 @@ def adamw_state_from_reference(state, mesh=None) -> dict:
     mu = state["mu"]
     if mesh is not None:
         if not isinstance(mu.get("layers"), dict):
-            raise NotImplementedError("moments placed on a mesh: the LM "
-                                      "family's only (ROADMAP A1.2, A1.3)")
+            raise NotImplementedError(
+                "moments placed on a mesh: the LM family's only (a GNN's "
+                "are whole on every rank: carry them without a mesh; MIND, "
+                "ROADMAP A1.3)")
         carry = functools.partial(lm_params_from_reference, mesh=mesh)
     else:
         carry = (mind_params_from_reference if "item_embed" in mu else

@@ -7,8 +7,9 @@ in a tracer. The static ``kernels`` pass (``repro_torch.analysis``) checks
 the launch sites from the AST; this module is its runtime counterpart,
 mirroring the lock-witness split of :mod:`repro_torch.obs.locks`:
 declarations live next to the code they constrain, production pays one
-environment read per call (a dict lookup), and an armed run records
-every call.
+environment read per call (a dict membership test, in a pass-through
+with the wrapper's own parameters), and an armed run records every
+call.
 
 * :data:`LAYOUT_CONTRACTS` — the declared dtype+rank of every array in
   the :class:`~repro_torch.core.batch_query.DeviceIndex` layout (equal to
@@ -77,21 +78,22 @@ def witness_enabled() -> bool:
     return os.environ.get(_ENV_FLAG, "") not in _OFF
 
 
-def _flag_lookup():
-    """A function returning None when the flag is unset, at call time.
+def _flag_store():
+    """The mapping the flag is read from, and its key there, at call time.
     CPython keeps ``os.environ`` in a dict of encoded keys (``_data``,
-    which ``os.environ``'s setters and deleters update); a lookup there
-    takes tens of ns, where ``os.environ.get`` of an unset name raises and
-    catches a ``KeyError`` inside (1.6-3.0 us a call on the card's host,
-    chip_smoke.py's ``[contracts]``). Elsewhere: ``os.environ.get``."""
+    which ``os.environ``'s setters and deleters update); a membership test
+    there takes tens of ns, where ``os.environ.get`` of an unset name
+    raises and catches a ``KeyError`` inside (1.6-3.0 us a call on the
+    host of an H100 80GB HBM3 at 700 W, chip_smoke.py's ``[contracts]``).
+    Elsewhere: ``os.environ`` itself."""
     data = getattr(os.environ, "_data", None)
     encode = getattr(os.environ, "encodekey", None)
     if isinstance(data, dict) and callable(encode):
-        return functools.partial(data.get, encode(_ENV_FLAG))
-    return functools.partial(os.environ.get, _ENV_FLAG)
+        return data, encode(_ENV_FLAG)
+    return os.environ, _ENV_FLAG
 
 
-_flag = _flag_lookup()
+_ENV, _FLAG_KEY = _flag_store()
 
 
 class KernelContractViolation(Exception):
@@ -401,18 +403,48 @@ def kernel_contract(*, in_specs: Mapping[str, ArraySpec],
         CONTRACTS[fn.__name__] = contract
         signature = inspect.signature(fn)
 
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            # disarmed: one read of the environment
-            if _flag() is None or not witness_enabled():
-                return fn(*args, **kwargs)
+        def armed(args, kwargs):
             return _validate_call(contract, signature, WITNESS, fn, args,
                                   kwargs)
 
+        wrapper = functools.update_wrapper(_pass_through(fn, armed), fn)
         wrapper.__kernel_contract__ = contract
         return wrapper
 
     return deco
+
+
+def _pass_through(fn: Callable, armed: Callable) -> Callable:
+    """A function with ``fn``'s own parameters and defaults that, while the
+    witness is disarmed (one membership test in the environment's dict),
+    calls ``fn`` with them, and else returns ``armed(args, kwargs)``.
+    Spelling the parameters out spares the disarmed call the packing and
+    unpacking of ``*args, **kwargs``, which took most of a generic
+    wrapper's time. ``fn`` takes named parameters only."""
+    names, keywords, params, scope = [], [], [], {}
+    for p in inspect.signature(fn).parameters.values():
+        if p.kind not in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY):
+            raise TypeError(f"kernel_contract: {fn.__name__} takes "
+                            f"{p.kind.description} parameter {p.name}")
+        if p.kind is p.KEYWORD_ONLY and not keywords:
+            params.append("*")
+        (keywords if p.kind is p.KEYWORD_ONLY else names).append(p.name)
+        if p.default is p.empty:
+            params.append(p.name)
+        else:
+            scope[f"_default_{p.name}"] = p.default
+            params.append(f"{p.name}=_default_{p.name}")
+    call = ", ".join(names + [f"{k}={k}" for k in keywords])
+    packed = (f"({''.join(n + ', ' for n in names)}), "
+              f"{{{', '.join(f'{k!r}: {k}' for k in keywords)}}}")
+    source = (f"def {fn.__name__}({', '.join(params)}):\n"
+              f"    if _key not in _env or not _enabled():\n"
+              f"        return _fn({call})\n"
+              f"    return _armed({packed})\n")
+    scope.update(_key=_FLAG_KEY, _env=_ENV, _enabled=witness_enabled,
+                 _fn=fn, _armed=armed)
+    exec(source, scope)
+    return scope[fn.__name__]
 
 
 # ---------------------------------------------------------------------------

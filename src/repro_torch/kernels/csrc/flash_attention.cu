@@ -65,10 +65,13 @@
 //   QK^T and PV drops them.
 // * "split": the same kernel for at most 16 rows per (b, kv head)
 //   (decode): the 16 heads of a glm4 kv group fill one 16-row tile, so a
-//   cache tile is read once per group; the 4 warps split each tile's
-//   keys, and their partial (m, l, acc) are merged in shared memory. The
-//   key range is split over blocks when there are too few (flash-decoding):
-//   each split writes its unnormalised (acc, m, l) to an f32 workspace and
+//   cache tile is read once per group; the 4 warps split the output
+//   columns (each computes the tile's scores and softmax for the 16 rows
+//   and P V for its quarter of dh), so every row walks its keys as on the
+//   mma route: a decode over keys that one block takes equals the causal
+//   prefill's row of the same position bit for bit. The key range is
+//   split over blocks when there are too few (flash-decoding): each split
+//   writes its unnormalised (acc, m, l) to an f32 workspace and
 //   `flash_combine` merges the splits in a fixed order.
 // * "f32": f32 q, k, v in plain f32 FMAs (never rounded to a narrower
 //   type): 16 rows per block of 8 warps, 32-key k/v tiles in shared
@@ -227,9 +230,16 @@ __device__ __forceinline__ void load_kv(T* Ks, const T* __restrict__ k,
   }
 }
 
-// NWQ warps along the rows (16 each), 4 / NWQ along the keys of a tile.
-// grid (q tiles, B * Hkv, splits); a split covers kv tiles
-// [z * tiles_per_split, (z + 1) * tiles_per_split) of this block's range.
+// NWQ warps along the rows (16 each); on the split route (NWQ = 1) the
+// four warps of the block's 16 rows take NWC slices of the output columns
+// instead (warps past NWC only load). Every warp walks each row the same
+// way: the scores of all BKV keys of a tile, their max, P rounded to T, and
+// P V over the tile's four 16-key steps in ascending order, the tiles in
+// ascending order; the softmax's f32 products and sums are rounded each on
+// its own (no contraction), so a row's bits do not depend on the route or
+// the warp that computes it. grid (q tiles, B * Hkv, splits); a split
+// covers kv tiles [z * tiles_per_split, (z + 1) * tiles_per_split) of this
+// block's range.
 template <typename T, int DHP, int NWQ>
 __global__ void __launch_bounds__(MMA_THREADS)
     flash_mma(const T* __restrict__ q, const T* __restrict__ k,
@@ -240,12 +250,13 @@ __global__ void __launch_bounds__(MMA_THREADS)
               int tiles_per_split) {
   typedef MmaCfg<DHP> C;
   constexpr int KSTR = C::KSTR, OSTR = C::OSTR;
-  constexpr int NWK = 4 / NWQ;
+  constexpr int WPR = 4 / NWQ;   // warps per 16-row group
+  constexpr int ND = DHP / 8;    // output n-tiles of a row (even)
+  constexpr int NWC = WPR < ND / 2 ? WPR : ND / 2;  // column slices
+  constexpr int NDW = ND / NWC;  // output n-tiles per warp (even)
   constexpr int BQ = 16 * NWQ;   // rows of a block
-  constexpr int KW = BKV / NWK;  // keys of a tile per warp
-  constexpr int NT = KW / 8;     // score n-tiles per warp (even)
-  constexpr int KS = KW / 16;    // PV k-steps per warp
-  constexpr int ND = DHP / 8;    // output n-tiles (even)
+  constexpr int NT = BKV / 8;    // score n-tiles of a tile
+  constexpr int KS = BKV / 16;   // PV k-steps of a tile
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
 
@@ -253,7 +264,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const int bh = blockIdx.y, b = bh / Hkv, hk = bh % Hkv;
   const int row0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wq = warp / NWK, wk = warp % NWK;
+  const int wq = warp / WPR, wc = warp % WPR;
+  const bool computes = wc < NWC;
+  const int nd0 = wc * NDW;      // this warp's first output n-tile
   const int g = lane >> 2, t = lane & 3;
 
   // this thread's two rows (g and g + 8 of the warp's 16): q fragments,
@@ -286,9 +299,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
   const int tile_begin = blockIdx.z * tiles_per_split;
   const int tile_end = min(n_tiles, tile_begin + tiles_per_split);
 
-  float acc[ND][4];
+  float acc[NDW][4];
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
+  for (int nd = 0; nd < NDW; ++nd)
     acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
@@ -313,90 +326,92 @@ __global__ void __launch_bounds__(MMA_THREADS)
     cp_async_wait<MMA_STAGES - 1>();
     __syncthreads();
 
-    const T* Ks = ring + stage * C::STAGE_ELEMS;
-    const T* Vs = Ks + BKV * KSTR;
-    const int kv0 = it * BKV;
-    const int kw0 = wk * KW;
+    if (computes) {
+      const T* Ks = ring + stage * C::STAGE_ELEMS;
+      const T* Vs = Ks + BKV * KSTR;
+      const int kv0 = it * BKV;
 
-    // scores of this warp's 16 rows x KW keys; K fragments of two n-tiles
-    // per ldmatrix (matrices: n-tile nt d-lo, nt d-hi, nt+1 d-lo, nt+1 d-hi)
-    float sc[NT][4];
+      // scores of this warp's 16 rows x BKV keys; K fragments of two
+      // n-tiles per ldmatrix (matrices: n-tile nt d-lo, nt d-hi, nt+1 d-lo,
+      // nt+1 d-hi)
+      float sc[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-    const int mi = lane / 8;
+      for (int nt = 0; nt < NT; ++nt)
+        sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+      const int mi = lane / 8;
 #pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      const T* kr =
-          Ks + (kw0 + (nt + mi / 2) * 8 + lane % 8) * KSTR + (mi % 2) * 8;
+      for (int nt = 0; nt < NT; nt += 2) {
+        const T* kr = Ks + ((nt + mi / 2) * 8 + lane % 8) * KSTR + (mi % 2) * 8;
 #pragma unroll
-      for (int kk = 0; kk < DHP / 16; ++kk) {
-        uint32_t r[4];
-        ldmatrix_x4(r, kr + kk * 16);
-        mma16816<T>(sc[nt], qa[kk], r[0], r[1]);
-        mma16816<T>(sc[nt + 1], qa[kk], r[2], r[3]);
-      }
-    }
-    const bool need_mask =
-        kv0 + BKV > t_real || (causal && kv0 + BKV - 1 > min_qpos);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = sc[nt][j] * scale_log2;
-        if (need_mask) {
-          int kp = kv0 + kw0 + nt * 8 + 2 * t + (j & 1);
-          int qp = (j >> 1) ? qpos[1] : qpos[0];  // no indexed local array
-          if (kp >= t_real || (causal && kp > qp)) s = -INFINITY;
+        for (int kk = 0; kk < DHP / 16; ++kk) {
+          uint32_t r[4];
+          ldmatrix_x4(r, kr + kk * 16);
+          mma16816<T>(sc[nt], qa[kk], r[0], r[1]);
+          mma16816<T>(sc[nt + 1], qa[kk], r[2], r[3]);
         }
-        sc[nt][j] = s;
-        mx[j >> 1] = fmaxf(mx[j >> 1], s);
       }
-    float mu[2], alpha[2];
+      const bool need_mask =
+          kv0 + BKV > t_real || (causal && kv0 + BKV - 1 > min_qpos);
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      float m_new = fmaxf(m[i], mx[i]);
-      mu[i] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
-      alpha[i] = exp2f(m[i] - mu[i]);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+        for (int j = 0; j < 4; ++j) {
+          float s = __fmul_rn(sc[nt][j], scale_log2);
+          if (need_mask) {
+            int kp = kv0 + nt * 8 + 2 * t + (j & 1);
+            int qp = (j >> 1) ? qpos[1] : qpos[0];  // no indexed local array
+            if (kp >= t_real || (causal && kp > qp)) s = -INFINITY;
+          }
+          sc[nt][j] = s;
+          mx[j >> 1] = fmaxf(mx[j >> 1], s);
+        }
+      float mu[2], alpha[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float p = exp2f(sc[nt][j] - mu[j >> 1]);
-        sc[nt][j] = p;
-        l[j >> 1] += p;  // this thread's columns; the quad is summed at the end
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        float m_new = fmaxf(m[i], mx[i]);
+        mu[i] = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+        alpha[i] = exp2f(__fsub_rn(m[i], mu[i]));
+        m[i] = m_new;
+        l[i] = __fmul_rn(l[i], alpha[i]);
       }
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
-    }
-    // acc += P @ V: the C fragments of two score n-tiles are the A
-    // fragment of one 16-key step; V fragments of two output n-tiles per
-    // ldmatrix.trans (matrices: keys lo d nd, keys hi d nd, keys lo d
-    // nd+1, keys hi d nd+1)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t pa[4] = {Elem<T>::pack(sc[2 * ks][0], sc[2 * ks][1]),
-                        Elem<T>::pack(sc[2 * ks][2], sc[2 * ks][3]),
-                        Elem<T>::pack(sc[2 * ks + 1][0], sc[2 * ks + 1][1]),
-                        Elem<T>::pack(sc[2 * ks + 1][2], sc[2 * ks + 1][3])};
-      const T* vr =
-          Vs + (kw0 + ks * 16 + (mi % 2) * 8 + lane % 8) * KSTR + (mi / 2) * 8;
+        for (int j = 0; j < 4; ++j) {
+          float p = exp2f(__fsub_rn(sc[nt][j], mu[j >> 1]));
+          sc[nt][j] = p;
+          // this thread's columns; the quad is summed at the end
+          l[j >> 1] = __fadd_rn(l[j >> 1], p);
+        }
 #pragma unroll
-      for (int nd = 0; nd < ND; nd += 2) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, vr + nd * 8);
-        mma16816<T>(acc[nd], pa, r[0], r[1]);
-        mma16816<T>(acc[nd + 1], pa, r[2], r[3]);
+      for (int nd = 0; nd < NDW; ++nd) {
+        acc[nd][0] = __fmul_rn(acc[nd][0], alpha[0]);
+        acc[nd][1] = __fmul_rn(acc[nd][1], alpha[0]);
+        acc[nd][2] = __fmul_rn(acc[nd][2], alpha[1]);
+        acc[nd][3] = __fmul_rn(acc[nd][3], alpha[1]);
+      }
+      // acc += P @ V over this warp's columns: the C fragments of two score
+      // n-tiles are the A fragment of one 16-key step; V fragments of two
+      // output n-tiles per ldmatrix.trans (matrices: keys lo d nd, keys hi
+      // d nd, keys lo d nd+1, keys hi d nd+1)
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t pa[4] = {Elem<T>::pack(sc[2 * ks][0], sc[2 * ks][1]),
+                          Elem<T>::pack(sc[2 * ks][2], sc[2 * ks][3]),
+                          Elem<T>::pack(sc[2 * ks + 1][0], sc[2 * ks + 1][1]),
+                          Elem<T>::pack(sc[2 * ks + 1][2], sc[2 * ks + 1][3])};
+        const T* vr = Vs + (ks * 16 + (mi % 2) * 8 + lane % 8) * KSTR +
+                      (mi / 2) * 8 + nd0 * 8;
+#pragma unroll
+        for (int nd = 0; nd < NDW; nd += 2) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, vr + nd * 8);
+          mma16816<T>(acc[nd], pa, r[0], r[1]);
+          mma16816<T>(acc[nd + 1], pa, r[2], r[3]);
+        }
       }
     }
     __syncthreads();  // this stage is refilled MMA_STAGES - 1 tiles on
@@ -404,46 +419,38 @@ __global__ void __launch_bounds__(MMA_THREADS)
   cp_async_wait<0>();
   __syncthreads();
 
-  // every warp's (m, l, acc) into shared memory (over the k/v ring) ...
+  // every row's (m, l) and every warp's columns of acc into shared memory
+  // (over the k/v ring) ...
   float* so = reinterpret_cast<float*>(smem_raw);
   float* sm = so + 4 * 16 * OSTR;
   float* sl = sm + 4 * 16;
+  if (computes) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (t == 0) {
-      sm[warp * 16 + g + 8 * i] = m[i];
-      sl[warp * 16 + g + 8 * i] = l[i];
+    for (int i = 0; i < 2; ++i) {
+      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 1));
+      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 2));
+      if (t == 0 && wc == 0) {
+        sm[wq * 16 + g + 8 * i] = m[i];
+        sl[wq * 16 + g + 8 * i] = l[i];
+      }
     }
-  }
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) {
-    float* r0 = so + (warp * 16 + g) * OSTR + nd * 8 + 2 * t;
-    *reinterpret_cast<float2*>(r0) = make_float2(acc[nd][0], acc[nd][1]);
-    *reinterpret_cast<float2*>(r0 + 8 * OSTR) =
-        make_float2(acc[nd][2], acc[nd][3]);
+    for (int nd = 0; nd < NDW; ++nd) {
+      float* r0 = so + (wq * 16 + g) * OSTR + (nd0 + nd) * 8 + 2 * t;
+      *reinterpret_cast<float2*>(r0) = make_float2(acc[nd][0], acc[nd][1]);
+      *reinterpret_cast<float2*>(r0 + 8 * OSTR) =
+          make_float2(acc[nd][2], acc[nd][3]);
+    }
   }
   __syncthreads();
 
-  // ... merged over the NWK warps that share a row, and written out
+  // ... written out: the splits' partials, or o = acc / l and the lse
   const bool split = gridDim.z > 1;
   for (int idx = threadIdx.x; idx < BQ * dh; idx += MMA_THREADS) {
     const int rr = idx / dh, d = idx % dh;
     const int grow = row0 + rr;
     if (grow >= rows) break;
-    const int w0 = (rr / 16) * NWK, lr = rr % 16;
-    float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < NWK; ++w) M = fmaxf(M, sm[(w0 + w) * 16 + lr]);
-    float A = 0.f, L = 0.f;
-#pragma unroll
-    for (int w = 0; w < NWK; ++w) {
-      float mw = sm[(w0 + w) * 16 + lr];
-      float e = mw == -INFINITY ? 0.f : exp2f(mw - M);
-      A += e * so[((w0 + w) * 16 + lr) * OSTR + d];
-      L += e * sl[(w0 + w) * 16 + lr];
-    }
+    const float A = so[rr * OSTR + d], M = sm[rr], L = sl[rr];
     if (split) {
       size_t prow = ((size_t)blockIdx.z * gridDim.y + bh) * rows + grow;
       part_acc[prow * dh + d] = A;
@@ -1109,7 +1116,7 @@ extern "C" {
 // Attention of q (B, S, H, dh) over k, v (B, T, Hkv, dh) into o, all of
 // dtype `is_f16` ? f16 : bf16. route 0 "wgmma" (dh 64 or 128, 128-row tiles;
 // q_tiles of them), 1 "mma" (64-row tiles) or 2 "split" (16-row tiles, the
-// keys of a tile split over the warps), the last two on a kernel of head
+// output columns split over the warps), the last two on a kernel of head
 // width dhp (16, 32, 64 or 128, >= dh); scores scaled by 1 / sqrt(dh_scale)
 // (the true head width when the wrapper padded dh). A non-null lse (B, H, S)
 // f32 receives the rows' log-sum-exp. With splits > 1 (routes 1 and 2),

@@ -22,8 +22,10 @@ more than 16 rows per (b, kv head), G dividing 128: warp-specialised TMA +
 wgmma over 128-row q tiles and 128-key k/v tiles, P in registers as the
 PV product's A operand), ``"mma"`` (bf16 or f16, more than 16 rows, any
 other dh up to 128: mma.sync over 64-row tiles), ``"split"`` (bf16 or
-f16, at most 16 rows: decode; the same mma.sync kernel with the key range
-split over blocks), ``"f32"`` (f32 inputs in plain f32 FMAs) and
+f16, at most 16 rows: decode; the same mma.sync kernel, its warps over
+the output columns, with the key range split over blocks; a row it takes
+in one block equals the ``"mma"`` route's row bit for bit), ``"f32"``
+(f32 inputs in plain f32 FMAs) and
 ``"wide"`` (any dtype at dh above 128: the f32 route's kernel looped over
 128-column chunks, reading bf16 or f16 and rounding only the output). A
 dh that is not a multiple of 8 is zero-padded to the next one, the scale

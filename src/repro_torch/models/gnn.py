@@ -38,12 +38,30 @@ padded batch, ``edge_mask`` (E,) f32 (0.0 on the padding edges, which
 point at node 0); MeshGraphNet adds ``edge_feat`` (E, d_edge_in) and
 ``target`` (n, d_out), GraphSAGE ``labels`` and ``seed_mask``, NequIP and
 MACE ``pos`` (n, 3), ``graph_id`` (n,), ``energy_target`` (graphs,) and
-``force_target`` (n, 3). The reference's node-sharding hook
-(:func:`set_node_sharding`) pins each aggregated node tensor to rows
-split over the mesh for XLA's partitioner; here, given a
-``runtime.sharding.NamedPlacement``, it checks the tensor's layout at the
-same sites (``models.transformer.check_layout``): the identity on one
-rank, ``NotImplementedError`` on more.
+``force_target`` (n, 3).
+
+On a ``(data, model)`` mesh (a model placed by ``runtime.sharding.
+shard_params`` under ``gnn_param_specs``, or ``configs.init_params(mesh=)``)
+a forward runs the reference's edge-parallel policy
+(``runtime/sharding.py``'s GNN rules), partitioned by hand
+(:class:`EdgeShard`, from :func:`partition_of`): each rank holds its ``E /
+world`` edges (``src``, ``dst``, ``edge_feat``, ``edge_mask``), every node
+tensor and parameter whole, the same on every rank. A node tensor or
+parameter that enters the edge rows (a gather by an edge end, ``pos``,
+MeshGraphNet's ``enc_edge`` and ``edge_mlp``, the geo layers' ``radial``
+MLP) passes through ``grad_sum``, and every aggregation that leaves them
+through ``psum``, so that every rank computes the whole graph's node
+update and holds the whole gradient; a parameter used on node rows only
+takes no sum. A mean divides after both its sums and its counts are
+summed over the mesh. On a one-rank mesh nothing is exchanged and the
+forward is the unsharded one bit for bit.
+
+The reference's node-sharding hook (:func:`set_node_sharding`) pins each
+aggregated node tensor to rows split over the mesh for XLA's
+partitioner; here, given a ``runtime.sharding.NamedPlacement``, it checks
+the tensor's layout at the same sites (``models.transformer.
+check_layout``): the identity on one rank, ``NotImplementedError`` on
+more (the node-sharded variant is not ported).
 """
 
 from __future__ import annotations
@@ -55,6 +73,7 @@ import torch
 from torch import nn
 
 from ..kernels import ops
+from ..runtime import sharding as shd
 from . import equivariant as eq
 from .transformer import check_layout
 
@@ -72,6 +91,45 @@ def _constrain_nodes(x: torch.Tensor) -> torch.Tensor:
     if NODE_SHARDING is not None:
         return check_layout(x, NODE_SHARDING)
     return x
+
+
+# ======================================================================
+# the edge-parallel partition
+# ======================================================================
+
+class EdgeShard:
+    """How a GNN placed on ``mesh`` runs its forward on this rank's edges
+    (the reference's GNN policy, ``runtime.sharding.gnn_batch_specs``):
+    edges over every mesh axis, node state and parameters replicated.
+    :meth:`rep` marks a replicated tensor entering the edge rows (its
+    gradient there is this rank's share: ``grad_sum`` over the mesh),
+    :meth:`agg` sums an aggregation of this rank's edges into the whole
+    graph's (``psum``; its backward passes the replicated cotangent).
+    Axes of one rank are left out, so a one-rank mesh, or none, exchanges
+    nothing."""
+
+    def __init__(self, mesh=None):
+        sizes = shd.axis_sizes(mesh) if mesh is not None else {}
+        self.mesh = mesh
+        self.axes = tuple(a for a, n in sizes.items() if n > 1)
+        self.size = math.prod(sizes.values())
+
+    def rep(self, x: torch.Tensor) -> torch.Tensor:
+        return shd.grad_sum(x, self.mesh, self.axes)
+
+    def agg(self, x: torch.Tensor) -> torch.Tensor:
+        return shd.psum(x, self.mesh, self.axes)
+
+
+#: the partition of no mesh: every edge on this device
+WHOLE = EdgeShard()
+
+
+def partition_of(model: nn.Module) -> EdgeShard:
+    """The model's partition: :class:`EdgeShard` of its ``mesh`` (set by
+    ``runtime.sharding.shard_params``), :data:`WHOLE` without one."""
+    mesh = getattr(model, "mesh", None)
+    return WHOLE if mesh is None else EdgeShard(mesh)
 
 
 # ======================================================================
@@ -101,11 +159,14 @@ def _mlp_params(dims: list[int], device) -> nn.ModuleList:
 
 
 def _mlp(layers: nn.ModuleList, x: torch.Tensor,
-         final_act: bool = False) -> torch.Tensor:
+         final_act: bool = False, rep=None) -> torch.Tensor:
     """The reference's ``_mlp``: ``x @ w + b`` per layer (B5), relu between
-    the layers (and after the last with ``final_act``)."""
+    the layers (and after the last with ``final_act``). ``rep`` (an
+    :meth:`EdgeShard.rep`) takes each weight and bias where x holds edge
+    rows."""
     for i, lyr in enumerate(layers):
-        x = ops.matmul(x, lyr.w) + lyr.b
+        w, b = (lyr.w, lyr.b) if rep is None else (rep(lyr.w), rep(lyr.b))
+        x = ops.matmul(x, w) + b
         if i < len(layers) - 1 or final_act:
             x = torch.relu(x)
     return x
@@ -178,18 +239,23 @@ def mgn_outputs(model: MeshGraphNet, batch: dict) -> torch.Tensor:
     (two gathers), masked edges zeroed, the B4 sum of the edges into their
     ``dst`` and the node update from ``[x, agg]``; every MLP output layer
     normed; the decoder. One B4 plan for ``dst``, and one for ``src`` where
-    a gradient can flow."""
+    a gradient can flow. On a mesh (:class:`EdgeShard`) the edge encoder,
+    the edge MLPs and the node state gathered by the edges take
+    ``grad_sum``, each layer's aggregation ``psum``."""
+    part = partition_of(model)
     n = batch["node_feat"].shape[0]
     src, dst = _plans(batch["src"], batch["dst"], n)
     mask = batch.get("edge_mask")
     mask = mask[:, None] if mask is not None else 1.0
     x = _layernorm(_mlp(model.enc_node, batch["node_feat"]))
-    e = _layernorm(_mlp(model.enc_edge, batch["edge_feat"])) * mask
+    e = _layernorm(_mlp(model.enc_edge, batch["edge_feat"],
+                        rep=part.rep)) * mask
     for lyr in model.layers:
-        msg_in = torch.cat([e, ops.gather_rows(x, src),
-                            ops.gather_rows(x, dst)], dim=-1)
-        e = (e + _layernorm(_mlp(lyr.edge_mlp, msg_in))) * mask
-        agg = _constrain_nodes(ops.segment_sum(e, dst, n))
+        xe = part.rep(x)
+        msg_in = torch.cat([e, ops.gather_rows(xe, src),
+                            ops.gather_rows(xe, dst)], dim=-1)
+        e = (e + _layernorm(_mlp(lyr.edge_mlp, msg_in, rep=part.rep))) * mask
+        agg = _constrain_nodes(part.agg(ops.segment_sum(e, dst, n)))
         x = x + _layernorm(_mlp(lyr.node_mlp, torch.cat([x, agg], dim=-1)))
     return _mlp(model.dec, x)
 
@@ -249,29 +315,43 @@ class GraphSAGE(nn.Module):
         self.head = _param((cfg.d_hidden, cfg.n_classes), device)
 
 
-def segment_mean(vals: torch.Tensor, ids, num: int) -> torch.Tensor:
+def segment_mean(vals: torch.Tensor, ids, num: int,
+                 part: EdgeShard = WHOLE) -> torch.Tensor:
     """Mean of the rows of ``vals`` (E, d) per segment id (``ids``: a
     vector or its B4 plan), 0 for a segment with no row: two B4 calls, the
-    sums and the counts."""
+    sums and the counts, each summed over ``part``'s mesh before the
+    division (:func:`edge_mean`)."""
     s = ops.segment_sum(vals, ids, num)
     ones = torch.ones((vals.shape[0], 1), dtype=s.dtype, device=vals.device)
-    return s / ops.segment_sum(ones, ids, num).clamp_min(1.0)
+    return edge_mean(part, s, ops.segment_sum(ones, ids, num))
+
+
+def edge_mean(part: EdgeShard, sums: torch.Tensor,
+              counts: torch.Tensor) -> torch.Tensor:
+    """The mean of the whole graph's edge rows per node from this rank's
+    ``sums`` and ``counts``: both summed over the mesh, then divided (a
+    count floored at 1). A mean of the ranks' own means would weigh each
+    rank's edges alike whatever their count."""
+    return part.agg(sums) / part.agg(counts).clamp_min(1.0)
 
 
 def sage_layer(layer: SAGELayer, x: torch.Tensor, src, dst,
-               mask: torch.Tensor | None) -> torch.Tensor:
+               mask: torch.Tensor | None,
+               part: EdgeShard = WHOLE) -> torch.Tensor:
     """One layer (``sage_forward``'s loop body): the mean of the in-edge
     neighbours' rows (masked edges counted out), both projections plus the
     bias, relu, and each row scaled to norm 1 (floored at 1e-6). ``src``
-    and ``dst`` are id vectors or their B4 plans."""
+    and ``dst`` are id vectors or their B4 plans. On a mesh the node rows
+    gathered by the edges take ``grad_sum`` and the mean's sums and counts
+    ``psum``; the layer's parameters act on node rows only and take
+    none."""
     n = x.shape[0]
-    rows = ops.gather_rows(x, src)
+    rows = ops.gather_rows(part.rep(x), src)
     if mask is not None:
-        msum = ops.segment_sum(rows * mask[:, None], dst, n)
-        cnt = ops.segment_sum(mask[:, None], dst, n)
-        agg = msum / cnt.clamp_min(1.0)
+        agg = edge_mean(part, ops.segment_sum(rows * mask[:, None], dst, n),
+                        ops.segment_sum(mask[:, None], dst, n))
     else:
-        agg = segment_mean(rows, dst, n)
+        agg = segment_mean(rows, dst, n, part)
     agg = _constrain_nodes(agg)
     x = ops.matmul(x, layer.w_self) + ops.matmul(agg, layer.w_neigh) + layer.b
     x = torch.relu(x)
@@ -284,11 +364,12 @@ def sage_logits(model: GraphSAGE, batch: dict) -> torch.Tensor:
     autograd: ``2 * n_layers`` B4 calls and ``2 * n_layers + 1`` B5
     calls, over one B4 plan for ``dst`` (and one for ``src`` where a
     gradient can flow) shared by the layers."""
+    part = partition_of(model)
     x = batch["node_feat"]
     src, dst = _plans(batch["src"], batch["dst"], x.shape[0])
     mask = batch.get("edge_mask")
     for layer in model.layers:
-        x = sage_layer(layer, x, src, dst, mask)
+        x = sage_layer(layer, x, src, dst, mask, part)
     return ops.matmul(x, model.head)
 
 
@@ -391,33 +472,37 @@ def _mix(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _interaction(lyr: Interaction, C: int, s, V, T, src, dst, rbf, rhat, Y2,
-                 n: int, mask=None):
+                 n: int, mask=None, part: EdgeShard = WHOLE):
     """One equivariant message-passing layer (the reference's
     ``_interaction``, shared by NequIP and MACE): per-edge path weights
     from the radial MLP (masked edges send nothing), the senders' irreps
     gathered as (n, C), (n, 3C) and (n, 9C) rows, the three tensor-product
     messages, their B4 sums into ``dst`` as (E, C), (E, 3C) and (E, 9C)
     rows, the channel mixes, and the gated nonlinearity. ``src`` and
-    ``dst`` are id vectors or their B4 plans."""
+    ``dst`` are id vectors or their B4 plans. On a mesh the radial MLP and
+    the three gathered irreps take ``grad_sum``, the three sums ``psum``;
+    the mixes and gates act on node rows and take none."""
     E = rbf.shape[0]
-    rw = _mlp(lyr.radial, rbf).reshape(E, 3, C, eq.N_PATHS)
+    rw = _mlp(lyr.radial, rbf, rep=part.rep).reshape(E, 3, C, eq.N_PATHS)
     if mask is not None:
         rw = rw * mask[:, None, None, None]
     # bf16 state (bf16_state) meets f32 edge terms in f32, as jnp promotes
-    s_e = ops.gather_rows(s, src).float()
-    V_e = ops.gather_rows(V.reshape(n, 3 * C), src).float().reshape(E, C, 3)
-    T_e = ops.gather_rows(T.reshape(n, 9 * C), src).float().reshape(
-        E, C, 3, 3)
+    s_e = ops.gather_rows(part.rep(s), src).float()
+    V_e = ops.gather_rows(part.rep(V.reshape(n, 3 * C)), src).float(
+    ).reshape(E, C, 3)
+    T_e = ops.gather_rows(part.rep(T.reshape(n, 9 * C)), src).float(
+    ).reshape(E, C, 3, 3)
     m_s = (eq.tp_to_scalar(s_e, V_e, T_e, rhat, Y2) * rw[:, 0]).sum(-1)
     m_v = torch.einsum("ecip,ecp->eci",
                        eq.tp_to_vector(s_e, V_e, T_e, rhat, Y2), rw[:, 1])
     m_t = torch.einsum("ecijp,ecp->ecij",
                        eq.tp_to_tensor(s_e, V_e, T_e, rhat, Y2), rw[:, 2])
-    a_s = _constrain_nodes(ops.segment_sum(m_s.contiguous(), dst, n))
-    a_v = _constrain_nodes(ops.segment_sum(
-        m_v.reshape(E, 3 * C).contiguous(), dst, n).reshape(n, C, 3))
-    a_t = _constrain_nodes(ops.segment_sum(
-        m_t.reshape(E, 9 * C).contiguous(), dst, n).reshape(n, C, 3, 3))
+    a_s = _constrain_nodes(part.agg(ops.segment_sum(m_s.contiguous(), dst,
+                                                    n)))
+    a_v = _constrain_nodes(part.agg(ops.segment_sum(
+        m_v.reshape(E, 3 * C).contiguous(), dst, n)).reshape(n, C, 3))
+    a_t = _constrain_nodes(part.agg(ops.segment_sum(
+        m_t.reshape(E, 9 * C).contiguous(), dst, n)).reshape(n, C, 3, 3))
     s2 = s + ops.matmul(a_s, lyr.mix_s)
     V2 = V + _mix(a_v, lyr.mix_v)
     T2 = T + _mix(a_t, lyr.mix_t)
@@ -447,16 +532,19 @@ def geo_outputs(model: GeoModel, batch: dict, n_graphs: int | None = None):
     ``bf16_state`` the features rounded to bf16 after each), the readout
     per atom, and the B4 sum of the atoms' energies by ``graph_id``. One
     B4 plan each for ``dst`` and ``graph_id``, and one for ``src`` where a
-    gradient can flow."""
+    gradient can flow. On a mesh ``pos`` takes ``grad_sum`` where the
+    edges gather it (the forces then sum every rank's edges); the
+    energies, a sum over node rows, take no ``psum``."""
     cfg = model.cfg
+    part = partition_of(model)
     feat = batch["node_feat"]
     n = feat.shape[0]
     ng = n_graphs if n_graphs is not None else batch["energy_target"].shape[0]
     C = cfg.d_hidden
     src, dst = _plans(batch["src"], batch["dst"], n)
     graph_id = ops.segment_plan(batch["graph_id"], ng)
-    rvec = ops.gather_rows(batch["pos"], src) - ops.gather_rows(batch["pos"],
-                                                                dst)
+    pos = part.rep(batch["pos"])
+    rvec = ops.gather_rows(pos, src) - ops.gather_rows(pos, dst)
     d, rhat, Y2 = eq.edge_basis(rvec)
     rbf = eq.bessel_rbf(d, cfg.n_rbf, cfg.cutoff)
     s = _mlp(model.embed, feat)
@@ -465,7 +553,7 @@ def geo_outputs(model: GeoModel, batch: dict, n_graphs: int | None = None):
     mace = isinstance(cfg, MACEConfig)
     for lyr in model.layers:
         s, V, T = _interaction(lyr, C, s, V, T, src, dst, rbf, rhat, Y2, n,
-                               mask=batch.get("edge_mask"))
+                               mask=batch.get("edge_mask"), part=part)
         if mace:
             s, V, T = _product_basis(lyr.prod, s, V, T)
         if cfg.bf16_state:
@@ -552,12 +640,14 @@ def model_of(cfg, device=None) -> nn.Module:
 
 @torch.no_grad()
 def init_params(cfg, generator: torch.Generator,
-                device="cuda") -> nn.Module:
+                device="cuda", mesh=None) -> nn.Module:
     """A model of ``cfg`` with the reference's initial distributions
     (``mgn_init``, ``sage_init``, ``nequip_init``, ``mace_init``): every
     weight N(0, 1) / sqrt(its first dimension, the fan-in), every bias 0.
     Drawn from ``generator``, which lives on ``device``; the bits are not
-    the reference's."""
+    the reference's. With ``mesh`` the model is placed on it, every
+    parameter replicated (``runtime.sharding.gnn_param_specs``): every rank
+    drawing from a generator seeded alike holds the same bits."""
     model = model_of(cfg, device)
     for name, p in model.named_parameters():
         if name.endswith(".b"):
@@ -565,4 +655,6 @@ def init_params(cfg, generator: torch.Generator,
         else:
             p.copy_(torch.randn(p.shape, generator=generator,
                                 device=p.device).div_(p.shape[0] ** 0.5))
+    if mesh is not None:
+        shd.shard_params(model, shd.gnn_param_specs(model), mesh)
     return model

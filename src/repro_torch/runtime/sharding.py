@@ -50,7 +50,9 @@ every rank of the group and everything downstream of it is computed
 alike on each (so each rank holds the full cotangent):
 
 * :func:`psum` sums over the group; its backward passes the cotangent
-  through unchanged (summing it again would count it once per rank);
+  through unchanged (summing it again would count it once per rank),
+  as a :func:`grad_sum`: where that cotangent is differentiated again
+  (``create_graph``), each rank's terms of it are summed;
 * :func:`pmean` means; its backward divides by the group's size;
 * :func:`all_gather_tiled` gathers; its backward takes this rank's
   chunk of the cotangent;
@@ -61,7 +63,11 @@ alike on each (so each rank holds the full cotangent):
 * :func:`grad_sum` is the identity forward and sums the gradient over
   the group: it marks a value replicated over the group but used on
   different data by each rank (a table shard over the batch axes, the
-  router over every token chunk).
+  router over every token chunk, a GNN's node state gathered by each
+  rank's edges). Its backward is :func:`psum` of the cotangent. Each is
+  the other's transpose and each one's backward is the other, so a
+  gradient taken with ``create_graph`` (NequIP's and MACE's forces) is
+  differentiated once more through the collectives correctly.
 """
 
 from __future__ import annotations
@@ -232,14 +238,78 @@ def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
                ) -> torch.Tensor:
     """Sum (``op="max"``: the largest) of ``x`` over the ranks of ``axes``
     (a name or a tuple of them), as a new tensor: one all-reduce per
-    axis."""
-    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    out = x.clone()
+    axis. A sum adds the ranks' values in rank order, whatever the
+    tensor's size (:func:`_sum_in_rank_order`), so an element's bits do
+    not depend on where it lies in the tensor: a decode step's rows equal
+    the same rows of a prefill's."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"all_reduce sums or takes the max, not {op!r}")
+    out = x
     for a in _axes(axes):
         _count("all-reduce", out)
-        if out.device.type != "meta":
-            dist.all_reduce(out, op=red, group=_group(mesh, a))
-    return out
+        if out.device.type == "meta":
+            continue
+        if op == "max":
+            out = out.clone() if out is x else out
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group(mesh, a))
+        else:
+            out = _sum_in_rank_order(out, mesh, a)
+    return x.clone() if out is x else out
+
+
+#: below this many bytes a sum in rank order over more than two ranks
+#: gathers every rank's whole tensor (one collective, n - 1 tensors in);
+#: from it on, it exchanges chunks and gathers their sums (two
+#: collectives, the bytes of a ring all-reduce). Over two ranks the bytes
+#: are the same and the gather always runs. ``bench_mesh_sum.py`` times
+#: both routes on each side of it.
+GATHER_SUM_BYTES = 4 << 20
+
+
+def _sum_in_rank_order(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis``, each element added in
+    rank order, ``((x_0 + x_1) + x_2) + ...``, by one of two routes with
+    the same bits: every rank's tensor gathered and added here (small
+    tensors, or two ranks), or (:func:`_exchange_sum`) chunk j of every
+    rank sent to rank j, added there and the sums gathered back. NCCL's
+    own all-reduce adds in an order that follows the element's offset in
+    the message, so the same row summed in a message of another size
+    rounds otherwise."""
+    n = axis_sizes(mesh)[axis]
+    if n == 1:
+        return x
+    group = _group(mesh, axis)
+    flat = x.reshape(-1)
+    if n > 2 and flat.numel() * flat.element_size() >= GATHER_SUM_BYTES:
+        return _exchange_sum(flat, n, group).view(x.shape)
+    every = flat.new_empty(n * flat.numel())
+    dist.all_gather_into_tensor(every, flat, group=group)
+    parts = every.view(n, -1)
+    out = parts[0] + parts[1]
+    for j in range(2, n):
+        out += parts[j]
+    return out.view(x.shape)
+
+
+def _exchange_sum(flat: torch.Tensor, n: int, group) -> torch.Tensor:
+    """:func:`_sum_in_rank_order` of a flat tensor by chunks: all-to-all
+    (rank j gets chunk j of every rank, the tensor zero-padded to ``n``
+    equal chunks only where ``n`` does not divide it), the chunks added in
+    sender order, all-gather of the sums."""
+    m = flat.numel()
+    chunk = -(-m // n)
+    send = flat
+    if chunk * n != m:
+        send = flat.new_zeros(n * chunk)
+        send[:m] = flat
+    got = torch.empty_like(send)
+    dist.all_to_all_single(got, send, group=group)
+    parts = got.view(n, chunk)
+    acc = parts[0] + parts[1]
+    for j in range(2, n):
+        acc += parts[j]
+    dist.all_gather_into_tensor(got, acc, group=group)
+    return got[:m]
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -318,11 +388,15 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
         return all_reduce(x, mesh, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None
+        # the cotangent as it is, marked as the replicated value it is: a
+        # gradient taken with create_graph passes it on to each rank's own
+        # terms, whose second-order cotangents grad_sum then sums
+        return _GradSum.apply(g, ctx.mesh, ctx.axes), None, None
 
 
 class _PMean(torch.autograd.Function):
@@ -344,7 +418,10 @@ class _GradSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.mesh, ctx.axes), None, None
+        # the differentiable sum, so that a gradient taken with
+        # create_graph (NequIP's and MACE's forces) differentiates through
+        # it again
+        return _PSum.apply(g, ctx.mesh, ctx.axes), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -633,7 +710,10 @@ _GNN_EDGE_KEYS = ("src", "dst", "edge_feat", "edge_mask")
 
 
 def gnn_batch_specs(batch: dict, mesh) -> dict:
-    """Edge arrays over every mesh axis, everything else replicated."""
+    """Edge arrays over every mesh axis, everything else replicated: each
+    rank's edges are the ``E / world`` rows at its index over all axes,
+    the first major (``models.gnn.EdgeShard`` runs the forward on
+    them)."""
     ax = all_axes(mesh)
     return {name: (P(ax, *([None] * (t.dim() - 1))) if name in _GNN_EDGE_KEYS
                    else P(*([None] * t.dim())))

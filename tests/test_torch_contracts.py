@@ -96,15 +96,54 @@ def test_the_flag_is_read_at_call_time(monkeypatch):
     """The wrapper's one read sees the process environment as it is now,
     through ``os.environ``'s setters and deleters."""
     monkeypatch.delenv("REPRO_KERNEL_WITNESS", raising=False)
-    assert kc._flag() is None and not kc.witness_enabled()
+    assert kc._FLAG_KEY not in kc._ENV and not kc.witness_enabled()
     monkeypatch.setenv("REPRO_KERNEL_WITNESS", "1")
-    assert kc._flag() is not None and kc.witness_enabled()
+    assert kc._FLAG_KEY in kc._ENV and kc.witness_enabled()
     monkeypatch.setenv("REPRO_KERNEL_WITNESS", "0")
-    assert kc._flag() is not None and not kc.witness_enabled()
+    assert kc._FLAG_KEY in kc._ENV and not kc.witness_enabled()
     w = kc.KernelWitness()
     monkeypatch.setattr(kc, "WITNESS", w)
     segmented_select.segmented_count_le(i32(1), i32(0), i32(1), 1)
     assert w.calls == 0                      # "0" leaves it disarmed
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_the_pass_through_has_the_wrappers_own_parameters(name):
+    """The function a contract puts in place of a wrapper declares the
+    wrapper's parameters, kinds and defaults itself (no ``*args,
+    **kwargs`` to pack on a disarmed call)."""
+    fn = getattr(WRAPPERS[name], name)
+    own = inspect.signature(fn, follow_wrapped=False).parameters
+    want = inspect.signature(fn.__wrapped__).parameters
+    assert [(p.name, p.kind, p.default) for p in own.values()] == \
+        [(p.name, p.kind, p.default) for p in want.values()]
+    assert fn.__code__.co_flags & (inspect.CO_VARARGS
+                                   | inspect.CO_VARKEYWORDS) == 0
+
+
+@pytest.mark.parametrize("arm", ["", "1"])
+def test_the_pass_through_forwards_every_argument(monkeypatch, arm):
+    """Positional, defaulted and keyword-only arguments reach the wrapped
+    function as given, disarmed and armed; a mis-call raises TypeError."""
+    monkeypatch.setenv("REPRO_KERNEL_WITNESS", arm)
+    monkeypatch.setattr(kc, "WITNESS", kc.KernelWitness())
+    monkeypatch.setattr(kc, "CONTRACTS", {})
+
+    @kc.kernel_contract(in_specs={})
+    def toy(a, b=2, *, c, d=(4,)):
+        return a, b, c, d
+
+    assert toy(1, c=3) == (1, 2, 3, (4,))
+    assert toy(a=1, b=5, c=3, d=None) == (1, 5, 3, None)
+    assert kc.WITNESS.calls == (2 if arm else 0)
+    with pytest.raises(TypeError):
+        toy(1, 2, 3)
+
+
+def test_a_contract_refuses_a_wrapper_without_named_parameters(monkeypatch):
+    monkeypatch.setattr(kc, "CONTRACTS", {})
+    with pytest.raises(TypeError, match="variadic"):
+        kc.kernel_contract(in_specs={})(lambda *xs: xs)
 
 
 def test_armed_clean_call_recorded(armed):

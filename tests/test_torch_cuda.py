@@ -786,6 +786,47 @@ def test_flash_attention_probe_matches_plain_version(cuda):
     assert bool(((o - want).abs() <= bound[0, :, 0]).all())
 
 
+@pytest.mark.parametrize("H,Hkv", [(48, 8), (12, 2)],
+                         ids=["one_card", "model_rank"])
+@pytest.mark.parametrize("S", [8, 64, 200])
+def test_decode_rows_equal_the_causal_prefills_bit_for_bit(cuda, H, Hkv, S):
+    """At dbrx-132b's attention shapes (bf16, dh 128, 6 query heads a kv
+    head, batch 4; on one card and on a model rank of (1, 4)), the decode
+    of position p over a 32,768-slot cache holding the prompt's keys (the
+    split route, t_real = p + 1) equals the causal prefill's row p (the
+    mma route) bit for bit, output and lse, wherever the decode's keys fit
+    one block (no flash-decoding split); past that its rows stay within
+    the plain version's bound."""
+    B, dh, slots = 4, 128, 32768
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(B, S, h, dh, generator=gen,
+                           device=cuda).bfloat16() for h in (H, Hkv, Hkv))
+    ck = torch.randn(B, slots, Hkv, dh, generator=gen, device=cuda).bfloat16()
+    cv = torch.randn_like(ck)
+    ck[:, :S], cv[:, :S] = k, v
+    assert flash_attention.plan(B, S, H, Hkv, S, True, dh).route == "mma"
+    o, lse = flash_attention.flash_attention(q, k, v, causal=True,
+                                             return_lse=True)
+    one_block = 0
+    for p in range(S):
+        plan = flash_attention.plan(B, 1, H, Hkv, p + 1, False, dh)
+        assert plan.route == "split"
+        od, ld = flash_attention.flash_attention(
+            q[:, p:p + 1].contiguous(), ck, cv, t_real=p + 1,
+            return_lse=True)
+        if plan.splits == 1:
+            one_block += 1
+            assert torch.equal(od.view(torch.int16),
+                               o[:, p:p + 1].view(torch.int16)), p
+            assert torch.equal(ld.view(torch.int32),
+                               lse[:, :, p:p + 1].view(torch.int32)), p
+        else:
+            want = ref.flash_attention(q[:, p:p + 1], ck, cv, t_real=p + 1)
+            assert bool(((od.float() - want.float()).abs()
+                         <= flash_attention.error_bound(want)).all()), p
+    assert one_block == min(S, 64)
+
+
 @pytest.mark.parametrize("dh,dtype", [(12, "bf16"), (12, "f32"),
                                       (136, "bf16"), (136, "f32"),
                                       (256, "bf16"), (256, "f32"),

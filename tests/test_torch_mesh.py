@@ -368,10 +368,24 @@ def test_steps_refuse_an_unplaced_model_and_other_families():
     with pytest.raises(ValueError, match="not placed"):
         configs.make_serve_step(spec, "prefill_32k", cfg, mesh=mesh)(model,
                                                                      batch)
-    for arch, item in (("graphsage-reddit", "A1.2"), ("mind", "A1.3")):
-        other = configs.get(arch)
-        with pytest.raises(NotImplementedError, match=item):
-            configs.make_train_step(other, other.smoke_cfg, mesh=mesh)
+    mind = configs.get("mind")
+    with pytest.raises(NotImplementedError, match="A1.3"):
+        configs.make_train_step(mind, mind.smoke_cfg, mesh=mesh)
+    # the GNNs run edge-parallel on a mesh (tests/test_torch_mesh_gnn.py)
+    sage = configs.get("graphsage-reddit")
+    scfg = configs.cell_model_cfg(sage, "minibatch_lg", smoke=True)
+    placed = configs.init_params(sage, scfg, torch.Generator().manual_seed(0),
+                                 device="cpu", mesh=mesh)
+    rng = np.random.default_rng(0)
+    graph = {"node_feat": torch.from_numpy(rng.normal(size=(8, 8)).astype(
+                 np.float32)),
+             "src": torch.from_numpy(rng.integers(0, 8, 16).astype(np.int32)),
+             "dst": torch.from_numpy(rng.integers(0, 8, 16).astype(np.int32)),
+             "labels": torch.zeros(8, dtype=torch.int32),
+             "seed_mask": torch.ones(8, dtype=torch.bool)}
+    _, _, m = configs.make_train_step(sage, scfg, mesh=mesh)(
+        placed, adamw.init_state(dict(placed.named_parameters())), graph)
+    assert bool(torch.isfinite(m["loss"]))
 
 
 def test_placement_round_trips_and_keeps_shards_contiguous():

@@ -557,7 +557,8 @@ def worlds(tmp_path_factory):
     e = (rng.normal(size=(4, 32, 8)) * 1e-2).astype(np.float32)
     inputs = tmp / "inputs.npz"
     np.savez(inputs, table=table, ids=ids, w=w, x=x, w_moe=w_moe, g=g, e=e,
-             **{f"moe.{k}": v for k, v in lp.items()})
+             **{f"moe.{k}": v for k, v in lp.items()}, **double_inputs(),
+             **ordered_inputs())
     inp = dict(np.load(inputs))
     mesh = make_smoke_mesh("cpu")
     single = {f"{k}": v for k, v in
@@ -568,6 +569,8 @@ def worlds(tmp_path_factory):
     ref_out, _ = jax.jit(jax_tfm.moe_ffn, static_argnums=1)(
         {k: jnp.asarray(v) for k, v in lp.items()}, jcfg, jnp.asarray(x))
     single["ref_moe"] = np.asarray(ref_out)
+    single.update({f"double.{k}": v for k, v in
+                   bodies.double_body(None, inp).items()})
     return {"inp": inp, "single": single,
             **{world: bodies.run_world(world, inputs, tmp)
                for world in bodies.MESHES}}
@@ -576,6 +579,76 @@ def worlds(tmp_path_factory):
 def cases():
     return [(world, bodies.mesh_key(shape))
             for world, shapes in bodies.MESHES.items() for shape in shapes]
+
+
+def double_inputs(n=12, e=64, seed=4) -> dict:
+    """``torch_rank_bodies.double_body``'s graph: f64 positions, a (3, 4)
+    weight, ``e`` random edges (a multiple of 8), force targets."""
+    rng = np.random.default_rng(seed)
+    return {"dd.pos": rng.normal(size=(n, 3)),
+            "dd.w": rng.normal(size=(3, 4)),
+            "dd.src": rng.integers(0, n, e).astype(np.int32),
+            "dd.dst": rng.integers(0, n, e).astype(np.int32),
+            "dd.target": rng.normal(size=(n, 3))}
+
+
+@pytest.mark.parametrize("world,mesh", cases())
+def test_second_derivative_through_the_collectives_equals_one_rank(
+        worlds, world, mesh):
+    """A loss on ``grad_sum``'s backward (forces taken with
+    ``create_graph``) differentiated once more: every rank's forces and
+    second-order gradient equal the one-device ones (f64, 1e-12): the
+    backward of ``grad_sum`` is a differentiable ``psum``, whose own
+    backward sums each rank's second-order terms (a ``grad_sum``)."""
+    single = worlds["single"]
+    for r in worlds[world]:
+        for name in ("forces", "grad"):
+            got, want = r[f"double|{mesh}|{name}"], single[f"double.{name}"]
+            assert rel_err(got, want) <= 1e-12, (name, rel_err(got, want))
+
+
+def ordered_inputs(seed=6) -> dict:
+    """``torch_rank_bodies.ordered_sum_body``'s tensors, one (9, 7) f32 a
+    rank for up to 8 ranks, over magnitudes 1e-4..1e4 so that the order
+    of the adds shows in the bits."""
+    rng = np.random.default_rng(seed)
+    return {"os.x": (rng.normal(size=(8, 9, 7))
+                     * 10.0 ** rng.integers(-4, 5, (8, 9, 7))
+                     ).astype(np.float32)}
+
+
+def in_order(xs) -> np.ndarray:
+    out = xs[0].copy()
+    for x in xs[1:]:
+        out = (out + x).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("world,mesh", cases())
+def test_sum_adds_in_rank_order_on_both_routes(worlds, world, mesh):
+    """``all_reduce``'s sum over each axis equals the ranks' tensors added
+    in the group's rank order, bit for bit, by the gather and by the
+    exchange (padded chunks and whole ones), and the first 2 rows summed
+    alone equal those rows of the whole sum; over three or more ranks the
+    data are such that the reverse order would round otherwise."""
+    xs = worlds["inp"]["os.x"]
+    for r in worlds[world]:
+        for a in ("data", "model"):
+            order = [int(i) for i in r[f"ordered|{mesh}|{a}|ranks"]]
+            want = in_order([xs[i] for i in order])
+            keys = ["gather", "exchange"] + (
+                ["direct.whole"] if len(order) > 1 else [])
+            for k in keys:
+                got = r[f"ordered|{mesh}|{a}|{k}"]
+                assert got.tobytes() == want.tobytes(), (a, k)
+            assert r[f"ordered|{mesh}|{a}|rows"].tobytes() == \
+                want[:2].tobytes(), a
+            if len(order) > 1:
+                assert r[f"ordered|{mesh}|{a}|direct.rows8"].tobytes() == \
+                    want[:8].tobytes(), a
+            if len(order) > 2:
+                assert not np.array_equal(
+                    in_order([xs[i] for i in order[::-1]]), want), a
 
 
 def gathered(ranks, key, mesh_key):

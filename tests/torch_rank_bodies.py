@@ -1,6 +1,6 @@
 """Rank bodies of the port's multi-rank CPU tests
 (``tests/test_torch_runtime.py``, ``tests/test_torch_mesh.py``,
-``tests/test_torch_mesh_moe.py``).
+``tests/test_torch_mesh_moe.py``, ``tests/test_torch_mesh_gnn.py``).
 
 Each of ``world`` processes runs::
 
@@ -8,8 +8,9 @@ Each of ``world`` processes runs::
 
 joins a gloo group of ``world`` ranks through a ``FileStore``, builds every
 mesh of :data:`MESHES` for its world size, runs each body of the suite
-(:data:`SUITES`: ``runtime``, ``mesh`` or ``moe``) on each mesh and writes its
-results to ``<out prefix>.<rank>.npz``, keyed ``<body>|<mesh>|<name>``.
+(:data:`SUITES`: ``runtime``, ``mesh``, ``moe`` or ``gnn``) on each mesh
+and writes its results to ``<out prefix>.<rank>.npz``, keyed
+``<body>|<mesh>|<name>``.
 Only ``torch`` and the port are imported here; the test compares the
 results with the reference and with single-device answers.
 :func:`run_world` starts the processes and waits for them, each under a
@@ -111,7 +112,76 @@ def compress_body(mesh, inp: dict) -> dict:
     return {"mean": mean["w"].numpy(), "new_error": new_e["w"].numpy()}
 
 
-BODIES = {"vp": vp_take_body, "a2a": a2a_body, "compress": compress_body}
+def double_body(mesh, inp: dict) -> dict:
+    """A force-like second derivative through the collectives, in f64:
+    node energies ``psum`` of a sum over this rank's edges (its share of
+    the global ``dd.src``, ``dd.dst`` over every axis) of ``tanh(rvec @
+    w)``, ``rvec = pos[src] - pos[dst]`` gathered from ``grad_sum(pos)``
+    with ``grad_sum(w)``; the forces ``-dE/dpos`` taken with
+    ``create_graph``; the gradient of ``w`` of the forces' squared error.
+    ``mesh`` None: the same on one device with no collective."""
+    import torch
+    from repro_torch.runtime import sharding as shd
+    src = torch.from_numpy(inp["dd.src"]).long()
+    dst = torch.from_numpy(inp["dd.dst"]).long()
+    if mesh is None:
+        def rep(x):
+            return x
+        agg = rep
+    else:
+        axes = shd.all_axes(mesh)
+        src, dst = (shd.local_shard(t, mesh, shd.P(axes)) for t in (src, dst))
+
+        def rep(x):
+            return shd.grad_sum(x, mesh, axes)
+
+        def agg(x):
+            return shd.psum(x, mesh, axes)
+    pos = torch.from_numpy(inp["dd.pos"]).requires_grad_(True)
+    w = torch.from_numpy(inp["dd.w"]).requires_grad_(True)
+    pr = rep(pos)
+    e = torch.tanh((pr[src] - pr[dst]) @ rep(w))
+    node = agg(torch.zeros(pos.shape[0], e.shape[1], dtype=e.dtype
+                           ).index_add(0, dst, e))
+    energy = (node ** 2).sum()
+    (dpos,) = torch.autograd.grad(energy, pos, create_graph=True)
+    loss = ((-dpos - torch.from_numpy(inp["dd.target"])) ** 2).sum()
+    (gw,) = torch.autograd.grad(loss, w)
+    return {"forces": (-dpos).detach().numpy(), "grad": gw.numpy()}
+
+
+def ordered_sum_body(mesh, inp: dict) -> dict:
+    """``sharding.all_reduce``'s sum of this rank's ``os.x[rank]`` over
+    each axis by both of its routes: the gather (small tensors; every
+    route's threshold as shipped) and the exchange (``GATHER_SUM_BYTES``
+    at 0, and ``_exchange_sum`` called directly, as two ranks never take
+    it), on the whole (9, 7) tensor (63 elements: zero-padded chunks) and
+    on its first 8 rows (56: whole chunks); the sum of its first 2 rows
+    alone; and the global ranks of each axis's group in rank order."""
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.runtime import sharding as shd
+    x = torch.from_numpy(inp["os.x"][dist.get_rank()])
+    res = {}
+    for a in shd.axis_names(mesh):
+        n = shd.axis_sizes(mesh)[a]
+        group = shd._group(mesh, a)
+        res[f"{a}|ranks"] = np.array(dist.get_process_group_ranks(group))
+        res[f"{a}|gather"] = shd.all_reduce(x, mesh, a).numpy()
+        res[f"{a}|rows"] = shd.all_reduce(x[:2], mesh, a).numpy()
+        with mock.patch.object(shd, "GATHER_SUM_BYTES", 0):
+            res[f"{a}|exchange"] = shd.all_reduce(x, mesh, a).numpy()
+        if n > 1:
+            for what, t in (("whole", x), ("rows8", x[:8])):
+                res[f"{a}|direct.{what}"] = shd._exchange_sum(
+                    t.reshape(-1), n, group).view(t.shape).numpy()
+    return res
+
+
+BODIES = {"vp": vp_take_body, "a2a": a2a_body, "compress": compress_body,
+          "double": double_body, "ordered": ordered_sum_body}
 
 
 # ----------------------------------------------------------------------
@@ -503,6 +573,112 @@ def moe_a2a_body(mesh, inp: dict) -> dict:
     return {"raised": np.array(msg)}
 
 
+# ----------------------------------------------------------------------
+# the GNN family, edge-parallel (tests/test_torch_mesh_gnn.py)
+# ----------------------------------------------------------------------
+
+#: the gnn suite's cases, each at its arch's smoke config and held to the
+#: reference's single-device step: (arch, shape, edge mask)
+GNN_CASES = {"sage": ("graphsage-reddit", "minibatch_lg", True),
+             "sage_unmasked": ("graphsage-reddit", "minibatch_lg", False),
+             "mgn": ("meshgraphnet", "full_graph_sm", True),
+             "nequip": ("nequip", "molecule", True),
+             "mace": ("mace", "molecule", True)}
+#: the one train step's AdamW settings (the reference's the same)
+GNN_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+
+
+def gnn_case(inp: dict, case: str, mesh):
+    """(spec, shape, cfg, model, batch) of a case: the smoke config, the
+    reference's parameters carried in the inputs (``gnn.<case>.p.<name>``)
+    on a model placed on ``mesh`` (replicated; whole where ``mesh`` is
+    None) and the global batch (``gnn.<case>.b.<key>``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import gnn
+    from repro_torch.runtime import sharding as shd
+    arch, shape, _ = GNN_CASES[case]
+    spec = configs.get(arch)
+    cfg = configs.cell_model_cfg(spec, shape, smoke=True)
+    model = gnn.model_of(cfg, device="cpu")
+    pre, bpre = f"gnn.{case}.p.", f"gnn.{case}.b."
+    model.load_state_dict({k[len(pre):]: torch.from_numpy(v)
+                           for k, v in inp.items() if k.startswith(pre)})
+    if mesh is not None:
+        shd.shard_params(model, shd.gnn_param_specs(model), mesh)
+    batch = {k[len(bpre):]: torch.from_numpy(v) for k, v in inp.items()
+             if k.startswith(bpre)}
+    return spec, shape, cfg, model, batch
+
+
+def gnn_body(mesh, inp: dict, case: str) -> dict:
+    """A GNN case on ``mesh`` (or whole with ``mesh`` None): the serve
+    step's outputs; the loss and every parameter's gradient of this
+    rank's edges (``gnn_batch_specs``), NequIP's and MACE's forces; one
+    ``make_train_step`` step from a zero AdamW state: its metrics, every
+    updated parameter and both moments (whole on every rank) and the
+    all-reduces it made."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    spec, shape, cfg, model, batch = gnn_case(inp, case, mesh)
+    geo = isinstance(cfg, (gnn.NequIPConfig, gnn.MACEConfig))
+    res = {}
+    out = configs.make_serve_step(spec, shape, cfg, mesh=mesh)(model, batch)
+    if geo:
+        res["energy"], res["s"] = out[0].numpy(), out[1][0].numpy()
+    else:
+        res["out"] = out.numpy()
+    specs = None if mesh is None else shd.gnn_batch_specs(batch, mesh)
+    local = batch if mesh is None else {
+        k: shd.local_shard(v, mesh, specs[k]).contiguous()
+        for k, v in batch.items()}
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    loss = configs.loss_for(spec, cfg)(model, local)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
+    res["grad_loss"] = loss.detach().numpy()
+    res.update({f"grad.{n}": g.numpy() for n, g in zip(params, grads)})
+    if geo:
+        res["forces"] = gnn.energy_and_forces(model, local)[1].numpy()
+    state = adamw.init_state(params)
+    step = configs.make_train_step(spec, cfg, adamw.AdamWConfig(**GNN_OPT),
+                                   mesh=mesh)
+    shd.reset_collectives()
+    _, state, m = step(model, state, batch)
+    counts = shd.collective_counts()
+    res["reduces"] = np.array(counts.pop("all-reduce", {}).get("calls", 0))
+    res["other_collectives"] = np.array(sum(c["calls"]
+                                            for c in counts.values()))
+    res.update({k: v.numpy() for k, v in m.items()})
+    for what, tree in (("param", dict(model.named_parameters())),
+                       ("mu", state["mu"]), ("nu", state["nu"])):
+        res.update({f"{what}.{n}": t.detach().numpy()
+                    for n, t in tree.items()})
+    return res
+
+
+def gnn_planted_body(mesh, inp: dict) -> dict:
+    """GraphSAGE's masked serve step with a mean of the ranks' own means
+    planted in place of the summed mean (``models.gnn.edge_mean``)."""
+    from unittest import mock
+    from repro_torch import configs
+    from repro_torch.models import gnn
+    spec, shape, cfg, model, batch = gnn_case(inp, "sage", mesh)
+
+    def per_rank_mean(part, sums, counts):
+        return part.agg(sums / counts.clamp_min(1.0)) / part.size
+
+    with mock.patch.object(gnn, "edge_mean", per_rank_mean):
+        out = configs.make_serve_step(spec, shape, cfg, mesh=mesh)(model,
+                                                                   batch)
+    return {"out": out.numpy()}
+
+
 def card_operands() -> None:
     """Make B5's and B6's CPU paths refuse what their card wrappers refuse:
     operands that are not contiguous (the kernels read them with their
@@ -532,7 +708,11 @@ SUITES = {"runtime": BODIES,
           "moe": {**{case: (lambda mesh, inp, case=case:
                             moe_body(mesh, inp, case))
                      for case in MOE_CASES},
-                  "moe_bf16": moe_bf16_body, "a2a_placed": moe_a2a_body}}
+                  "moe_bf16": moe_bf16_body, "a2a_placed": moe_a2a_body},
+          "gnn": {**{case: (lambda mesh, inp, case=case:
+                            gnn_body(mesh, inp, case))
+                     for case in GNN_CASES},
+                  "planted": gnn_planted_body}}
 #: bodies of a suite run on only some meshes (the rest run on every one)
 ONLY = {"bf16": ("2x2",), "codeqwen": ("2x2", "1x4"), "moe_bf16": ("2x2",),
         "a2a_placed": ("2x2",)}
@@ -543,7 +723,7 @@ def main(rank: int, world: int, store_path: str, inputs: str,
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     inp = dict(np.load(inputs))
-    if suite in ("mesh", "moe"):
+    if suite in ("mesh", "moe", "gnn"):
         card_operands()
     store = dist.FileStore(store_path, world)
     res = {}
