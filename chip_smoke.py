@@ -341,7 +341,16 @@ result line each; any failure raises and exits non-zero:
            local shapes of 2 and 4 model ranks (ffn.wi's ragged N among
            them, the row-parallel K, wq, the gathered wk, the head's
            vocab shard) and B6 over one kv head against their plain
-           versions, timed beside their bounds and library calls
+           versions, timed beside their bounds and library calls; then
+           qwen2-moe-a2.7b the same way (4 layers); then mind at full
+           width through its partition (models.recsys.Partition): one
+           serve_p99 call and one train step of 65,536 users, counted,
+           bit-equal to the unsharded ones (scores; loss, norm, lr, S,
+           item_embed, both moments), no collective; B4 and B5 at the
+           local shapes of the four-card meshes (the table gradient over
+           a rank's ids into its rows, the logits and their gradients on
+           B / data users) against their plain versions, bounds and
+           index_add_ / torch.matmul
 
 The card builds, ingests and trims of epoch, engine, multi and store
 peel their k ranges on the card too; a ``[kcore]`` line sums
@@ -362,8 +371,13 @@ tokens/s, model-FLOP share, peak GiB per card, collectives) and served
 on (1, 4) (prefill and decode at the head of the cache within 5e-2 of
 max|logit| of one card's; decode at the end of the cache timed, its
 distance from one card's beside one card's own kernels-vs-plain
-spread); the parts moe, dbrx and gnn (``MESH_PARTS``) follow, each in
-rank processes of its own. Then the same last two lines.
+spread); the parts mind, gnn, moe and dbrx (``MESH_PARTS``) run too,
+each in rank processes of its own: mind at its published config (the
+2 GiB table's rows over model, the in-batch softmax over the whole
+batch) on each mesh against one card's steps and serve cells, a
+per-rank softmax planted and caught; the GNNs edge-parallel and
+node-sharded (``models.gnn.NodeShard``) against one card's steps and
+each other. Then the same last two lines.
 """
 
 from __future__ import annotations
@@ -1188,8 +1202,11 @@ def b4_checks(cases: dict, tag: str = "gnn", sum_tol: float = 0.0) -> dict:
     (``ref.segment_sum_tiled``), both bit for bit; then timed beside its
     bound (with its share of it) and its plain version, and for ids all in
     range (the paths') beside the library call ``torch.zeros(S,
-    d).index_add_(0, ids, vals)``. One ``[tag]`` line per case; returns
-    each case's numbers."""
+    d).index_add_(0, ids, vals)`` (where some are out of range, over the
+    rows in range, picked beforehand: no one PyTorch call drops ids). The
+    bound reads the rows in range only (the kernel reads no other: the
+    work this run's ids need). One ``[tag]`` line per case; returns each
+    case's numbers."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_matmul as sm
 
@@ -1214,9 +1231,12 @@ def b4_checks(cases: dict, tag: str = "gnn", sum_tol: float = 0.0) -> dict:
         if not (torch.equal(got, again) and torch.equal(got, mirror)):
             raise AssertionError(f"B4 {name}: two calls or the kernel and "
                                  f"its tiled mirror differ in their bits")
-        in_range = bool(((ids >= 0) & (ids < S)).all())
+        ok = (ids >= 0) & (ids < S)
+        kept = int(ok.sum())
+        in_range = kept == E
         del got, want, diff, again, mirror
-        bound = sm.segment_sum_bound_ms(E, d, S)
+        bound = (sm.segment_sum_bound_ms(kept, d, S)
+                 + 4 * (E - kept) / sm.HBM_BYTES_PER_S * 1e3)
         line = (f"[{tag}] B4 {name}: ({E} x {d}) into {S} segments: max abs "
                 f"err {err:.3e} against the plain version (tolerance "
                 f"{B4_TOL} + {B4_TOL} of |plain|"
@@ -1231,7 +1251,8 @@ def b4_checks(cases: dict, tag: str = "gnn", sum_tol: float = 0.0) -> dict:
         rec = dict(max_abs_err=err, bound_ms=bound, ms=t, plain_ms=plain_ms,
                    plan_ms=plan_ms, share=bound / t)
         line += (f"; kernel with its plan {kern}; bound {bound:.6f} ms "
-                 f"(bytes: 4*E*d + 4*E + 4*S*d at 3.35 TB/s) = "
+                 f"(bytes: 4*E_in*d + 4*E + 4*S*d at 3.35 TB/s, E_in = "
+                 f"{kept:,} rows in range) = "
                  f"{bound / t:.3f} of the kernel's time; plan (segment_plan: "
                  f"stable sort, searchsorted; "
                  f"{sm.segment_plan_bytes(E, S):,} bytes beside the ids) "
@@ -1239,8 +1260,15 @@ def b4_checks(cases: dict, tag: str = "gnn", sum_tol: float = 0.0) -> dict:
         if in_range:
             lib_ms, lib = call_times(lambda: torch.zeros(
                 (S, d), device=dev).index_add_(0, ids, vals))
-            rec.update(library_ms=lib_ms)
             line += f"; library torch.zeros(S, d).index_add_ {lib}"
+        else:
+            kept_ids, kept_vals = ids[ok], vals[ok]
+            lib_ms, lib = call_times(lambda: torch.zeros(
+                (S, d), device=dev).index_add_(0, kept_ids, kept_vals))
+            del kept_ids, kept_vals
+            line += (f"; library torch.zeros(S, d).index_add_ over the "
+                     f"{kept:,} rows in range (picked beforehand) {lib}")
+        rec.update(library_ms=lib_ms)
         out[name] = rec
         print(line)
     return out
@@ -6366,8 +6394,9 @@ MESH_SENTINEL = 16.0
 #: seconds the rank processes of --multi may take, the build excluded
 MESH_RANKS_TIMEOUT_S = 1500
 #: the parts of --multi, each run in rank processes of its own (dbrx on
-#: four ranks only)
-MESH_PARTS = ("dense", "moe", "dbrx", "gnn")
+#: four ranks only), the most recently changed first: a part shares
+#: nothing with another, so the order changes no result
+MESH_PARTS = ("mind", "gnn", "dense", "moe", "dbrx")
 #: the ranks' device type: "cuda" (NCCL, rank r on cuda:r); "cpu" (gloo)
 #: rehearses them
 MESH_DEVICE = "cuda"
@@ -6538,14 +6567,145 @@ def mesh_phase(dev, smi: str) -> dict:
     del h, q, k, v, b5_cases, b6_cases
     torch.cuda.empty_cache()
     moe = mesh_moe_phase(dev, smi)
+    mind = mesh_mind_phase(dev, smi)
     print(f"[mesh] phase {time.perf_counter() - t_phase:.1f}s, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
           f"{smi}")
-    return {"b5": b5 - b5_grad + moe["b5"], "b5_grad": b5_grad
-            + moe["b5_grad"], "b6": b6 + moe["b6"],
-            "b6_bwd": b6_bwd + moe["b6_bwd"],
+    return {"b5": b5 - b5_grad + moe["b5"] + mind["b5"],
+            "b5_grad": b5_grad + moe["b5_grad"] + mind["b5_grad"],
+            "b6": b6 + moe["b6"], "b6_bwd": b6_bwd + moe["b6_bwd"],
+            "b4": mind["b4"], "b4_err": mind["b4_err"],
             "b5_err": max([r["max_abs_err"] for r in results.values()
-                           if r["b5"]] + [moe["b5_err"]])}
+                           if r["b5"]] + [moe["b5_err"], mind["b5_err"]])}
+
+
+#: the four-card meshes whose local MIND shapes [mesh] times on one card:
+#: (data, model)
+MESH_MIND_LOCAL = ((4, 1), (2, 2), (1, 4))
+
+
+def mesh_mind_phase(dev, smi: str) -> dict:
+    """[mesh]'s MIND: mind at full width (the 2 GiB table) through its
+    partition (``models.recsys.Partition``) on the card's one-rank NCCL
+    mesh: one train step of train_batch (launch.train's batch) and one
+    serve_p99 call (make_train_step / make_serve_step with ``mesh``),
+    counted (MIND_LAUNCHES), each bit-equal to the unsharded one's (loss,
+    norm, lr, scores, S, item_embed and both moments), with no
+    collective; then B4 and B5 at the local shapes of the four-card meshes
+    (MESH_MIND_LOCAL: the table gradient over a rank's (B / data)(H + 1)
+    ids into n / model rows, the ids outside the shard -1; emb @ S, the
+    logits and their two gradient products, S's gradient and retrieval's
+    scores on B / data users) against their plain versions, bounds and
+    the PyTorch calls. Returns the launches and the largest errors."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # the plain versions' f32
+    spec = configs.get(MIND_ARCH)
+    cfg = configs.cell_model_cfg(spec, "train_batch")
+    dims = spec.shapes["train_batch"]
+    B, H, d = dims["batch"], cfg.hist_len, cfg.embed_dim
+    batch = train_cli.make_batch_fn(spec, cfg, dims, dev)(0)
+    sdims = spec.shapes["serve_p99"]
+    req = mind_requests(cfg, sdims["batch"], sdims["cands"], MESH_SEED, dev)
+    opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+    torch.cuda.empty_cache()
+
+    # -- the unsharded serve call and step --------------------------------
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    model = configs.init_params(spec, cfg, gen, device=dev)
+    want_scores = configs.make_serve_step(spec, "serve_p99")(model, req)
+    state = adamw.init_state(dict(model.named_parameters()))
+    _, state, want = configs.make_train_step(spec, cfg, opt_cfg)(
+        model, state, batch)
+
+    # -- the same through the partition, counted -----------------------------
+    mesh = make_smoke_mesh("cuda")
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    placed = configs.init_params(spec, cfg, gen, device=dev, mesh=mesh)
+    pstate = adamw.init_state(dict(placed.named_parameters()))
+    reset_b4_b5()
+    shd.reset_collectives()
+    (scores, t_serve) = wall(lambda: configs.make_serve_step(
+        spec, "serve_p99", mesh=mesh)(placed, req))
+    n_serve = mind_counted(MIND_LAUNCHES["serve"], "[mesh] mind serve_p99")
+    serve_counts = shd.collective_counts()
+    reset_b4_b5()
+    shd.reset_collectives()
+    (_, pstate, got), t_step = wall(lambda: configs.make_train_step(
+        spec, cfg, opt_cfg, mesh=mesh)(placed, pstate, batch))
+    n_step = mind_counted(MIND_LAUNCHES["train"], "[mesh] mind train step")
+    step_counts = shd.collective_counts()
+    apart = [k for k in ("loss", "grad_norm", "lr")
+             if not torch.equal(got[k], want[k])]
+    if not torch.equal(scores, want_scores):
+        apart.append("serve_p99 scores")
+    whole = dict(model.named_parameters())
+    apart += [n for n, p in placed.named_parameters()
+              if not torch.equal(p, whole[n])]
+    apart += [f"{k} {n}" for k in ("mu", "nu") for n in state[k]
+              if not torch.equal(pstate[k][n], state[k][n])]
+    if apart or serve_counts or step_counts:
+        raise AssertionError(f"[mesh] mind on the one-rank mesh: not "
+                             f"bit-equal in {apart}; collectives "
+                             f"{serve_counts}, {step_counts}")
+    print(f"[mesh] {MIND_ARCH} at full width ({cfg.n_items:,} items x {d}, "
+          f"f32) placed on the card's one-rank NCCL mesh "
+          f"{shd.axis_sizes(mesh)} through its partition: serve_p99 "
+          f"({sdims['batch']} x {sdims['cands']}; make_serve_step(mesh=)) "
+          f"bit-equal to the unsharded scores, {t_serve * 1e3:.3f} ms, "
+          f"launched {mind_clause(n_serve)}; one train step of {B:,} users "
+          f"(make_train_step(mesh=)) bit-equal in loss "
+          f"{float(got['loss']):.6f}, grad_norm "
+          f"{float(got['grad_norm']):.6e}, lr {float(got['lr']):.3e}, S, "
+          f"item_embed and both moments, {t_step:.4f}s (the first), "
+          f"launched {mind_clause(n_step)}; collectives: none (the "
+          f"partition exchanges nothing over an axis of one rank) | {smi}")
+    del model, placed, state, pstate, whole, scores, want_scores
+    torch.cuda.empty_cache()
+
+    # -- B4 and B5 at the four-card meshes' local shapes ---------------------
+    g = torch.Generator(device=dev).manual_seed(MESH_SEED + 2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    ids = torch.cat([batch["hist_ids"], batch["target_id"][:, None]], dim=1)
+    C = spec.shapes["retrieval_cand"]["cands"]
+    b4_cases, b5 = {}, {}
+    for D, M in MESH_MIND_LOCAL:
+        rows = cfg.n_items // M
+        loc = ids[:B // D].reshape(-1).long()
+        loc = torch.where(loc < rows, loc, -1)
+        b4_cases[f"item table gradient on ({D}, {M}): a rank's "
+                 f"{loc.numel():,} ids ({B // D:,} users x {H + 1}), "
+                 f"{int((loc >= 0).sum()):,} in its {rows:,} rows"] = (
+            torch.randint(-4, 5, (loc.numel(), d), generator=g,
+                          device=dev).float(), loc, rows)
+    b4 = b4_checks(b4_cases, tag="mesh")
+    del b4_cases
+    torch.cuda.empty_cache()
+    for D in sorted({D for D, _ in MESH_MIND_LOCAL if D > 1}):
+        u = B // D
+        for name, (sa, sb) in {
+                f"mind emb @ S ({u:,} users, data {D})": ((u * H, d), (d, d)),
+                f"mind logits user @ tgt^T (data {D})": ((u, d), (d, B)),
+                f"mind d user = dlogits @ tgt (data {D})": ((u, B), (B, d)),
+                f"mind d tgt^T = user^T @ dlogits (data {D})": ((d, u),
+                                                               (u, B)),
+                f"mind S gradient (data {D})": ((d, u * H), (u * H, d)),
+                f"mind retrieval cand @ interests^T (data {D})": (
+                    (C // D, d), (d, cfg.n_interests))}.items():
+            b5.update(kernel_checks({name: (randn(*sa), randn(*sb))}, {},
+                                    tag="mesh"))
+            torch.cuda.empty_cache()
+    return {"b5": n_serve[0] + n_step[0] - n_step[1], "b5_grad": n_step[1],
+            "b4": n_step[2],
+            "b4_err": max(r["max_abs_err"] for r in b4.values()),
+            "b5_err": max(r["max_abs_err"] for r in b5.values())}
 
 
 def mesh_moe_phase(dev, smi: str) -> dict:
@@ -6799,6 +6959,10 @@ def mesh_rank(rank: int, world: int, tmp: str, part: str) -> None:
     say = print if rank == 0 else (lambda *a, **k: None)
     dev = (torch.device("cuda", rank) if MESH_DEVICE == "cuda"
            else torch.device(MESH_DEVICE))
+    if dev.type == "cuda":
+        # the kernels launch on the current device's stream: a part that
+        # computes before its first mesh (which sets it) must be on cuda:r
+        torch.cuda.set_device(dev)
     store = dist.FileStore(os.path.join(tmp, "store"), world)
     spec = configs.get(MESH_ARCH)
     opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
@@ -6810,7 +6974,9 @@ def mesh_rank(rank: int, world: int, tmp: str, part: str) -> None:
     if part != "dense":
         {"moe": lambda: mesh_moe_rank(rank, world, store, dev, smi),
          "dbrx": lambda: mesh_dbrx_rank(rank, store, dev, smi),
-         "gnn": lambda: mesh_gnn_rank(rank, world, store, dev, smi)}[part]()
+         "gnn": lambda: mesh_gnn_rank(rank, world, store, dev, smi),
+         "mind": lambda: mesh_mind_rank(rank, world, store, dev, smi)}[
+             part]()
         dist.destroy_process_group()
         return
 
@@ -7557,6 +7723,188 @@ def mesh_dbrx_rank(rank: int, store, dev, smi: str) -> None:
 # --multi's gnn part: the four GNNs edge-parallel under the mesh
 # ----------------------------------------------------------------------
 
+MESH_MIND_STEPS = 2
+
+
+def mesh_mind_rank(rank: int, world: int, store, dev, smi: str) -> None:
+    """One rank of ``--multi``'s MIND at its published config (8,388,608
+    items x 64, f32; TF32 off). One card's run from MESH_SEED's model,
+    computed on every rank (the same bits everywhere): MESH_MIND_STEPS
+    train steps of train_batch (launch.train's batches) and the scores of
+    serve_p99, serve_bulk and retrieval_cand, timed. Then on each mesh of
+    MESH_SHAPES[world], the model drawn from the same seed and placed
+    (``init_params(mesh=)``): a per-rank softmax (each data rank's users
+    against its own targets, the ranks' means averaged) planted in place
+    of the global one must give a loss outside MIND_TOL of one card's (on
+    a mesh of more than one data rank); the steps (``make_train_step(
+    mesh=)``), each loss and grad_norm within MIND_TOL of one card's,
+    then S and the gathered item_embed within MIND_TOL of their scale;
+    the three serve cells (``make_serve_step(mesh=)``, before the steps),
+    the scores gathered over the data axes within MIND_TOL of max|score|.
+    Rank 0
+    prints each mesh's step s and users/s, serve_p99 p50 and p99 ms,
+    serve_bulk users/s, ms per retrieval, peak GiB a card (the largest
+    rank's), the collectives and launches of a step, beside one card's."""
+    from unittest import mock as umock
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+
+    say = print if rank == 0 else (lambda *a, **k: None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = configs.get(MIND_ARCH)
+    cfg = configs.cell_model_cfg(spec, "train_batch")
+    dims = spec.shapes["train_batch"]
+    B = dims["batch"]
+    opt_cfg = adamw.AdamWConfig(total_steps=10, warmup_steps=2)
+    batch_fn = train_cli.make_batch_fn(spec, cfg, dims, dev)
+    batches = [batch_fn(i) for i in range(MESH_MIND_STEPS)]
+    cells = {}
+    for i, name in enumerate(("serve_p99", "serve_bulk", "retrieval_cand")):
+        c = spec.shapes[name]
+        cells[name] = mind_requests(cfg, 1 if c["kind"] == "retrieval"
+                                    else c["batch"], c["cands"],
+                                    MESH_SEED + i, dev)
+
+    def worst(x: float, mesh) -> float:
+        return float(shd.all_reduce(torch.tensor([x], device=dev), mesh,
+                                    shd.axis_names(mesh), op="max"))
+
+    def serve_times(serve, model, batch, name) -> str:
+        if name == "serve_p99":
+            calls = sorted(wall(lambda: serve(model, batch))[1]
+                           for _ in range(MIND_SERVES))
+            p50, p99 = (float(np.percentile(calls, q)) for q in (50, 99))
+            return (f"p50 {p50 * 1e3:.4f} ms, p99 {p99 * 1e3:.4f} ms a batch "
+                    f"({len(batch['hist_ids']) / p50:,.0f} users/s at p50)")
+        if name == "serve_bulk":
+            t = sorted(wall(lambda: serve(model, batch))[1]
+                       for _ in range(3))[1]
+            return (f"{t:.4f} s a batch ({len(batch['hist_ids']) / t:,.0f} "
+                    "users/s)")
+        t = sorted(wall(lambda: serve(model, batch))[1] for _ in range(20))[10]
+        return f"{t * 1e3:.4f} ms a query"
+
+    # -- one card ----------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    one = configs.init_params(spec, cfg, gen, device=dev)
+    state = adamw.init_state(dict(one.named_parameters()))
+    step = configs.make_train_step(spec, cfg, opt_cfg)
+    ref, times = [], []
+    for b in batches:
+        (_, state, m), t = wall(lambda: step(one, state, b))
+        ref.append({k: float(v) for k, v in m.items()})
+        times.append(t)
+    want_S, want_table = one.S.detach().clone(), one.item_embed.detach()
+    del state
+    torch.cuda.empty_cache()
+    want_scores, one_line = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    fresh = configs.init_params(spec, cfg, gen, device=dev)
+    for name, req in cells.items():
+        serve = configs.make_serve_step(spec, name)
+        want_scores[name] = serve(fresh, req)
+        one_line[name] = serve_times(serve, fresh, req, name)
+    del fresh, one
+    torch.cuda.empty_cache()
+    one_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    say(f"[mesh] {MIND_ARCH} at its published config ({cfg.n_items:,} items "
+        f"x {cfg.embed_dim}, f32: a "
+        f"{cfg.n_items * cfg.embed_dim * 4 / 2**30:.2f} GiB table, twice "
+        f"that in AdamW's moments), one card: "
+        f"{MESH_MIND_STEPS} train steps of {B:,} users (launch.train's "
+        f"batches), losses {' '.join(f'{r['loss']:.6f}' for r in ref)}, "
+        f"step {times[-1]:.4f} s after the first ({times[0]:.4f} s) = "
+        f"{B / times[-1]:,.0f} users/s; "
+        + "; ".join(f"{k} {v}" for k, v in one_line.items())
+        + f"; peak {one_peak:.2f} GiB | {smi}")
+
+    def per_rank(user, tgt, part=None):
+        loss = recsys._InBatchSoftmax.apply(
+            ops.matmul(user, tgt.t().contiguous()), None)
+        if part is None or not part.dp:
+            return loss
+        sizes = shd.axis_sizes(part.mesh)
+        return part.total(loss) / math.prod(sizes[a] for a in part.dp)
+
+    for shape in MESH_SHAPES[world]:
+        mesh = rank_mesh(shape, store, rank)
+        D = shape[0]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+        placed = configs.init_params(spec, cfg, gen, device=dev, mesh=mesh)
+        planted = ""
+        if D > 1:
+            specs = shd.mind_batch_specs(batches[0], mesh)
+            local = {k: shd.local_shard(v, mesh, specs[k]).contiguous()
+                     for k, v in batches[0].items()}
+            with torch.no_grad(), umock.patch.object(
+                    recsys, "in_batch_softmax_loss", per_rank):
+                lp = float(recsys.mind_loss(placed, local))
+            gap = abs(lp - ref[0]["loss"]) / abs(ref[0]["loss"])
+            if not gap > 10 * MIND_TOL:
+                raise AssertionError(f"[mesh] mind on {shape}: a per-rank "
+                                     f"softmax's loss {lp} is within {gap} "
+                                     "of one card's")
+            planted = (f"; a per-rank softmax planted: loss {lp:.6f}, "
+                       f"{gap:.3e} off one card's (caught)")
+            del local
+        errs, scored = {}, []
+        for name, req in cells.items():
+            serve = configs.make_serve_step(spec, name, mesh=mesh)
+            out = serve(placed, req)
+            whole = shd.gather_over(out, mesh, ("data",) if D > 1 else ())
+            errs[name] = rel_err(whole, want_scores[name])
+            del out, whole
+            scored.append(f"{name} {serve_times(serve, placed, req, name)}")
+        pstate = adamw.init_state(dict(placed.named_parameters()))
+        pstep = configs.make_train_step(spec, cfg, opt_cfg, mesh=mesh)
+        got, ptimes = [], []
+        for i, b in enumerate(batches):
+            reset_b4_b5()
+            shd.reset_collectives()
+            (_, pstate, m), t = wall(lambda: pstep(placed, pstate, b))
+            if i == 0:
+                counts = shd.collective_counts()
+                n = mind_counted(MIND_LAUNCHES["train"], f"mind on {shape}")
+            got.append({k: float(v) for k, v in m.items()})
+            ptimes.append(t)
+        for i, (g_, r_) in enumerate(zip(got, ref)):
+            for k in ("loss", "grad_norm"):
+                errs[f"{k} {i + 1}"] = abs(g_[k] - r_[k]) / abs(r_[k])
+        errs["S"] = rel_err(placed.S.detach(), want_S)
+        table = shd.unshard_params({"item_embed": placed.item_embed},
+                                   shd.mind_param_specs(placed),
+                                   mesh)["item_embed"]
+        errs["item_embed"] = rel_err(table, want_table)
+        del table, pstate
+        errs = {k: worst(v, mesh) for k, v in errs.items()}
+        bad = {k: v for k, v in errs.items() if not v <= MIND_TOL}
+        if bad:
+            raise AssertionError(f"[mesh] mind on {shape} against one card: "
+                                 f"{bad}")
+        peak = worst(torch.cuda.max_memory_allocated(dev) / 2**30, mesh)
+        say(f"[mesh] {MIND_ARCH} on {shape} (data, model; the table's rows "
+            f"over model, {B // D:,} users a data rank, the in-batch "
+            f"softmax over all {B:,} targets): {MESH_MIND_STEPS} train "
+            f"steps, " + ", ".join(f"{k} within {v:.3e}" for k, v in
+                                   errs.items())
+            + f" of one card's (tolerance {MIND_TOL}){planted}; step "
+            f"{ptimes[-1]:.4f} s after the first ({ptimes[0]:.4f} s) = "
+            f"{B / ptimes[-1]:,.0f} users/s (one card {times[-1]:.4f} s); "
+            f"a step launched {mind_clause(n)} per rank, collectives (rank "
+            f"0) {mesh_counts_line(counts)}; " + "; ".join(scored)
+            + f"; peak {peak:.2f} GiB a card | {smi}")
+        del placed
+        torch.cuda.empty_cache()
+
+
 MESH_GNN_SEED = 53
 #: MeshGraphNet served at ogb_products with n and e divided by this on
 #: four cards (7.73M directed edges a rank, 34.9 GiB a card). At / 2 a
@@ -7616,19 +7964,29 @@ def sage_graph_batch(cfg, n: int, e: int, seed: int, dev) -> dict:
 class RankRelu(ReluPattern):
     """:class:`ReluPattern`'s replay on one rank of an edge-parallel mesh:
     a kept call over the ``E`` rows of the whole graph's edges is replayed
-    on this rank's rows ``[lo, hi)`` of them; a call over node rows whole.
-    One card's run and the mesh's then differentiate the same piece of the
-    function, whose relu kinks the two sums' rounding could otherwise put
-    on either side."""
+    on this rank's rows ``[lo, hi)`` of them; a call over node rows whole,
+    or, node-sharded (``nodes``: the node count and this rank's padded
+    rows ``(n, lo, hi)``), on this rank's node rows, its padding rows
+    masked. One card's run and the mesh's then differentiate the same
+    piece of the function, whose relu kinks the two sums' rounding could
+    otherwise put on either side."""
 
-    def __init__(self, kept: list, E: int, lo: int, hi: int):
+    def __init__(self, kept: list, E: int, lo: int, hi: int, nodes=None):
         super().__init__()
         self.inputs, self.E, self.lo, self.hi = list(kept), E, lo, hi
+        self.nodes = nodes
 
     def replay(self, x: torch.Tensor) -> torch.Tensor:
         kept = self.inputs[self._next]
         if kept.shape[0] == self.E and x.shape[0] == self.hi - self.lo:
             self.inputs[self._next] = kept[self.lo:self.hi]
+        elif self.nodes is not None and kept.shape[0] == self.nodes[0]:
+            n, lo, hi = self.nodes
+            rows = kept[lo:hi]
+            if rows.shape[0] < hi - lo:
+                rows = torch.cat([rows, rows.new_zeros(
+                    (hi - lo - rows.shape[0], *rows.shape[1:]))])
+            self.inputs[self._next] = rows
         return super().replay(x)
 
 
@@ -7647,22 +8005,28 @@ def gnn_b4_b5(what: str) -> tuple:
 def mesh_gnn_rank(rank: int, world: int, store, dev, smi: str) -> None:
     """One rank of ``--multi``'s GNNs, edge-parallel (``models.gnn.
     EdgeShard``: each rank's E / world edges, node state and parameters
-    whole). On each mesh of MESH_SHAPES[world], against one card's step on
-    the same batch (computed on every rank; the relu pattern of one card's
-    run replayed on the rank's edge rows, :class:`RankRelu`): nequip and
-    mace at full width and depth on molecule's full dims (loss, forces and
-    every gradient within GEO_TOL of their scale), meshgraphnet on
-    full_graph_sm (loss and every gradient within MGN_TOL). On four ranks:
-    meshgraphnet served at ogb_products / MGN_OGB_CUT against one card's
-    forward and at ogb_products / MESH_MGN_SERVE_CUT; graphsage-reddit's
-    forward, loss and gradients at ogb_products / MGN_OGB_CUT against one
-    card's; then graphsage-reddit at full width on the whole ogb_products
-    graph (2,449,029 nodes, 123,718,280 directed edges, nothing cut): one
-    forward and MESH_GNN_STEPS train steps on (2, 2), after each every
-    rank's parameters and AdamW moments bit-equal to rank 0's and the loss
-    finite and equal on every rank; and B4 and B5 at that step's local
-    shapes against their plain versions, timed beside their bounds and
-    library calls."""
+    whole) and node-sharded (``models.gnn.NodeShard``, the hook at
+    ``P(all_axes)``: the edges as before, each rank's n / world node
+    rows). On each mesh of MESH_SHAPES[world], in both variants, against
+    one card's step on the same batch (computed on every rank; the relu
+    pattern of one card's run replayed on the rank's edge rows and, node-
+    sharded, its node rows, :class:`RankRelu`): nequip and mace at full
+    width and depth on molecule's full dims (loss, forces and every
+    gradient within GEO_TOL of their scale), meshgraphnet on full_graph_sm
+    (loss and every gradient within MGN_TOL). On four ranks: meshgraphnet
+    served at ogb_products / MGN_OGB_CUT against one card's forward and at
+    ogb_products / MESH_MGN_SERVE_CUT, then there node-sharded (this
+    rank's node rows within MGN_TOL of the edge-parallel rows);
+    graphsage-reddit's forward, loss and gradients at ogb_products /
+    MGN_OGB_CUT against one card's; then graphsage-reddit at full width on
+    the whole ogb_products graph (2,449,029 nodes, 123,718,280 directed
+    edges, nothing cut), in both variants: one forward and MESH_GNN_STEPS
+    train steps on (2, 2), after each every rank's parameters and AdamW
+    moments bit-equal to rank 0's and the loss finite and equal on every
+    rank, the node-sharded losses within MGN_TOL of the edge-parallel
+    ones; and B4 and B5 at those steps' local shapes (B5 node-sharded too)
+    against their plain versions, timed beside their bounds and library
+    calls."""
     import torch.distributed as dist
 
     from repro_torch import configs
@@ -7690,9 +8054,28 @@ def mesh_gnn_rank(rank: int, world: int, store, dev, smi: str) -> None:
         return {k: shd.local_shard(v, mesh, specs[k]).contiguous()
                 for k, v in batch.items()}
 
-    def against_one_card(spec, cfg, batch, mesh, tol, what, forces=False):
+    def node_sharded(mesh):
+        """The node-sharding hook as the dry run's ``nodeshard`` sets it,
+        reset after."""
+        @contextlib.contextmanager
+        def hooked():
+            gnn.set_node_sharding(shd.named(mesh, shd.P(shd.all_axes(mesh))))
+            try:
+                yield
+            finally:
+                gnn.set_node_sharding(None)
+        return hooked()
+
+    def node_range(mesh, n: int) -> tuple:
+        part = gnn.NodeShard(mesh)
+        return (n, *part._span(n))
+
+    def against_one_card(spec, cfg, batch, mesh, tol, what, forces=False,
+                         nodeshard=False):
         """Loss, every gradient (and the forces) of the placed model on
-        this rank's edges against one card's on the whole batch."""
+        this rank's edges against one card's on the whole batch; with
+        ``nodeshard`` under the node-sharding hook (this rank's node
+        rows)."""
         gen = torch.Generator(device=dev).manual_seed(MESH_GNN_SEED)
         one = configs.init_params(spec, cfg, gen, device=dev)
         pattern = ReluPattern()
@@ -7704,38 +8087,48 @@ def mesh_gnn_rank(rank: int, world: int, store, dev, smi: str) -> None:
         placed = configs.init_params(spec, cfg, gen, device=dev, mesh=mesh)
         lb = local(batch, mesh)
         replay = RankRelu(pattern.inputs, batch["src"].shape[0],
-                          *edge_range(mesh, batch["src"].shape[0]))
-        reset_b4_b5()
-        shd.reset_collectives()
-        (loss_m, g_m), t_m = wall(lambda: loss_and_grads(
-            spec, cfg, placed, lb, relu=replay.replay))
-        counts = shd.collective_counts()
-        launches = gnn_b4_b5(what)
+                          *edge_range(mesh, batch["src"].shape[0]),
+                          nodes=node_range(mesh, batch["node_feat"].shape[0])
+                          if nodeshard else None)
+        hook = node_sharded(mesh) if nodeshard else contextlib.nullcontext()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with hook:
+            reset_b4_b5()
+            shd.reset_collectives()
+            (loss_m, g_m), t_m = wall(lambda: loss_and_grads(
+                spec, cfg, placed, lb, relu=replay.replay))
+            counts = shd.collective_counts()
+            launches = gnn_b4_b5(what)
+            f_err = 0.0
+            if forces:
+                f_m = gnn.energy_and_forces(placed, lb)[1]
+                f_err = worst(rel_err(f_m, f_1), mesh)
+        peak = worst(torch.cuda.max_memory_allocated(dev) / 2**30, mesh)
         errs = grad_leaf_errs(g_m, g_1)
         g_worst = worst(max(errs.values()), mesh)
         l_err = worst(abs(loss_m - loss_1) / abs(loss_1), mesh)
-        f_err = 0.0
-        if forces:
-            f_m = gnn.energy_and_forces(placed, lb)[1]
-            f_err = worst(rel_err(f_m, f_1), mesh)
         flips = worst(float(replay.flips), mesh)
         if not (g_worst <= tol and l_err <= tol and f_err <= tol):
             raise AssertionError(
                 f"[mesh] {what}: against one card, loss {l_err}, forces "
                 f"{f_err}, gradients {g_worst} (largest "
                 f"{max(errs, key=errs.get)})")
+        layout = (f"node-sharded: edges over both, E / "
+                  f"{shd.mesh_size(mesh)} and n / {shd.mesh_size(mesh)} a "
+                  "rank" if nodeshard else
+                  f"edges over both, E / {shd.mesh_size(mesh)} a rank")
         say(f"[mesh] {what} on {tuple(shd.axis_sizes(mesh).values())} "
-            f"(data, model; edges over both, E / {shd.mesh_size(mesh)} a "
-            f"rank): loss {loss_m:.7f} (one card {loss_1:.7f}, within "
+            f"(data, model; {layout}): loss {loss_m:.7f} (one card "
+            f"{loss_1:.7f}, within "
             f"{l_err:.3e})"
             + (f", forces within {f_err:.3e} of their largest |value|"
                if forces else "")
             + f", all {len(errs)} gradients within {g_worst:.3e} of their "
             f"scale (tolerance {tol}; one card's relu pattern replayed, "
             f"{flips:.0f} inputs on the other side of the kink); loss and "
-            f"gradients {t_m:.4f}s; launches {launch_clause(launches)} "
-            f"per rank; collectives (rank 0) {mesh_counts_line(counts)} | "
-            f"{smi}")
+            f"gradients {t_m:.4f}s, peak {peak:.2f} GiB a card; launches "
+            f"{launch_clause(launches)} per rank; collectives (rank 0) "
+            f"{mesh_counts_line(counts)} | {smi}")
         del placed
         torch.cuda.empty_cache()
 
@@ -7794,6 +8187,38 @@ def mesh_gnn_rank(rank: int, world: int, store, dev, smi: str) -> None:
                 f"{launch_clause(launches)} per rank; collectives (rank 0) "
                 f"{mesh_counts_line(counts)}; peak device memory "
                 f"{peak_gib(mesh):.2f} GiB per card | {smi}")
+            if cut == MESH_MGN_SERVE_CUT:
+                lo, hi = gnn.NodeShard(mesh)._span(n)
+                edge_rows = out[lo:min(hi, n)].clone()
+                del out
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                with node_sharded(mesh):
+                    reset_b4_b5()
+                    shd.reset_collectives()
+                    out, ns_first = wall(lambda: serve(placed, batch))
+                    counts = shd.collective_counts()
+                    launches = gnn_b4_b5(f"{MGN_ARCH} ogb_products / {cut} "
+                                         "node-sharded")
+                    del out
+                    out, ns_t = wall(lambda: serve(placed, batch))
+                err = worst(rel_err(out, edge_rows), mesh)
+                if not err <= MGN_TOL:
+                    raise AssertionError(f"[mesh] {MGN_ARCH} ogb_products / "
+                                         f"{cut} node-sharded: {err} of "
+                                         "max|out| from the edge-parallel "
+                                         "rows")
+                say(f"[mesh] {MGN_ARCH} at ogb_products / {cut} node-sharded "
+                    f"on {MESH_FULL_TRAIN} (nodes over both axes too, "
+                    f"{hi - lo:,} rows a rank): this rank's rows within "
+                    f"{err:.3e} of max|out| of the edge-parallel forward's "
+                    f"(tolerance {MGN_TOL}); forward {ns_t:.4f}s (first "
+                    f"{ns_first:.4f}s; edge-parallel {t_serve:.4f}s, first "
+                    f"{t_first:.4f}s); launches {launch_clause(launches)} per "
+                    f"rank; collectives (rank 0) {mesh_counts_line(counts)}; "
+                    f"peak device memory {peak_gib(mesh):.2f} GiB per card | "
+                    f"{smi}")
+                del edge_rows
             del placed, out, want, batch
             torch.cuda.empty_cache()
 
@@ -7805,11 +8230,12 @@ def mesh_gnn_rank(rank: int, world: int, store, dev, smi: str) -> None:
         batch = molecule_batch(cfg, spec.shapes["molecule"], rng, dev)
         for shape in MESH_SHAPES[world]:
             mesh = rank_mesh(shape, store, rank)
-            against_one_card(spec, cfg, batch, mesh, GEO_TOL,
-                             f"{arch} at full width and depth, molecule "
-                             f"({batch['node_feat'].shape[0]:,} atoms, "
-                             f"{batch['src'].shape[0]:,} edges)",
-                             forces=True)
+            for nodeshard in (False, True):
+                against_one_card(spec, cfg, batch, mesh, GEO_TOL,
+                                 f"{arch} at full width and depth, molecule "
+                                 f"({batch['node_feat'].shape[0]:,} atoms, "
+                                 f"{batch['src'].shape[0]:,} edges)",
+                                 forces=True, nodeshard=nodeshard)
     spec = configs.get(MGN_ARCH)
     dims = spec.shapes["full_graph_sm"]
     cfg = configs.cell_model_cfg(spec, "full_graph_sm")
@@ -7819,10 +8245,12 @@ def mesh_gnn_rank(rank: int, world: int, store, dev, smi: str) -> None:
                                       device=dev).manual_seed(MESH_GNN_SEED))
     for shape in MESH_SHAPES[world]:
         mesh = rank_mesh(shape, store, rank)
-        against_one_card(spec, cfg, batch, mesh, MGN_TOL,
-                         f"{MGN_ARCH} at full width and depth, full_graph_sm "
-                         f"({dims['n']:,} nodes, {batch['src'].shape[0]:,} "
-                         f"edges)")
+        for nodeshard in (False, True):
+            against_one_card(spec, cfg, batch, mesh, MGN_TOL,
+                             f"{MGN_ARCH} at full width and depth, "
+                             f"full_graph_sm ({dims['n']:,} nodes, "
+                             f"{batch['src'].shape[0]:,} edges)",
+                             nodeshard=nodeshard)
     del batch
     if world < 4:
         say(f"[mesh] {world} ranks (fewer than four cards): the GNNs at "
@@ -7860,48 +8288,68 @@ def mesh_gnn_rank(rank: int, world: int, store, dev, smi: str) -> None:
     del batch
     torch.cuda.empty_cache()
 
-    # -- graphsage-reddit on the whole ogb_products graph --------------------
+    # -- graphsage-reddit on the whole ogb_products graph, both variants ------
     torch.cuda.reset_peak_memory_stats(dev)
     batch, t_graph = wall(lambda: sage_graph_batch(
         scfg, ogb["n"], ogb["e"], MESH_GNN_SEED, dev))
     E = batch["src"].shape[0]
-    gen = torch.Generator(device=dev).manual_seed(MESH_GNN_SEED)
-    placed = configs.init_params(sspec, scfg, gen, device=dev, mesh=mesh)
     serve = configs.make_serve_step(sspec, "ogb_products", scfg, mesh=mesh)
-    reset_b4_b5()
-    shd.reset_collectives()
-    logits, t_fwd = wall(lambda: serve(placed, batch))
-    fwd_counts = shd.collective_counts()
-    fwd_launches = gnn_b4_b5(f"{GNN_ARCH} whole ogb_products forward")
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"[mesh] {GNN_ARCH} whole ogb_products: logits "
-                             "not finite")
-    del logits
-    params = dict(placed.named_parameters())
-    state = adamw.init_state(params)
     step = configs.make_train_step(sspec, scfg, opt_cfg, mesh=mesh)
-    steps = []
-    for i in range(MESH_GNN_STEPS):
+
+    def whole_graph(what: str) -> tuple:
+        """One forward and MESH_GNN_STEPS train steps of a model drawn from
+        MESH_GNN_SEED, every rank's parameters, moments and loss checked
+        bit-equal after each step: (forward s, its collectives and
+        launches, [(step s, loss, collectives, launches)], peak GiB)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = torch.Generator(device=dev).manual_seed(MESH_GNN_SEED)
+        placed = configs.init_params(sspec, scfg, gen, device=dev, mesh=mesh)
         reset_b4_b5()
         shd.reset_collectives()
-        (_, state, m), t = wall(lambda: step(placed, state, batch))
-        counts = shd.collective_counts()
-        launches = gnn_b4_b5(f"{GNN_ARCH} whole ogb_products step")
-        flat = torch.cat([t_.detach().reshape(-1) for tree in (
-            params, state["mu"], state["nu"]) for t_ in tree.values()]
-            + [m["loss"].reshape(1)])
-        every = shd.all_gather(flat[None], mesh, "model")
-        every = shd.all_gather(every, mesh, "data")
-        same = bool((every.view(torch.int32)
-                     == flat.view(torch.int32)[None]).all())
-        loss = float(m["loss"])
-        if not (same and math.isfinite(loss)):
-            raise AssertionError(f"[mesh] {GNN_ARCH} whole ogb_products, "
-                                 f"step {i}: state bit-equal on every rank "
-                                 f"{same}, loss {loss}")
-        steps.append((t, loss, counts, launches))
-        del every
-    peak = peak_gib(mesh)
+        logits, t_fwd = wall(lambda: serve(placed, batch))
+        fwd = (t_fwd, shd.collective_counts(), gnn_b4_b5(f"{what} forward"))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"[mesh] {what}: logits not finite")
+        del logits
+        params = dict(placed.named_parameters())
+        state = adamw.init_state(params)
+        steps = []
+        for i in range(MESH_GNN_STEPS):
+            reset_b4_b5()
+            shd.reset_collectives()
+            (_, state, m), t = wall(lambda: step(placed, state, batch))
+            counts = shd.collective_counts()
+            launches = gnn_b4_b5(f"{what} step")
+            flat = torch.cat([t_.detach().reshape(-1) for tree in (
+                params, state["mu"], state["nu"]) for t_ in tree.values()]
+                + [m["loss"].reshape(1)])
+            every = shd.all_gather(flat[None], mesh, "model")
+            every = shd.all_gather(every, mesh, "data")
+            same = bool((every.view(torch.int32)
+                         == flat.view(torch.int32)[None]).all())
+            loss = float(m["loss"])
+            if not (same and math.isfinite(loss)):
+                raise AssertionError(f"[mesh] {what}, step {i}: state "
+                                     f"bit-equal on every rank {same}, loss "
+                                     f"{loss}")
+            steps.append((t, loss, counts, launches))
+            del every
+        del state, placed, params
+        return fwd, steps, peak_gib(mesh)
+
+    def whole_line(fwd, steps, peak) -> str:
+        return (f"forward {fwd[0]:.4f}s (launches {launch_clause(fwd[2])}; "
+                f"collectives {mesh_counts_line(fwd[1])}); "
+                + "; ".join(f"train step {i + 1} {t:.4f}s, loss {loss:.6f} "
+                            f"equal on every rank, parameters and moments "
+                            f"bit-equal on every rank (launches "
+                            f"{launch_clause(la)} per rank; collectives "
+                            f"(rank 0) {mesh_counts_line(c)})"
+                            for i, (t, loss, c, la) in enumerate(steps))
+                + f"; peak device memory {peak:.2f} GiB per card")
+
+    fwd, steps, peak = whole_graph(f"{GNN_ARCH} whole ogb_products")
     hbm = torch.cuda.get_device_properties(dev).total_memory / 2**30
     flops = configs.model_flops(sspec, "ogb_products", model_cfg=scfg)
     say(f"[mesh] {GNN_ARCH} at full width ({scfg.param_count:,} parameters) "
@@ -7910,18 +8358,27 @@ def mesh_gnn_rank(rank: int, world: int, store, dev, smi: str) -> None:
         f"{scfg.d_in} N(0, 1) features, {int(batch['seed_mask'].sum()):,} "
         f"seeds; drawn on the card in {t_graph:.2f}s) on {MESH_FULL_TRAIN} "
         f"(data, model; edges over both, nodes and parameters whole): "
-        f"forward {t_fwd:.4f}s (launches {launch_clause(fwd_launches)}; "
-        f"collectives {mesh_counts_line(fwd_counts)}); "
-        + "; ".join(f"train step {i + 1} {t:.4f}s, loss {loss:.6f} equal on "
-                    f"every rank, parameters and moments bit-equal on every "
-                    f"rank (launches {launch_clause(la)} per rank; "
-                    f"collectives (rank 0) {mesh_counts_line(c)})"
-                    for i, (t, loss, c, la) in enumerate(steps))
+        + whole_line(fwd, steps, peak)
         + f"; model FLOPs of a step {flops:.4e} = "
-        f"{flops / steps[-1][0] / (4 * 67e12):.4f} of 4 x 67 TFLOP/s (f32); "
-        f"peak device memory {peak:.2f} GiB per card ({hbm:.1f} GiB each) | "
-        f"{smi}")
-    del state, step, placed, params
+        f"{flops / steps[-1][0] / (4 * 67e12):.4f} of 4 x 67 TFLOP/s (f32) "
+        f"({hbm:.1f} GiB a card) | {smi}")
+    with node_sharded(mesh):
+        ns_fwd, ns_steps, ns_peak = whole_graph(
+            f"{GNN_ARCH} whole ogb_products node-sharded")
+    gaps = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(ns_steps, steps)]
+    if not max(gaps) <= MGN_TOL:
+        raise AssertionError(f"[mesh] {GNN_ARCH} whole ogb_products: the "
+                             f"node-sharded losses are {gaps} off the "
+                             "edge-parallel ones")
+    say(f"[mesh] {GNN_ARCH} on the whole ogb_products graph node-sharded on "
+        f"{MESH_FULL_TRAIN} (edges and nodes over both, "
+        f"{-(-ogb['n'] // 4):,} node rows a rank): "
+        + whole_line(ns_fwd, ns_steps, ns_peak)
+        + f"; losses within {max(gaps):.3e} of the edge-parallel steps' "
+        f"(tolerance {MGN_TOL}); edge-parallel in this call: forward "
+        f"{fwd[0]:.4f}s, steps " + " ".join(f"{t:.4f}s" for t, *_ in steps)
+        + f", {peak:.2f} GiB | {smi}")
+    del step, serve
 
     # -- B4 and B5 at the step's local shapes (rank 0's edges) ---------------
     lb = local(batch, mesh)
@@ -7940,9 +8397,22 @@ def mesh_gnn_rank(rank: int, world: int, store, dev, smi: str) -> None:
         w1 = torch.randn(scfg.d_in, scfg.d_hidden, generator=gen, device=dev)
         w2 = torch.randn(scfg.d_hidden, scfg.d_hidden, generator=gen,
                          device=dev)
+        per = -(-n // 4)
+        rows = -(-(n // MESH_MGN_SERVE_CUT) // 4)
+        mcfg = configs.cell_model_cfg(configs.get(MGN_ARCH), "ogb_products")
         kernel_checks({f"whole ogb_products layer 1 ({n:,} nodes)": (x, w1),
-                       f"whole ogb_products layer 2 ({n:,} nodes)": (h, w2)},
-                      {}, tag="mesh")
+                       f"whole ogb_products layer 2 ({n:,} nodes)": (h, w2),
+                       f"whole ogb_products layer 1 node-sharded ({per:,} "
+                       f"rows a rank)": (x[:per], w1),
+                       f"whole ogb_products layer 2 node-sharded ({per:,} "
+                       f"rows a rank)": (h[:per], w2),
+                       f"{MGN_ARCH} node MLP at ogb_products / "
+                       f"{MESH_MGN_SERVE_CUT} node-sharded ({rows:,} rows a "
+                       f"rank)": (torch.randn(
+                           rows, 2 * mcfg.d_hidden, generator=gen,
+                           device=dev), torch.randn(
+                           2 * mcfg.d_hidden, mcfg.d_hidden, generator=gen,
+                           device=dev))}, {}, tag="mesh")
         del x, h
     del lb, batch
     torch.cuda.empty_cache()
@@ -8357,6 +8827,9 @@ def main() -> int:
     b5_record["max_abs_err"] = max(b5_record["max_abs_err"],
                                    meshed["b5_err"])
     lm_records[1]["launches"] += meshed["b6"]
+    b4_record["launches"] += meshed["b4"]
+    b4_record["max_abs_err"] = max(b4_record["max_abs_err"],
+                                   meshed["b4_err"])
     trained["records"][0]["launches"] += meshed["b5_grad"]
     trained["records"][1]["launches"] += meshed["b6_bwd"]
 

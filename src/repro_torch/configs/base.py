@@ -14,8 +14,8 @@ specs of a cell on a mesh (:func:`param_specs`, :func:`batch_specs`,
 :func:`opt_specs`) are ``runtime.sharding``'s family policies, keyed by
 the port's parameter and batch names; MIND's steps take the reference's
 ``take_fn``/``cand_take_fn`` (the vocab-parallel lookup,
-``runtime.sharding.make_vp_take``). A GNN or recsys config type the port
-does not know raises.
+``runtime.sharding.make_vp_take``) and, on a mesh, run it by default. A
+GNN or recsys config type the port does not know raises.
 """
 
 from __future__ import annotations
@@ -216,17 +216,6 @@ def abstract_params(spec: ArchSpec, model_cfg) -> torch.nn.Module:
     return tfm.abstract_params(model_cfg)
 
 
-def _mesh_family(spec: ArchSpec, mesh) -> None:
-    """Raise unless the family runs under the port's partitioner: the
-    LMs do, dense and MoE (``models.transformer.Partition``), and the
-    GNNs, edge-parallel (``models.gnn.EdgeShard``); MIND raises."""
-    if mesh is None or spec.family.startswith("lm") or spec.family == "gnn":
-        return
-    raise NotImplementedError(
-        f"{spec.id}: the {spec.family} step on a mesh (the reference's "
-        "GSPMD policy for the family) is not ported; ROADMAP A1.3")
-
-
 def _local_batch(model, batch: dict, specs: dict, mesh) -> dict:
     """This rank's rows of a global batch (``runtime.sharding.local_shard``
     under each input's spec), after checking that ``model`` is placed on
@@ -238,15 +227,27 @@ def _local_batch(model, batch: dict, specs: dict, mesh) -> dict:
             for k, v in batch.items()}
 
 
-def _local_edges(model, batch: dict, mesh) -> dict:
-    """This rank's edges of a global graph batch (``gnn_batch_specs``),
-    the node arrays whole; the edge count must divide over the mesh
-    (``runtime.sharding.check_divides``): padding edges point at node 0
-    with mask 0."""
-    specs = shd.gnn_batch_specs(batch, mesh)
+def _local_even(model, batch: dict, specs: dict, mesh) -> dict:
+    """:func:`_local_batch`, every split dimension first checked to divide
+    over its axes (``runtime.sharding.check_divides``)."""
     for k, v in batch.items():
         shd.check_divides(v.shape, specs[k], mesh, k)
     return _local_batch(model, batch, specs, mesh)
+
+
+def _local_edges(model, batch: dict, mesh) -> dict:
+    """This rank's edges of a global graph batch (``gnn_batch_specs``),
+    the node arrays whole; the edge count must divide over the mesh:
+    padding edges point at node 0 with mask 0."""
+    return _local_even(model, batch, shd.gnn_batch_specs(batch, mesh), mesh)
+
+
+def _local_users(model, batch: dict, mesh, retrieval: bool = False) -> dict:
+    """This rank's rows of a global MIND batch (``mind_batch_specs``: the
+    users over the data axes; for retrieval the user whole and the
+    candidate slab over them), which must divide over those axes."""
+    return _local_even(model, batch, shd.mind_batch_specs(
+        batch, mesh, retrieval=retrieval), mesh)
 
 
 def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None,
@@ -273,10 +274,17 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None,
     (``models.transformer.init_cache(mesh=)``). A GNN's takes its edges of
     the global graph batch (``gnn_batch_specs``: the edge count must
     divide over the mesh) and returns the whole graph's outputs, the same
-    on every rank. Without it the step is as it always was."""
+    on every rank; under the node-sharding hook
+    (``models.gnn.set_node_sharding``) this rank's node rows of them.
+    MIND's takes this rank's users (``mind_batch_specs``) and returns their
+    scores, (B / data, C); retrieval takes the user whole and its slice of
+    the candidate slab, and returns that slice's scores, (C / data,). Its
+    lookups default to the vocab-parallel one (``models.recsys.
+    Partition``); a ``take_fn`` or ``cand_take_fn`` given is called with
+    this rank's shard of the table and this rank's ids. Without ``mesh``
+    the step is as it always was."""
     cfg = model_cfg or cell_model_cfg(spec, shape_name)
     _ported(spec)
-    _mesh_family(spec, mesh)
     kind = spec.shapes[shape_name]["kind"]
 
     def _tokens(model, batch):
@@ -304,6 +312,9 @@ def make_serve_step(spec: ArchSpec, shape_name: str, model_cfg=None,
                else recsys_mod.mind_retrieval)
 
         def serve_step(model, batch):
+            if mesh is not None:
+                batch = _local_users(model, batch, mesh,
+                                     retrieval=(kind == "retrieval"))
             return fwd(_model_of(model), batch, take_fn=take_fn,
                        cand_take_fn=cand_take_fn)
         return serve_step
@@ -349,17 +360,21 @@ def init_params(spec: ArchSpec, model_cfg, generator: torch.Generator,
     an LM's as it is drawn, each rank keeping its shards of the same bits
     (``models.transformer.init_params``); a GNN's replicated, every rank
     holding the same bits from a generator seeded alike
-    (``models.gnn.init_params``)."""
+    (``models.gnn.init_params``); MIND's drawn whole, each rank keeping its
+    rows of ``item_embed`` and ``S`` whole (``mind_param_specs``), the
+    bits of one device's model from the same seed."""
     _ported(spec)
-    _mesh_family(spec, mesh)
     if spec.family == "gnn":
         return gnn_mod.init_params(model_cfg, generator, device=device,
                                    mesh=mesh)
+    if spec.family == "recsys":
+        model = recsys_mod.init_params(model_cfg, generator, device=device)
+        if mesh is not None:
+            shd.shard_params(model, shd.mind_param_specs(model), mesh)
+        return model
     if mesh is not None:
         return tfm.init_params(model_cfg, generator, device=device,
                                mesh=mesh)
-    if spec.family == "recsys":
-        return recsys_mod.init_params(model_cfg, generator, device=device)
     return tfm.init_params(model_cfg, generator, device=device)
 
 
@@ -403,23 +418,33 @@ def make_train_step(spec: ArchSpec, model_cfg,
     rank. A GNN's takes its edges of the global graph batch
     (``gnn_batch_specs``), its parameters, gradients and moments whole and
     the same on every rank (the norm counts each once, with no
-    exchange). Without it the step is as it always was."""
+    exchange). MIND's takes this rank's users (``mind_batch_specs``), its
+    table rows and their moments (``mind_param_specs``), ``S`` and its
+    moments whole; the in-batch softmax still spans the whole batch
+    (``models.recsys.Partition``); its lookup defaults to the
+    vocab-parallel one, and a ``take_fn`` given is called with this
+    rank's shard of the table and this rank's ids. Without it the step is
+    as it always was."""
     _ported(spec)
-    _mesh_family(spec, mesh)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     loss = loss_for(spec, model_cfg, take_fn=take_fn)
-    p_specs = b_specs = None
+    p_specs = None
     if mesh is not None:
         p_specs = param_specs(spec, abstract_params(spec, model_cfg), mesh)
-        b_specs = None if spec.family == "gnn" else shd.lm_batch_specs(mesh)
+
+    def local(model, batch):
+        if spec.family == "gnn":
+            return _local_edges(model, batch, mesh)
+        if spec.family == "recsys":
+            return _local_users(model, batch, mesh)
+        return _local_batch(model, batch, shd.lm_batch_specs(mesh), mesh)
 
     def train_step(model, opt_state, batch):
         if model.cfg != model_cfg:
             raise ValueError(f"the model is {model.cfg.name}, the step was "
                              f"made for {model_cfg.name}")
         if mesh is not None:
-            batch = (_local_edges(model, batch, mesh) if b_specs is None
-                     else _local_batch(model, batch, b_specs, mesh))
+            batch = local(model, batch)
         params = dict(model.named_parameters())
         for p in params.values():
             p.requires_grad_(True)

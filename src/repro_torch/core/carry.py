@@ -140,11 +140,17 @@ def gnn_params_from_reference(tree) -> dict[str, torch.Tensor]:
     return state
 
 
-def mind_params_from_reference(tree) -> dict[str, torch.Tensor]:
+def mind_params_from_reference(tree, mesh=None) -> dict[str, torch.Tensor]:
     """The port's MIND state dict from the reference's ``mind_init`` dict
     as numpy arrays: ``item_embed`` and ``S``, each tensor of its array's
-    dtype (f32), for ``MIND.load_state_dict``."""
-    return {name: _tensor(tree[name]) for name in ("item_embed", "S")}
+    dtype (f32), for ``MIND.load_state_dict``. With ``mesh``, this rank's
+    shard of each (``runtime.sharding.shard_params`` under
+    ``mind_param_specs``: its rows of ``item_embed``, ``S`` whole), for a
+    model placed on the mesh."""
+    state = {name: _tensor(tree[name]) for name in ("item_embed", "S")}
+    if mesh is None:
+        return state
+    return shd.shard_params(state, shd.mind_param_specs(state), mesh)
 
 
 def adamw_state_from_reference(state, mesh=None) -> dict:
@@ -158,23 +164,23 @@ def adamw_state_from_reference(state, mesh=None) -> dict:
     (:func:`gnn_params_from_reference`; NequIP and MACE have an ``embed``
     too, an MLP where an LM's is a table), MIND's a flat dict with an
     ``item_embed`` (:func:`mind_params_from_reference`). CPU tensors;
-    ``.to(device)`` them for the card. With ``mesh`` (an LM's), the
-    moments are this rank's shards under the parameters' specs
-    (``lm_opt_spec_tree``), as :func:`lm_params_from_reference` places
-    the parameters."""
+    ``.to(device)`` them for the card. With ``mesh`` (an LM's or MIND's),
+    the moments are this rank's shards under the parameters' specs
+    (``lm_opt_spec_tree``, ``mind_param_specs``), as
+    :func:`lm_params_from_reference` and :func:`mind_params_from_reference`
+    place the parameters."""
     mu = state["mu"]
+    carry = (mind_params_from_reference if "item_embed" in mu else
+             lm_params_from_reference if isinstance(mu.get("layers"), dict)
+             else None)
     if mesh is not None:
-        if not isinstance(mu.get("layers"), dict):
+        if carry is None:
             raise NotImplementedError(
-                "moments placed on a mesh: the LM family's only (a GNN's "
-                "are whole on every rank: carry them without a mesh; MIND, "
-                "ROADMAP A1.3)")
-        carry = functools.partial(lm_params_from_reference, mesh=mesh)
-    else:
-        carry = (mind_params_from_reference if "item_embed" in mu else
-                 lm_params_from_reference if isinstance(mu.get("layers"),
-                                                        dict)
-                 else gnn_params_from_reference)
+                "moments placed on a mesh: a GNN's are whole on every "
+                "rank; carry them without a mesh")
+        carry = functools.partial(carry, mesh=mesh)
+    elif carry is None:
+        carry = gnn_params_from_reference
     return {"mu": carry(state["mu"]), "nu": carry(state["nu"]),
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32)}

@@ -57,11 +57,24 @@ summed over the mesh. On a one-rank mesh nothing is exchanged and the
 forward is the unsharded one bit for bit.
 
 The reference's node-sharding hook (:func:`set_node_sharding`) pins each
-aggregated node tensor to rows split over the mesh for XLA's
-partitioner; here, given a ``runtime.sharding.NamedPlacement``, it checks
-the tensor's layout at the same sites (``models.transformer.
-check_layout``): the identity on one rank, ``NotImplementedError`` on
-more (the node-sharded variant is not ported).
+aggregated node tensor to rows split over every mesh axis for XLA's
+partitioner. Here, given ``runtime.sharding.named(mesh, P(all_axes))`` of
+more than one rank, it switches a model placed on that mesh to the
+node-sharded variant (:class:`NodeShard`): the edges still over every
+axis, each rank's node state its ``n / world`` rows (the node count
+zero-padded to a multiple of the world, the padding rows kept by no
+output). Each aggregation is reduced and scattered to the node rows of
+their rank in rank order (``sharding.sum_scatter``: its rows are the
+edge-parallel ``psum``'s bit for bit), node-wise work (MLPs, norms, the
+geo layers' mixes, the readouts) runs on this rank's rows with its
+parameters through ``grad_sum``, and the node state is gathered whole
+before each edge gather (``sharding.gather_tiled``; the two are each
+other's backward, so NequIP's and MACE's forces differentiate through
+them twice). Losses and energies sum this rank's rows, then ``psum``;
+serve steps return this rank's node rows. At each aggregation the hook
+checks the layout (``models.transformer.check_layout``): the identity on
+one rank; a spec or a mesh other than the partition's raises
+``NotImplementedError``, and so does the hook on a model not placed.
 """
 
 from __future__ import annotations
@@ -87,9 +100,10 @@ def set_node_sharding(sharding):
     NODE_SHARDING = sharding
 
 
-def _constrain_nodes(x: torch.Tensor) -> torch.Tensor:
+def _constrain_nodes(x: torch.Tensor, part=None) -> torch.Tensor:
     if NODE_SHARDING is not None:
-        return check_layout(x, NODE_SHARDING)
+        return check_layout(x, NODE_SHARDING,
+                            None if part is None else part.node_layout(x))
     return x
 
 
@@ -106,7 +120,9 @@ class EdgeShard:
     :meth:`agg` sums an aggregation of this rank's edges into the whole
     graph's (``psum``; its backward passes the replicated cotangent).
     Axes of one rank are left out, so a one-rank mesh, or none, exchanges
-    nothing."""
+    nothing. The node-wise methods (:meth:`nodes`, :meth:`gather`,
+    :meth:`node_rep`, :meth:`total`, ...) are what :class:`NodeShard`
+    splits; here every node tensor is whole and they pass it on."""
 
     def __init__(self, mesh=None):
         sizes = shd.axis_sizes(mesh) if mesh is not None else {}
@@ -120,16 +136,137 @@ class EdgeShard:
     def agg(self, x: torch.Tensor) -> torch.Tensor:
         return shd.psum(x, self.mesh, self.axes)
 
+    def segments(self, n: int) -> int:
+        """Rows an aggregation over ``n`` nodes sums into."""
+        return n
+
+    def segments_of(self, x: torch.Tensor) -> int:
+        """:meth:`segments` of this rank's node state ``x``."""
+        return x.shape[0]
+
+    def nodes(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's node rows of a whole node input, as the node state
+        holds them."""
+        return x
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """A whole node input as the edges gather it (:meth:`segments`
+        rows)."""
+        return x
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's real node rows of a whole node input (a target, a
+        label, a graph id)."""
+        return x
+
+    def real(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """The real nodes' rows of this rank's node state ``x``."""
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The node state ``x`` as the edges gather it."""
+        return self.rep(x)
+
+    def node_rep(self, w: torch.Tensor) -> torch.Tensor:
+        """A parameter used on node rows."""
+        return w
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """A sum over this rank's node rows made the whole graph's."""
+        return x
+
+    def mean(self, x: torch.Tensor, count: int) -> torch.Tensor:
+        """The mean over the whole graph of ``x``, this rank's node rows
+        of ``count`` values in all."""
+        return x.mean()
+
+    def node_layout(self, x: torch.Tensor):
+        """``(spec, global shape, mesh)`` of an aggregated node tensor as
+        the partition lays it out (``check_layout``'s ``produced``): none,
+        the node state being whole."""
+        return None
+
+
+class NodeShard(EdgeShard):
+    """The node-sharded variant (the reference's :func:`set_node_sharding`
+    hook at ``P(all_axes)``): the edges as :class:`EdgeShard`'s, the node
+    state split into ``world`` equal row blocks, in the order of the
+    ranks' combined index over the mesh axes (the first major), the node
+    count zero-padded to a multiple of ``world``. :meth:`agg` reduces an
+    aggregation and scatters its rows (``sum_scatter``, rank order),
+    :meth:`gather` gathers the node state whole (``gather_tiled``), and
+    :meth:`node_rep`, :meth:`total` and :meth:`mean` are ``grad_sum``
+    and ``psum`` over the mesh."""
+
+    def __init__(self, mesh):
+        super().__init__(mesh)
+        self.index = shd._combined_index(mesh, shd.all_axes(mesh))[0]
+
+    def agg(self, x: torch.Tensor) -> torch.Tensor:
+        return shd.sum_scatter(x, self.mesh, self.axes)
+
+    def segments(self, n: int) -> int:
+        return -(-n // self.size) * self.size
+
+    def segments_of(self, x: torch.Tensor) -> int:
+        return x.shape[0] * self.size
+
+    def _span(self, n: int) -> tuple[int, int]:
+        per = self.segments(n) // self.size
+        return self.index * per, (self.index + 1) * per
+
+    def nodes(self, x: torch.Tensor) -> torch.Tensor:
+        lo, hi = self._span(x.shape[0])
+        out = x[lo:hi]
+        if out.shape[0] < hi - lo:
+            out = torch.cat([out, out.new_zeros((hi - lo - out.shape[0],
+                                                 *x.shape[1:]))])
+        return out
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        pad = self.segments(x.shape[0]) - x.shape[0]
+        return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]) if pad else x
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        lo, hi = self._span(x.shape[0])
+        return x[lo:hi]
+
+    def real(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        lo, hi = self._span(n)
+        return x[:max(0, min(hi, n) - lo)]
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return shd.gather_tiled(x.contiguous(), self.mesh, self.axes)
+
+    def node_rep(self, w: torch.Tensor) -> torch.Tensor:
+        return shd.grad_sum(w, self.mesh, self.axes)
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        return shd.psum(x, self.mesh, self.axes)
+
+    def mean(self, x: torch.Tensor, count: int) -> torch.Tensor:
+        return self.total(x.sum()) / count
+
+    def node_layout(self, x: torch.Tensor):
+        return (shd.P(shd.all_axes(self.mesh)),
+                (x.shape[0] * self.size, *x.shape[1:]), self.mesh)
+
 
 #: the partition of no mesh: every edge on this device
 WHOLE = EdgeShard()
 
 
 def partition_of(model: nn.Module) -> EdgeShard:
-    """The model's partition: :class:`EdgeShard` of its ``mesh`` (set by
-    ``runtime.sharding.shard_params``), :data:`WHOLE` without one."""
+    """The model's partition: without a ``mesh`` (set by
+    ``runtime.sharding.shard_params``) :data:`WHOLE`; on one,
+    :class:`NodeShard` where the node-sharding hook spans more than one
+    rank, else :class:`EdgeShard`."""
     mesh = getattr(model, "mesh", None)
-    return WHOLE if mesh is None else EdgeShard(mesh)
+    if mesh is None:
+        return WHOLE
+    if NODE_SHARDING is not None and NODE_SHARDING.size > 1:
+        return NodeShard(mesh)
+    return EdgeShard(mesh)
 
 
 # ======================================================================
@@ -241,23 +378,28 @@ def mgn_outputs(model: MeshGraphNet, batch: dict) -> torch.Tensor:
     normed; the decoder. One B4 plan for ``dst``, and one for ``src`` where
     a gradient can flow. On a mesh (:class:`EdgeShard`) the edge encoder,
     the edge MLPs and the node state gathered by the edges take
-    ``grad_sum``, each layer's aggregation ``psum``."""
+    ``grad_sum``, each layer's aggregation ``psum``; node-sharded
+    (:class:`NodeShard`) the node rows are this rank's, and so are the
+    outputs."""
     part = partition_of(model)
     n = batch["node_feat"].shape[0]
-    src, dst = _plans(batch["src"], batch["dst"], n)
+    ns = part.segments(n)
+    src, dst = _plans(batch["src"], batch["dst"], ns)
     mask = batch.get("edge_mask")
     mask = mask[:, None] if mask is not None else 1.0
-    x = _layernorm(_mlp(model.enc_node, batch["node_feat"]))
+    x = _layernorm(_mlp(model.enc_node, part.nodes(batch["node_feat"]),
+                        rep=part.node_rep))
     e = _layernorm(_mlp(model.enc_edge, batch["edge_feat"],
                         rep=part.rep)) * mask
     for lyr in model.layers:
-        xe = part.rep(x)
+        xe = part.gather(x)
         msg_in = torch.cat([e, ops.gather_rows(xe, src),
                             ops.gather_rows(xe, dst)], dim=-1)
         e = (e + _layernorm(_mlp(lyr.edge_mlp, msg_in, rep=part.rep))) * mask
-        agg = _constrain_nodes(part.agg(ops.segment_sum(e, dst, n)))
-        x = x + _layernorm(_mlp(lyr.node_mlp, torch.cat([x, agg], dim=-1)))
-    return _mlp(model.dec, x)
+        agg = _constrain_nodes(part.agg(ops.segment_sum(e, dst, ns)), part)
+        x = x + _layernorm(_mlp(lyr.node_mlp, torch.cat([x, agg], dim=-1),
+                                rep=part.node_rep))
+    return part.real(_mlp(model.dec, x, rep=part.node_rep), n)
 
 
 @torch.inference_mode()
@@ -269,7 +411,10 @@ def mgn_forward(model: MeshGraphNet, batch: dict) -> torch.Tensor:
 def mgn_loss(model: MeshGraphNet, batch: dict) -> torch.Tensor:
     """The reference's ``mgn_loss``: the mean squared error against
     ``target``."""
-    return ((mgn_outputs(model, batch) - batch["target"]) ** 2).mean()
+    part = partition_of(model)
+    target = batch["target"]
+    return part.mean((mgn_outputs(model, batch) - part.rows(target)) ** 2,
+                     target.numel())
 
 
 # ======================================================================
@@ -337,23 +482,30 @@ def edge_mean(part: EdgeShard, sums: torch.Tensor,
 
 def sage_layer(layer: SAGELayer, x: torch.Tensor, src, dst,
                mask: torch.Tensor | None,
-               part: EdgeShard = WHOLE) -> torch.Tensor:
+               part: EdgeShard = WHOLE,
+               x_edges: torch.Tensor | None = None) -> torch.Tensor:
     """One layer (``sage_forward``'s loop body): the mean of the in-edge
     neighbours' rows (masked edges counted out), both projections plus the
     bias, relu, and each row scaled to norm 1 (floored at 1e-6). ``src``
     and ``dst`` are id vectors or their B4 plans. On a mesh the node rows
     gathered by the edges take ``grad_sum`` and the mean's sums and counts
     ``psum``; the layer's parameters act on node rows only and take
-    none."""
-    n = x.shape[0]
-    rows = ops.gather_rows(part.rep(x), src)
+    none. Node-sharded, ``x`` is this rank's rows: the edges gather
+    ``x_edges`` (the input features, whole) or ``x`` gathered whole, the
+    mean is scattered to this rank's rows and the parameters take
+    ``grad_sum``."""
+    n = part.segments_of(x)
+    rows = ops.gather_rows(part.gather(x) if x_edges is None else x_edges,
+                           src)
     if mask is not None:
         agg = edge_mean(part, ops.segment_sum(rows * mask[:, None], dst, n),
                         ops.segment_sum(mask[:, None], dst, n))
     else:
         agg = segment_mean(rows, dst, n, part)
-    agg = _constrain_nodes(agg)
-    x = ops.matmul(x, layer.w_self) + ops.matmul(agg, layer.w_neigh) + layer.b
+    agg = _constrain_nodes(agg, part)
+    x = (ops.matmul(x, part.node_rep(layer.w_self))
+         + ops.matmul(agg, part.node_rep(layer.w_neigh))
+         + part.node_rep(layer.b))
     x = torch.relu(x)
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(
         1e-6)
@@ -365,12 +517,15 @@ def sage_logits(model: GraphSAGE, batch: dict) -> torch.Tensor:
     calls, over one B4 plan for ``dst`` (and one for ``src`` where a
     gradient can flow) shared by the layers."""
     part = partition_of(model)
-    x = batch["node_feat"]
-    src, dst = _plans(batch["src"], batch["dst"], x.shape[0])
+    feat = batch["node_feat"]
+    n = feat.shape[0]
+    src, dst = _plans(batch["src"], batch["dst"], part.segments(n))
     mask = batch.get("edge_mask")
-    for layer in model.layers:
-        x = sage_layer(layer, x, src, dst, mask, part)
-    return ops.matmul(x, model.head)
+    x = part.nodes(feat)
+    for i, layer in enumerate(model.layers):
+        x = sage_layer(layer, x, src, dst, mask, part,
+                       x_edges=part.whole(feat) if i == 0 else None)
+    return part.real(ops.matmul(x, part.node_rep(model.head)), n)
 
 
 @torch.inference_mode()
@@ -384,10 +539,11 @@ def sage_loss(model: GraphSAGE, batch: dict) -> torch.Tensor:
     (``seed_mask``) of the negative log-softmax at each node's label
     (``labels``), the sum over the seeds divided by their count floored
     at 1."""
+    part = partition_of(model)
     logp = torch.log_softmax(sage_logits(model, batch), dim=-1)
-    nll = -logp.gather(-1, batch["labels"].long()[:, None])[:, 0]
-    w = batch["seed_mask"].to(torch.float32)
-    return (nll * w).sum() / w.sum().clamp_min(1.0)
+    nll = -logp.gather(-1, part.rows(batch["labels"]).long()[:, None])[:, 0]
+    w = part.rows(batch["seed_mask"]).to(torch.float32)
+    return part.total((nll * w).sum()) / part.total(w.sum()).clamp_min(1.0)
 
 
 # ======================================================================
@@ -479,18 +635,22 @@ def _interaction(lyr: Interaction, C: int, s, V, T, src, dst, rbf, rhat, Y2,
     gathered as (n, C), (n, 3C) and (n, 9C) rows, the three tensor-product
     messages, their B4 sums into ``dst`` as (E, C), (E, 3C) and (E, 9C)
     rows, the channel mixes, and the gated nonlinearity. ``src`` and
-    ``dst`` are id vectors or their B4 plans. On a mesh the radial MLP and
-    the three gathered irreps take ``grad_sum``, the three sums ``psum``;
-    the mixes and gates act on node rows and take none."""
+    ``dst`` are id vectors or their B4 plans, ``n`` the rows they sum
+    into. On a mesh the radial MLP and the three gathered irreps take
+    ``grad_sum``, the three sums ``psum``; the mixes and gates act on node
+    rows and take none. Node-sharded, s, V and T are this rank's rows,
+    gathered whole for the edges, the sums scattered to this rank's rows
+    and the mixes and gates take ``grad_sum``."""
     E = rbf.shape[0]
+    nl = s.shape[0]
     rw = _mlp(lyr.radial, rbf, rep=part.rep).reshape(E, 3, C, eq.N_PATHS)
     if mask is not None:
         rw = rw * mask[:, None, None, None]
     # bf16 state (bf16_state) meets f32 edge terms in f32, as jnp promotes
-    s_e = ops.gather_rows(part.rep(s), src).float()
-    V_e = ops.gather_rows(part.rep(V.reshape(n, 3 * C)), src).float(
+    s_e = ops.gather_rows(part.gather(s), src).float()
+    V_e = ops.gather_rows(part.gather(V.reshape(nl, 3 * C)), src).float(
     ).reshape(E, C, 3)
-    T_e = ops.gather_rows(part.rep(T.reshape(n, 9 * C)), src).float(
+    T_e = ops.gather_rows(part.gather(T.reshape(nl, 9 * C)), src).float(
     ).reshape(E, C, 3, 3)
     m_s = (eq.tp_to_scalar(s_e, V_e, T_e, rhat, Y2) * rw[:, 0]).sum(-1)
     m_v = torch.einsum("ecip,ecp->eci",
@@ -498,30 +658,35 @@ def _interaction(lyr: Interaction, C: int, s, V, T, src, dst, rbf, rhat, Y2,
     m_t = torch.einsum("ecijp,ecp->ecij",
                        eq.tp_to_tensor(s_e, V_e, T_e, rhat, Y2), rw[:, 2])
     a_s = _constrain_nodes(part.agg(ops.segment_sum(m_s.contiguous(), dst,
-                                                    n)))
+                                                    n)), part)
     a_v = _constrain_nodes(part.agg(ops.segment_sum(
-        m_v.reshape(E, 3 * C).contiguous(), dst, n)).reshape(n, C, 3))
+        m_v.reshape(E, 3 * C).contiguous(), dst, n)), part).reshape(
+        nl, C, 3)
     a_t = _constrain_nodes(part.agg(ops.segment_sum(
-        m_t.reshape(E, 9 * C).contiguous(), dst, n)).reshape(n, C, 3, 3))
-    s2 = s + ops.matmul(a_s, lyr.mix_s)
-    V2 = V + _mix(a_v, lyr.mix_v)
-    T2 = T + _mix(a_t, lyr.mix_t)
-    gates = _mlp(lyr.gates, s2)
+        m_t.reshape(E, 9 * C).contiguous(), dst, n)), part).reshape(
+        nl, C, 3, 3)
+    s2 = s + ops.matmul(a_s, part.node_rep(lyr.mix_s))
+    V2 = V + _mix(a_v, part.node_rep(lyr.mix_v))
+    T2 = T + _mix(a_t, part.node_rep(lyr.mix_t))
+    gates = _mlp(lyr.gates, s2, rep=part.node_rep)
     return eq.gated_nonlin(s2, V2, T2, gates)
 
 
-def _product_basis(prod: ProductBasis, s, V, T):
+def _product_basis(prod: ProductBasis, s, V, T, rep):
     """MACE's correlation orders 2 and 3 (``mace_forward``'s loop body
     after the interaction): the order-2 products of (s, V, T), projected
     to C channels on B5; the order-2 products of those projections (order
-    3), projected; both added to the features."""
+    3), projected; both added to the features. ``rep`` (the partition's
+    :meth:`EdgeShard.node_rep`) takes each projection."""
+    w = {k: rep(getattr(prod, k)) for k in ("s2", "v2", "t2", "s3", "v3",
+                                            "t3")}
     s2b, v2b, t2b = eq.correlation_products(s, V, T)
-    ps2 = ops.matmul(s2b, prod.s2)
-    pv2, pt2 = _mix(v2b, prod.v2), _mix(t2b, prod.t2)
+    ps2 = ops.matmul(s2b, w["s2"])
+    pv2, pt2 = _mix(v2b, w["v2"]), _mix(t2b, w["t2"])
     s3b, v3b, t3b = eq.correlation_products(ps2, pv2, pt2)
-    return (s + ps2 + ops.matmul(s3b, prod.s3),
-            V + pv2 + _mix(v3b, prod.v3),
-            T + pt2 + _mix(t3b, prod.t3))
+    return (s + ps2 + ops.matmul(s3b, w["s3"]),
+            V + pv2 + _mix(v3b, w["v3"]),
+            T + pt2 + _mix(t3b, w["t3"]))
 
 
 def geo_outputs(model: GeoModel, batch: dict, n_graphs: int | None = None):
@@ -534,33 +699,36 @@ def geo_outputs(model: GeoModel, batch: dict, n_graphs: int | None = None):
     B4 plan each for ``dst`` and ``graph_id``, and one for ``src`` where a
     gradient can flow. On a mesh ``pos`` takes ``grad_sum`` where the
     edges gather it (the forces then sum every rank's edges); the
-    energies, a sum over node rows, take no ``psum``."""
+    energies, a sum over node rows, take no ``psum``. Node-sharded, the
+    energies sum this rank's atoms, then ``psum``, and (s, V, T) are this
+    rank's rows."""
     cfg = model.cfg
     part = partition_of(model)
     feat = batch["node_feat"]
     n = feat.shape[0]
+    ns = part.segments(n)
     ng = n_graphs if n_graphs is not None else batch["energy_target"].shape[0]
     C = cfg.d_hidden
-    src, dst = _plans(batch["src"], batch["dst"], n)
-    graph_id = ops.segment_plan(batch["graph_id"], ng)
-    pos = part.rep(batch["pos"])
+    src, dst = _plans(batch["src"], batch["dst"], ns)
+    graph_id = ops.segment_plan(part.rows(batch["graph_id"]), ng)
+    pos = part.rep(part.whole(batch["pos"]))
     rvec = ops.gather_rows(pos, src) - ops.gather_rows(pos, dst)
     d, rhat, Y2 = eq.edge_basis(rvec)
     rbf = eq.bessel_rbf(d, cfg.n_rbf, cfg.cutoff)
-    s = _mlp(model.embed, feat)
-    V = feat.new_zeros((n, C, 3))
-    T = feat.new_zeros((n, C, 3, 3))
+    s = _mlp(model.embed, part.nodes(feat), rep=part.node_rep)
+    V = feat.new_zeros((s.shape[0], C, 3))
+    T = feat.new_zeros((s.shape[0], C, 3, 3))
     mace = isinstance(cfg, MACEConfig)
     for lyr in model.layers:
-        s, V, T = _interaction(lyr, C, s, V, T, src, dst, rbf, rhat, Y2, n,
+        s, V, T = _interaction(lyr, C, s, V, T, src, dst, rbf, rhat, Y2, ns,
                                mask=batch.get("edge_mask"), part=part)
         if mace:
-            s, V, T = _product_basis(lyr.prod, s, V, T)
+            s, V, T = _product_basis(lyr.prod, s, V, T, rep=part.node_rep)
         if cfg.bf16_state:
             s, V, T = (x.to(torch.bfloat16) for x in (s, V, T))
-    atom_e = _mlp(model.readout, s.float())
-    energy = ops.segment_sum(atom_e, graph_id, ng)[:, 0]
-    return energy, (s, V, T)
+    atom_e = part.real(_mlp(model.readout, s.float(), rep=part.node_rep), n)
+    energy = part.total(ops.segment_sum(atom_e, graph_id, ng))[:, 0]
+    return energy, tuple(part.real(x, n) for x in (s, V, T))
 
 
 @torch.inference_mode()

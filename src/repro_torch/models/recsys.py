@@ -46,6 +46,17 @@ and ``cand_take_fn`` (the candidates', default ``take_fn``) replace
 :func:`take` as the reference's hooks do: ``runtime.sharding.make_vp_take``
 is the vocab-parallel lookup, the table's rows split over the ``model``
 axis.
+
+On a ``(data, model)`` mesh (a model placed by ``runtime.sharding.
+shard_params`` under ``mind_param_specs``, ``configs.init_params(mesh=)``
+or :func:`placed`) the steps run the reference's recsys policy by hand
+(:class:`Partition`, from :func:`partition_of`): each rank holds its rows
+of the table and ``S`` whole, its users of the batch, and looks up
+vocab-parallel. The loss keeps the reference's in-batch softmax over the
+WHOLE batch, as GSPMD does: the targets are gathered over the data axes
+and each rank's logits are its users against all B targets; a softmax
+over each rank's own targets would be another loss. On a one-rank mesh
+nothing is exchanged and every step is the unsharded one bit for bit.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ import torch
 from torch import nn
 
 from ..kernels import ops
+from ..runtime import sharding as shd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,13 +152,15 @@ def b2i_routing(cfg: MINDConfig, behavior: torch.Tensor,
 
 
 def interests_of(model: MIND, emb: torch.Tensor,
-                 hist_mask: torch.Tensor) -> torch.Tensor:
+                 hist_mask: torch.Tensor, rep=None) -> torch.Tensor:
     """The interests (B, K, d) of looked-up histories ``emb`` (B, H, d):
     masked, through the bilinear map ``S`` (one B5 product over the B * H
-    rows), then :func:`b2i_routing`."""
+    rows; ``rep``, a :meth:`Partition.rep`, takes it on a mesh), then
+    :func:`b2i_routing`."""
     B, H, d = emb.shape
     emb = (emb * hist_mask[..., None]).reshape(B * H, d)
-    return b2i_routing(model.cfg, ops.matmul(emb, model.S).view(B, H, d),
+    S = model.S if rep is None else rep(model.S)
+    return b2i_routing(model.cfg, ops.matmul(emb, S).view(B, H, d),
                        hist_mask)
 
 
@@ -174,59 +188,80 @@ _LSE_ELEMS = 2**26
 
 
 class _InBatchSoftmax(torch.autograd.Function):
-    """``-mean_i log_softmax(logits)_ii`` of square f32 logits, keeping
-    only the logits: the backward turns them, in place, into the gradient
-    ``(softmax - I) * g / B``. Once differentiable."""
+    """``-sum_i log_softmax(logits)_i,offset+i / B`` of f32 logits (R, B),
+    the rows of R users against all B targets, keeping only the logits:
+    the backward turns them, in place, into the gradient ``(softmax -
+    onehot) * g / B``, the one at column ``offset + i`` of row i. Square
+    logits of the whole batch (``offset`` None) take the mean, as the
+    reference does. Once differentiable."""
 
     @staticmethod
-    def forward(ctx, logits):
-        B = logits.shape[0]
+    def forward(ctx, logits, offset):
+        R, B = logits.shape
         rows = max(1, _LSE_ELEMS // max(B, 1))
         lse = torch.cat([torch.logsumexp(logits[r:r + rows], dim=1)
-                         for r in range(0, B, rows)])
+                         for r in range(0, R, rows)])
         ctx.save_for_backward(logits, lse)
-        return (lse - logits.diagonal()).mean()
+        ctx.offset = offset or 0
+        terms = lse - logits.diagonal(ctx.offset)
+        return terms.mean() if offset is None else terms.sum() / B
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         logits, lse = ctx.saved_tensors
         p = logits.sub_(lse[:, None]).exp_()
-        p.diagonal().sub_(1.0)
-        return p.mul_(g / logits.shape[0])
+        p.diagonal(ctx.offset).sub_(1.0)
+        return p.mul_(g / logits.shape[1]), None
 
 
-def in_batch_softmax_loss(user: torch.Tensor,
-                          tgt: torch.Tensor) -> torch.Tensor:
+def in_batch_softmax_loss(user: torch.Tensor, tgt: torch.Tensor,
+                          part: "Partition | None" = None) -> torch.Tensor:
     """The sampled softmax with in-batch negatives: the logits ``user @
-    tgt^T`` (B, B) on B5, each user's own target the label."""
-    return _InBatchSoftmax.apply(ops.matmul(user, tgt.t().contiguous()))
+    tgt^T`` (B, B) on B5, each user's own target the label. On a mesh
+    (``part``) ``user`` and ``tgt`` are this rank's rows of the batch: the
+    targets are gathered over the data axes (:meth:`Partition.targets`),
+    this rank's rows of the logits (B / data, B) formed, their terms
+    summed and the sums added over the data axes (:meth:`Partition.total`):
+    every user still meets all B targets, and the loss is the global
+    mean on every rank."""
+    if part is None or not part.dp:
+        return _InBatchSoftmax.apply(ops.matmul(user, tgt.t().contiguous()),
+                                     None)
+    every = part.targets(tgt)
+    return part.total(_InBatchSoftmax.apply(
+        ops.matmul(user, every.t().contiguous()), part.offset(user)))
 
 
 def mind_loss(model: MIND, batch: dict, take_fn=None) -> torch.Tensor:
     """The reference's ``mind_loss``: the users' interests, label-aware
     attention on each target, then :func:`in_batch_softmax_loss`. The
     history and the targets are looked up in one call (``take_fn``,
-    default :func:`take`) over the ids (B, H + 1)."""
+    default :func:`take`, on a mesh :meth:`Partition.take`) over the ids
+    (B, H + 1). On a mesh the batch is this rank's rows of it and ``S``
+    enters through :meth:`Partition.rep`."""
+    part = partition_of(model)
     hist_ids, hist_mask = batch["hist_ids"], batch["hist_mask"]
     H = hist_ids.shape[1]
-    tf = take_fn or take
+    tf = take_fn or part.take
     rows = tf(model.item_embed,
               torch.cat([hist_ids, batch["target_id"][:, None]], dim=1))
-    interests = interests_of(model, rows[:, :H], hist_mask)
+    interests = interests_of(model, rows[:, :H], hist_mask, part.rep)
     tgt = rows[:, H]
     user = label_aware_attention(model.cfg, interests, tgt)
-    return in_batch_softmax_loss(user, tgt)
+    return in_batch_softmax_loss(user, tgt, part)
 
 
 @torch.inference_mode()
 def mind_serve(model: MIND, batch: dict, take_fn=None,
                cand_take_fn=None) -> torch.Tensor:
     """Online scoring (B, C): each candidate's dot with the user's best
-    interest (``hist_ids``, ``hist_mask``, ``cand_ids`` (B, C))."""
-    ctf = cand_take_fn or take_fn or take
+    interest (``hist_ids``, ``hist_mask``, ``cand_ids`` (B, C)). On a mesh
+    the batch is this rank's rows and so are the scores, (B / data, C)."""
+    part = partition_of(model)
+    ctf = cand_take_fn or take_fn or part.take
     interests = user_interests(model, batch["hist_ids"], batch["hist_mask"],
-                               take_fn)
+                               take_fn or part.take)
     cand = ctf(model.item_embed, batch["cand_ids"])             # (B, C, d)
     return torch.einsum("bkd,bcd->bkc", interests, cand).amax(dim=1)
 
@@ -236,9 +271,103 @@ def mind_retrieval(model: MIND, batch: dict, take_fn=None,
                    cand_take_fn=None) -> torch.Tensor:
     """One user against a slab of candidates (C,): ``hist_ids`` (1, H),
     ``hist_mask`` (1, H), ``cand_ids`` (C,); the scores ``cand @
-    interests^T`` (C, K) are one B5 product, then the best interest's."""
-    ctf = cand_take_fn or take_fn or take
+    interests^T`` (C, K) are one B5 product, then the best interest's. On
+    a mesh every rank takes the user whole and its slice of the slab,
+    (C / data,), and returns that slice's scores."""
+    part = partition_of(model)
+    ctf = cand_take_fn or take_fn or part.take
     interests = user_interests(model, batch["hist_ids"], batch["hist_mask"],
-                               take_fn)
+                               take_fn or part.take_whole)
     cand = ctf(model.item_embed, batch["cand_ids"])             # (C, d)
     return ops.matmul(cand, interests[0].t().contiguous()).amax(dim=1)
+
+
+# ======================================================================
+# the (data, model) partition
+# ======================================================================
+
+class Partition:
+    """How MIND placed on ``mesh`` runs on this rank (the reference's
+    recsys policy, ``runtime.sharding.mind_param_specs`` and
+    ``mind_batch_specs``): the item table's rows split over ``model``,
+    ``S`` whole, the batch's users split over the data axes and replicated
+    over ``model``, every model rank computing the same rows, as GSPMD's
+    replication does.
+
+    * :meth:`take` is the vocab-parallel lookup of this rank's ids
+      (``runtime.sharding.vp_lookup``: the owned rows gathered, the others
+      zeroed, the partial rows summed over ``model``; the shard's gradient
+      summed over the data axes, which split the ids); :meth:`take_whole`
+      the same for ids every data rank holds whole (retrieval's user);
+    * :meth:`rep` marks ``S``, used on this rank's users, so that its
+      gradient is the whole batch's (``grad_sum`` over the data axes);
+    * :meth:`targets` gathers the targets over the data axes
+      (``gather_tiled``: its backward adds every rank's cotangent of this
+      rank's targets, in rank order), :meth:`offset` is this rank's first
+      row in the batch, :meth:`total` sums a loss over the data axes.
+
+    Axes of one rank are left out: on a one-rank mesh, or none, it is the
+    identity path (``ops.take``, nothing exchanged), and the steps are the
+    unsharded ones bit for bit."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+        if mesh is None:
+            self.dp, self.model, self.rank = (), None, 0
+            return
+        sizes = shd.axis_sizes(mesh)
+        self.dp = tuple(a for a in shd.dp_axes(mesh) if sizes[a] > 1)
+        self.model = "model" if sizes["model"] > 1 else None
+        self.rank = shd._combined_index(mesh, self.dp)[0]
+
+    def _lookup(self, table, ids, leading):
+        if self.model is None:
+            return ops.take(shd.grad_sum(table, self.mesh, leading), ids)
+        return shd.vp_lookup(table, ids, self.mesh, self.model, leading)
+
+    def take(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return self._lookup(table, ids, self.dp)
+
+    def take_whole(self, table: torch.Tensor,
+                   ids: torch.Tensor) -> torch.Tensor:
+        return self._lookup(table, ids, ())
+
+    def rep(self, w: torch.Tensor) -> torch.Tensor:
+        return shd.grad_sum(w, self.mesh, self.dp)
+
+    def targets(self, tgt: torch.Tensor) -> torch.Tensor:
+        return shd.gather_tiled(tgt.contiguous(), self.mesh, self.dp)
+
+    def offset(self, rows: torch.Tensor) -> int:
+        return self.rank * rows.shape[0]
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        return shd.psum(x, self.mesh, self.dp)
+
+
+#: the partition of no mesh: the whole batch on this device
+WHOLE = Partition()
+
+
+def partition_of(model: MIND) -> Partition:
+    """The model's partition: :class:`Partition` of its ``mesh`` (set by
+    ``runtime.sharding.shard_params``), :data:`WHOLE` without one."""
+    mesh = getattr(model, "mesh", None)
+    return WHOLE if mesh is None else Partition(mesh)
+
+
+def placed(cfg: MINDConfig, shards: dict, mesh) -> MIND:
+    """A :class:`MIND` of ``cfg`` on ``mesh`` from this rank's shards
+    (``{name: tensor}``, e.g. ``core.carry.mind_params_from_reference(
+    tree, mesh)``), each checked against its spec's shard shape."""
+    model = MIND(cfg, device="meta")
+    specs = shd.mind_param_specs(model)
+    for name, p in list(model.named_parameters()):
+        want = shd.shard_shape(p.shape, specs[name], mesh)
+        if tuple(shards[name].shape) != want:
+            raise ValueError(f"{name}: a shard of {tuple(shards[name].shape)}"
+                             f", {specs[name]} of {tuple(p.shape)} gives "
+                             f"{want}")
+        shd.set_param(model, name, shards[name])
+    model.mesh = mesh
+    return model

@@ -330,22 +330,21 @@ def check_layout(x: torch.Tensor, sharding, produced=None) -> torch.Tensor:
     ``with_sharding_constraint`` asks XLA's partitioner to lay x out; the
     port's partitioner (:class:`Partition`, a dense LM placed by
     ``runtime.sharding.shard_params``) lays out what it lays out, and
-    ``produced`` is that: ``(spec, global shape)`` of the tensor at this
-    site on the partitioner's mesh. x must then be the local shard of that
-    layout, and ``sharding`` must name it. Any other spec, or a site the
-    partitioner does not run (``produced`` None: an unplaced model, a MoE
-    buffer, a GNN's nodes), raises ``NotImplementedError`` naming the
-    spec: nothing is silently replicated."""
+    ``produced`` is that: ``(spec, global shape, mesh)`` of the tensor at
+    this site on the partitioner's mesh. x must then be the local shard of
+    that layout, and ``sharding`` must name it. Any other spec, or a site
+    the partitioner does not run (``produced`` None: an unplaced model, a
+    MoE buffer it does not lay out so), raises ``NotImplementedError``
+    naming the spec: nothing is silently replicated."""
     spec = sharding.spec
     if sharding.size > 1:
         if produced is None:
             raise NotImplementedError(
                 f"a sharding hook asks for {spec} on a mesh of "
                 f"{sharding.size} ranks at a site the port's partitioner "
-                "does not run: it partitions the dense LM step of a model "
-                "placed by runtime.sharding.shard_params; beside it only "
-                "the explicit bodies (vp take, a2a MoE, compressed mean) "
-                "run on several ranks")
+                "does not run: it partitions the steps of a model placed "
+                "by runtime.sharding.shard_params (the LMs' layers, the "
+                "GNNs' aggregations, MIND), laying out what it lays out")
         want, global_shape, mesh = produced
         from ..runtime import sharding as shd
         if _norm_spec(spec) != _norm_spec(want) or \

@@ -13,9 +13,12 @@ spec is the reference's without its leading ``None``):
   over ``model`` (EP) where the expert count divides the axis, and inside
   each expert (TP) where it does not.
 * **GNN**: edge-parallel. Edge arrays shard over every mesh axis; node
-  state and parameters are replicated.
+  state and parameters are replicated (under the node-sharding hook the
+  node state's rows are split over every axis too:
+  ``models.gnn.NodeShard``).
 * **RecSys**: the item table's rows over ``model``, looked up by
-  :func:`make_vp_take`; everything else data-parallel.
+  :func:`make_vp_take` (:func:`vp_lookup` on a placed model's shard:
+  ``models.recsys.Partition``); everything else data-parallel.
 
 A spec (:class:`P`) is a tuple of axis names (or tuples of them, or
 ``None``) per dimension, as ``PartitionSpec``. :func:`named` turns one into
@@ -37,9 +40,9 @@ all-to-all MoE (``runtime.moe_a2a``) and the compressed gradient mean
 (``optim.compression``). :func:`shard_map` runs such a body on each
 rank's shard. Every collective of the runtime goes through this module
 (:func:`all_reduce`, :func:`all_gather`, :func:`gather`,
-:func:`reduce_scatter`, :func:`all_to_all`), which counts
-calls and result bytes per kind under the reference's kind names
-(``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
+:func:`reduce_scatter`, :func:`reduce_scatter_over`, :func:`all_to_all`),
+which counts calls and result bytes per kind under the reference's kind
+names (``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``,
 ``collective-permute``): the dry run's collective bytes and
 ``chip_smoke.py`` read them (:func:`collective_counts`). On ``meta``
 tensors a collective is counted and shaped, and nothing is sent.
@@ -60,6 +63,10 @@ alike on each (so each rank holds the full cotangent):
   data rank's rows of the batch); its backward reduce-scatters;
 * :func:`all_to_all_tiled` exchanges; its backward is the inverse
   exchange;
+* :func:`gather_tiled` gathers dim 0 over several axes where each rank
+  uses the whole differently (MIND's targets, a GNN's node rows); its
+  backward is :func:`sum_scatter`, the sum in rank order of which each
+  rank keeps its rows, and that one's backward is the gather again;
 * :func:`grad_sum` is the identity forward and sums the gradient over
   the group: it marks a value replicated over the group but used on
   different data by each rank (a table shard over the batch axes, the
@@ -295,21 +302,31 @@ def _exchange_sum(flat: torch.Tensor, n: int, group) -> torch.Tensor:
     """:func:`_sum_in_rank_order` of a flat tensor by chunks: all-to-all
     (rank j gets chunk j of every rank, the tensor zero-padded to ``n``
     equal chunks only where ``n`` does not divide it), the chunks added in
-    sender order, all-gather of the sums."""
+    sender order (:func:`_chunk_sum`), all-gather of the sums."""
     m = flat.numel()
     chunk = -(-m // n)
     send = flat
     if chunk * n != m:
         send = flat.new_zeros(n * chunk)
         send[:m] = flat
+    acc = _chunk_sum(send, n, group)
     got = torch.empty_like(send)
-    dist.all_to_all_single(got, send, group=group)
-    parts = got.view(n, chunk)
+    dist.all_gather_into_tensor(got, acc, group=group)
+    return got[:m]
+
+
+def _chunk_sum(x: torch.Tensor, n: int, group) -> torch.Tensor:
+    """Chunk j of ``x`` along dim 0 (``n`` equal chunks) summed over the
+    ``n`` ranks of ``group`` on rank j: all-to-all, then the received
+    chunks added in sender order, ``((c_0 + c_1) + c_2) + ...``, the adds
+    of :func:`_sum_in_rank_order` on each element."""
+    got = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(got, x.contiguous(), group=group)
+    parts = got.view(n, x.shape[0] // n, *x.shape[1:])
     acc = parts[0] + parts[1]
     for j in range(2, n):
         acc += parts[j]
-    dist.all_gather_into_tensor(got, acc, group=group)
-    return got[:m]
+    return acc
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -369,6 +386,29 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
             dist.reduce_scatter_tensor
         scatter(out, rows, group=_group(mesh, axis))
     return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axes`` (a name or a tuple, the
+    first major), of which this rank keeps its chunk along dim 0 (as many
+    equal chunks as the axes have ranks, in the order of their combined
+    index), as a new tensor: one reduce-scatter per axis, the major first,
+    each adding the ranks' chunks in rank order (:func:`_chunk_sum`). Its
+    rows are those of :func:`all_reduce`'s sum bit for bit, which also
+    sums the axes in order, each in rank order; NCCL's own
+    reduce-scatter (:func:`reduce_scatter`) adds in another order."""
+    out = x
+    for a in _axes(axes):
+        n = axis_sizes(mesh)[a]
+        if out.shape[0] % n:
+            raise ValueError(f"reduce_scatter_over splits dim 0 "
+                             f"({out.shape[0]}) into {n} equal chunks")
+        if out.device.type == "meta" or n == 1:
+            out = out[:out.shape[0] // n].clone()
+        else:
+            out = _chunk_sum(out, n, _group(mesh, a))
+        _count("reduce-scatter", out)
+    return x.clone() if out is x else out
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -460,6 +500,30 @@ class _AllToAll(torch.autograd.Function):
         return all_to_all(g, ctx.mesh, ctx.axis), None, None
 
 
+class _GatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return gather_over(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        # differentiable, so that a gradient taken with create_graph
+        # (NequIP's and MACE's forces) differentiates through it again
+        return _SumScatter.apply(g, ctx.mesh, ctx.axes), None, None
+
+
+class _SumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return reduce_scatter_over(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherTiled.apply(g, ctx.mesh, ctx.axes), None, None
+
+
 def psum(x, mesh, axes):
     """Sum over ``axes``; the backward passes the cotangent through."""
     return _PSum.apply(x, mesh, axes) if _axes(axes) else x
@@ -490,6 +554,22 @@ def gather_at_use(x, mesh, axis: str, dim: int = 0):
     which keeps the chunk alone, is right only where every rank holds the
     same cotangent."""
     return _GatherAtUse.apply(x, mesh, axis, dim)
+
+
+def gather_tiled(x, mesh, axes):
+    """``x`` gathered along dim 0 over ``axes`` (:func:`gather_over`, the
+    first axis major), each rank's use of the whole its own: the backward
+    is :func:`sum_scatter` of the cotangent (every rank's cotangent of
+    this rank's rows, added in rank order)."""
+    return _GatherTiled.apply(x, mesh, axes) if _axes(axes) else x
+
+
+def sum_scatter(x, mesh, axes):
+    """:func:`reduce_scatter_over` (the sum over ``axes``, this rank's
+    chunk of dim 0 kept); the backward is :func:`gather_tiled` of the
+    cotangent.
+    Each is the other's transpose and each one's backward is the other."""
+    return _SumScatter.apply(x, mesh, axes) if _axes(axes) else x
 
 
 def all_to_all_tiled(x, mesh, axis: str):
@@ -760,17 +840,8 @@ def make_vp_take(mesh, table_axis: str = "model", leading=None):
     every world size: the sum's backward passes the cotangent through, and
     the table shard, replicated over the ``leading`` axes, has its
     gradient summed over them (:func:`grad_sum`)."""
-    lead = _axes(leading)
-
     def local(table_shard, ids):
-        vl = table_shard.shape[0]
-        lo = axis_index(mesh, table_axis) * vl
-        loc = ids.reshape(-1).long() - lo
-        ok = (loc >= 0) & (loc < vl)
-        rows = ops.gather_rows(grad_sum(table_shard, mesh, lead),
-                               torch.where(ok, loc, -1))
-        rows = torch.where(ok[:, None], rows, 0.0)
-        return psum(rows, mesh, table_axis).view(*ids.shape, -1)
+        return vp_lookup(table_shard, ids, mesh, table_axis, leading)
 
     def take_fn(table, ids):
         parts = axis_sizes(mesh)[table_axis]
@@ -785,3 +856,23 @@ def make_vp_take(mesh, table_axis: str = "model", leading=None):
             table, ids)
 
     return take_fn
+
+
+def vp_lookup(table_shard: torch.Tensor, ids: torch.Tensor, mesh,
+              table_axis: str = "model", leading=None) -> torch.Tensor:
+    """:func:`make_vp_take`'s body on one rank: ``(*ids.shape, d)`` rows
+    of the whole table by this rank's ``ids``, from ``table_shard``, this
+    rank's rows of the table split over ``table_axis``. The rows it owns
+    are gathered (``ops.gather_rows``, the others as -1, whose gradient,
+    B4, drops them), the others zeroed, and the partial rows summed over
+    the axis (:func:`psum`: one owned row plus zeros, its bits). The shard
+    is marked replicated over the ``leading`` axes, which split the ids
+    (:func:`grad_sum`: its gradient is summed over them)."""
+    vl = table_shard.shape[0]
+    lo = axis_index(mesh, table_axis) * vl
+    loc = ids.reshape(-1).long() - lo
+    ok = (loc >= 0) & (loc < vl)
+    rows = ops.gather_rows(grad_sum(table_shard, mesh, _axes(leading)),
+                           torch.where(ok, loc, -1))
+    rows = torch.where(ok[:, None], rows, 0.0)
+    return psum(rows, mesh, table_axis).view(*ids.shape, -1)

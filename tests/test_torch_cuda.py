@@ -2442,6 +2442,61 @@ def test_wgmma_routes_on_a_second_card(cuda):
             assert bool(((x.float() - w.float()).abs() <= bound).all()), name
 
 
+def test_mind_mesh_one_rank_steps_bit_equal_on_card(cuda):
+    """MIND's partition on the card's one-rank NCCL mesh: the smoke model
+    placed as drawn (``init_params(mesh=)``), serve_p99, retrieval and one
+    train step through ``make_serve_step(mesh=)`` and
+    ``make_train_step(mesh=)`` bit-equal to the unsharded ones (scores,
+    loss, norm, lr, S, item_embed, both moments), with the launches of
+    MIND_CALLS and no collective."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    spec = configs.get("mind")
+    cfg = spec.smoke_cfg
+    mesh = make_smoke_mesh("cuda")
+    a = configs.init_params(spec, cfg, torch.Generator(cuda).manual_seed(5),
+                            device=cuda)
+    b = configs.init_params(spec, cfg, torch.Generator(cuda).manual_seed(5),
+                            device=cuda, mesh=mesh)
+    batch = train.make_batch_fn(spec, cfg, dict(kind="train", batch=16),
+                                device=cuda)(0)
+    rng = np.random.default_rng(6)
+    serve = {"hist_ids": batch["hist_ids"], "hist_mask": batch["hist_mask"],
+             "cand_ids": torch.as_tensor(rng.integers(
+                 0, cfg.n_items, (16, 16)).astype(np.int32), device=cuda)}
+    ret = {"hist_ids": batch["hist_ids"][:1],
+           "hist_mask": batch["hist_mask"][:1],
+           "cand_ids": torch.arange(cfg.n_items, dtype=torch.int32,
+                                    device=cuda)}
+    shd.reset_collectives()
+    for shape, kind, req in (("serve_p99", "serve", serve),
+                             ("retrieval_cand", "retrieval", ret)):
+        want = configs.make_serve_step(spec, shape, cfg)(a, req)
+        before = _mind_counts()
+        got = configs.make_serve_step(spec, shape, cfg, mesh=mesh)(b, req)
+        torch.cuda.synchronize()
+        assert tuple(x - y for x, y in zip(_mind_counts(), before)) == \
+            MIND_CALLS[kind], kind
+        assert torch.equal(got, want), shape
+    sa = adamw.init_state(dict(a.named_parameters()))
+    sb = adamw.init_state(dict(b.named_parameters()))
+    _, sa, ma = configs.make_train_step(spec, cfg)(a, sa, batch)
+    before = _mind_counts()
+    _, sb, mb = configs.make_train_step(spec, cfg, mesh=mesh)(b, sb, batch)
+    torch.cuda.synchronize()
+    assert tuple(x - y for x, y in zip(_mind_counts(), before)) == \
+        MIND_CALLS["train"]
+    assert shd.collective_counts() == {}
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    for (n, x), y in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(x, y), n
+        assert torch.equal(sa["mu"][n], sb["mu"][n]), n
+        assert torch.equal(sa["nu"][n], sb["nu"][n]), n
+
+
 @pytest.mark.parametrize("arch", ["glm4-9b", "codeqwen1.5-7b"])
 def test_mesh_one_rank_step_and_prefill_bit_equal_on_card(cuda, arch):
     """The partitioner on the card's one-rank NCCL mesh: the smoke model

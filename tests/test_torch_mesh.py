@@ -368,9 +368,19 @@ def test_steps_refuse_an_unplaced_model_and_other_families():
     with pytest.raises(ValueError, match="not placed"):
         configs.make_serve_step(spec, "prefill_32k", cfg, mesh=mesh)(model,
                                                                      batch)
+    # MIND runs on a mesh (tests/test_torch_mesh_mind.py), a placed model
     mind = configs.get("mind")
-    with pytest.raises(NotImplementedError, match="A1.3"):
-        configs.make_train_step(mind, mind.smoke_cfg, mesh=mesh)
+    unplaced = configs.init_params(mind, mind.smoke_cfg,
+                                   torch.Generator().manual_seed(0),
+                                   device="cpu")
+    users = {"hist_ids": torch.zeros((2, mind.smoke_cfg.hist_len),
+                                     dtype=torch.int32),
+             "hist_mask": torch.ones((2, mind.smoke_cfg.hist_len)),
+             "target_id": torch.zeros(2, dtype=torch.int32)}
+    with pytest.raises(ValueError, match="not placed"):
+        configs.make_train_step(mind, mind.smoke_cfg, mesh=mesh)(
+            unplaced, adamw.init_state(dict(unplaced.named_parameters())),
+            users)
     # the GNNs run edge-parallel on a mesh (tests/test_torch_mesh_gnn.py)
     sage = configs.get("graphsage-reddit")
     scfg = configs.cell_model_cfg(sage, "minibatch_lg", smoke=True)

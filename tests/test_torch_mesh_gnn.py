@@ -36,6 +36,8 @@ Each world is one run of ``torch_rank_bodies`` under a hard timeout; the
 three worlds run while the reference computes its answers.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -110,17 +112,21 @@ def molecule_batch(cfg, rng) -> dict:
 
 
 def case_inputs(case: str, inputs: dict):
-    """The reference's init and the case's batch, into ``inputs`` as
+    """The reference's init and the case's batch (a case of
+    ``torch_rank_bodies.GNN_CASES`` or ``NODE_CASES``), into ``inputs`` as
     ``gnn.<case>.p.<port name>`` and ``gnn.<case>.b.<key>``; returns
     (jax spec, jax cfg, jax params, numpy batch)."""
-    arch, shape, masked = CASES[case]
+    arch, shape, masked, over, sizes = bodies.gnn_case_of(case)
     jspec = jax_configs.get(arch)
-    jcfg = jax_configs.cell_model_cfg(jspec, shape, smoke=True)
+    jcfg = dataclasses.replace(
+        jax_configs.cell_model_cfg(jspec, shape, smoke=True), **over)
     params = jax_base.init_params(jspec, jcfg, jax.random.PRNGKey(0))
-    rng = np.random.default_rng(sorted(CASES).index(case) + 1)
+    rng = np.random.default_rng(
+        sorted(CASES).index(case) + 1 if case in CASES else
+        100 + sorted(bodies.NODE_CASES).index(case))
     kind = type(jcfg).__name__
-    b = (sage_batch(jcfg, masked, rng) if kind == "SAGEConfig" else
-         mgn_batch(jcfg, rng) if kind == "MGNConfig" else
+    b = (sage_batch(jcfg, masked, rng, **sizes) if kind == "SAGEConfig" else
+         mgn_batch(jcfg, rng, **sizes) if kind == "MGNConfig" else
          molecule_batch(jcfg, rng))
     assert b["src"].shape[0] % 8 == 0
     carried = gnn_params_from_reference(jax.tree.map(np.asarray, params))
@@ -133,7 +139,7 @@ def case_inputs(case: str, inputs: dict):
 def reference(case: str, jspec, jcfg, params, b) -> dict:
     """The reference's single-device answers: the serve step's outputs,
     the loss and its gradients, the forces, and one train step."""
-    arch, shape, _ = CASES[case]
+    shape = bodies.gnn_case_of(case)[1]
     jb = {k: jnp.asarray(v) for k, v in b.items()}
     out = jax.jit(jax_base.make_serve_step(jspec, shape, jcfg))(params, jb)
     want = {}
@@ -298,10 +304,20 @@ def test_one_rank_mesh_is_the_unsharded_step_bit_for_bit(case):
 
 
 def test_mind_on_a_mesh_still_raises():
+    """MIND runs on a mesh (tests/test_torch_mesh_mind.py), but a batch
+    of 3 users on 2 data ranks still raises: the partitioner places even
+    shards only."""
     spec = configs.get("mind")
-    with pytest.raises(NotImplementedError, match="A1.3"):
-        configs.make_serve_step(spec, "serve_p99", mesh=make_smoke_mesh(
-            "cpu"))
+    cfg = spec.smoke_cfg
+    model = configs.init_params(spec, cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    model.mesh = MeshOf(2)
+    batch = {"hist_ids": torch.zeros((3, cfg.hist_len), dtype=torch.int32),
+             "hist_mask": torch.ones((3, cfg.hist_len)),
+             "cand_ids": torch.zeros((3, 4), dtype=torch.int32)}
+    step = configs.make_serve_step(spec, "serve_p99", cfg, mesh=model.mesh)
+    with pytest.raises(NotImplementedError, match="evenly"):
+        step(model, batch)
 
 
 def test_an_edge_count_that_does_not_divide_raises():

@@ -1,6 +1,7 @@
 """Rank bodies of the port's multi-rank CPU tests
 (``tests/test_torch_runtime.py``, ``tests/test_torch_mesh.py``,
-``tests/test_torch_mesh_moe.py``, ``tests/test_torch_mesh_gnn.py``).
+``tests/test_torch_mesh_moe.py``, ``tests/test_torch_mesh_gnn.py``,
+``tests/test_torch_mesh_mind.py``, ``tests/test_torch_mesh_nodeshard.py``).
 
 Each of ``world`` processes runs::
 
@@ -8,7 +9,8 @@ Each of ``world`` processes runs::
 
 joins a gloo group of ``world`` ranks through a ``FileStore``, builds every
 mesh of :data:`MESHES` for its world size, runs each body of the suite
-(:data:`SUITES`: ``runtime``, ``mesh``, ``moe`` or ``gnn``) on each mesh
+(:data:`SUITES`: ``runtime``, ``mesh``, ``moe``, ``gnn``, ``mind`` or
+``nodeshard``) on each mesh
 and writes its results to ``<out prefix>.<rank>.npz``, keyed
 ``<body>|<mesh>|<name>``.
 Only ``torch`` and the port are imported here; the test compares the
@@ -584,8 +586,24 @@ GNN_CASES = {"sage": ("graphsage-reddit", "minibatch_lg", True),
              "mgn": ("meshgraphnet", "full_graph_sm", True),
              "nequip": ("nequip", "molecule", True),
              "mace": ("mace", "molecule", True)}
+#: the node-sharded suite's cases besides those: a graph of 27 nodes,
+#: which no world divides, and NequIP under ``bf16_state`` (the dry run's
+#: ``nodeshard_bf16``): (arch, shape, edge mask, config fields replaced,
+#: batch sizes replaced)
+NODE_CASES = {"sage_odd": ("graphsage-reddit", "minibatch_lg", True, {},
+                           {"n": 27}),
+              "nequip_bf16": ("nequip", "molecule", True,
+                              {"bf16_state": True}, {})}
 #: the one train step's AdamW settings (the reference's the same)
 GNN_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+
+
+def gnn_case_of(case: str) -> tuple:
+    """(arch, shape, edge mask, config fields replaced, batch sizes
+    replaced) of a case of either suite."""
+    if case in GNN_CASES:
+        return (*GNN_CASES[case], {}, {})
+    return NODE_CASES[case]
 
 
 def gnn_case(inp: dict, case: str, mesh):
@@ -593,13 +611,15 @@ def gnn_case(inp: dict, case: str, mesh):
     reference's parameters carried in the inputs (``gnn.<case>.p.<name>``)
     on a model placed on ``mesh`` (replicated; whole where ``mesh`` is
     None) and the global batch (``gnn.<case>.b.<key>``)."""
+    import dataclasses
     import torch
     from repro_torch import configs
     from repro_torch.models import gnn
     from repro_torch.runtime import sharding as shd
-    arch, shape, _ = GNN_CASES[case]
+    arch, shape, _, over, _ = gnn_case_of(case)
     spec = configs.get(arch)
-    cfg = configs.cell_model_cfg(spec, shape, smoke=True)
+    cfg = dataclasses.replace(configs.cell_model_cfg(spec, shape, smoke=True),
+                              **over)
     model = gnn.model_of(cfg, device="cpu")
     pre, bpre = f"gnn.{case}.p.", f"gnn.{case}.b."
     model.load_state_dict({k[len(pre):]: torch.from_numpy(v)
@@ -617,7 +637,8 @@ def gnn_body(mesh, inp: dict, case: str) -> dict:
     rank's edges (``gnn_batch_specs``), NequIP's and MACE's forces; one
     ``make_train_step`` step from a zero AdamW state: its metrics, every
     updated parameter and both moments (whole on every rank) and the
-    all-reduces it made."""
+    collectives it made, as ``reduces`` (all-reduces), ``other_collectives``
+    and ``calls`` (all-gathers, reduce-scatters, all-reduces)."""
     import torch
     from repro_torch import configs
     from repro_torch.models import gnn
@@ -628,7 +649,7 @@ def gnn_body(mesh, inp: dict, case: str) -> dict:
     res = {}
     out = configs.make_serve_step(spec, shape, cfg, mesh=mesh)(model, batch)
     if geo:
-        res["energy"], res["s"] = out[0].numpy(), out[1][0].numpy()
+        res["energy"], res["s"] = out[0].numpy(), out[1][0].float().numpy()
     else:
         res["out"] = out.numpy()
     specs = None if mesh is None else shd.gnn_batch_specs(batch, mesh)
@@ -651,6 +672,8 @@ def gnn_body(mesh, inp: dict, case: str) -> dict:
     shd.reset_collectives()
     _, state, m = step(model, state, batch)
     counts = shd.collective_counts()
+    res["calls"] = np.array([counts.get(k, {}).get("calls", 0) for k in
+                             ("all-gather", "reduce-scatter", "all-reduce")])
     res["reduces"] = np.array(counts.pop("all-reduce", {}).get("calls", 0))
     res["other_collectives"] = np.array(sum(c["calls"]
                                             for c in counts.values()))
@@ -677,6 +700,182 @@ def gnn_planted_body(mesh, inp: dict) -> dict:
         out = configs.make_serve_step(spec, shape, cfg, mesh=mesh)(model,
                                                                    batch)
     return {"out": out.numpy()}
+
+
+# ----------------------------------------------------------------------
+# the GNNs node-sharded (tests/test_torch_mesh_nodeshard.py)
+# ----------------------------------------------------------------------
+
+def node_sharded(mesh):
+    """A context in which the node-sharding hook is set as the dry run's
+    ``nodeshard`` sets it, ``P(all_axes)`` on ``mesh``; reset after."""
+    import contextlib
+    from repro_torch.models import gnn
+    from repro_torch.runtime import sharding as shd
+
+    @contextlib.contextmanager
+    def hooked():
+        gnn.set_node_sharding(shd.named(mesh, shd.P(shd.all_axes(mesh))))
+        try:
+            yield
+        finally:
+            gnn.set_node_sharding(None)
+    return hooked()
+
+
+def nodeshard_body(mesh, inp: dict, case: str) -> dict:
+    """:func:`gnn_body` under the node-sharding hook: the serve outputs
+    and (s, V, T) are this rank's real node rows (the test concatenates
+    the ranks' in rank order), the rest as there."""
+    with node_sharded(mesh):
+        return gnn_body(mesh, inp, case)
+
+
+def nodeshard_agg_body(mesh, inp: dict) -> dict:
+    """The node-sharded aggregation against the edge-parallel one: this
+    rank's partial sums ``ns.partial[rank]`` (27 rows, padded to the
+    world) summed over the mesh by ``NodeShard.agg`` (this rank's rows)
+    and by ``EdgeShard.agg`` (all rows); GraphSAGE's first aggregated
+    mean (``sage_odd``, its 27 nodes) in both variants, recorded at the
+    hook's site; and the rows ``[lo, hi)`` this rank holds."""
+    import torch
+    import torch.distributed as dist
+    from unittest import mock
+    from repro_torch import configs
+    from repro_torch.models import gnn
+    part, edge = gnn.NodeShard(mesh), gnn.EdgeShard(mesh)
+    x = torch.from_numpy(inp["ns.partial"][dist.get_rank()])
+    x = part.whole(x)
+    lo, hi = part._span(inp["ns.partial"].shape[1])
+    res = {"node": part.agg(x).numpy(), "edge": edge.agg(x).numpy(),
+           "span": np.array([lo, hi])}
+    seen = []
+    constrain = gnn._constrain_nodes
+
+    def record(t, p=None):
+        seen.append(t.detach().clone())
+        return constrain(t, p)
+    for name, hooked in (("sage.edge", False), ("sage.node", True)):
+        spec, shape, cfg, model, batch = gnn_case(inp, "sage_odd", mesh)
+        step = configs.make_serve_step(spec, shape, cfg, mesh=mesh)
+        seen.clear()
+        with mock.patch.object(gnn, "_constrain_nodes", record):
+            if hooked:
+                with node_sharded(mesh):
+                    step(model, batch)
+            else:
+                step(model, batch)
+        res[name] = seen[0].numpy()
+    return res
+
+
+# ----------------------------------------------------------------------
+# MIND under the partitioner (tests/test_torch_mesh_mind.py)
+# ----------------------------------------------------------------------
+
+#: the one train step's AdamW settings (the reference's the same)
+MIND_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+
+
+def mind_model(mesh, inp: dict):
+    """(spec, cfg, model): MIND's smoke config with the reference's
+    weights carried from the inputs' ``mind.p.<name>``, this rank's shards
+    of them on a model placed on ``mesh`` (whole where it is None)."""
+    from repro_torch import configs
+    from repro_torch.core.carry import mind_params_from_reference
+    from repro_torch.models import recsys
+    spec = configs.get("mind")
+    cfg = spec.smoke_cfg
+    tree = {n: inp[f"mind.p.{n}"] for n in ("item_embed", "S")}
+    if mesh is None:
+        model = recsys.MIND(cfg, device="cpu")
+        model.load_state_dict(mind_params_from_reference(tree))
+        return spec, cfg, model
+    return spec, cfg, recsys.placed(
+        cfg, mind_params_from_reference(tree, mesh), mesh)
+
+
+def mind_batch(inp: dict, what: str) -> dict:
+    import torch
+    pre = f"mind.{what}."
+    return {k[len(pre):]: torch.from_numpy(v) for k, v in inp.items()
+            if k.startswith(pre)}
+
+
+def data_rows(x, mesh):
+    """This rank's rows over the data axes gathered whole (no gradient)."""
+    from repro_torch.runtime import sharding as shd
+    if mesh is None:
+        return x
+    sizes = shd.axis_sizes(mesh)
+    return shd.gather_over(x, mesh, tuple(a for a in shd.dp_axes(mesh)
+                                          if sizes[a] > 1))
+
+
+def mind_body(mesh, inp: dict) -> dict:
+    """The carried MIND on ``mesh`` (whole with None): serve_p99's scores
+    (``mind.serve.*``), retrieval's (``mind.ret.*``), each gathered over
+    the data axes; one ``make_train_step`` step (``mind.train.*``) from a
+    zero AdamW state: its metrics, the collectives it made (``calls``:
+    all-gathers, reduce-scatters, all-reduces, others), and every updated
+    parameter and both moments gathered whole."""
+    from repro_torch import configs
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    spec, cfg, model = mind_model(mesh, inp)
+    res = {}
+    for what, shape in (("serve", "serve_p99"), ("ret", "retrieval_cand")):
+        out = configs.make_serve_step(spec, shape, cfg, mesh=mesh)(
+            model, mind_batch(inp, what))
+        res[what] = data_rows(out, mesh).numpy()
+    params = dict(model.named_parameters())
+    state = adamw.init_state(params)
+    step = configs.make_train_step(spec, cfg, adamw.AdamWConfig(**MIND_OPT),
+                                   mesh=mesh)
+    shd.reset_collectives()
+    _, state, m = step(model, state, mind_batch(inp, "train"))
+    counts = shd.collective_counts()
+    kinds = ("all-gather", "reduce-scatter", "all-reduce")
+    res["calls"] = np.array([counts.get(k, {}).get("calls", 0) for k in kinds]
+                            + [sum(c["calls"] for k, c in counts.items()
+                                   if k not in kinds)])
+    res.update({k: v.numpy() for k, v in m.items()})
+    for what, tree in (("param", params), ("mu", state["mu"]),
+                       ("nu", state["nu"])):
+        if mesh is not None and shd.mesh_size(mesh) > 1:
+            tree = shd.unshard_params(tree, shd.mind_param_specs(tree), mesh)
+        res.update({f"{what}.{n}": t.detach().numpy()
+                    for n, t in tree.items()})
+    return res
+
+
+def mind_planted_body(mesh, inp: dict) -> dict:
+    """One train step's loss with a per-rank softmax planted in place of
+    the global one: each data rank's users scored against its own targets
+    only, the ranks' means averaged (a plain data-parallel step)."""
+    import math
+    from unittest import mock
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    spec, cfg, model = mind_model(mesh, inp)
+
+    def per_rank(user, tgt, part=None):
+        loss = recsys._InBatchSoftmax.apply(
+            ops.matmul(user, tgt.t().contiguous()), None)
+        if part is None or not part.dp:
+            return loss
+        sizes = shd.axis_sizes(part.mesh)
+        return part.total(loss) / math.prod(sizes[a] for a in part.dp)
+
+    step = configs.make_train_step(spec, cfg, adamw.AdamWConfig(**MIND_OPT),
+                                   mesh=mesh)
+    with mock.patch.object(recsys, "in_batch_softmax_loss", per_rank):
+        _, _, m = step(model, adamw.init_state(dict(
+            model.named_parameters())), mind_batch(inp, "train"))
+    return {"loss": m["loss"].numpy()}
 
 
 def card_operands() -> None:
@@ -712,7 +911,15 @@ SUITES = {"runtime": BODIES,
           "gnn": {**{case: (lambda mesh, inp, case=case:
                             gnn_body(mesh, inp, case))
                      for case in GNN_CASES},
-                  "planted": gnn_planted_body}}
+                  "planted": gnn_planted_body},
+          "nodeshard": {**{case: (lambda mesh, inp, case=case:
+                                  nodeshard_body(mesh, inp, case))
+                           for case in ("sage", "mgn", "nequip", "mace",
+                                        *NODE_CASES)},
+                        "agg": nodeshard_agg_body},
+          "mind": {"mind": lambda mesh, inp: mind_body(mesh, inp),
+                   "planted": lambda mesh, inp: mind_planted_body(mesh,
+                                                                  inp)}}
 #: bodies of a suite run on only some meshes (the rest run on every one)
 ONLY = {"bf16": ("2x2",), "codeqwen": ("2x2", "1x4"), "moe_bf16": ("2x2",),
         "a2a_placed": ("2x2",)}
@@ -723,7 +930,7 @@ def main(rank: int, world: int, store_path: str, inputs: str,
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     inp = dict(np.load(inputs))
-    if suite in ("mesh", "moe", "gnn"):
+    if suite in ("mesh", "moe", "gnn", "nodeshard", "mind"):
         card_operands()
     store = dist.FileStore(store_path, world)
     res = {}
